@@ -21,7 +21,15 @@ failure raises and exits non-zero before the result line is printed:
 6. token identity: a tiny fp32 Llama (TF32 off) through the kernel and
    the gathered engines gives identical tokens;
 7. timings (CUDA events, L2 flushed, after warm-up) of each kernel, its
-   plain version and a PyTorch library call, beside the card's bound.
+   plain version and a PyTorch library call, beside the card's bound;
+8. training: Llama-2-7B widths cut to 8 layers (bf16, random seeded
+   weights) through ``fleet.distributed_optimizer(AdamW)
+   .make_train_step`` on one repeated 2 x 2048 batch with the fused LM
+   head (``fused_ce_chunk=8192``): a warm-up step and 3 timed steps, each
+   launching the flash forward, dq and dk/dv kernels once per layer and
+   the fused-CE kernel once; losses finite, the first within 1.0 of
+   ln(32000), falling across the timed steps; then one step under
+   ``torch.profiler`` (top device kernels, device busy vs wall).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -105,7 +113,7 @@ def attn_case(B, Lq, Lk, Hq, Hkv, D, dtype, seed):
     return mk(Lq, Hq), mk(Lk, Hkv), mk(Lk, Hkv)
 
 
-def phase_parity(fa, fd):
+def phase_parity(fa, fd, fc):
     errs = {"flash_decode": 0.0, "flash_attention_fwd": 0.0}
     # the engine's bs=16 at the 7B shape, GQA, fp32, and a 128-position
     # block (a block spans two of the kernel's 64-position chunks)
@@ -150,7 +158,117 @@ def phase_parity(fa, fd):
         errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], err)
         del q, k, v, out, lse, rout, rlse
     torch.cuda.empty_cache()
+    errs.update(parity_bwd(fa))
+    errs.update(parity_fused_ce(fc))
     return errs
+
+
+def rel_err(got, want):
+    """||got - want|| / ||want|| over the whole tensor, in fp32."""
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+def parity_bwd(fa):
+    """dq and dk/dv kernels against their plain versions, from the
+    forward kernel's (out, lse), each gradient judged at its own scale:
+    ``||got - want|| / ||want||`` below 1e-2 in bf16 (the output's bf16
+    rounding alone is ~1e-3) and 1e-4 in fp32 (reduction order only, TF32
+    off). An absolute limit cannot do this: with randn inputs an entry of
+    row or key i has a spread of about sqrt(e / i), 0.04 at i = 2048, so
+    the late rows are small. At the trainer's shape a planted fault (half
+    of dq's rows, or of dk's keys, zeroed) must trip the check."""
+    errs = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
+    for (B, Lq, Lk, Hq, Hkv, dtype, tol, what) in (
+            (2, 2048, 2048, 32, 32, torch.bfloat16, 1e-2, "trainer"),
+            (1, 512, 512, 32, 8, torch.bfloat16, 1e-2, "GQA"),
+            (1, 200, 328, 8, 2, torch.bfloat16, 1e-2, "ragged, Lq < Lk"),
+            (1, 160, 96, 8, 8, torch.bfloat16, 1e-2, "masked rows"),
+            (1, 384, 512, 8, 8, torch.float32, 1e-4, "fp32")):
+        q, k, v = attn_case(B, Lq, Lk, Hq, Hkv, 128, dtype, seed=Lq + 7)
+        do = attn_case(B, Lq, Lq, Hq, Hq, 128, dtype, seed=Lq + 8)[0]
+        out, lse = fa.flash_attention(q, k, v, causal=True)
+        delta = fa.attention_delta(out, do)
+        got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+               *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+        want = (fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                    True),
+                *fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
+                                                      delta, True))
+        torch.cuda.synchronize()
+        e = [(g.float() - w.float()).abs().max().item()
+             for g, w in zip(got, want)]
+        r = [rel_err(g, w) for g, w in zip(got, want)]
+        ok = all(bool(torch.isfinite(g).all()) and x < tol
+                 for g, x in zip(got, r))
+        if Lq > Lk:
+            ok = ok and bool((got[0][:, :Lq - Lk] == 0).all())
+        log(f"  flash_attention_bwd [{what}] B={B} Lq={Lq} Lk={Lk} Hq={Hq} "
+            f"Hkv={Hkv} {dtype}: dq/dk/dv rel_err {r[0]:.3e}/{r[1]:.3e}/"
+            f"{r[2]:.3e} (tol {tol}), max_abs_err {e[0]:.3e}/{e[1]:.3e}/"
+            f"{e[2]:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_attention backward disagrees with "
+                                 "its plain version")
+        if what == "trainer":
+            planted = []
+            for i, axis in ((0, "rows"), (1, "keys")):
+                bad = got[i].clone()
+                bad[:, bad.shape[1] // 2:] = 0
+                planted.append(rel_err(bad, want[i]))
+            log(f"  planted fault (half of dq's rows / dk's keys zeroed): "
+                f"rel_err {planted[0]:.3e}/{planted[1]:.3e}, must exceed "
+                f"{tol}")
+            if min(planted) < tol:
+                raise AssertionError("the backward check does not see a "
+                                     "planted fault")
+        errs["flash_attention_bwd_dq"] = max(
+            errs["flash_attention_bwd_dq"], e[0])
+        errs["flash_attention_bwd_dkv"] = max(
+            errs["flash_attention_bwd_dkv"], e[1], e[2])
+        del q, k, v, do, out, lse, delta, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def ce_case(N, H, V, dtype, seed, offset=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(N, H, generator=g, device="cuda").to(dtype)
+    w = (0.02 * torch.randn(H, V, generator=g, device="cuda")).to(dtype)
+    lab = torch.randint(offset, offset + V, (N,), generator=g, device="cuda")
+    lab[0] = offset + V - 1                         # the last column
+    return h, w, lab
+
+
+def parity_fused_ce(fc):
+    """The fused-CE kernel against its plain version: (m, s, lab) within
+    rtol 1e-4 / atol 1e-3 (fp32 sums of H products and V exps in another
+    order; bf16 inputs are exact in the fp32 products)."""
+    err = 0.0
+    for (N, H, V, dtype, offset, what) in (
+            (4094, 4096, 32000, torch.bfloat16, 0, "trainer head"),
+            (77, 96, 1000, torch.float32, 500, "ragged, vocab_offset")):
+        h, w, lab = ce_case(N, H, V, dtype, seed=N, offset=offset)
+        if offset:
+            lab[1] = offset + V + 3                 # another shard's label
+        got = fc.fused_ce_stats(h, w, lab, vocab_offset=offset)
+        want = fc.fused_ce_stats_reference(h, w, lab, vocab_offset=offset)
+        torch.cuda.synchronize()
+        e = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        ok = all(torch.allclose(a, b, atol=1e-3, rtol=1e-4)
+                 for a, b in zip(got, want))
+        if offset:
+            ok = ok and got[2][1].item() == 0
+        log(f"  fused_ce_stats [{what}] N={N} H={H} V={V} {dtype}: m/s/lab "
+            f"max_abs_err {e[0]:.3e}/{e[1]:.3e}/{e[2]:.3e} (rtol 1e-4, atol "
+            f"1e-3) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("fused_ce_stats disagrees with its plain "
+                                 "version")
+        err = max(err, e[0], e[2])
+        del h, w, lab, got, want
+    torch.cuda.empty_cache()
+    return {"fused_ce_stats": err}
 
 
 # ---------------------------------------------------------------------------
@@ -181,13 +299,14 @@ def staggered(eng, prompts, max_new):
 def phase_forward(model, fa, fd, F):
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, model.config.vocab_size, (1, 512))).cuda()
-    model(ids)                                   # warm-up
-    torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
-    fd.flash_decode.launches = 0
-    t0 = time.perf_counter()
-    logits = model(ids)
-    torch.cuda.synchronize()
+    with torch.inference_mode():                 # scoring
+        model(ids)                               # warm-up
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        fd.flash_decode.launches = 0
+        t0 = time.perf_counter()
+        logits = model(ids)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     path = F.attention_path()
@@ -257,7 +376,7 @@ def phase_identity(LlamaForCausalLM, LLAMA_TINY, Engine, seed):
 # phase 7: timings
 # ---------------------------------------------------------------------------
 
-def phase_timings(fa, fd, flush):
+def phase_timings(fa, fd, fc, flush):
     TF = torch.nn.functional
     out = {}
     # flash decode at the engine's shape: S=8, H=n_kv=32, hd=128, bs=16
@@ -302,11 +421,181 @@ def phase_timings(fa, fd, flush):
             bound_by="bytes" if byts / PEAK_BYTES >= flops / PEAK_BF16_FLOPS
             else "operations",
             shape=f"B=1 L={L} H=32 D=128 causal bf16")
+    out.update(timings_bwd(fa, flush))
+    out.update(timings_fused_ce(fc, flush))
     for name, t in out.items():
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return out
+
+
+def bound(byts, flops):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the bf16 tensor-core rate, whichever is longer."""
+    b, f = byts / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return dict(bound_ms=1e3 * max(b, f),
+                bound_by="bytes" if b >= f else "operations")
+
+
+def timings_bwd(fa, flush):
+    """The backward kernels at the trainer's attention shape (B=2, L=2048,
+    H=32, D=128, causal, bf16). Yardstick: the backward of
+    TF.scaled_dot_product_attention (dq, dk and dv together), timed alone
+    through autograd.grad on a retained graph."""
+    TF = torch.nn.functional
+    B, L, H, D = 2, 2048, 32, 128
+    q, k, v = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=91)
+    do = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=92)[0]
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    delta = fa.attention_delta(out, do)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    o = TF.scaled_dot_product_attention(*leaves, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(o, leaves, dot,
+                                              retain_graph=True), flush)
+    pairs = B * H * L * (L + 1) // 2
+    elems = B * L * H * D
+    reads = 4 * elems * 2 + 2 * B * H * L * 4      # q, k, v, dO; lse, delta
+    shape = f"B={B} L={L} H={H} D={D} causal bf16"
+    return {
+        "flash_attention_bwd_dq": dict(
+            ms=time_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, True), flush),
+            plain_ms=time_ms(lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, do, lse, delta, True), flush, reps=5),
+            library_ms=lib, shape=shape,
+            **bound(reads + elems * 2, 6 * D * pairs)),
+        "flash_attention_bwd_dkv": dict(
+            ms=time_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, True), flush),
+            plain_ms=time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, True), flush, reps=5),
+            library_ms=lib, shape=shape,
+            **bound(reads + 2 * elems * 2, 8 * D * pairs)),
+    }
+
+
+def timings_fused_ce(fc, flush):
+    """The fused-CE kernel at the trainer's head (N = 2 x 2047 rows,
+    H=4096, V=32000, bf16). Yardstick: the dense
+    TF.cross_entropy((h @ w).float(), labels)."""
+    TF = torch.nn.functional
+    N, H, V = 4094, 4096, 32000
+    h, w, lab = ce_case(N, H, V, torch.bfloat16, seed=93)
+    return {"fused_ce_stats": dict(
+        ms=time_ms(lambda: fc.fused_ce_stats(h, w, lab), flush, reps=10),
+        plain_ms=time_ms(lambda: fc.fused_ce_stats_reference(h, w, lab),
+                         flush, reps=5),
+        library_ms=time_ms(lambda: TF.cross_entropy((h @ w).float(), lab),
+                           flush),
+        shape=f"N={N} H={H} V={V} bf16",
+        **bound(N * H * 2 + H * V * 2 + N * 8 + 3 * N * 4, 2 * N * H * V))}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+def _counts(fa, fc):
+    return dict(flash_attention_fwd=fa.flash_attention.launches,
+                flash_attention_bwd_dq=fa.flash_attention_bwd_dq.launches,
+                flash_attention_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
+                fused_ce_stats=fc.fused_ce_stats.launches)
+
+
+def _reset(fa, fc):
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    fc.fused_ce_stats.launches = 0
+
+
+def profile_step(step, ids):
+    """One train step under torch.profiler: device busy vs wall and the
+    top device kernels by time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(ids, ids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+            launches += e.count
+    busy_ms = sum(kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"step_wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+            "device_kernel_launches": launches,
+            "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+
+
+def phase_train(fa, fc, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
+                seed):
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=8,
+                              fused_ce_chunk=8192)
+    B, L = 2, 2048
+    seed(0)
+    model = fleet.distributed_model(LlamaForCausalLM(cfg, device="cuda"))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01,
+        parameters=model.parameters()))
+    step = opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, L))).cuda()
+    log(f"  {cfg.num_hidden_layers} layers of Llama-2-7B width, "
+        f"{n_params / 1e9:.3f}e9 params, batch {B} x {L}, AdamW(lr=1e-4, "
+        f"wd=0.01, multi_precision), fused_ce_chunk={cfg.fused_ce_chunk}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = dict(flash_attention_fwd=cfg.num_hidden_layers,
+                flash_attention_bwd_dq=cfg.num_hidden_layers,
+                flash_attention_bwd_dkv=cfg.num_hidden_layers,
+                fused_ce_stats=1)
+    losses, secs, per_step = [], [], []
+    for i in range(4):                          # warm-up + 3 timed steps
+        _reset(fa, fc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, ids)))    # reads the loss: a sync
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(_counts(fa, fc))
+        log(f"  step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{losses[-1]:.6f}, {secs[-1] * 1e3:.1f} ms, launches "
+            f"{per_step[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    timed = secs[1:]
+    step_s = float(np.median(timed))
+    log(f"  step time median {step_s * 1e3:.1f} ms over 3 (min "
+        f"{min(timed) * 1e3:.1f}, max {max(timed) * 1e3:.1f}), "
+        f"{B * L / step_s:.1f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} not within 1.0 of "
+                             f"ln({cfg.vocab_size})")
+    if not losses[1] > losses[2] > losses[3]:
+        raise AssertionError(f"loss does not fall across the timed steps: "
+                             f"{losses[1:]}")
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"step {i} launched {c}, want {want}")
+    prof = profile_step(step, ids)
+    log("  profiled step " + json.dumps(prof))
+    if prof["device_busy_ms"] <= 0:
+        log("  (the profiler saw no device time: device busy not measured)")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return per_step[1], dict(losses=losses, step_ms=step_s * 1e3,
+                             tokens_per_s=B * L / step_s,
+                             peak_gib=peak / 2**30)
 
 
 def main():
@@ -328,6 +617,9 @@ def main():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_decode as fd
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.serving import Engine, ledger
     from paddle_tpu_torch.text.models.llama import (LLAMA2_7B, LLAMA_TINY,
                                                     LlamaForCausalLM)
@@ -345,7 +637,7 @@ def main():
 
     # ---- 3. parity ----------------------------------------------------------
     log("[3] kernel parity against the plain versions")
-    errs = phase_parity(fa, fd)
+    errs = phase_parity(fa, fd, fc)
 
     # ---- 4. Llama-2-7B forward ---------------------------------------------
     t0 = time.perf_counter()
@@ -371,8 +663,16 @@ def main():
     # ---- 7. timings ---------------------------------------------------------
     log("[7] timings (median of 20, L2 flushed)")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    t = phase_timings(fa, fd, flush)
+    t = phase_timings(fa, fd, fc, flush)
     log("  timings " + json.dumps(t))
+    del flush
+    torch.cuda.empty_cache()
+
+    # ---- 8. training --------------------------------------------------------
+    log("[8] training: Llama-2-7B width, 8 layers, fleet + AdamW")
+    train_launches, train = phase_train(fa, fc, LlamaForCausalLM, LLAMA2_7B,
+                                        fleet, optimizer, pt.seed)
+    log("  training " + json.dumps(train))
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
@@ -391,6 +691,20 @@ def main():
              **{k: t["flash_decode"][k] for k in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
+    for kname, source, replaces in (
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+             "paddle_tpu/ops/pallas/flash_attention.py:279"),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+             "paddle_tpu/ops/pallas/flash_attention.py:306"),
+            ("fused_ce_stats", "fused_ce.cu",
+             "paddle_tpu/ops/pallas/fused_ce.py:84")):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source=f"paddle_tpu_torch/csrc/{source}", replaces=replaces,
+            launches=train_launches[kname], max_abs_err=errs[kname],
+            max_err=errs[kname],
+            **{k: t[kname][k] for k in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print("nvidia-smi: " + smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

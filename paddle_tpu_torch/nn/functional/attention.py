@@ -2,11 +2,13 @@
 ``paddle_tpu/nn/functional/attention.py``.
 
 ``sdpa_raw`` routes eligible inputs to the hand-written flash-attention
-forward kernel (``ops/flash_attention.py``) and everything else to the
-plain composite, recording the choice and its reason in
+kernels through their autograd Function (``ops.flash_attention.
+flash_attention_fn``: the forward kernel, and the dq and dk/dv kernels in
+the backward), whether or not the inputs need a gradient, and everything
+else to the plain composite, recording the choice and its reason in
 ``attention_path()``. Eligibility mirrors the JAX package's rule with
 "tensor is on a CUDA device" in place of "backend is tpu": bf16/fp32,
-``L >= 128`` and ``L % 128 == 0``, and a head dim the kernel is built
+``L >= 128`` and ``L % 128 == 0``, and a head dim the kernels are built
 for (``HEAD_DIMS``, all of them ``<= 256`` as the JAX rule asks). Kernel
 errors propagate (no silent fallback).
 """
@@ -16,7 +18,7 @@ import math
 
 import torch
 
-from ...ops.flash_attention import HEAD_DIMS, flash_attention
+from ...ops.flash_attention import HEAD_DIMS, flash_attention_fn
 
 # Which path the most recent sdpa_raw call took, and why.
 _last_path = {"path": None, "reason": None}
@@ -64,7 +66,7 @@ def sdpa_raw(q, k, v, causal=False, scale=None):
                 and q.shape[-1] in HEAD_DIMS and q.is_cuda)
     if eligible:
         _record("flash", "eligible on cuda")
-        return flash_attention(q, k, v, causal=causal, scale=scale)[0]
+        return flash_attention_fn(q, k, v, causal=causal, scale=scale)
     _record("plain", f"ineligible: dtype={q.dtype} shape={tuple(q.shape)} "
                      f"device={q.device} (kernel head dims {HEAD_DIMS})")
     return _plain_sdpa(q, k, v, causal=causal, scale=scale)
@@ -76,8 +78,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """q/k/v: [batch, seq, heads, head_dim] (paddle flash-attn layout)."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
-            "attention dropout is part of the training slice "
-            "(ROADMAP.md, port queue: training)")
+            "attention dropout is not in the port yet (ROADMAP.md, port "
+            "queue item 10: amp and attention dropout)")
     if attn_mask is not None:
         raise NotImplementedError(
             "an explicit attn_mask is not in this slice of the port "

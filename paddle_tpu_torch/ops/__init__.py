@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels (``csrc/``) and their wrappers:
-``ops.flash_attention`` and ``ops.flash_decode``.
+``ops.flash_attention`` (forward and backward), ``ops.flash_decode`` and
+``ops.fused_ce``.
 
 Importing this package builds nothing: each wrapper compiles and loads its
 kernel at its first CUDA call (``_build.load``).

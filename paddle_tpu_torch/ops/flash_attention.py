@@ -1,17 +1,30 @@
-"""Flash attention forward: wrapper of ``csrc/flash_attention_fwd.cu``.
+"""Flash attention forward and backward: wrappers of
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py`` (``_fwd``,
-the TPU kernel this replaces). ``flash_attention(q, k, v, causal, scale)
--> (out, lse)`` takes the paddle layout ``[B, L, H, D]``; the kernel reads
-q/k/v through their strides (no transpose copy) and returns ``lse``
-``[B, Hq, Lq]`` in fp32 beside ``out``. Causal masking is bottom-right
-aligned (``offset = Lk - Lq``); GQA maps query head ``h`` onto kv head
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, the TPU kernels these
+replace, and the ``custom_vjp`` around them). Everything takes the paddle
+layout ``[B, L, H, D]``; the kernels read q/k/v/dO through their strides
+(no transpose copy). Causal masking is bottom-right aligned
+(``offset = Lk - Lq``); GQA maps query head ``h`` onto kv head
 ``h // (Hq // Hkv)``.
 
-CUDA tensors launch the kernel or raise; CPU tensors take the plain
-version ``flash_attention_reference``. Forward only: a CUDA input that
-requires grad under grad mode raises (the backward kernels are part of
-the training slice).
+- ``flash_attention(q, k, v, causal, scale) -> (out, lse)``: the forward
+  kernel; ``lse`` is ``[B, Hq, Lq]`` fp32 (``MASK_VALUE`` on fully masked
+  rows, whose ``out`` is 0).
+- ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv``: the two
+  backward kernels. Both recompute ``p = exp(s - lse)`` and
+  ``ds = p * (dO.V^T - delta) * scale`` from the saved ``lse`` and
+  ``delta = rowsum(dO * O)``; dq sums ``ds.K`` over the key tiles, dk/dv
+  sum ``ds^T.Q`` and ``p^T.dO`` over the query tiles and, for GQA, over
+  the query heads of each kv head (inside the kernel, no atomics).
+- ``flash_attention_fn``: the differentiable entry point, a
+  ``torch.autograd.Function`` that saves ``(q, k, v, out, lse)`` and runs
+  the two backward kernels.
+
+CUDA tensors launch the kernels or raise; CPU tensors take the plain
+versions (``*_reference``). Each wrapper counts its launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -22,16 +35,41 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_reference"]
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "flash_attention_fn", "attention_delta"]
 
 # the TPU kernel's finite mask value: exp() of masked scores stays defined
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# head dims the kernel is instantiated for; sdpa_raw routes only these to it
+# head dims the kernels are instantiated for; sdpa_raw routes only these
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_TAIL = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _BWD_TAIL
+_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _BWD_TAIL
+
+
+def _default_scale(scale, d):
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def _heads_first(x, group=1):
+    """[B, L, H, D] -> fp32 [B, H * group, L, D] (kv heads repeated)."""
+    x = x.transpose(1, 2)
+    if group > 1:
+        x = x.repeat_interleave(group, dim=1)
+    return x.float()
+
+
+def _mask(Lq, Lk, causal, device):
+    mask = torch.ones(Lq, Lk, dtype=torch.bool, device=device)
+    return mask.tril(diagonal=Lk - Lq) if causal else mask
 
 
 def flash_attention_reference(q, k, v, causal=False, scale=None):
@@ -42,16 +80,13 @@ def flash_attention_reference(q, k, v, causal=False, scale=None):
     D] in q's dtype, lse [B, Hq, Lq] fp32)."""
     B, Lq, Hq, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
+    scale = _default_scale(scale, D)
     group = Hq // Hkv
-    qh = q.transpose(1, 2).float()
-    kh = k.transpose(1, 2).repeat_interleave(group, dim=1).float()
+    qh = _heads_first(q)
+    kh = _heads_first(k, group)
     vh = v.transpose(1, 2).repeat_interleave(group, dim=1)
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale     # [B, Hq, Lq, Lk]
-    mask = torch.ones(Lq, Lk, dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask.tril(diagonal=Lk - Lq)
+    mask = _mask(Lq, Lk, causal, q.device)
     s = s.masked_fill(~mask, MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
@@ -89,23 +124,17 @@ def _check(q, k, v):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim must be "
                              "contiguous")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only: the backward kernels "
-            "come with the training slice (ROADMAP.md, port queue: "
-            "training). Run inference under torch.inference_mode().")
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
-    """Flash attention on ``[B, L, H, D]``. Returns ``(out, lse)``."""
+    """Flash attention forward on ``[B, L, H, D]``. Returns
+    ``(out, lse)``; not differentiable (see ``flash_attention_fn``)."""
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     _check(q, k, v)
     B, Lq, Hq, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
+    scale = _default_scale(scale, D)
     out = torch.empty((B, Lq, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_attention_fwd", "flash_attention_fwd",
@@ -114,12 +143,191 @@ def flash_attention(q, k, v, causal=False, scale=None):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), B, Lq, Lk, Hq, Hkv, D, *strides,
-                 1 if causal else 0, float(scale), _DTYPES[q.dtype],
+                 1 if causal else 0, scale, _DTYPES[q.dtype],
                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def attention_delta(out, dout):
+    """``delta = rowsum(dO * O)`` in fp32, ``[B, Hq, Lq]`` (the JAX
+    package computes it in XLA beside the kernels, as here in torch)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _p_ds(q, k, v, dout, lse, delta, causal, scale):
+    """The plain recompute both backward kernels share (the TPU kernels'
+    ``_recompute_p_ds``): fp32 ``p = exp(s - lse)`` (0 where masked) and
+    ``ds = p * (dO.V^T - delta) * scale``, ``[B, Hq, Lq, Lk]``, with the
+    kv heads repeated over their query heads."""
+    Lq, Hq, D = q.shape[1], q.shape[2], q.shape[3]
+    Lk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    s = torch.matmul(_heads_first(q), _heads_first(k, group).transpose(
+        -1, -2)) * _default_scale(scale, D)
+    mask = _mask(Lq, Lk, causal, q.device)
+    # where(), not a product: masked entries may hold exp(+huge) = inf
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.matmul(_heads_first(dout), _heads_first(v, group).transpose(
+        -1, -2))
+    ds = p * (dp - delta[..., None]) * _default_scale(scale, D)
+    return p, ds
+
+
+def flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                     causal=False, scale=None):
+    """The dq kernel's plain version: ``dq = ds.K`` with ds rounded to k's
+    dtype before the product (as the TPU kernel), fp32 sums, dq in q's
+    dtype ``[B, Lq, Hq, D]``."""
+    group = q.shape[2] // k.shape[2]
+    _, ds = _p_ds(q, k, v, dout, lse, delta, causal, scale)
+    dq = torch.matmul(ds.to(k.dtype).float(), _heads_first(k, group))
+    return dq.to(q.dtype).transpose(1, 2)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                      causal=False, scale=None):
+    """The dk/dv kernel's plain version: ``dk = ds^T.Q`` and
+    ``dv = p^T.dO`` (ds and p rounded to the operands' dtype before the
+    products), summed over each kv head's query heads in fp32; ``(dk, dv)``
+    in k's and v's dtype, ``[B, Lk, Hkv, D]``."""
+    B, Lk, Hkv, D = k.shape
+    group = q.shape[2] // Hkv
+    p, ds = _p_ds(q, k, v, dout, lse, delta, causal, scale)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      _heads_first(q))
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2),
+                      _heads_first(dout))
+    dk = dk.reshape(B, Hkv, group, Lk, D).sum(2)
+    dv = dv.reshape(B, Hkv, group, Lk, D).sum(2)
+    return dk.to(k.dtype).transpose(1, 2), dv.to(v.dtype).transpose(1, 2)
+
+
+def _check_bwd(q, k, v, dout, lse, delta):
+    _check(q, k, v)
+    B, Lq, Hq, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device:
+        raise ValueError(f"flash_attention backward: dO {tuple(dout.shape)} "
+                         f"{dout.dtype} does not match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if dout.stride(3) != 1:
+        raise ValueError("flash_attention backward: dO's head dim must be "
+                         "contiguous")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (B, Hq, Lq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"flash_attention backward: {name} must be a "
+                             f"contiguous fp32 [B, Hq, Lq] = {(B, Hq, Lq)} "
+                             f"on {q.device}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+
+
+def _bwd_args(q, k, v, dout, causal, scale):
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v, dout) for s in t.stride()[:3]]
+    return ([B, Lq, Lk, Hq, Hkv, D] + strides
+            + [1 if causal else 0, _default_scale(scale, D),
+               _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream])
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
+                           scale=None):
+    """dq of flash attention (``[B, Lq, Hq, D]`` in q's dtype) from the
+    forward's ``lse`` and ``delta = attention_delta(out, dO)``."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                                causal, scale)
+    _check_bwd(q, k, v, dout, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fn = _build.load("flash_attention_bwd", "flash_attention_bwd_dq",
+                     _DQ_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 *_bwd_args(q, k, v, dout, causal, scale))
+    _build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
+                            scale=None):
+    """(dk, dv) of flash attention (``[B, Lk, Hkv, D]`` in k's dtype),
+    summed over the query heads of each kv head."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                                 causal, scale)
+    _check_bwd(q, k, v, dout, lse, delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    fn = _build.load("flash_attention_bwd", "flash_attention_bwd_dkv",
+                     _DKV_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), *_bwd_args(q, k, v, dout, causal, scale))
+    _build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
+                             scale=None):
+    """(dq, dk, dv) through the two backward kernels (their plain
+    versions on the CPU). A dO whose head dim is not contiguous (an
+    expanded gradient, say) is copied to a contiguous one first."""
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    delta = attention_delta(out, dout)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal,
+                                     scale)
+    return dq, dk, dv
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                       causal=False, scale=None):
+    """The plain backward: ``delta``, then both kernels' plain versions."""
+    delta = attention_delta(out, dout)
+    dq = flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                          causal, scale)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                               causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The port's ``custom_vjp``: the forward kernel saves ``(q, k, v,
+    out, lse)``; the backward runs the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
+                                              ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_fn(q, k, v, causal=False, scale=None):
+    """Differentiable flash attention on ``[B, L, H, D]``; returns out."""
+    return _FlashAttention.apply(q, k, v, causal, scale)
+
+
 #: kernel launches since the count was last reset (CPU calls not counted)
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

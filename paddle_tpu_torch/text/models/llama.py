@@ -8,18 +8,28 @@ JAX model's weights carry across with
 ``F.scaled_dot_product_attention``, which takes the hand-written flash
 kernel on eligible CUDA inputs.
 
-``forward`` is the scoring entry point and runs under
-``torch.inference_mode()``: training (the flash backward, the fused CE
-head, remat, sequence parallelism) is a later slice of the port, and the
-config options that need it raise ``NotImplementedError``.
+``forward(input_ids, labels=None)`` follows the caller's grad mode:
+scoring runs it under ``torch.inference_mode()`` (the serving engine
+does), training runs it with gradients. With ``labels`` it returns the
+next-token mean CE: dense (fp32 logits through ``F.cross_entropy``), or,
+when ``fused_ce_chunk > 0`` and the head is not tied, through
+``F.fused_linear_cross_entropy`` without the ``[N, vocab]`` logits.
+``remat=True``/``"full"`` recomputes each decoder layer in the backward
+(``torch.utils.checkpoint``); ``"selective"`` keeps the matmul outputs
+and recomputes the rest, as the JAX package's
+``dots_with_no_batch_dims_saveable`` policy. ``sequence_parallel``
+needs several GPUs and raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as TF
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ...framework.device import resolve_device
 from ...nn import Embedding, Linear, RMSNorm
@@ -39,8 +49,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
-    # training-side options of the JAX config; only the defaults are
-    # supported in this slice of the port
+    # False | True/"full" (recompute whole layers) | "selective" (keep
+    # matmul outputs, recompute the rest)
     remat: object = False
     sequence_parallel: bool = False
     sep_mode: str = "ring"
@@ -58,13 +68,32 @@ LLAMA_TINY = LlamaConfig(vocab_size=1024, hidden_size=256,
 
 
 def _check_config(c: LlamaConfig):
-    for name, default in (("remat", False), ("sequence_parallel", False),
-                          ("fused_ce_chunk", 0)):
-        if getattr(c, name) != default:
-            raise NotImplementedError(
-                f"LlamaConfig.{name}={getattr(c, name)!r} belongs to the "
-                "training slice of the port (ROADMAP.md, port queue: "
-                "training)")
+    if c.sequence_parallel:
+        raise NotImplementedError(
+            "LlamaConfig.sequence_parallel shards the sequence over GPUs "
+            "(ROADMAP.md, port queue item 4: multi-GPU)")
+    if c.remat not in (False, True, "full", "selective"):
+        raise ValueError(f"LlamaConfig.remat={c.remat!r}; want False, "
+                         "True, 'full' or 'selective'")
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective remat: keep matmul outputs, recompute everything else
+    (the JAX policy saves dots without batch dims, i.e. the projections'
+    ``x @ W``, which reach the dispatcher as ``aten.mm``)."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_layer(layer, x, mode):
+    """One decoder layer under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` per layer)."""
+    if mode == "selective":
+        return checkpoint(layer, x, use_reentrant=False,
+                          context_fn=partial(
+                              create_selective_checkpoint_contexts,
+                              _save_matmuls))
+    return checkpoint(layer, x, use_reentrant=False)
 
 
 def _rope(q, k, positions, theta, dtype):
@@ -155,8 +184,10 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids):
         x = self.embed_tokens(input_ids)
+        remat = self.config.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x)
+            x = _remat_layer(layer, x, self.config.remat) if remat \
+                else layer(x)
         return self.norm(x)
 
 
@@ -182,12 +213,21 @@ class LlamaForCausalLM(nn.Module):
             return self.llama.embed_tokens.weight.t()
         return self.lm_head.weight
 
-    @torch.inference_mode()
     def forward(self, input_ids, labels=None):
-        """input_ids [B, L] -> logits [B, L, vocab] in the model dtype."""
-        if labels is not None:
-            raise NotImplementedError(
-                "the training loss belongs to the training slice of the "
-                "port (ROADMAP.md, port queue: training)")
+        """input_ids [B, L] -> logits [B, L, vocab] in the model dtype; with
+        labels [B, L], the mean CE of the logits at t against the labels
+        at t + 1 (fp32 scalar)."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
-        return self.llama(ids) @ self.head_weight()
+        hidden = self.llama(ids)
+        if labels is None:
+            return hidden @ self.head_weight()
+        labels = torch.as_tensor(labels, device=self.device).long()
+        if self.config.fused_ce_chunk and not self.tie:
+            # the [N, vocab] fp32 logits never materialize
+            return F.fused_linear_cross_entropy(
+                hidden[:, :-1], self.lm_head.weight, labels[:, 1:],
+                chunk_size=self.config.fused_ce_chunk)
+        logits = hidden @ self.head_weight()
+        return F.cross_entropy(
+            logits[:, :-1].reshape(-1, self.config.vocab_size).float(),
+            labels[:, 1:].reshape(-1))

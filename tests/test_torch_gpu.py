@@ -1,5 +1,6 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
-PyTorch version, and the engine's kernel path against its gathered path.
+PyTorch version, the engine's kernel path against its gathered path, and
+the tiny trainer on the card against the same trainer on the CPU.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -16,10 +17,13 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch import optimizer
+from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.framework.io import load_numpy_state_dict
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_decode as fd
+from paddle_tpu_torch.ops import fused_ce as fc
 from paddle_tpu_torch.serving import Engine
 from paddle_tpu_torch.text.models.llama import LLAMA_TINY, LlamaForCausalLM
 
@@ -132,10 +136,146 @@ def test_flash_attention_strided_inputs(cuda):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
 
 
-def test_flash_attention_is_forward_only(cuda):
-    q = torch.randn(1, 128, 2, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention(q, q.detach(), q.detach(), causal=True)
+ATTN_CASES = [
+    (1, 256, 256, 4, 4, 128, True),
+    (2, 200, 200, 8, 2, 64, True),      # GQA, ragged length
+    (1, 96, 160, 4, 4, 32, True),       # Lq < Lk
+    (1, 160, 96, 2, 2, 64, True),       # Lq > Lk: fully masked rows
+    (1, 128, 128, 4, 1, 256, False),    # GQA group 4, D = 256
+    (1, 72, 72, 2, 2, 256, True),       # D = 256, ragged
+]
+
+
+def _attn_inputs(cuda, dtype, B, Lq, Lk, Hq, Hkv, D):
+    g = torch.Generator(device=cuda).manual_seed(Lq + Lk + D)
+    mk = (lambda L, H: torch.randn(B, L, H, D, generator=g,
+                                   device=cuda).to(dtype))
+    return mk(Lq, Hq), mk(Lk, Hkv), mk(Lk, Hkv), mk(Lq, Hq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,D,causal", ATTN_CASES)
+def test_flash_attention_bwd_kernels_match_plain(cuda, dtype, B, Lq, Lk, Hq,
+                                                 Hkv, D, causal):
+    q, k, v, do = _attn_inputs(cuda, dtype, B, Lq, Lk, Hq, Hkv, D)
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    delta = fa.attention_delta(out, do)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  causal)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, do, lse, delta, causal)
+    # each gradient at its own scale (entries shrink along the sequence):
+    # ||got - want|| / ||want|| below 1e-4 in fp32 (order only, TF32 off)
+    # and 1e-2 in bf16 (the output's bf16 rounding alone is ~1e-3)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert torch.isfinite(got).all()
+        want = want.float()
+        assert (got.float() - want).norm() / want.norm() < tol
+    if Lq > Lk and causal:
+        assert (dq[:, :Lq - Lk] == 0).all()
+
+
+def test_flash_attention_fn_backward_runs_the_kernels(cuda):
+    """Autograd through the Function launches the forward kernel once and
+    each backward kernel once, with an expanded (stride-0) dO."""
+    q, k, v, _ = _attn_inputs(cuda, torch.float32, 1, 128, 128, 2, 2, 64)
+    t = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    fa.flash_attention_fn(*t, causal=True).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in
+                                                          counts)
+    out, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    want = fa.flash_attention_backward_reference(
+        q, k, v, out, lse, torch.ones_like(q), causal=True)
+    for x, w in zip(t, want):
+        torch.testing.assert_close(x.grad, w, atol=1e-3, rtol=1e-3)
+
+
+def test_backward_kernels_refuse_an_unbuilt_head_dim(cuda):
+    q, k, v, do = _attn_inputs(cuda, torch.float32, 1, 64, 64, 2, 2, 80)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, lse.clone(), True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, lse.clone(), True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fn(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,V,offset", [(64, 128, 512, 0),
+                                          (77, 96, 1000, 0),
+                                          (33, 64, 301, 500)])
+def test_fused_ce_stats_kernel_matches_plain(cuda, dtype, N, H, V, offset):
+    g = torch.Generator(device=cuda).manual_seed(N + V)
+    h = torch.randn(N, H, generator=g, device=cuda).to(dtype)
+    w = (0.2 * torch.randn(H, V, generator=g, device=cuda)).to(dtype)
+    lab = torch.randint(offset, offset + V, (N,), generator=g, device=cuda)
+    lab[0] = offset + V - 1                       # the last column
+    lab[1] = offset + V + 7                       # another shard's label
+    before = fc.fused_ce_stats.launches
+    got = fc.fused_ce_stats(h, w, lab, vocab_offset=offset)
+    torch.cuda.synchronize()
+    assert fc.fused_ce_stats.launches == before + 1
+    want = fc.fused_ce_stats_reference(h, w, lab, vocab_offset=offset)
+    # logits sum H products: fp32 order only; bf16 inputs are exact in the
+    # fp32 products, so the same tolerance holds
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
+    assert got[2][1] == 0
+
+
+@pytest.mark.parametrize("chunk,remat", [(256, False), (0, False),
+                                         (256, "selective"), (0, True)])
+def test_tiny_trainer_on_the_card_matches_the_cpu(cuda, chunk, remat):
+    """LLAMA_TINY fp32 (TF32 off) through fleet + AdamW at seq 128 (the
+    flash path), with the fused or the dense head and with or without
+    remat: 3 steps on the card against the same weights on the CPU. Per
+    step the card launches dq and dk/dv once per layer, the forward once
+    per layer (twice under remat, which recomputes it in the backward)
+    and the fused-CE kernel once with the fused head."""
+    cfg = dataclasses.replace(LLAMA_TINY, dtype="float32",
+                              fused_ce_chunk=chunk, remat=remat)
+    pt.seed(0)
+    gpu = LlamaForCausalLM(cfg, device=cuda)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    load_numpy_state_dict(cpu, {k: v.cpu().numpy()
+                                for k, v in gpu.state_dict().items()})
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
+    n = cfg.num_hidden_layers
+    per_step = ((2 if remat else 1) * n, n, n, 1 if chunk else 0)
+    losses = {}
+    for name, m in (("gpu", gpu), ("cpu", cpu)):
+        opt = fleet.distributed_optimizer(optimizer.AdamW(
+            learning_rate=1e-3, parameters=m.parameters()))
+        step = opt.make_train_step(m, lambda mm, x, y: mm(x, labels=y))
+        counts = (fa.flash_attention.launches,
+                  fa.flash_attention_bwd_dq.launches,
+                  fa.flash_attention_bwd_dkv.launches,
+                  fc.fused_ce_stats.launches)
+        losses[name] = [float(step(ids, ids)) for _ in range(3)]
+        got = tuple(c - b for c, b in zip(
+            (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches,
+             fc.fused_ce_stats.launches), counts))
+        want = tuple(3 * c for c in per_step) if name == "gpu" else \
+            (0, 0, 0, 0)
+        assert got == want, (name, got, want)
+    # fp32 on both sides, sums in another order: the loss within 1e-4
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+    assert losses["gpu"][2] < losses["gpu"][0]
 
 
 def test_model_forward_takes_the_flash_path(cuda):

@@ -2,8 +2,9 @@
 
 ``paddle_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any
 module of the JAX package (even those that do not import JAX): checked by
-an AST scan and by serving a request in a process where importing either
-fails. Entry points default to CUDA and raise when it is absent.
+an AST scan and by serving a request and taking a train step in a
+process where importing either fails. Entry points default to CUDA and
+raise when it is absent.
 """
 import ast
 import os
@@ -65,6 +66,42 @@ def test_serves_a_request_with_jax_unimportable():
                      flash_decode=True)
         out = eng.submit(np.arange(5), max_new_tokens=3).result()
         assert out.shape == (8,), out
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
+
+
+def test_trains_a_step_with_jax_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import dataclasses
+        import numpy as np
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import optimizer
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+        from paddle_tpu_torch.text.models.llama import (LLAMA_TINY,
+                                                        LlamaForCausalLM)
+        pt.seed(0)
+        cfg = dataclasses.replace(LLAMA_TINY, dtype="float32",
+                                  num_hidden_layers=1, fused_ce_chunk=256,
+                                  remat="selective")
+        m = fleet.distributed_model(LlamaForCausalLM(cfg, device="cpu"))
+        opt = fleet.distributed_optimizer(optimizer.AdamW(
+            learning_rate=optimizer.lr.LinearWarmup(1e-3, 2, 0.0, 1e-3),
+            parameters=m.parameters(), grad_clip=ClipGradByGlobalNorm(1.0)))
+        step = opt.make_train_step(m, lambda mm, x, y: mm(x, labels=y))
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+        losses = [float(step(ids, ids)) for _ in range(3)]
+        assert losses[2] < losses[0], losses
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK")

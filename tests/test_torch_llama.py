@@ -60,7 +60,8 @@ def test_forward_logits_match_after_weight_carry(tie):
     load_numpy_state_dict(tm, _arrays(jm))
     ids = np.random.default_rng(0).integers(0, CFG.vocab_size, (2, 24))
     want = np.asarray(jm(paddle.to_tensor(ids.astype(np.int32)))._data)
-    got = tm(ids)
+    with torch.inference_mode():            # scoring, as the engine runs
+        got = tm(ids)
     assert got.dtype == torch.float32 and got.shape == (2, 24,
                                                         CFG.vocab_size)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
@@ -89,9 +90,20 @@ def test_seeded_init_is_reproducible_and_training_options_raise():
     b = LlamaForCausalLM(CFG, device="cpu")
     for (k, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(x, y), k
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
         LlamaForCausalLM(LlamaConfig(**{**dataclasses.asdict(CFG),
-                                        "fused_ce_chunk": 64}),
+                                        "sequence_parallel": True}),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        a(np.zeros((1, 4), np.int64), labels=np.zeros((1, 4), np.int64))
+    with pytest.raises(ValueError, match="remat"):
+        LlamaForCausalLM(dataclasses.replace(CFG, remat="some"),
+                         device="cpu")
+    # the training options of the slice run: labels give the next-token
+    # CE, the same through the dense and the fused head
+    ids = np.random.default_rng(1).integers(0, CFG.vocab_size, (2, 16))
+    dense = a(ids, labels=ids)
+    b.config = dataclasses.replace(CFG, fused_ce_chunk=300)
+    fused = b(ids, labels=ids)
+    assert dense.shape == () and dense.dtype == torch.float32
+    torch.testing.assert_close(fused, dense, atol=1e-5, rtol=1e-5)
+    dense.backward()
+    assert a.lm_head.weight.grad is not None
