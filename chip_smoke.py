@@ -29,11 +29,22 @@ failure raises and exits non-zero before the result line is printed:
    launching the flash forward, dq and dk/dv kernels once per layer and
    the fused-CE kernel once; losses finite, the first within 1.0 of
    ln(32000), falling across the timed steps; then one step under
-   ``torch.profiler`` (top device kernels, device busy vs wall).
+   ``torch.profiler`` (top device kernels, device busy vs wall);
+9. ERNIE-MoE training at ``bench.py``'s configuration, nothing cut
+   (vocab 32000, hidden 1024, 6 layers, 16 heads, FFN 4096, 8 experts
+   top-2 on every second layer; bf16, dropout 0.1, AdamW(lr=1e-4)), one
+   repeated 8 x 1024 batch: auto dispatch must pick sparse, and every MoE
+   layer runs the ragged expert kernel; a warm-up step and 3 timed steps,
+   each launching the ragged kernel 12 times (2 forward + 2 dx per MoE
+   layer) and the flash forward, dq and dk/dv 6 times each; losses
+   finite, the first within 1.0 of ln(32000), the last timed one below
+   the first; then one profiled step.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
-989e12 bf16 FLOP/s and 3.35e12 B/s (H100 SXM data sheet).
+989e12 bf16 FLOP/s and 3.35e12 B/s (H100 SXM data sheet). Phase 3 and 7
+cover the ragged kernel and the flash kernels at the ERNIE-MoE shapes
+too.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 BF16_TOL = 2e-2           # bf16 out tolerance: a few bf16 ulps at |x| ~ 1
 
@@ -113,7 +125,7 @@ def attn_case(B, Lq, Lk, Hq, Hkv, D, dtype, seed):
     return mk(Lq, Hq), mk(Lk, Hkv), mk(Lk, Hkv)
 
 
-def phase_parity(fa, fd, fc):
+def phase_parity(fa, fd, fc, rm):
     errs = {"flash_decode": 0.0, "flash_attention_fwd": 0.0}
     # the engine's bs=16 at the 7B shape, GQA, fp32, and a 128-position
     # block (a block spans two of the kernel's 64-position chunks)
@@ -160,6 +172,9 @@ def phase_parity(fa, fd, fc):
     torch.cuda.empty_cache()
     errs.update(parity_bwd(fa))
     errs.update(parity_fused_ce(fc))
+    errs.update(parity_ragged(rm))
+    for k, e in parity_ernie_attention(fa).items():
+        errs[k] = max(errs[k], e)
     return errs
 
 
@@ -271,6 +286,151 @@ def parity_fused_ce(fc):
     return {"fused_ce_stats": err}
 
 
+# ERNIE-MoE at bench.py's configuration (bench_ernie_moe): E=8 experts,
+# top-2 of S = 8 x 1024 tokens, capacity C = ceil(2 * S * 1.25 / E),
+# hidden 1024, FFN 4096
+ERNIE_MOE = dict(vocab_size=32000, hidden_size=1024, num_hidden_layers=6,
+                 num_attention_heads=16, intermediate_size=4096,
+                 num_experts=8, max_position_embeddings=1024,
+                 dtype="bfloat16")
+ERNIE_BATCH = (8, 1024)
+MOE_E, MOE_D, MOE_F = (ERNIE_MOE[k] for k in (
+    "num_experts", "hidden_size", "intermediate_size"))
+MOE_C = -(-2 * ERNIE_BATCH[0] * ERNIE_BATCH[1] * 5 // (4 * MOE_E))   # 2560
+RAGGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def ragged_case(G, C, K, N, counts, dtype, seed, nan_past=False):
+    """x [G, C, K] (0.02-scaled w [G, K, N]) and counts on the card; with
+    ``nan_past`` the rows past each count hold NaN, which the kernel must
+    never read into a result."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(G, C, K, generator=g, device="cuda").to(dtype)
+    w = (0.02 * torch.randn(G, K, N, generator=g, device="cuda")).to(dtype)
+    cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    if nan_past:
+        dead = ~(torch.arange(C, device="cuda")[None, :]
+                 < cnt.long()[:, None])
+        x[dead] = float("nan")
+    return x, w, cnt
+
+
+def judge_ragged(got, want, counts, tol):
+    """(rel_err over the live rows, rows past counts exactly 0, ok)."""
+    C = got.shape[1]
+    live = (torch.arange(C, device=got.device)[None, :]
+            < counts.long()[:, None])[..., None]
+    rel = rel_err(torch.where(live, got.float(), 0.0),
+                  torch.where(live, want.float(), 0.0))
+    zeros = bool((torch.where(live, 0.0, got.float()) == 0).all())
+    return rel, zeros, bool(torch.isfinite(got).all()) and zeros and rel < tol
+
+
+def parity_ragged(rm):
+    """The ragged kernel against its plain version: ``||got - want|| /
+    ||want||`` over the live rows below 1e-5 in fp32 (TF32 off: reduction
+    order only) and 1e-2 in bf16 (the output's bf16 rounding, ~1e-3), and
+    every row past ``counts[g]`` exactly 0. Cases: unaligned C and N with
+    an empty group; the MoE up and down shapes with 2:1 imbalanced counts
+    and NaN in the dead rows; counts above C; and the backward's dx call
+    on the strided view ``w^T``. At the up shape two planted faults
+    (counts ignored; half of K dropped) must fail the check."""
+    err = 0.0
+    E, C, D, Fh = MOE_E, MOE_C, MOE_D, MOE_F
+    imb = [C if e % 2 == 0 else C // 2 for e in range(E)]
+    cases = [(4, 19, 8, 13, [0, 5, 19, 12], torch.float32, False, "small"),
+             (4, 19, 8, 13, [0, 5, 19, 12], torch.bfloat16, False, "small"),
+             (E, C, D, Fh, imb, torch.bfloat16, True, "MoE up"),
+             (E, C, Fh, D, imb, torch.bfloat16, True, "MoE down"),
+             (3, 100, 64, 96, [150, 100, 7], torch.bfloat16, False,
+              "counts > C"),
+             (3, 100, 64, 96, [150, 100, 7], torch.float32, False,
+              "counts > C"),
+             (E, C, Fh, D, imb, torch.bfloat16, False, "dx: dy @ w^T")]
+    for (G, Cc, K, N, counts, dtype, nan_past, what) in cases:
+        tol = RAGGED_TOL[dtype]
+        if what.startswith("dx"):
+            # dy [G, C, F] against the up projection's w [G, D, F] read
+            # transposed through its strides
+            x, w, cnt = ragged_case(G, Cc, K, N, counts, dtype, seed=G + K)
+            w = w.reshape(G, N, K).transpose(1, 2)
+        else:
+            x, w, cnt = ragged_case(G, Cc, K, N, counts, dtype, seed=G + K,
+                                    nan_past=nan_past)
+        got = rm.ragged_group_matmul(x, w, cnt)
+        want = rm.ragged_group_matmul_reference(x, w, cnt)
+        torch.cuda.synchronize()
+        rel, zeros, ok = judge_ragged(got, want, cnt, tol)
+        e = (got.float() - want.float()).abs().max().item()
+        log(f"  ragged_group_matmul [{what}] G={G} C={Cc} K={K} N={N} "
+            f"{dtype}{' w strided' if not w.is_contiguous() else ''}: "
+            f"rel_err {rel:.3e} (tol {tol}), zeros past counts {zeros}, "
+            f"max_abs_err {e:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("ragged_group_matmul disagrees with its "
+                                 "plain version")
+        if what == "MoE up":
+            # the same draw with finite rows past the counts
+            xf = ragged_case(G, Cc, K, N, counts, dtype, seed=G + K)[0]
+            xh = x.clone()
+            xh[..., K // 2:] = 0
+            planted = [judge_ragged(rm.ragged_group_matmul_reference(
+                           xf, w, torch.full_like(cnt, Cc)), want, cnt, tol),
+                       judge_ragged(rm.ragged_group_matmul_reference(
+                           xh, w, cnt), want, cnt, tol)]
+            log(f"  planted faults (counts ignored / half of K dropped): "
+                f"rel_err {planted[0][0]:.3e}/{planted[1][0]:.3e}, zeros "
+                f"past counts {planted[0][1]}/{planted[1][1]}: both must "
+                f"fail")
+            if any(p[2] for p in planted):
+                raise AssertionError("the ragged check does not see a "
+                                     "planted fault")
+        err = max(err, e)
+        del x, w, cnt, got, want
+    torch.cuda.empty_cache()
+    return {"ragged_group_matmul": err}
+
+
+def parity_ernie_attention(fa):
+    """The flash forward, dq and dk/dv kernels at ERNIE-MoE's attention
+    shape (B=8, L=1024, H=16, D=64, non-causal, bf16) under the limits of
+    the Llama shapes above: out 2e-2 and lse 1e-3 (max abs), each
+    gradient's relative norm 1e-2."""
+    q, k, v = attn_case(8, 1024, 1024, 16, 16, 64, torch.bfloat16, seed=64)
+    do = attn_case(8, 1024, 1024, 16, 16, 64, torch.bfloat16, seed=65)[0]
+    out, lse = fa.flash_attention(q, k, v, causal=False)
+    rout, rlse = fa.flash_attention_reference(q, k, v, causal=False)
+    delta = fa.attention_delta(out, do)
+    got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False),
+           *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False))
+    want = (fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                False),
+            *fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                  False))
+    torch.cuda.synchronize()
+    oerr = (out.float() - rout.float()).abs().max().item()
+    lerr = (lse - rlse).abs().max().item()
+    r = [rel_err(g, w) for g, w in zip(got, want)]
+    e = [(g.float() - w.float()).abs().max().item()
+         for g, w in zip(got, want)]
+    ok = (torch.allclose(out.float(), rout.float(), atol=BF16_TOL,
+                         rtol=BF16_TOL)
+          and torch.allclose(lse, rlse, atol=1e-3, rtol=1e-3)
+          and all(bool(torch.isfinite(g).all()) and x < 1e-2
+                  for g, x in zip(got, r)))
+    log(f"  flash_attention [ERNIE] B=8 L=1024 H=16 D=64 non-causal bf16: "
+        f"out max_abs_err {oerr:.3e} (tol {BF16_TOL}), lse {lerr:.3e} (tol "
+        f"1e-3), dq/dk/dv rel_err {r[0]:.3e}/{r[1]:.3e}/{r[2]:.3e} (tol "
+        f"1e-2) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash attention disagrees with its plain "
+                             "version at the ERNIE shape")
+    del q, k, v, do, out, lse, rout, rlse, delta, got, want
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": oerr, "flash_attention_bwd_dq": e[0],
+            "flash_attention_bwd_dkv": max(e[1], e[2])}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the main path
 # ---------------------------------------------------------------------------
@@ -376,7 +536,7 @@ def phase_identity(LlamaForCausalLM, LLAMA_TINY, Engine, seed):
 # phase 7: timings
 # ---------------------------------------------------------------------------
 
-def phase_timings(fa, fd, fc, flush):
+def phase_timings(fa, fd, fc, rm, flush):
     TF = torch.nn.functional
     out = {}
     # flash decode at the engine's shape: S=8, H=n_kv=32, hd=128, bs=16
@@ -423,6 +583,8 @@ def phase_timings(fa, fd, fc, flush):
             shape=f"B=1 L={L} H=32 D=128 causal bf16")
     out.update(timings_bwd(fa, flush))
     out.update(timings_fused_ce(fc, flush))
+    out.update(timings_ragged(rm, flush))
+    out.update(timings_ernie_attention(fa, flush))
     for name, t in out.items():
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
@@ -430,12 +592,34 @@ def phase_timings(fa, fd, fc, flush):
     return out
 
 
-def bound(byts, flops):
+def bound(byts, flops, peak_ops=PEAK_BF16_FLOPS):
     """The least time the card could take: bytes over the memory rate or
-    operations over the bf16 tensor-core rate, whichever is longer."""
-    b, f = byts / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    operations over the tensor-core rate (bf16 unless ``peak_ops`` says
+    otherwise), whichever is longer."""
+    b, f = byts / PEAK_BYTES, flops / peak_ops
     return dict(bound_ms=1e3 * max(b, f),
                 bound_by="bytes" if b >= f else "operations")
+
+
+def bounds_still_to_port():
+    """Bounds of the TPU kernels not yet ported, at bench.py's shapes
+    (pure arithmetic, no card needed): the int8 matmul at M=256, K=8192,
+    N=8192 (int8 x, w; fp32 row and column scales; bf16 out; 1979e12
+    int8 OP/s), and the two stochastic-rounding kernels at 256 x 256
+    fp32 (``stochastic_round`` writes fp32, ``quantize_int8_stochastic``
+    int8 plus one fp32 scale)."""
+    M, K, N = 256, 8192, 8192
+    R = 256 * 256
+    return {
+        "int8_matmul_rescale": dict(
+            shape=f"M={M} K={K} N={N} int8 -> bf16",
+            **bound(M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N,
+                    PEAK_INT8_OPS)),
+        "stochastic_round": dict(shape="256x256 fp32 -> fp32",
+                                 **bound(8 * R, 0)),
+        "quantize_int8_stochastic": dict(shape="256x256 fp32 -> int8",
+                                         **bound(5 * R + 4, 0)),
+    }
 
 
 def timings_bwd(fa, flush):
@@ -493,25 +677,111 @@ def timings_fused_ce(fc, flush):
         **bound(N * H * 2 + H * V * 2 + N * 8 + 3 * N * 4, 2 * N * H * V))}
 
 
+def timings_ragged(rm, flush):
+    """The ragged kernel at the MoE expert shapes (bench.py's
+    ``_bench_moe_ragged_kernel``: E=8, C=2560, bf16, counts [C, C/2] x 4),
+    up (K=1024, N=4096), down (K=4096, N=1024) and the backward's dx of
+    the up projection (dy [E, C, 4096] @ w_up^T, w read through the
+    strides of the transposed view). Yardstick: the masked ``torch.bmm``
+    over the full capacity (what ``expert_kernel="einsum"`` runs). The
+    bound counts this run's data: the live rows' products and x rows, all
+    of w, all of out (zeros included) and counts."""
+    E, C = MOE_E, MOE_C
+    counts = [C if e % 2 == 0 else C // 2 for e in range(E)]
+    rows = sum(counts)
+    out = {}
+    for name, K, N in (("up", MOE_D, MOE_F), ("down", MOE_F, MOE_D),
+                       ("dx", MOE_F, MOE_D)):
+        x, w, cnt = ragged_case(E, C, K, N, counts, torch.bfloat16, seed=K)
+        if name == "dx":
+            w = w.reshape(E, N, K).transpose(1, 2)
+        x = x * (torch.arange(C, device="cuda")[None, :]
+                 < cnt.long()[:, None])[..., None].to(x.dtype)
+        out[f"ragged_group_matmul_{name}"] = dict(
+            ms=time_ms(lambda: rm.ragged_group_matmul(x, w, cnt), flush),
+            plain_ms=time_ms(lambda: rm.ragged_group_matmul_reference(
+                x, w, cnt), flush, reps=5),
+            library_ms=time_ms(lambda: torch.bmm(x, w), flush),
+            shape=f"E={E} C={C} K={K} N={N} bf16, {rows} live rows"
+                  + (", w^T strided" if name == "dx" else ""),
+            **bound(rows * K * 2 + E * K * N * 2 + E * C * N * 2 + E * 4,
+                    2 * rows * K * N))
+        del x, w, cnt
+    torch.cuda.empty_cache()
+    return out
+
+
+def timings_ernie_attention(fa, flush):
+    """The flash forward, dq and dk/dv kernels at ERNIE-MoE's attention
+    shape (B=8, L=1024, H=16, D=64, non-causal, bf16); yardsticks as at
+    the Llama shapes (SDPA forward; SDPA's whole backward)."""
+    TF = torch.nn.functional
+    B, L, H, D = 8, 1024, 16, 64
+    q, k, v = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=94)
+    do = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=95)[0]
+    out, lse = fa.flash_attention(q, k, v, causal=False)
+    delta = fa.attention_delta(out, do)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    o = TF.scaled_dot_product_attention(*leaves)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o, leaves,
+                                                  do.transpose(1, 2),
+                                                  retain_graph=True), flush)
+    pairs = B * H * L * L
+    elems = B * L * H * D
+    reads = 4 * elems * 2 + 2 * B * H * L * 4      # q, k, v, dO; lse, delta
+    shape = f"B={B} L={L} H={H} D={D} non-causal bf16"
+    res = {
+        "flash_attention_fwd": dict(
+            ms=time_ms(lambda: fa.flash_attention(q, k, v), flush),
+            plain_ms=time_ms(lambda: fa.flash_attention_reference(q, k, v),
+                             flush, reps=5),
+            library_ms=time_ms(lambda: TF.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in (q, k, v))), flush),
+            shape=shape, **bound(4 * elems * 2 + B * H * L * 4,
+                                 4 * D * pairs)),
+        "flash_attention_bwd_dq": dict(
+            ms=time_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, False), flush),
+            plain_ms=time_ms(lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, do, lse, delta, False), flush, reps=5),
+            library_ms=lib_bwd, shape=shape,
+            **bound(reads + elems * 2, 6 * D * pairs)),
+        "flash_attention_bwd_dkv": dict(
+            ms=time_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, False), flush),
+            plain_ms=time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, False), flush, reps=5),
+            library_ms=lib_bwd, shape=shape,
+            **bound(reads + 2 * elems * 2, 8 * D * pairs)),
+    }
+    del q, k, v, do, out, lse, delta, leaves, o
+    torch.cuda.empty_cache()
+    return {f"{k}_ernie": t for k, t in res.items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 8: training
 # ---------------------------------------------------------------------------
 
-def _counts(fa, fc):
-    return dict(flash_attention_fwd=fa.flash_attention.launches,
-                flash_attention_bwd_dq=fa.flash_attention_bwd_dq.launches,
-                flash_attention_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
-                fused_ce_stats=fc.fused_ce_stats.launches)
+def _counters(fa, fc, rm):
+    """Each kernel wrapper of the training paths, by kernel name."""
+    return dict(flash_attention_fwd=fa.flash_attention,
+                flash_attention_bwd_dq=fa.flash_attention_bwd_dq,
+                flash_attention_bwd_dkv=fa.flash_attention_bwd_dkv,
+                fused_ce_stats=fc.fused_ce_stats,
+                ragged_group_matmul=rm.ragged_group_matmul)
 
 
-def _reset(fa, fc):
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
-    fa.flash_attention_bwd_dkv.launches = 0
-    fc.fused_ce_stats.launches = 0
+def _counts(fa, fc, rm):
+    return {k: f.launches for k, f in _counters(fa, fc, rm).items()}
 
 
-def profile_step(step, ids):
+def _reset(fa, fc, rm):
+    for f in _counters(fa, fc, rm).values():
+        f.launches = 0
+
+
+def profile_step(step, *batch):
     """One train step under torch.profiler: device busy vs wall and the
     top device kernels by time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -519,7 +789,7 @@ def profile_step(step, ids):
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(ids, ids)
+        step(*batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, launches = {}, 0
@@ -535,7 +805,7 @@ def profile_step(step, ids):
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
 
 
-def phase_train(fa, fc, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
+def phase_train(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
                 seed):
     cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=8,
                               fused_ce_chunk=8192)
@@ -557,16 +827,16 @@ def phase_train(fa, fc, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
     want = dict(flash_attention_fwd=cfg.num_hidden_layers,
                 flash_attention_bwd_dq=cfg.num_hidden_layers,
                 flash_attention_bwd_dkv=cfg.num_hidden_layers,
-                fused_ce_stats=1)
+                fused_ce_stats=1, ragged_group_matmul=0)
     losses, secs, per_step = [], [], []
     for i in range(4):                          # warm-up + 3 timed steps
-        _reset(fa, fc)
+        _reset(fa, fc, rm)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses.append(float(step(ids, ids)))    # reads the loss: a sync
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        per_step.append(_counts(fa, fc))
+        per_step.append(_counts(fa, fc, rm))
         log(f"  step {i}{' (warm-up)' if i == 0 else ''}: loss "
             f"{losses[-1]:.6f}, {secs[-1] * 1e3:.1f} ms, launches "
             f"{per_step[-1]}")
@@ -587,7 +857,7 @@ def phase_train(fa, fc, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
     for i, c in enumerate(per_step):
         if c != want:
             raise AssertionError(f"step {i} launched {c}, want {want}")
-    prof = profile_step(step, ids)
+    prof = profile_step(step, ids, ids)
     log("  profiled step " + json.dumps(prof))
     if prof["device_busy_ms"] <= 0:
         log("  (the profiler saw no device time: device busy not measured)")
@@ -596,6 +866,88 @@ def phase_train(fa, fc, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
     return per_step[1], dict(losses=losses, step_ms=step_s * 1e3,
                              tokens_per_s=B * L / step_s,
                              peak_gib=peak / 2**30)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: ERNIE-MoE training
+# ---------------------------------------------------------------------------
+
+def phase_ernie(fa, fc, rm, ErnieMoEConfig, ErnieMoEForPretraining, fleet,
+                optimizer, seed):
+    """bench.py's ERNIE-MoE configuration, nothing cut (318M parameters,
+    bf16): every MoE layer on sparse dispatch (auto picks it here) with
+    the ragged expert kernel; AdamW(lr=1e-4); one repeated 8 x 1024 batch
+    of random ids and labels; dropout 0.1 as configured."""
+    cfg = ErnieMoEConfig(**ERNIE_MOE)
+    B, L = ERNIE_BATCH
+    seed(0)
+    model = fleet.distributed_model(ErnieMoEForPretraining(cfg,
+                                                           device="cuda"))
+    moes = model.moe_layers()
+    for m in moes:
+        m.expert_kernel = "ragged"
+    modes = [m.resolve_dispatch(B * L) for m in moes]
+    C = moes[0].gate.capacity(B * L)
+    log(f"  {cfg.num_hidden_layers} layers ({len(moes)} MoE, {cfg.num_experts}"
+        f" experts, top-{cfg.top_k}, capacity {C}), "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, "
+        f"batch {B} x {L}, dispatch {modes} (S*E*C = "
+        f"{B * L * cfg.num_experts * C:,} vs limit "
+        f"{moes[0].DENSE_DISPATCH_LIMIT:,}), AdamW(lr=1e-4), dropout "
+        f"{cfg.dropout}")
+    if modes != ["sparse"] * len(moes):
+        raise AssertionError(f"auto dispatch did not pick sparse: {modes}")
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters()))
+    step = opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, L))).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (B, L))).cuda()
+    n = cfg.num_hidden_layers
+    want = dict(flash_attention_fwd=n, flash_attention_bwd_dq=n,
+                flash_attention_bwd_dkv=n, fused_ce_stats=0,
+                ragged_group_matmul=4 * len(moes))    # 2 forward + 2 dx
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, per_step = [], [], []
+    for i in range(4):                          # warm-up + 3 timed steps
+        _reset(fa, fc, rm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))   # reads the loss: a sync
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(_counts(fa, fc, rm))
+        log(f"  step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{losses[-1]:.6f}, {secs[-1] * 1e3:.1f} ms, launches "
+            f"{per_step[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    timed = secs[1:]
+    step_s = float(np.median(timed))
+    log(f"  step time median {step_s * 1e3:.1f} ms over 3 (min "
+        f"{min(timed) * 1e3:.1f}, max {max(timed) * 1e3:.1f}), "
+        f"{B * L / step_s:.1f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} not within 1.0 of "
+                             f"ln({cfg.vocab_size})")
+    if not losses[3] < losses[1]:
+        raise AssertionError(f"the last timed loss is not below the first: "
+                             f"{losses[1:]}")
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"step {i} launched {c}, want {want}")
+    prof = profile_step(step, ids, labels)
+    log("  profiled step " + json.dumps(prof))
+    if prof["device_busy_ms"] <= 0:
+        log("  (the profiler saw no device time: device busy not measured)")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return per_step[1], dict(losses=losses, step_ms=step_s * 1e3,
+                             tokens_per_s=B * L / step_s,
+                             peak_gib=peak / 2**30, profile=prof)
 
 
 def main():
@@ -618,9 +970,12 @@ def main():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_decode as fd
     from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import ragged_matmul as rm
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.serving import Engine, ledger
+    from paddle_tpu_torch.text.models import (ErnieMoEConfig,
+                                              ErnieMoEForPretraining)
     from paddle_tpu_torch.text.models.llama import (LLAMA2_7B, LLAMA_TINY,
                                                     LlamaForCausalLM)
 
@@ -637,7 +992,7 @@ def main():
 
     # ---- 3. parity ----------------------------------------------------------
     log("[3] kernel parity against the plain versions")
-    errs = phase_parity(fa, fd, fc)
+    errs = phase_parity(fa, fd, fc, rm)
 
     # ---- 4. Llama-2-7B forward ---------------------------------------------
     t0 = time.perf_counter()
@@ -663,17 +1018,28 @@ def main():
     # ---- 7. timings ---------------------------------------------------------
     log("[7] timings (median of 20, L2 flushed)")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    t = phase_timings(fa, fd, fc, flush)
+    t = phase_timings(fa, fd, fc, rm, flush)
     log("  timings " + json.dumps(t))
+    log("  bounds of the kernels still to port "
+        + json.dumps(bounds_still_to_port()))
     del flush
     torch.cuda.empty_cache()
 
     # ---- 8. training --------------------------------------------------------
     log("[8] training: Llama-2-7B width, 8 layers, fleet + AdamW")
-    train_launches, train = phase_train(fa, fc, LlamaForCausalLM, LLAMA2_7B,
-                                        fleet, optimizer, pt.seed)
+    train_launches, train = phase_train(fa, fc, rm, LlamaForCausalLM,
+                                        LLAMA2_7B, fleet, optimizer, pt.seed)
     log("  training " + json.dumps(train))
 
+    # ---- 9. ERNIE-MoE training ----------------------------------------------
+    log("[9] ERNIE-MoE training: bench.py's configuration, fleet + AdamW, "
+        "sparse dispatch + ragged experts")
+    moe_launches, moe = phase_ernie(fa, fc, rm, ErnieMoEConfig,
+                                    ErnieMoEForPretraining, fleet, optimizer,
+                                    pt.seed)
+    log("  ernie_moe training " + json.dumps(moe))
+
+    cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -681,15 +1047,13 @@ def main():
              launches=fa_launches,
              max_abs_err=errs["flash_attention_fwd"],
              max_err=errs["flash_attention_fwd"],
-             **{k: t["flash_attention_fwd_L512"][k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: t["flash_attention_fwd_L512"][k] for k in cols}),
         dict(name="flash_decode", route="cuda",
              source="paddle_tpu_torch/csrc/flash_decode.cu",
              replaces="paddle_tpu/ops/pallas/flash_decode.py:100",
              launches=fd_launches, max_abs_err=errs["flash_decode"],
              max_err=errs["flash_decode"],
-             **{k: t["flash_decode"][k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: t["flash_decode"][k] for k in cols}),
     ]
     for kname, source, replaces in (
             ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
@@ -702,9 +1066,23 @@ def main():
             name=kname, route="cuda",
             source=f"paddle_tpu_torch/csrc/{source}", replaces=replaces,
             launches=train_launches[kname], max_abs_err=errs[kname],
-            max_err=errs[kname],
-            **{k: t[kname][k] for k in
-               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+            max_err=errs[kname], **{k: t[kname][k] for k in cols}))
+    # rows 1-3 at the ERNIE-MoE shape, with their launches per ERNIE step
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention"):
+            kd["ernie"] = dict(launches=moe_launches[kd["name"]],
+                               **{k: t[kd["name"] + "_ernie"][k]
+                                  for k in cols})
+    kernels.append(dict(
+        name="ragged_group_matmul", route="cuda",
+        source="paddle_tpu_torch/csrc/ragged_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/ragged_matmul.py:53",
+        launches=moe_launches["ragged_group_matmul"],
+        max_abs_err=errs["ragged_group_matmul"],
+        max_err=errs["ragged_group_matmul"],
+        **{k: t["ragged_group_matmul_up"][k] for k in cols},
+        down={k: t["ragged_group_matmul_down"][k] for k in cols},
+        dx={k: t["ragged_group_matmul_dx"][k] for k in cols}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print("nvidia-smi: " + smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""Seeding for parameter initialisation.
+"""Seeding for parameter initialisation and dropout.
 
 Counterpart of ``paddle_tpu/framework/random_seed.py``. ``seed(n)``
 (paddle.seed) resets one ``torch.Generator`` per device; parameter
-initialisers draw from ``generator(device)`` so a model built twice after
-the same ``seed`` has the same weights. The numbers differ from the JAX
+initialisers and ``nn.functional.dropout`` draw from
+``generator(device)``, so a model built twice after the same ``seed`` has
+the same weights and the same dropout masks. The numbers differ from the JAX
 package's for the same seed (threefry vs Philox/mt19937): tests carry
 weights across with ``framework.io.load_numpy_state_dict`` instead.
 """
@@ -24,8 +25,8 @@ def seed(value: int) -> int:
 
 
 def generator(device) -> torch.Generator:
-    """The initialisation generator of ``device`` (created on first use
-    from the current seed)."""
+    """The generator of ``device`` (created on first use from the current
+    seed)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

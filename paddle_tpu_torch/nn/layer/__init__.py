@@ -1,4 +1,5 @@
-from .common import Embedding, Linear
-from .norm import RMSNorm, rms_norm
+from .common import Dropout, Embedding, Linear
+from .norm import LayerNorm, RMSNorm, rms_norm
 
-__all__ = ["Embedding", "Linear", "RMSNorm", "rms_norm"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm",
+           "rms_norm"]

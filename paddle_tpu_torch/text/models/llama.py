@@ -124,7 +124,7 @@ class LlamaAttention(nn.Module):
         self.theta = c.rope_theta
         h = c.hidden_size
         kv = self.num_kv_heads * self.head_dim
-        kw = dict(device=device, dtype=c.dtype)
+        kw = dict(bias_attr=False, device=device, dtype=c.dtype)
         self.q_proj = Linear(h, h, **kw)
         self.k_proj = Linear(h, kv, **kw)
         self.v_proj = Linear(h, kv, **kw)
@@ -145,7 +145,7 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         h, ff = config.hidden_size, config.intermediate_size
-        kw = dict(device=device, dtype=config.dtype)
+        kw = dict(bias_attr=False, device=device, dtype=config.dtype)
         self.gate_proj = Linear(h, ff, **kw)
         self.up_proj = Linear(h, ff, **kw)
         self.down_proj = Linear(ff, h, **kw)
@@ -205,7 +205,8 @@ class LlamaForCausalLM(nn.Module):
         if not self.tie:
             # tied head reuses embed_tokens.weight [vocab, h] transposed
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                  device=self.device, dtype=config.dtype)
+                                  bias_attr=False, device=self.device,
+                                  dtype=config.dtype)
 
     def head_weight(self):
         """The LM head as ``[h, vocab]`` (a view for the tied head)."""

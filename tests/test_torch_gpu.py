@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version, the engine's kernel path against its gathered path, and
-the tiny trainer on the card against the same trainer on the CPU.
+the tiny Llama and ERNIE-MoE trainers on the card against the same
+trainers on the CPU.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -24,7 +25,10 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_decode as fd
 from paddle_tpu_torch.ops import fused_ce as fc
+from paddle_tpu_torch.ops import ragged_matmul as rm
 from paddle_tpu_torch.serving import Engine
+from paddle_tpu_torch.text.models import (ERNIE_MOE_TINY,
+                                          ErnieMoEForPretraining)
 from paddle_tpu_torch.text.models.llama import LLAMA_TINY, LlamaForCausalLM
 
 pytestmark = pytest.mark.gpu
@@ -345,3 +349,130 @@ def test_engine_kernel_and_gathered_paths_token_identical(cuda, block_size):
         assert launches == (cfg.num_hidden_layers * steps if flash else 0)
         assert eng.cache.check_refcounts()
     assert toks[True] == toks[False]
+
+
+def _ragged_rel_err(got, want, counts):
+    """(||got - want|| / ||want|| over the live rows, rows past counts
+    exactly 0)."""
+    live = (torch.arange(got.shape[1], device=got.device)[None, :]
+            < counts.long()[:, None])[..., None]
+    g = torch.where(live, got.float(), 0.0)
+    w = torch.where(live, want.float(), 0.0)
+    return ((g - w).norm() / w.norm()).item(), bool(
+        (torch.where(live, 0.0, got.float()) == 0).all())
+
+
+# fp32: reduction order only (TF32 off); bf16: the output's rounding
+RAGGED_TOLS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,C,K,N,counts,w_transposed", [
+    (4, 19, 8, 13, [0, 5, 19, 12], False),   # unaligned, an empty group
+    (3, 100, 64, 96, [150, 100, 7], False),  # counts above C
+    (2, 300, 72, 136, [300, 129], False),    # several row and column tiles
+    (2, 300, 72, 136, [257, 0], True),       # dx's call: w^T as a view
+    (2, 64, 40, 24, [33, 64], True),
+])
+def test_ragged_kernel_matches_plain(cuda, dtype, G, C, K, N, counts,
+                                     w_transposed):
+    g = torch.Generator(device=cuda).manual_seed(C + K)
+    x = torch.randn(G, C, K, generator=g, device=cuda).to(dtype)
+    if w_transposed:
+        w = torch.randn(G, N, K, generator=g, device=cuda).to(
+            dtype).transpose(1, 2)
+    else:
+        w = torch.randn(G, K, N, generator=g, device=cuda).to(dtype)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    before = rm.ragged_group_matmul.launches
+    got = rm.ragged_group_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert rm.ragged_group_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (G, C, N)
+    rel, zeros = _ragged_rel_err(got, rm.ragged_group_matmul_reference(
+        x, w, cnt), cnt)
+    assert zeros and rel < RAGGED_TOLS[dtype], rel
+
+
+def test_ragged_kernel_out_dtype_and_dead_rows_never_read(cuda):
+    """bf16 in, fp32 out; NaN in the rows past the counts never reaches
+    the result."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(3, 200, 64, generator=g, device=cuda).bfloat16()
+    w = torch.randn(3, 64, 48, generator=g, device=cuda).bfloat16()
+    cnt = torch.tensor([130, 0, 200], dtype=torch.int32, device=cuda)
+    x[0, 130:] = float("nan")
+    x[1] = float("nan")
+    got = rm.ragged_group_matmul(x, w, cnt, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    rel, zeros = _ragged_rel_err(got, rm.ragged_group_matmul_reference(
+        x, w, cnt, out_dtype=torch.float32), cnt)
+    assert zeros and rel < 1e-5
+
+
+def test_ragged_dot_backward_runs_the_kernel(cuda):
+    """The forward and dx launch the kernel once each; dx and dw equal
+    autograd through the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(3, 70, 32, generator=g, device=cuda)
+    w = torch.randn(3, 32, 48, generator=g, device=cuda)
+    dy = torch.randn(3, 70, 48, generator=g, device=cuda)
+    cnt = torch.tensor([70, 9, 0], dtype=torch.int32, device=cuda)
+    t = [a.clone().requires_grad_() for a in (x, w)]
+    r = [a.clone().requires_grad_() for a in (x, w)]
+    before = rm.ragged_group_matmul.launches
+    rm.ragged_dot(*t, cnt).backward(dy)
+    torch.cuda.synchronize()
+    assert rm.ragged_group_matmul.launches == before + 2
+    rm.ragged_group_matmul_reference(*r, cnt).backward(dy)
+    for a, b in zip(t, r):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_ragged_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(2, 8, 4, device=cuda)
+    w = torch.randn(2, 4, 6, device=cuda)
+    cnt = torch.tensor([8, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        rm.ragged_group_matmul(x, w.bfloat16(), cnt)
+    with pytest.raises(ValueError, match="shapes"):
+        rm.ragged_group_matmul(x, w[:, :3], cnt)
+    with pytest.raises(ValueError, match="on CUDA"):
+        rm.ragged_group_matmul(x, w, cnt.cpu())
+
+
+def test_tiny_ernie_moe_on_the_card_matches_the_cpu(cuda):
+    """ERNIE_MOE_TINY fp32 (TF32 off, dropout 0) with sparse dispatch and
+    the ragged experts at seq 128 (the flash path): 3 steps on the card
+    against the same weights on the CPU. Per step the card launches the
+    ragged kernel 4 times (2 forward + 2 dx in the one MoE layer) and the
+    flash forward, dq and dk/dv once per layer."""
+    cfg = dataclasses.replace(ERNIE_MOE_TINY, dropout=0.0)
+    pt.seed(0)
+    gpu = ErnieMoEForPretraining(cfg, device=cuda)
+    cpu = ErnieMoEForPretraining(cfg, device="cpu")
+    load_numpy_state_dict(cpu, {k: v.cpu().numpy()
+                                for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128))
+    labels = rng.integers(0, cfg.vocab_size, (2, 128))
+    n = cfg.num_hidden_layers
+    counters = (rm.ragged_group_matmul, fa.flash_attention,
+                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    losses = {}
+    for name, m in (("gpu", gpu), ("cpu", cpu)):
+        for blk in m.ernie.blocks:
+            if blk.use_moe:
+                blk.moe.dispatch_mode = "sparse"
+                blk.moe.expert_kernel = "ragged"
+        opt = fleet.distributed_optimizer(optimizer.AdamW(
+            learning_rate=1e-3, parameters=m.parameters()))
+        step = opt.make_train_step(m, lambda mm, x, y: mm(x, labels=y))
+        before = [c.launches for c in counters]
+        losses[name] = [float(step(ids, labels)) for _ in range(3)]
+        got = tuple(c.launches - b for c, b in zip(counters, before))
+        want = (3 * 4, 3 * n, 3 * n, 3 * n) if name == "gpu" else (0,) * 4
+        assert got == want, (name, got, want)
+    # fp32 on both sides, sums in another order: the loss within 1e-4
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+    assert losses["gpu"][2] < losses["gpu"][0]

@@ -2,9 +2,9 @@
 
 ``paddle_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any
 module of the JAX package (even those that do not import JAX): checked by
-an AST scan and by serving a request and taking a train step in a
-process where importing either fails. Entry points default to CUDA and
-raise when it is absent.
+an AST scan and by serving a request and taking Llama and ERNIE-MoE train
+steps in a process where importing either fails. Entry points default to
+CUDA and raise when it is absent.
 """
 import ast
 import os
@@ -98,6 +98,43 @@ def test_trains_a_step_with_jax_unimportable():
         opt = fleet.distributed_optimizer(optimizer.AdamW(
             learning_rate=optimizer.lr.LinearWarmup(1e-3, 2, 0.0, 1e-3),
             parameters=m.parameters(), grad_clip=ClipGradByGlobalNorm(1.0)))
+        step = opt.make_train_step(m, lambda mm, x, y: mm(x, labels=y))
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+        losses = [float(step(ids, ids)) for _ in range(3)]
+        assert losses[2] < losses[0], losses
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
+
+
+def test_trains_ernie_moe_with_jax_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import dataclasses
+        import numpy as np
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import optimizer
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.text.models import (ERNIE_MOE_TINY,
+                                                  ErnieMoEForPretraining)
+        pt.seed(0)
+        cfg = dataclasses.replace(ERNIE_MOE_TINY, num_hidden_layers=2)
+        m = fleet.distributed_model(ErnieMoEForPretraining(cfg,
+                                                           device="cpu"))
+        for blk in m.ernie.blocks:
+            if blk.use_moe:
+                blk.moe.dispatch_mode = "sparse"
+                blk.moe.expert_kernel = "ragged"
+        opt = fleet.distributed_optimizer(optimizer.AdamW(
+            learning_rate=1e-3, parameters=m.parameters()))
         step = opt.make_train_step(m, lambda mm, x, y: mm(x, labels=y))
         ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
         losses = [float(step(ids, ids)) for _ in range(3)]
