@@ -38,13 +38,24 @@ failure raises and exits non-zero before the result line is printed:
    each launching the ragged kernel 12 times (2 forward + 2 dx per MoE
    layer) and the flash forward, dq and dk/dv 6 times each; losses
    finite, the first within 1.0 of ln(32000), the last timed one below
-   the first; then one profiled step.
+   the first; then one profiled step;
+10. PTQ Llama-2-7B at full width and depth (phase 4's bf16 model, run
+    after phase 5): ``PostTrainingQuantization(algo="abs_max")`` on two
+    seeded 1 x 512 calibration batches swaps all 225 ``Linear``s for
+    ``Int8Linear``; the quantized forward must launch the int8 kernel 225
+    times and the flash forward 32 times, give finite logits, and give
+    the same logits bit for bit with the int8 kernel's plain version
+    swapped in; the relative error and top-1 agreement against the bf16
+    logits, int8 vs bf16 forward times, weight bytes, peak memory and one
+    profiled quantized forward are printed; then the public stochastic
+    quantizers on a 7B FFN weight (one launch each).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
-989e12 bf16 FLOP/s and 3.35e12 B/s (H100 SXM data sheet). Phase 3 and 7
-cover the ragged kernel and the flash kernels at the ERNIE-MoE shapes
-too.
+989e12 bf16 FLOP/s, 1979e12 int8 OP/s and 3.35e12 B/s (H100 SXM data
+sheet). Phases 3 and 7 cover the ragged kernel and the flash kernels at
+the ERNIE-MoE shapes too, and the int8 matmul and the two stochastic
+quantizers at the Llama-2-7B shapes.
 """
 from __future__ import annotations
 
@@ -125,7 +136,7 @@ def attn_case(B, Lq, Lk, Hq, Hkv, D, dtype, seed):
     return mk(Lq, Hq), mk(Lk, Hkv), mk(Lk, Hkv)
 
 
-def phase_parity(fa, fd, fc, rm):
+def phase_parity(fa, fd, fc, rm, im, sr):
     errs = {"flash_decode": 0.0, "flash_attention_fwd": 0.0}
     # the engine's bs=16 at the 7B shape, GQA, fp32, and a 128-position
     # block (a block spans two of the kernel's 64-position chunks)
@@ -175,6 +186,8 @@ def phase_parity(fa, fd, fc, rm):
     errs.update(parity_ragged(rm))
     for k, e in parity_ernie_attention(fa).items():
         errs[k] = max(errs[k], e)
+    errs.update(parity_int8(im))
+    errs.update(parity_stochastic(sr))
     return errs
 
 
@@ -431,6 +444,174 @@ def parity_ernie_attention(fa):
             "flash_attention_bwd_dkv": max(e[1], e[2])}
 
 
+# Llama-2-7B projections at the forward's M = 1 x 512 rows: q/k/v/o, the
+# FFN up (gate, up) and down, and the head
+INT8_SHAPES = (("qkvo", 512, 4096, 4096), ("up", 512, 4096, 11008),
+               ("down", 512, 11008, 4096), ("head", 512, 4096, 32000))
+
+
+def int8_case(M, K, N, seed):
+    """Per-row-quantized activations (as ``_quant_rows`` makes them) and
+    a per-column-quantized weight, all on the card."""
+    from paddle_tpu_torch.ops.int8_matmul import _quant_rows
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xq, xs = _quant_rows(torch.randn(M, K, generator=g, device="cuda"))
+    w = 0.02 * torch.randn(K, N, generator=g, device="cuda")
+    ws = torch.clamp_min(w.abs().amax(0, keepdim=True) / 127.0, 1e-10)
+    wq = torch.clamp(torch.round(w / ws), -127, 127).to(torch.int8)
+    return xq, xs, wq, ws
+
+
+def same_bits(a, b):
+    """Bit-for-bit equality of two tensors of one dtype and shape."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.view(view), b.view(view))
+
+
+def parity_int8(im):
+    """The int8 kernel against its plain version, bit for bit, in bf16 and
+    fp32, at the 7B shapes and at an odd tail (M=37, K=200, N=300: M, N
+    and K all off the tiles, K off 16 bytes). Two planted faults must fail
+    the same check: the K tail dropped (the odd shape's last 8 depths),
+    and the row scales misapplied (shifted by one row) at the up shape."""
+    err = 0.0
+    for name, M, K, N in INT8_SHAPES + (("odd tail", 37, 200, 300),):
+        xq, xs, wq, ws = int8_case(M, K, N, seed=K + N)
+        for dt in (torch.bfloat16, torch.float32):
+            got = im.int8_matmul_rescale(xq, xs, wq, ws, out_dtype=dt)
+            want = im.int8_matmul_rescale_reference(xq, xs, wq, ws, dt)
+            torch.cuda.synchronize()
+            ok = same_bits(got, want) and bool(torch.isfinite(got).all())
+            e = (got.float() - want.float()).abs().max().item()
+            log(f"  int8_matmul_rescale [{name}] M={M} K={K} N={N} -> {dt}: "
+                f"bit-exact {ok}, max_abs_err {e:.3e} (tol: exact) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("int8_matmul_rescale disagrees with its "
+                                     "plain version")
+            err = max(err, e)
+            planted = None
+            if name == "odd tail" and dt == torch.bfloat16:
+                Kc = K // 64 * 64
+                planted = im.int8_matmul_rescale_reference(
+                    xq[:, :Kc].contiguous(), xs, wq[:Kc].contiguous(), ws, dt)
+                what = "K tail dropped"
+            elif name == "up" and dt == torch.bfloat16:
+                planted = im.int8_matmul_rescale_reference(
+                    xq, torch.roll(xs, 1, 0), wq, ws, dt)
+                what = "row scales shifted"
+            if planted is not None:
+                bad = same_bits(planted, want)
+                log(f"  planted fault ({what}): bit-exact {bad}, must be "
+                    f"False")
+                if bad:
+                    raise AssertionError("the int8 check does not see a "
+                                         "planted fault")
+        del xq, xs, wq, ws
+    torch.cuda.empty_cache()
+    return {"int8_matmul_rescale": err}
+
+
+SR_SHAPES = ((256, 256), (4096, 11008))      # bench.py's; a 7B FFN weight
+
+
+def sr_rounding_stats(x, bits16):
+    """bf16 outputs (their 16 bits, int64) of fp32 ``x``: (every output is
+    one of the two bf16 values around x, |round-up share - mean dropped
+    fraction|, its 6-sigma bound 3 / sqrt(n)): the difference (up - frac)
+    has mean 0 and variance at most 1/4 per element."""
+    xb = x.view(torch.int32).long() & 0xFFFFFFFF
+    lo = xb >> 16
+    bracket = bool(((bits16 == lo) | (bits16 == lo + 1)).all())
+    up = (bits16 != lo).double()
+    frac = (xb & 0xFFFF).double() / 65536.0
+    return bracket, abs((up - frac).mean().item()), 3.0 / x.numel() ** 0.5
+
+
+def q_rounding_stats(x, q, s):
+    """int8 outputs: (|q s - x| < s everywhere, |round-up share - mean
+    fractional part of x / s|, its 6-sigma bound)."""
+    t = x.double() / s.double()
+    within = bool(((q.double() * s.double() - x.double()).abs()
+                   < s.double()).all())
+    up = (q.double() > torch.floor(t)).double()
+    return within, abs((up - (t - torch.floor(t))).mean().item()), \
+        3.0 / x.numel() ** 0.5
+
+
+def parity_stochastic(sr):
+    """Both stochastic kernels against their plain versions, bit for bit
+    (the same threefry words), at 256 x 256 and 4096 x 11008; then, on the
+    kernels' 4096 x 11008 outputs (4.5e7 draws), the statistical checks of
+    ``sr_rounding_stats`` / ``q_rounding_stats``, which a planted
+    truncating version (all-zero words, u = 0) must fail; and the mean of
+    q s over 64 seeds at 256 x 256 within 0.5 s of x (8 sigma: its spread
+    is at most s / 16) and unbiased overall (6 sigma)."""
+    errs = {"stochastic_round": 0.0, "quantize_int8_stochastic": 0.0}
+    for R, C in SR_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(R)
+        x = 0.02 * torch.randn(R, C, generator=g, device="cuda")
+        seed = R + 1
+        words = sr.random_bits(seed, x.numel(), device="cuda")
+        a = sr.stochastic_round_bf16(x, seed)
+        b = sr.stochastic_round_bf16_reference(x, words)
+        q, s = sr.quantize_int8_stochastic(x, seed)
+        q2, s2 = sr.quantize_int8_stochastic_reference(x, words)
+        torch.cuda.synchronize()
+        ok = same_bits(a, b) and same_bits(q, q2) and same_bits(s, s2)
+        ea = (a.float() - b.float()).abs().max().item()
+        eq = (q.float() - q2.float()).abs().max().item()
+        log(f"  stochastic_round / quantize_int8_stochastic {R}x{C} seed "
+            f"{seed}: bit-exact {ok} (tol: exact), max_abs_err {ea:.3e} / "
+            f"{eq:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("a stochastic kernel disagrees with its "
+                                 "plain version")
+        errs["stochastic_round"] = max(errs["stochastic_round"], ea)
+        errs["quantize_int8_stochastic"] = max(
+            errs["quantize_int8_stochastic"], eq)
+        if (R, C) != SR_SHAPES[-1]:
+            continue
+        zero = torch.zeros_like(words)
+        checks = {
+            "bf16": sr_rounding_stats(x, a.view(torch.int16).long() & 0xFFFF),
+            "bf16 planted u=0": sr_rounding_stats(
+                x, sr.stochastic_round_bf16_reference(x, zero).view(
+                    torch.int16).long() & 0xFFFF),
+            "int8": q_rounding_stats(x, q, s),
+            "int8 planted u=0": q_rounding_stats(
+                x, *sr.quantize_int8_stochastic_reference(x, zero))}
+        for what, (held, dev, bnd) in checks.items():
+            passed = held and dev < bnd
+            log(f"  rounding statistics [{what}] n={x.numel()}: bracket/"
+                f"within {held}, |up share - dropped fraction| {dev:.3e} "
+                f"(bound {bnd:.3e}) {'pass' if passed else 'fail'}")
+            if passed == what.endswith("u=0"):
+                raise AssertionError(f"rounding statistics [{what}]: "
+                                     f"{'passed' if passed else 'failed'}")
+        del words, zero, a, b, q, q2
+    small = 0.02 * torch.randn(256, 256, device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(3))
+    acc = torch.zeros_like(small, dtype=torch.float64)
+    for seed in range(64):
+        q, s = sr.quantize_int8_stochastic(small, seed)
+        acc += q.double() * s.double()
+    dev = (acc / 64 - small.double()) / s.double()
+    worst, bias = dev.abs().max().item(), abs(dev.mean().item())
+    bbound = 6 * 0.5 / (64 * small.numel()) ** 0.5
+    ok = worst < 0.5 and bias < bbound
+    log(f"  mean of q s over 64 seeds: max |mean - x| {worst:.3f} s (bound "
+        f"0.5 s), mean bias {bias:.3e} s (bound {bbound:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("quantize_int8_stochastic is biased")
+    torch.cuda.empty_cache()
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the main path
 # ---------------------------------------------------------------------------
@@ -533,10 +714,147 @@ def phase_identity(LlamaForCausalLM, LLAMA_TINY, Engine, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: PTQ Llama-2-7B
+# ---------------------------------------------------------------------------
+
+def forward_ms(model, ids, reps=5):
+    """Median time of ``model(ids)`` under inference_mode: CUDA events
+    around each forward (host syncs inside it included), after a
+    warm-up."""
+    times = []
+    with torch.inference_mode():
+        model(ids)
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            model(ids)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def weight_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def phase_ptq(model, fa, im, sr, tq):
+    """PTQ of phase 4's bf16 Llama-2-7B (32 layers) through the public
+    entry point, then the quantized forward (see the module docstring).
+    Returns (launches of the quantized forward, launches of the
+    stochastic quantizers, printed numbers)."""
+    V = model.config.vocab_size
+    rng = np.random.default_rng(10)
+    ids = torch.from_numpy(rng.integers(0, V, (1, 512))).cuda()
+    calib = [torch.from_numpy(rng.integers(0, V, (1, 512))).cuda()
+             for _ in range(2)]
+    w_ffn = model.llama.layers[0].mlp.gate_proj.weight.detach().float()
+    with torch.inference_mode():
+        logits_bf16 = model(ids).float()
+    bf16_ms = forward_ms(model, ids)
+    bf16_bytes = weight_bytes(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ptq = tq.PostTrainingQuantization(model, algo="abs_max")
+    ptq.quantize(calib)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    n_int8 = sum(isinstance(m, tq.Int8Linear) for m in model.modules())
+    log(f"  PostTrainingQuantization(abs_max) on 2 x [1, 512]: {n_int8} "
+        f"Int8Linear, {len(ptq.activation_ranges)} activation ranges, "
+        f"{ptq_s:.1f} s")
+    if n_int8 != 7 * model.config.num_hidden_layers + 1:
+        raise AssertionError(f"{n_int8} Int8Linear after PTQ")
+    torch.cuda.empty_cache()
+    int8_bytes = weight_bytes(model)
+    with torch.inference_mode():
+        model(ids)                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        im.int8_matmul_rescale.launches = 0
+        fa.flash_attention.launches = 0
+        logits = model(ids)
+        torch.cuda.synchronize()
+    launches = {"int8_matmul_rescale": im.int8_matmul_rescale.launches,
+                "flash_attention_fwd": fa.flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    # the same forward with the int8 kernel's plain version swapped in
+    kernel = im.int8_matmul_rescale
+    im.int8_matmul_rescale = (
+        lambda xq, xs, wq, ws, *, out_dtype=torch.bfloat16, **kw:
+        im.int8_matmul_rescale_reference(xq, xs, wq, ws, out_dtype))
+    try:
+        with torch.inference_mode():
+            logits_plain = model(ids)
+        torch.cuda.synchronize()
+    finally:
+        im.int8_matmul_rescale = kernel
+    same = same_bits(logits, logits_plain)
+    int8_ms = forward_ms(model, ids)
+    top1 = (logits.float().argmax(-1) == logits_bf16.argmax(-1)).float()
+    out = dict(
+        launches=launches, logits=list(logits.shape),
+        finite=bool(torch.isfinite(logits).all()),
+        plain_int8_bit_identical=same,
+        rel_err_vs_bf16=rel_err(logits, logits_bf16),
+        top1_agreement_vs_bf16=top1.mean().item(),
+        bf16_forward_ms=bf16_ms, int8_forward_ms=int8_ms,
+        weight_bytes_bf16=bf16_bytes, weight_bytes_int8=int8_bytes,
+        peak_gib_int8_forward=peak / 2**30, ptq_s=ptq_s)
+    log(f"  quantized forward: launches {launches}, finite "
+        f"{out['finite']}, bit-identical with the plain int8 version "
+        f"{same}; rel err vs bf16 {out['rel_err_vs_bf16']:.4f}, top-1 "
+        f"agreement {out['top1_agreement_vs_bf16']:.4f}; forward int8 "
+        f"{int8_ms:.2f} ms vs bf16 {bf16_ms:.2f} ms; weights "
+        f"{int8_bytes / 2**30:.2f} vs {bf16_bytes / 2**30:.2f} GiB; peak "
+        f"{peak / 2**30:.2f} GiB")
+    want = {"int8_matmul_rescale": n_int8,
+            "flash_attention_fwd": model.config.num_hidden_layers}
+    if launches != want:
+        raise AssertionError(f"quantized forward launched {launches}, want "
+                             f"{want}")
+    if not (out["finite"] and same):
+        raise AssertionError("quantized logits not finite, or not the plain "
+                             "int8 version's")
+
+    def fwd():
+        with torch.inference_mode():
+            model(ids)
+
+    out["profile"] = profile_step(fwd)
+    log("  profiled quantized forward " + json.dumps(out["profile"]))
+    # the public stochastic quantizers on a 7B FFN weight (fp32 copy of
+    # layer 0's gate_proj taken before PTQ)
+    sr.stochastic_round_bf16.launches = 0
+    sr.quantize_int8_stochastic.launches = 0
+    r = tq.stochastic_round(w_ffn, seed=1)
+    q, s = tq.quantize_int8_stochastic(w_ffn, seed=2)
+    torch.cuda.synchronize()
+    sr_launches = {"stochastic_round": sr.stochastic_round_bf16.launches,
+                   "quantize_int8_stochastic":
+                   sr.quantize_int8_stochastic.launches}
+    held = (sr_rounding_stats(w_ffn, r.view(torch.int16).long() & 0xFFFF)[0]
+            and q_rounding_stats(w_ffn, q, s)[0])
+    log(f"  stochastic_round / quantize_int8_stochastic on a "
+        f"{tuple(w_ffn.shape)} weight: launches {sr_launches}, outputs "
+        f"bracket x / |q s - x| < s: {held}")
+    if sr_launches != {"stochastic_round": 1, "quantize_int8_stochastic": 1} \
+            or not held:
+        raise AssertionError("the stochastic quantizers did not run their "
+                             "kernels once each, or rounded wrongly")
+    del logits, logits_plain, logits_bf16, w_ffn, r, q
+    torch.cuda.empty_cache()
+    return launches, sr_launches, out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timings
 # ---------------------------------------------------------------------------
 
-def phase_timings(fa, fd, fc, rm, flush):
+def phase_timings(fa, fd, fc, rm, im, sr, flush):
     TF = torch.nn.functional
     out = {}
     # flash decode at the engine's shape: S=8, H=n_kv=32, hd=128, bs=16
@@ -585,10 +903,17 @@ def phase_timings(fa, fd, fc, rm, flush):
     out.update(timings_fused_ce(fc, flush))
     out.update(timings_ragged(rm, flush))
     out.update(timings_ernie_attention(fa, flush))
+    out.update(timings_int8(im, flush))
+    out.update(timings_stochastic(sr, flush))
     for name, t in out.items():
+        lib = "none" if t["library_ms"] is None else \
+            f"{t['library_ms']:.4f} ms"
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+            + (f", _int_mm on a column-major wq "
+               f"{t['int_mm_col_major_ms']}, bf16 x @ w_deq "
+               f"{t['bf16_ms']:.4f} ms" if "bf16_ms" in t else ""))
     return out
 
 
@@ -601,25 +926,70 @@ def bound(byts, flops, peak_ops=PEAK_BF16_FLOPS):
                 bound_by="bytes" if b >= f else "operations")
 
 
-def bounds_still_to_port():
-    """Bounds of the TPU kernels not yet ported, at bench.py's shapes
-    (pure arithmetic, no card needed): the int8 matmul at M=256, K=8192,
-    N=8192 (int8 x, w; fp32 row and column scales; bf16 out; 1979e12
-    int8 OP/s), and the two stochastic-rounding kernels at 256 x 256
-    fp32 (``stochastic_round`` writes fp32, ``quantize_int8_stochastic``
-    int8 plus one fp32 scale)."""
-    M, K, N = 256, 8192, 8192
-    R = 256 * 256
-    return {
-        "int8_matmul_rescale": dict(
+def timings_int8(im, flush):
+    """The int8 kernel at bench.py's shape (M=256, K=N=8192) and at the 7B
+    FFN up and down shapes (M=512), bf16 out. Yardsticks: ``torch._int_mm``
+    (cuBLASLt int8 -> int32, no scale epilogue; never called by the port)
+    on the same operands (wq row-major, [K, N]) and on a column-major copy
+    of wq (the layout cuBLASLt's int8 kernels are written for), and the
+    bf16 product with the dequantized weight ``x @ w_deq`` (what the
+    dequant route runs, w_deq made beforehand). Bound: 1979e12 int8 OP/s;
+    bytes xq, wq, both scales, the bf16 out."""
+    out = {}
+    for name, M, K, N in (("bench", 256, 8192, 8192),
+                          ("up", 512, 4096, 11008),
+                          ("down", 512, 11008, 4096)):
+        xq, xs, wq, ws = int8_case(M, K, N, seed=K * 3 + N)
+        xb = (xq.float() * xs).to(torch.bfloat16)
+        wd = (wq.float() * ws).to(torch.bfloat16)
+        wq_cm = wq.t().contiguous().t()                # column-major
+        try:
+            lib = time_ms(lambda: torch._int_mm(xq, wq), flush)
+            lib_cm = time_ms(lambda: torch._int_mm(xq, wq_cm), flush)
+        except RuntimeError as e:             # a yardstick only
+            log(f"  torch._int_mm at M={M} K={K} N={N}: {e}")
+            lib = lib_cm = None
+        out[f"int8_matmul_rescale_{name}"] = dict(
+            ms=time_ms(lambda: im.int8_matmul_rescale(xq, xs, wq, ws),
+                       flush),
+            plain_ms=time_ms(lambda: im.int8_matmul_rescale_reference(
+                xq, xs, wq, ws), flush, reps=5),
+            library_ms=lib, int_mm_col_major_ms=lib_cm,
+            bf16_ms=time_ms(lambda: xb @ wd, flush),
             shape=f"M={M} K={K} N={N} int8 -> bf16",
             **bound(M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N,
-                    PEAK_INT8_OPS)),
-        "stochastic_round": dict(shape="256x256 fp32 -> fp32",
-                                 **bound(8 * R, 0)),
-        "quantize_int8_stochastic": dict(shape="256x256 fp32 -> int8",
-                                         **bound(5 * R + 4, 0)),
-    }
+                    PEAK_INT8_OPS))
+        del xq, xs, wq, ws, xb, wd, wq_cm
+    torch.cuda.empty_cache()
+    return out
+
+
+def timings_stochastic(sr, flush):
+    """The two stochastic kernels at bench.py's 256 x 256 and at a 7B FFN
+    weight (4096 x 11008), fp32 in. No single PyTorch call computes either
+    function (library none). Bounds in bytes, each input read once:
+    ``stochastic_round`` 4 B in + 2 B (bf16) out per element,
+    ``quantize_int8_stochastic`` 4 B in + 1 B out + the 4 B scale."""
+    out = {}
+    for R, C in SR_SHAPES:
+        x = torch.randn(R, C, device="cuda")
+        n = x.numel()
+        tag = "" if (R, C) == SR_SHAPES[-1] else "_small"
+        out["stochastic_round" + tag] = dict(
+            ms=time_ms(lambda: sr.stochastic_round_bf16(x, 1), flush),
+            plain_ms=time_ms(lambda: sr.stochastic_round_bf16_reference(
+                x, sr.random_bits(1, n, device="cuda")), flush, reps=5),
+            library_ms=None, shape=f"{R}x{C} fp32 -> bf16",
+            **bound(6 * n, 0))
+        out["quantize_int8_stochastic" + tag] = dict(
+            ms=time_ms(lambda: sr.quantize_int8_stochastic(x, 1), flush),
+            plain_ms=time_ms(lambda: sr.quantize_int8_stochastic_reference(
+                x, sr.random_bits(1, n, device="cuda")), flush, reps=5),
+            library_ms=None, shape=f"{R}x{C} fp32 -> int8",
+            **bound(5 * n + 4, 0))
+        del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def timings_bwd(fa, flush):
@@ -971,6 +1341,9 @@ def main():
     from paddle_tpu_torch.ops import flash_decode as fd
     from paddle_tpu_torch.ops import fused_ce as fc
     from paddle_tpu_torch.ops import ragged_matmul as rm
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.ops import stochastic_round as sr
+    from paddle_tpu_torch.nn import quant as tq
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.serving import Engine, ledger
@@ -992,7 +1365,7 @@ def main():
 
     # ---- 3. parity ----------------------------------------------------------
     log("[3] kernel parity against the plain versions")
-    errs = phase_parity(fa, fd, fc, rm)
+    errs = phase_parity(fa, fd, fc, rm, im, sr)
 
     # ---- 4. Llama-2-7B forward ---------------------------------------------
     t0 = time.perf_counter()
@@ -1008,6 +1381,13 @@ def main():
     log("[5] Engine(n_slots=8, max_len=512, block_size=16, "
         "flash_decode=True)")
     fd_launches = phase_engine(model, fa, fd, Engine, ledger)
+    torch.cuda.empty_cache()
+
+    # ---- 10. PTQ Llama-2-7B (phase 4's model) ------------------------------
+    log("[10] PTQ Llama-2-7B, 32 layers: PostTrainingQuantization -> "
+        "Int8Linear, the int8 kernel on every projection and the head")
+    q_launches, sr_launches, ptq = phase_ptq(model, fa, im, sr, tq)
+    log("  ptq " + json.dumps(ptq))
     del model
     torch.cuda.empty_cache()
 
@@ -1018,10 +1398,8 @@ def main():
     # ---- 7. timings ---------------------------------------------------------
     log("[7] timings (median of 20, L2 flushed)")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    t = phase_timings(fa, fd, fc, rm, flush)
+    t = phase_timings(fa, fd, fc, rm, im, sr, flush)
     log("  timings " + json.dumps(t))
-    log("  bounds of the kernels still to port "
-        + json.dumps(bounds_still_to_port()))
     del flush
     torch.cuda.empty_cache()
 
@@ -1083,6 +1461,29 @@ def main():
         **{k: t["ragged_group_matmul_up"][k] for k in cols},
         down={k: t["ragged_group_matmul_down"][k] for k in cols},
         dx={k: t["ragged_group_matmul_dx"][k] for k in cols}))
+    int8_cols = ("int_mm_col_major_ms", "bf16_ms")
+    kernels.append(dict(
+        name="int8_matmul_rescale", route="cuda",
+        source="paddle_tpu_torch/csrc/int8_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/int8_matmul.py:30",
+        launches=q_launches["int8_matmul_rescale"],
+        max_abs_err=errs["int8_matmul_rescale"],
+        max_err=errs["int8_matmul_rescale"],
+        **{k: t["int8_matmul_rescale_up"][k] for k in cols},
+        **{k: t["int8_matmul_rescale_up"][k] for k in int8_cols},
+        down={k: t["int8_matmul_rescale_down"][k]
+              for k in cols + int8_cols},
+        bench={k: t["int8_matmul_rescale_bench"][k]
+               for k in cols + int8_cols}))
+    for kname, line in (("stochastic_round", 60),
+                        ("quantize_int8_stochastic", 111)):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="paddle_tpu_torch/csrc/stochastic_round.cu",
+            replaces=f"paddle_tpu/nn/quant/__init__.py:{line}",
+            launches=sr_launches[kname], max_abs_err=errs[kname],
+            max_err=errs[kname], **{k: t[kname][k] for k in cols},
+            small={k: t[kname + "_small"][k] for k in cols}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print("nvidia-smi: " + smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@
 arrays keyed like the JAX package's ``state_dict`` — for example
 ``{k: np.asarray(v._data) for k, v in jax_model.state_dict().items()}`` —
 so both packages then compute the same function. Layouts are shared
-(``Linear.weight`` is ``[in, out]`` on both sides): no transposes.
+(``Linear.weight`` is ``[in, out]`` on both sides): no transposes. Any
+key the two modules share carries: quantized models' int8 ``qweight``
+(copied as int8, never through a float), their 0-d ``act_scale``, and
+QAT's ``*.inner.weight`` and ``*.act_fake_quant.{scale,initialized}``.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ def load_numpy_state_dict(model: torch.nn.Module, arrays: dict) -> None:
                              f"model's {tuple(t.shape)}")
     with torch.no_grad():
         for k, t in own.items():
-            # via float32: numpy has no bfloat16 (ml_dtypes arrays cast)
+            # bfloat16 (an ml_dtypes array: numpy has none) goes via
+            # float32, exactly; every other dtype, int8 included, as it is
             a = np.asarray(arrays[k])
             if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
                 a = a.astype(np.float32)

@@ -13,7 +13,11 @@ scoring runs it under ``torch.inference_mode()`` (the serving engine
 does), training runs it with gradients. With ``labels`` it returns the
 next-token mean CE: dense (fp32 logits through ``F.cross_entropy``), or,
 when ``fused_ce_chunk > 0`` and the head is not tied, through
-``F.fused_linear_cross_entropy`` without the ``[N, vocab]`` logits.
+``F.fused_linear_cross_entropy`` without the ``[N, vocab]`` logits. The
+logits and the dense CE call the ``lm_head`` module (as the JAX
+``_logits`` does), so a head swapped by ``nn.quant`` runs quantized; the
+fused head and the serving engine read ``lm_head.weight``, as in the JAX
+package.
 ``remat=True``/``"full"`` recomputes each decoder layer in the backward
 (``torch.utils.checkpoint``); ``"selective"`` keeps the matmul outputs
 and recomputes the rest, as the JAX package's
@@ -214,6 +218,13 @@ class LlamaForCausalLM(nn.Module):
             return self.llama.embed_tokens.weight.t()
         return self.lm_head.weight
 
+    def _logits(self, hidden):
+        """The head applied to ``hidden``: the tied embedding's transpose,
+        or the ``lm_head`` module itself, so a head swapped by quantization
+        (``Int8Linear``, QAT's ``QuantizedLinear``) takes part."""
+        return hidden @ self.head_weight() if self.tie else \
+            self.lm_head(hidden)
+
     def forward(self, input_ids, labels=None):
         """input_ids [B, L] -> logits [B, L, vocab] in the model dtype; with
         labels [B, L], the mean CE of the logits at t against the labels
@@ -221,14 +232,14 @@ class LlamaForCausalLM(nn.Module):
         ids = torch.as_tensor(input_ids, device=self.device).long()
         hidden = self.llama(ids)
         if labels is None:
-            return hidden @ self.head_weight()
+            return self._logits(hidden)
         labels = torch.as_tensor(labels, device=self.device).long()
         if self.config.fused_ce_chunk and not self.tie:
             # the [N, vocab] fp32 logits never materialize
             return F.fused_linear_cross_entropy(
                 hidden[:, :-1], self.lm_head.weight, labels[:, 1:],
                 chunk_size=self.config.fused_ce_chunk)
-        logits = hidden @ self.head_weight()
+        logits = self._logits(hidden)
         return F.cross_entropy(
             logits[:, :-1].reshape(-1, self.config.vocab_size).float(),
             labels[:, 1:].reshape(-1))

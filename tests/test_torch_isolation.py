@@ -2,9 +2,10 @@
 
 ``paddle_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any
 module of the JAX package (even those that do not import JAX): checked by
-an AST scan and by serving a request and taking Llama and ERNIE-MoE train
-steps in a process where importing either fails. Entry points default to
-CUDA and raise when it is absent.
+an AST scan and by serving a request, taking Llama and ERNIE-MoE train
+steps, and quantizing and running a tiny Llama and both stochastic
+quantizers in a process where importing either fails. Entry points
+default to CUDA and raise when it is absent.
 """
 import ast
 import os
@@ -139,6 +140,45 @@ def test_trains_ernie_moe_with_jax_unimportable():
         ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
         losses = [float(step(ids, ids)) for _ in range(3)]
         assert losses[2] < losses[0], losses
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
+
+
+def test_quantizes_a_model_with_jax_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import dataclasses
+        import numpy as np
+        import torch
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.nn import quant
+        from paddle_tpu_torch.text.models.llama import (LLAMA_TINY,
+                                                        LlamaForCausalLM)
+        pt.seed(0)
+        m = LlamaForCausalLM(dataclasses.replace(LLAMA_TINY,
+                                                 dtype="float32",
+                                                 num_hidden_layers=1),
+                             device="cpu")
+        rng = np.random.default_rng(0)
+        quant.PostTrainingQuantization(m).quantize(
+            [rng.integers(0, 1024, (1, 16)) for _ in range(2)])
+        assert isinstance(m.lm_head, quant.Int8Linear)
+        with torch.inference_mode():
+            logits = m(rng.integers(0, 1024, (1, 16)))
+        assert torch.isfinite(logits).all() and logits.shape == (1, 16, 1024)
+        w = torch.randn(8, 16)
+        assert quant.stochastic_round(w, seed=1).dtype == torch.bfloat16
+        q, s = quant.quantize_int8_stochastic(w, seed=2)
+        assert q.dtype == torch.int8 and s.shape == (1, 1)
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK")
