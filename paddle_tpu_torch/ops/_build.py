@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled at
-first use with ``nvcc`` for Hopper (``sm_90a``) into a shared library
-under ``build/kernels/`` at the root of the checkout (listed in
+Each ``csrc/<name>.cu`` exposes plain C entry points (the tensor-core
+kernels share the inline-PTX helpers of ``csrc/hopper.cuh``). It is
+compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library under ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``) and loaded with ``ctypes``. No PyTorch headers are
 included, so a build takes seconds, not the minutes that
 ``torch.utils.cpp_extension.load`` would.
@@ -45,9 +46,12 @@ def _lib_path(name) -> Path:
 
 
 def _stale(name) -> bool:
+    """Missing, or older than its source or a shared header of csrc/."""
     so = _lib_path(name)
-    return (not so.exists() or not _log_path(name).exists()
-            or so.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not so.exists() or not _log_path(name).exists():
+        return True
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return so.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def _log_path(name) -> Path:

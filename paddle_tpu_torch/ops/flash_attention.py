@@ -11,7 +11,10 @@ layout ``[B, L, H, D]``; the kernels read q/k/v/dO through their strides
 
 - ``flash_attention(q, k, v, causal, scale) -> (out, lse)``: the forward
   kernel; ``lse`` is ``[B, Hq, Lq]`` fp32 (``MASK_VALUE`` on fully masked
-  rows, whose ``out`` is 0).
+  rows, whose ``out`` is 0). It has two variants, chosen before the launch
+  by ``_variant`` from dtype, strides and alignment: ``"tc"`` (bf16 on the
+  tensor cores, fed by TMA) and ``"cuda_core"`` (fp32, and bf16 operands
+  TMA cannot read); ``flash_attention.launches_by_variant`` counts each.
 - ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv``: the two
   backward kernels. Both recompute ``p = exp(s - lse)`` and
   ``ds = p * (dO.V^T - delta) * scale`` from the saved ``lse`` and
@@ -51,6 +54,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _BWD_TAIL = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_FWD_ENTRY = {"tc": "flash_attention_fwd_tc",
+              "cuda_core": "flash_attention_fwd"}
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _BWD_TAIL
 _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _BWD_TAIL
 
@@ -126,27 +131,49 @@ def _check(q, k, v):
                              "contiguous")
 
 
+def _tma_ready(t):
+    """A bf16 ``[B, L, H, D]`` operand TMA can read as a 4-d tensor map:
+    16-byte aligned base, element strides that are multiples of 8 (16
+    bytes), nested as head inside sequence inside batch."""
+    B, L, H, D = t.shape
+    sb, sl, sh, sd = t.stride()
+    return (t.data_ptr() % 16 == 0 and sd == 1
+            and all(x % 8 == 0 for x in (sb, sl, sh))
+            and sh >= D and sl >= H * sh and sb >= L * sl)
+
+
+def _variant(q, k, v):
+    """The forward variant for these operands: ``"tc"`` (the bf16
+    tensor-core kernel) when all three are bf16 and TMA-readable, else
+    ``"cuda_core"`` (every fp32 call: the tensor cores would round fp32 to
+    TF32)."""
+    if q.dtype == torch.bfloat16 and all(_tma_ready(t) for t in (q, k, v)):
+        return "tc"
+    return "cuda_core"
+
+
 def flash_attention(q, k, v, causal=False, scale=None):
     """Flash attention forward on ``[B, L, H, D]``. Returns
     ``(out, lse)``; not differentiable (see ``flash_attention_fn``)."""
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     _check(q, k, v)
+    variant = _variant(q, k, v)
     B, Lq, Hq, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     scale = _default_scale(scale, D)
     out = torch.empty((B, Lq, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
-    fn = _build.load("flash_attention_fwd", "flash_attention_fwd",
-                     _ARGTYPES)
+    fn = _build.load("flash_attention_fwd", _FWD_ENTRY[variant], _ARGTYPES)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), B, Lq, Lk, Hq, Hkv, D, *strides,
                  1 if causal else 0, scale, _DTYPES[q.dtype],
                  torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_attention_fwd")
+    _build.check(err, _FWD_ENTRY[variant])
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return out, lse
 
 
@@ -329,5 +356,6 @@ def flash_attention_fn(q, k, v, causal=False, scale=None):
 
 #: kernel launches since the count was last reset (CPU calls not counted)
 flash_attention.launches = 0
+flash_attention.launches_by_variant = {"tc": 0, "cuda_core": 0}
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0

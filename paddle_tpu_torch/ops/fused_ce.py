@@ -7,6 +7,11 @@ Counterpart of ``paddle_tpu/ops/pallas/fused_ce.py`` (single-device part):
   log-sum-exp triple of ``hidden @ w`` (``nll = log(s) + m - lab``); the
   logits exist only as a register tile. ``fused_ce_stats_reference`` is
   its plain version (the same online log-sum-exp over vocabulary chunks).
+  Two variants, chosen before the launch by ``_variant`` from dtype,
+  strides and alignment: ``"tc"`` (bf16 on the tensor cores, fed by TMA)
+  and ``"cuda_core"`` (fp32, and bf16 operands TMA cannot read, such as a
+  vocabulary of 301 or 50257 columns); ``fused_ce_stats.launches_by_variant``
+  counts each.
 - ``fused_ce_loss(hidden, w, labels, chunk_size)``: the mean CE as a
   ``torch.autograd.Function`` (the JAX ``custom_vjp``). Its backward
   re-walks the vocabulary in ``chunk_size`` columns from the saved
@@ -35,7 +40,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
              + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3
              + [ctypes.c_int, ctypes.c_void_p])
-_ROWS, _COLS = 32, 128            # the kernel's row tile and column tile
+_ROWS, _COLS = 32, 128    # the CUDA-core kernel's row and column tiles
+_ENTRY = {"tc": "fused_ce_stats_tc", "cuda_core": "fused_ce_stats"}
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
@@ -92,6 +98,32 @@ def _check(hidden, w, labels):
                              "contiguous")
 
 
+def _variant(hidden, w):
+    """The variant for these operands: ``"tc"`` (the bf16 tensor-core
+    kernel) when both are bf16 and TMA can read them as 2-d tensor maps
+    (16-byte aligned base, a row stride that is a multiple of 8 elements
+    and at least the row), else ``"cuda_core"`` (every fp32 call: the
+    tensor cores would round fp32 to TF32)."""
+    if hidden.dtype == torch.bfloat16 and all(
+            t.data_ptr() % 16 == 0 and t.stride(1) == 1
+            and t.stride(0) % 8 == 0 and t.stride(0) >= t.shape[1]
+            for t in (hidden, w)):
+        return "tc"
+    return "cuda_core"
+
+
+def _splits(variant, N, V, device):
+    """Vocabulary splits. CUDA cores: enough (row tile, split) blocks for
+    ~4 per SM. Tensor cores (one block per SM): 4 vocabulary tiles per
+    block, so the grid is many waves deep and its last wave short."""
+    tiles = -(-V // _COLS)
+    if variant == "tc":
+        return -(-tiles // 4)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row_tiles = -(-N // _ROWS)
+    return max(1, min(tiles, -(-4 * sms // row_tiles)))
+
+
 def fused_ce_stats(hidden, w, labels, vocab_offset=0):
     """Online-logsumexp stats of ``hidden @ w`` against ``labels``:
     ``(m, s, lab)``, each fp32 ``[N]``."""
@@ -101,14 +133,12 @@ def fused_ce_stats(hidden, w, labels, vocab_offset=0):
     N, H = hidden.shape
     V = w.shape[1]
     lbl = labels.to(torch.int64).contiguous()
-    # vocabulary splits: enough (row tile, split) blocks for ~4 per SM
-    sms = torch.cuda.get_device_properties(hidden.device).multi_processor_count
-    row_tiles = -(-N // _ROWS)
-    splits = max(1, min(-(-V // _COLS), -(-4 * sms // row_tiles)))
+    variant = _variant(hidden, w)
+    splits = _splits(variant, N, V, hidden.device)
     part = torch.empty((splits, 3, N), dtype=torch.float32,
                        device=hidden.device)
     out = torch.empty((3, N), dtype=torch.float32, device=hidden.device)
-    fn = _build.load("fused_ce", "fused_ce_stats", _ARGTYPES)
+    fn = _build.load("fused_ce", _ENTRY[variant], _ARGTYPES)
     with torch.cuda.device(hidden.device):
         err = fn(hidden.data_ptr(), w.data_ptr(), lbl.data_ptr(),
                  part.data_ptr(), splits, out[0].data_ptr(),
@@ -116,8 +146,9 @@ def fused_ce_stats(hidden, w, labels, vocab_offset=0):
                  hidden.stride(0), w.stride(0), int(vocab_offset),
                  _DTYPES[hidden.dtype],
                  torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "fused_ce_stats")
+    _build.check(err, _ENTRY[variant])
     fused_ce_stats.launches += 1
+    fused_ce_stats.launches_by_variant[variant] += 1
     return out[0], out[1], out[2]
 
 
@@ -178,3 +209,4 @@ def fused_ce_reference(hidden, w, labels):
 
 #: kernel launches since the count was last reset (CPU calls not counted)
 fused_ce_stats.launches = 0
+fused_ce_stats.launches_by_variant = {"tc": 0, "cuda_core": 0}

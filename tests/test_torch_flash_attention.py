@@ -64,3 +64,38 @@ def test_sdpa_on_cpu_takes_the_plain_path_and_matches_jax_composite():
     want = _xla_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                      causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _bf16(*shape):
+    return torch.empty(*shape, dtype=torch.bfloat16)
+
+
+def test_variant_rule_main_path_bf16_takes_the_tensor_cores():
+    """``_variant`` reads dtype, strides and alignment only, so it runs on
+    CPU tensors: the main path's bf16 operands take the tensor cores."""
+    llama = _bf16(2, 2048, 32, 128)                 # Llama-2-7B trainer
+    assert fa._variant(llama, llama, llama) == "tc"
+    assert fa._variant(*(_bf16(1, 512, 32, 128),) * 3) == "tc"   # forward
+    # ERNIE-MoE: q, k, v split from one fused projection [B, L, 3 * 1024]
+    q, k, v = (t.reshape(8, 1024, 16, 64)
+               for t in _bf16(8, 1024, 3 * 1024).split(1024, dim=-1))
+    assert not q.is_contiguous() and fa._variant(q, k, v) == "tc"
+    gqa = _bf16(1, 512, 8, 128)                      # GQA group 4
+    assert fa._variant(llama[:1, :512], gqa, gqa) == "tc"
+
+
+def test_variant_rule_unbind_views_take_the_tensor_cores():
+    q, k, v = _bf16(2, 128, 3, 4, 64).unbind(2)
+    assert fa._variant(q, k, v) == "tc"
+
+
+def test_variant_rule_fp32_and_unreadable_bf16_take_the_cuda_cores():
+    x = torch.empty(1, 256, 4, 128)
+    assert fa._variant(x, x, x) == "cuda_core"       # fp32: no TF32
+    off = _bf16(1, 256, 4, 136)[..., 1:129]          # base 2 bytes off 16
+    assert fa._variant(off, off, off) == "cuda_core"
+    ok = _bf16(1, 256, 4, 128)
+    odd = _bf16(1, 256, 4, 130)[..., :128]           # head stride 130
+    assert fa._variant(ok, odd, ok) == "cuda_core"
+    heads_first = _bf16(1, 4, 256, 128).transpose(1, 2)   # not nested
+    assert fa._variant(heads_first, ok, ok) == "cuda_core"

@@ -116,3 +116,27 @@ def test_cross_entropy_with_ignore_index_matches_jax(reduction):
     with pytest.raises(NotImplementedError, match="long tail"):
         F.cross_entropy(torch.from_numpy(x), torch.from_numpy(lab),
                         label_smoothing=0.1)
+
+
+def test_variant_rule_picks_the_tensor_cores_for_the_trainer_head():
+    """``_variant`` reads dtype, strides and alignment only (CPU tensors
+    here): the trainer head's bf16 hidden [4094, 4096] and w [4096, 32000]
+    take the tensor cores, fp32 the CUDA cores."""
+    h = torch.empty(4094, 4096, dtype=torch.bfloat16)
+    w = torch.empty(4096, 32000, dtype=torch.bfloat16)
+    assert tfc._variant(h, w) == "tc"
+    assert tfc._variant(h.float(), w[:8].float()) == "cuda_core"
+    # a 16-byte aligned vocabulary shard of a larger w
+    assert tfc._variant(h, w[:, 8000:16000]) == "tc"
+
+
+@pytest.mark.parametrize("V", [301, 50257])
+def test_variant_rule_unaligned_vocab_takes_the_cuda_cores(V):
+    """A row stride that is not a multiple of 16 bytes (the card test's
+    V=301, GPT-2's 50257) cannot go through TMA; small H, as the rule
+    reads only strides."""
+    h = torch.empty(64, 32, dtype=torch.bfloat16)
+    assert tfc._variant(h, torch.empty(32, V, dtype=torch.bfloat16)) == \
+        "cuda_core"
+    assert tfc._variant(h[:, 1:17], torch.empty(
+        16, 512, dtype=torch.bfloat16)) == "cuda_core"   # base off 16 bytes

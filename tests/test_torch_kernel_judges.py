@@ -1,0 +1,125 @@
+"""The parity judges of ``chip_smoke.py`` phase 3 for the flash-attention
+forward and the fused-CE stats, held on CPU tensors at small sizes to what
+they must do: pass the plain version (and a tiled, online computation with
+the kernel's rounding), and fail every planted fault made from the plain
+version.
+
+- forward (``judge_forward``): ``||got - want|| / ||want||`` of out over
+  all rows and over the last quarter of the rows, 1e-2 in bf16 and 1e-4 in
+  fp32, lse max-abs 1e-3 / 1e-4. Faults: the causal mask shifted by one
+  key; the last visible key tile of each 64-row block dropped.
+- fused CE (``judge_ce``): (m, s, lab) within rtol 1e-4 / atol 1e-3.
+  Faults: the last 128 vocabulary columns dropped; the label read one
+  column off.
+
+The judges import torch and numpy only; the card applies them to the
+kernels (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_ce as fc
+
+
+def _attn(rng, B, Lq, Lk, Hq, Hkv, D, dtype):
+    mk = (lambda L, H: torch.from_numpy(
+        rng.standard_normal((B, L, H, D)).astype(np.float32)).to(dtype))
+    return mk(Lq, Hq), mk(Lk, Hkv), mk(Lk, Hkv)
+
+
+def _tiled_online(q, k, v, causal, tile=64):
+    """The forward as the kernels compute it: 64-key tiles, a running max
+    and exp-sum, p rounded to v's dtype relative to the running max, O
+    rescaled per tile (a legitimate result the judge must pass)."""
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    mask_value = -0.7 * float(torch.finfo(torch.float32).max)
+    qh = q.transpose(1, 2).float()
+    kh = k.transpose(1, 2).repeat_interleave(group, 1).float()
+    vh = v.transpose(1, 2).repeat_interleave(group, 1)
+    mask = chip_smoke.causal_mask(Lq, Lk, causal, q.device)
+    m = torch.full((B, Hq, Lq, 1), mask_value)
+    l = torch.zeros(B, Hq, Lq, 1)
+    o = torch.zeros(B, Hq, Lq, D)
+    for k0 in range(0, Lk, tile):
+        mk = mask[:, k0:k0 + tile]
+        s = torch.matmul(qh, kh[:, :, k0:k0 + tile].transpose(-1, -2))
+        s = (s / D ** 0.5).masked_fill(~mk, mask_value)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new).masked_fill(~mk, 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.matmul(p.to(v.dtype).float(),
+                                     vh[:, :, k0:k0 + tile].float())
+        m = m_new
+    safe = torch.where(l > 0, l, torch.ones_like(l))
+    return (o / safe).to(q.dtype).transpose(1, 2), (m + torch.log(safe))[
+        ..., 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,D,causal", [
+    (1, 192, 192, 4, 4, 32, True),      # three 64-row blocks
+    (1, 160, 224, 4, 2, 32, True),      # Lq < Lk, GQA
+    (2, 200, 136, 2, 2, 16, True),      # Lq > Lk: fully masked rows
+    (1, 128, 200, 2, 1, 32, False),     # non-causal, ragged keys
+])
+def test_forward_judge_passes_the_plain_version_and_fails_the_faults(
+        dtype, B, Lq, Lk, Hq, Hkv, D, causal):
+    q, k, v = _attn(np.random.default_rng(Lq + Lk), B, Lq, Lk, Hq, Hkv, D,
+                    dtype)
+    want = fa.flash_attention(q, k, v, causal=causal)    # the plain version
+    # the faults' source reproduces the plain version with the right mask
+    same = chip_smoke.plain_attention(
+        q, k, v, chip_smoke.causal_mask(Lq, Lk, causal, q.device))
+    assert chip_smoke.judge_forward(*same, *want)[3]
+    rel, tail, lse_err, ok = chip_smoke.judge_forward(
+        *_tiled_online(q, k, v, causal), *want)
+    assert ok, (rel, tail, lse_err)
+    faults = chip_smoke.forward_faults(q, k, v, causal)
+    assert len(faults) == 2
+    for name, bad in faults.items():
+        assert not chip_smoke.judge_forward(*bad, *want)[3], name
+
+
+def test_forward_judge_sees_a_fault_in_the_late_rows_alone():
+    """The last quarter of the rows is judged on its own: zeroing it
+    fails the judge even where the norm over all rows would hide it
+    behind the large early rows."""
+    q, k, v = _attn(np.random.default_rng(0), 1, 512, 512, 2, 2, 32,
+                    torch.bfloat16)
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    bad = out.clone()
+    bad[:, -128:] = 0
+    rel, tail, _, ok = chip_smoke.judge_forward(bad, lse, out, lse)
+    assert not ok and tail > chip_smoke.FWD_REL_TOL[torch.bfloat16]
+
+
+def _ce(rng, N, H, V, dtype, offset):
+    h = torch.from_numpy(rng.standard_normal((N, H)).astype(np.float32))
+    w = torch.from_numpy(0.2 * rng.standard_normal((H, V)).astype(
+        np.float32))
+    lab = torch.from_numpy(rng.integers(offset, offset + V, N))
+    lab[0] = offset + V - 1                 # the last column
+    return h.to(dtype), w.to(dtype), lab
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,V,offset", [(64, 64, 1000, 0),
+                                          (33, 48, 333, 500)])
+def test_ce_judge_passes_the_plain_version_and_fails_the_faults(
+        dtype, N, H, V, offset):
+    h, w, lab = _ce(np.random.default_rng(N + V), N, H, V, dtype, offset)
+    want = fc.fused_ce_stats(h, w, lab, vocab_offset=offset)
+    # the same stats walked in 128-column chunks (another sum order)
+    tiled = fc.fused_ce_stats_reference(h, w, lab, offset, chunk=128)
+    errs, ok = chip_smoke.judge_ce(tiled, want)
+    assert ok, errs
+    faults = chip_smoke.ce_faults(fc, h, w, lab, offset)
+    assert len(faults) == 2
+    for name, bad in faults.items():
+        assert not chip_smoke.judge_ce(bad, want)[1], name
