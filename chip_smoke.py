@@ -8,20 +8,23 @@ failure raises and exits non-zero before the result line is printed:
 1. device: CUDA must be present; prints the card and its power limit;
 2. build: compiles every kernel of ``paddle_tpu_torch/csrc`` that is
    missing or older than its source (one nvcc per source, in parallel) and
-   prints ptxas' register/smem/spill lines from each kernel's build log;
+   prints ptxas' register/smem/spill lines from each kernel's build log
+   (a C7520 or C7512 warning there, wgmmas serialized, fails the run);
 3. parity: each kernel against its plain PyTorch version on the card at
    the main path's shapes (tolerances stated beside each case); the
-   flash forward and the fused CE under their judges (``judge_forward``:
-   relative norms of out over all rows and over the last quarter of the
-   rows, lse max-abs; ``judge_ce``), which must also reject planted
-   faults made from the plain versions (``forward_faults``,
-   ``ce_faults``), and each case must take the variant it should (bf16 on
-   the tensor cores, fp32 and unaligned bf16 on the CUDA cores);
+   flash forward, the flash backward and the fused CE under their judges
+   (``judge_forward``: relative norms of out over all rows and over the
+   last quarter of the rows, lse max-abs; ``judge_backward``: relative
+   norms of dq, dk and dv, likewise; ``judge_ce``), which must also reject
+   planted faults made from the plain versions (``forward_faults``,
+   ``backward_faults``, ``ce_faults``), and each case must take the
+   variant it should (bf16 on the tensor cores, fp32, unaligned bf16 and
+   the backward at D = 256 on the CUDA cores);
 4. Llama-2-7B forward at full width and depth (random seeded weights,
    bf16): ``model(ids[1, 512])`` must be finite, take the flash path and
    launch the flash-attention kernel once per layer, each launch on the
-   tensor cores (as must every flash-forward and fused-CE launch of
-   phases 8, 9 and 10);
+   tensor cores (as must every flash-forward, flash-backward and fused-CE
+   launch of phases 8, 9 and 10);
 5. the serving engine on the same model (``flash_decode=True``): 8
    staggered requests sharing a 64-token system prefix, 32 new tokens
    each; every request finishes, prefix blocks are shared, refcounts hold
@@ -30,8 +33,8 @@ failure raises and exits non-zero before the result line is printed:
    the gathered engines gives identical tokens;
 7. timings (CUDA events, L2 flushed, after warm-up) of each kernel, its
    plain version and a PyTorch library call, beside the card's bound;
-   the redesigned flash forward and fused CE also beside their first
-   (CUDA-core) versions;
+   the redesigned flash forward, flash backward (dq, dk/dv) and fused CE
+   also beside their first (CUDA-core) versions;
 8. training: Llama-2-7B widths cut to 8 layers (bf16, random seeded
    weights) through ``fleet.distributed_optimizer(AdamW)
    .make_train_step`` on one repeated 2 x 2048 batch with the fused LM
@@ -386,65 +389,205 @@ def parity_forward(fa):
     return {"flash_attention_fwd": err}
 
 
+BWD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def judge_backward(got, want):
+    """The flash backward's judge: ``||got - want|| / ||want||`` of each of
+    dq, dk and dv over all rows (keys) and separately over the last
+    quarter of them (with randn inputs an entry of row or key i has a
+    spread of about sqrt(e / i), 0.04 at i = 2048, so the late ones are the
+    small ones), below 1e-2 in bf16 (the output's bf16 rounding alone is
+    ~1e-3) and 1e-4 in fp32 (reduction order only, TF32 off); every entry
+    finite. ``got``/``want`` are (dq, dk, dv). Returns ([(rel_all,
+    rel_tail)] per gradient, ok)."""
+    tol = BWD_REL_TOL[want[0].dtype]
+    rels, ok = [], True
+    for g, w in zip(got, want):
+        n = w.shape[1]
+        tail = slice(n - max(1, n // 4), n)
+        r = (rel_err(g, w), rel_err(g[:, tail], w[:, tail]))
+        rels.append(r)
+        ok = ok and bool(torch.isfinite(g.float()).all()) and max(r) < tol
+    return rels, ok
+
+
+def plain_backward(q, k, v, dout, lse, delta, mask, keep_heads=None,
+                   scale=None):
+    """The plain backward's arithmetic (fp32 p = exp(s - lse) and ds, ds
+    and p rounded to the operands' dtype before the products, fp32 sums)
+    under any [Lq, Lk] boolean mask; ``keep_heads`` ([Hq] bool) leaves
+    query heads out of dk/dv's group sum. The source of the backward's
+    planted faults. Returns (dq, dk, dv)."""
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / D ** 0.5 if scale is None else scale
+
+    def heads(x, rep=1):
+        return x.transpose(1, 2).repeat_interleave(rep, dim=1).float()
+
+    s = torch.matmul(heads(q), heads(k, group).transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.matmul(heads(dout), heads(v, group).transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(ds.to(k.dtype).float(), heads(k, group))
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), heads(q))
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2),
+                      heads(dout))
+    if keep_heads is not None:
+        w = keep_heads.to(dk.dtype)[None, :, None, None]
+        dk, dv = dk * w, dv * w
+    dk = dk.reshape(B, Hkv, group, Lk, D).sum(2)
+    dv = dv.reshape(B, Hkv, group, Lk, D).sum(2)
+    return (dq.to(q.dtype).transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
+            dv.to(v.dtype).transpose(1, 2))
+
+
+def backward_faults(q, k, v, dout, lse, delta, causal, want, tile=64):
+    """Planted faults of the backward, from the plain version (``want`` is
+    the right (dq, dk, dv)): the causal mask shifted by one key (in a
+    non-causal case the last key hidden instead); the last visible
+    ``tile``-key tile of each ``tile``-row block dropped from dq; the last
+    visible query tile of each ``tile``-key block dropped from dk/dv; the
+    last query head of each GQA group left out of dk/dv's sum. Returns
+    {name: (dq, dk, dv)}."""
+    Lq, Lk, Hq, Hkv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    dev = q.device
+    mask = causal_mask(Lq, Lk, causal, dev)
+    if causal:
+        shifted = causal_mask(Lq, Lk, True, dev, shift=1)
+    else:
+        shifted = mask.clone()
+        shifted[:, -1] = False
+    no_key_tile = mask.clone()
+    for r0 in range(0, Lq, tile):
+        last = min(Lk - 1, r0 + tile - 1 + Lk - Lq) if causal else Lk - 1
+        if last >= 0:
+            t0 = last // tile * tile
+            no_key_tile[r0:r0 + tile, t0:t0 + tile] = False
+    # every key is seen by the last query row, so each key block's last
+    # visible query tile is the last one
+    no_query_tile = mask.clone()
+    r0 = (Lq - 1) // tile * tile
+    for c0 in range(0, Lk, tile):
+        no_query_tile[r0:, c0:c0 + tile] = False
+    keep = torch.ones(Hq, dtype=torch.bool, device=dev)
+    keep[Hq // Hkv - 1::Hq // Hkv] = False
+
+    def plain(m, keep_heads=None):
+        return plain_backward(q, k, v, dout, lse, delta, m, keep_heads)
+
+    return {
+        "causal mask shifted by one key": plain(shifted),
+        "last visible key tile of each 64-row block dropped from dq":
+            (plain(no_key_tile)[0], want[1], want[2]),
+        "last visible query tile of each 64-key block dropped from dk/dv":
+            (want[0], *plain(no_query_tile)[1:]),
+        "one query head of each GQA group left out of dk/dv":
+            (want[0], *plain(mask, keep)[1:])}
+
+
+def check_backward_faults(q, k, v, dout, lse, delta, causal, want):
+    """Every planted fault of backward_faults must fail judge_backward."""
+    for name, bad in backward_faults(q, k, v, dout, lse, delta, causal,
+                                     want).items():
+        rels, ok = judge_backward(bad, want)
+        log(f"  planted fault ({name}): dq/dk/dv rel_err "
+            + " / ".join(f"{a:.3e} (last quarter {b:.3e})" for a, b in rels)
+            + f": {'PASSES (bad)' if ok else 'fails, as it must'}")
+        if ok:
+            raise AssertionError("the backward judge does not see a planted "
+                                 "fault")
+
+
+# (what, B, Lq, Lk, Hq, Hkv, D, causal, dtype, the variant it must take);
+# the bf16 cases hit the tensor-core kernels' tile edges: ragged lengths,
+# fully masked rows, GQA, every head dim, causal offsets of +-64 (a block's
+# two warpgroups need different numbers of tiles; in the causal cases the
+# dk/dv block's two warpgroups mostly start at different query tiles),
+# strided and misaligned operands
+BWD_CASES = (
+    ("trainer", 2, 2048, 2048, 32, 32, 128, True, torch.bfloat16, "tc"),
+    ("GQA group 4", 1, 512, 512, 32, 8, 128, True, torch.bfloat16, "tc"),
+    ("ragged, Lq < Lk", 1, 200, 328, 8, 2, 128, True, torch.bfloat16, "tc"),
+    ("masked rows", 1, 160, 96, 8, 8, 128, True, torch.bfloat16, "tc"),
+    ("Lk - Lq = 64", 1, 256, 320, 8, 8, 128, True, torch.bfloat16, "tc"),
+    ("Lq - Lk = 64, GQA", 1, 384, 320, 8, 2, 128, True, torch.bfloat16,
+     "tc"),
+    ("D=64", 2, 300, 300, 8, 8, 64, True, torch.bfloat16, "tc"),
+    ("D=64 non-causal, GQA", 1, 333, 333, 8, 2, 64, False, torch.bfloat16,
+     "tc"),
+    ("D=32 non-causal", 1, 200, 200, 4, 4, 32, False, torch.bfloat16, "tc"),
+    ("D=256, group 4", 1, 300, 300, 4, 1, 256, True, torch.bfloat16,
+     "cuda_core"),
+    ("strided qkv", 2, 333, 333, 8, 8, 128, True, torch.bfloat16, "tc"),
+    ("misaligned", 1, 256, 256, 4, 4, 128, True, torch.bfloat16,
+     "cuda_core"),
+    ("fp32", 1, 384, 512, 8, 8, 128, True, torch.float32, "cuda_core"))
+
+
+def run_backward(fa, q, k, v, do, lse, delta, causal):
+    """dq, dk, dv through the two backward wrappers, and the variant each
+    launched (one launch each)."""
+    dq, dq_var = launched_variant(
+        fa.flash_attention_bwd_dq,
+        lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal))
+    (dk, dv), dkv_var = launched_variant(
+        fa.flash_attention_bwd_dkv,
+        lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+    return (dq, dk, dv), (dq_var, dkv_var)
+
+
 def parity_bwd(fa):
-    """dq and dk/dv kernels against their plain versions, from the
-    forward kernel's (out, lse), each gradient judged at its own scale:
-    ``||got - want|| / ||want||`` below 1e-2 in bf16 (the output's bf16
-    rounding alone is ~1e-3) and 1e-4 in fp32 (reduction order only, TF32
-    off). An absolute limit cannot do this: with randn inputs an entry of
-    row or key i has a spread of about sqrt(e / i), 0.04 at i = 2048, so
-    the late rows are small. At the trainer's shape a planted fault (half
-    of dq's rows, or of dk's keys, zeroed) must trip the check."""
+    """dq and dk/dv kernels against their plain versions under
+    judge_backward, from the forward kernel's (out, lse), at BWD_CASES,
+    each kernel taking the variant it must; fully masked rows (Lq > Lk,
+    causal) must give exactly 0 in dq. At the trainer's shape every planted
+    fault of backward_faults must fail the same judge."""
     errs = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
-    for (B, Lq, Lk, Hq, Hkv, dtype, tol, what) in (
-            (2, 2048, 2048, 32, 32, torch.bfloat16, 1e-2, "trainer"),
-            (1, 512, 512, 32, 8, torch.bfloat16, 1e-2, "GQA"),
-            (1, 200, 328, 8, 2, torch.bfloat16, 1e-2, "ragged, Lq < Lk"),
-            (1, 160, 96, 8, 8, torch.bfloat16, 1e-2, "masked rows"),
-            (1, 384, 512, 8, 8, torch.float32, 1e-4, "fp32")):
-        q, k, v = attn_case(B, Lq, Lk, Hq, Hkv, 128, dtype, seed=Lq + 7)
-        do = attn_case(B, Lq, Lq, Hq, Hq, 128, dtype, seed=Lq + 8)[0]
-        out, lse = fa.flash_attention(q, k, v, causal=True)
+    for case in BWD_CASES:
+        what, B, Lq, Lk, Hq, Hkv, D, causal, dtype, variant = case
+        q, k, v = fwd_inputs(what, B, Lq, Lk, Hq, Hkv, D, dtype,
+                             seed=Lq + 7)
+        do = fwd_inputs(what, B, Lq, Lq, Hq, Hq, D, dtype, seed=Lq + 8)[0]
+        out, lse = fa.flash_attention(q, k, v, causal=causal)
         delta = fa.attention_delta(out, do)
-        got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
-               *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+        got, took = run_backward(fa, q, k, v, do, lse, delta, causal)
         want = (fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                    True),
+                                                    causal),
                 *fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
-                                                      delta, True))
+                                                      delta, causal))
         torch.cuda.synchronize()
         e = [(g.float() - w.float()).abs().max().item()
              for g, w in zip(got, want)]
-        r = [rel_err(g, w) for g, w in zip(got, want)]
-        ok = all(bool(torch.isfinite(g).all()) and x < tol
-                 for g, x in zip(got, r))
-        if Lq > Lk:
-            ok = ok and bool((got[0][:, :Lq - Lk] == 0).all())
+        rels, ok = judge_backward(got, want)
+        ok = ok and took == (variant, variant)
+        zeros = None
+        if causal and Lq > Lk:
+            zeros = bool((got[0][:, :Lq - Lk] == 0).all())
+            ok = ok and zeros
         log(f"  flash_attention_bwd [{what}] B={B} Lq={Lq} Lk={Lk} Hq={Hq} "
-            f"Hkv={Hkv} {dtype}: dq/dk/dv rel_err {r[0]:.3e}/{r[1]:.3e}/"
-            f"{r[2]:.3e} (tol {tol}), max_abs_err {e[0]:.3e}/{e[1]:.3e}/"
-            f"{e[2]:.3e} {'ok' if ok else 'FAIL'}")
+            f"Hkv={Hkv} D={D} {'causal' if causal else 'full'} {dtype}: "
+            f"variants dq {took[0]} / dk/dv {took[1]} (want {variant}), "
+            f"dq/dk/dv rel_err "
+            + " / ".join(f"{a:.3e} (last quarter {b:.3e})" for a, b in rels)
+            + f" (tol {BWD_REL_TOL[dtype]}), max_abs_err {e[0]:.3e}/"
+            f"{e[1]:.3e}/{e[2]:.3e}"
+            + ("" if zeros is None else f", masked rows of dq exactly 0 "
+               f"{zeros}") + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("flash_attention backward disagrees with "
-                                 "its plain version")
+                                 "its plain version or took the wrong "
+                                 "variant")
         if what == "trainer":
-            planted = []
-            for i, axis in ((0, "rows"), (1, "keys")):
-                bad = got[i].clone()
-                bad[:, bad.shape[1] // 2:] = 0
-                planted.append(rel_err(bad, want[i]))
-            log(f"  planted fault (half of dq's rows / dk's keys zeroed): "
-                f"rel_err {planted[0]:.3e}/{planted[1]:.3e}, must exceed "
-                f"{tol}")
-            if min(planted) < tol:
-                raise AssertionError("the backward check does not see a "
-                                     "planted fault")
+            check_backward_faults(q, k, v, do, lse, delta, causal, want)
         errs["flash_attention_bwd_dq"] = max(
             errs["flash_attention_bwd_dq"], e[0])
         errs["flash_attention_bwd_dkv"] = max(
             errs["flash_attention_bwd_dkv"], e[1], e[2])
         del q, k, v, do, out, lse, delta, got, want
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -613,17 +756,17 @@ def parity_ragged(rm):
 
 def parity_ernie_attention(fa):
     """The flash forward, dq and dk/dv kernels at ERNIE-MoE's attention
-    shape (B=8, L=1024, H=16, D=64, non-causal, bf16) under the limits of
-    the Llama shapes above: the forward under judge_forward (on the
-    tensor-core variant), each gradient's relative norm 1e-2."""
+    shape (B=8, L=1024, H=16, D=64, non-causal, bf16) under the judges of
+    the Llama shapes above, all three on the tensor-core variants: the
+    forward under judge_forward, the backward under judge_backward, whose
+    planted faults must fail here too."""
     q, k, v = attn_case(8, 1024, 1024, 16, 16, 64, torch.bfloat16, seed=64)
     do = attn_case(8, 1024, 1024, 16, 16, 64, torch.bfloat16, seed=65)[0]
     (out, lse), took = launched_variant(
         fa.flash_attention, lambda: fa.flash_attention(q, k, v, False))
     rout, rlse = fa.flash_attention_reference(q, k, v, causal=False)
     delta = fa.attention_delta(out, do)
-    got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False),
-           *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False))
+    got, btook = run_backward(fa, q, k, v, do, lse, delta, False)
     want = (fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                                 False),
             *fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -631,19 +774,22 @@ def parity_ernie_attention(fa):
     torch.cuda.synchronize()
     oerr = (out.float() - rout.float()).abs().max().item()
     orel, otail, lerr, ok = judge_forward(out, lse, rout, rlse)
-    r = [rel_err(g, w) for g, w in zip(got, want)]
+    rels, bok = judge_backward(got, want)
     e = [(g.float() - w.float()).abs().max().item()
          for g, w in zip(got, want)]
-    ok = ok and took == "tc" and all(
-        bool(torch.isfinite(g).all()) and x < 1e-2 for g, x in zip(got, r))
+    ok = ok and bok and took == "tc" and btook == ("tc", "tc")
     log(f"  flash_attention [ERNIE] B=8 L=1024 H=16 D=64 non-causal bf16: "
         f"forward variant {took}, out rel_err {orel:.3e} / last quarter "
         f"{otail:.3e} (tol 1e-2), lse max_abs_err {lerr:.3e} (tol 1e-3), "
-        f"out max_abs_err {oerr:.3e}; dq/dk/dv rel_err {r[0]:.3e}/"
-        f"{r[1]:.3e}/{r[2]:.3e} (tol 1e-2) {'ok' if ok else 'FAIL'}")
+        f"out max_abs_err {oerr:.3e}; backward variants dq {btook[0]} / "
+        f"dk/dv {btook[1]}, dq/dk/dv rel_err "
+        + " / ".join(f"{a:.3e} (last quarter {b:.3e})" for a, b in rels)
+        + f" (tol 1e-2) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("flash attention disagrees with its plain "
-                             "version at the ERNIE shape")
+                             "version at the ERNIE shape or took the wrong "
+                             "variant")
+    check_backward_faults(q, k, v, do, lse, delta, False, want)
     del q, k, v, do, out, lse, rout, rlse, delta, got, want
     torch.cuda.empty_cache()
     return {"flash_attention_fwd": oerr, "flash_attention_bwd_dq": e[0],
@@ -1148,18 +1294,19 @@ def phase_timings(fa, fd, fc, rm, im, sr, flush):
 
 class forced_variant:
     """``with forced_variant(module, "cuda_core"):`` makes the module's
-    wrapper take that variant whatever the operands (phase 7 times the
-    first version beside the new one in the same run)."""
+    wrappers take that variant whatever the operands (phase 7 times the
+    first version beside the new one in the same run); ``rule`` names the
+    module's variant rule (``"_bwd_variant"`` for the flash backward)."""
 
-    def __init__(self, module, variant):
-        self.module, self.variant = module, variant
+    def __init__(self, module, variant, rule="_variant"):
+        self.module, self.variant, self.rule = module, variant, rule
 
     def __enter__(self):
-        self.saved = self.module._variant
-        self.module._variant = lambda *a: self.variant
+        self.saved = getattr(self.module, self.rule)
+        setattr(self.module, self.rule, lambda *a: self.variant)
 
     def __exit__(self, *exc):
-        self.module._variant = self.saved
+        setattr(self.module, self.rule, self.saved)
 
 
 def bound(byts, flops, peak_ops=PEAK_BF16_FLOPS):
@@ -1239,7 +1386,8 @@ def timings_stochastic(sr, flush):
 
 def timings_bwd(fa, flush):
     """The backward kernels at the trainer's attention shape (B=2, L=2048,
-    H=32, D=128, causal, bf16). Yardstick: the backward of
+    H=32, D=128, causal, bf16), the first (CUDA-core) versions beside the
+    tensor-core ones. Yardstick: the backward of
     TF.scaled_dot_product_attention (dq, dk and dv together), timed alone
     through autograd.grad on a retained graph."""
     TF = torch.nn.functional
@@ -1257,8 +1405,14 @@ def timings_bwd(fa, flush):
     elems = B * L * H * D
     reads = 4 * elems * 2 + 2 * B * H * L * 4      # q, k, v, dO; lse, delta
     shape = f"B={B} L={L} H={H} D={D} causal bf16"
+    with forced_variant(fa, "cuda_core", "_bwd_variant"):
+        first = [time_ms(lambda: fa.flash_attention_bwd_dq(
+                     q, k, v, do, lse, delta, True), flush, reps=5),
+                 time_ms(lambda: fa.flash_attention_bwd_dkv(
+                     q, k, v, do, lse, delta, True), flush, reps=5)]
     return {
         "flash_attention_bwd_dq": dict(
+            first_version_ms=first[0],
             ms=time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, True), flush),
             plain_ms=time_ms(lambda: fa.flash_attention_bwd_dq_reference(
@@ -1266,6 +1420,7 @@ def timings_bwd(fa, flush):
             library_ms=lib, shape=shape,
             **bound(reads + elems * 2, 6 * D * pairs)),
         "flash_attention_bwd_dkv": dict(
+            first_version_ms=first[1],
             ms=time_ms(lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, do, lse, delta, True), flush),
             plain_ms=time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
@@ -1350,6 +1505,11 @@ def timings_ernie_attention(fa, flush):
     shape = f"B={B} L={L} H={H} D={D} non-causal bf16"
     with forced_variant(fa, "cuda_core"):
         first = time_ms(lambda: fa.flash_attention(q, k, v), flush, reps=5)
+    with forced_variant(fa, "cuda_core", "_bwd_variant"):
+        first_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, False), flush, reps=5)
+        first_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, False), flush, reps=5)
     res = {
         "flash_attention_fwd": dict(
             first_version_ms=first,
@@ -1361,6 +1521,7 @@ def timings_ernie_attention(fa, flush):
             shape=shape, **bound(4 * elems * 2 + B * H * L * 4,
                                  4 * D * pairs)),
         "flash_attention_bwd_dq": dict(
+            first_version_ms=first_dq,
             ms=time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, False), flush),
             plain_ms=time_ms(lambda: fa.flash_attention_bwd_dq_reference(
@@ -1368,6 +1529,7 @@ def timings_ernie_attention(fa, flush):
             library_ms=lib_bwd, shape=shape,
             **bound(reads + elems * 2, 6 * D * pairs)),
         "flash_attention_bwd_dkv": dict(
+            first_version_ms=first_dkv,
             ms=time_ms(lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, do, lse, delta, False), flush),
             plain_ms=time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
@@ -1397,9 +1559,9 @@ def _counts(fa, fc, rm):
     """Launches per kernel, and for the kernels with variants the launches
     that took the tensor cores (``<name>_tc``)."""
     out = {k: f.launches for k, f in _counters(fa, fc, rm).items()}
-    out["flash_attention_fwd_tc"] = fa.flash_attention.launches_by_variant[
-        "tc"]
-    out["fused_ce_stats_tc"] = fc.fused_ce_stats.launches_by_variant["tc"]
+    for name, f in _counters(fa, fc, rm).items():
+        if hasattr(f, "launches_by_variant"):
+            out[name + "_tc"] = f.launches_by_variant["tc"]
     return out
 
 
@@ -1456,6 +1618,8 @@ def phase_train(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
                 flash_attention_bwd_dkv=cfg.num_hidden_layers,
                 fused_ce_stats=1, ragged_group_matmul=0,
                 flash_attention_fwd_tc=cfg.num_hidden_layers,
+                flash_attention_bwd_dq_tc=cfg.num_hidden_layers,
+                flash_attention_bwd_dkv_tc=cfg.num_hidden_layers,
                 fused_ce_stats_tc=1)
     losses, secs, per_step = [], [], []
     for i in range(4):                          # warm-up + 3 timed steps
@@ -1537,7 +1701,8 @@ def phase_ernie(fa, fc, rm, ErnieMoEConfig, ErnieMoEForPretraining, fleet,
     want = dict(flash_attention_fwd=n, flash_attention_bwd_dq=n,
                 flash_attention_bwd_dkv=n, fused_ce_stats=0,
                 ragged_group_matmul=4 * len(moes),    # 2 forward + 2 dx
-                flash_attention_fwd_tc=n, fused_ce_stats_tc=0)
+                flash_attention_fwd_tc=n, flash_attention_bwd_dq_tc=n,
+                flash_attention_bwd_dkv_tc=n, fused_ce_stats_tc=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, secs, per_step = [], [], []
@@ -1618,10 +1783,16 @@ def main():
     log(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
         f"(up to date: {sorted(set(_build.KERNELS) - set(built))})")
     for n in _build.KERNELS:
-        for line in _build.build_log(n).splitlines():
+        blog = _build.build_log(n)
+        for line in blog.splitlines():
             if any(s in line for s in ("registers", "spill", "smem",
-                                       "Compiling entry")):
+                                       "Compiling entry", "C75")):
                 log(f"  {n}: {line.strip()}")
+        # C7520 / C7512: ptxas serialized the wgmmas (a divergent path; too
+        # few registers)
+        if "C7520" in blog or "C7512" in blog:
+            raise AssertionError(f"{n}: ptxas serialized the wgmmas (see "
+                                 f"above)")
 
     # ---- 3. parity ----------------------------------------------------------
     log("[3] kernel parity against the plain versions")

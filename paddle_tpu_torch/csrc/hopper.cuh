@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
-// (flash_attention_fwd.cu, fused_ce.cu): shared-memory barriers
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, fused_ce.cu):
+// shared-memory barriers
 // (mbarrier), TMA tile loads (cp.async.bulk.tensor) with the tensor maps
 // they read, wgmma shared-memory descriptors, and the wgmma instructions
 // themselves, all as inline PTX so that a build includes no library
@@ -96,14 +97,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // shared-memory matrix descriptor of a swizzled tile (swizzle_bytes 128 or
 // 64) whose 8-row groups lie `sbo` bytes apart; the leading offset is
 // never read by these layouts (see the top) and set to 16 bytes
-__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t sbo,
-                                              int swizzle_bytes) {
-  const uint32_t a = smem_u32(p);
+__device__ __forceinline__ uint64_t make_desc_addr(uint32_t a, uint32_t sbo,
+                                                   int swizzle_bytes) {
   uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>(1) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
   d |= static_cast<uint64_t>(swizzle_bytes == 128 ? 1 : 2) << 62;
   return d;
+}
+
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t sbo,
+                                              int swizzle_bytes) {
+  return make_desc_addr(smem_u32(p), sbo, swizzle_bytes);
+}
+
+// make_desc of the tile at shared address base + off, computed where it is
+// used: the empty asm keeps the compiler from hoisting the sum, and the
+// descriptor, out of the loop around it, where loop-invariant descriptors
+// would hold registers through the whole loop
+__device__ __forceinline__ uint64_t desc_at(uint32_t base, uint32_t off,
+                                            uint32_t sbo, int swizzle_bytes) {
+  asm volatile("" : "+r"(base));
+  return make_desc_addr(base + off, sbo, swizzle_bytes);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

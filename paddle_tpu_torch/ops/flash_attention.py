@@ -20,7 +20,10 @@ layout ``[B, L, H, D]``; the kernels read q/k/v/dO through their strides
   ``ds = p * (dO.V^T - delta) * scale`` from the saved ``lse`` and
   ``delta = rowsum(dO * O)``; dq sums ``ds.K`` over the key tiles, dk/dv
   sum ``ds^T.Q`` and ``p^T.dO`` over the query tiles and, for GQA, over
-  the query heads of each kv head (inside the kernel, no atomics).
+  the query heads of each kv head (inside the kernel, no atomics). Each
+  has the same two variants, chosen by ``_bwd_variant`` from the four
+  operands (``"tc"`` also needs a head dim in ``BWD_TC_HEAD_DIMS``), and
+  counts them in ``launches_by_variant``.
 - ``flash_attention_fn``: the differentiable entry point, a
   ``torch.autograd.Function`` that saves ``(q, k, v, out, lse)`` and runs
   the two backward kernels.
@@ -56,6 +59,13 @@ _BWD_TAIL = ([ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _FWD_ENTRY = {"tc": "flash_attention_fwd_tc",
               "cuda_core": "flash_attention_fwd"}
+_DQ_ENTRY = {"tc": "flash_attention_bwd_dq_tc",
+             "cuda_core": "flash_attention_bwd_dq"}
+_DKV_ENTRY = {"tc": "flash_attention_bwd_dkv_tc",
+              "cuda_core": "flash_attention_bwd_dkv"}
+# head dims the backward's tensor-core kernels are built for; at D = 256
+# dK and dV alone would take 256 fp32 registers a thread
+BWD_TC_HEAD_DIMS = (32, 64, 128)
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _BWD_TAIL
 _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _BWD_TAIL
 
@@ -235,6 +245,19 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
     return dk.to(k.dtype).transpose(1, 2), dv.to(v.dtype).transpose(1, 2)
 
 
+def _bwd_variant(q, k, v, dout):
+    """The backward variant for these operands (both kernels take the
+    same): ``"tc"`` (the bf16 tensor-core kernels) when all four are bf16
+    and TMA-readable and the head dim is in ``BWD_TC_HEAD_DIMS``, else
+    ``"cuda_core"`` (every fp32 call: the tensor cores would round fp32 to
+    TF32)."""
+    if (q.shape[-1] in BWD_TC_HEAD_DIMS
+            and all(t.dtype == torch.bfloat16 and _tma_ready(t)
+                    for t in (q, k, v, dout))):
+        return "tc"
+    return "cuda_core"
+
+
 def _check_bwd(q, k, v, dout, lse, delta):
     _check(q, k, v)
     B, Lq, Hq, _ = q.shape
@@ -272,15 +295,17 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
         return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
                                                 causal, scale)
     _check_bwd(q, k, v, dout, lse, delta)
+    variant = _bwd_variant(q, k, v, dout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    fn = _build.load("flash_attention_bwd", "flash_attention_bwd_dq",
+    fn = _build.load("flash_attention_bwd", _DQ_ENTRY[variant],
                      _DQ_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                  *_bwd_args(q, k, v, dout, causal, scale))
-    _build.check(err, "flash_attention_bwd_dq")
+    _build.check(err, _DQ_ENTRY[variant])
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_variant[variant] += 1
     return dq
 
 
@@ -292,16 +317,18 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
         return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                                  causal, scale)
     _check_bwd(q, k, v, dout, lse, delta)
+    variant = _bwd_variant(q, k, v, dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    fn = _build.load("flash_attention_bwd", "flash_attention_bwd_dkv",
+    fn = _build.load("flash_attention_bwd", _DKV_ENTRY[variant],
                      _DKV_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), *_bwd_args(q, k, v, dout, causal, scale))
-    _build.check(err, "flash_attention_bwd_dkv")
+    _build.check(err, _DKV_ENTRY[variant])
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_by_variant[variant] += 1
     return dk, dv
 
 
@@ -358,4 +385,6 @@ def flash_attention_fn(q, k, v, causal=False, scale=None):
 flash_attention.launches = 0
 flash_attention.launches_by_variant = {"tc": 0, "cuda_core": 0}
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_variant = {"tc": 0, "cuda_core": 0}
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_variant = {"tc": 0, "cuda_core": 0}

@@ -131,3 +131,61 @@ def test_expanded_grad_output_is_accepted():
         *[x.detach() for x in t], out, lse, ones, causal=True)
     for x, w in zip(t, want):
         torch.testing.assert_close(x.grad, w, atol=1e-6, rtol=1e-6)
+
+
+def _bf16(*shape):
+    return torch.empty(*shape, dtype=torch.bfloat16)
+
+
+def test_bwd_variant_rule_main_path_bf16_takes_the_tensor_cores():
+    """``_bwd_variant`` reads dtype, strides, alignment and head dim only,
+    so it runs on CPU tensors: the trainers' bf16 operands (Llama D = 128,
+    ERNIE-MoE D = 64, and D = 32) take the tensor cores."""
+    llama = _bf16(2, 2048, 32, 128)                 # Llama-2-7B trainer
+    assert fa._bwd_variant(llama, llama, llama, llama) == "tc"
+    ernie = _bf16(8, 1024, 16, 64)
+    assert fa._bwd_variant(ernie, ernie, ernie, ernie) == "tc"
+    small = _bf16(1, 200, 4, 32)
+    assert fa._bwd_variant(small, small, small, small) == "tc"
+    gqa = _bf16(1, 512, 8, 128)                      # GQA group 4
+    q = llama[:1, :512]
+    assert fa._bwd_variant(q, gqa, gqa, q.contiguous()) == "tc"
+
+
+def test_bwd_variant_rule_views_take_the_tensor_cores():
+    """``unbind`` views of a fused [B, L, 3, H, D] tensor, and ERNIE's q,
+    k, v split from one fused projection [B, L, 3 * 1024], are read
+    through their strides on the tensor cores."""
+    q, k, v = _bf16(2, 128, 3, 4, 64).unbind(2)
+    do = _bf16(2, 128, 4, 64)
+    assert not q.is_contiguous() and fa._bwd_variant(q, k, v, do) == "tc"
+    q, k, v = (t.reshape(8, 1024, 16, 64)
+               for t in _bf16(8, 1024, 3 * 1024).split(1024, dim=-1))
+    assert not q.is_contiguous()
+    assert fa._bwd_variant(q, k, v, _bf16(8, 1024, 16, 64)) == "tc"
+    # autograd's expanded dO is made contiguous before the rule sees it
+    ones = torch.ones(2, 128, 4, 64, dtype=torch.bfloat16)
+    assert fa._bwd_variant(q[:2, :128, :4], k[:2, :128, :4],
+                           v[:2, :128, :4], ones) == "tc"
+
+
+def test_bwd_variant_rule_fp32_unreadable_bf16_and_d256_take_the_cuda_cores():
+    x = torch.empty(1, 256, 4, 128)
+    assert fa._bwd_variant(x, x, x, x) == "cuda_core"       # fp32: no TF32
+    ok = _bf16(1, 256, 4, 128)
+    off = _bf16(1, 256, 4, 136)[..., 1:129]          # base 2 bytes off 16
+    assert fa._bwd_variant(off, ok, ok, ok) == "cuda_core"
+    assert fa._bwd_variant(ok, ok, ok, off) == "cuda_core"  # dO misaligned
+    odd = _bf16(1, 256, 4, 130)[..., :128]           # head stride 130
+    assert fa._bwd_variant(ok, odd, ok, ok) == "cuda_core"
+    assert fa._bwd_variant(ok, ok, ok, odd) == "cuda_core"
+    heads_first = _bf16(1, 4, 256, 128).transpose(1, 2)   # not nested
+    assert fa._bwd_variant(heads_first, ok, ok, ok) == "cuda_core"
+    # mixed dtypes: dO in fp32 beside bf16 q, k, v
+    assert fa._bwd_variant(ok, ok, ok, ok.float()) == "cuda_core"
+    # D = 256 stays on the CUDA cores: dK and dV alone would take 256 fp32
+    # registers a thread; the forward's tensor-core kernel does take it
+    big = _bf16(1, 128, 4, 256)
+    assert 256 not in fa.BWD_TC_HEAD_DIMS
+    assert fa._bwd_variant(big, big, big, big) == "cuda_core"
+    assert fa._variant(big, big, big) == "tc"

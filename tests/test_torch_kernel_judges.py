@@ -1,13 +1,19 @@
 """The parity judges of ``chip_smoke.py`` phase 3 for the flash-attention
-forward and the fused-CE stats, held on CPU tensors at small sizes to what
-they must do: pass the plain version (and a tiled, online computation with
-the kernel's rounding), and fail every planted fault made from the plain
-version.
+forward and backward and the fused-CE stats, held on CPU tensors at small
+sizes to what they must do: pass the plain version (and a tiled
+computation with the kernels' rounding, in another sum order), and fail
+every planted fault made from the plain version.
 
 - forward (``judge_forward``): ``||got - want|| / ||want||`` of out over
   all rows and over the last quarter of the rows, 1e-2 in bf16 and 1e-4 in
   fp32, lse max-abs 1e-3 / 1e-4. Faults: the causal mask shifted by one
   key; the last visible key tile of each 64-row block dropped.
+- backward (``judge_backward``): ``||got - want|| / ||want||`` of each of
+  dq, dk and dv over all rows (keys) and over the last quarter, 1e-2 in
+  bf16 and 1e-4 in fp32. Faults: the causal mask shifted by one key; the
+  last visible key tile of each 64-row block dropped from dq; the last
+  visible query tile of each 64-key block dropped from dk/dv; one query
+  head of each GQA group left out of dk/dv's sum.
 - fused CE (``judge_ce``): (m, s, lab) within rtol 1e-4 / atol 1e-3.
   Faults: the last 128 vocabulary columns dropped; the label read one
   column off.
@@ -123,3 +129,99 @@ def test_ce_judge_passes_the_plain_version_and_fails_the_faults(
     assert len(faults) == 2
     for name, bad in faults.items():
         assert not chip_smoke.judge_ce(bad, want)[1], name
+
+
+def _tiled_backward(q, k, v, do, lse, delta, causal, tile=64):
+    """The backward as the tensor-core kernels compute it: p =
+    2^(s scale log2e - lse log2e) with the row term kept finite, ds and p
+    rounded to the operands' dtype, dq summed over 64-key tiles, dk/dv over
+    64-row query tiles and then over the group's heads last to first
+    (another sum order than the plain version's; a legitimate result the
+    judge must pass)."""
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale, log2e = 1.0 / D ** 0.5, 1.4426950408889634
+    qh, oh = (x.transpose(1, 2).float() for x in (q, do))
+    kh, vh = (x.transpose(1, 2).repeat_interleave(group, 1).float()
+              for x in (k, v))
+    mask = chip_smoke.causal_mask(Lq, Lk, causal, q.device)
+    row = lse.clamp_min(-1e30)[..., None] * log2e
+
+    def p_ds(rows, keys):
+        s = torch.matmul(qh[:, :, rows], kh[:, :, keys].transpose(-1, -2))
+        x = torch.where(mask[rows, keys], s * scale * log2e - row[:, :, rows],
+                        float("-inf"))
+        p = torch.exp2(x)
+        dp = torch.matmul(oh[:, :, rows], vh[:, :, keys].transpose(-1, -2))
+        return p, p * (dp - delta[:, :, rows, None]) * scale
+
+    everything = slice(None)
+    dq = torch.zeros(B, Hq, Lq, D)
+    for k0 in range(0, Lk, tile):
+        keys = slice(k0, k0 + tile)
+        _, ds = p_ds(everything, keys)
+        dq += torch.matmul(ds.to(k.dtype).float(), kh[:, :, keys])
+    dk = torch.zeros(B, Hq, Lk, D)
+    dv = torch.zeros(B, Hq, Lk, D)
+    for i0 in range(0, Lq, tile):
+        rows = slice(i0, i0 + tile)
+        p, ds = p_ds(rows, everything)
+        dk += torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                           qh[:, :, rows])
+        dv += torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
+                           oh[:, :, rows])
+    dk = dk.reshape(B, Hkv, group, Lk, D).flip(2).sum(2)
+    dv = dv.reshape(B, Hkv, group, Lk, D).flip(2).sum(2)
+    return (dq.to(q.dtype).transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
+            dv.to(v.dtype).transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,D,causal", [
+    (1, 192, 192, 4, 4, 32, True),      # three 64-row blocks
+    (1, 160, 224, 4, 2, 32, True),      # Lq < Lk, GQA
+    (2, 200, 136, 2, 2, 16, True),      # Lq > Lk: fully masked rows
+    (1, 128, 200, 2, 1, 32, False),     # non-causal, ragged keys
+])
+def test_backward_judge_passes_the_plain_version_and_fails_the_faults(
+        dtype, B, Lq, Lk, Hq, Hkv, D, causal):
+    rng = np.random.default_rng(Lq + Lk + 1)
+    q, k, v = _attn(rng, B, Lq, Lk, Hq, Hkv, D, dtype)
+    do = _attn(rng, B, Lq, Lq, Hq, Hq, D, dtype)[0]
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    delta = fa.attention_delta(out, do)
+    # the plain versions, through the wrappers on CPU tensors
+    want = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+            *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+    # the faults' source reproduces the plain version with the right mask
+    same = chip_smoke.plain_backward(
+        q, k, v, do, lse, delta,
+        chip_smoke.causal_mask(Lq, Lk, causal, q.device))
+    for a, b in zip(same, want):
+        assert torch.equal(a, b)
+    rels, ok = chip_smoke.judge_backward(
+        _tiled_backward(q, k, v, do, lse, delta, causal), want)
+    assert ok, rels
+    faults = chip_smoke.backward_faults(q, k, v, do, lse, delta, causal,
+                                        want)
+    assert len(faults) == 4
+    for name, bad in faults.items():
+        assert not chip_smoke.judge_backward(bad, want)[1], name
+
+
+def test_backward_judge_sees_a_fault_in_the_late_keys_alone():
+    """The last quarter of the keys is judged on its own: zeroing dk
+    there fails the judge even where the norm over all keys would hide it
+    behind the large early keys."""
+    rng = np.random.default_rng(1)
+    q, k, v = _attn(rng, 1, 512, 512, 2, 2, 32, torch.bfloat16)
+    do = _attn(rng, 1, 512, 512, 2, 2, 32, torch.bfloat16)[0]
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    delta = fa.attention_delta(out, do)
+    want = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+            *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+    bad = want[1].clone()
+    bad[:, -128:] = 0
+    rels, ok = chip_smoke.judge_backward((want[0], bad, want[2]), want)
+    assert not ok and rels[1][1] > chip_smoke.BWD_REL_TOL[torch.bfloat16]
