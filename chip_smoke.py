@@ -17,9 +17,11 @@ failure raises and exits non-zero before the result line is printed:
    last quarter of the rows, lse max-abs; ``judge_backward``: relative
    norms of dq, dk and dv, likewise; ``judge_ce``), which must also reject
    planted faults made from the plain versions (``forward_faults``,
-   ``backward_faults``, ``ce_faults``), and each case must take the
-   variant it should (bf16 on the tensor cores, fp32, unaligned bf16 and
-   the backward at D = 256 on the CUDA cores);
+   ``backward_faults``, ``ce_faults``, ``ragged_faults``), and each case
+   must take the variant it should (bf16 on the tensor cores; fp32,
+   unaligned bf16 and the backward at D = 256 on the CUDA cores; the
+   ragged kernel's bf16 operands that TMA cannot read on its first,
+   ``mma.sync`` kernel);
 4. Llama-2-7B forward at full width and depth (random seeded weights,
    bf16): ``model(ids[1, 512])`` must be finite, take the flash path and
    launch the flash-attention kernel once per layer, each launch on the
@@ -33,8 +35,8 @@ failure raises and exits non-zero before the result line is printed:
    the gathered engines gives identical tokens;
 7. timings (CUDA events, L2 flushed, after warm-up) of each kernel, its
    plain version and a PyTorch library call, beside the card's bound;
-   the redesigned flash forward, flash backward (dq, dk/dv) and fused CE
-   also beside their first (CUDA-core) versions;
+   the redesigned flash forward, flash backward (dq, dk/dv), fused CE
+   and ragged matmul also beside their first versions;
 8. training: Llama-2-7B widths cut to 8 layers (bf16, random seeded
    weights) through ``fleet.distributed_optimizer(AdamW)
    .make_train_step`` on one repeated 2 x 2048 batch with the fused LM
@@ -49,7 +51,8 @@ failure raises and exits non-zero before the result line is printed:
    repeated 8 x 1024 batch: auto dispatch must pick sparse, and every MoE
    layer runs the ragged expert kernel; a warm-up step and 3 timed steps,
    each launching the ragged kernel 12 times (2 forward + 2 dx per MoE
-   layer) and the flash forward, dq and dk/dv 6 times each; losses
+   layer, all on the tensor cores) and the flash forward, dq and dk/dv 6
+   times each; losses
    finite, the first within 1.0 of ln(32000), the last timed one below
    the first; then one profiled step;
 10. PTQ Llama-2-7B at full width and depth (phase 4's bf16 model, run
@@ -663,18 +666,12 @@ MOE_C = -(-2 * ERNIE_BATCH[0] * ERNIE_BATCH[1] * 5 // (4 * MOE_E))   # 2560
 RAGGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-def ragged_case(G, C, K, N, counts, dtype, seed, nan_past=False):
-    """x [G, C, K] (0.02-scaled w [G, K, N]) and counts on the card; with
-    ``nan_past`` the rows past each count hold NaN, which the kernel must
-    never read into a result."""
+def ragged_case(G, C, K, N, counts, dtype, seed):
+    """x [G, C, K] (0.02-scaled w [G, K, N]) and counts on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(G, C, K, generator=g, device="cuda").to(dtype)
     w = (0.02 * torch.randn(G, K, N, generator=g, device="cuda")).to(dtype)
     cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
-    if nan_past:
-        dead = ~(torch.arange(C, device="cuda")[None, :]
-                 < cnt.long()[:, None])
-        x[dead] = float("nan")
     return x, w, cnt
 
 
@@ -689,67 +686,161 @@ def judge_ragged(got, want, counts, tol):
     return rel, zeros, bool(torch.isfinite(got).all()) and zeros and rel < tol
 
 
+def ragged_faults(rm, x, w, counts, out_dtype=None, rows=128, cols=256,
+                  depth=64):
+    """Planted faults for ``judge_ragged``: the plain version with one
+    thing wrong that a ragged kernel could get wrong. x must be finite.
+    Returns {name: out}:
+
+    - counts ignored (every row computed);
+    - half of K dropped;
+    - the last ``depth``-deep K chunk dropped (a ring that stops early);
+    - the first K chunk summed twice (a stale ring stage);
+    - the rows of a partly live ``rows``-row tile past the count given
+      their product instead of 0 (only where some group has such a tile);
+    - the last ``cols``-column tile of each group computed against the
+      next group's w (only for more than one group)."""
+    ref = rm.ragged_group_matmul_reference
+    G, C, K = x.shape
+    N = w.shape[2]
+    live = counts.long().clamp(0, C)
+    out = {"counts ignored": ref(x, w, torch.full_like(counts, C),
+                                 out_dtype)}
+    for name, k0, k1, scale in (
+            ("half of K dropped", K // 2, K, 0),
+            ("last K chunk dropped", (K - 1) // depth * depth, K, 0),
+            ("first K chunk summed twice", 0, min(depth, K), 2)):
+        xb = x.clone()
+        xb[..., k0:k1] *= scale
+        out[name] = ref(xb, w, counts, out_dtype)
+    ends = ((live + rows - 1) // rows * rows).clamp(max=C)
+    if bool((ends != live).any()):
+        out["rows past the count of a partly live tile computed"] = ref(
+            x, w, ends, out_dtype)
+    if G > 1:
+        n0 = (N - 1) // cols * cols
+        bad = ref(x, w, counts, out_dtype).clone()
+        bad[..., n0:] = ref(x, w.roll(-1, 0), counts, out_dtype)[..., n0:]
+        out["last column tile against the next group's w"] = bad
+    return out
+
+
+def check_ragged_faults(rm, x, w, counts, want, tol, n_faults):
+    """Every fault of ``ragged_faults`` (``n_faults`` of them) must fail
+    ``judge_ragged``."""
+    faults = ragged_faults(rm, x, w, counts)
+    for name, bad in faults.items():
+        rel, zeros, ok = judge_ragged(bad, want, counts, tol)
+        log(f"    planted fault [{name}]: rel_err {rel:.3e}, zeros past "
+            f"counts {zeros}: {'passed (BAD)' if ok else 'fails, as it must'}")
+        if ok:
+            raise AssertionError(f"the ragged check does not see the planted "
+                                 f"fault '{name}'")
+    if len(faults) != n_faults:
+        raise AssertionError(f"{len(faults)} planted faults, want {n_faults}")
+
+
+# (what, G, C, K, N, counts, dtype, out dtype (None: x's), operand form,
+# NaN past the counts, the variant it must take, planted faults checked
+# here). Forms: "mn" w [G, K, N] contiguous (the forward's projections);
+# "k" w^T as a view (dx's call); "x sliced" x = wide[..., :K], a row stride
+# of K + 4 elements; "w misaligned" w's base 2 bytes off 16. The bf16 cases
+# hit the tensor-core kernel's tile edges (128 rows, 256 columns in 64-wide
+# boxes, 64 deep)
+RAGGED_CASES = (
+    ("small", 4, 19, 8, 13, [0, 5, 19, 12], torch.float32, None, "mn",
+     False, "cuda_core", 0),
+    ("small", 4, 19, 8, 13, [0, 5, 19, 12], torch.bfloat16, None, "mn",
+     False, "mma_sync", 0),
+    ("C not a multiple of 128, an empty group", 3, 300, 256, 256,
+     [300, 200, 0], torch.bfloat16, None, "mn", False, "tc", 0),
+    ("counts end at 1, 64, 127, 129 and C of a tile", 5, 384, 1024, 512,
+     [1, 64, 127, 129, 384], torch.bfloat16, None, "mn", True, "tc", 6),
+    ("K a multiple of 8, not of 64", 2, 256, 200, 192, [256, 100],
+     torch.bfloat16, None, "mn", False, "tc", 0),
+    ("N a multiple of 8, not of 64", 2, 256, 192, 328, [130, 256],
+     torch.bfloat16, None, "mn", False, "tc", 0),
+    ("w K-major", 3, 300, 328, 392, [300, 129, 5], torch.bfloat16, None, "k",
+     True, "tc", 0),
+    ("fp32 out", 3, 200, 64, 48, [130, 0, 200], torch.bfloat16,
+     torch.float32, "mn", True, "tc", 0),
+    ("fp32 out, w K-major", 2, 300, 72, 136, [257, 64], torch.bfloat16,
+     torch.float32, "k", True, "tc", 0),
+    ("x sliced", 2, 200, 64, 96, [200, 77], torch.bfloat16, None,
+     "x sliced", False, "mma_sync", 0),
+    ("w misaligned", 2, 200, 64, 96, [130, 200], torch.bfloat16, None,
+     "w misaligned", False, "mma_sync", 0),
+    ("counts > C", 3, 100, 64, 96, [150, 100, 7], torch.bfloat16, None, "mn",
+     False, "tc", 0),
+    ("counts > C", 3, 100, 64, 96, [150, 100, 7], torch.float32, None, "mn",
+     False, "cuda_core", 0),
+    ("MoE up", MOE_E, MOE_C, MOE_D, MOE_F, "imbalanced", torch.bfloat16,
+     None, "mn", True, "tc", 5),
+    ("MoE down", MOE_E, MOE_C, MOE_F, MOE_D, "imbalanced", torch.bfloat16,
+     None, "mn", True, "tc", 0),
+    ("dx: dy @ w^T", MOE_E, MOE_C, MOE_F, MOE_D, "imbalanced",
+     torch.bfloat16, None, "k", False, "tc", 0))
+
+
+def ragged_operands(G, C, K, N, counts, dtype, form, nan_past, seed):
+    """x, x's finite twin, w and counts for a RAGGED_CASES entry. With
+    ``nan_past`` x's rows past each count hold NaN, which the kernel must
+    never read into a result; the twin is the same draw without it."""
+    x, w, cnt = ragged_case(G, C, K, N, counts, dtype, seed)
+    xf = x
+    if nan_past:
+        x = x.clone()
+        x[~(torch.arange(C, device="cuda")[None, :]
+            < cnt.long()[:, None])] = float("nan")
+    if form == "k":         # the up projection's w [G, N, K] read as w^T
+        w = w.reshape(G, N, K).transpose(1, 2)
+    elif form == "x sliced":
+        wide = torch.zeros(G, C, K + 4, dtype=dtype, device="cuda")
+        wide[..., :K] = x
+        x = xf = wide[..., :K]
+    elif form == "w misaligned":
+        flat = torch.empty(w.numel() + 1, dtype=dtype, device="cuda")
+        flat[1:] = w.reshape(-1)
+        w = flat[1:].view(G, K, N)
+    return x, xf, w, cnt
+
+
 def parity_ragged(rm):
-    """The ragged kernel against its plain version: ``||got - want|| /
-    ||want||`` over the live rows below 1e-5 in fp32 (TF32 off: reduction
-    order only) and 1e-2 in bf16 (the output's bf16 rounding, ~1e-3), and
-    every row past ``counts[g]`` exactly 0. Cases: unaligned C and N with
-    an empty group; the MoE up and down shapes with 2:1 imbalanced counts
-    and NaN in the dead rows; counts above C; and the backward's dx call
-    on the strided view ``w^T``. At the up shape two planted faults
-    (counts ignored; half of K dropped) must fail the check."""
+    """The ragged kernels against their plain version (``RAGGED_CASES``):
+    ``||got - want|| / ||want||`` over the live rows below 1e-2 for a bf16
+    result (its rounding, ~1e-3) and 1e-5 for an fp32 one (TF32 off: sum
+    order only), every row past ``counts[g]`` exactly 0 (NaN there never
+    read into a result), and each case on the variant it must take. At
+    the tile-edge counts and the MoE up shape the planted faults of
+    ``ragged_faults`` must fail the check."""
     err = 0.0
-    E, C, D, Fh = MOE_E, MOE_C, MOE_D, MOE_F
-    imb = [C if e % 2 == 0 else C // 2 for e in range(E)]
-    cases = [(4, 19, 8, 13, [0, 5, 19, 12], torch.float32, False, "small"),
-             (4, 19, 8, 13, [0, 5, 19, 12], torch.bfloat16, False, "small"),
-             (E, C, D, Fh, imb, torch.bfloat16, True, "MoE up"),
-             (E, C, Fh, D, imb, torch.bfloat16, True, "MoE down"),
-             (3, 100, 64, 96, [150, 100, 7], torch.bfloat16, False,
-              "counts > C"),
-             (3, 100, 64, 96, [150, 100, 7], torch.float32, False,
-              "counts > C"),
-             (E, C, Fh, D, imb, torch.bfloat16, False, "dx: dy @ w^T")]
-    for (G, Cc, K, N, counts, dtype, nan_past, what) in cases:
-        tol = RAGGED_TOL[dtype]
-        if what.startswith("dx"):
-            # dy [G, C, F] against the up projection's w [G, D, F] read
-            # transposed through its strides
-            x, w, cnt = ragged_case(G, Cc, K, N, counts, dtype, seed=G + K)
-            w = w.reshape(G, N, K).transpose(1, 2)
-        else:
-            x, w, cnt = ragged_case(G, Cc, K, N, counts, dtype, seed=G + K,
-                                    nan_past=nan_past)
-        got = rm.ragged_group_matmul(x, w, cnt)
-        want = rm.ragged_group_matmul_reference(x, w, cnt)
+    imb = [MOE_C if e % 2 == 0 else MOE_C // 2 for e in range(MOE_E)]
+    for (what, G, Cc, K, N, counts, dtype, out_dtype, form, nan_past, want_v,
+         n_faults) in RAGGED_CASES:
+        counts = imb if counts == "imbalanced" else counts
+        out_dtype = out_dtype or dtype
+        tol = RAGGED_TOL[out_dtype]
+        x, xf, w, cnt = ragged_operands(G, Cc, K, N, counts, dtype, form,
+                                        nan_past, seed=G + K)
+        got, took = launched_variant(rm.ragged_group_matmul, lambda: (
+            rm.ragged_group_matmul(x, w, cnt, out_dtype=out_dtype)))
+        want = rm.ragged_group_matmul_reference(x, w, cnt, out_dtype)
         torch.cuda.synchronize()
         rel, zeros, ok = judge_ragged(got, want, cnt, tol)
+        ok = ok and took == want_v
         e = (got.float() - want.float()).abs().max().item()
         log(f"  ragged_group_matmul [{what}] G={G} C={Cc} K={K} N={N} "
-            f"{dtype}{' w strided' if not w.is_contiguous() else ''}: "
-            f"rel_err {rel:.3e} (tol {tol}), zeros past counts {zeros}, "
-            f"max_abs_err {e:.3e} {'ok' if ok else 'FAIL'}")
+            f"{dtype}->{out_dtype}, w {form}"
+            f"{', NaN past counts' if nan_past else ''}: {took} (want "
+            f"{want_v}), rel_err {rel:.3e} (tol {tol}), zeros past counts "
+            f"{zeros}, max_abs_err {e:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("ragged_group_matmul disagrees with its "
-                                 "plain version")
-        if what == "MoE up":
-            # the same draw with finite rows past the counts
-            xf = ragged_case(G, Cc, K, N, counts, dtype, seed=G + K)[0]
-            xh = x.clone()
-            xh[..., K // 2:] = 0
-            planted = [judge_ragged(rm.ragged_group_matmul_reference(
-                           xf, w, torch.full_like(cnt, Cc)), want, cnt, tol),
-                       judge_ragged(rm.ragged_group_matmul_reference(
-                           xh, w, cnt), want, cnt, tol)]
-            log(f"  planted faults (counts ignored / half of K dropped): "
-                f"rel_err {planted[0][0]:.3e}/{planted[1][0]:.3e}, zeros "
-                f"past counts {planted[0][1]}/{planted[1][1]}: both must "
-                f"fail")
-            if any(p[2] for p in planted):
-                raise AssertionError("the ragged check does not see a "
-                                     "planted fault")
+                                 "plain version, or took another variant")
+        if n_faults:
+            check_ragged_faults(rm, xf, w, cnt, want, tol, n_faults)
         err = max(err, e)
-        del x, w, cnt, got, want
+        del x, xf, w, cnt, got, want
     torch.cuda.empty_cache()
     return {"ragged_group_matmul": err}
 
@@ -1455,10 +1546,13 @@ def timings_ragged(rm, flush):
     ``_bench_moe_ragged_kernel``: E=8, C=2560, bf16, counts [C, C/2] x 4),
     up (K=1024, N=4096), down (K=4096, N=1024) and the backward's dx of
     the up projection (dy [E, C, 4096] @ w_up^T, w read through the
-    strides of the transposed view). Yardstick: the masked ``torch.bmm``
-    over the full capacity (what ``expert_kernel="einsum"`` runs). The
-    bound counts this run's data: the live rows' products and x rows, all
-    of w, all of out (zeros included) and counts."""
+    strides of the transposed view), each on the variant the main path
+    takes (``variant``) and, in the same run, on the first bf16 kernel
+    (``first_version_ms``, the ``"mma_sync"`` variant). Yardstick: the
+    masked ``torch.bmm`` over the full capacity (what
+    ``expert_kernel="einsum"`` runs). The bound counts this run's data:
+    the live rows' products and x rows, all of w, all of out (zeros
+    included) and counts."""
     E, C = MOE_E, MOE_C
     counts = [C if e % 2 == 0 else C // 2 for e in range(E)]
     rows = sum(counts)
@@ -1470,7 +1564,14 @@ def timings_ragged(rm, flush):
             w = w.reshape(E, N, K).transpose(1, 2)
         x = x * (torch.arange(C, device="cuda")[None, :]
                  < cnt.long()[:, None])[..., None].to(x.dtype)
+        _, variant = launched_variant(
+            rm.ragged_group_matmul, lambda: rm.ragged_group_matmul(x, w, cnt))
+        with forced_variant(rm, "mma_sync"):
+            first = time_ms(lambda: rm.ragged_group_matmul(x, w, cnt), flush,
+                            reps=5)
         out[f"ragged_group_matmul_{name}"] = dict(
+            variant=variant,
+            first_version_ms=first,
             ms=time_ms(lambda: rm.ragged_group_matmul(x, w, cnt), flush),
             plain_ms=time_ms(lambda: rm.ragged_group_matmul_reference(
                 x, w, cnt), flush, reps=5),
@@ -1570,9 +1671,17 @@ def _reset(fa, fc, rm):
         reset_counts(f)
 
 
+# the port's own kernels (csrc/*.cu), by their function names
+PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode",
+                "fused_ce_stats", "merge_splits", "ragged_tc", "ragged_mma",
+                "ragged_fma", "int8_mma", "absmax_kernel", "quant_sr",
+                "sr_bf16")
+
+
 def profile_step(step, *batch):
-    """One train step under torch.profiler: device busy vs wall and the
-    top device kernels by time."""
+    """One train step under torch.profiler: device busy vs wall, the top
+    device kernels by time, and the device time of each of the port's own
+    kernels (``port_kernels_ms``, by kernel, whatever its rank)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1591,7 +1700,9 @@ def profile_step(step, *batch):
     return {"step_wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
             "device_kernel_launches": launches,
-            "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+            "top_kernels_ms": {k: v / 1e3 for k, v in top},
+            "port_kernels_ms": {k: v / 1e3 for k, v in kernels.items()
+                                if any(p in k for p in PORT_KERNELS)}}
 
 
 def phase_train(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
@@ -1620,7 +1731,7 @@ def phase_train(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
                 flash_attention_fwd_tc=cfg.num_hidden_layers,
                 flash_attention_bwd_dq_tc=cfg.num_hidden_layers,
                 flash_attention_bwd_dkv_tc=cfg.num_hidden_layers,
-                fused_ce_stats_tc=1)
+                fused_ce_stats_tc=1, ragged_group_matmul_tc=0)
     losses, secs, per_step = [], [], []
     for i in range(4):                          # warm-up + 3 timed steps
         _reset(fa, fc, rm)
@@ -1702,7 +1813,8 @@ def phase_ernie(fa, fc, rm, ErnieMoEConfig, ErnieMoEForPretraining, fleet,
                 flash_attention_bwd_dkv=n, fused_ce_stats=0,
                 ragged_group_matmul=4 * len(moes),    # 2 forward + 2 dx
                 flash_attention_fwd_tc=n, flash_attention_bwd_dq_tc=n,
-                flash_attention_bwd_dkv_tc=n, fused_ce_stats_tc=0)
+                flash_attention_bwd_dkv_tc=n, fused_ce_stats_tc=0,
+                ragged_group_matmul_tc=4 * len(moes))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, secs, per_step = [], [], []
@@ -1886,16 +1998,19 @@ def main():
             te = t[kd["name"] + "_ernie"]
             kd["ernie"] = dict(launches=moe_launches[kd["name"]],
                                **{k: te[k] for k in cols + first if k in te})
+    ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",
         source="paddle_tpu_torch/csrc/ragged_matmul.cu",
         replaces="paddle_tpu/ops/pallas/ragged_matmul.py:53",
         launches=moe_launches["ragged_group_matmul"],
+        launches_tc=moe_launches["ragged_group_matmul_tc"],
         max_abs_err=errs["ragged_group_matmul"],
         max_err=errs["ragged_group_matmul"],
-        **{k: t["ragged_group_matmul_up"][k] for k in cols},
-        down={k: t["ragged_group_matmul_down"][k] for k in cols},
-        dx={k: t["ragged_group_matmul_dx"][k] for k in cols}))
+        **{k: t["ragged_group_matmul_up"][k] for k in cols + ragged_cols},
+        down={k: t["ragged_group_matmul_down"][k]
+              for k in cols + ragged_cols},
+        dx={k: t["ragged_group_matmul_dx"][k] for k in cols + ragged_cols}))
     int8_cols = ("int_mm_col_major_ms", "bf16_ms")
     kernels.append(dict(
         name="int8_matmul_rescale", route="cuda",

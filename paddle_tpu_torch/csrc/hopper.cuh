@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu, fused_ce.cu):
-// shared-memory barriers
-// (mbarrier), TMA tile loads (cp.async.bulk.tensor) with the tensor maps
-// they read, wgmma shared-memory descriptors, and the wgmma instructions
-// themselves, all as inline PTX so that a build includes no library
-// header beyond the CUDA toolkit's.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, fused_ce.cu,
+// ragged_matmul.cu): shared-memory barriers (mbarrier), TMA tile loads and
+// stores (cp.async.bulk.tensor) with the tensor maps they use, wgmma
+// shared-memory descriptors, and the wgmma instructions themselves, all as
+// inline PTX so that a build includes no library header beyond the CUDA
+// toolkit's.
 //
 // Shared-memory tiles are bf16 rows of 128 (or 64) bytes written by TMA
 // with the matching swizzle (CU_TENSOR_MAP_SWIZZLE_128B / _64B): the 16-byte
@@ -14,9 +14,11 @@
 // reduction dim contiguous) advance 32 bytes per k16 step inside a row;
 // MN-major operands (the output dim contiguous, "transposed", allowed for
 // 16-bit types) advance 16 rows per k16 step; in both the stride between
-// 8-row groups (SBO) is 8 rows. Every wgmma here spans one swizzle atom in
-// its N dim (<= 64 bf16 for an MN-major B), so the leading offset (LBO)
-// is never used.
+// 8-row groups (SBO) is 8 rows. An MN-major B wider than one swizzle atom
+// (64 bf16 at 128 bytes) lies as one box per atom, and the leading offset
+// (LBO) is the distance between those boxes (ragged_matmul.cu's 256-wide
+// tiles: four [64 k][64 n] boxes 8 KB apart); everywhere else LBO is
+// unread.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
@@ -81,6 +83,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -92,15 +105,60 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA store of a shared-memory box to global memory; the parts of the box
+// outside the tensor map's dims are not written. The store reads shared
+// memory asynchronously: the issuing thread commits it (bulk_commit) and
+// waits (bulk_wait_read) before that shared memory is written again, and
+// the threads that wrote the box made their writes visible to TMA first
+// (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the committed stores of this thread have finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// the committed stores of this thread are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA) reads of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads') over `threads` threads
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
 // shared-memory matrix descriptor of a swizzled tile (swizzle_bytes 128 or
-// 64) whose 8-row groups lie `sbo` bytes apart; the leading offset is
-// never read by these layouts (see the top) and set to 16 bytes
+// 64) whose 8-row groups lie `sbo` bytes apart; the leading offset `lbo`
+// is read only by an MN-major operand wider than one swizzle atom (the
+// distance between its atoms along N, see the top), and is 16 bytes,
+// unread, otherwise
 __device__ __forceinline__ uint64_t make_desc_addr(uint32_t a, uint32_t sbo,
-                                                   int swizzle_bytes) {
+                                                   int swizzle_bytes,
+                                                   uint32_t lbo = 16) {
   uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1) << 16;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
   d |= static_cast<uint64_t>(swizzle_bytes == 128 ? 1 : 2) << 62;
   return d;
@@ -116,9 +174,10 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t sbo,
 // descriptor, out of the loop around it, where loop-invariant descriptors
 // would hold registers through the whole loop
 __device__ __forceinline__ uint64_t desc_at(uint32_t base, uint32_t off,
-                                            uint32_t sbo, int swizzle_bytes) {
+                                            uint32_t sbo, int swizzle_bytes,
+                                            uint32_t lbo = 16) {
   asm volatile("" : "+r"(base));
-  return make_desc_addr(base + off, sbo, swizzle_bytes);
+  return make_desc_addr(base + off, sbo, swizzle_bytes, lbo);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -219,6 +278,59 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D[64 x 256] (+)= A[64 x 16] (shared, K-major) . B[16 x 256] (shared)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // D[64 x 32] (+)= A[64 x 16] (registers) . B[16 x 32] (shared)
 template <int TB>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -291,24 +403,34 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first, the innermost
-// contiguous), strides in bytes of dims 1.., a box of `box` elements per
-// dim, swizzled (128 or 64 bytes); out-of-bounds elements load as 0.
-inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
-                               const cuuint64_t* dims,
-                               const cuuint64_t* strides,
-                               const cuuint32_t* box, int swizzle_bytes) {
+// A tensor map of `type` elements and `rank` dims (innermost first, the
+// innermost contiguous), strides in bytes of dims 1.., a box of `box`
+// elements per dim, swizzled (128 or 64 bytes); out-of-bounds elements
+// load as 0 and are not stored.
+inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, int rank, const cuuint64_t* dims,
+                          const cuuint64_t* strides, const cuuint32_t* box,
+                          int swizzle_bytes) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      map, type, static_cast<cuuint32_t>(rank),
       const_cast<void*>(base), dims, strides, box, elem_strides,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                            : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// encode() of a bf16 tensor
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
+                               const cuuint64_t* dims,
+                               const cuuint64_t* strides,
+                               const cuuint32_t* box, int swizzle_bytes) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                strides, box, swizzle_bytes);
 }
 
 }  // namespace hopper

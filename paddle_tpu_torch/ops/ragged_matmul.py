@@ -19,8 +19,13 @@ Counterpart of ``paddle_tpu/ops/pallas/ragged_matmul.py``:
   contraction of the masked ``x`` with ``dy`` (``torch.bmm``), which the
   JAX package also leaves to XLA.
 
-CUDA tensors launch the kernel or raise; CPU tensors take the plain
-version. ``ragged_group_matmul.launches`` counts kernel launches.
+Three variants, chosen before the launch by ``_variant`` from dtype,
+strides and alignment: ``"tc"`` (bf16 on the tensor cores, fed by TMA;
+the main path's), ``"mma_sync"`` (the first bf16 kernel, for operands TMA
+cannot read) and ``"cuda_core"`` (every fp32 call). CUDA tensors launch
+the kernel or raise; CPU tensors take the plain version.
+``ragged_group_matmul.launches`` counts kernel launches and
+``launches_by_variant`` each variant's.
 """
 from __future__ import annotations
 
@@ -35,8 +40,14 @@ __all__ = ["ragged_group_matmul", "ragged_group_matmul_reference",
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
+_ENTRY = {"tc": "ragged_group_matmul_tc",
+          "mma_sync": "ragged_group_matmul_mma",
+          "cuda_core": "ragged_group_matmul_fma"}
+_ROWS, _COLS = 128, 256   # the tensor-core kernel's row and column tiles
+#: blocks per SM the tensor-core grid aims at, were every row tile live
+_BLOCKS_PER_SM = 4
 
 
 def _valid(counts, C, device):
@@ -79,6 +90,48 @@ def _check(x, w, counts, out_dtype):
                          f"{tuple(counts.shape)}, want [{x.shape[0]}]")
 
 
+def _variant(x, w):
+    """The variant for these operands: ``"tc"`` when x and w are bf16 and
+    TMA can read them as 3-d tensor maps: 16-byte aligned bases, x's K
+    contiguous and w's k or n contiguous, every other stride a multiple of
+    8 elements (16 bytes) and nested (a row inside its group), N a multiple
+    of 8 (the output's rows are TMA-stored), K at least 1. Other bf16
+    operands take ``"mma_sync"``, and every fp32 call ``"cuda_core"`` (the
+    tensor cores would round fp32 to TF32)."""
+    if x.dtype != torch.bfloat16:
+        return "cuda_core"
+    G, C, K = x.shape
+    N = w.shape[2]
+    xg, xc, xk = x.stride()
+    wg, wk, wn = w.stride()
+    if wn == 1:                     # MN-major: rows of N inside K
+        w_ok = wk % 8 == 0 and wk >= N and wg % 8 == 0 and wg >= K * wk
+    elif wk == 1:                   # K-major (w^T): rows of K inside N
+        w_ok = wn % 8 == 0 and wn >= K and wg % 8 == 0 and wg >= N * wn
+    else:
+        w_ok = False
+    x_ok = (xk == 1 and xc % 8 == 0 and xc >= K and xg % 8 == 0
+            and xg >= C * xc)
+    if (w_ok and x_ok and K >= 1 and N % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "tc"
+    return "mma_sync"
+
+
+def _col_runs(G, C, N, sms):
+    """The tensor-core grid's blocks along N: each block walks a run of
+    the column tiles of one group's 128-row tile. About ``_BLOCKS_PER_SM``
+    blocks per SM were every row tile live (the host does not know the
+    counts), and runs of equal length: ``runs`` is cut back to
+    ``ceil(n_ct / ceil(n_ct / runs))``, so that no run is twice another
+    (8 column tiles in 7 runs would make one block of two tiles the last
+    wave)."""
+    n_ct = -(-N // _COLS)
+    row_blocks = G * -(-C // _ROWS)
+    runs = max(1, min(n_ct, -(-_BLOCKS_PER_SM * sms // row_blocks)))
+    return -(-n_ct // -(-n_ct // runs))
+
+
 def ragged_group_matmul(x, w, counts, block_m=None, block_n=None,
                         out_dtype=None):
     """``x [G, C, K] @ w [G, K, N]`` per group with rows ``>= counts[g]``
@@ -90,19 +143,25 @@ def ragged_group_matmul(x, w, counts, block_m=None, block_n=None,
     G, C, K = x.shape
     N = w.shape[2]
     if x.stride(2) != 1:
-        x = x.contiguous()    # the kernel reads x's rows with K contiguous
+        x = x.contiguous()    # the kernels read x's rows with K contiguous
     cnt = counts.to(torch.int32).contiguous()      # stays on the device
     out = torch.empty((G, C, N), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = _build.load("ragged_matmul", "ragged_group_matmul", _ARGTYPES)
+    variant = _variant(x, w)
+    runs = 1
+    if variant == "tc":
+        runs = _col_runs(G, C, N, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+    fn = _build.load("ragged_matmul", _ENTRY[variant], _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), cnt.data_ptr(), out.data_ptr(),
                  G, C, K, N, x.stride(0), x.stride(1), *w.stride(),
-                 _DTYPES[x.dtype], _DTYPES[out_dtype],
+                 _DTYPES[x.dtype], _DTYPES[out_dtype], runs,
                  torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "ragged_group_matmul")
+    _build.check(err, _ENTRY[variant])
     ragged_group_matmul.launches += 1
+    ragged_group_matmul.launches_by_variant[variant] += 1
     return out
 
 
@@ -138,3 +197,5 @@ def ragged_dot(x, w, counts):
 
 #: kernel launches since the count was last reset (CPU calls not counted)
 ragged_group_matmul.launches = 0
+ragged_group_matmul.launches_by_variant = {"tc": 0, "mma_sync": 0,
+                                           "cuda_core": 0}

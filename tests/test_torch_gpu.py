@@ -436,28 +436,46 @@ def _ragged_rel_err(got, want, counts):
 RAGGED_TOLS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
+def _variant_launches(before):
+    """The launches per variant of the ragged kernel since ``before``."""
+    return {k: n - before[k] for k, n in
+            rm.ragged_group_matmul.launches_by_variant.items()
+            if n != before[k]}
+
+
+# (G, C, K, N, counts, operand form as in chip_smoke.RAGGED_CASES, the
+# variant bf16 must take; fp32 takes "cuda_core")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,C,K,N,counts,w_transposed", [
-    (4, 19, 8, 13, [0, 5, 19, 12], False),   # unaligned, an empty group
-    (3, 100, 64, 96, [150, 100, 7], False),  # counts above C
-    (2, 300, 72, 136, [300, 129], False),    # several row and column tiles
-    (2, 300, 72, 136, [257, 0], True),       # dx's call: w^T as a view
-    (2, 64, 40, 24, [33, 64], True),
+@pytest.mark.parametrize("G,C,K,N,counts,form,bf16_variant", [
+    (4, 19, 8, 13, [0, 5, 19, 12], "mn", "mma_sync"),   # unaligned, empty
+    (3, 100, 64, 96, [150, 100, 7], "mn", "tc"),        # counts above C
+    (2, 300, 72, 136, [300, 129], "mn", "tc"),          # several tiles
+    (2, 300, 72, 136, [257, 0], "k", "tc"),             # dx's w^T as a view
+    (2, 64, 40, 24, [33, 64], "k", "tc"),
+    # the tensor-core kernel's tile edges: counts ending at 1, 64, 127, 129
+    # and C of a 128-row tile; K and N multiples of 8 but not of 64, N past
+    # one 256-column tile
+    (5, 384, 256, 256, [1, 64, 127, 129, 384], "mn", "tc"),
+    (5, 384, 256, 256, [1, 64, 127, 129, 384], "k", "tc"),
+    (2, 256, 200, 192, [256, 100], "mn", "tc"),
+    (2, 256, 192, 328, [130, 256], "mn", "tc"),
+    (2, 256, 192, 392, [130, 256], "k", "tc"),
+    # what TMA cannot read stays on the first kernel
+    (2, 200, 64, 96, [200, 77], "x sliced", "mma_sync"),
+    (2, 200, 64, 96, [130, 200], "w misaligned", "mma_sync"),
 ])
-def test_ragged_kernel_matches_plain(cuda, dtype, G, C, K, N, counts,
-                                     w_transposed):
-    g = torch.Generator(device=cuda).manual_seed(C + K)
-    x = torch.randn(G, C, K, generator=g, device=cuda).to(dtype)
-    if w_transposed:
-        w = torch.randn(G, N, K, generator=g, device=cuda).to(
-            dtype).transpose(1, 2)
-    else:
-        w = torch.randn(G, K, N, generator=g, device=cuda).to(dtype)
-    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+def test_ragged_kernel_matches_plain(cuda, dtype, G, C, K, N, counts, form,
+                                     bf16_variant):
+    x, _, w, cnt = chip_smoke.ragged_operands(G, C, K, N, counts, dtype,
+                                              form, False, seed=C + K)
+    want_variant = bf16_variant if dtype == torch.bfloat16 else "cuda_core"
+    assert rm._variant(x, w) == want_variant
     before = rm.ragged_group_matmul.launches
+    by_variant = dict(rm.ragged_group_matmul.launches_by_variant)
     got = rm.ragged_group_matmul(x, w, cnt)
     torch.cuda.synchronize()
     assert rm.ragged_group_matmul.launches == before + 1
+    assert _variant_launches(by_variant) == {want_variant: 1}
     assert got.dtype == dtype and got.shape == (G, C, N)
     rel, zeros = _ragged_rel_err(got, rm.ragged_group_matmul_reference(
         x, w, cnt), cnt)
@@ -473,7 +491,9 @@ def test_ragged_kernel_out_dtype_and_dead_rows_never_read(cuda):
     cnt = torch.tensor([130, 0, 200], dtype=torch.int32, device=cuda)
     x[0, 130:] = float("nan")
     x[1] = float("nan")
+    by_variant = dict(rm.ragged_group_matmul.launches_by_variant)
     got = rm.ragged_group_matmul(x, w, cnt, out_dtype=torch.float32)
+    assert _variant_launches(by_variant) == {"tc": 1}
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     rel, zeros = _ragged_rel_err(got, rm.ragged_group_matmul_reference(
         x, w, cnt, out_dtype=torch.float32), cnt)
@@ -497,6 +517,26 @@ def test_ragged_dot_backward_runs_the_kernel(cuda):
     rm.ragged_group_matmul_reference(*r, cnt).backward(dy)
     for a, b in zip(t, r):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_ragged_dot_bf16_runs_the_tensor_core_kernel(cuda):
+    """bf16, as the ERNIE-MoE experts: the forward (w MN-major) and dx
+    (w^T, K-major) both launch the tensor-core variant; dx and dw equal
+    autograd through the plain version within bf16 rounding."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(3, 200, 64, generator=g, device=cuda).bfloat16()
+    w = (0.1 * torch.randn(3, 64, 136, generator=g, device=cuda)).bfloat16()
+    dy = torch.randn(3, 200, 136, generator=g, device=cuda).bfloat16()
+    cnt = torch.tensor([200, 77, 0], dtype=torch.int32, device=cuda)
+    t = [a.clone().requires_grad_() for a in (x, w)]
+    r = [a.clone().requires_grad_() for a in (x, w)]
+    by_variant = dict(rm.ragged_group_matmul.launches_by_variant)
+    rm.ragged_dot(*t, cnt).backward(dy)
+    torch.cuda.synchronize()
+    assert _variant_launches(by_variant) == {"tc": 2}
+    rm.ragged_group_matmul_reference(*r, cnt).backward(dy)
+    for a, b in zip(t, r):
+        assert chip_smoke.rel_err(a.grad, b.grad) < 1e-2
 
 
 def test_ragged_kernel_rejects_what_it_does_not_take(cuda):

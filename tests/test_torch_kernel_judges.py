@@ -17,6 +17,13 @@ every planted fault made from the plain version.
 - fused CE (``judge_ce``): (m, s, lab) within rtol 1e-4 / atol 1e-3.
   Faults: the last 128 vocabulary columns dropped; the label read one
   column off.
+- ragged matmul (``judge_ragged``): ``||got - want|| / ||want||`` over
+  the live rows, 1e-2 for a bf16 result and 1e-5 for an fp32 one, every
+  row past the counts exactly 0, all finite. Faults (``ragged_faults``):
+  counts ignored; half of K dropped; the last 64-deep K chunk dropped; the
+  first K chunk summed twice; the rows of a partly live 128-row tile past
+  the count given their product; the last 256-column tile computed
+  against the next group's w.
 
 The judges import torch and numpy only; the card applies them to the
 kernels (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
@@ -28,6 +35,7 @@ import torch
 import chip_smoke
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_ce as fc
+from paddle_tpu_torch.ops import ragged_matmul as rm
 
 
 def _attn(rng, B, Lq, Lk, Hq, Hkv, D, dtype):
@@ -225,3 +233,55 @@ def test_backward_judge_sees_a_fault_in_the_late_keys_alone():
     bad[:, -128:] = 0
     rels, ok = chip_smoke.judge_backward((want[0], bad, want[2]), want)
     assert not ok and rels[1][1] > chip_smoke.BWD_REL_TOL[torch.bfloat16]
+
+
+def _tiled_ragged(x, w, counts, out_dtype, depth=64):
+    """The ragged product as the tensor-core kernel sums it, in another
+    order: 64-deep K chunks accumulated in fp32, last chunk first, rows
+    past the counts set to 0 by a select, rounded once to the output
+    dtype (a legitimate result the judge must pass)."""
+    G, C, K = x.shape
+    acc = torch.zeros(G, C, w.shape[2])
+    for k0 in reversed(range(0, K, depth)):
+        acc += torch.bmm(x[..., k0:k0 + depth].float(),
+                         w[:, k0:k0 + depth].float())
+    live = torch.arange(C)[None, :] < counts.long()[:, None]
+    return torch.where(live[..., None], acc, 0.0).to(out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,C,K,N,counts", [
+    (5, 300, 200, 136, [1, 64, 127, 129, 300]),   # every tile edge
+    (3, 260, 256, 264, [260, 0, 131]),            # an empty group
+])
+def test_ragged_judge_passes_the_plain_version_and_fails_the_faults(
+        dtype, G, C, K, N, counts):
+    rng = np.random.default_rng(C + K)
+    x = torch.from_numpy(rng.standard_normal((G, C, K)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy(0.05 * rng.standard_normal((G, K, N)).astype(
+        np.float32)).to(dtype)
+    cnt = torch.tensor(counts, dtype=torch.int32)
+    tol = chip_smoke.RAGGED_TOL[dtype]
+    want = rm.ragged_group_matmul(x, w, cnt)          # the plain version
+    assert chip_smoke.judge_ragged(want, want, cnt, tol)[2]
+    rel, zeros, ok = chip_smoke.judge_ragged(
+        _tiled_ragged(x, w, cnt, dtype), want, cnt, tol)
+    assert ok, (rel, zeros)
+    faults = chip_smoke.ragged_faults(rm, x, w, cnt)
+    assert len(faults) == 6
+    for name, bad in faults.items():
+        assert not chip_smoke.judge_ragged(bad, want, cnt, tol)[2], name
+
+
+def test_ragged_faults_leave_out_what_the_input_cannot_show():
+    """Counts on 128-row tile edges have no partly live tile, and one
+    group has no next group's w: those two faults are left out, as at
+    the MoE up shape of phase 3, where five faults are checked."""
+    x = torch.ones(1, 256, 64)
+    w = torch.ones(1, 64, 16)
+    cnt = torch.tensor([128], dtype=torch.int32)
+    assert len(chip_smoke.ragged_faults(rm, x, w, cnt)) == 4
+    x2, w2 = x.expand(2, -1, -1), w.expand(2, -1, -1)
+    cnt2 = torch.tensor([128, 256], dtype=torch.int32)
+    assert len(chip_smoke.ragged_faults(rm, x2, w2, cnt2)) == 5

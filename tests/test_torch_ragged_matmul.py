@@ -104,3 +104,59 @@ def test_tile_arguments_are_accepted_and_do_not_change_the_result():
     torch.testing.assert_close(
         rm.ragged_group_matmul(*args, block_m=8, block_n=16),
         rm.ragged_group_matmul(*args), rtol=0, atol=0)
+
+
+def _bf16(*shape):
+    return torch.empty(shape, dtype=torch.bfloat16)
+
+
+def test_variant_rule():
+    """``_variant`` picks the kernel before the launch from dtype, strides
+    and alignment alone: the tensor cores ("tc") for the ERNIE-MoE
+    expert operands (x [E, C, d] @ w_up [E, d, f], h @ w_down) and for
+    dx's ``w.transpose(1, 2)``; the first, mma.sync kernel for bf16 that TMA
+    cannot read; the CUDA cores for fp32."""
+    E, C, d, f = 2, 64, 1024, 4096            # ERNIE-MoE's widths
+    x, w_up, h, w_down = _bf16(E, C, d), _bf16(E, d, f), _bf16(E, C, f), \
+        _bf16(E, f, d)
+    assert rm._variant(x, w_up) == "tc"                       # MN-major
+    assert rm._variant(h, w_down) == "tc"
+    assert rm._variant(h, w_up.transpose(1, 2)) == "tc"       # K-major
+    assert rm._variant(x, w_down.transpose(1, 2)) == "tc"
+    # K a multiple of 8 but not of 64, N likewise: TMA fills the edges
+    assert rm._variant(_bf16(2, 300, 200), _bf16(2, 200, 136)) == "tc"
+    mma = [
+        (_bf16(4, 19, 8), _bf16(4, 8, 13)),              # N % 8 != 0
+        (_bf16(2, 64, 12), _bf16(2, 12, 64)),            # x rows 24 bytes
+        (_bf16(2, 64, 68)[..., :64], _bf16(2, 64, 64)),  # K-sliced x
+        (x, _bf16(E * d * f + 1)[1:].view(E, d, f)),     # w 2 bytes off
+        (_bf16(2 * 64 * 64 + 1)[1:].view(2, 64, 64),
+         _bf16(2, 64, 64)),                              # x 2 bytes off
+        (x, _bf16(E, f, d, 2)[..., 0].transpose(1, 2)),  # no unit stride
+        (_bf16(C, d).expand(E, C, d), w_up),             # x groups overlap
+    ]
+    for xa, wa in mma:
+        assert rm._variant(xa, wa) == "mma_sync", (xa.stride(), wa.stride())
+    f32 = torch.empty(E, C, 64), torch.empty(E, 64, 128)
+    assert rm._variant(*f32) == "cuda_core"
+    assert rm._variant(f32[0], f32[1].transpose(1, 2).contiguous()
+                       .transpose(1, 2)) == "cuda_core"
+
+
+@pytest.mark.parametrize("G,C,N,sms,runs", [
+    (8, 2560, 4096, 132, 4),      # ERNIE up: 16 column tiles, 4 per run
+    (8, 2560, 1024, 132, 4),      # ERNIE down and dx: 1 per run
+    (1, 128, 8192, 132, 32),      # one row tile: one column tile per run
+    (4, 19, 13, 132, 1),          # one column tile
+    (8, 2560, 2304, 132, 3),      # 9 column tiles: 3 runs of 3
+    (2, 1280, 3072, 132, 12),     # few row tiles: a column tile per run
+    (64, 256, 1024, 132, 4),
+])
+def test_column_runs_fill_the_card_in_equal_runs(G, C, N, sms, runs):
+    got = rm._col_runs(G, C, N, sms)
+    n_ct = -(-N // rm._COLS)
+    assert got == runs and 1 <= got <= n_ct
+    # the kernel's runs [i n_ct / runs, (i + 1) n_ct / runs): none is twice
+    # another
+    lens = [(i + 1) * n_ct // got - i * n_ct // got for i in range(got)]
+    assert sum(lens) == n_ct and max(lens) - min(lens) <= 1
