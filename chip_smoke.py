@@ -21,7 +21,13 @@ failure raises and exits non-zero before the result line is printed:
    must take the variant it should (bf16 on the tensor cores; fp32,
    unaligned bf16 and the backward at D = 256 on the CUDA cores; the
    ragged kernel's bf16 operands that TMA cannot read on its first,
-   ``mma.sync`` kernel);
+   ``mma.sync`` kernel); flash decode under ``judge_decode`` (relative
+   error per (slot, head), zeros in a slot that attends nothing) up to
+   4096 positions, which its four planted faults (``decode_faults``)
+   must fail; the int8 matmul bit for bit with wq in both layouts at the
+   7B shapes and its tile edges, the K-major wq on the tensor cores
+   (``"tc"``), the row-major one and the odd tail on the first kernel
+   (``"mma_sync"``), its four planted faults (``int8_faults``) failing;
 4. Llama-2-7B forward at full width and depth (random seeded weights,
    bf16): ``model(ids[1, 512])`` must be finite, take the flash path and
    launch the flash-attention kernel once per layer, each launch on the
@@ -35,8 +41,10 @@ failure raises and exits non-zero before the result line is printed:
    the gathered engines gives identical tokens;
 7. timings (CUDA events, L2 flushed, after warm-up) of each kernel, its
    plain version and a PyTorch library call, beside the card's bound;
-   the redesigned flash forward, flash backward (dq, dk/dv), fused CE
-   and ragged matmul also beside their first versions;
+   the redesigned flash forward, flash backward (dq, dk/dv), fused CE,
+   ragged matmul and int8 matmul also beside their first versions (the
+   int8 matmul at the 7B q/k/v/o, up, down and head shapes, beside
+   ``torch._int_mm`` on the same K-major wq and on a row-major one);
 8. training: Llama-2-7B widths cut to 8 layers (bf16, random seeded
    weights) through ``fleet.distributed_optimizer(AdamW)
    .make_train_step`` on one repeated 2 x 2048 batch with the fused LM
@@ -59,12 +67,14 @@ failure raises and exits non-zero before the result line is printed:
     after phase 5): ``PostTrainingQuantization(algo="abs_max")`` on two
     seeded 1 x 512 calibration batches swaps all 225 ``Linear``s for
     ``Int8Linear``; the quantized forward must launch the int8 kernel 225
-    times and the flash forward 32 times, give finite logits, and give
-    the same logits bit for bit with the int8 kernel's plain version
-    swapped in; the relative error and top-1 agreement against the bf16
-    logits, int8 vs bf16 forward times, weight bytes, peak memory and one
-    profiled quantized forward are printed; then the public stochastic
-    quantizers on a 7B FFN weight (one launch each).
+    times, all on the tensor cores, and the flash forward 32 times, read
+    no ``act_scale`` to the host, give finite logits, and give the same
+    logits bit for bit with the int8 kernel's plain version swapped in;
+    the relative error and top-1 agreement against the bf16 logits, int8
+    vs bf16 forward times, weight bytes, peak memory and one profiled
+    quantized forward (device busy, idle share, the int8 kernel's summed
+    time) are printed; then the public stochastic quantizers on a 7B FFN
+    weight (one launch each).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -153,26 +163,7 @@ def attn_case(B, Lq, Lk, Hq, Hkv, D, dtype, seed):
 
 
 def phase_parity(fa, fd, fc, rm, im, sr):
-    errs = {"flash_decode": 0.0}
-    # the engine's bs=16 at the 7B shape, GQA, fp32, and a 128-position
-    # block (a block spans two of the kernel's 64-position chunks)
-    for (S, H, n_kv, bs, mb, dtype, tol) in (
-            (8, 32, 32, 16, 32, torch.bfloat16, BF16_TOL),
-            (8, 32, 8, 16, 32, torch.bfloat16, BF16_TOL),
-            (8, 32, 8, 16, 32, torch.float32, 1e-4),
-            (8, 32, 32, 128, 4, torch.bfloat16, BF16_TOL)):
-        args = decode_case(S, H, n_kv, 128, bs, mb, 257, dtype, seed=S + H)
-        got = fd.flash_decode(*args).float()
-        want = fd.flash_decode_reference(*args).float()
-        err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, atol=tol, rtol=tol)
-        log(f"  flash_decode S={S} H={H} n_kv={n_kv} bs={bs} {dtype}: "
-            f"max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("flash_decode disagrees with its plain "
-                                 "version")
-        errs["flash_decode"] = max(errs["flash_decode"], err)
-    torch.cuda.empty_cache()
+    errs = parity_decode(fd)
     errs.update(parity_forward(fa))
     errs.update(parity_bwd(fa))
     errs.update(parity_fused_ce(fc))
@@ -298,6 +289,106 @@ def ce_faults(fc, hidden, w, labels, vocab_offset=0):
             "label read one column off":
             fc.fused_ce_stats_reference(hidden, w, labels + 1,
                                         vocab_offset)}
+
+
+DECODE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def judge_decode(got, want, write_pos, tol):
+    """The flash-decode judge: ``||got - want|| / ||want||`` over the head
+    dim of each (slot, head) whose slot attends a position (``write_pos >=
+    0``), at most ``tol`` (bf16 1e-2: the output's rounding is ~2e-3 of a
+    row; fp32 1e-4: sums in another order); exact zeros in the slots that
+    attend none; everything finite. Judging each (slot, head) at its own
+    scale sees one dropped position of a 4096-position slot, which an
+    absolute limit on the whole tensor does not. Returns (worst relative
+    error, zeros held, ok)."""
+    got, want = got.float(), want.float()
+    live = write_pos.to(got.device).long() >= 0
+    rel = ((got - want).norm(dim=-1)[live]
+           / want.norm(dim=-1)[live].clamp_min(1e-30))
+    worst = rel.max().item() if rel.numel() else 0.0
+    zeros = bool((got[~live] == 0).all())
+    finite = bool(torch.isfinite(got).all())
+    return worst, zeros, finite and zeros and worst <= tol
+
+
+def decode_faults(fd, q, kc, vc, tables, wp, chunk=64):
+    """Planted faults of flash decode, from its plain version: each slot's
+    last attended position dropped; the last ``chunk``-position chunk of
+    the longest slot dropped; one block-table entry of the longest slot
+    read one block off where a block starts on a chunk edge; with GQA,
+    each query head read against the next kv head. Returns {name: out}."""
+    ref = fd.flash_decode_reference
+    S, H, _ = q.shape
+    bs, n_kv = kc.shape[1], kc.shape[2]
+    s_long = int(torch.argmax(wp))
+    longest = int(wp[s_long])
+    faults = {"last position of each slot dropped":
+              ref(q, kc, vc, tables, wp - 1)}
+    short = wp.clone()
+    short[s_long] = longest // chunk * chunk - 1
+    faults["last chunk of the longest slot dropped"] = ref(
+        q, kc, vc, tables, short)
+    edge = chunk * bs // np.gcd(chunk, bs)       # a block start on a chunk
+    e = edge // bs                               # edge, and its entry
+    if edge + bs <= longest:
+        off = tables.clone()
+        off[s_long, e] = tables[s_long, e + 1]
+        faults["a table entry read one block off at a chunk edge"] = ref(
+            q, kc, vc, off, wp)
+    if n_kv < H:
+        faults["query heads read against the next kv head"] = ref(
+            q, kc.roll(-1, 2), vc.roll(-1, 2), tables, wp)
+    return faults
+
+
+# (S, H, n_kv, block size, blocks per slot, dtype, an empty slot): the
+# engine's shape (bs=16) at 512, 2048 and 4096 positions, GQA, fp32, and a
+# 128-position block (one block spans two 64-position chunks)
+DECODE_CASES = (
+    (8, 32, 32, 16, 32, torch.bfloat16, False),
+    (8, 32, 8, 16, 32, torch.bfloat16, True),
+    (8, 32, 8, 16, 32, torch.float32, False),
+    (8, 32, 32, 128, 4, torch.bfloat16, False),
+    (8, 32, 32, 16, 128, torch.bfloat16, False),
+    (8, 32, 32, 16, 256, torch.bfloat16, False),
+)
+
+
+def parity_decode(fd):
+    """Flash decode against its plain version under ``judge_decode`` at
+    ``DECODE_CASES``; every planted fault (``decode_faults``) must fail the
+    same judge on the same case."""
+    err = 0.0
+    for (S, H, n_kv, bs, mb, dtype, empty) in DECODE_CASES:
+        q, kc, vc, tables, wp = decode_case(S, H, n_kv, 128, bs, mb, mb + 1,
+                                            dtype, seed=S + H + mb)
+        if empty:
+            wp[1] = -1                       # a slot that attends nothing
+        got = fd.flash_decode(q, kc, vc, tables, wp)
+        want = fd.flash_decode_reference(q, kc, vc, tables, wp)
+        tol = DECODE_TOL[dtype]
+        rel, zeros, ok = judge_decode(got, want, wp, tol)
+        live = wp.long() >= 0            # an empty slot is judged by zeros
+        err = max(err, (got.float() - want.float())[live].abs().max().item())
+        log(f"  flash_decode S={S} H={H} n_kv={n_kv} bs={bs} "
+            f"positions={mb * bs} {dtype}: worst (slot, head) rel err "
+            f"{rel:.3e} (tol {tol}), empty slot zeros {zeros} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_decode disagrees with its plain "
+                                 "version")
+        for name, bad in decode_faults(fd, q, kc, vc, tables, wp).items():
+            brel, _, bok = judge_decode(bad, want, wp, tol)
+            log(f"    planted fault ({name}): rel err {brel:.3e}, must "
+                f"fail: {'ok' if not bok else 'PASSED (FAIL)'}")
+            if bok:
+                raise AssertionError(f"the decode judge passes a planted "
+                                     f"fault: {name}")
+        del q, kc, vc
+    torch.cuda.empty_cache()
+    return {"flash_decode": err}
 
 
 def launched_variant(wrapper, fn):
@@ -891,11 +982,17 @@ def parity_ernie_attention(fa):
 # FFN up (gate, up) and down, and the head
 INT8_SHAPES = (("qkvo", 512, 4096, 4096), ("up", 512, 4096, 11008),
                ("down", 512, 11008, 4096), ("head", 512, 4096, 32000))
+# and the tensor-core kernel's tile edges (128 x 128 tiles, 128-deep
+# stages): M = 1, 37, 130; N = 129, 300; K = 128 and 11008; the odd tail
+# (K = 200: not a multiple of 16, so TMA cannot read it)
+INT8_EDGES = (("M=1 N=129", 1, 4096, 129), ("M=37 N=300 K=128", 37, 128, 300),
+              ("M=130 N=129 K=11008", 130, 11008, 129),
+              ("odd tail", 37, 200, 300))
 
 
 def int8_case(M, K, N, seed):
     """Per-row-quantized activations (as ``_quant_rows`` makes them) and
-    a per-column-quantized weight, all on the card."""
+    a per-column-quantized weight, all on the card; wq row-major [K, N]."""
     from paddle_tpu_torch.ops.int8_matmul import _quant_rows
     g = torch.Generator(device="cuda").manual_seed(seed)
     xq, xs = _quant_rows(torch.randn(M, K, generator=g, device="cuda"))
@@ -903,6 +1000,12 @@ def int8_case(M, K, N, seed):
     ws = torch.clamp_min(w.abs().amax(0, keepdim=True) / 127.0, 1e-10)
     wq = torch.clamp(torch.round(w / ws), -127, 127).to(torch.int8)
     return xq, xs, wq, ws
+
+
+def k_major(wq):
+    """The [K, N] view of wq's K-major copy ([N, K] storage), as
+    ``Int8Linear.qweight`` lies."""
+    return wq.t().contiguous().t()
 
 
 def same_bits(a, b):
@@ -913,45 +1016,77 @@ def same_bits(a, b):
     return torch.equal(a.view(view), b.view(view))
 
 
+def int8_faults(im, name, xq, xs, wq, ws, dt):
+    """Planted faults of the int8 matmul, from its plain version, at the
+    shapes where each is a fault of the tensor-core design: at the up
+    shape the last 128-deep K chunk dropped, the last 128-column tile
+    computed against the next tile's columns (the first tile's, past the
+    last) and the row scales shifted by one row; at the square q/k/v/o
+    shape the K-major storage read as if it were row-major."""
+    ref = im.int8_matmul_rescale_reference
+    K, N = wq.shape
+    if name == "up":
+        Kc = (K - 1) // 128 * 128
+        c0 = (N - 1) // 128 * 128
+        nxt = ref(xq, xs, torch.roll(wq, -128, 1)[:, c0:],
+                  torch.roll(ws, -128, 1)[:, c0:], dt)
+        tile = ref(xq, xs, wq, ws, dt)
+        tile[:, c0:] = nxt
+        return {"last 128-deep K chunk dropped":
+                ref(xq[:, :Kc], xs, wq[:Kc], ws, dt),
+                "last column tile against the next tile's columns": tile,
+                "row scales shifted": ref(xq, torch.roll(xs, 1, 0), wq, ws,
+                                          dt)}
+    if name == "qkvo":
+        # the bytes of wq^T [N, K] taken as [K, N] rows
+        return {"K-major storage read as row-major":
+                ref(xq, xs, wq.t().contiguous().view(K, N), ws, dt)}
+    return {}
+
+
 def parity_int8(im):
     """The int8 kernel against its plain version, bit for bit, in bf16 and
-    fp32, at the 7B shapes and at an odd tail (M=37, K=200, N=300: M, N
-    and K all off the tiles, K off 16 bytes). Two planted faults must fail
-    the same check: the K tail dropped (the odd shape's last 8 depths),
-    and the row scales misapplied (shifted by one row) at the up shape."""
+    fp32, at the 7B shapes and the tile edges (``INT8_SHAPES``,
+    ``INT8_EDGES``), with wq in both layouts: K-major (``Int8Linear``'s)
+    takes the tensor cores (``"tc"``) wherever TMA can read it, row-major
+    and the odd tail the first kernel (``"mma_sync"``). The planted faults
+    (``int8_faults``) must fail the same check."""
     err = 0.0
-    for name, M, K, N in INT8_SHAPES + (("odd tail", 37, 200, 300),):
+    for name, M, K, N in INT8_SHAPES + INT8_EDGES:
         xq, xs, wq, ws = int8_case(M, K, N, seed=K + N)
-        for dt in (torch.bfloat16, torch.float32):
-            got = im.int8_matmul_rescale(xq, xs, wq, ws, out_dtype=dt)
-            want = im.int8_matmul_rescale_reference(xq, xs, wq, ws, dt)
-            torch.cuda.synchronize()
-            ok = same_bits(got, want) and bool(torch.isfinite(got).all())
-            e = (got.float() - want.float()).abs().max().item()
-            log(f"  int8_matmul_rescale [{name}] M={M} K={K} N={N} -> {dt}: "
-                f"bit-exact {ok}, max_abs_err {e:.3e} (tol: exact) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("int8_matmul_rescale disagrees with its "
-                                     "plain version")
-            err = max(err, e)
-            planted = None
-            if name == "odd tail" and dt == torch.bfloat16:
-                Kc = K // 64 * 64
-                planted = im.int8_matmul_rescale_reference(
-                    xq[:, :Kc].contiguous(), xs, wq[:Kc].contiguous(), ws, dt)
-                what = "K tail dropped"
-            elif name == "up" and dt == torch.bfloat16:
-                planted = im.int8_matmul_rescale_reference(
-                    xq, torch.roll(xs, 1, 0), wq, ws, dt)
-                what = "row scales shifted"
-            if planted is not None:
-                bad = same_bits(planted, want)
-                log(f"  planted fault ({what}): bit-exact {bad}, must be "
-                    f"False")
-                if bad:
-                    raise AssertionError("the int8 check does not see a "
-                                         "planted fault")
+        for layout, w in (("K-major", k_major(wq)), ("row-major", wq)):
+            must = ("tc" if layout == "K-major" and K % 16 == 0
+                    else "mma_sync")
+            for dt in (torch.bfloat16, torch.float32):
+                got, variant = launched_variant(
+                    im.int8_matmul_rescale,
+                    lambda: im.int8_matmul_rescale(xq, xs, w, ws,
+                                                   out_dtype=dt))
+                want = im.int8_matmul_rescale_reference(xq, xs, wq, ws, dt)
+                torch.cuda.synchronize()
+                ok = (same_bits(got, want) and variant == must
+                      and bool(torch.isfinite(got).all()))
+                e = (got.float() - want.float()).abs().max().item()
+                log(f"  int8_matmul_rescale [{name}] M={M} K={K} N={N} "
+                    f"wq {layout} -> {dt}: variant {variant} (must be "
+                    f"{must}), bit-exact {same_bits(got, want)}, "
+                    f"max_abs_err {e:.3e} (tol: exact) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("int8_matmul_rescale disagrees with "
+                                         "its plain version, or took the "
+                                         "wrong variant")
+                err = max(err, e)
+                if dt != torch.bfloat16 or layout != "K-major":
+                    continue
+                for what, bad in int8_faults(im, name, xq, xs, wq, ws,
+                                             dt).items():
+                    seen = same_bits(bad, want)
+                    log(f"    planted fault ({what}): bit-exact {seen}, "
+                        f"must be False")
+                    if seen:
+                        raise AssertionError("the int8 check does not see "
+                                             f"a planted fault: {what}")
         del xq, xs, wq, ws
     torch.cuda.empty_cache()
     return {"int8_matmul_rescale": err}
@@ -1229,13 +1364,16 @@ def phase_ptq(model, fa, im, sr, tq):
         model(ids)                               # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        im.int8_matmul_rescale.launches = 0
+        reset_counts(im.int8_matmul_rescale)
         reset_counts(fa.flash_attention)
+        reads = tq.act_scale_reads
         logits = model(ids)
+        reads = tq.act_scale_reads - reads
         torch.cuda.synchronize()
     launches = {"int8_matmul_rescale": im.int8_matmul_rescale.launches,
                 "flash_attention_fwd": fa.flash_attention.launches}
     fwd_variants = dict(fa.flash_attention.launches_by_variant)
+    int8_variants = dict(im.int8_matmul_rescale.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     # the same forward with the int8 kernel's plain version swapped in
     kernel = im.int8_matmul_rescale
@@ -1252,7 +1390,8 @@ def phase_ptq(model, fa, im, sr, tq):
     int8_ms = forward_ms(model, ids)
     top1 = (logits.float().argmax(-1) == logits_bf16.argmax(-1)).float()
     out = dict(
-        launches=launches, logits=list(logits.shape),
+        launches=launches, int8_variants=int8_variants,
+        act_scale_host_reads=reads, logits=list(logits.shape),
         finite=bool(torch.isfinite(logits).all()),
         plain_int8_bit_identical=same,
         rel_err_vs_bf16=rel_err(logits, logits_bf16),
@@ -1261,7 +1400,8 @@ def phase_ptq(model, fa, im, sr, tq):
         weight_bytes_bf16=bf16_bytes, weight_bytes_int8=int8_bytes,
         peak_gib_int8_forward=peak / 2**30, ptq_s=ptq_s)
     log(f"  quantized forward: launches {launches} (flash forward "
-        f"{fwd_variants}), finite "
+        f"{fwd_variants}, int8 {int8_variants}; act_scale host reads "
+        f"{reads}), finite "
         f"{out['finite']}, bit-identical with the plain int8 version "
         f"{same}; rel err vs bf16 {out['rel_err_vs_bf16']:.4f}, top-1 "
         f"agreement {out['top1_agreement_vs_bf16']:.4f}; forward int8 "
@@ -1271,10 +1411,16 @@ def phase_ptq(model, fa, im, sr, tq):
     want = {"int8_matmul_rescale": n_int8,
             "flash_attention_fwd": model.config.num_hidden_layers}
     n = model.config.num_hidden_layers
-    if launches != want or fwd_variants != {"tc": n, "cuda_core": 0}:
+    if (launches != want or fwd_variants != {"tc": n, "cuda_core": 0}
+            or int8_variants != {"tc": n_int8, "mma_sync": 0}):
         raise AssertionError(f"quantized forward launched {launches} (flash "
-                             f"forward {fwd_variants}), want {want}, the "
-                             f"flash forward all on the tensor cores")
+                             f"forward {fwd_variants}, int8 "
+                             f"{int8_variants}), want {want}, the flash "
+                             f"forward and the int8 matmul all on the "
+                             f"tensor cores")
+    if reads != 0:
+        raise AssertionError(f"the steady-state quantized forward read "
+                             f"act_scale to the host {reads} times")
     if not (out["finite"] and same):
         raise AssertionError("quantized logits not finite, or not the plain "
                              "int8 version's")
@@ -1283,8 +1429,15 @@ def phase_ptq(model, fa, im, sr, tq):
         with torch.inference_mode():
             model(ids)
 
-    out["profile"] = profile_step(fwd)
-    log("  profiled quantized forward " + json.dumps(out["profile"]))
+    out["profile"] = prof = profile_step(fwd)
+    out["int8_kernel_ms"] = sum(v for k, v in prof["port_kernels_ms"].items()
+                                if "int8_" in k)
+    log("  profiled quantized forward " + json.dumps(prof))
+    log(f"  profiled quantized forward: device busy "
+        f"{prof['device_busy_ms']:.2f} ms of {prof['step_wall_ms']:.2f} ms "
+        f"wall (idle share {prof['device_idle_share']:.3f}), int8 kernel "
+        f"{out['int8_kernel_ms']:.2f} ms over "
+        f"{launches['int8_matmul_rescale']} launches")
     # the public stochastic quantizers on a 7B FFN weight (fp32 copy of
     # layer 0's gate_proj taken before PTQ)
     sr.stochastic_round_bf16.launches = 0
@@ -1377,8 +1530,8 @@ def phase_timings(fa, fd, fc, rm, im, sr, flush):
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{first}, plain "
             f"{t['plain_ms']:.4f} ms, library {lib}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
-            + (f", _int_mm on a column-major wq "
-               f"{t['int_mm_col_major_ms']}, bf16 x @ w_deq "
+            + (f", _int_mm on the row-major wq "
+               f"{t['int_mm_row_major_ms']}, bf16 x @ w_deq "
                f"{t['bf16_ms']:.4f} ms" if "bf16_ms" in t else ""))
     return out
 
@@ -1410,39 +1563,42 @@ def bound(byts, flops, peak_ops=PEAK_BF16_FLOPS):
 
 
 def timings_int8(im, flush):
-    """The int8 kernel at bench.py's shape (M=256, K=N=8192) and at the 7B
-    FFN up and down shapes (M=512), bf16 out. Yardsticks: ``torch._int_mm``
-    (cuBLASLt int8 -> int32, no scale epilogue; never called by the port)
-    on the same operands (wq row-major, [K, N]) and on a column-major copy
-    of wq (the layout cuBLASLt's int8 kernels are written for), and the
-    bf16 product with the dequantized weight ``x @ w_deq`` (what the
-    dequant route runs, w_deq made beforehand). Bound: 1979e12 int8 OP/s;
-    bytes xq, wq, both scales, the bf16 out."""
+    """The int8 kernel at the 7B shapes (M=512: q/k/v/o, up, down, head)
+    and bench.py's (M=256, K=N=8192), bf16 out: the tensor-core variant on
+    the K-major wq the main path gives it, and in the same run the first
+    version (``"mma_sync"``) on the row-major wq it ran on before.
+    Yardsticks: ``torch._int_mm`` (cuBLASLt int8 -> int32, no scale
+    epilogue; never called by the port) on the same K-major operand and on
+    the row-major one, and the bf16 product with the dequantized weight
+    ``x @ w_deq`` (what the dequant route runs, w_deq made beforehand).
+    Bound: 1979e12 int8 OP/s; bytes xq, wq, both scales, the bf16 out."""
     out = {}
-    for name, M, K, N in (("bench", 256, 8192, 8192),
-                          ("up", 512, 4096, 11008),
-                          ("down", 512, 11008, 4096)):
+    for name, M, K, N in INT8_SHAPES + (("bench", 256, 8192, 8192),):
         xq, xs, wq, ws = int8_case(M, K, N, seed=K * 3 + N)
+        wk = k_major(wq)
         xb = (xq.float() * xs).to(torch.bfloat16)
         wd = (wq.float() * ws).to(torch.bfloat16)
-        wq_cm = wq.t().contiguous().t()                # column-major
         try:
-            lib = time_ms(lambda: torch._int_mm(xq, wq), flush)
-            lib_cm = time_ms(lambda: torch._int_mm(xq, wq_cm), flush)
+            lib = time_ms(lambda: torch._int_mm(xq, wk), flush)
+            lib_row = time_ms(lambda: torch._int_mm(xq, wq), flush)
         except RuntimeError as e:             # a yardstick only
             log(f"  torch._int_mm at M={M} K={K} N={N}: {e}")
-            lib = lib_cm = None
+            lib = lib_row = None
+        with forced_variant(im, "mma_sync"):
+            first = time_ms(lambda: im.int8_matmul_rescale(xq, xs, wq, ws),
+                            flush)
         out[f"int8_matmul_rescale_{name}"] = dict(
-            ms=time_ms(lambda: im.int8_matmul_rescale(xq, xs, wq, ws),
+            ms=time_ms(lambda: im.int8_matmul_rescale(xq, xs, wk, ws),
                        flush),
+            variant=im._variant(xq, wk), first_version_ms=first,
             plain_ms=time_ms(lambda: im.int8_matmul_rescale_reference(
-                xq, xs, wq, ws), flush, reps=5),
-            library_ms=lib, int_mm_col_major_ms=lib_cm,
+                xq, xs, wk, ws), flush, reps=5),
+            library_ms=lib, int_mm_row_major_ms=lib_row,
             bf16_ms=time_ms(lambda: xb @ wd, flush),
             shape=f"M={M} K={K} N={N} int8 -> bf16",
             **bound(M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N,
                     PEAK_INT8_OPS))
-        del xq, xs, wq, ws, xb, wd, wq_cm
+        del xq, xs, wq, ws, wk, xb, wd
     torch.cuda.empty_cache()
     return out
 
@@ -1674,8 +1830,8 @@ def _reset(fa, fc, rm):
 # the port's own kernels (csrc/*.cu), by their function names
 PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode",
                 "fused_ce_stats", "merge_splits", "ragged_tc", "ragged_mma",
-                "ragged_fma", "int8_mma", "absmax_kernel", "quant_sr",
-                "sr_bf16")
+                "ragged_fma", "int8_tc", "int8_mma", "absmax_kernel",
+                "quant_sr", "sr_bf16")
 
 
 def profile_step(step, *batch):
@@ -2011,20 +2167,20 @@ def main():
         down={k: t["ragged_group_matmul_down"][k]
               for k in cols + ragged_cols},
         dx={k: t["ragged_group_matmul_dx"][k] for k in cols + ragged_cols}))
-    int8_cols = ("int_mm_col_major_ms", "bf16_ms")
+    int8_cols = cols + ("variant", "first_version_ms",
+                        "int_mm_row_major_ms", "bf16_ms")
     kernels.append(dict(
         name="int8_matmul_rescale", route="cuda",
         source="paddle_tpu_torch/csrc/int8_matmul.cu",
         replaces="paddle_tpu/ops/pallas/int8_matmul.py:30",
         launches=q_launches["int8_matmul_rescale"],
+        launches_tc=ptq["int8_variants"]["tc"],
         max_abs_err=errs["int8_matmul_rescale"],
         max_err=errs["int8_matmul_rescale"],
-        **{k: t["int8_matmul_rescale_up"][k] for k in cols},
         **{k: t["int8_matmul_rescale_up"][k] for k in int8_cols},
-        down={k: t["int8_matmul_rescale_down"][k]
-              for k in cols + int8_cols},
-        bench={k: t["int8_matmul_rescale_bench"][k]
-               for k in cols + int8_cols}))
+        **{shape: {k: t[f"int8_matmul_rescale_{shape}"][k]
+                   for k in int8_cols}
+           for shape in ("qkvo", "down", "head", "bench")}))
     for kname, line in (("stochastic_round", 60),
                         ("quantize_int8_stochastic", 111)):
         kernels.append(dict(

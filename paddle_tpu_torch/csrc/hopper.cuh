@@ -1,17 +1,18 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
 // (flash_attention_fwd.cu, flash_attention_bwd.cu, fused_ce.cu,
-// ragged_matmul.cu): shared-memory barriers (mbarrier), TMA tile loads and
-// stores (cp.async.bulk.tensor) with the tensor maps they use, wgmma
-// shared-memory descriptors, and the wgmma instructions themselves, all as
-// inline PTX so that a build includes no library header beyond the CUDA
-// toolkit's.
+// ragged_matmul.cu, int8_matmul.cu): shared-memory barriers (mbarrier), TMA
+// tile loads and stores (cp.async.bulk.tensor) with the tensor maps they
+// use, wgmma shared-memory descriptors, and the wgmma instructions
+// themselves, all as inline PTX so that a build includes no library header
+// beyond the CUDA toolkit's.
 //
-// Shared-memory tiles are bf16 rows of 128 (or 64) bytes written by TMA
-// with the matching swizzle (CU_TENSOR_MAP_SWIZZLE_128B / _64B): the 16-byte
-// chunk c of row r lands at chunk c ^ (r % 8). A tile's base is 1024-byte
-// aligned, so the swizzle, which the hardware computes from address bits,
-// is the same for TMA and wgmma. Descriptors: K-major operands (the
-// reduction dim contiguous) advance 32 bytes per k16 step inside a row;
+// Shared-memory tiles are rows of 128 (or 64) bytes (bf16; int8 in the int8
+// matmul) written by TMA with the matching swizzle
+// (CU_TENSOR_MAP_SWIZZLE_128B / _64B): the 16-byte chunk c of row r lands
+// at chunk c ^ (r % 8). A tile's base is 1024-byte aligned, so the swizzle,
+// which the hardware computes from address bits, is the same for TMA and
+// wgmma. Descriptors: K-major operands (the reduction dim contiguous)
+// advance 32 bytes per k16 step (bf16) or k32 step (int8) inside a row;
 // MN-major operands (the output dim contiguous, "transposed", allowed for
 // 16-bit types) advance 16 rows per k16 step; in both the stride between
 // 8-row groups (SBO) is 8 rows. An MN-major B wider than one swizzle atom
@@ -201,6 +202,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
 // 2^x by the MUFU unit alone (ex2.approx.ftz: ~2 ulp, subnormal results
 // flushed to 0); exp2f adds a range-fixing path around it
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -372,6 +379,43 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d), "n"(TB));
+}
+
+// The int8 instruction: m64n128k32, s8 x s8 -> s32, A and B from shared
+// memory, both K-major (8-bit wgmma has no transpose: its operands are
+// K-major only). A k32 step is 32 bytes of a 128-byte swizzle row, as a
+// bf16 k16 step, so the K-major descriptors above serve it unchanged; the
+// accumulator layout is the fp32 one. scale_d = 0 overwrites D; the int32
+// sums are exact (no .satfinite: nothing here comes near 2^31).
+// D[64 x 128] (+)= A[64 x 32] (shared) . B[32 x 128] (shared)
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),
+        "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),
+        "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]),
+        "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]),
+        "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // ---- host: tensor maps ------------------------------------------------------

@@ -7,49 +7,75 @@
 // [M, K] int8 (activations quantized per row), xs [M, 1] fp32, wq [K, N]
 // int8 (the weight in the paddle [in, out] layout), ws [1, N] fp32 ->
 // [M, N]. The TPU kernel kept K whole in VMEM; 227 KB of shared memory
-// cannot hold that, so K is walked in 64-deep tiles, the K tail staged as
-// zeros. The TPU wrapper pads M and N to its blocks; here the M and N
-// edges are bounds-checked instead, so nothing is padded or copied.
+// cannot hold that, so K is walked in chunks. The TPU wrapper pads M and N
+// to its blocks; here the M, N and K edges are masked by the kernels (TMA
+// bounds or bounds checks), so nothing is padded or copied.
 //
 // Exactness: the int32 sums are exact (overflow needs K > 133,000: 127 *
 // 127 * K < 2^31, far past every width here), and the epilogue is
 // __int2float_rn(acc) * xs[m] * ws[n] in that order, two IEEE products
 // with no FMA contraction (explicit __fmul_rn; no --use_fast_math), then
-// one rounding to bf16. The plain version computes the same products in
-// the same order, so the two agree bit for bit.
+// one rounding to the output dtype. The plain version computes the same
+// products in the same order, so every variant agrees with it bit for bit.
 //
-// What bounds it on the H100: at the Llama-2-7B FFN shapes (M=512,
-// K=4096, N=11008 and back) it does 4.62e10 int8 operations against 58 MB
-// moved, ~790 operations per byte, above the card's ~590 int8 operations
-// per byte, so the tensor cores are the roof (0.0233 ms). At decode-like
-// M the weight read bounds it instead.
+// What bounds it on the H100: operations. At the Llama-2-7B shapes the
+// main path launches (M = 512 rows; K x N = 4096 x 4096 for q/k/v/o,
+// 4096 x 11008 for gate/up, 11008 x 4096 for down, 4096 x 32000 for the
+// head) it does about 790 int8 operations per byte it must move (4.62e10
+// against 58 MB at the up shape), above the card's ~590, so the tensor
+// cores are the roof (0.0233 ms at up and down, 0.0087 at q/k/v/o). At
+// decode-like M the weight read bounds it instead.
 //
-// Design:
-//  - one 256-thread block per 128 x 128 output tile; 8 warps as 2 x 4,
-//    each warp a 64 x 32 sub-tile of mma.sync.m16n8k32 (s8 in, s32
-//    accumulate) read from shared memory;
-//  - two shared-memory buffers and a register prefetch: the global loads
-//    of K tile t + 1 are issued before the products of tile t, stored
-//    after them, one __syncthreads per tile;
-//  - A (xq) is staged as it lies, [row][k] at an 80-byte pitch (16-byte
-//    loads and stores; the fragment loads hit 32 distinct banks);
-//  - B (wq) lies with n contiguous, but the .col operand wants 4
-//    consecutive k of one column in each 32-bit word. Each thread reads
-//    4 rows (k) x 8 columns (n) with 8-byte loads, transposes them into 8
-//    words with byte permutes and stores one word per column. Those words
-//    are placed with an XOR swizzle over 128-byte units (two columns
-//    each), chosen so that both the staging stores (lanes along n, two k
-//    groups per warp) and the fragment loads (8 columns x 4 k words) hit
-//    32 distinct banks: a plain [n][k] layout would put the 16 lanes of a
-//    staging store in one bank;
-//  - unaligned or ragged operands (K % 16 or N % 8 not 0, or a pointer
-//    off 16 bytes) are staged byte by byte with the same zero fill.
-// A TMA/wgmma pipeline with more stages in flight is the later change
-// that moves it toward its bound.
+// The layout: Hopper's int8 wgmma reads both operands K-major (the
+// reduction axis contiguous) and only so: the transpose bits exist for
+// 16-bit types alone. xq [M, K] is K-major as it lies. The weight is
+// therefore stored K-major too: Int8Linear.qweight is the [in, out] view
+// of [out, in] storage (nn/quant/__init__.py), so wq^T [N, K] is
+// contiguous and TMA reads it as it lies; the shape, values and state_dict
+// key stay the JAX package's, and no byte is added or copied.
+//
+// Two variants; the wrapper (ops/int8_matmul.py:_variant) picks one before
+// the launch from the operands' layout and alignment:
+//
+// tensor cores (int8_matmul_rescale_tc, int8_tc_kernel), the main path's:
+//  - a persistent grid, at most one block per SM; block b takes the
+//    128 x 128 output tiles b, b + grid, ... in M-fastest order, so the
+//    4 row tiles of M = 512 that share a weight tile run side by side and
+//    the weight is read from device memory about once;
+//  - per tile, K is walked 128 deep (one 128-byte swizzle row, 4 k32
+//    steps) through a 6-stage ring of [128 rows][128 bytes] A (xq) and B
+//    (wq^T) tiles, 32 KB a stage, loaded by TMA through 2-d tensor maps
+//    that fill the M, N and K edges with zeros: one producer thread in a
+//    ninth warp, full / empty mbarriers per stage. The ring runs on
+//    across a block's tiles, so the next tile's loads overlap this
+//    tile's epilogue;
+//  - two consumer warpgroups, 64 rows each, issue
+//    wgmma.mma_async.m64n128k32.s32.s8.s8 with both operands from shared
+//    memory and 64 int32 accumulators a thread, keeping one stage's
+//    products in flight while they wait for the next;
+//  - the epilogue forms the bit-exact products in registers and stores
+//    them straight to the output, two neighbouring columns per store,
+//    predicated at M and N (any N, odd ones included).
+//
+// mma.sync (int8_matmul_rescale_mma, int8_mma_kernel): the first version,
+// for a row-major wq ([K, N] contiguous, n-major, which the tensor-core
+// kernel cannot read). A K-major wq that TMA cannot read (K not a multiple
+// of 16, or a base off 16 bytes) is copied to row-major by the wrapper
+// first (ops/int8_matmul.py), and then runs here too. One 256-thread block
+// per 128 x 128 output tile; 8 warps as 2 x 4, each a 64 x 32 sub-tile of
+// mma.sync.m16n8k32 from shared memory; K walked 64 deep through two
+// buffers and a register prefetch, one __syncthreads per chunk. A is
+// staged as it lies at an 80-byte pitch; wq is byte-transposed by each
+// thread, 4 k x 8 n at a time, into k-packed words placed with an XOR
+// swizzle over 128-byte units so that both the staging stores and the
+// fragment loads hit 32 distinct banks. Ragged or unaligned operands are
+// staged byte by byte with the same zero fill.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -279,15 +305,216 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core variant (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;                  // output rows per tile
+constexpr int kTcCols = 128;                  // output columns per tile
+constexpr int kTcDepth = 128;                 // K per stage: 128 bytes
+constexpr int kTcStages = 6;
+constexpr int kTcThreads = 256 + 32;          // 2 warpgroups + producer
+constexpr int kTcABytes = kTcRows * kTcDepth;     // [128 rows][128 k]
+constexpr int kTcBBytes = kTcCols * kTcDepth;     // [128 n][128 k]
+constexpr int kTcSmem = 1024 + kTcStages * (kTcABytes + kTcBBytes) +
+                        2 * kTcStages * 8;
+
+// the epilogue's products, in the plain version's order
+__device__ __forceinline__ float rescale(int acc, float xs, float ws) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
+}
+
+// columns n and n + 1 of row r (n < N): one store of both where N is even
+// (then r * N + n is even and the pair aligned), else one each
+__device__ __forceinline__ void store_pair(bf16* out, long long i, float x,
+                                           float y, bool pair, bool second) {
+  if (pair) {
+    *reinterpret_cast<uint32_t*>(out + i) = hopper::pack_bf16(x, y);
+  } else {
+    out[i] = __float2bfloat16_rn(x);
+    if (second) out[i + 1] = __float2bfloat16_rn(y);
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* out, long long i, float x,
+                                           float y, bool pair, bool second) {
+  if (pair) {
+    *reinterpret_cast<float2*>(out + i) = make_float2(x, y);
+  } else {
+    out[i] = x;
+    if (second) out[i + 1] = y;
+  }
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+int8_tc_kernel(const __grid_constant__ CUtensorMap ta,
+               const __grid_constant__ CUtensorMap tb,
+               const float* __restrict__ xs, const float* __restrict__ ws,
+               OutT* __restrict__ out, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* As = base;                               // [stage][A]
+  uint8_t* Bs = As + kTcStages * kTcABytes;         // [stage][B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kTcStages * kTcBBytes);
+  uint64_t* empty = full + kTcStages;
+
+  const int m_tiles = (M + kTcRows - 1) / kTcRows;
+  const int tiles = m_tiles * ((N + kTcCols - 1) / kTcCols);
+  const int n_k = (K + kTcDepth - 1) / kTcDepth;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);     // lane 0 of each consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: one thread streams (xq, wq^T) chunks through the
+    // ring, tile after tile
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t % m_tiles) * kTcRows, n0 = (t / m_tiles) * kTcCols;
+      for (int kc = 0; kc < n_k; ++kc, ++it) {
+        const int s = it % kTcStages;
+        hopper::mbar_wait(&empty[s], ((it / kTcStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], kTcABytes + kTcBBytes);
+        hopper::tma_load_2d(As + s * kTcABytes, &ta, &full[s],
+                            kc * kTcDepth, m0);
+        hopper::tma_load_2d(Bs + s * kTcBBytes, &tb, &full[s],
+                            kc * kTcDepth, n0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows m0 + 64 wg .. + 63 of every
+  // tile, all 128 columns (acc element i: row 16 warp + lane / 4 +
+  // 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2)
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const uint32_t a_base = hopper::smem_u32(As) + wg * 64 * kTcDepth;
+  const uint32_t b_base = hopper::smem_u32(Bs);
+  const bool pair = N % 2 == 0;
+
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t % m_tiles) * kTcRows, n0 = (t / m_tiles) * kTcCols;
+    for (int kc = 0; kc < n_k; ++kc, ++it) {
+      const int st = it % kTcStages;
+      hopper::mbar_wait(&full[st], (it / kTcStages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcDepth / 32; ++kk)
+        hopper::wgmma_s8_n128(
+            acc,
+            hopper::desc_at(a_base, st * kTcABytes + kk * 32, 1024, 128),
+            hopper::desc_at(b_base, st * kTcBBytes + kk * 32, 1024, 128),
+            kc > 0 || kk > 0);
+      hopper::wgmma_commit();
+      // keep one stage's products in flight; this warp is done with the
+      // stage before
+      hopper::wgmma_wait<1>();
+      if (kc > 0 && lane == 0)
+        hopper::mbar_arrive(&empty[(it - 1) % kTcStages]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kTcStages]);
+
+    // epilogue: the plain version's products, stored at rows < M and
+    // columns < N
+    const int r0 = m0 + 64 * wg + 16 * warp + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= M) continue;
+      const float x = xs[r];
+      OutT* row = out + (long long)r * N;
+#pragma unroll
+      for (int j = 0; j < kTcCols / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * (lane % 4);
+        if (n >= N) continue;
+        const bool second = n + 1 < N;
+        const float w0 = ws[n], w1 = second ? ws[n + 1] : 0.f;
+        store_pair(row, n, rescale(acc[4 * j + 2 * h], x, w0),
+                   rescale(acc[4 * j + 2 * h + 1], x, w1), pair, second);
+      }
+    }
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_tc(const CUtensorMap& ta, const CUtensorMap& tb,
+                      const float* xs, const float* ws, void* out, int M,
+                      int N, int K, int blocks, cudaStream_t st) {
+  auto kernel = int8_tc_kernel<OutT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kTcThreads, kTcSmem, st>>>(
+      ta, tb, xs, ws, static_cast<OutT*>(out), M, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// xq [M, K] and wq [K, N] contiguous int8, xs [M] and ws [N] contiguous
-// fp32, out [M, N] contiguous, out_dtype 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch.
-extern "C" int int8_matmul_rescale(const void* xq, const void* xs,
-                                   const void* wq, const void* ws, void* out,
-                                   int M, int N, int K, int out_dtype,
-                                   void* stream) {
+// The variants' entries, one signature. xq [M, K] contiguous int8; xs [M]
+// and ws [N] contiguous fp32; out [M, N] contiguous, out_dtype 0 =
+// float32, 1 = bfloat16. Each returns cudaGetLastError() after its launch,
+// or cudaErrorInvalidValue for operands it does not take.
+
+// tensor cores: wq [K, N] the view of a contiguous wq^T [N, K] (K-major),
+// K a multiple of 16, both bases 16-byte aligned (what TMA reads). The
+// persistent grid: one block per SM of the current device, or one per
+// output tile where there are fewer.
+extern "C" int int8_matmul_rescale_tc(const void* xq, const void* xs,
+                                      const void* wq, const void* ws,
+                                      void* out, int M, int N, int K,
+                                      int out_dtype, void* stream) {
+  if (M == 0 || N == 0) return cudaGetLastError();
+  if (K < 16 || K % 16 != 0 || !aligned(xq, 16) || !aligned(wq, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (long long)((M + kTcRows - 1) / kTcRows) *
+                          ((N + kTcCols - 1) / kTcCols);
+  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
+  CUtensorMap ta, tb;
+  const cuuint32_t box[2] = {kTcDepth, kTcRows};   // kTcRows == kTcCols
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint64_t adims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t bdims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  err = hopper::encode(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, 2, adims,
+                       stride, box, 128);
+  if (err == cudaSuccess)
+    err = hopper::encode(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, wq, 2, bdims,
+                         stride, box, 128);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* fxs = static_cast<const float*>(xs);
+  const float* fws = static_cast<const float*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = out_dtype == 1
+            ? launch_tc<bf16>(ta, tb, fxs, fws, out, M, N, K, blocks, st)
+            : launch_tc<float>(ta, tb, fxs, fws, out, M, N, K, blocks, st);
+  return static_cast<int>(err);
+}
+
+// mma.sync: wq [K, N] contiguous (row-major); any K, any alignment
+extern "C" int int8_matmul_rescale_mma(const void* xq, const void* xs,
+                                       const void* wq, const void* ws,
+                                       void* out, int M, int N, int K,
+                                       int out_dtype, void* stream) {
   if (M == 0 || N == 0) return cudaGetLastError();
   if ((M + kBM - 1) / kBM > 65535) return cudaErrorInvalidValue;
   Args a;

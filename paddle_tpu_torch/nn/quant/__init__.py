@@ -4,7 +4,12 @@
 Weights are stored int8 with per-output-channel fp32 scales in the paddle
 ``[in, out]`` layout (``Int8Linear`` buffers ``qweight`` ``[in, out]``
 int8, ``scale`` ``[1, out]`` fp32, ``act_scale`` ``[]`` fp32), so
-``state_dict``s carry across from the JAX package unchanged.
+``state_dict``s carry across from the JAX package unchanged. ``qweight``
+lies K-major: it is the ``[in, out]`` view of ``[out, in]`` storage (its
+``.t()`` is contiguous), the one layout Hopper's int8 tensor cores read.
+Every path that fills it (``from_linear``, ``load_state_dict``,
+``framework.io.load_numpy_state_dict``, PTQ and QAT convert) copies into
+it in place, and ``Module.to`` preserves strides, so it stays K-major.
 
 ``Int8Linear.forward`` routes as the JAX layer does, by
 ``PADDLE_TPU_INT8_MXU``: ``"1"`` always takes ``ops.int8_matmul.
@@ -13,8 +18,13 @@ its plain version on the CPU); ``"auto"`` (the default) takes it for a
 CUDA input when ``in_features`` is a multiple of 128 and at most 16384;
 otherwise (and for ``"0"``) the dequantized product ``x @ (q * s)`` with
 q and s cast to x's dtype before the multiply. A calibrated ``act_scale``
-(> 0, read on the host every call, as in the JAX package) first
-quantize-dequantizes x to its int8 grid.
+(> 0) first quantize-dequantizes x to its int8 grid. The JAX package
+reads ``act_scale`` on the host every call; the port reads it only when
+the buffer changed (a new tensor, or an in-place write, seen by its
+version counter), so a steady-state forward makes no host sync. A
+buffer with no version counter (made under ``torch.inference_mode``) is
+never read: the QDQ is then selected on the device. The outputs are the
+same either way.
 
 ``stochastic_round`` and ``quantize_int8_stochastic`` keep the JAX
 signatures (2-D input, integer ``seed``) and gating (``ValueError``
@@ -117,6 +127,17 @@ def quantize_int8_stochastic(w, seed: int = 0, interpret: bool = False):
     return _sr.quantize_int8_stochastic(w.float().contiguous(), seed)
 
 
+#: host reads of an ``act_scale`` (tests count them: a steady-state
+#: forward makes none)
+act_scale_reads = 0
+
+
+def _read_act_scale(t) -> float:
+    global act_scale_reads
+    act_scale_reads += 1
+    return float(t)
+
+
 class Int8Linear(nn.Module):
     """Linear with an int8 weight and a per-output-channel scale
     (weight-only).
@@ -132,9 +153,10 @@ class Int8Linear(nn.Module):
         dev = resolve_device(device)
         self.in_features = int(in_features)
         self.out_features = int(out_features)
+        # [in, out] with K-major storage: the view of [out, in]
         self.register_buffer("qweight", torch.zeros(
-            (self.in_features, self.out_features), dtype=torch.int8,
-            device=dev))
+            (self.out_features, self.in_features), dtype=torch.int8,
+            device=dev).t())
         self.register_buffer("scale", torch.ones(
             (1, self.out_features), dtype=torch.float32, device=dev))
         # activation QDQ grid step; 0 = disabled. A buffer so PTQ
@@ -144,6 +166,8 @@ class Int8Linear(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(
             self.out_features, dtype=torch.float32, device=dev))
             if bias else None)
+        # (act_scale tensor, its version, act_scale > 0) of the last read
+        self._act_seen = None
 
     @classmethod
     def from_linear(cls, linear: Linear, scale=None) -> "Int8Linear":
@@ -175,14 +199,26 @@ class Int8Linear(nn.Module):
                       or (mode == "auto" and x.is_cuda
                           and self.in_features % 128 == 0
                           and self.in_features <= 16384))
-        if float(self.act_scale) > 0:          # one host read per call
-            from .qat import fake_quant_dequant
-            x = fake_quant_dequant(x, self.act_scale)
+        x = self._act_qdq(x)
         if use_kernel:
             y = int8_linear(x, self.qweight, self.scale, x.dtype)
         else:
             y = x @ (self.qweight.to(x.dtype) * self.scale.to(x.dtype))
         return y if self.bias is None else y + self.bias.to(y.dtype)
+
+    def _act_qdq(self, x):
+        """x quantize-dequantized to the ``act_scale`` grid where it is
+        > 0, else x; the host reads ``act_scale`` only when the buffer
+        changed since the last read."""
+        from .qat import fake_quant_dequant
+        t = self.act_scale
+        if t.is_inference():
+            # no version counter to tell a write: select on the device
+            return torch.where(t > 0, fake_quant_dequant(x, t), x)
+        seen = self._act_seen
+        if seen is None or seen[0] is not t or seen[1] != t._version:
+            seen = self._act_seen = (t, t._version, _read_act_scale(t) > 0)
+        return fake_quant_dequant(x, t) if seen[2] else x
 
     def extra_repr(self):
         return (f"in_features={self.in_features}, "

@@ -7,9 +7,12 @@ Counterpart of ``paddle_tpu/ops/pallas/int8_matmul.py``:
   kernel. ``xq [M, K]`` int8, ``x_scale [M, 1]`` fp32, ``wq [K, N]`` int8,
   ``w_scale [1, N]`` fp32 -> ``[M, N]`` in ``out_dtype`` (bf16 or fp32 on
   the card): ``(xq @ wq).float() * x_scale * w_scale``, the int32 sums
-  exact, the two products in that order. ``block_m``/``block_n`` and
-  ``interpret`` are accepted for the JAX signature and ignored (the
-  kernel's tiles are fixed in the source).
+  exact, the two products in that order. ``wq`` is taken as it lies,
+  row-major (``[K, N]`` contiguous) or K-major (the ``[K, N]`` view of a
+  contiguous ``[N, K]``, as ``Int8Linear.qweight`` stores it), and
+  copied only where the kernels cannot read it (below).
+  ``block_m``/``block_n`` and ``interpret`` are accepted for the JAX
+  signature and ignored (the kernels' tiles are fixed in the source).
 - ``int8_matmul_rescale_reference``: its plain version. The int32 sums
   come from an int32 matmul on the CPU and a float64 one on CUDA (CUDA
   has no integer matmul; float64 is exact, since K * 127^2 < 2^53); then
@@ -23,8 +26,18 @@ Counterpart of ``paddle_tpu/ops/pallas/int8_matmul.py``:
   ``dx = ct.f32 @ (wq.f32 * w_scale.f32)^T`` cast to x's dtype; the int8
   weight and its scale are inference buffers and get no gradient.
 
-CUDA tensors launch the kernel or raise; CPU tensors take the plain
-version. ``int8_matmul_rescale.launches`` counts kernel launches.
+Two variants, chosen before the launch by ``_variant`` from wq's layout,
+K and alignment: ``"tc"`` (the tensor cores through ``wgmma`` s8 fed by
+TMA, the main path's: Hopper's int8 ``wgmma`` reads K-major operands
+only) and ``"mma_sync"`` (the first kernel, for a row-major wq and for
+operands TMA cannot read: K not a multiple of 16, or a base off 16
+bytes). ``"mma_sync"`` reads wq row-major only, so a K-major wq that TMA
+cannot read is copied to row-major (``wq.contiguous()``) before that
+launch. ``Int8Linear`` under its default routing never gives it one: it
+takes the kernels only where in_features % 128 == 0, on its own aligned
+buffer. CUDA tensors launch the chosen kernel or raise; CPU tensors take
+the plain version. ``int8_matmul_rescale.launches`` counts kernel
+launches and ``launches_by_variant`` each variant's.
 """
 from __future__ import annotations
 
@@ -39,6 +52,8 @@ __all__ = ["int8_matmul_rescale", "int8_matmul_rescale_reference",
 
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ENTRY = {"tc": "int8_matmul_rescale_tc",
+          "mma_sync": "int8_matmul_rescale_mma"}
 
 
 def int8_matmul_rescale_reference(xq, x_scale, wq, w_scale,
@@ -77,9 +92,30 @@ def _check(xq, x_scale, wq, w_scale, out_dtype):
         raise ValueError(f"int8_matmul_rescale: scales {tuple(x_scale.shape)}"
                          f" and {tuple(w_scale.shape)}; want ({M}, 1) and "
                          f"(1, {N})")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("int8_matmul_rescale: the kernel takes contiguous "
-                         "operands")
+    if not (all(t.is_contiguous() for t in (xq, x_scale, w_scale))
+            and (wq.is_contiguous() or _k_major(wq))):
+        raise ValueError("int8_matmul_rescale: the kernels take contiguous "
+                         "xq and scales, and a wq that is contiguous or the "
+                         "transpose of a contiguous tensor")
+
+
+def _k_major(wq):
+    """wq ``[K, N]`` lies K-major: its transpose ``[N, K]`` is
+    contiguous."""
+    return wq.t().is_contiguous()
+
+
+def _variant(xq, wq):
+    """The variant for these operands: ``"tc"`` when wq is K-major and TMA
+    can read both operands (K a multiple of 16, so every row starts on 16
+    bytes; both bases 16-byte aligned); ``"mma_sync"`` otherwise (a
+    row-major wq, which the int8 ``wgmma`` cannot read, or what TMA
+    cannot)."""
+    K = xq.shape[1]
+    if (_k_major(wq) and K >= 16 and K % 16 == 0
+            and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0):
+        return "tc"
+    return "mma_sync"
 
 
 def int8_matmul_rescale(xq, x_scale, wq, w_scale, *,
@@ -96,13 +132,17 @@ def int8_matmul_rescale(xq, x_scale, wq, w_scale, *,
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     if out.numel() == 0:
         return out
-    fn = _build.load("int8_matmul", "int8_matmul_rescale", _ARGTYPES)
+    variant = _variant(xq, wq)
+    if variant == "mma_sync":
+        wq = wq.contiguous()        # the first kernel reads wq row-major
+    fn = _build.load("int8_matmul", _ENTRY[variant], _ARGTYPES)
     with torch.cuda.device(xq.device):
         err = fn(xq.data_ptr(), x_scale.data_ptr(), wq.data_ptr(),
                  w_scale.data_ptr(), out.data_ptr(), M, N, K,
                  _OUT[out_dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "int8_matmul_rescale")
+    _build.check(err, _ENTRY[variant])
     int8_matmul_rescale.launches += 1
+    int8_matmul_rescale.launches_by_variant[variant] += 1
     return out
 
 
@@ -132,9 +172,10 @@ class _Int8Linear(torch.autograd.Function):
         ctx.x_dtype = x.dtype
         orig = x.shape
         xq, xs = _quant_rows(x.reshape(-1, orig[-1]))
-        # wq [K, N] is used as it lies: no copy unless a caller hands in a
-        # strided view
-        y = int8_matmul_rescale(xq, xs, wq.contiguous(),
+        # wq [K, N] is passed as it lies, row-major or K-major (the kernel
+        # raises on any other strides); Int8Linear's K-major qweight runs
+        # on the tensor cores with no copy
+        y = int8_matmul_rescale(xq, xs, wq,
                                 w_scale.float().reshape(1, -1).contiguous(),
                                 out_dtype=out_dtype)
         return y.reshape(*orig[:-1], y.shape[-1])
@@ -156,3 +197,4 @@ def int8_linear(x, wq, w_scale, out_dtype=torch.bfloat16, interpret=False):
 
 #: kernel launches since the count was last reset (CPU calls not counted)
 int8_matmul_rescale.launches = 0
+int8_matmul_rescale.launches_by_variant = {"tc": 0, "mma_sync": 0}

@@ -25,6 +25,16 @@ every planted fault made from the plain version.
   the count given their product; the last 256-column tile computed
   against the next group's w.
 
+- flash decode (``judge_decode``): ``||got - want|| / ||want||`` over the
+  head dim of each (slot, head) that attends a position, 1e-2 in bf16 and
+  1e-4 in fp32, exact zeros in a slot that attends none, all finite. It
+  passes the plain version, a 64-position tiled online softmax and a
+  split-K form whose chunks are merged by their lse. Faults
+  (``decode_faults``): each slot's last attended position dropped; the
+  last 64-position chunk of the longest slot dropped; a block-table entry
+  of the longest slot read one block off at a chunk edge; with GQA, each
+  query head read against the next kv head.
+
 The judges import torch and numpy only; the card applies them to the
 kernels (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
 """
@@ -34,6 +44,7 @@ import torch
 
 import chip_smoke
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import flash_decode as fd
 from paddle_tpu_torch.ops import fused_ce as fc
 from paddle_tpu_torch.ops import ragged_matmul as rm
 
@@ -285,3 +296,135 @@ def test_ragged_faults_leave_out_what_the_input_cannot_show():
     x2, w2 = x.expand(2, -1, -1), w.expand(2, -1, -1)
     cnt2 = torch.tensor([128, 256], dtype=torch.int32)
     assert len(chip_smoke.ragged_faults(rm, x2, w2, cnt2)) == 5
+
+
+def _decode(rng, S, H, n_kv, hd, bs, mb, dtype):
+    """Pools, block tables with distinct blocks per slot (0 past each
+    slot's bound) and write positions from 0 up to a full table."""
+    nb = mb + 1
+    mk = (lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(dtype))
+    q, kc, vc = mk(S, H, hd), mk(nb, bs, n_kv, hd), mk(nb, bs, n_kv, hd)
+    wp = rng.integers(0, mb * bs, S)
+    wp[0], wp[-1] = 0, mb * bs - 1
+    tables = np.zeros((S, mb), np.int32)
+    for s in range(S):
+        used = wp[s] // bs + 1
+        tables[s, :used] = rng.choice(np.arange(1, nb), used, replace=False)
+    return (q, kc, vc, torch.from_numpy(tables),
+            torch.from_numpy(wp.astype(np.int32)))
+
+
+def _decode_splits(q, kc, vc, tables, wp, size):
+    """Flash decode in ``size``-position pieces of each slot's view:
+    (m, l, acc) per piece in fp32, p rounded to v's dtype relative to the
+    piece's running max as the kernel rounds it, pieces with no attended
+    position left empty (l = 0)."""
+    S, H, hd = q.shape
+    n_kv = kc.shape[2]
+    mask_value = -0.7 * float(torch.finfo(torch.float32).max)
+    kv = kc[tables.long()].reshape(S, -1, n_kv, hd)
+    vv = vc[tables.long()].reshape(S, -1, n_kv, hd)
+    kh = kv.repeat_interleave(H // n_kv, 2).float()
+    vh = vv.repeat_interleave(H // n_kv, 2)
+    T = kv.shape[1]
+    valid = torch.arange(T)[None, :] <= wp.long()[:, None]       # [S, T]
+    out = []
+    for c0 in range(0, T, size):
+        sc = torch.einsum("shd,sthd->sht", q.float(), kh[:, c0:c0 + size])
+        sc = sc / hd ** 0.5
+        ok = valid[:, None, c0:c0 + size]
+        sc = sc.masked_fill(~ok, mask_value)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.exp(sc - m).masked_fill(~ok, 0.0)
+        acc = torch.einsum("sht,sthd->shd", p.to(vh.dtype).float(),
+                           vh[:, c0:c0 + size].float())
+        out.append((m, p.sum(-1, keepdim=True), acc))
+    return out
+
+
+def _decode_tiled(q, kc, vc, tables, wp, tile=64):
+    """The kernel's order: 64-position tiles folded into a running max,
+    exp-sum and output; a slot that attends nothing writes zeros."""
+    m = l = acc = None
+    for mt, lt, at in _decode_splits(q, kc, vc, tables, wp, tile):
+        if m is None:
+            m, l, acc = mt, lt, at
+            continue
+        m_new = torch.maximum(m, mt)
+        a, b = torch.exp(m - m_new), torch.exp(mt - m_new)
+        m, l, acc = m_new, l * a + lt * b, acc * a + at * b
+    safe = torch.where(l > 0, l, torch.ones_like(l))
+    return (acc / safe).to(q.dtype)
+
+
+def _decode_split_k(q, kc, vc, tables, wp, split=256):
+    """Split-K: each ``split``-position piece finished on its own (its
+    normalized output and its lse), the pieces merged by their lse."""
+    outs, lses = [], []
+    for m, l, acc in _decode_splits(q, kc, vc, tables, wp, split):
+        safe = torch.where(l > 0, l, torch.ones_like(l))
+        outs.append(acc / safe)
+        lses.append(torch.where(l > 0, m + torch.log(safe),
+                                torch.full_like(m, -float("inf"))))
+    lse = torch.stack(lses)                            # [n, S, H, 1]
+    top = lse.amax(0)
+    w = torch.exp(lse - torch.where(torch.isfinite(top), top, 0.0))
+    tot = w.sum(0)
+    out = (w * torch.stack(outs)).sum(0) / torch.where(tot > 0, tot, 1.0)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,n_kv,hd,bs,mb", [
+    (4, 8, 8, 64, 16, 128),      # 2048 positions at the engine's bs
+    (4, 8, 2, 64, 16, 32),       # GQA
+    (3, 4, 4, 64, 128, 4),       # a block spans two 64-position chunks
+])
+def test_decode_judge_passes_the_plain_version_and_fails_the_faults(
+        dtype, S, H, n_kv, hd, bs, mb):
+    args = _decode(np.random.default_rng(S + H + mb), S, H, n_kv, hd, bs,
+                   mb, dtype)
+    wp = args[-1]
+    tol = chip_smoke.DECODE_TOL[dtype]
+    want = fd.flash_decode(*args)                     # the plain version
+    assert chip_smoke.judge_decode(want, want, wp, tol)[2]
+    for form in (_decode_tiled, _decode_split_k):
+        rel, zeros, ok = chip_smoke.judge_decode(form(*args), want, wp, tol)
+        assert ok, (form.__name__, rel, zeros)
+    faults = chip_smoke.decode_faults(fd, *args)
+    assert len(faults) == (4 if n_kv < H else 3)
+    for name, bad in faults.items():
+        assert not chip_smoke.judge_decode(bad, want, wp, tol)[2], name
+
+
+def test_decode_judge_sees_one_dropped_position_of_a_long_slot():
+    """One position dropped from each slot of 4096 positions fails the
+    judge, where an absolute 2e-2 limit on the whole output (the check it
+    replaces) passes it."""
+    args = _decode(np.random.default_rng(1), 2, 8, 8, 64, 16, 256,
+                   torch.bfloat16)
+    wp = args[-1]
+    wp[0] = wp[1] = 4095
+    want = fd.flash_decode(*args)
+    bad = fd.flash_decode(*args[:-1], wp - 1)
+    assert torch.allclose(bad.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert not chip_smoke.judge_decode(bad, want, wp, 1e-2)[2]
+
+
+def test_decode_judge_wants_zeros_in_a_slot_with_no_position():
+    """A slot whose write position is -1 attends nothing: the kernel's
+    forms write zeros there and pass; the gathered plain version spreads
+    its softmax evenly over the masked positions and does not."""
+    args = _decode(np.random.default_rng(2), 3, 4, 4, 64, 16, 8,
+                   torch.float32)
+    wp = args[-1]
+    wp[1] = -1
+    want = fd.flash_decode(*args)
+    tiled = _decode_tiled(*args)
+    assert bool((tiled[1] == 0).all())
+    assert chip_smoke.judge_decode(tiled, want, wp, 1e-4)[2]
+    assert chip_smoke.judge_decode(_decode_split_k(*args), want, wp,
+                                   1e-4)[2]
+    rel, zeros, ok = chip_smoke.judge_decode(want, want, wp, 1e-4)
+    assert rel == 0 and not zeros and not ok
