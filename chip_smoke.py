@@ -23,9 +23,11 @@ failure raises and exits non-zero before the result line is printed:
    ragged kernel's bf16 operands that TMA cannot read on its first,
    ``mma.sync`` kernel); flash decode under ``judge_decode`` (relative
    error per (slot, head), zeros in a slot that attends nothing) up to
-   4096 positions, which its four planted faults (``decode_faults``)
-   must fail; the int8 matmul bit for bit with wq in both layouts at the
-   7B shapes and its tile edges, the K-major wq on the tensor cores
+   4096 positions, on the split kernel, with slots at a split edge,
+   which its four planted faults (``decode_faults``) must fail with
+   their chunk edges at 64 positions and at the split length; the int8
+   matmul bit for bit with wq in both layouts at the 7B shapes and its
+   tile edges, the K-major wq on the tensor cores
    (``"tc"``), the row-major one and the odd tail on the first kernel
    (``"mma_sync"``), its four planted faults (``int8_faults``) failing;
 4. Llama-2-7B forward at full width and depth (random seeded weights,
@@ -36,13 +38,16 @@ failure raises and exits non-zero before the result line is printed:
 5. the serving engine on the same model (``flash_decode=True``): 8
    staggered requests sharing a 64-token system prefix, 32 new tokens
    each; every request finishes, prefix blocks are shared, refcounts hold
-   and the flash-decode kernel runs once per layer per decode step;
+   and the flash-decode kernel runs once per layer per decode step,
+   every launch on the split kernel;
 6. token identity: a tiny fp32 Llama (TF32 off) through the kernel and
    the gathered engines gives identical tokens;
 7. timings (CUDA events, L2 flushed, after warm-up) of each kernel, its
    plain version and a PyTorch library call, beside the card's bound;
    the redesigned flash forward, flash backward (dq, dk/dv), fused CE,
-   ragged matmul and int8 matmul also beside their first versions (the
+   ragged matmul, int8 matmul and flash decode (at 512 and 4096
+   positions; with ptxas' lines of its split kernel) also beside their
+   first versions (the
    int8 matmul at the 7B q/k/v/o, up, down and head shapes, beside
    ``torch._int_mm`` on the same K-major wq and on a row-major one);
 8. training: Llama-2-7B widths cut to 8 layers (bf16, random seeded
@@ -97,6 +102,9 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# 32-bit integer operations: 64 a clock on each of the 132 SMs (the Hopper
+# white paper's SM: half its fp32 rate) at the 1.98 GHz boost clock
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 BF16_TOL = 2e-2           # bf16 out tolerance: a few bf16 ulps at |x| ~ 1
 
 
@@ -135,10 +143,14 @@ def time_ms(fn, flush, reps=20):
 # phase 3 inputs
 # ---------------------------------------------------------------------------
 
-def decode_case(S, H, n_kv, hd, bs, mb, nb, dtype, seed):
+def decode_case(S, H, n_kv, hd, bs, mb, nb, dtype, seed, fixed=()):
     """Pools, block tables with distinct blocks per slot and trash (0)
     tails past each slot's bound, ragged write positions including 0 and
-    a full table."""
+    a full table; ``fixed`` pairs (slot, write position) set those slots'
+    positions (split edges). Where the pool holds ``S * mb`` blocks
+    besides block 0, each slot is dealt its own slice of one permutation,
+    so no two slots share a block (every attended row is a distinct one,
+    as phase 7's byte bound counts it)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     q = torch.randn(S, H, hd, generator=g, device=dev).to(dtype)
@@ -147,10 +159,15 @@ def decode_case(S, H, n_kv, hd, bs, mb, nb, dtype, seed):
     rng = np.random.default_rng(seed)
     wp = rng.integers(0, mb * bs, S)
     wp[0], wp[-1] = 0, mb * bs - 1
+    for s, w in fixed:
+        wp[s] = w
     tables = np.zeros((S, mb), np.int32)
+    deal = rng.permutation(np.arange(1, nb)) if nb > S * mb else None
     for s in range(S):
         used = wp[s] // bs + 1
-        tables[s, :used] = rng.choice(np.arange(1, nb), used, replace=False)
+        tables[s, :used] = (deal[s * mb:s * mb + used] if deal is not None
+                            else rng.choice(np.arange(1, nb), used,
+                                            replace=False))
     return (q, kc, vc, torch.from_numpy(tables).to(dev),
             torch.from_numpy(wp.astype(np.int32)).to(dev))
 
@@ -344,12 +361,15 @@ def decode_faults(fd, q, kc, vc, tables, wp, chunk=64):
 
 
 # (S, H, n_kv, block size, blocks per slot, dtype, an empty slot): the
-# engine's shape (bs=16) at 512, 2048 and 4096 positions, GQA, fp32, and a
+# engine's shape (bs=16) at 512, 2048 and 4096 positions, GQA (at 2048
+# positions its splits are 128 long, so the 2-stage ring runs), fp32, and a
 # 128-position block (one block spans two 64-position chunks)
 DECODE_CASES = (
     (8, 32, 32, 16, 32, torch.bfloat16, False),
     (8, 32, 8, 16, 32, torch.bfloat16, True),
     (8, 32, 8, 16, 32, torch.float32, False),
+    (8, 32, 8, 16, 128, torch.bfloat16, True),
+    (8, 32, 8, 16, 128, torch.float32, False),
     (8, 32, 32, 128, 4, torch.bfloat16, False),
     (8, 32, 32, 16, 128, torch.bfloat16, False),
     (8, 32, 32, 16, 256, torch.bfloat16, False),
@@ -358,34 +378,42 @@ DECODE_CASES = (
 
 def parity_decode(fd):
     """Flash decode against its plain version under ``judge_decode`` at
-    ``DECODE_CASES``; every planted fault (``decode_faults``) must fail the
-    same judge on the same case."""
+    ``DECODE_CASES``, each launch on the split kernel, slots 2-4 at a split
+    edge (``P - 1``, ``P``, ``P + 1``; ``P`` from ``split_plan``); every
+    planted fault (``decode_faults``) must fail the same judge on the same
+    case, its chunk edges at 64 positions and at ``P``."""
     err = 0.0
     for (S, H, n_kv, bs, mb, dtype, empty) in DECODE_CASES:
-        q, kc, vc, tables, wp = decode_case(S, H, n_kv, 128, bs, mb, mb + 1,
-                                            dtype, seed=S + H + mb)
+        P = fd.split_plan(mb, bs)[0]
+        q, kc, vc, tables, wp = decode_case(
+            S, H, n_kv, 128, bs, mb, mb + 1, dtype, seed=S + H + mb,
+            fixed=((2, P - 1), (3, P), (4, P + 1)))
         if empty:
             wp[1] = -1                       # a slot that attends nothing
-        got = fd.flash_decode(q, kc, vc, tables, wp)
+        got, variant = launched_variant(
+            fd.flash_decode, lambda: fd.flash_decode(q, kc, vc, tables, wp))
         want = fd.flash_decode_reference(q, kc, vc, tables, wp)
         tol = DECODE_TOL[dtype]
         rel, zeros, ok = judge_decode(got, want, wp, tol)
         live = wp.long() >= 0            # an empty slot is judged by zeros
         err = max(err, (got.float() - want.float())[live].abs().max().item())
         log(f"  flash_decode S={S} H={H} n_kv={n_kv} bs={bs} "
-            f"positions={mb * bs} {dtype}: worst (slot, head) rel err "
-            f"{rel:.3e} (tol {tol}), empty slot zeros {zeros} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
+            f"positions={mb * bs} {dtype} on {variant} (P={P}): worst "
+            f"(slot, head) rel err {rel:.3e} (tol {tol}), empty slot zeros "
+            f"{zeros} {'ok' if ok else 'FAIL'}")
+        if not ok or variant != "split":
             raise AssertionError("flash_decode disagrees with its plain "
-                                 "version")
-        for name, bad in decode_faults(fd, q, kc, vc, tables, wp).items():
-            brel, _, bok = judge_decode(bad, want, wp, tol)
-            log(f"    planted fault ({name}): rel err {brel:.3e}, must "
-                f"fail: {'ok' if not bok else 'PASSED (FAIL)'}")
-            if bok:
-                raise AssertionError(f"the decode judge passes a planted "
-                                     f"fault: {name}")
+                                 "version, or did not run the split kernel")
+        for chunk in sorted({64, P}):
+            for name, bad in decode_faults(fd, q, kc, vc, tables, wp,
+                                           chunk).items():
+                brel, _, bok = judge_decode(bad, want, wp, tol)
+                log(f"    planted fault, chunk {chunk} ({name}): rel err "
+                    f"{brel:.3e}, must fail: "
+                    f"{'ok' if not bok else 'PASSED (FAIL)'}")
+                if bok:
+                    raise AssertionError(f"the decode judge passes a "
+                                         f"planted fault: {name}")
         del q, kc, vc
     torch.cuda.empty_cache()
     return {"flash_decode": err}
@@ -1230,7 +1258,7 @@ def phase_forward(model, fa, fd, F):
         model(ids)                               # warm-up
         torch.cuda.synchronize()
         reset_counts(fa.flash_attention)
-        fd.flash_decode.launches = 0
+        reset_counts(fd.flash_decode)
         t0 = time.perf_counter()
         logits = model(ids)
         torch.cuda.synchronize()
@@ -1260,18 +1288,19 @@ def phase_engine(model, fa, fd, Engine, ledger):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
-    fd.flash_decode.launches = 0
+    reset_counts(fd.flash_decode)
     t0 = time.perf_counter()
     hs = staggered(eng, prompts, 32)
     wall = time.perf_counter() - t0
     launches = fd.flash_decode.launches
+    by_variant = dict(fd.flash_decode.launches_by_variant)
     st = eng.stats()
     led = ledger(hs)
     peak = torch.cuda.max_memory_allocated()
     log(f"  {len(hs)} requests, wall {wall:.2f} s, decode steps "
         f"{st['decode_steps']}, prefills {st['prefills']}, prefix_hit_tokens"
         f" {st['prefix_hit_tokens']}, cow_copies {st['cow_copies']}, "
-        f"flash_decode launches {launches}")
+        f"flash_decode launches {launches} {by_variant}")
     log("  ledger " + json.dumps(led))
     log(f"  peak memory {peak / 2**30:.2f} GiB, KV pool "
         f"{st['kv_cache_bytes'] / 2**30:.2f} GiB")
@@ -1281,9 +1310,11 @@ def phase_engine(model, fa, fd, Engine, ledger):
     if st["prefix_hit_tokens"] <= 0 or not eng.cache.check_refcounts():
         raise AssertionError("prefix sharing or refcounts failed")
     want = model.config.num_hidden_layers * st["decode_steps"]
-    if launches != want or launches == 0:
-        raise AssertionError(f"flash_decode launched {launches} times, "
-                             f"want {want}")
+    if launches != want or launches == 0 \
+            or by_variant != {"split": want, "one_pass": 0}:
+        raise AssertionError(f"flash_decode launched {launches} times "
+                             f"({by_variant}), want {want}, all on the "
+                             f"split kernel")
     return launches
 
 
@@ -1468,31 +1499,7 @@ def phase_ptq(model, fa, im, sr, tq):
 
 def phase_timings(fa, fd, fc, rm, im, sr, flush):
     TF = torch.nn.functional
-    out = {}
-    # flash decode at the engine's shape: S=8, H=n_kv=32, hd=128, bs=16
-    q, kc, vc, tables, wp = decode_case(8, 32, 32, 128, 16, 32, 257,
-                                        torch.bfloat16, seed=40)
-    S, H, hd = q.shape
-    n_kv = kc.shape[2]
-    keys = int((wp.long() + 1).sum())               # attended positions
-    byts = 2 * keys * n_kv * hd * 2 + 2 * q.numel() * 2 \
-        + tables.numel() * 4 + S * 4
-    flops = 4 * keys * H * hd
-    T = tables.shape[1] * kc.shape[1]
-    kview = kc[tables.long()].reshape(S, T, n_kv, hd).transpose(1, 2)
-    vview = vc[tables.long()].reshape(S, T, n_kv, hd).transpose(1, 2)
-    valid = (torch.arange(T, device="cuda")[None, :]
-             <= wp[:, None])[:, None, None, :]
-    out["flash_decode"] = dict(
-        ms=time_ms(lambda: fd.flash_decode(q, kc, vc, tables, wp), flush),
-        plain_ms=time_ms(lambda: fd.flash_decode_reference(
-            q, kc, vc, tables, wp), flush),
-        library_ms=time_ms(lambda: TF.scaled_dot_product_attention(
-            q[:, :, None], kview, vview, attn_mask=valid), flush),
-        bound_ms=1e3 * max(byts / PEAK_BYTES, flops / PEAK_BF16_FLOPS),
-        bound_by="bytes" if byts / PEAK_BYTES >= flops / PEAK_BF16_FLOPS
-        else "operations",
-        shape=f"S=8 H=32 n_kv=32 hd=128 bs=16 bf16, {keys} positions")
+    out = timings_decode(fd, flush)
     # flash attention at the forward's shape (L=512) and at L=2048; the
     # first version (the CUDA-core variant) beside the tensor-core one
     for L in (512, 2048):
@@ -1533,6 +1540,64 @@ def phase_timings(fa, fd, fc, rm, im, sr, flush):
             + (f", _int_mm on the row-major wq "
                f"{t['int_mm_row_major_ms']}, bf16 x @ w_deq "
                f"{t['bf16_ms']:.4f} ms" if "bf16_ms" in t else ""))
+    return out
+
+
+def split_kernel_ptxas(_build):
+    """ptxas' register, shared-memory and spill lines of the split-K
+    decode kernel's instantiations, from the flash_decode build log."""
+    lines, take = [], False
+    for line in _build.build_log("flash_decode").splitlines():
+        if "Compiling entry" in line:
+            take = "split" in line
+        if take and any(k in line for k in ("Compiling entry", "registers",
+                                            "spill", "smem")):
+            lines.append(line.strip())
+    return lines
+
+
+def timings_decode(fd, flush):
+    """Flash decode at the engine's shape (S=8, H=n_kv=32, hd=128, bs=16,
+    bf16) with a 512-position table (the engine's ``max_len``) and a
+    4096-position one (``mb=256``); each pool holds ``8 * mb`` blocks
+    besides block 0, dealt to the slots without overlap, so no row is
+    read twice. The split kernel, the first
+    version (``"one_pass"``, median of 5), the plain version and SDPA on a
+    pre-gathered view (never called by the port). Bound: each attended
+    K/V row read once, q read and out written once, the tables and write
+    positions; operations ``4 * positions * H * hd`` (bytes bound it)."""
+    TF = torch.nn.functional
+    out = {}
+    for tag, mb, nb, seed in (("", 32, 257, 40), ("_T4096", 256, 8 * 256 + 1,
+                                                  41)):
+        q, kc, vc, tables, wp = decode_case(8, 32, 32, 128, 16, mb, nb,
+                                            torch.bfloat16, seed=seed)
+        S, H, hd = q.shape
+        n_kv = kc.shape[2]
+        keys = int((wp.long() + 1).sum())               # attended positions
+        byts = 2 * keys * n_kv * hd * 2 + 2 * q.numel() * 2 \
+            + tables.numel() * 4 + S * 4
+        T = mb * kc.shape[1]
+        kview = kc[tables.long()].reshape(S, T, n_kv, hd).transpose(1, 2)
+        vview = vc[tables.long()].reshape(S, T, n_kv, hd).transpose(1, 2)
+        valid = (torch.arange(T, device="cuda")[None, :]
+                 <= wp[:, None])[:, None, None, :]
+        def run():
+            return fd.flash_decode(q, kc, vc, tables, wp)
+        with forced_variant(fd, "one_pass"):
+            first = time_ms(run, flush, reps=5)
+        out["flash_decode" + tag] = dict(
+            ms=time_ms(run, flush), variant=fd._variant(q, kc),
+            first_version_ms=first,
+            plain_ms=time_ms(lambda: fd.flash_decode_reference(
+                q, kc, vc, tables, wp), flush, reps=5),
+            library_ms=time_ms(lambda: TF.scaled_dot_product_attention(
+                q[:, :, None], kview, vview, attn_mask=valid), flush),
+            shape=f"S=8 H=32 n_kv=32 hd=128 bs=16 bf16, {T}-position "
+                  f"table, {keys} positions, P={fd.split_plan(mb, 16)[0]}",
+            **bound(byts, 4 * keys * H * hd))
+        del q, kc, vc, kview, vview
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1606,9 +1671,16 @@ def timings_int8(im, flush):
 def timings_stochastic(sr, flush):
     """The two stochastic kernels at bench.py's 256 x 256 and at a 7B FFN
     weight (4096 x 11008), fp32 in. No single PyTorch call computes either
-    function (library none). Bounds in bytes, each input read once:
-    ``stochastic_round`` 4 B in + 2 B (bf16) out per element,
-    ``quantize_int8_stochastic`` 4 B in + 1 B out + the 4 B scale."""
+    function (library none). ``stochastic_round``'s bound is in bytes, its
+    input read once: 4 B in + 2 B (bf16) out per element.
+    ``quantize_int8_stochastic`` must read x twice -- pass 1 its abs-max
+    across the whole tensor, pass 2 the rounding, which needs the scale
+    the whole tensor gives; at 4096 x 11008 x is 180 MB, more than the 50
+    MB L2, so the second read comes from device memory too -- and write 1
+    B per element and the 4 B scale: 9 B per element. Its threefry words
+    cost ~35 32-bit integer operations per element (~70 per pair, the note
+    at the top of ``csrc/stochastic_round.cu``), against the SMs' integer
+    issue rate, ``PEAK_INT32_OPS``. The bound is the larger of the two."""
     out = {}
     for R, C in SR_SHAPES:
         x = torch.randn(R, C, device="cuda")
@@ -1625,7 +1697,7 @@ def timings_stochastic(sr, flush):
             plain_ms=time_ms(lambda: sr.quantize_int8_stochastic_reference(
                 x, sr.random_bits(1, n, device="cuda")), flush, reps=5),
             library_ms=None, shape=f"{R}x{C} fp32 -> int8",
-            **bound(5 * n + 4, 0))
+            **bound(9 * n + 4, 35 * n, PEAK_INT32_OPS))
         del x
     torch.cuda.empty_cache()
     return out
@@ -2099,6 +2171,8 @@ def main():
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     t = phase_timings(fa, fd, fc, rm, im, sr, flush)
     log("  timings " + json.dumps(t))
+    for line in split_kernel_ptxas(_build):
+        log("  flash_decode split kernel: " + line)
     del flush
     torch.cuda.empty_cache()
 
@@ -2133,7 +2207,8 @@ def main():
              replaces="paddle_tpu/ops/pallas/flash_decode.py:100",
              launches=fd_launches, max_abs_err=errs["flash_decode"],
              max_err=errs["flash_decode"],
-             **{k: t["flash_decode"][k] for k in cols}),
+             **{k: t["flash_decode"][k] for k in cols + first},
+             T4096={k: t["flash_decode_T4096"][k] for k in cols + first}),
     ]
     for kname, source, replaces in (
             ("flash_attention_bwd_dq", "flash_attention_bwd.cu",

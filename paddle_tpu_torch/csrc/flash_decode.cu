@@ -3,56 +3,86 @@
 // Replaces the TPU kernel paddle_tpu/ops/pallas/flash_decode.py:flash_decode
 // (_kernel). Same contract: q [S, H, hd] attends, through the per-slot block
 // tables [S, mb] (int32), the pool positions 0..write_pos[s] of kv head
-// h // (H / n_kv); online softmax in fp32; output [S, H, hd] in q's dtype.
+// h // (H / n_kv); online softmax in fp32; p rounded to v's dtype before the
+// PV product (the TPU kernel's p.astype(v.dtype)); the finite mask value
+// -0.7 * FLT_MAX; a slot that attends nothing writes zeros; output [S, H, hd]
+// in q's dtype.
+//
+// Two kernels, picked by ops/flash_decode.py:_variant:
+//  - flash_decode_split_kernel ("split", every operand on the main path):
+//    split-K over each slot's cache, pages staged by bulk async copies;
+//  - flash_decode_kernel ("one_pass", the first version): one block per
+//    (slot, kv head) walking the whole cache; kept for the timing beside
+//    the new one (its note is beside it, below).
 //
 // What bounds it on the H100: bytes. Each attended position is read once
 // (K and V rows, 2 * hd * sizeof(T) per kv head) and used by `group` query
 // rows only, so the work is ~2 * group FLOPs per byte -- far below the
-// ~295 FLOP/byte the card needs before compute matters. The kernel is as
-// fast as it keeps HBM busy.
+// ~295 FLOP/byte the card needs before the tensor cores matter, so the
+// CUDA cores do the arithmetic and no tensor core is used. The kernel is
+// as fast as it keeps HBM busy: ~25 KB in flight per SM at 3.35 TB/s.
+// The first kernel fell short of that three ways: one block per (slot, kv
+// head) -- 256 blocks for 132 SMs at the engine's shape, the slot with the
+// longest cache walking it alone while short slots' SMs idle; a dependent
+// chain per 64-position chunk (table entry -> K rows -> scores -> table
+// entry -> V rows, three block barriers); and at most ~16 KB of loads in
+// flight per block.
 //
-// What the design does about that:
-//  - one block per (slot, kv head); the `group` query rows of that kv head
-//    share every K/V row the block loads, so each pool byte is read once;
-//  - the block walks its slot's table only up to block write_pos[s] / bs
-//    (the TPU grid was static and fetched every entry, masking the tail;
-//    here nothing past the causal bound is read, so trash-block tail
-//    entries cost nothing);
-//  - each block reads its own table entries (the TPU version prefetched
-//    them as scalars) and takes a chunk of 64 positions at a time, each
-//    finding its pool row through tables[s, c / bs] (any block size).
-//    K and V rows go straight from device memory into registers -- every
-//    element is loaded once per block and reused there
-//    by all `group` query rows, so staging them in shared memory would
-//    only add a copy -- and every lane issues all its 16-byte K (then V)
-//    loads of the chunk before using any, so many loads are in flight
-//    per SM. The online softmax folds in one chunk at a time;
-//  - scores and probabilities stay in shared memory, the running max, sum
-//    and output accumulator in fp32 registers; masked scores use the
-//    finite -0.7 * FLT_MAX (as the TPU kernel), so exp() never sees
-//    -inf - -inf and a slot with no attendable position writes zeros.
-//  - a larger split of long caches across blocks (flash-decoding's
-//    split-K) is left for a later change: at serving lengths of a few
-//    hundred positions one pass per (slot, kv head) is simple and right.
+// What the split design does about that:
+//  - grid (split, kv head, slot): each block takes P consecutive positions
+//    of its slot's view (the host plans P, a multiple of 64, and n_split =
+//    ceil(mb * bs / P) <= kMaxSplits from the table width alone:
+//    ops/flash_decode.py:split_plan; write_pos is never read on the host).
+//    A block whose split starts past write_pos[s] exits at once. At the
+//    engine's table (mb * bs = 512, P = 64) a slot of ~290 positions puts
+//    5 blocks per kv head to work, and the 8-slot engine step up to ~830
+//    live blocks on 132 SMs (1,120 at the 512-position timing shape): more
+//    than two per SM, with 6 resident per SM (32 KB of shared memory each),
+//    so long and short slots spread over the whole card
+//    (tools/torch_decode_probe.py times other split lengths);
+//  - pages are staged in shared memory by the copy engine: each of the 128
+//    threads issues one cp.async.bulk per 64-position chunk (thread t the K
+//    row of position t % 64 for t < 64, else its V row; one 256-byte row
+//    per position at hd = 128 bf16, whatever the block size, so P need not
+//    be a multiple of bs), all completing on the chunk's mbarrier. K and V
+//    are requested together, so V's bytes arrive while the scores are
+//    computed, and a block has its whole chunk (32 KB) in flight from its
+//    first instruction on. The table entries of the first chunks are read
+//    before any copy is issued, and each later chunk's entry one chunk
+//    ahead, so no table read waits in the chunk loop;
+//  - a split longer than one chunk (tables over 1,024 positions: P grows
+//    so that n_split stays <= 16) runs a 2-stage ring: chunk c + 2 is
+//    issued into the stage chunk c leaves;
+//  - each warp keeps its own online softmax over the rows it owns (m, l in
+//    every lane, acc over its lanes' dims), so a chunk needs no block
+//    barrier between scores, softmax and PV -- only the ring's refill
+//    waits for the block. The warps merge once at the end of the split;
+//  - the merge across splits is in the same launch: a split writes its
+//    partial (m, l, acc[hd]) in fp32 to scratch, and the last block of its
+//    (slot, kv head) to finish -- counted by an atomic counter after
+//    __threadfence(), which it resets -- rescales and sums the partials:
+//    M = max m_i, L = sum l_i e^(m_i - M), out = sum acc_i e^(m_i - M) / L.
+//    A slot whose cache one split covers writes its output directly. Only
+//    splits with a position take part, so every partial has l >= 1 and no
+//    inf - inf or 0 / 0 reaches the output.
 //
-// Layout: 128 threads = 8 half-warps of 16 lanes. In a chunk, half-warp w
-// owns positions w, w + 8, ...; lane l owns head dims [l * hd/16, (l+1) *
-// hd/16). Pass 1: per position, partial q.k over the lane's dims, reduced
-// over the 16 lanes with shuffles. Softmax update: one warp per query row.
-// Pass 2: each lane accumulates p * v over its positions and dims; the 8
-// half-warp partial sums are added in shared memory at the end.
+// Layout (split kernel): 128 threads = 8 half-warps of 16 lanes; in a chunk
+// half-warp w owns rows w, w + 8, ..., w + 56; lane l owns kNV vectors of
+// kVE head dims (vector v: dims [(16 v + l) kVE, +kVE)), so a half-warp
+// reads each row as one contiguous run of shared memory (no bank
+// conflict). Scores: per row, a partial q.k over the lane's dims reduced
+// over the 16 lanes with shuffles; the warp's two half-warps then agree on
+// the running max and sum with one shuffle each.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cfloat>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kHalfWarps = kThreads / 16;
-constexpr int kChunk = 64;                      // positions per chunk
-constexpr int kPerHalfWarp = kChunk / kHalfWarps;   // 8
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -84,6 +114,305 @@ __device__ __forceinline__ void load_vec(const T* p, float (&out)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) out[i] = to_f(x.v[i]);
 }
+
+// ============================================================================
+// split-K kernel ("split")
+// ============================================================================
+
+constexpr int kSplitThreads = 128;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kRows = kSplitThreads / 2;     // positions per chunk
+constexpr int kRowsPerHalfWarp = kRows / 8;  // 8
+constexpr int kStages = 2;                   // ring depth of a long split
+constexpr int kMaxSplits = 16;
+
+template <typename T, int HD>
+struct SplitShape {
+  static constexpr int kDPL = HD / 16;                    // dims per lane
+  static constexpr int kVE = kDPL < 16 / (int)sizeof(T)   // dims per vector
+                                 ? kDPL : 16 / (int)sizeof(T);
+  static constexpr int kNV = kDPL / kVE;                  // vectors per lane
+  static constexpr int kRowBytes = HD * (int)sizeof(T);
+  static constexpr int kStageBytes = 2 * kRows * kRowBytes;   // K | V
+};
+
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(kSplitThreads)
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                          const T* __restrict__ vc,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ write_pos,
+                          T* __restrict__ out, float* __restrict__ part,
+                          int* __restrict__ counters, int H, int n_kv,
+                          int bs, int mb, int P, int n_split, int stages,
+                          float scale) {
+  using Sh = SplitShape<T, HD>;
+  constexpr int kNV = Sh::kNV, kVE = Sh::kVE;
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ uint64_t full[kStages];
+  __shared__ float red[kSplitWarps][G][HD];
+  __shared__ float ml_s[kSplitWarps][G][2];
+  __shared__ float wt_s[G][kMaxSplits];
+  __shared__ float L_s[G];
+  __shared__ int last_s;
+
+  const int j = blockIdx.x, kvh = blockIdx.y, s = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int hw = tid / 16, ln = tid % 16;
+  T* orow = out + ((size_t)s * H + kvh * G) * HD;
+
+  // positions 0..n_keys-1 attend; a write_pos past the table clamps to its
+  // end; splits with no position do nothing (split 0 of a slot that
+  // attends nothing writes its zeros)
+  const int n_keys = min(write_pos[s], mb * bs - 1) + 1;
+  const int n_live = n_keys <= 0 ? 0 : min(n_split, (n_keys + P - 1) / P);
+  if (j >= n_live) {
+    if (j == 0)
+      for (int e = tid; e < G * HD; e += kSplitThreads)
+        orow[e] = from_f<T>(0.f);
+    return;
+  }
+  const int p0 = j * P, p1 = min(p0 + P, n_keys);   // this split: [p0, p1)
+  const int n_ch = (p1 - p0 + kRows - 1) / kRows;
+  const int* trow = tables + (size_t)s * mb;
+  const size_t row_stride = (size_t)n_kv * HD;      // one pool position
+  // thread t stages row t % kRows of each chunk: K for t < kRows, else V
+  const int my_row = tid % kRows;
+  const T* my_src = (tid < kRows ? kc : vc) + (size_t)kvh * HD;
+  const int my_off = (tid < kRows ? 0 : kRows * Sh::kRowBytes)
+                     + my_row * Sh::kRowBytes;
+
+  // the pool block of this thread's row of chunk c, or -1 past the split
+  auto entry = [&](int c) -> int {
+    const int pos = p0 + c * kRows + my_row;
+    return c < n_ch && pos < p1 ? trow[pos / bs] : -1;
+  };
+  // thread 0 arms chunk c's stage with the chunk's bytes (its one arrival)
+  // before a block barrier, and every thread copies its row after it, so
+  // the expected count is in place before any copy completes
+  auto expect = [&](int c) {
+    if (tid == 0)
+      hopper::mbar_expect_tx(
+          &full[c % stages],
+          2 * min(kRows, p1 - p0 - c * kRows) * Sh::kRowBytes);
+  };
+  auto copy = [&](int c, int blk) {
+    const int pos = p0 + c * kRows + my_row;
+    if (blk >= 0)
+      hopper::bulk_load(ring + (c % stages) * Sh::kStageBytes + my_off,
+                        my_src + ((size_t)blk * bs + pos % bs) * row_stride,
+                        Sh::kRowBytes, &full[c % stages]);
+  };
+  const int e0 = entry(0), e1 = entry(1);
+  int pf = entry(stages);                  // the next chunk to issue
+  const bool two = stages > 1 && n_ch > 1;
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::mbar_fence_init();
+  }
+  expect(0);
+  if (two) expect(1);
+  __syncthreads();                         // barriers initialised and armed
+  copy(0, e0);
+  if (two) copy(1, e1);
+
+  float qr[G][kNV][kVE], acc[G][kNV][kVE], m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const T* qg = q + ((size_t)s * H + kvh * G + g) * HD;
+#pragma unroll
+    for (int v = 0; v < kNV; ++v) {
+      load_vec<T, kVE>(qg + (v * 16 + ln) * kVE, qr[g][v]);
+#pragma unroll
+      for (int e = 0; e < kVE; ++e) acc[g][v][e] = 0.f;
+    }
+    m[g] = kMaskValue;
+    l[g] = 0.f;
+  }
+
+  for (int c = 0; c < n_ch; ++c) {
+    const int st = c % stages;
+    hopper::mbar_wait(&full[st], (c / stages) & 1);
+    const T* ks = reinterpret_cast<const T*>(ring + st * Sh::kStageBytes);
+    const T* vs = ks + kRows * HD;
+    const int rows = min(kRows, p1 - p0 - c * kRows);   // valid rows
+    // ---- scores of this half-warp's rows (rows past `rows` hold stale
+    //      bytes: computed, then replaced by the mask value) -------------
+    float sc[G][kRowsPerHalfWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerHalfWarp; ++i) {
+      const int r = hw + 8 * i;
+      float kf[kNV][kVE];
+#pragma unroll
+      for (int v = 0; v < kNV; ++v)
+        load_vec<T, kVE>(ks + r * HD + (v * 16 + ln) * kVE, kf[v]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float part_dot = 0.f;
+#pragma unroll
+        for (int v = 0; v < kNV; ++v)
+#pragma unroll
+          for (int e = 0; e < kVE; ++e) part_dot += qr[g][v][e] * kf[v][e];
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          part_dot += __shfl_xor_sync(0xffffffffu, part_dot, o);
+        sc[g][i] = r < rows ? part_dot * scale : kMaskValue;
+      }
+    }
+    // ---- the warp's online-softmax update; p replaces the score --------
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mt = sc[g][0];
+#pragma unroll
+      for (int i = 1; i < kRowsPerHalfWarp; ++i) mt = fmaxf(mt, sc[g][i]);
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+      const float m_new = fmaxf(m[g], mt);
+      const float alpha = expf(m[g] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int i = 0; i < kRowsPerHalfWarp; ++i) {
+        const float p = hw + 8 * i < rows ? expf(sc[g][i] - m_new) : 0.f;
+        ps += p;
+        sc[g][i] = round_to<T>(p);
+      }
+      ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+      l[g] = l[g] * alpha + ps;
+      m[g] = m_new;
+#pragma unroll
+      for (int v = 0; v < kNV; ++v)
+#pragma unroll
+        for (int e = 0; e < kVE; ++e) acc[g][v][e] *= alpha;
+    }
+    // ---- acc += p . v over the valid rows -------------------------------
+#pragma unroll
+    for (int i = 0; i < kRowsPerHalfWarp; ++i) {
+      const int r = hw + 8 * i;
+      if (r < rows) {
+        float vf[kNV][kVE];
+#pragma unroll
+        for (int v = 0; v < kNV; ++v)
+          load_vec<T, kVE>(vs + r * HD + (v * 16 + ln) * kVE, vf[v]);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int v = 0; v < kNV; ++v)
+#pragma unroll
+            for (int e = 0; e < kVE; ++e) acc[g][v][e] += sc[g][i] * vf[v][e];
+      }
+    }
+    // ---- refill the stage this chunk leaves -----------------------------
+    const int nxt = c + stages;
+    if (nxt < n_ch) {
+      expect(nxt);             // thread 0 has seen this stage's phase end
+      __syncthreads();         // every warp is done with the stage
+      copy(nxt, pf);
+      pf = entry(nxt + 1);
+    }
+  }
+
+  // ---- merge the warps: the two half-warps share m and l ----------------
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int v = 0; v < kNV; ++v)
+#pragma unroll
+      for (int e = 0; e < kVE; ++e) {
+        const float a = acc[g][v][e]
+                        + __shfl_xor_sync(0xffffffffu, acc[g][v][e], 16);
+        if (lane < 16) red[warp][g][(v * 16 + ln) * kVE + e] = a;
+      }
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      ml_s[warp][g][0] = m[g];
+      ml_s[warp][g][1] = l[g];
+    }
+  __syncthreads();
+  const size_t head0 = (size_t)s * H + kvh * G;     // this block's first head
+  float* pacc = part;                                // [S*H][n_split][HD]
+  float* pml = part + (size_t)gridDim.z * H * n_split * HD;   // [..][2]
+  for (int e = tid; e < G * HD; e += kSplitThreads) {
+    const int g = e / HD, d = e % HD;
+    float M = kMaskValue;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) M = fmaxf(M, ml_s[w][g][0]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float wt = expf(ml_s[w][g][0] - M);   // 0 for a warp with no row
+      L += wt * ml_s[w][g][1];
+      A += wt * red[w][g][d];
+    }
+    if (n_live == 1) {
+      orow[e] = from_f<T>(A / L);                  // L >= 1: p0 attends
+    } else {
+      const size_t at = (head0 + g) * n_split + j;
+      pacc[at * HD + d] = A;
+      if (d == 0) {
+        pml[at * 2] = M;
+        pml[at * 2 + 1] = L;
+      }
+    }
+  }
+  if (n_live == 1) return;
+
+  // ---- the last split of this (slot, kv head) to finish merges ----------
+  __threadfence();                         // partials visible card-wide
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counters + (size_t)s * n_kv + kvh;
+    last_s = atomicAdd(cnt, 1) == n_live - 1;
+    if (last_s) *cnt = 0;                  // every split is in: reset
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  if (tid < G) {
+    const float* ml = pml + (head0 + tid) * n_split * 2;
+    float M = kMaskValue;
+    for (int i = 0; i < n_live; ++i) M = fmaxf(M, __ldcg(ml + 2 * i));
+    float L = 0.f;
+    for (int i = 0; i < n_live; ++i) {
+      const float wt = expf(__ldcg(ml + 2 * i) - M);
+      wt_s[tid][i] = wt;
+      L += wt * __ldcg(ml + 2 * i + 1);
+    }
+    L_s[tid] = L;
+  }
+  __syncthreads();
+  for (int e = tid; e < G * HD; e += kSplitThreads) {
+    const int g = e / HD, d = e % HD;
+    const float* pa = pacc + (head0 + g) * n_split * HD + d;
+    float A = 0.f;
+    for (int i = 0; i < n_live; ++i) A += wt_s[g][i] * __ldcg(pa + i * HD);
+    orow[e] = from_f<T>(A / L_s[g]);
+  }
+}
+
+// ============================================================================
+// one-pass kernel ("one_pass", the first version)
+// ============================================================================
+//
+// One block per (slot, kv head); the `group` query rows of that kv head
+// share every K/V row the block loads. The block walks its slot's table up
+// to block write_pos[s] / bs in chunks of 64 positions, each finding its
+// pool row through tables[s, c / bs]. K and V rows go straight from device
+// memory into registers, every lane issuing all its 16-byte K (then V)
+// loads of the chunk before using any. Scores and probabilities stay in
+// shared memory, the running max, sum and output accumulator in fp32
+// registers.
+//
+// Layout: 128 threads = 8 half-warps of 16 lanes. In a chunk, half-warp w
+// owns positions w, w + 8, ...; lane l owns head dims [l * hd/16, (l+1) *
+// hd/16). Pass 1: per position, partial q.k over the lane's dims, reduced
+// over the 16 lanes with shuffles. Softmax update: one warp per query row.
+// Pass 2: each lane accumulates p * v over its positions and dims; the 8
+// half-warp partial sums are added in shared memory at the end.
+
+constexpr int kThreads = 128;
+constexpr int kHalfWarps = kThreads / 16;
+constexpr int kChunk = 64;                      // positions per chunk
+constexpr int kPerHalfWarp = kChunk / kHalfWarps;   // 8
 
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
@@ -232,54 +561,115 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
+// ============================================================================
+// launches
+// ============================================================================
+
+struct Args {
+  const void *q, *kc, *vc;
+  const int *tables, *write_pos;
+  void* out;
+  float* part;
+  int* counters;
+  int S, H, n_kv, bs, mb, P, n_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int G>
+cudaError_t launch_split(const Args& a) {
+  using Sh = SplitShape<T, HD>;
+  const int stages = a.P > kRows ? kStages : 1;
+  const int smem = stages * Sh::kStageBytes;
+  auto kern = flash_decode_split_kernel<T, HD, G>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<dim3(a.n_split, a.n_kv, a.S), kSplitThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
+      static_cast<const T*>(a.vc), a.tables, a.write_pos,
+      static_cast<T*>(a.out), a.part, a.counters, a.H, a.n_kv, a.bs, a.mb,
+      a.P, a.n_split, stages, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD, int G>
+cudaError_t launch_one_pass(const Args& a) {
+  flash_decode_kernel<T, HD, G><<<dim3(a.S, a.n_kv), kThreads, 0,
+                                  a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
+      static_cast<const T*>(a.vc), a.tables, a.write_pos,
+      static_cast<T*>(a.out), a.H, a.n_kv, a.bs, a.mb, a.scale);
+  return cudaGetLastError();
+}
+
 // Only the (head dim, group) pairs of ops/flash_decode.py SHAPES are
 // instantiated: LLAMA_TINY's (32, 2), Llama-2-7B/13B's (128, 1) and the GQA
 // parity case (128, 4). Another pair returns cudaErrorInvalidValue (the
 // wrapper rejects it first).
-template <typename T>
-cudaError_t launch_t(const void* q, const void* kc, const void* vc,
-                     const int* tables, const int* write_pos, void* out,
-                     int S, int H, int n_kv, int hd, int bs, int mb,
-                     float scale, cudaStream_t stream) {
-  const dim3 grid(S, n_kv);
-  const int group = H / n_kv;
-#define FD_LAUNCH(HD, G)                                                  \
-  flash_decode_kernel<T, HD, G><<<grid, kThreads, 0, stream>>>(           \
-      static_cast<const T*>(q), static_cast<const T*>(kc),                \
-      static_cast<const T*>(vc), tables, write_pos, static_cast<T*>(out), \
-      H, n_kv, bs, mb, scale)
-  if (hd == 32 && group == 2)
-    FD_LAUNCH(32, 2);
-  else if (hd == 128 && group == 1)
-    FD_LAUNCH(128, 1);
-  else if (hd == 128 && group == 4)
-    FD_LAUNCH(128, 4);
-  else
-    return cudaErrorInvalidValue;
+template <bool kSplit, typename T>
+cudaError_t launch_t(const Args& a, int hd) {
+  const int group = a.H / a.n_kv;
+#define FD_LAUNCH(HD, G) \
+  return kSplit ? launch_split<T, HD, G>(a) : launch_one_pass<T, HD, G>(a)
+  if (hd == 32 && group == 2) FD_LAUNCH(32, 2);
+  if (hd == 128 && group == 1) FD_LAUNCH(128, 1);
+  if (hd == 128 && group == 4) FD_LAUNCH(128, 4);
 #undef FD_LAUNCH
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
+}
+
+template <bool kSplit>
+int launch(const Args& a, int hd, int dtype) {
+  if (a.S == 0) return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = dtype == 1 ? launch_t<kSplit, __nv_bfloat16>(a, hd)
+                                     : launch_t<kSplit, float>(a, hd);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers of
-// contiguous tensors: q/out [S, H, hd], kc/vc [nb, bs, n_kv, hd],
-// tables [S, mb] int32, write_pos [S] int32. Returns cudaGetLastError().
+// contiguous tensors: q/out [S, H, hd], kc/vc [nb, bs, n_kv, hd] (16-byte
+// aligned), tables [S, mb] int32, write_pos [S] int32. Return
+// cudaGetLastError().
+
+// The first version: one block per (slot, kv head).
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
                             const void* tables, const void* write_pos,
                             void* out, int S, int H, int n_kv, int hd,
                             int bs, int mb, float scale, int dtype,
                             void* stream) {
-  if (S == 0) return cudaGetLastError();
-  const int* t = static_cast<const int*>(tables);
-  const int* w = static_cast<const int*>(write_pos);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 1)
-    err = launch_t<__nv_bfloat16>(q, kc, vc, t, w, out, S, H, n_kv, hd, bs,
-                                  mb, scale, st);
-  else
-    err = launch_t<float>(q, kc, vc, t, w, out, S, H, n_kv, hd, bs, mb,
-                          scale, st);
-  return static_cast<int>(err);
+  const Args a{q, kc, vc, static_cast<const int*>(tables),
+               static_cast<const int*>(write_pos), out, nullptr, nullptr,
+               S, H, n_kv, bs, mb, 0, 0, scale,
+               static_cast<cudaStream_t>(stream)};
+  return launch<false>(a, hd, dtype);
+}
+
+// The split-K kernel: P positions per split (a multiple of 64), n_split =
+// ceil(mb * bs / P) <= 16 splits (ops/flash_decode.py:split_plan). `part`
+// is fp32 scratch of S * H * n_split * (hd + 2) floats (unused, may be
+// null, when n_split == 1); `counters` S * n_kv int32 that are 0 on entry
+// and are 0 again when the kernel ends.
+extern "C" int flash_decode_split(const void* q, const void* kc,
+                                  const void* vc, const void* tables,
+                                  const void* write_pos, void* out,
+                                  void* part, void* counters, int S, int H,
+                                  int n_kv, int hd, int bs, int mb, int P,
+                                  int n_split, float scale, int dtype,
+                                  void* stream) {
+  const long long T = (long long)mb * bs;
+  if (P <= 0 || P % kRows || n_split > kMaxSplits
+      || n_split != (T > 0 ? (T + P - 1) / P : 1)
+      || (n_split > 1 && (part == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, kc, vc, static_cast<const int*>(tables),
+               static_cast<const int*>(write_pos), out,
+               static_cast<float*>(part), static_cast<int*>(counters),
+               S, H, n_kv, bs, mb, P, n_split, scale,
+               static_cast<cudaStream_t>(stream)};
+  return launch<true>(a, hd, dtype);
 }

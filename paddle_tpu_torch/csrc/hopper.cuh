@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
 // (flash_attention_fwd.cu, flash_attention_bwd.cu, fused_ce.cu,
-// ragged_matmul.cu, int8_matmul.cu): shared-memory barriers (mbarrier), TMA
-// tile loads and stores (cp.async.bulk.tensor) with the tensor maps they
-// use, wgmma shared-memory descriptors, and the wgmma instructions
-// themselves, all as inline PTX so that a build includes no library header
-// beyond the CUDA toolkit's.
+// ragged_matmul.cu, int8_matmul.cu) and of the split-K flash decode
+// (flash_decode.cu): shared-memory barriers (mbarrier), TMA tile loads and
+// stores (cp.async.bulk.tensor) with the tensor maps they use, plain bulk
+// copies (cp.async.bulk), wgmma shared-memory descriptors, and the wgmma
+// instructions themselves, all as inline PTX so that a build includes no
+// library header beyond the CUDA toolkit's.
 //
 // Shared-memory tiles are rows of 128 (or 64) bytes (bf16; int8 in the int8
 // matmul) written by TMA with the matching swizzle
@@ -103,6 +104,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// bulk copy of `bytes` contiguous bytes from global to shared memory by the
+// copy engine, completing on `bar` (bytes counted against its expect_tx);
+// both addresses 16-byte aligned, `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -8,9 +8,17 @@ attending positions ``<= write_pos[s]``. GQA maps query head ``h`` onto kv
 head ``h // (H // n_kv)``. Returns ``[S, H, hd]`` in q's dtype.
 
 The TPU kernel's ``kv_heads_per_step`` tuner knob shaped its VMEM use; the
-CUDA kernel has no counterpart (one block per slot and kv head).
+CUDA kernels have no counterpart.
 
-CUDA tensors launch the kernel or raise; CPU tensors take the plain
+Two kernels (``_variant``): ``"split"``, the split-K kernel, which every
+operand takes -- each slot's view is cut into ``P``-position splits
+(``split_plan``, from the table width alone), one block per (split, kv
+head, slot), and the last block of a (slot, kv head) merges the splits'
+fp32 partials by their max and sum in the same launch; and ``"one_pass"``, the first version (one block per
+(slot, kv head)), which takes the same operands and is reached only by
+forcing the variant (``chip_smoke.py`` times it beside the new one).
+
+CUDA tensors launch a kernel or raise; CPU tensors take the plain
 gathered version ``flash_decode_reference``, which is also the engine's
 ``flash_decode=False`` attention.
 """
@@ -22,15 +30,41 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_decode", "flash_decode_reference"]
+__all__ = ["flash_decode", "flash_decode_reference", "split_plan"]
 
-# (head dim, H // n_kv) pairs the kernel is instantiated for, each in bf16
+# (head dim, H // n_kv) pairs the kernels are instantiated for, each in bf16
 # and fp32: LLAMA_TINY's (32, 2), Llama-2-7B's and 13B's (128, 1), and the
 # GQA parity case (128, 4)
 SHAPES = ((32, 2), (128, 1), (128, 4))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# the split kernel's chunk (positions staged at a time) and most splits per
+# slot: csrc/flash_decode.cu's kRows and kMaxSplits, whose C entry rejects
+# a plan that breaks them
+CHUNK = 64
+MAX_SPLITS = 16
+_ENTRY = {"split": "flash_decode_split", "one_pass": "flash_decode"}
+_ARGTYPES = {
+    "split": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "one_pass": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+}
+# per (device, stream): the split kernel's merge counters, one per (slot,
+# kv head), zero between launches (the last block of each resets its own)
+_counters: dict = {}
+
+
+def split_plan(mb, bs):
+    """``(P, n_split)`` of the split kernel for a table of ``mb`` blocks of
+    ``bs`` positions: ``P`` is the fewest 64-position chunks that keep the
+    split count at most ``MAX_SPLITS`` (64 up to 1,024 positions, then
+    128, 192, ...), and ``n_split = ceil(mb * bs / P)`` (at least 1). ``P``
+    need not be a multiple of ``bs``. Depends on the table's width only:
+    no write position is read to the host."""
+    T = mb * bs
+    chunks = max(1, -(-T // CHUNK))
+    P = CHUNK * -(-chunks // MAX_SPLITS)
+    return P, max(1, -(-T // P))
 
 
 def flash_decode_reference(q, kc_pool, vc_pool, tables, write_pos,
@@ -99,6 +133,24 @@ def _check(q, kc_pool, vc_pool, tables, write_pos):
             raise ValueError(f"flash_decode: {name} must be 16-byte aligned")
 
 
+def _variant(q, kc_pool):
+    """The kernel for these operands: ``"split"`` for every operand the
+    wrapper takes (it takes all that the first kernel takes).
+    ``"one_pass"`` is reached only by forcing the variant."""
+    return "split"
+
+
+def _counter_buffer(device, stream, n):
+    """Zeroed int32 counters, at least ``n``, of this device and stream
+    (two streams never share them)."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def flash_decode(q, kc_pool, vc_pool, tables, write_pos, scale=None):
     """One-token paged attention; see the module docstring."""
     if not q.is_cuda:
@@ -107,19 +159,36 @@ def flash_decode(q, kc_pool, vc_pool, tables, write_pos, scale=None):
     _check(q, kc_pool, vc_pool, tables, write_pos)
     S, H, hd = q.shape
     _, bs, n_kv, _ = kc_pool.shape
+    mb = tables.shape[1]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     out = torch.empty_like(q)
-    fn = _build.load("flash_decode", "flash_decode", _ARGTYPES)
+    variant = _variant(q, kc_pool)
+    fn = _build.load("flash_decode", _ENTRY[variant], _ARGTYPES[variant])
+    args = (q.data_ptr(), kc_pool.data_ptr(), vc_pool.data_ptr(),
+            tables.data_ptr(), write_pos.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), kc_pool.data_ptr(), vc_pool.data_ptr(),
-                 tables.data_ptr(), write_pos.data_ptr(), out.data_ptr(),
-                 S, H, n_kv, hd, bs, tables.shape[1], float(scale),
-                 _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_decode")
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant == "split":
+            P, n_split = split_plan(mb, bs)
+            part = cnt = None
+            if n_split > 1:      # fp32 (acc [hd], m, l) per split and head
+                part = torch.empty(S * H * n_split * (hd + 2),
+                                   dtype=torch.float32, device=q.device)
+                cnt = _counter_buffer(q.device, stream, S * n_kv)
+            err = fn(*args, 0 if part is None else part.data_ptr(),
+                     0 if cnt is None else cnt.data_ptr(), S, H, n_kv, hd,
+                     bs, mb, P, n_split, float(scale), _DTYPES[q.dtype],
+                     stream)
+        else:
+            err = fn(*args, S, H, n_kv, hd, bs, mb, float(scale),
+                     _DTYPES[q.dtype], stream)
+    _build.check(err, _ENTRY[variant])
     flash_decode.launches += 1
+    flash_decode.launches_by_variant[variant] += 1
     return out
 
 
 #: kernel launches since the count was last reset (CPU calls not counted)
 flash_decode.launches = 0
+flash_decode.launches_by_variant = {"split": 0, "one_pass": 0}

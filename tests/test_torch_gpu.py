@@ -61,21 +61,31 @@ def _decode_case(rng, S, H, n_kv, hd, nb, bs, mb):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,H,n_kv,hd,bs,mb", [(3, 8, 4, 32, 8, 9),
-                                               (4, 32, 32, 128, 16, 9),
-                                               (2, 32, 8, 128, 16, 9),
-                                               (2, 8, 8, 128, 128, 9),
-                                               (4, 32, 32, 128, 16, 128),
-                                               (4, 32, 32, 128, 16, 256)])
+@pytest.mark.parametrize("S,H,n_kv,hd,bs,mb,edges", [
+    (3, 8, 4, 32, 8, 9, False),
+    (4, 32, 32, 128, 16, 9, False),
+    (2, 32, 8, 128, 16, 9, False),
+    (2, 8, 8, 128, 128, 9, False),
+    (4, 32, 32, 128, 16, 128, False),
+    (4, 32, 32, 128, 16, 256, False),
+    # slots at a split edge (P - 1, P, P + 1; P from split_plan)
+    (5, 32, 32, 128, 16, 32, True),          # 512 positions, P = 64
+    (5, 32, 8, 128, 128, 8, True),           # an edge inside a block
+    (5, 8, 4, 32, 8, 200, True),             # 1600 positions, P = 128
+    (5, 32, 8, 128, 16, 128, True),          # GQA 4 on the 2-stage ring
+    (5, 32, 32, 128, 16, 256, True)])        # 4096 positions, P = 256
 def test_flash_decode_kernel_matches_plain(cuda, dtype, S, H, n_kv, hd, bs,
-                                           mb):
+                                           mb, edges):
     """Under ``chip_smoke.judge_decode`` (per (slot, head) relative
-    error, zeros in a slot that attends nothing), up to 4096 positions.
-    The S slots of ``_decode_case`` (position 0 alone, ragged ones, a full
-    table) keep their inputs, and one more slot, put second, attends
-    nothing."""
+    error, zeros in a slot that attends nothing), up to 4096 positions,
+    on the split kernel. The S slots of ``_decode_case`` (position 0
+    alone, ragged ones or split edges, a full table) keep their inputs,
+    and one more slot, put second, attends nothing."""
     q, kc, vc, tables, wp = _decode_case(np.random.default_rng(3), S, H,
                                          n_kv, hd, nb=40, bs=bs, mb=mb)
+    if edges:
+        P = fd.split_plan(mb, bs)[0]
+        wp[1:4] = P - 1, P, P + 1
     q_empty = np.random.default_rng(4).standard_normal(
         (1, H, hd)).astype(np.float32)
     q = np.concatenate([q[:1], q_empty, q[1:]])
@@ -85,9 +95,30 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, S, H, n_kv, hd, bs,
                              for a in (q, kc, vc, tables, wp))
     q, kc, vc = (t.to(dtype) for t in (q, kc, vc))
     before = fd.flash_decode.launches
+    split_before = fd.flash_decode.launches_by_variant["split"]
     got = fd.flash_decode(q, kc, vc, tables, wp)
     torch.cuda.synchronize()
     assert fd.flash_decode.launches == before + 1
+    assert fd.flash_decode.launches_by_variant["split"] == split_before + 1
+    want = fd.flash_decode_reference(q, kc, vc, tables, wp)
+    rel, zeros, ok = chip_smoke.judge_decode(got, want, wp,
+                                             chip_smoke.DECODE_TOL[dtype])
+    assert ok, (rel, zeros)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_first_kernel_still_matches_plain(cuda, dtype):
+    """The first version (``"one_pass"``), which phase 7 times beside the
+    split kernel, forced at 2048 positions with GQA."""
+    q, kc, vc, tables, wp = (torch.from_numpy(a).to(cuda) for a in
+                             _decode_case(np.random.default_rng(5), 4, 32, 8,
+                                          128, nb=40, bs=16, mb=128))
+    q, kc, vc = (t.to(dtype) for t in (q, kc, vc))
+    before = fd.flash_decode.launches_by_variant["one_pass"]
+    with chip_smoke.forced_variant(fd, "one_pass"):
+        got = fd.flash_decode(q, kc, vc, tables, wp)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches_by_variant["one_pass"] == before + 1
     want = fd.flash_decode_reference(q, kc, vc, tables, wp)
     rel, zeros, ok = chip_smoke.judge_decode(got, want, wp,
                                              chip_smoke.DECODE_TOL[dtype])

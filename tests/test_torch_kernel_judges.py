@@ -31,9 +31,10 @@ every planted fault made from the plain version.
   passes the plain version, a 64-position tiled online softmax and a
   split-K form whose chunks are merged by their lse. Faults
   (``decode_faults``): each slot's last attended position dropped; the
-  last 64-position chunk of the longest slot dropped; a block-table entry
-  of the longest slot read one block off at a chunk edge; with GQA, each
-  query head read against the next kv head.
+  last chunk of the longest slot dropped; a block-table entry of the
+  longest slot read one block off at a chunk edge; with GQA, each query
+  head read against the next kv head -- chunks of 64 positions and of the
+  split kernel's split length.
 
 The judges import torch and numpy only; the card applies them to the
 kernels (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
@@ -375,6 +376,7 @@ def _decode_split_k(q, kc, vc, tables, wp, split=256):
     return out.to(q.dtype)
 
 
+@pytest.mark.parametrize("edge", ["64", "split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,H,n_kv,hd,bs,mb", [
     (4, 8, 8, 64, 16, 128),      # 2048 positions at the engine's bs
@@ -382,7 +384,9 @@ def _decode_split_k(q, kc, vc, tables, wp, split=256):
     (3, 4, 4, 64, 128, 4),       # a block spans two 64-position chunks
 ])
 def test_decode_judge_passes_the_plain_version_and_fails_the_faults(
-        dtype, S, H, n_kv, hd, bs, mb):
+        dtype, S, H, n_kv, hd, bs, mb, edge):
+    """The faults' chunk edges at 64 positions, and at the split kernel's
+    split length (``split_plan``: 128 at 2048 positions, else 64)."""
     args = _decode(np.random.default_rng(S + H + mb), S, H, n_kv, hd, bs,
                    mb, dtype)
     wp = args[-1]
@@ -392,7 +396,8 @@ def test_decode_judge_passes_the_plain_version_and_fails_the_faults(
     for form in (_decode_tiled, _decode_split_k):
         rel, zeros, ok = chip_smoke.judge_decode(form(*args), want, wp, tol)
         assert ok, (form.__name__, rel, zeros)
-    faults = chip_smoke.decode_faults(fd, *args)
+    chunk = 64 if edge == "64" else fd.split_plan(mb, bs)[0]
+    faults = chip_smoke.decode_faults(fd, *args, chunk=chunk)
     assert len(faults) == (4 if n_kv < H else 3)
     for name, bad in faults.items():
         assert not chip_smoke.judge_decode(bad, want, wp, tol)[2], name

@@ -8,7 +8,8 @@ the GPU, admits 8 requests sharing a 64-token prefix into
 ``Engine(n_slots=8, max_len=512, block_size=16, flash_decode=True)``,
 warms up, then traces ``STEPS`` decode steps with ``torch.profiler``
 (CPU + CUDA). Prints one JSON line: step wall time (host clock), device
-busy time and idle share over the window, kernel launches per step, and
+busy time and idle share over the window, kernel launches per step, the
+flash-decode kernel's device time per step and the variants it ran, and
 the device time of the top kernels by name; writes the Chrome trace to
 ``--trace``. Needs a CUDA device.
 """
@@ -27,6 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from paddle_tpu_torch import seed  # noqa: E402
+from paddle_tpu_torch.ops import flash_decode as fd  # noqa: E402
 from paddle_tpu_torch.serving import Engine  # noqa: E402
 from paddle_tpu_torch.text.models.llama import (LLAMA2_7B,  # noqa: E402
                                                 LlamaForCausalLM)
@@ -72,6 +74,7 @@ def main():
             kernels[e.key] = kernels.get(e.key, 0.0) + us
             launches += e.count
     busy_ms = sum(kernels.values()) / 1e3
+    decode_ms = sum(v for k, v in kernels.items() if "flash_decode" in k) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
     prof.export_chrome_trace(args.trace)
@@ -82,6 +85,8 @@ def main():
         "device_busy_ms_per_step": busy_ms / STEPS,
         "device_idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
         "kernel_launches_per_step": launches / STEPS,
+        "flash_decode_ms_per_step": decode_ms / STEPS,
+        "flash_decode_launches": dict(fd.flash_decode.launches_by_variant),
         "top_kernels_ms_per_step": {k: v / 1e3 / STEPS
                                     for k, v in top},
     }))
