@@ -40,8 +40,13 @@ failure raises and exits non-zero before the result line is printed:
    each; every request finishes, prefix blocks are shared, refcounts hold
    and the flash-decode kernel runs once per layer per decode step,
    every launch on the split kernel;
-6. token identity: a tiny fp32 Llama (TF32 off) through the kernel and
-   the gathered engines gives identical tokens;
+6. token identity at LLAMA_TINY fp32 (TF32 off), phase 5's workload:
+   the kernel and the gathered engines give identical tokens, greedy and
+   sampled with chunked prefill (``do_sample=True, top_k=50, top_p=0.9,
+   prefill_chunk=64``, temperature 0.6, seeds 1000 + i); the slot layout
+   gives the paged layout's tokens and chunked prefill the one-shot
+   prefill's, greedy; the threefry words on the card equal the CPU's and
+   the known ``jax.random`` words (``PRNG_WORDS``);
 7. timings (CUDA events, L2 flushed, after warm-up) of each kernel, its
    plain version and a PyTorch library call, beside the card's bound;
    the redesigned flash forward, flash backward (dq, dk/dv), fused CE,
@@ -80,6 +85,21 @@ failure raises and exits non-zero before the result line is printed:
     quantized forward (device busy, idle share, the int8 kernel's summed
     time) are printed; then the public stochastic quantizers on a 7B FFN
     weight (one launch each).
+11. sampled, chunked serving at Llama-2-7B full width and depth (phase
+    4's bf16 model, run after phase 5 and before phase 10, which swaps
+    the ``Linear``s): ``Engine(n_slots=8, max_len=512, block_size=16,
+    flash_decode=True, do_sample=True, top_k=50, top_p=0.9,
+    prefill_chunk=64)`` (Llama-2-7b-chat's published temperature 0.6 and
+    top_p 0.9; top_k 50, the transformers default) on phase 5's
+    workload, every prompt longer than a chunk, seeds 1000 + i: every
+    request finishes with 32 tokens, prompts are chunked and a shared
+    leading chunk skipped, refcounts hold, the flash-decode kernel runs
+    once per layer per decode step, all on the split kernel, and a second
+    run with the same seeds gives the same tokens; the wall, the
+    ``serving.ledger``, peak memory, and one profiled decode step
+    (launches, device busy) beside phase 5's greedy engine at the same
+    state and the sampling glue alone are printed; then the same workload
+    on ``kv_layout="slot"``, greedy (wall, decode steps, slab bytes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -1222,6 +1242,36 @@ def parity_stochastic(sr):
 # phases 4-6: the main path
 # ---------------------------------------------------------------------------
 
+# Known words of jax.random (JAX 0.9.0, partitionable threefry), for the
+# card, where there is no JAX; tests/test_torch_prng.py holds JAX itself and
+# the port's CPU words to them
+PRNG_WORDS = {
+    "split(PRNGKey(11))": [[1943334310, 1180745302],
+                           [3947986621, 4020105687]],
+    "split(PRNGKey(2**32 - 1))": [[2973345818, 897673333],
+                                  [3461607691, 1112781462]],
+    "split(PRNGKey(2**31), 3)": [[2175920781, 1058516002],
+                                 [4249812751, 4277599006],
+                                 [824838306, 2653515278]],
+    "bits(PRNGKey(0), (5,))": [4070199207, 4202968722, 1427181096,
+                               2012915765, 2447653815],
+    "bits(PRNGKey(7), (300000,))[-3:]": [4092374875, 4081220091, 3582496677],
+}
+
+
+def prng_words(prng, device):
+    """``PRNG_WORDS``' entries computed by ``ops.prng`` on ``device``."""
+    key = lambda s: prng.prng_key(s, device)                  # noqa: E731
+    return {
+        "split(PRNGKey(11))": prng.split(key(11)).tolist(),
+        "split(PRNGKey(2**32 - 1))": prng.split(key(2**32 - 1)).tolist(),
+        "split(PRNGKey(2**31), 3)": prng.split(key(2**31), 3).tolist(),
+        "bits(PRNGKey(0), (5,))": prng.random_bits(key(0), (5,)).tolist(),
+        "bits(PRNGKey(7), (300000,))[-3:]":
+            prng.random_bits(key(7), (300000,))[-3:].tolist(),
+    }
+
+
 def workload(vocab, seed):
     """8 prompts: a shared 64-token system prefix + 16..192-token
     suffixes."""
@@ -1231,13 +1281,16 @@ def workload(vocab, seed):
         np.int32) for n in (16, 40, 64, 96, 128, 160, 192, 24)]
 
 
-def staggered(eng, prompts, max_new):
-    hs = [eng.submit(prompts[0], max_new_tokens=max_new),
-          eng.submit(prompts[1], max_new_tokens=max_new)]
+def staggered(eng, prompts, max_new, per_request=None):
+    """Two requests, two steps, then one request per step; drain.
+    ``per_request[i]`` holds request i's extra ``submit`` arguments."""
+    kw = per_request or [{}] * len(prompts)
+    hs = [eng.submit(prompts[0], max_new_tokens=max_new, **kw[0]),
+          eng.submit(prompts[1], max_new_tokens=max_new, **kw[1])]
     eng.step()
     eng.step()
-    for p in prompts[2:]:
-        hs.append(eng.submit(p, max_new_tokens=max_new))
+    for p, k in zip(prompts[2:], kw[2:]):
+        hs.append(eng.submit(p, max_new_tokens=max_new, **k))
         eng.step()
     eng.drain()
     return hs
@@ -1318,20 +1371,220 @@ def phase_engine(model, fa, fd, Engine, ledger):
     return launches
 
 
-def phase_identity(LlamaForCausalLM, LLAMA_TINY, Engine, seed):
+def phase_identity(LlamaForCausalLM, LLAMA_TINY, Engine, seed, prng):
+    """Token identity at LLAMA_TINY fp32 (TF32 off): kernel vs gathered,
+    greedy and sampled + chunked; slot vs paged and chunked vs one-shot,
+    greedy; and the PRNG words on the card vs the CPU's and the known
+    words."""
     cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
     seed(0)
     tiny = LlamaForCausalLM(cfg, device="cuda")
     prompts = workload(cfg.vocab_size, seed=2)
-    toks = {}
-    for flash in (True, False):
-        eng = Engine(tiny, n_slots=8, max_len=512, block_size=16,
-                     flash_decode=flash)
-        toks[flash] = [list(h.tokens) for h in staggered(eng, prompts, 32)]
-    same = toks[True] == toks[False]
-    log(f"  tiny fp32 engine tokens identical (kernel vs gathered): {same}")
+    geo = dict(n_slots=8, max_len=512, block_size=16)
+    sampled = dict(do_sample=True, top_k=50, top_p=0.9, prefill_chunk=64)
+    per_request = [dict(temperature=0.6, seed=1000 + i)
+                   for i in range(len(prompts))]
+
+    def tokens(**kw):
+        eng = Engine(tiny, **geo, **kw)
+        hs = staggered(eng, prompts, 32,
+                       per_request if kw.get("do_sample") else None)
+        paged = kw.get("kv_layout", "paged") == "paged"
+        if eng.cache.n_free != eng.n_slots \
+                or paged and not eng.cache.check_refcounts():
+            raise AssertionError(f"{kw}: the engine did not free its KV")
+        return [list(h.tokens) for h in hs], eng.stats()
+
+    cases = {
+        "kernel vs gathered, greedy": (dict(flash_decode=True),
+                                       dict(flash_decode=False)),
+        "kernel vs gathered, sampled + chunked": (
+            dict(sampled, flash_decode=True),
+            dict(sampled, flash_decode=False)),
+        "slot vs paged, greedy": (dict(kv_layout="slot"), {}),
+        "chunked vs one-shot, greedy": (dict(prefill_chunk=64), {}),
+    }
+    out = {}
+    for what, (a, b) in cases.items():
+        (ta, sa), (tb, _) = tokens(**a), tokens(**b)
+        out[what] = ta == tb
+        log(f"  tiny fp32 engine tokens identical ({what}): {ta == tb}"
+            + (f", chunked_prefills {sa['chunked_prefills']}, chunk_steps "
+               f"{sa['chunk_steps']}" if sa["chunked_prefills"] else ""))
+        if a.get("prefill_chunk") and not sa["chunked_prefills"]:
+            raise AssertionError(f"{what}: no prompt was chunked")
+    cpu, card = (prng_words(prng, d) for d in ("cpu", "cuda"))
+    out["prng words, card vs CPU vs known"] = cpu == card == PRNG_WORDS
+    log(f"  PRNG words on the card equal the CPU's and the known words: "
+        f"{out['prng words, card vs CPU vs known']}")
+    if not all(out.values()):
+        raise AssertionError(f"token identity failed: {out}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: sampled, chunked serving at Llama-2-7B
+# ---------------------------------------------------------------------------
+
+# Llama-2-7b-chat's published generation_config.json: temperature 0.6,
+# top_p 0.9; top_k 50 is the transformers default
+SAMPLED = dict(do_sample=True, top_k=50, top_p=0.9, prefill_chunk=64)
+SERVE_GEO = dict(n_slots=8, max_len=512, block_size=16)
+
+
+def run_sampled(model, Engine, prompts):
+    eng = Engine(model, **SERVE_GEO, flash_decode=True, **SAMPLED)
+    per_request = [dict(temperature=0.6, seed=1000 + i)
+                   for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    hs = staggered(eng, prompts, 32, per_request)
+    torch.cuda.synchronize()
+    return eng, hs, time.perf_counter() - t0
+
+
+def step_syncs(step):
+    """The host synchronisations that ``step()`` makes, as torch's sync
+    debug mode reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's first use also warns that it is a prototype: not a sync
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def profile_decode_step(model, Engine, prompts, **kw):
+    """One steady-state decode step under torch.profiler (every slot
+    decoding: all prefills and chunks done; after two warm-up steps),
+    and the host synchronisations of the step before it."""
+    eng = Engine(model, **SERVE_GEO, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new_tokens=48, temperature=0.6, seed=1000 + i)
+    while eng._chunking or eng.scheduler.queue_depth:
+        eng.step()
+    eng.step()
+    syncs = step_syncs(eng.step)
+    return dict(profile_step(eng.step), host_syncs=syncs)
+
+
+def profile_sampling_glue(model, Engine):
+    """The decode step's sampling glue alone (``serving.engine.
+    _next_tokens``: filter, key split, Gumbel draw, arg-max) at the 7B
+    vocabulary over 8 slots, under torch.profiler."""
+    from paddle_tpu_torch.serving import engine as E
+    S, V = SERVE_GEO["n_slots"], model.config.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((S, V), device="cuda", generator=g)
+    keys = torch.arange(2 * S, device="cuda").view(S, 2)
+    tok = torch.zeros(S, dtype=torch.int32, device="cuda")
+    active = torch.ones(S, dtype=torch.bool, device="cuda")
+    temps = torch.full((S,), 0.6, device="cuda")
+    kw = {k: SAMPLED[k] for k in ("do_sample", "top_k", "top_p")}
+    E._next_tokens(logits, tok, active, keys, temps, **kw)      # warm-up
+    return profile_step(lambda: E._next_tokens(logits, tok, active, keys,
+                                               temps, **kw))
+
+
+def phase_sampled(model, fd, Engine, ledger):
+    """Sampled, chunked serving at Llama-2-7B (phase 4's bf16 model):
+    phase 5's workload with Llama-2-7b-chat's sampling, every prompt
+    chunked; then the same workload on the slot layout, greedy."""
+    prompts = workload(model.config.vocab_size, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fd.flash_decode)
+    eng, hs, wall = run_sampled(model, Engine, prompts)
+    launches = fd.flash_decode.launches
+    by_variant = dict(fd.flash_decode.launches_by_variant)
+    st = eng.stats()
+    led = ledger(hs)
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(wall_s=wall, decode_steps=st["decode_steps"],
+               chunk_steps=st["chunk_steps"],
+               chunked_prefills=st["chunked_prefills"],
+               prefills=st["prefills"],
+               prefix_hit_tokens=st["prefix_hit_tokens"],
+               flash_decode_launches=launches, ledger=led,
+               peak_memory_gib=peak / 2**30)
+    log(f"  {len(hs)} requests, wall {wall:.2f} s, decode steps "
+        f"{st['decode_steps']}, chunk steps {st['chunk_steps']} "
+        f"({st['chunked_prefills']} chunked prefills), prefix_hit_tokens "
+        f"{st['prefix_hit_tokens']}, flash_decode launches {launches} "
+        f"{by_variant}")
+    log("  ledger " + json.dumps(led))
+    log(f"  peak memory {peak / 2**30:.2f} GiB")
+    if not all(h.finished and h.finish_reason == "length"
+               and len(h.tokens) == 32 for h in hs):
+        raise AssertionError("a request did not finish with 32 tokens")
+    if not (st["chunked_prefills"] > 0
+            and st["chunk_steps"] >= st["chunked_prefills"]
+            and st["prefix_hit_tokens"] > 0 and eng.cache.check_refcounts()):
+        raise AssertionError(f"chunking, prefix sharing or refcounts "
+                             f"failed: {st}")
+    want = model.config.num_hidden_layers * st["decode_steps"]
+    if launches != want or by_variant != {"split": want, "one_pass": 0}:
+        raise AssertionError(f"flash_decode launched {launches} times "
+                             f"({by_variant}), want {want}, all on the "
+                             f"split kernel")
+    toks = [list(h.tokens) for h in hs]
+    del eng, hs
+    _, hs2, _ = run_sampled(model, Engine, prompts)
+    same = [list(h.tokens) for h in hs2] == toks
+    log(f"  a second run with the same seeds gives the same tokens: {same}")
     if not same:
-        raise AssertionError("flash_decode=True and False disagree")
+        raise AssertionError("the same seeds gave other tokens")
+    del hs2
+    torch.cuda.empty_cache()
+    prof = {"sampled": profile_decode_step(model, Engine, prompts,
+                                           flash_decode=True, **SAMPLED),
+            "greedy (phase 5's engine)": profile_decode_step(
+                model, Engine, prompts, flash_decode=True),
+            "sampling glue alone": profile_sampling_glue(model, Engine)}
+    for what, p in prof.items():
+        log(f"  one profiled decode step, {what}: wall "
+            f"{p['step_wall_ms']:.2f} ms, device busy "
+            f"{p['device_busy_ms']:.3f} ms, idle "
+            f"{p['device_idle_share']:.3f}, "
+            f"{p['device_kernel_launches']} launches"
+            + (f", {p['host_syncs']} host syncs" if "host_syncs" in p
+               else ""))
+    out["profiled_decode_step"] = {
+        k: {f: p[f] for f in ("step_wall_ms", "device_busy_ms",
+                              "device_idle_share", "device_kernel_launches",
+                              "port_kernels_ms", "host_syncs") if f in p}
+        for k, p in prof.items()}
+    syncs = [prof[k]["host_syncs"] for k in
+             ("sampled", "greedy (phase 5's engine)")]
+    if syncs[0] != syncs[1] or not syncs[0]:
+        raise AssertionError(f"host syncs per decode step: sampled "
+                             f"{syncs[0]}, greedy {syncs[1]}: sampling "
+                             f"must add none")
+    out["profiled_decode_step"]["sampled"]["top_kernels_ms"] = \
+        prof["sampled"]["top_kernels_ms"]
+    torch.cuda.empty_cache()
+    # the slot layout: one max_len slab row per slot, greedy, gathered
+    eng = Engine(model, **SERVE_GEO, kv_layout="slot")
+    t0 = time.perf_counter()
+    hs = staggered(eng, prompts, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    out["slot_layout"] = dict(wall_s=wall, decode_steps=st["decode_steps"],
+                              kv_cache_bytes=st["kv_cache_bytes"],
+                              ledger=ledger(hs))
+    log(f"  slot layout, greedy: wall {wall:.2f} s, decode steps "
+        f"{st['decode_steps']}, slabs {st['kv_cache_bytes'] / 2**30:.2f} GiB")
+    if not all(h.finished and len(h.tokens) == 32 for h in hs) \
+            or eng.cache.n_free != eng.n_slots:
+        raise AssertionError("the slot engine did not finish every request")
+    del eng, hs
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -2108,6 +2361,7 @@ def main():
     from paddle_tpu_torch.ops import ragged_matmul as rm
     from paddle_tpu_torch.ops import int8_matmul as im
     from paddle_tpu_torch.ops import stochastic_round as sr
+    from paddle_tpu_torch.ops import prng
     from paddle_tpu_torch.nn import quant as tq
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.distributed import fleet
@@ -2154,6 +2408,13 @@ def main():
     fd_launches = phase_engine(model, fa, fd, Engine, ledger)
     torch.cuda.empty_cache()
 
+    # ---- 11. sampled, chunked serving (phase 4's model) --------------------
+    log("[11] Engine(n_slots=8, max_len=512, block_size=16, flash_decode="
+        "True, do_sample=True, top_k=50, top_p=0.9, prefill_chunk=64), "
+        "temperature 0.6; then kv_layout='slot', greedy")
+    sampled_launches, sampled = phase_sampled(model, fd, Engine, ledger)
+    log("  sampled serving " + json.dumps(sampled))
+
     # ---- 10. PTQ Llama-2-7B (phase 4's model) ------------------------------
     log("[10] PTQ Llama-2-7B, 32 layers: PostTrainingQuantization -> "
         "Int8Linear, the int8 kernel on every projection and the head")
@@ -2164,7 +2425,7 @@ def main():
 
     # ---- 6. token identity --------------------------------------------------
     log("[6] token identity at LLAMA_TINY fp32")
-    phase_identity(LlamaForCausalLM, LLAMA_TINY, Engine, pt.seed)
+    phase_identity(LlamaForCausalLM, LLAMA_TINY, Engine, pt.seed, prng)
 
     # ---- 7. timings ---------------------------------------------------------
     log("[7] timings (median of 20, L2 flushed)")
@@ -2205,7 +2466,8 @@ def main():
         dict(name="flash_decode", route="cuda",
              source="paddle_tpu_torch/csrc/flash_decode.cu",
              replaces="paddle_tpu/ops/pallas/flash_decode.py:100",
-             launches=fd_launches, max_abs_err=errs["flash_decode"],
+             launches=fd_launches, launches_sampled=sampled_launches,
+             max_abs_err=errs["flash_decode"],
              max_err=errs["flash_decode"],
              **{k: t["flash_decode"][k] for k in cols + first},
              T4096={k: t["flash_decode_T4096"][k] for k in cols + first}),

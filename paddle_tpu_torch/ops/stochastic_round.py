@@ -60,11 +60,13 @@ def seed_key(seed: int):
     return (seed >> 32) & M32, seed & M32
 
 
-def threefry2x32(k0: int, k1: int, x0, x1):
-    """threefry2x32, 20 rounds: key ``(k0, k1)``, counters ``x0, x1``
-    (int64 tensors of uint32 values) -> two int64 tensors of uint32
+def threefry2x32(k0, k1, x0, x1):
+    """threefry2x32, 20 rounds: key ``(k0, k1)`` (ints, or int64 tensors
+    of uint32 values that broadcast against the counters), counters ``x0,
+    x1`` (int64 tensors of uint32 values) -> two int64 tensors of uint32
     words."""
-    k0, k1 = int(k0) & M32, int(k1) & M32
+    if not isinstance(k0, torch.Tensor):
+        k0, k1 = int(k0) & M32, int(k1) & M32
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32

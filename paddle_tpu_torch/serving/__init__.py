@@ -1,13 +1,15 @@
-"""Continuous-batching serving over the paged KV pool (PyTorch port of
-``paddle_tpu.serving``; Llama, greedy, paged layout)."""
+"""Continuous-batching serving (PyTorch port of ``paddle_tpu.serving``;
+Llama, greedy or sampled, paged or slot KV layout, chunked prefill)."""
 from .engine import (DEFAULT_RETRY_AFTER_S, Engine, EngineOverloaded,
                      RequestCancelled, RequestHandle, RequestTimeout)
-from .kv_cache import TRASH_BLOCK, BlockPool, PagedKVCache, RadixIndex
+from .kv_cache import (TRASH_BLOCK, BlockPool, PagedKVCache, RadixIndex,
+                       SlotKVCache)
 from .metrics import EngineMetrics, RequestMetrics, ledger
 from .scheduler import FIFOScheduler, PriorityScheduler
 
 __all__ = ["DEFAULT_RETRY_AFTER_S", "Engine", "EngineOverloaded",
            "RequestCancelled", "RequestHandle", "RequestTimeout",
            "TRASH_BLOCK", "BlockPool", "PagedKVCache", "RadixIndex",
+           "SlotKVCache",
            "EngineMetrics", "RequestMetrics", "ledger", "FIFOScheduler",
            "PriorityScheduler"]

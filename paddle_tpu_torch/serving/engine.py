@@ -1,37 +1,50 @@
-"""Iteration-level (continuous) batching engine over the paged KV pool.
+"""Iteration-level (continuous) batching engine for Llama.
 
-Counterpart of ``paddle_tpu/serving/engine.py`` for Llama, greedy
-decoding and the paged layout:
+Counterpart of ``paddle_tpu/serving/engine.py``:
 
 - ``submit()`` enqueues a request; admission prefills it straight into
-  KV blocks drawn from a shared pool through host-side block tables, with
-  the prompt right-padded to the next power-of-two bucket (the same
-  padding as the JAX package, so the prefill math matches it row for
-  row). Common prompt prefixes are shared through a refcounted radix
-  index (copy-on-write on the partial tail block), and pool exhaustion
-  preempts the least important request, which later replays
-  prompt + emitted tokens token-identically.
-- ``step()`` advances every decode-active slot one token with one fused
-  decode step over ``[n_slots, ...]``; requests join and leave between
-  steps. ``flash_decode=True`` runs decode attention through the
+  its KV storage, the prompt right-padded to the next power-of-two bucket
+  (the JAX package's padding, so the prefill math matches it row for
+  row). The default ``kv_layout="paged"`` draws fixed-size blocks from a
+  shared pool through host-side block tables; common prompt prefixes are
+  shared through a refcounted radix index (copy-on-write on the partial
+  tail block), prompts longer than ``prefill_chunk`` prefill in
+  block-aligned chunks co-scheduled with decode (one chunk per step, the
+  fully shared leading chunks skipped), and pool exhaustion preempts the
+  least important request, which later replays prompt + emitted tokens
+  token-identically. ``kv_layout="slot"`` keeps one ``max_len`` slab row
+  per slot.
+- ``step()`` runs one chunk of the oldest chunked prefill, then advances
+  every decode-active slot one token with one fused decode step over
+  ``[n_slots, ...]``; requests join and leave between steps, and a slot
+  part-way through its chunks sits inactive in the decode batch.
+  ``flash_decode=True`` (paged only) runs decode attention through the
   hand-written flash-decode kernel (its plain version on the CPU);
   ``False`` keeps the gathered plain attention. Both are token-identical.
-- ``_paged_prefill_impl``/``_paged_decode_impl`` are plain torch
-  functions over ``text/generation.py``'s per-layer bodies, run under
-  ``torch.inference_mode()``. They update the KV pools IN PLACE (the JAX
-  programs donated and returned them).
+- Sampling (``do_sample=True`` with ``top_k``/``top_p``, engine-wide;
+  temperature and ``seed`` per request): each request owns a threefry key
+  chain (``ops.prng``, JAX's words bit for bit) seeded at admission and
+  split once per decode step, so its tokens depend on (prompt, seed,
+  arguments) only, never on its neighbours, and equal batch
+  ``generate(seed=...)``'s for one request. A replay fast-forwards the
+  chain past the tokens it already emitted. Greedy engines never touch
+  the keys.
+- The ``_*_impl`` functions are plain torch functions over
+  ``text/generation.py``'s per-layer bodies, run under
+  ``torch.inference_mode()``. They update the KV storage and the keys IN
+  PLACE (the JAX programs donated and returned them).
 
 Host bookkeeping (scheduler, block tables, radix, positions) is numpy.
-Each decode step sends its small int32 state to the device in one copy
-and reads the sampled tokens back once: that read is the step's only
-device synchronisation.
+The keys ``[n_slots, 2]``, temperatures and vocab masks live on the
+device. Each decode step sends its small int32 state to the device in one
+copy and reads the sampled tokens back once: that read is the step's only
+device synchronisation, with or without sampling.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): sampling (``do_sample=True``, which needs a torch
-threefry2x32 for bit-identical sampling), chunked prefill
-(``prefill_chunk``), ``kv_layout="slot"``, tensor parallelism (``tp>1``),
-speculative decoding, ``adopt``/supervisor/fleet, AOT program handles and
-GPT. Tracing spans are not emitted.
+``ROADMAP.md`` item): tensor parallelism (``tp>1``), speculative decoding,
+``adopt``/supervisor/fleet, AOT program handles and GPT. Tracing spans are
+not emitted. A seed is taken modulo 2^32 (the JAX engine's
+``np.uint32(seed)`` refuses one outside ``[0, 2^32)``).
 """
 from __future__ import annotations
 
@@ -41,8 +54,9 @@ import numpy as np
 import torch
 
 from ..ops import flash_decode as _fd
+from ..ops import prng as _prng
 from ..text import generation as G
-from .kv_cache import PagedKVCache
+from .kv_cache import PagedKVCache, SlotKVCache
 from .metrics import EngineMetrics, RequestMetrics
 from .scheduler import EngineOverloaded, PriorityScheduler
 
@@ -72,18 +86,99 @@ def _not_in_slice(what, item):
 
 
 # ---------------------------------------------------------------------------
-# the two device functions
+# the device functions
 # ---------------------------------------------------------------------------
 
-def _paged_prefill_impl(w, kc, vc, ids, n_prompt, table_row, skip_write,
-                        temp, vmask, *, n_heads, n_kv, eps, theta,
-                        block_size):
+def _admission_keys(seed, skip, device):
+    """A request's key chain at admission: ``PRNGKey(seed)`` fast-forwarded
+    past the ``skip`` splits a replayed request already consumed, then
+    split once -> (the key the slot keeps, the key that samples the first
+    token), on ``device``. The seed is a host value, so the chain is
+    computed on the host and sent in one copy."""
+    key = _prng.prng_key(seed)
+    for _ in range(int(skip)):
+        key = _prng.split(key)[0]
+    pair = _prng.split(key).to(device)
+    return pair[0], pair[1]
+
+
+def _first_token(logits0, keys, slot, seed, skip, temp, vmask, *, do_sample,
+                 top_k, top_p):
+    """Sample a request's first token from logits0 [V] and, when sampling,
+    register its key chain in row ``slot`` of the device keys [S, 2].
+    Greedy engines never read the keys and leave them alone."""
+    logits0 = torch.where(vmask > 0, logits0, float("-inf"))
+    logits_f = G._filter_logits(logits0[None], temp, do_sample, top_k, top_p)
+    if not do_sample:
+        return torch.argmax(logits_f, dim=-1)[0]
+    key, sk = _admission_keys(seed, skip, logits0.device)
+    keys[slot] = key
+    return _prng.categorical(sk, logits_f)[0]
+
+
+def _next_tokens(logits, tok, active, keys, temps, *, do_sample, top_k,
+                 top_p):
+    """The decode step's sampling: every row's key splits, the new key
+    replaces the old one on active rows only, and each active row draws
+    from its filtered logits with the split-off key (``jax.vmap`` of
+    ``split`` and ``categorical``); inactive rows keep their token. The
+    keys are updated in place and never leave the device."""
+    logits_f = G._filter_logits(logits, temps, do_sample, top_k, top_p)
+    if do_sample:
+        split = _prng.split(keys)                        # [S, 2, 2]
+        nxt = _prng.categorical_rows(split[:, 1], logits_f)
+        keys.copy_(torch.where(active[:, None], split[:, 0], keys))
+    else:
+        nxt = torch.argmax(logits_f, dim=-1)
+    return torch.where(active, nxt, tok.long())
+
+
+def _prefill_impl(w, kc, vc, keys, ids, n_prompt, slot, seed, skip, temp,
+                  vmask, *, n_heads, n_kv, eps, theta, do_sample, top_k,
+                  top_p):
+    """Slot layout: prefill one request (ids [1, Lb], right-padded to its
+    bucket) into lines ``[0, Lb)`` of slab row ``slot``, in place. Lines
+    past ``n_prompt`` hold padding KV, which the causal bound hides until
+    a decode step overwrites them. Returns the first token (0-dim)."""
+    Lb = ids.shape[1]
+    pos = torch.arange(Lb, device=ids.device)
+    x = w["embed"][ids]
+    for l, lw in enumerate(w["layers"]):
+        x, (k, v) = G._llama_prefill_layer(x, lw, pos, n_heads=n_heads,
+                                           n_kv=n_kv, eps=eps, theta=theta)
+        kc[l, slot, :Lb] = k[0]
+        vc[l, slot, :Lb] = v[0]
+    logits0 = G._rms(x[0, n_prompt - 1], w["norm"], eps) @ w["head"]
+    return _first_token(logits0, keys, slot, seed, skip, temp, vmask,
+                        do_sample=do_sample, top_k=top_k, top_p=top_p)
+
+
+def _decode_impl(w, kc, vc, tok, cur_pos, active, keys, temps, vmasks, *,
+                 n_heads, n_kv, eps, theta, do_sample, top_k, top_p):
+    """Slot layout: one fused decode step; every row writes its new K/V at
+    line ``cur_pos`` of its own slab row (an inactive row writes garbage
+    into a line of its free slot that any later occupant overwrites
+    before reading). Returns the next token of every slot [S]."""
+    xt = w["embed"][tok][:, None]
+    for l, lw in enumerate(w["layers"]):
+        xt = G._llama_decode_layer(xt, lw, kc[l], vc[l], cur_pos, cur_pos,
+                                   None, n_heads=n_heads, n_kv=n_kv,
+                                   eps=eps, theta=theta)
+    logits = G._rms(xt[:, 0], w["norm"], eps) @ w["head"]
+    logits = torch.where(vmasks > 0, logits, float("-inf"))
+    return _next_tokens(logits, tok, active, keys, temps,
+                        do_sample=do_sample, top_k=top_k, top_p=top_p)
+
+
+def _paged_prefill_impl(w, kc, vc, keys, ids, n_prompt, slot, seed, skip,
+                        temp, table_row, skip_write, vmask, *, n_heads, n_kv,
+                        eps, theta, do_sample, top_k, top_p, block_size):
     """Prefill one request (ids [1, Lb], right-padded to its bucket): the
     full causal forward, K/V written in place into the pools through the
     slot's block-table row. Positions below ``skip_write`` (radix-shared
     prefix, already resident) and at/above ``n_prompt`` (bucket padding)
     go to the trash block, so shared blocks are never rewritten. Returns
-    the greedy first token (0-dim tensor)."""
+    the first token (0-dim tensor)."""
     Lb = ids.shape[1]
     bs = block_size
     pos = torch.arange(Lb, device=ids.device)
@@ -97,20 +192,20 @@ def _paged_prefill_impl(w, kc, vc, ids, n_prompt, table_row, skip_write,
                                            n_kv=n_kv, eps=eps, theta=theta)
         kc[l].view(nb * bs, kvh, hd)[dest] = k[0]
         vc[l].view(nb * bs, kvh, hd)[dest] = v[0]
-    hlast = G._rms(x[0, n_prompt - 1], w["norm"], eps)
-    logits0 = hlast @ w["head"]
-    logits0 = torch.where(vmask > 0, logits0, float("-inf"))
-    return torch.argmax(G._filter_logits(logits0[None], temp), dim=-1)[0]
+    logits0 = G._rms(x[0, n_prompt - 1], w["norm"], eps) @ w["head"]
+    return _first_token(logits0, keys, slot, seed, skip, temp, vmask,
+                        do_sample=do_sample, top_k=top_k, top_p=top_p)
 
 
-def _paged_decode_impl(w, kc, vc, tables, tok, cur_pos, active, temps,
-                       vmasks, *, n_heads, n_kv, eps, theta, block_size,
-                       flash_decode=False):
+def _paged_decode_impl(w, kc, vc, tables, tok, cur_pos, active, keys, temps,
+                       vmasks, *, n_heads, n_kv, eps, theta, do_sample, top_k,
+                       top_p, block_size, flash_decode=False):
     """One fused paged decode step: every decode-active slot advances one
     token at its own position, writing K/V in place through its block
-    table (inactive rows write into the trash block) and attending over
-    its pages -- gathered, or through the flash-decode kernel. Inactive
-    slots keep their token. Returns the next token of every slot [S]."""
+    table (inactive rows, a slot part-way through a chunked prefill
+    among them, write into the trash block) and attending over its pages
+    -- gathered, or through the flash-decode kernel. Returns the next
+    token of every slot [S]."""
     S = tok.shape[0]
     bs = block_size
     rows = torch.arange(S, device=tok.device)
@@ -124,8 +219,39 @@ def _paged_decode_impl(w, kc, vc, tables, tok, cur_pos, active, temps,
             flash_decode=flash_decode)
     logits = G._rms(xt[:, 0], w["norm"], eps) @ w["head"]
     logits = torch.where(vmasks > 0, logits, float("-inf"))
-    nxt = torch.argmax(G._filter_logits(logits, temps), dim=-1)
-    return torch.where(active, nxt, tok.long())
+    return _next_tokens(logits, tok, active, keys, temps,
+                        do_sample=do_sample, top_k=top_k, top_p=top_p)
+
+
+def _paged_chunk_impl(w, kc, vc, keys, ids, chunk_start, n_prompt, slot,
+                      table_row, skip_write, is_final, seed, skip, temp,
+                      vmask, *, n_heads, n_kv, eps, theta, do_sample, top_k,
+                      top_p, block_size):
+    """One block-aligned prefill CHUNK of one slot (ids [1, C], global
+    positions ``chunk_start + j``), co-scheduled with the fused decode
+    step: through every layer, its K/V scattered in place into the pool
+    (shared-prefix and pad positions into the trash block), attending
+    over the slot's gathered view. The final chunk samples the first
+    token from the admission-seeded key chain (``skip`` fast-forward for
+    a replay) and returns it; a middle chunk returns None."""
+    C = ids.shape[1]
+    bs = block_size
+    gpos = chunk_start + torch.arange(C, device=ids.device)
+    writable = (gpos >= skip_write) & (gpos < n_prompt)
+    # the last chunk may run past the table; those rows write nowhere real
+    blk = table_row[(gpos // bs).clamp(max=table_row.shape[0] - 1)]
+    wdest = torch.where(writable, blk * bs + gpos % bs, gpos % bs)
+    x = w["embed"][ids]
+    for l, lw in enumerate(w["layers"]):
+        x = G._llama_chunk_layer(x, lw, kc[l], vc[l], table_row, gpos, wdest,
+                                 n_heads=n_heads, n_kv=n_kv, eps=eps,
+                                 theta=theta, block_size=bs)
+    if not is_final:
+        return None
+    li = min(max(n_prompt - 1 - chunk_start, 0), C - 1)
+    logits0 = G._rms(x[0, li], w["norm"], eps) @ w["head"]
+    return _first_token(logits0, keys, slot, seed, skip, temp, vmask,
+                        do_sample=do_sample, top_k=top_k, top_p=top_p)
 
 
 # ---------------------------------------------------------------------------
@@ -138,11 +264,12 @@ class RequestHandle:
     ``tokens`` grows as the engine steps; ``on_token(handle, token)`` fires
     per token (the first during prefill: that stamp is the TTFT);
     ``result()`` pumps the engine until this request finishes and returns
-    prompt + generated tokens as int32 numpy.
+    prompt + generated tokens as int32 numpy. ``seed`` seeds the request's
+    key chain when the engine samples.
     """
 
     def __init__(self, engine, request_id, prompt_ids, max_new_tokens,
-                 temperature, on_token, max_time_s=None, priority=0,
+                 temperature, seed, on_token, max_time_s=None, priority=0,
                  logit_mask=None):
         self._engine = engine
         self.request_id = request_id
@@ -150,6 +277,7 @@ class RequestHandle:
         self.n_prompt = int(prompt_ids.shape[0])
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
+        self.seed = int(seed)
         self.on_token = on_token
         self.priority = int(priority)
         self.logit_mask = logit_mask
@@ -185,67 +313,102 @@ class RequestHandle:
                 f", tokens={len(self.tokens)}, {state})")
 
 
+class _ChunkState:
+    """Host bookkeeping of one in-progress chunked prefill."""
+
+    __slots__ = ("h", "ids", "n_eff", "n_shared", "next", "skip")
+
+    def __init__(self, h, ids, n_eff, n_shared, start):
+        self.h = h
+        self.ids = np.ascontiguousarray(ids, np.int32)
+        self.n_eff = int(n_eff)
+        self.n_shared = int(n_shared)
+        self.next = int(start)          # next chunk-start position
+        self.skip = len(h.tokens)       # key-chain fast-forward (replay)
+
+
 class Engine:
     """Continuous-batching serving engine over a ``LlamaForCausalLM`` of
-    this package (see the module docstring). Runs on the model's
-    device."""
+    this package (see the module docstring). Runs on the model's device.
+
+    The sampling mode (``do_sample``, ``top_k``, ``top_p``) is engine-wide;
+    temperature, seed, length and logit mask are per request."""
 
     def __init__(self, model, n_slots=8, max_len=None, *, do_sample=False,
-                 eos_token_id=None, min_prompt_bucket=8, token_budget=None,
-                 max_queue=None, kv_layout="paged", block_size=16,
-                 n_blocks=None, prefill_chunk=None, prefix_sharing=True, tp=1,
+                 top_k=0, top_p=None, eos_token_id=None, min_prompt_bucket=8,
+                 token_budget=None, max_queue=None, base_seed=0,
+                 kv_layout="paged", block_size=16, n_blocks=None,
+                 prefill_chunk=None, prefix_sharing=True, tp=1,
                  flash_decode=False, speculative=None):
         name = type(model).__name__
         if name == "GPTForCausalLM":
             raise _not_in_slice("serving GPT", "GPT serving")
         if name != "LlamaForCausalLM":
             raise TypeError(f"Engine serves LlamaForCausalLM, got {name}")
-        if do_sample:
-            raise _not_in_slice("do_sample=True (bit-identical sampling "
-                                "needs a torch threefry2x32)", "sampling")
-        if kv_layout == "slot":
-            raise _not_in_slice("kv_layout='slot'", "slot KV layout")
-        if kv_layout != "paged":
-            raise ValueError("kv_layout must be 'paged' or 'slot'")
-        if prefill_chunk is not None:
-            raise _not_in_slice("prefill_chunk", "chunked prefill")
         if int(tp) != 1:
             raise _not_in_slice("tp > 1", "multi-GPU (tensor-parallel "
                                 "serving)")
         if speculative is not None:
             raise _not_in_slice("speculative decoding", "speculative "
                                 "decoding")
+        if kv_layout not in ("paged", "slot"):
+            raise ValueError("kv_layout must be 'paged' or 'slot'")
+        self.flash_decode = bool(flash_decode)
+        if self.flash_decode and kv_layout != "paged":
+            raise ValueError("flash_decode=True requires kv_layout="
+                             "'paged' (the block-table operands)")
         c = model.config
         self.device = model.device
         self._w = G.layer_weights(model)
-        self._hp = dict(n_heads=c.num_attention_heads,
-                        n_kv=c.num_key_value_heads, eps=c.rms_norm_eps,
-                        theta=c.rope_theta)
+        hp = dict(n_heads=c.num_attention_heads, n_kv=c.num_key_value_heads,
+                  eps=c.rms_norm_eps, theta=c.rope_theta)
+        self._statics = dict(hp, do_sample=bool(do_sample),
+                             top_k=int(top_k),
+                             top_p=None if top_p is None else float(top_p))
         self.n_slots = int(n_slots)
         self.max_len = int(max_len if max_len is not None
                            else c.max_position_embeddings)
         self.eos_token_id = eos_token_id
         self.min_prompt_bucket = int(min_prompt_bucket)
+        self.base_seed = int(base_seed)
         self.kv_layout = kv_layout
-        self.flash_decode = bool(flash_decode)
-        self.prefix_sharing = bool(prefix_sharing)
-        self.block_size = int(block_size)
+        self.prefix_sharing = bool(prefix_sharing) and kv_layout == "paged"
+        self._chunking = []        # in-progress chunked prefills (paged)
+        self.chunk_used = False    # the chunk program has run
         dtype = self._w["embed"].dtype
-        if self.flash_decode and self.device.type == "cuda":
-            _fd.check_supported(dtype, c.num_attention_heads,
-                                c.num_key_value_heads,
-                                c.hidden_size // c.num_attention_heads)
-        self.cache = PagedKVCache(
-            c.num_hidden_layers, self.n_slots, self.max_len,
-            c.num_key_value_heads, c.hidden_size // c.num_attention_heads,
-            dtype, block_size=self.block_size, n_blocks=n_blocks,
-            device=self.device)
-        self._statics = dict(self._hp, block_size=self.block_size)
+        geo = (c.num_hidden_layers, self.n_slots, self.max_len,
+               c.num_key_value_heads, c.hidden_size // c.num_attention_heads,
+               dtype)
+        if kv_layout == "paged":
+            if self.flash_decode and self.device.type == "cuda":
+                _fd.check_supported(dtype, c.num_attention_heads,
+                                    c.num_key_value_heads,
+                                    c.hidden_size // c.num_attention_heads)
+            self.block_size = int(block_size)
+            if prefill_chunk is not None:
+                prefill_chunk = int(prefill_chunk)
+                if prefill_chunk < self.block_size \
+                        or prefill_chunk % self.block_size:
+                    raise ValueError(
+                        "prefill_chunk must be a block-aligned multiple "
+                        f"of block_size={self.block_size}")
+            self.prefill_chunk = prefill_chunk
+            self.cache = PagedKVCache(*geo, block_size=self.block_size,
+                                      n_blocks=n_blocks, device=self.device)
+            self._paged_statics = dict(self._statics,
+                                       block_size=self.block_size)
+        else:
+            self.block_size = None
+            self.prefill_chunk = None
+            self.cache = SlotKVCache(*geo, device=self.device)
         # host mirror of each slot's last token (inactive slots keep it)
         self._tok = np.zeros(self.n_slots, np.int32)
-        # per-slot temperature and vocab mask live on the device and
-        # change only on admission
+        # per-slot key chains, temperatures and vocab masks live on the
+        # device: admission writes a slot's row, the decode step splits
+        # the keys in place, and nothing reads them back
         self._vocab = int(self._w["head"].shape[-1])
+        self._keys = torch.zeros((self.n_slots, 2), dtype=torch.int64,
+                                 device=self.device)
         self._temps = torch.ones(self.n_slots, dtype=torch.float32,
                                  device=self.device)
         self._vmask = torch.ones((self.n_slots, self._vocab),
@@ -287,16 +450,18 @@ class Engine:
                 f"prompt must be a 1-D token sequence, got {ids.shape}")
         return ids
 
-    def submit(self, prompt, max_new_tokens=32, temperature=1.0,
+    def submit(self, prompt, max_new_tokens=32, temperature=1.0, seed=None,
                on_token=None, max_time_s=None, priority=0, logit_mask=None):
         """Enqueue a request; returns a RequestHandle immediately (the
         request often prefills inside this call). Raises EngineOverloaded
         past max_queue.
 
-        ``max_time_s`` is a wall-clock deadline over queueing and
-        decoding; ``priority`` is the admission class (0 first);
-        ``logit_mask`` ([vocab], nonzero = allowed) constrains every
-        sampled position of this request."""
+        ``seed`` seeds the request's key chain (default ``base_seed +
+        request_id``), so a sampled request's tokens depend on its prompt,
+        seed and arguments only; ``max_time_s`` is a wall-clock deadline
+        over queueing and decoding; ``priority`` is the admission class (0
+        first); ``logit_mask`` ([vocab], nonzero = allowed) constrains
+        every sampled position of this request."""
         ids = self._as_ids(prompt)
         if ids.shape[0] < 1:
             raise ValueError("empty prompt")
@@ -315,15 +480,17 @@ class Engine:
             raise ValueError(
                 f"prompt ({ids.shape[0]}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_len={self.max_len}")
-        cap = (self.cache.pool.n_blocks - 1) * self.block_size
-        if ids.shape[0] + int(max_new_tokens) + 1 > cap:
-            raise ValueError(
-                f"prompt ({ids.shape[0]}) + max_new_tokens "
-                f"({max_new_tokens}) can never fit the KV pool "
-                f"({cap} token lines) -- raise n_blocks")
+        if self.kv_layout == "paged":
+            cap = (self.cache.pool.n_blocks - 1) * self.block_size
+            if ids.shape[0] + int(max_new_tokens) + 1 > cap:
+                raise ValueError(
+                    f"prompt ({ids.shape[0]}) + max_new_tokens "
+                    f"({max_new_tokens}) can never fit the KV pool "
+                    f"({cap} token lines) -- raise n_blocks")
         rid = self._next_id
         self._next_id += 1
         h = RequestHandle(self, rid, ids, max_new_tokens, temperature,
+                          self.base_seed + rid if seed is None else seed,
                           on_token, max_time_s=max_time_s, priority=priority,
                           logit_mask=logit_mask)
         self.metrics.requests_submitted += 1
@@ -350,8 +517,11 @@ class Engine:
         # a request that finishes during its own prefill frees its slot at
         # once: loop so the queue keeps draining into freed slots
         while True:
-            popped = self.scheduler.pop_admissible(
-                self.cache.n_free, free_tokens=self.cache.free_tokens())
+            if self.kv_layout == "paged":
+                popped = self.scheduler.pop_admissible(
+                    self.cache.n_free, free_tokens=self.cache.free_tokens())
+            else:
+                popped = self.scheduler.pop_admissible(self.cache.n_free)
             if not popped:
                 return
             for h in popped:
@@ -370,11 +540,41 @@ class Engine:
         return np.concatenate(
             [h.prompt_ids, np.asarray(h.tokens, np.int32)])
 
+    def _set_request_rows(self, h, slot):
+        """The slot's temperature and vocab mask on the device."""
+        self._temps[slot] = h.temperature
+        self._vmask[slot] = (1.0 if h.logit_mask is None else
+                             torch.from_numpy(h.logit_mask).to(self.device))
+
     def _admit_one(self, h):
-        # a preempted request re-prefills prompt + its k emitted tokens;
-        # normal admission is k = 0
+        # a preempted request re-prefills prompt + its k emitted tokens and
+        # fast-forwards its key chain k splits, so its next token is the
+        # one the uninterrupted run would have drawn; normal admission is
+        # k = 0
         k = len(h.tokens)
         n_eff = h.n_prompt + k
+        if self.kv_layout == "paged":
+            return self._admit_one_paged(h, k, n_eff)
+        slot = self.cache.alloc()
+        h.slot = slot
+        self._by_slot[slot] = h
+        Lb = self._bucket(n_eff)
+        self.buckets_seen.add(Lb)
+        ids = np.zeros((1, Lb), np.int32)
+        ids[0, :n_eff] = self._full_ids(h)
+        with torch.inference_mode():
+            self._set_request_rows(h, slot)
+            tok0 = int(_prefill_impl(
+                self._w, self.cache.kc, self.cache.vc, self._keys,
+                torch.from_numpy(ids).to(self.device), n_eff, slot, h.seed,
+                k, self._temps[slot], self._vmask[slot], **self._statics))
+        self.metrics.prefills += 1
+        self._tok[slot] = tok0
+        self.cache.cur_pos[slot] = n_eff
+        self._emit(h, tok0)
+        return True
+
+    def _admit_one_paged(self, h, k, n_eff):
         full = self._full_ids(h)
         slot = self.cache.alloc()
         # block coverage for [0, n_eff]: prompt + replay tokens + the
@@ -393,22 +593,33 @@ class Engine:
         self.metrics.prefix_hit_tokens += min(n_shared, n_eff)
         if cow:
             self.metrics.cow_copies += 1
+        with torch.inference_mode():
+            self._set_request_rows(h, slot)
+        if self.prefill_chunk is not None and n_eff > self.prefill_chunk:
+            # a long prompt prefills in block-aligned chunks, one per step
+            # beside the fused decode step; its slot joins the decode
+            # batch after the final chunk. Fully shared leading chunks are
+            # skipped (the radix holds their KV): start at the chunk with
+            # the first unshared position, clamped so that the chunk with
+            # the last prompt token (the sampling row) always runs.
+            C = self.prefill_chunk
+            start = (min(n_shared, n_eff - 1) // C) * C
+            self._chunking.append(
+                _ChunkState(h, full, n_eff, n_shared, start))
+            self.metrics.chunked_prefills += 1
+            return True
         Lb = self._bucket(n_eff)
         self.buckets_seen.add(Lb)
         ids = np.zeros((1, Lb), np.int32)
         ids[0, :n_eff] = full
         dev = self.device
         with torch.inference_mode():
-            self._temps[slot] = h.temperature
-            self._vmask[slot] = (1.0 if h.logit_mask is None else
-                                 torch.from_numpy(h.logit_mask).to(dev))
-            tok0 = _paged_prefill_impl(
-                self._w, self.cache.kc, self.cache.vc,
-                torch.from_numpy(ids).to(dev), n_eff,
+            tok0 = int(_paged_prefill_impl(
+                self._w, self.cache.kc, self.cache.vc, self._keys,
+                torch.from_numpy(ids).to(dev), n_eff, slot, h.seed, k,
+                self._temps[slot],
                 torch.from_numpy(self.cache.block_tables[slot]).to(dev),
-                n_shared, self._temps[slot], self._vmask[slot],
-                **self._statics)
-            tok0 = int(tok0)
+                n_shared, self._vmask[slot], **self._paged_statics))
         self.metrics.prefills += 1
         self._tok[slot] = tok0
         self.cache.cur_pos[slot] = n_eff
@@ -417,14 +628,57 @@ class Engine:
         self._emit(h, tok0)
         return True
 
+    def _chunk_tick(self):
+        """Advance the oldest in-progress chunked prefill by ONE chunk
+        (the fused decode step then runs for every other slot: a long
+        prompt holds the others back by one chunk per step at most)."""
+        cs = self._chunking[0]
+        h = cs.h
+        C = self.prefill_chunk
+        start = cs.next
+        end = min(start + C, cs.n_eff)
+        ids = np.zeros((1, C), np.int32)
+        ids[0, :end - start] = cs.ids[start:end]
+        is_final = end >= cs.n_eff
+        dev = self.device
+        with torch.inference_mode():
+            tok0 = _paged_chunk_impl(
+                self._w, self.cache.kc, self.cache.vc, self._keys,
+                torch.from_numpy(ids).to(dev), start, cs.n_eff, h.slot,
+                torch.from_numpy(self.cache.block_tables[h.slot]).to(dev),
+                cs.n_shared, is_final, h.seed, cs.skip,
+                self._temps[h.slot], self._vmask[h.slot],
+                **self._paged_statics)
+            tok0 = None if tok0 is None else int(tok0)
+        self.chunk_used = True
+        self.metrics.chunk_steps += 1
+        cs.next = end
+        if is_final:
+            self._chunking.pop(0)
+            self.metrics.prefills += 1
+            self._tok[h.slot] = tok0
+            self.cache.cur_pos[h.slot] = cs.n_eff
+            if self.prefix_sharing:
+                self.cache.commit_prefix(h.slot, cs.ids)
+            self._emit(h, tok0)
+
     # -- paged pool pressure ------------------------------------------------
+
+    def _decode_active(self):
+        """Decode-step row mask: occupied slots minus those still part-way
+        through a chunked prefill (they hold their slot but have no token
+        yet). A copy: finishing requests change the cache's mask."""
+        m = self.cache.active.copy()
+        for cs in self._chunking:
+            m[cs.h.slot] = False
+        return m
 
     def _ensure_decode_capacity(self, active_mask):
         """Every decode-active slot needs a writable block for its next
         line. On pool exhaustion (after radix eviction) the least
-        important active request is PREEMPTED: its blocks free, it
-        re-queues, and re-admission replays prompt + emitted tokens, so
-        its output is token-identical."""
+        important request is PREEMPTED: its blocks free, it re-queues, and
+        re-admission replays prompt + emitted tokens with the key-chain
+        fast-forward, so its output is token-identical."""
         for slot in np.nonzero(active_mask)[0]:
             slot = int(slot)
             h = self._by_slot[slot]
@@ -453,14 +707,16 @@ class Engine:
         self._by_slot[slot] = None
         self.cache.free(slot)
         h.slot = None
+        self._chunking = [cs for cs in self._chunking if cs.h is not h]
         self.scheduler.release(h)
         self.scheduler.requeue(h)
         self.metrics.preemptions += 1
 
     def cancel(self, handle):
         """Client abandoned the stream: a queued handle leaves the
-        scheduler, an active one frees its KV blocks at once. ``result()``
-        raises RequestCancelled. Returns False if already finished."""
+        scheduler, an active one (part-way through a chunked prefill or
+        decoding) frees its KV blocks at once. ``result()`` raises
+        RequestCancelled. Returns False if already finished."""
         if handle.finished:
             return False
         if handle.slot is None:
@@ -483,19 +739,29 @@ class Engine:
 
     def step(self):
         """One engine iteration: expire overdue requests, admit waiting
-        ones, then advance every active slot one token with the fused
-        decode step (preempting first on pool exhaustion). Returns the
+        ones, advance ONE chunk of the oldest chunked prefill, then
+        advance every decode-active slot one token with the fused decode
+        step (paged: preempting first on pool exhaustion). Returns the
         number of requests that decoded this step."""
         self._expire()
         self._admit()
-        self._ensure_decode_capacity(self.cache.active)
-        active = self.cache.active.copy()   # preemption may have shrunk it
+        paged = self.kv_layout == "paged"
+        if paged and self._chunking:
+            self._chunk_tick()
+        if paged:
+            self._ensure_decode_capacity(self._decode_active())
+            active = self._decode_active()   # preemption may shrink it
+            self.metrics.sample(self.cache.occupancy,
+                                self.scheduler.queue_depth,
+                                active=self.cache.n_active,
+                                pool_free=self.cache.pool.n_free,
+                                pool_total=self.cache.pool.n_blocks - 1)
+        else:
+            active = self.cache.active.copy()
+            self.metrics.sample(self.cache.occupancy,
+                                self.scheduler.queue_depth,
+                                active=self.cache.n_active)
         n_active = int(active.sum())
-        self.metrics.sample(self.cache.occupancy,
-                            self.scheduler.queue_depth,
-                            active=self.cache.n_active,
-                            pool_free=self.cache.pool.n_free,
-                            pool_total=self.cache.pool.n_blocks - 1)
         if not n_active:
             return 0
         self._decode_once(active)
@@ -504,18 +770,24 @@ class Engine:
     def _decode_once(self, active):
         """One fused decode step over ``active`` rows."""
         S = self.n_slots
+        paged = self.kv_layout == "paged"
         t0 = time.perf_counter()
-        # tok, cur, active and the block tables travel in one int32 copy
-        host = np.concatenate([self._tok, self.cache.cur_pos,
-                               active.astype(np.int32),
-                               self.cache.block_tables.ravel()])
+        # tok, cur, active (and the block tables) travel in one int32 copy
+        parts = [self._tok, self.cache.cur_pos, active.astype(np.int32)]
+        if paged:
+            parts.append(self.cache.block_tables.ravel())
         with torch.inference_mode():
-            buf = torch.from_numpy(host).to(self.device)
-            nxt = _paged_decode_impl(
-                self._w, self.cache.kc, self.cache.vc,
-                buf[3 * S:].view(S, -1), buf[:S], buf[S:2 * S],
-                buf[2 * S:3 * S] > 0, self._temps, self._vmask,
-                flash_decode=self.flash_decode, **self._statics)
+            buf = torch.from_numpy(np.concatenate(parts)).to(self.device)
+            state = (buf[:S], buf[S:2 * S], buf[2 * S:3 * S] > 0,
+                     self._keys, self._temps, self._vmask)
+            if paged:
+                nxt = _paged_decode_impl(
+                    self._w, self.cache.kc, self.cache.vc,
+                    buf[3 * S:].view(S, -1), *state,
+                    flash_decode=self.flash_decode, **self._paged_statics)
+            else:
+                nxt = _decode_impl(self._w, self.cache.kc, self.cache.vc,
+                                   *state, **self._statics)
             toks = nxt.cpu().numpy().astype(np.int32)    # the step's sync
         self._tok = toks
         self.metrics.mark_decode(time.perf_counter() - t0)
@@ -541,9 +813,14 @@ class Engine:
         if h.slot is not None:         # queued-only timeouts held no slot
             self._by_slot[h.slot] = None
             # every block the slot holds is released: shared-prefix
-            # refcounts drop, private blocks return to the pool
+            # refcounts drop, private blocks (a cancelled or timed-out
+            # chunked prefill's written chunks among them) return to the
+            # pool
             self.cache.free(h.slot)
             self.scheduler.release(h)
+            if self._chunking:
+                self._chunking = [cs for cs in self._chunking
+                                  if cs.h is not h]
         if reason == "timeout":
             self.metrics.requests_timed_out += 1
         elif reason == "cancelled":
@@ -570,11 +847,14 @@ class Engine:
                "queue_depth": self.scheduler.queue_depth,
                "kv_cache_bytes": self.cache.nbytes(),
                "prefill_buckets": sorted(self.buckets_seen),
+               "chunk_program": self.chunk_used,
+               "prefill_chunk": self.prefill_chunk,
                "prefix_sharing": self.prefix_sharing,
                "flash_decode": self.flash_decode,
                # process-wide count of flash-decode kernel launches (CUDA
                # only; the plain CPU path launches nothing)
                "flash_decode_launches": _fd.flash_decode.launches,
                "device": str(self.device)}
-        out.update(self.cache.pool_stats())
+        if self.kv_layout == "paged":
+            out.update(self.cache.pool_stats())
         return out

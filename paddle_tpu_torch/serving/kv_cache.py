@@ -1,10 +1,14 @@
-"""Paged KV cache for continuous batching.
+"""KV caches for continuous batching: slot-based and paged.
 
-Counterpart of ``paddle_tpu/serving/kv_cache.py`` (the paged layout; the
-slot layout is not ported). A fixed ``[n_layers, n_blocks, block_size,
-kv, hd]`` pool pair plus host-side per-slot block tables (numpy int32):
-slots draw fixed-size blocks on demand, and requests sharing a prompt
-prefix share its full blocks through a refcounted radix index
+Counterpart of ``paddle_tpu/serving/kv_cache.py``.
+
+:class:`SlotKVCache` keeps one fixed ``[n_layers, n_slots, max_len,
+kv_heads, head_dim]`` slab pair: every slot reserves ``max_len`` lines.
+
+:class:`PagedKVCache` keeps a fixed ``[n_layers, n_blocks, block_size, kv,
+hd]`` pool pair plus host-side per-slot block tables (numpy int32): slots
+draw fixed-size blocks on demand, and requests sharing a prompt prefix
+share its full blocks through a refcounted radix index
 (:class:`RadixIndex`), copy-on-write on the partial tail block.
 
 Block 0 is a reserved TRASH block: never allocated; writes that must not
@@ -12,10 +16,11 @@ land anywhere real (bucket padding, shared-prefix positions, inactive
 decode rows) are redirected into it, and the causal bound keeps it
 unreadable.
 
-The bookkeeping (allocator, radix, block tables, position mirrors) is the
-JAX package's, host-side numpy, copied as is. The pools ``kc``/``vc`` are
-torch tensors on the model's device and are updated IN PLACE by the
-engine's prefill and decode (the JAX programs donated and returned them).
+The bookkeeping (allocators, radix, block tables, position mirrors) is the
+JAX package's, host-side numpy, copied as is. The slabs and pools
+``kc``/``vc`` are torch tensors on the model's device and are updated IN
+PLACE by the engine's prefill, chunk and decode (the JAX programs donated
+and returned them).
 """
 from __future__ import annotations
 
@@ -25,6 +30,65 @@ import numpy as np
 import torch
 
 TRASH_BLOCK = 0   # reserved scatter target for masked writes, never allocated
+
+
+class SlotKVCache:
+    """Fixed-shape per-layer KV slabs on ``device`` plus a host-side slot
+    allocator."""
+
+    def __init__(self, n_layers, n_slots, max_len, kv_heads, head_dim,
+                 dtype, device="cpu"):
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        if max_len < 2:
+            raise ValueError("max_len must be >= 2")
+        self.n_layers = int(n_layers)
+        self.n_slots = int(n_slots)
+        self.max_len = int(max_len)
+        self.kv_heads = int(kv_heads)
+        self.head_dim = int(head_dim)
+        self.dtype = dtype
+        shape = (self.n_layers, self.n_slots, self.max_len, self.kv_heads,
+                 self.head_dim)
+        self.kc = torch.zeros(shape, dtype=dtype, device=device)
+        self.vc = torch.zeros(shape, dtype=dtype, device=device)
+        # host mirrors of per-slot state
+        self.cur_pos = np.zeros(self.n_slots, np.int32)
+        self.active = np.zeros(self.n_slots, bool)
+        self._free = collections.deque(range(self.n_slots))
+
+    @property
+    def n_free(self):
+        return len(self._free)
+
+    @property
+    def n_active(self):
+        return int(self.active.sum())
+
+    @property
+    def occupancy(self):
+        return self.n_active / self.n_slots
+
+    def alloc(self):
+        """Claim the lowest free slot (FIFO over frees) or return None."""
+        if not self._free:
+            return None
+        slot = self._free.popleft()
+        self.active[slot] = True
+        self.cur_pos[slot] = 0
+        return slot
+
+    def free(self, slot):
+        """Evict: the slot becomes reusable; device lines are NOT cleared
+        -- a later occupant overwrites each line before it becomes
+        attendable (causal bound), so stale KV is never read."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        self.active[slot] = False
+        self._free.append(slot)
+
+    def nbytes(self):
+        return 2 * self.kc.numel() * self.kc.element_size()
 
 
 class BlockPool:

@@ -130,6 +130,8 @@ class EngineMetrics:
         self.samples = 0
         self.peak_active = 0           # max concurrently admitted
         self.preemptions = 0           # pool-exhaustion evict+replay
+        self.chunked_prefills = 0      # requests that prefilled chunked
+        self.chunk_steps = 0           # chunk-program invocations
         self.prefix_hit_tokens = 0     # prompt tokens served from radix
         self.prompt_tokens = 0         # total prompt tokens admitted
         self.cow_copies = 0            # partial tail blocks privatized
@@ -195,6 +197,8 @@ class EngineMetrics:
             "peak_queue_depth": self.peak_queue_depth,
             "peak_active": self.peak_active,
             "preemptions": self.preemptions,
+            "chunked_prefills": self.chunked_prefills,
+            "chunk_steps": self.chunk_steps,
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "prompt_tokens": self.prompt_tokens,
             "prefix_hit_rate": (None if hr is None else round(hr, 4)),

@@ -1,18 +1,25 @@
-"""Per-layer Llama prefill/decode bodies for the serving engine.
+"""Per-layer Llama bodies, sampling filters and ``generate()``.
 
-Counterpart of the parts of ``paddle_tpu/text/generation.py`` that the
-paged serving engine reaches: ``_rms``, ``_rope_rows``, the greedy part of
-``_filter_logits``, ``_llama_prefill_layer``, ``_paged_decode_attention``
-and ``_llama_decode_layer_paged`` (``_paged_view``'s gather lives in
-``ops.flash_decode.flash_decode_reference``, the gathered attention). The
-arithmetic mirrors the JAX bodies step for step, including where bf16
-rounds (RMSNorm casts before the weight multiply, rotary rotates in fp32,
-softmax probabilities are cast to the model dtype before the PV product).
+Counterpart of the Llama parts of ``paddle_tpu/text/generation.py``:
+``_rms``, ``_rope_rows``, ``_nucleus_filter``, ``_filter_logits``,
+``_prompt_mask``, the slot-layout bodies ``_llama_prefill_layer`` and
+``_llama_decode_layer``, the paged bodies ``_paged_view``,
+``_paged_decode_attention``, ``_llama_decode_layer_paged`` and
+``_llama_chunk_layer``, and batch ``generate()`` (``_generate`` stands for
+``_generate_jit``). The serving engine and ``generate()`` run the same
+bodies, as in the JAX package. The arithmetic mirrors the JAX bodies step
+for step, including where bf16 rounds (RMSNorm casts before the weight
+multiply, rotary rotates in fp32, softmax probabilities are cast to the
+model dtype before the PV product) and where masked scores are set to
+``-1e30``. Sampling draws its noise from ``ops.prng``, JAX's threefry
+words bit for bit.
 
-``layer_weights`` takes the place of ``_stacked_weights``: a list of
-per-layer dicts that reference the module's parameters. Stacking would
-copy every weight (13.5 GB more at 7B), and a Python loop over layers
-needs no stacked operand.
+The bodies write K/V IN PLACE into the caches they are given (the JAX
+bodies return updated caches). ``layer_weights`` takes the place of
+``_stacked_weights``: a list of per-layer dicts that reference the
+module's parameters. Stacking would copy every weight (13.5 GB more at
+7B), and a Python loop over layers needs no stacked operand. Beam search
+and GPT generation are not ported (``ROADMAP.md``, port queue item 3).
 """
 from __future__ import annotations
 
@@ -23,9 +30,10 @@ import torch.nn.functional as TF
 
 from ..nn.layer.norm import rms_norm as _rms
 from ..ops import flash_decode as _fd
+from ..ops import prng as _prng
 from .models.llama import _rope
 
-__all__ = ["layer_weights"]
+__all__ = ["layer_weights", "generate"]
 
 
 def layer_weights(model):
@@ -65,15 +73,53 @@ def _rope_rows(q, k, pos, theta, dtype):
     return rot(q), rot(k)
 
 
-def _filter_logits(logits, temperature):
-    """Greedy part of ``_filter_logits``: fp32 logits over a temperature
-    floored at 1e-6 (scalar or per-row [B]). Sampling filters (top-k,
-    top-p) come with the sampling slice."""
+def _nucleus_filter(logits, top_p):
+    """Top-p (nucleus) mask: keep the smallest set of tokens whose
+    cumulative probability reaches ``top_p`` (ties broken by a stable
+    descending sort; the arg-max is always kept, even for top_p=0)."""
+    order = torch.argsort(-logits, dim=-1, stable=True)      # descending
+    sorted_logits = torch.gather(logits, -1, order)
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum_excl = torch.cumsum(probs, dim=-1) - probs
+    keep_sorted = cum_excl < top_p
+    keep_sorted[..., 0] = True                               # argmax stays
+    keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+    return torch.where(keep, logits, float("-inf"))
+
+
+def _filter_logits(logits, temperature, do_sample, top_k, top_p):
+    """Temperature / top-k / top-p filtering shared by ``generate()`` and
+    the serving engine: fp32 logits [B, V] over a temperature floored at
+    1e-6 (scalar or per-row [B]); with ``do_sample``, logits below the
+    ``top_k``-th largest (ties kept) and outside the ``top_p`` nucleus
+    become -inf."""
     t = torch.clamp(torch.as_tensor(temperature, dtype=torch.float32,
                                     device=logits.device), min=1e-6)
     if t.dim() == 1:
         t = t[:, None]
-    return logits.float() / t
+    logits = logits.float() / t
+    if do_sample and top_k:
+        k = min(int(top_k), logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if do_sample and top_p is not None and top_p < 1.0:
+        logits = _nucleus_filter(logits, top_p)
+    return logits
+
+
+def _prompt_mask(ids, pad_token_id, attention_mask):
+    """[B, L0] int32 prefix mask (1 = real token) for right-padded
+    prompts. An explicit attention_mask wins; otherwise everything up to
+    the last non-pad token is real (a pad_token_id inside the prompt is
+    kept as a real token)."""
+    if attention_mask is not None:
+        return torch.as_tensor(attention_mask, device=ids.device).int()
+    if pad_token_id is None:
+        return torch.ones_like(ids, dtype=torch.int32)
+    L0 = ids.shape[1]
+    ar = torch.arange(1, L0 + 1, device=ids.device)
+    plen = torch.where(ids != pad_token_id, ar[None, :], 0).amax(dim=1)
+    return (ar[None, :] - 1 < plen[:, None]).int()
 
 
 def _llama_prefill_layer(x, lw, pos, *, n_heads, n_kv, eps, theta):
@@ -101,6 +147,54 @@ def _llama_prefill_layer(x, lw, pos, *, n_heads, n_kv, eps, theta):
     h2 = _rms(x, lw["ln2"], eps)
     x = x + (TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])) @ lw["wd"]
     return x, (k, v)
+
+
+def _llama_decode_layer(xt, lw, kc_l, vc_l, write_idx, rope_pos, key_mask,
+                        *, n_heads, n_kv, eps, theta):
+    """One Llama decoder layer advancing every row one token against a
+    slot-layout cache.
+
+    xt [B, 1, h]; kc_l/vc_l [B, T, n_kv, hd] (written in place at row
+    ``b``, line ``write_idx[b]``); rope_pos [B], each row's rotary
+    position (it differs from write_idx only for right-padded prompts);
+    key_mask [B, T] bool or None, attendable positions on top of the
+    causal ``<= write_idx`` bound (False hides prompt padding lines)."""
+    B, T = kc_l.shape[0], kc_l.shape[1]
+    h = xt.shape[-1]
+    hd = h // n_heads
+    dt = xt.dtype
+    h1 = _rms(xt, lw["ln1"], eps)
+    q = (h1 @ lw["wq"]).reshape(B, 1, n_heads, hd)
+    k = (h1 @ lw["wk"]).reshape(B, 1, n_kv, hd)
+    v = (h1 @ lw["wv"]).reshape(B, 1, n_kv, hd)
+    q, k = _rope_rows(q, k, rope_pos, theta, dt)
+    rows = torch.arange(B, device=xt.device)
+    kc_l[rows, write_idx] = k[:, 0]
+    vc_l[rows, write_idx] = v[:, 0]
+    kh = kc_l.repeat_interleave(n_heads // n_kv, dim=2)   # [B, T, H, hd]
+    vh = vc_l.repeat_interleave(n_heads // n_kv, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q[:, 0].float(), kh.float()) \
+        / math.sqrt(hd)
+    valid = (torch.arange(T, device=xt.device)[None, :]
+             <= write_idx[:, None])
+    if key_mask is not None:
+        valid = valid & key_mask
+    s = s.masked_fill(~valid[:, None, :], -1e30)
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = torch.einsum("bht,bthd->bhd", p, vh).reshape(B, 1, h)
+    xt2 = xt + o @ lw["wo"]
+    h2 = _rms(xt2, lw["ln2"], eps)
+    return xt2 + (TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])) @ lw["wd"]
+
+
+def _paged_view(pool_l, tables, block_size):
+    """Each slot's contiguous K or V view gathered through its block-table
+    row: pool_l [n_blocks, bs, kv, hd], tables [S, mb] -> [S, mb*bs, kv,
+    hd] (view index == logical position; unused entries point at the
+    trash block and sit past the causal bound)."""
+    S, mb = tables.shape
+    return pool_l[tables.long()].reshape(S, mb * block_size,
+                                         pool_l.shape[-2], pool_l.shape[-1])
 
 
 def _paged_decode_attention(q, kc_pool, vc_pool, tables, write_pos, flash,
@@ -145,3 +239,139 @@ def _llama_decode_layer_paged(xt, lw, kc_pool, vc_pool, tables, dest,
     xt2 = xt + o @ lw["wo"]
     h2 = _rms(xt2, lw["ln2"], eps)
     return xt2 + (TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])) @ lw["wd"]
+
+
+def _llama_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
+                       n_heads, n_kv, eps, theta, block_size):
+    """One Llama layer over one block-aligned prefill CHUNK of one slot:
+    x [1, C, h] at global positions ``gpos`` [C]. The chunk's K/V go IN
+    PLACE to flat pool indices ``wdest`` [C] (shared-prefix and pad
+    positions redirected into the trash block), then the chunk's rows
+    attend over the slot's whole gathered view (earlier chunks and this
+    one) under ``view_pos <= gpos``, masked scores at -1e30."""
+    B, C, h = x.shape
+    hd = h // n_heads
+    dt = x.dtype
+    h1 = _rms(x, lw["ln1"], eps)
+    q = (h1 @ lw["wq"]).reshape(B, C, n_heads, hd)
+    k = (h1 @ lw["wk"]).reshape(B, C, n_kv, hd)
+    v = (h1 @ lw["wv"]).reshape(B, C, n_kv, hd)
+    q, k = _rope(q, k, gpos, theta, dt)
+    nb, bs = kc_pool.shape[0], kc_pool.shape[1]
+    kc_pool.view(nb * bs, n_kv, hd)[wdest] = k[0]
+    vc_pool.view(nb * bs, n_kv, hd)[wdest] = v[0]
+    kview = _paged_view(kc_pool, table_row[None], block_size)  # [1,T,kv,hd]
+    vview = _paged_view(vc_pool, table_row[None], block_size)
+    qh = q.transpose(1, 2)                                     # [1,H,C,hd]
+    kh = kview.transpose(1, 2).repeat_interleave(n_heads // n_kv, dim=1)
+    vh = vview.transpose(1, 2).repeat_interleave(n_heads // n_kv, dim=1)
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) \
+        / math.sqrt(hd)
+    T = kview.shape[1]
+    cm = torch.arange(T, device=x.device)[None, :] <= gpos[:, None]
+    s = s.masked_fill(~cm[None, None], -1e30)
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = torch.matmul(p, vh).transpose(1, 2).reshape(B, C, h)
+    x = x + o @ lw["wo"]
+    h2 = _rms(x, lw["ln2"], eps)
+    return x + (TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])) @ lw["wd"]
+
+
+# ---------------------------------------------------------------------------
+# batch generate()
+# ---------------------------------------------------------------------------
+
+def _generate(w, ids, prompt_len_mask, key, *, n_heads, n_kv, eps, theta,
+              max_new, do_sample, top_k, eos_id, temperature, top_p=None,
+              padded=False):
+    """``_generate_jit``'s counterpart. ids [B, L0] (right-padded prompt),
+    prompt_len_mask [B, L0] (1 = real token), key [2] on ids' device. With
+    ``padded`` each row's rotary positions continue from its own prompt
+    length and its pad lines are masked out of decode attention. Returns
+    [B, L0 + max_new] int64."""
+    B, L0 = ids.shape
+    dev = ids.device
+    hd = w["embed"].shape[1] // n_heads
+    T = L0 + max_new
+    dt = w["embed"].dtype
+    hp = dict(n_heads=n_heads, n_kv=n_kv, eps=eps, theta=theta)
+    # prefill: the full causal pass over the (padded) prompt
+    x = w["embed"][ids]
+    pos = torch.arange(L0, device=dev)
+    kcache = [torch.zeros((B, T, n_kv, hd), dtype=dt, device=dev)
+              for _ in w["layers"]]
+    vcache = [torch.zeros_like(c) for c in kcache]
+    for lw, kc, vc in zip(w["layers"], kcache, vcache):
+        x, (k, v) = _llama_prefill_layer(x, lw, pos, **hp)
+        kc[:, :L0] = k
+        vc[:, :L0] = v
+    prompt_len = prompt_len_mask.sum(dim=1).long()
+    hidden = _rms(x, w["norm"], eps)
+    logits0 = hidden[torch.arange(B, device=dev), prompt_len - 1] @ w["head"]
+
+    def sample(logits, sk):
+        # one key draws over all B * V logits, as one
+        # jax.random.categorical call does
+        logits = _filter_logits(logits, temperature, do_sample, top_k, top_p)
+        if not do_sample:
+            return torch.argmax(logits, dim=-1)
+        return _prng.categorical(sk, logits)
+
+    key, sk = _prng.split(key)
+    tok = sample(logits0, sk)
+    out = [tok]
+    done = (tok == eos_id) if eos_id is not None else None
+    # pad lines of the prompt are never attended; generated lines (>= L0)
+    # are gated by the causal <= write_idx bound alone
+    key_mask = (torch.cat([prompt_len_mask.bool(),
+                           torch.ones((B, max_new), dtype=torch.bool,
+                                      device=dev)], dim=1)
+                if padded else None)
+    for i in range(1, max_new):
+        xt = w["embed"][tok][:, None]
+        write_idx = torch.full((B,), L0 + i - 1, dtype=torch.long,
+                               device=dev)
+        rope_pos = prompt_len + (i - 1) if padded else write_idx
+        for lw, kc, vc in zip(w["layers"], kcache, vcache):
+            xt = _llama_decode_layer(xt, lw, kc, vc, write_idx, rope_pos,
+                                     key_mask, **hp)
+        logits = _rms(xt[:, 0], w["norm"], eps) @ w["head"]
+        key, sk = _prng.split(key)
+        nxt = sample(logits, sk)
+        if eos_id is not None:
+            nxt = torch.where(done, eos_id, nxt)
+            done = done | (nxt == eos_id)
+        out.append(nxt)
+        tok = nxt
+    return torch.cat([ids.long(), torch.stack(out, dim=1)], dim=1)
+
+
+def generate(model, input_ids, max_new_tokens=32, do_sample=False, top_k=0,
+             temperature=1.0, eos_token_id=None, seed=0, top_p=None,
+             pad_token_id=None, attention_mask=None):
+    """Greedy or sampled (top-k / top-p) generation for a
+    ``LlamaForCausalLM`` of this package, on the model's device.
+
+    input_ids [B, L0]. Right-padded prompts: pass ``pad_token_id`` (the
+    mask follows from trailing pad tokens) and/or an explicit
+    ``attention_mask`` [B, L0]; pad positions are excluded from attention
+    and each row's generated tokens take rotary positions continuing from
+    its own prompt length. Without either, every token is real context.
+    Sampling draws from ``PRNGKey(seed)``, split once per token, as the
+    JAX package does. Returns int64 [B, L0 + max_new_tokens]."""
+    c = model.config
+    dev = model.device
+    ids = torch.as_tensor(input_ids, device=dev).long()
+    if ids.dim() == 1:
+        ids = ids[None]
+    mask = _prompt_mask(ids, pad_token_id, attention_mask)
+    padded = pad_token_id is not None or attention_mask is not None
+    with torch.inference_mode():
+        return _generate(
+            layer_weights(model), ids, mask, _prng.prng_key(seed, dev),
+            n_heads=c.num_attention_heads, n_kv=c.num_key_value_heads,
+            eps=c.rms_norm_eps, theta=c.rope_theta,
+            max_new=int(max_new_tokens), do_sample=bool(do_sample),
+            top_k=int(top_k), eos_id=eos_token_id,
+            temperature=torch.tensor(float(temperature), device=dev),
+            top_p=None if top_p is None else float(top_p), padded=padded)

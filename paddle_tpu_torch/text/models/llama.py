@@ -243,3 +243,23 @@ class LlamaForCausalLM(nn.Module):
         return F.cross_entropy(
             logits[:, :-1].reshape(-1, self.config.vocab_size).float(),
             labels[:, 1:].reshape(-1))
+
+    def generate(self, input_ids, max_new_tokens=32, do_sample=False,
+                 top_k=0, temperature=1.0, eos_token_id=None, seed=0,
+                 num_beams=1, length_penalty=1.0, top_p=None,
+                 pad_token_id=None, attention_mask=None):
+        """Autoregressive decode with a preallocated KV cache
+        (``text.generation.generate``): greedy, or sampled with top-k /
+        top-p from ``seed``. Beam search (``num_beams > 1``) is not
+        ported."""
+        if num_beams and num_beams > 1:
+            raise NotImplementedError(
+                "beam search (num_beams > 1) is not in this slice of the "
+                "PyTorch port (ROADMAP.md, port queue: generation beyond "
+                "the engine)")
+        from ..generation import generate as _gen
+        return _gen(self, input_ids, max_new_tokens=max_new_tokens,
+                    do_sample=do_sample, top_k=top_k, top_p=top_p,
+                    temperature=temperature, eos_token_id=eos_token_id,
+                    seed=seed, pad_token_id=pad_token_id,
+                    attention_mask=attention_mask)

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
-PyTorch version, the engine's kernel path against its gathered path, and
-the tiny Llama and ERNIE-MoE trainers and a PTQ'd tiny Llama on the card
-against the same models on the CPU.
+PyTorch version, the engine's kernel path against its gathered path
+(greedy, and sampled with chunked prefill), the threefry words against
+the known ``jax.random`` words, and the tiny Llama and ERNIE-MoE trainers
+and a PTQ'd tiny Llama on the card against the same models on the CPU.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -28,6 +29,7 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_decode as fd
 from paddle_tpu_torch.ops import fused_ce as fc
 from paddle_tpu_torch.ops import int8_matmul as im
+from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.ops import ragged_matmul as rm
 from paddle_tpu_torch.ops import stochastic_round as sr
 from paddle_tpu_torch.nn import quant as tq
@@ -466,6 +468,52 @@ def test_engine_kernel_and_gathered_paths_token_identical(cuda, block_size):
         assert launches == (cfg.num_hidden_layers * steps if flash else 0)
         assert eng.cache.check_refcounts()
     assert toks[True] == toks[False]
+
+
+def test_sampled_chunked_engine_kernel_and_gathered_token_identical(cuda):
+    """Sampled (top-k, top-p, per-request temperature and seed) with
+    chunked prefill, the tiny fp32 model: the kernel engine and the
+    gathered engine give identical tokens, and the kernel runs once per
+    layer per decode step while slots sit part-way through their chunks
+    (inactive rows of the decode batch)."""
+    cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
+    pt.seed(0)
+    m = LlamaForCausalLM(cfg, device=cuda)
+    rng = np.random.default_rng(8)
+    sys_p = rng.integers(0, cfg.vocab_size, 18)
+    prompts = [np.concatenate([sys_p, rng.integers(0, cfg.vocab_size, n)])
+               for n in (3, 30, 4, 41)]
+    toks = {}
+    for flash in (False, True):
+        eng = Engine(m, n_slots=2, max_len=256, min_prompt_bucket=4,
+                     block_size=8, prefill_chunk=16, do_sample=True,
+                     top_k=8, top_p=0.9, flash_decode=flash)
+        start = fd.flash_decode.launches
+        hs = [eng.submit(p, max_new_tokens=6, temperature=0.6 + 0.2 * i,
+                         seed=1000 + i) for i, p in enumerate(prompts)]
+        eng.drain()
+        toks[flash] = [list(h.tokens) for h in hs]
+        st = eng.stats()
+        launches = fd.flash_decode.launches - start
+        assert launches == (cfg.num_hidden_layers * st["decode_steps"]
+                            if flash else 0)
+        assert st["chunked_prefills"] == 4 and eng.cache.check_refcounts()
+    assert toks[True] == toks[False]
+
+
+def test_prng_words_on_the_card_equal_the_known_words(cuda):
+    """The threefry words on the card (keys, splits, random bits) equal
+    ``chip_smoke.PRNG_WORDS``, which ``tests/test_torch_prng.py`` holds to
+    ``jax.random``, bit for bit; so do the uniform floats made from them
+    and the CPU's."""
+    assert chip_smoke.prng_words(prng, cuda) == chip_smoke.PRNG_WORDS
+    keys = torch.stack([prng.prng_key(s) for s in (0, 11, 2**31,
+                                                   2**32 - 1)])
+    for lo, hi in ((0.0, 1.0), (torch.finfo(torch.float32).tiny, 1.0),
+                   (-2.0, 3.0)):
+        want = prng.uniform(keys, (4099,), lo, hi)
+        got = prng.uniform(keys.to(cuda), (4099,), lo, hi).cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _ragged_rel_err(got, want, counts):

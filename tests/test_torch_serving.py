@@ -171,9 +171,7 @@ def test_block_pool_and_radix_match_jax_classes():
     assert got[0] == got[1]
 
 
-@pytest.mark.parametrize("kw", [dict(do_sample=True), dict(kv_layout="slot"),
-                                dict(prefill_chunk=8), dict(tp=2),
-                                dict(speculative=object())])
+@pytest.mark.parametrize("kw", [dict(tp=2), dict(speculative=object())])
 def test_out_of_slice_arguments_raise(models, kw):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
