@@ -100,6 +100,23 @@ failure raises and exits non-zero before the result line is printed:
     (launches, device busy) beside phase 5's greedy engine at the same
     state and the sampling glue alone are printed; then the same workload
     on ``kv_layout="slot"``, greedy (wall, decode steps, slab bytes).
+12. hybrid Fleet training (after phase 9). 12a: phase 8's trainer
+    through ``distributed.spawn(nprocs=1)`` on a world of one over NCCL
+    with ``sharding_stage=3`` (sharding and mp degrees 1): every
+    collective is the identity, so the losses must equal phase 8's bit
+    for bit and the launches per step phase 8's; the step time is
+    printed beside phase 8's. 12b: Llama-2-7B width cut to 4 layers,
+    saved as numpy arrays and run at world 1, then two ranks sharing
+    cuda:0 over gloo (NCCL refuses two ranks on one device): a probe of
+    which collectives gloo carries on CUDA tensors, then ``mp_degree=2``
+    and ``sharding_degree=2`` stage 3 from those weights through
+    ``load_numpy_state_dict``; losses within 1e-2 relative of world 1
+    over 3 steps, per rank and step the flash kernels once per layer and
+    the fused CE once, all on the tensor cores, and under mp2 rank r's
+    fused-CE launch on its half of the vocabulary; a configuration whose
+    collectives gloo does not carry is left out and named. 12b's times
+    are two processes sharing one card through the host, not multi-GPU
+    speeds.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -112,6 +129,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2186,35 +2204,31 @@ def profile_step(step, *batch):
                                 if any(p in k for p in PORT_KERNELS)}}
 
 
-def phase_train(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
-                seed):
-    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=8,
-                              fused_ce_chunk=8192)
-    B, L = 2, 2048
+def llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer, seed):
+    """Phase 8's trainer: random weights from seed 0 (bf16), placed by
+    ``fleet.distributed_model`` on the current mesh, and
+    ``fleet.distributed_optimizer(AdamW(lr=1e-4, wd=0.01,
+    multi_precision)).make_train_step``."""
     seed(0)
     model = fleet.distributed_model(LlamaForCausalLM(cfg, device="cuda"))
-    n_params = sum(p.numel() for p in model.parameters())
     opt = fleet.distributed_optimizer(optimizer.AdamW(
         learning_rate=1e-4, weight_decay=0.01,
         parameters=model.parameters()))
-    step = opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
-    ids = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (B, L))).cuda()
-    log(f"  {cfg.num_hidden_layers} layers of Llama-2-7B width, "
-        f"{n_params / 1e9:.3f}e9 params, batch {B} x {L}, AdamW(lr=1e-4, "
-        f"wd=0.01, multi_precision), fused_ce_chunk={cfg.fused_ce_chunk}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    want = dict(flash_attention_fwd=cfg.num_hidden_layers,
-                flash_attention_bwd_dq=cfg.num_hidden_layers,
-                flash_attention_bwd_dkv=cfg.num_hidden_layers,
-                fused_ce_stats=1, ragged_group_matmul=0,
-                flash_attention_fwd_tc=cfg.num_hidden_layers,
-                flash_attention_bwd_dq_tc=cfg.num_hidden_layers,
-                flash_attention_bwd_dkv_tc=cfg.num_hidden_layers,
-                fused_ce_stats_tc=1, ragged_group_matmul_tc=0)
+    return model, opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
+
+
+def train_ids(vocab, B, L):
+    """Phase 8's batch: one repeated B x L batch of seeded random ids (the
+    labels are the ids)."""
+    return torch.from_numpy(np.random.default_rng(3).integers(
+        0, vocab, (B, L))).cuda()
+
+
+def run_steps(fa, fc, rm, step, ids, n, tag="", warm_up=True):
+    """``n`` steps on ``ids``: (losses, seconds, launches per step); each
+    step's counts are reset before it and read after it."""
     losses, secs, per_step = [], [], []
-    for i in range(4):                          # warm-up + 3 timed steps
+    for i in range(n):
         _reset(fa, fc, rm)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2222,9 +2236,42 @@ def phase_train(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         per_step.append(_counts(fa, fc, rm))
-        log(f"  step {i}{' (warm-up)' if i == 0 else ''}: loss "
-            f"{losses[-1]:.6f}, {secs[-1] * 1e3:.1f} ms, launches "
+        log(f"  {tag}step {i}{' (warm-up)' if warm_up and i == 0 else ''}: "
+            f"loss {losses[-1]:.6f}, {secs[-1] * 1e3:.1f} ms, launches "
             f"{per_step[-1]}")
+    return losses, secs, per_step
+
+
+def want_train_launches(layers):
+    """The launches of one Llama train step: the flash forward, dq and
+    dk/dv once per layer, the fused CE once, all on the tensor cores."""
+    want = dict(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
+                flash_attention_bwd_dkv=layers, fused_ce_stats=1,
+                ragged_group_matmul=0)
+    want.update({k + "_tc": v for k, v in list(want.items())})
+    return want
+
+
+PHASE8_LAYERS, PHASE8_BATCH = 8, (2, 2048)
+
+
+def phase_train(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
+                seed, layers=PHASE8_LAYERS, batch=PHASE8_BATCH):
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=layers,
+                              fused_ce_chunk=8192)
+    B, L = batch
+    model, step = llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer,
+                                seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = train_ids(cfg.vocab_size, B, L)
+    log(f"  {cfg.num_hidden_layers} layers of Llama-2-7B width, "
+        f"{n_params / 1e9:.3f}e9 params, batch {B} x {L}, AdamW(lr=1e-4, "
+        f"wd=0.01, multi_precision), fused_ce_chunk={cfg.fused_ce_chunk}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = want_train_launches(cfg.num_hidden_layers)
+    # warm-up + 3 timed steps
+    losses, secs, per_step = run_steps(fa, fc, rm, step, ids, 4)
     peak = torch.cuda.max_memory_allocated()
     timed = secs[1:]
     step_s = float(np.median(timed))
@@ -2246,11 +2293,11 @@ def phase_train(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet, optimizer,
     log("  profiled step " + json.dumps(prof))
     if prof["device_busy_ms"] <= 0:
         log("  (the profiler saw no device time: device busy not measured)")
-    del step, opt, model
+    del step, model
     torch.cuda.empty_cache()
     return per_step[1], dict(losses=losses, step_ms=step_s * 1e3,
-                             tokens_per_s=B * L / step_s,
-                             peak_gib=peak / 2**30)
+                             step_secs=secs, tokens_per_s=B * L / step_s,
+                             peak_gib=peak / 2**30, launches=per_step)
 
 
 # ---------------------------------------------------------------------------
@@ -2336,6 +2383,269 @@ def phase_ernie(fa, fc, rm, ErnieMoEConfig, ErnieMoEForPretraining, fleet,
     return per_step[1], dict(losses=losses, step_ms=step_s * 1e3,
                              tokens_per_s=B * L / step_s,
                              peak_gib=peak / 2**30, profile=prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: hybrid Fleet training
+# ---------------------------------------------------------------------------
+
+PAIR_LAYERS = 4         # 12b's depth cut: two ranks' gloo traffic is staged
+                        # through the host, so 7B width at 4 layers, not 8
+PAIR_CONFIGS = {"mp2": dict(mp_degree=2),
+                "sharding2_stage3": dict(sharding_degree=2, stage=3)}
+# the collectives each 12b configuration runs, as gloo_probe names them
+PAIR_NEEDS = {"mp2": ("all_reduce_sum_bf16", "all_reduce_sum_fp32",
+                      "all_reduce_max_fp32"),
+              "sharding2_stage3": ("all_gather_bf16", "reduce_scatter_bf16",
+                                   "all_reduce_sum_fp32")}
+PAIR_REL_TOL = 1e-2     # bf16 training, other reduction orders
+
+
+def _strategy(fleet, mp_degree=1, sharding_degree=1, stage=0):
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(mp_degree=mp_degree,
+                            sharding_degree=sharding_degree)
+    s.sharding = stage > 0
+    s.sharding_configs["sharding_stage"] = stage
+    return s
+
+
+def _world1_run(fa, fc, rm, LlamaForCausalLM, cfg, fleet, optimizer, seed,
+                batch, dist):
+    """Phase 8's run on a world of one over NCCL (spawn's environment),
+    sharding stage 3, sharding and mp degrees 1."""
+    dist.init_parallel_env()                     # NCCL on cuda:0
+    try:
+        fleet.init(is_collective=True,
+                   strategy=_strategy(fleet, stage=3))
+        model, step = llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer,
+                                    seed)
+        ids = train_ids(cfg.vocab_size, *batch)
+        torch.cuda.synchronize()
+        losses, secs, per_step = run_steps(fa, fc, rm, step, ids, 4,
+                                           tag="hybrid, world 1: ")
+        out = dict(backend=torch.distributed.get_backend(),
+                   world_size=dist.get_world_size(),
+                   stage=step.stage, losses=losses, step_secs=secs,
+                   launches=per_step)
+        del step, model
+    finally:
+        dist.destroy_process_group()
+        fleet.init()                # the default strategy and mesh again
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid_world1(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet,
+                        optimizer, seed, train, layers=PHASE8_LAYERS,
+                        batch=PHASE8_BATCH):
+    """12a: phase 8's configuration through ``spawn(nprocs=1)``: a world of
+    one over NCCL, ``sharding_stage=3``, sharding and mp degrees 1. Every
+    collective is the identity there, so the losses must equal phase 8's
+    bit for bit and the launches per step phase 8's; the step time beside
+    phase 8's is the hybrid path's own overhead."""
+    from paddle_tpu_torch import distributed as dist
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=layers,
+                              fused_ce_chunk=8192)
+    out = dist.spawn(_world1_run, args=(fa, fc, rm, LlamaForCausalLM, cfg,
+                                        fleet, optimizer, seed, batch, dist),
+                     nprocs=1)
+    if out["backend"] != "nccl" or out["world_size"] != 1:
+        raise AssertionError(f"12a ran on {out['backend']}, world "
+                             f"{out['world_size']}")
+    if out["losses"] != train["losses"]:
+        raise AssertionError(f"12a losses {out['losses']} differ from "
+                             f"phase 8's {train['losses']}")
+    if out["launches"] != train["launches"]:
+        raise AssertionError(f"12a launched {out['launches']}, phase 8 "
+                             f"{train['launches']}")
+    step_ms = float(np.median(out["step_secs"][1:])) * 1e3
+    out.update(step_ms=step_ms, phase8_step_ms=train["step_ms"],
+               overhead_ms=step_ms - train["step_ms"])
+    log(f"  12a: losses equal phase 8's bit for bit, launches per step "
+        f"equal; step time median {step_ms:.1f} ms vs phase 8's "
+        f"{train['step_ms']:.1f} ms")
+    return out
+
+
+def gloo_probe(dist):
+    """Which collectives gloo carries between this world's ranks on CUDA
+    tensors: ``{name: "ok" or the error}``, each checked for its
+    values."""
+    from paddle_tpu_torch.distributed import collective as C
+    world = C.get_group()
+    n, r = world.nranks, world.rank
+    out = {}
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        x = torch.full((2 * n, 8), float(r + 1), dtype=dt, device="cuda")
+        total = n * (n + 1) / 2
+        cases = {
+            "all_reduce_sum": (lambda: C.all_reduce(x.clone()),
+                               lambda y: bool((y == total).all())),
+            "all_reduce_max": (lambda: C.all_reduce(x.clone(),
+                                                    C.ReduceOp.MAX),
+                               lambda y: bool((y == n).all())),
+            "all_gather": (lambda: C.gather_dim(x, 0, world),
+                           lambda y: y.shape[0] == 2 * n * n and all(
+                               bool((y[2 * n * i:2 * n * (i + 1)] == i + 1)
+                                    .all()) for i in range(n))),
+            "reduce_scatter": (lambda: C.reduce_scatter_dim(x, 0, world),
+                               lambda y: y.shape[0] == 2
+                               and bool((y == total).all())),
+            "broadcast": (lambda: C.broadcast(x.clone(), src=0),
+                          lambda y: bool((y == 1).all())),
+        }
+        for name, (run, ok) in cases.items():
+            key = f"{name}_{tag}"
+            try:
+                y = run()
+                torch.cuda.synchronize()
+                out[key] = "ok" if ok(y) else "wrong values"
+            except RuntimeError as e:
+                out[key] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def _pair_weights(workdir, model):
+    return {k: np.load(os.path.join(workdir, k + ".npy"), mmap_mode="r")
+            for k in model.state_dict()}
+
+
+def _pair_worker(workdir, cfg, steps):
+    """One of 12b's two ranks on cuda:0 (gloo): the probe, then each
+    configuration the probe allows, from the saved weights and batch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import ragged_matmul as rm
+    from paddle_tpu_torch.text.models.llama import LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", device="cuda:0", timeout=600)
+    rank = dist.get_rank()
+    out = dict(rank=rank, backend=torch.distributed.get_backend(),
+               torch=torch.__version__, probe=gloo_probe(dist), configs={})
+    ids = torch.from_numpy(np.load(os.path.join(workdir, "ids.npy"))).cuda()
+    for name, kw in PAIR_CONFIGS.items():
+        missing = [op for op in PAIR_NEEDS[name] if out["probe"][op] != "ok"]
+        if missing:
+            out["configs"][name] = dict(left_out=missing)
+            continue
+        fleet.init(is_collective=True, strategy=_strategy(fleet, **kw))
+        model, step = llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer,
+                                    pt.seed)
+        load_numpy_state_dict(model, _pair_weights(workdir, model))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, per_step = run_steps(
+            fa, fc, rm, step, ids, steps, tag=f"[rank {rank}, {name}] ",
+            warm_up=False)
+        out["configs"][name] = dict(
+            losses=losses, step_secs=secs, launches=per_step,
+            ce_columns=list(fc.fused_ce_stats.last_columns),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del step, model
+        torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"pair.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_hybrid_pair(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet,
+                      optimizer, seed, layers=PAIR_LAYERS,
+                      batch=PHASE8_BATCH, steps=3, workdir="build/phase12"):
+    """12b: two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on
+    one device): Llama-2-7B width cut to ``layers`` layers, fused head,
+    phase 8's batch and optimizer. After a probe of which collectives
+    gloo carries on CUDA tensors, ``mp_degree=2`` and ``sharding_degree=2``
+    stage 3 each run ``steps`` steps from the weights of a world-1 run
+    (saved as numpy arrays, carried by ``load_numpy_state_dict``), and
+    their losses must be within ``PAIR_REL_TOL`` of it. Per rank and step
+    the flash kernels launch once per layer and the fused CE once, all on
+    the tensor cores; under mp2 rank r's fused-CE launch covers its half
+    of the vocabulary. A configuration whose collectives gloo does not
+    carry is left out and named. Times are two processes sharing one card
+    through the host: not multi-GPU speeds."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=layers,
+                              fused_ce_chunk=8192)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        model, step = llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer,
+                                    seed)
+        for k, v in model.state_dict().items():
+            np.save(os.path.join(workdir, k + ".npy"),
+                    v.detach().float().cpu().numpy())
+        load_numpy_state_dict(model, _pair_weights(workdir, model))
+        ids = train_ids(cfg.vocab_size, *batch)
+        np.save(os.path.join(workdir, "ids.npy"), ids.cpu().numpy())
+        losses, secs, _ = run_steps(fa, fc, rm, step, ids, steps,
+                                    tag="world 1: ", warm_up=False)
+        del step, model
+        torch.cuda.empty_cache()
+        dist.spawn(_pair_worker, args=(workdir, cfg, steps), nprocs=2,
+                   timeout=600)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"pair.r{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  12b gloo on CUDA tensors, torch {ranks[0]['torch']}: "
+        + json.dumps(ranks[0]["probe"]))
+    want = want_train_launches(layers)
+    V = cfg.vocab_size
+    result = dict(world1=dict(losses=losses, step_secs=secs),
+                  probe=ranks[0]["probe"], torch=ranks[0]["torch"],
+                  configs={})
+    for name in PAIR_CONFIGS:
+        got = [rk["configs"][name] for rk in ranks]
+        if "left_out" in got[0]:
+            log(f"  12b {name}: left out, gloo (torch {ranks[0]['torch']}) "
+                f"does not carry {got[0]['left_out']} on CUDA tensors")
+            result["configs"][name] = got[0]
+            continue
+        for r, g in enumerate(got):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                           losses))
+            if not rel <= PAIR_REL_TOL:
+                raise AssertionError(f"12b {name} rank {r}: losses "
+                                     f"{g['losses']} vs world 1 {losses} "
+                                     f"(relative {rel:.3g})")
+            for i, c in enumerate(g["launches"]):
+                if c != want:
+                    raise AssertionError(f"12b {name} rank {r} step {i} "
+                                         f"launched {c}, want {want}")
+            cols = ([r * V // 2, (r + 1) * V // 2] if name == "mp2"
+                    else [0, V])
+            if g["ce_columns"] != cols:
+                raise AssertionError(f"12b {name} rank {r}: the fused CE "
+                                     f"covered columns {g['ce_columns']}, "
+                                     f"want {cols}")
+        if got[0]["losses"] != got[1]["losses"]:
+            raise AssertionError(f"12b {name}: the ranks' losses differ: "
+                                 f"{got[0]['losses']} {got[1]['losses']}")
+        result["configs"][name] = dict(
+            losses=got[0]["losses"],
+            max_rel_to_world1=max(abs(a - b) / abs(b) for a, b in
+                                  zip(got[0]["losses"], losses)),
+            step_secs=[g["step_secs"] for g in got],
+            peak_gib=[g["peak_gib"] for g in got],
+            launches_per_rank_step=got[0]["launches"][-1],
+            ce_columns=[g["ce_columns"] for g in got])
+        log(f"  12b {name}: losses {got[0]['losses']} vs world 1 {losses}; "
+            f"step times {[[round(t, 3) for t in g['step_secs']] for g in got]}"
+            f" s per rank (two ranks sharing one H100 through gloo: not "
+            f"multi-GPU speeds)")
+    return result
 
 
 def main():
@@ -2451,6 +2761,19 @@ def main():
                                     pt.seed)
     log("  ernie_moe training " + json.dumps(moe))
 
+    # ---- 12. hybrid Fleet training ------------------------------------------
+    log("[12a] phase 8's trainer through spawn(nprocs=1): NCCL, world 1, "
+        "sharding_stage=3, sharding_degree=1, mp_degree=1")
+    hybrid1 = phase_hybrid_world1(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B,
+                                  fleet, optimizer, pt.seed, train)
+    log(f"[12b] two ranks on cuda:0 over gloo: Llama-2-7B width, "
+        f"{PAIR_LAYERS} layers, mp_degree=2 and sharding_degree=2 stage 3")
+    pair = phase_hybrid_pair(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet,
+                             optimizer, pt.seed)
+    log("  hybrid " + json.dumps(dict(world1={k: hybrid1[k] for k in (
+        "backend", "step_ms", "phase8_step_ms", "overhead_ms")},
+        pair=pair)))
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -2491,6 +2814,17 @@ def main():
             te = t[kd["name"] + "_ernie"]
             kd["ernie"] = dict(launches=moe_launches[kd["name"]],
                                **{k: te[k] for k in cols + first if k in te})
+    # rows 1-3 and 5 on 12b's rank-local shards: launches per tp rank and
+    # step (mp2), and the vocabulary columns each rank's fused CE covered
+    mp2 = pair["configs"]["mp2"]
+    for kd in kernels:
+        if kd["name"] == "flash_decode":
+            continue
+        kd["tp_rank"] = (dict(left_out=mp2["left_out"]) if "left_out" in mp2
+                         else dict(launches=mp2["launches_per_rank_step"][
+                             kd["name"]]))
+        if kd["name"] == "fused_ce_stats" and "left_out" not in mp2:
+            kd["tp_rank"]["vocab_columns"] = mp2["ce_columns"]
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

@@ -1,0 +1,363 @@
+"""Collective communication. Counterpart of
+``paddle_tpu/distributed/collective.py``.
+
+The JAX package runs one controller that owns every device, so its
+collectives are identities outside ``shard_map``. The port is SPMD: one
+process per GPU, each holding its own tensors, and these functions are
+``torch.distributed`` collectives between those processes. A ``Group``
+names its member ranks and carries the ``torch.distributed`` process
+group; a group of one rank makes every collective an identity (no
+communication at all), so a world of one computes exactly what the
+single-process code computes.
+
+``init_parallel_env`` reads a launcher's environment: torchrun's
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``,
+or the reference's ``PADDLE_TRAINERS_NUM``/``PADDLE_TRAINER_ID``
+(``spawn`` sets both). The backend is NCCL on ``cuda:LOCAL_RANK``; gloo
+is taken only when the caller asks for the CPU (``device="cpu"``) or for
+``backend="gloo"`` (as two ranks that share one card must). Nothing
+falls back from one backend to the other. Point-to-point (send, recv,
+``P2POp``) comes with the pipeline slice (ROADMAP.md, port queue item 4).
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from ..framework.device import resolve_device, set_device
+
+__all__ = ["ReduceOp", "Group", "init_parallel_env", "is_initialized",
+           "get_rank", "get_world_size", "new_group", "get_group",
+           "all_reduce", "all_gather", "reduce_scatter", "broadcast",
+           "reduce", "scatter", "alltoall", "alltoall_single", "barrier",
+           "destroy_process_group", "free_port", "gather_dim",
+           "reduce_scatter_dim"]
+
+
+class ReduceOp:
+    SUM = 0
+    MAX = 1
+    MIN = 2
+    PROD = 3
+    AVG = 4
+
+
+_TORCH_OP = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
+             ReduceOp.MIN: dist.ReduceOp.MIN,
+             ReduceOp.PROD: dist.ReduceOp.PRODUCT}
+
+
+class Group:
+    """A communicator: its member ranks (global, ascending), this
+    process's rank among them, and the ``torch.distributed`` process group
+    (``pg``; None for the default world group). ``axis_names`` says which
+    mesh axes it spans."""
+
+    def __init__(self, rank=0, nranks=1, id=0, ranks=None, axis_names=("dp",),
+                 pg=None):
+        self.rank = rank
+        self.nranks = nranks
+        self.id = id
+        self.ranks = list(ranks) if ranks is not None else list(range(nranks))
+        self.axis_names = tuple(axis_names)
+        self.pg = pg
+
+    @property
+    def world_size(self):
+        return self.nranks
+
+    def __repr__(self):
+        return (f"Group(axes={self.axis_names}, ranks={self.ranks}, "
+                f"rank={self.rank})")
+
+
+_default_group: Optional[Group] = None
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _env_int(*names, default):
+    for n in names:
+        if os.environ.get(n):
+            return int(os.environ[n])
+    return default
+
+
+def launcher_world_size() -> int:
+    """The world size a launcher's environment declares (1 without one)."""
+    return _env_int("WORLD_SIZE", "PADDLE_TRAINERS_NUM", default=1)
+
+
+def init_parallel_env(backend=None, device=None, timeout=None):
+    """Join the process group the environment describes and return the
+    world ``Group``. ``device`` (default ``cuda:LOCAL_RANK``, or the CPU
+    under ``backend="gloo"``) becomes this process's default device;
+    ``backend`` defaults to NCCL, or gloo for the CPU. ``timeout`` is in
+    seconds. Calling it again returns the same group."""
+    global _default_group
+    if _default_group is not None:
+        return _default_group
+    world = launcher_world_size()
+    rank = _env_int("RANK", "PADDLE_TRAINER_ID", default=0)
+    local = _env_int("LOCAL_RANK", default=rank)
+    if device is None:
+        device = "cpu" if backend == "gloo" else f"cuda:{local}"
+    dev = resolve_device(device)
+    if backend is None:
+        backend = "gloo" if dev.type == "cpu" else "nccl"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}; want 'nccl' or 'gloo'")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the NCCL backend needs a CUDA device; pass "
+                         "device='cpu' for gloo")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    set_device(str(dev))
+    addr = os.environ.get("MASTER_ADDR")
+    port = os.environ.get("MASTER_PORT")
+    if not (addr and port) and os.environ.get("PADDLE_MASTER"):
+        addr, port = os.environ["PADDLE_MASTER"].rsplit(":", 1)
+    if not (addr and port):
+        if world > 1:
+            raise RuntimeError(
+                "init_parallel_env: a world of several ranks needs "
+                "MASTER_ADDR and MASTER_PORT (or PADDLE_MASTER)")
+        addr, port = "127.0.0.1", str(free_port())
+    kw = {}
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=float(timeout))
+    dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
+                            rank=rank, world_size=world, **kw)
+    _default_group = Group(rank=rank, nranks=world, ranks=range(world),
+                           axis_names=("dp", "sharding"))
+    return _default_group
+
+
+def is_initialized() -> bool:
+    return _default_group is not None
+
+
+def get_rank(group=None) -> int:
+    if group is not None:
+        return group.rank
+    if _default_group is not None:
+        return _default_group.rank
+    return _env_int("RANK", "PADDLE_TRAINER_ID", default=0)
+
+
+def get_world_size(group=None) -> int:
+    if group is not None:
+        return group.nranks
+    if _default_group is not None:
+        return _default_group.nranks
+    return launcher_world_size()
+
+
+def new_group(ranks=None, backend=None, axis_names=None):
+    """A group of ``ranks`` (global ranks; all of them when None). Every
+    rank of the world must call it, members or not, in the same order."""
+    world = get_world_size()
+    ranks = sorted(range(world) if ranks is None else ranks)
+    axis_names = tuple(axis_names or ("dp",))
+    if len(ranks) == world:
+        pg = None
+    else:
+        pg = dist.new_group(ranks, backend=backend) if world > 1 else None
+    me = get_rank()
+    return Group(rank=ranks.index(me) if me in ranks else -1,
+                 nranks=len(ranks), ranks=ranks, axis_names=axis_names,
+                 pg=pg)
+
+
+def get_group(id=0):
+    return _default_group
+
+
+def _solo(group) -> bool:
+    """True when ``group`` (the world when None) holds one rank: every
+    collective over it is the identity."""
+    return get_world_size(group) == 1
+
+
+def _pg(group):
+    return None if group is None else group.pg
+
+
+def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
+               use_calc_stream=True):
+    """Reduce ``tensor`` in place over the group; AVG is the SUM divided
+    by the group's size."""
+    if _solo(group):
+        return tensor
+    if op == ReduceOp.AVG:
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=_pg(group))
+        return tensor.div_(get_world_size(group))
+    dist.all_reduce(tensor, op=_TORCH_OP[op], group=_pg(group))
+    return tensor
+
+
+def all_gather(tensor_list, tensor, group=None, sync_op=True,
+               use_calc_stream=True):
+    """Append every rank's ``tensor`` to ``tensor_list`` (group rank
+    order) and return them stacked ``[nranks, ...]``."""
+    n = get_world_size(group)
+    flat = tensor.contiguous().reshape(1, -1)
+    out = torch.empty((n, flat.shape[1]), dtype=tensor.dtype,
+                      device=tensor.device)
+    if n == 1:
+        out.copy_(flat)
+    else:
+        dist.all_gather_into_tensor(out, flat, group=_pg(group))
+    out = out.reshape(n, *tensor.shape)
+    if isinstance(tensor_list, list):
+        tensor_list.extend(out.unbind(0))
+    return out
+
+
+def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
+                   sync_op=True, use_calc_stream=True):
+    """Reduce over the group, then scatter along dim 0: rank i keeps
+    piece i. With ``tensor_list`` (one piece per rank) the result is
+    written into ``tensor``; without it ``tensor`` is the whole input and
+    the piece is returned as a new tensor. SUM and AVG only."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        raise ValueError("reduce_scatter takes ReduceOp.SUM or AVG")
+    n = get_world_size(group)
+    src = tensor if tensor_list is None else torch.cat(
+        [t.reshape(1, *t.shape) if t.dim() == 0 else t for t in tensor_list])
+    if src.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim 0 ({src.shape[0]}) is not a "
+                         f"multiple of the group's {n} ranks")
+    out = tensor if tensor_list is not None else torch.empty(
+        (src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
+        device=src.device)
+    if n == 1:
+        out.copy_(src.reshape(out.shape))
+    else:
+        dist.reduce_scatter_tensor(out, src.contiguous(), group=_pg(group))
+    if op == ReduceOp.AVG:
+        out.div_(n)
+    return out
+
+
+def broadcast(tensor, src=0, group=None, sync_op=True, use_calc_stream=True):
+    """Overwrite ``tensor`` with the one of global rank ``src``."""
+    if not _solo(group):
+        dist.broadcast(tensor, src=src, group=_pg(group))
+    return tensor
+
+
+def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True,
+           use_calc_stream=True):
+    """Reduce into ``tensor`` on global rank ``dst`` (the other ranks'
+    ``tensor`` is left undefined, as in torch.distributed)."""
+    if _solo(group):
+        return tensor
+    if op == ReduceOp.AVG:
+        dist.reduce(tensor, dst=dst, op=dist.ReduceOp.SUM, group=_pg(group))
+        if get_rank() == dst:
+            tensor.div_(get_world_size(group))
+        return tensor
+    dist.reduce(tensor, dst=dst, op=_TORCH_OP[op], group=_pg(group))
+    return tensor
+
+
+def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True,
+            use_calc_stream=True):
+    """Global rank ``src`` sends ``tensor_list[i]`` to the group's rank i,
+    which receives it into ``tensor``."""
+    if _solo(group):
+        if tensor_list:
+            tensor.copy_(tensor_list[0])
+        return tensor
+    lst = ([t.contiguous() for t in tensor_list]
+           if get_rank() == src else None)
+    dist.scatter(tensor, lst, src=src, group=_pg(group))
+    return tensor
+
+
+def alltoall(in_tensor_list, out_tensor_list, group=None, sync_op=True,
+             use_calc_stream=True):
+    """Rank i's ``in_tensor_list[j]`` lands in rank j's output slot i;
+    ``out_tensor_list`` is extended with the received tensors."""
+    if _solo(group):
+        outs = [t.clone() for t in in_tensor_list]
+    else:
+        outs = [torch.empty_like(t) for t in in_tensor_list]
+        dist.all_to_all(outs, [t.contiguous() for t in in_tensor_list],
+                        group=_pg(group))
+    out_tensor_list.extend(outs)
+    return outs
+
+
+def alltoall_single(in_tensor, out_tensor=None, in_split_sizes=None,
+                    out_split_sizes=None, group=None, sync_op=True):
+    """All-to-all on one tensor split along dim 0 (equal pieces unless
+    split sizes are given); returns the output tensor."""
+    if out_tensor is None:
+        if out_split_sizes is not None:
+            out_tensor = in_tensor.new_empty(
+                (sum(out_split_sizes), *in_tensor.shape[1:]))
+        else:
+            out_tensor = torch.empty_like(in_tensor)
+    if _solo(group):
+        return out_tensor.copy_(in_tensor)
+    dist.all_to_all_single(out_tensor, in_tensor.contiguous(),
+                           output_split_sizes=out_split_sizes,
+                           input_split_sizes=in_split_sizes,
+                           group=_pg(group))
+    return out_tensor
+
+
+def barrier(group=None):
+    if not _solo(group):
+        dist.barrier(group=_pg(group))
+
+
+def destroy_process_group(group=None):
+    """Leave the default process group (and with it every group), or
+    destroy one sub-group."""
+    global _default_group
+    if group is not None and group.pg is not None:
+        dist.destroy_process_group(group.pg)
+        return
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _default_group = None
+
+
+# -- along one dim (the placement code's two collectives) ------------------
+
+def gather_dim(t, dim, group):
+    """All-gather the group's blocks of ``t`` along ``dim`` (group rank
+    order): the inverse of taking block ``group.rank``."""
+    n = get_world_size(group)
+    if n == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.all_gather_into_tensor(out, src, group=_pg(group))
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(t, dim, group):
+    """Sum ``t`` over the group and keep this rank's block along ``dim``."""
+    n = get_world_size(group)
+    if n == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, src, group=_pg(group))
+    return out.movedim(0, dim).contiguous()

@@ -1,34 +1,60 @@
-"""Fleet: the training API. Counterpart of
-``paddle_tpu/distributed/fleet/__init__.py`` at world size 1:
+"""Fleet: the hybrid-parallel training API. Counterpart of
+``paddle_tpu/distributed/fleet/__init__.py``:
 
-    model = fleet.distributed_model(LlamaForCausalLM(cfg, device="cuda"))
+    fleet.init(is_collective=True, strategy=strategy)   # dp/mp/sharding
+    model = fleet.distributed_model(LlamaForCausalLM(cfg))
     opt = fleet.distributed_optimizer(optimizer.AdamW(
         learning_rate=1e-4, parameters=model.parameters()))
     step = opt.make_train_step(model, lambda m, ids, lbl: m(ids, labels=lbl))
-    loss = step(ids, labels)
+    loss = step(ids, labels)              # the global batch, on every rank
 
-``init`` records the strategy; ``distributed_model`` returns the model
-as it is (its parameters already live on its device);
-``distributed_optimizer`` wraps the optimizer with ``make_train_step``.
+``init`` joins the process group a launcher's environment describes
+(``spawn``, torchrun), builds the strategy's mesh and its process groups
+(every rank of the world calls it), and records the strategy.
+``distributed_model`` places the model on the mesh
+(``placement.place_model``: tp layers split, stage-3 parameters
+sharded); ``distributed_optimizer`` wraps the optimizer with
+``make_train_step``. Without a launcher's environment the world is this
+one process.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from .base import DistributedStrategy
+from .. import collective
+from .base import DistributedStrategy, HybridCommunicateGroup
+from .placement import place_model
 from .train_step import TrainStep, make_train_step
+from . import meta_parallel  # noqa: F401
 
-__all__ = ["DistributedStrategy", "TrainStep", "make_train_step", "init",
-           "get_strategy", "distributed_model", "distributed_optimizer"]
+__all__ = ["DistributedStrategy", "HybridCommunicateGroup", "TrainStep",
+           "make_train_step", "init", "get_strategy",
+           "get_hybrid_communicate_group", "distributed_model",
+           "distributed_optimizer", "worker_num", "worker_index",
+           "is_first_worker", "barrier_worker"]
 
 _strategy: Optional[DistributedStrategy] = None
+_hcg: Optional[HybridCommunicateGroup] = None
 
 
 def init(role_maker=None, is_collective=True, strategy=None):
-    """Record ``strategy`` (a default one when None) for the optimizers
-    that ``distributed_optimizer`` wraps later."""
-    global _strategy
-    _strategy = strategy or DistributedStrategy()
+    """Record ``strategy`` (a default one when None), join the launcher's
+    process group when there is one, and build the mesh and its groups.
+    Raises ``NotImplementedError`` for what the port does not run yet."""
+    global _strategy, _hcg
+    strategy = strategy or DistributedStrategy()
+    strategy.check()
+    if collective.launcher_world_size() > 1 or collective.is_initialized():
+        collective.init_parallel_env()
+    _strategy = strategy
+    _hcg = HybridCommunicateGroup(strategy)
+    return _hcg
+
+
+def get_hybrid_communicate_group() -> HybridCommunicateGroup:
+    if _hcg is None:
+        init()
+    return _hcg
 
 
 def get_strategy() -> DistributedStrategy:
@@ -38,8 +64,10 @@ def get_strategy() -> DistributedStrategy:
 
 
 def distributed_model(model):
-    """World size 1: the model as it is."""
-    return model
+    """Place ``model`` on the mesh for the strategy's sharding stage (its
+    tp layers split, its stage-3 parameters sharded)."""
+    stage = get_strategy().sharding_stage
+    return place_model(model, get_hybrid_communicate_group().mesh, stage)
 
 
 class _FleetOptimizer:
@@ -54,14 +82,25 @@ class _FleetOptimizer:
         return getattr(self._inner, name)
 
     def make_train_step(self, model, loss_fn, **kw) -> TrainStep:
-        bad = self._strategy.unsupported()
-        if bad:
-            raise NotImplementedError(
-                "this strategy needs what the port does not run yet: "
-                + "; ".join(f"{s} ({item})" for s, item in bad))
         return make_train_step(model, self._inner, loss_fn,
                                strategy=self._strategy, **kw)
 
 
 def distributed_optimizer(optimizer, strategy=None):
     return _FleetOptimizer(optimizer, strategy or get_strategy())
+
+
+def worker_num():
+    return collective.get_world_size()
+
+
+def worker_index():
+    return collective.get_rank()
+
+
+def is_first_worker():
+    return worker_index() == 0
+
+
+def barrier_worker():
+    collective.barrier()

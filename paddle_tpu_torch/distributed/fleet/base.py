@@ -1,18 +1,25 @@
-"""Fleet strategy. Counterpart of
-``paddle_tpu/distributed/fleet/base.py:DistributedStrategy``.
+"""Fleet strategy and topology. Counterpart of
+``paddle_tpu/distributed/fleet/base.py`` (``DistributedStrategy``,
+``HybridCommunicateGroup``).
 
 The port keeps the fields the JAX package reads, so a strategy written
-for it drives the port unchanged. This slice trains on one GPU:
-``unsupported()`` names each toggled field the port cannot run yet with
-its ROADMAP item, and ``make_train_step`` raises ``NotImplementedError``
-for them. ``gradient_merge`` (micro-batch accumulation) and ``recompute``
-(a flag only: remat is ``LlamaConfig.remat``, as in the JAX package) run.
+for it drives the port unchanged. ``dp_degree``, ``mp_degree``,
+``sharding_degree`` and sharding stages 1-3 run (``fleet.init`` builds
+the mesh and its process groups); ``unsupported()`` names each toggled
+field the port cannot run yet with its ROADMAP item, and ``fleet.init``
+and ``make_train_step`` raise ``NotImplementedError`` for them.
+``gradient_merge`` (micro-batch accumulation) and ``recompute`` (a flag
+only: remat is ``LlamaConfig.remat``, as in the JAX package) run.
 """
 from __future__ import annotations
 
-__all__ = ["DistributedStrategy"]
+from .. import mesh as mesh_mod
+
+__all__ = ["DistributedStrategy", "HybridCommunicateGroup"]
 
 _MULTI_GPU = "ROADMAP.md, port queue item 4: multi-GPU"
+_PIPELINE = "ROADMAP.md, port queue item 4: multi-GPU, pipeline parallel"
+_SEP = "ROADMAP.md, port queue item 4: multi-GPU, sequence parallel"
 _AMP = "ROADMAP.md, port queue item 10: amp and attention dropout"
 _LONG_TAIL = "ROADMAP.md, port queue item 9: long tail"
 
@@ -70,13 +77,19 @@ class DistributedStrategy:
         return int(self.sharding_configs.get("sharding_stage", 1))
 
     def unsupported(self) -> list:
-        """``[(setting, ROADMAP item), ...]`` for what this slice of the
-        port cannot run; empty when the strategy fits one GPU."""
-        out = [(f"hybrid_configs[{k!r}]={v}", _MULTI_GPU)
-               for k, v in self.hybrid_configs.items() if v > 1]
-        if self.sharding_stage > 0:
-            out.append((f"sharding stage {self.sharding_stage}",
-                        _MULTI_GPU))
+        """``[(setting, ROADMAP item), ...]`` for what the port cannot run
+        yet; empty when the strategy is dp / sharding stages 1-3 / tp."""
+        hc = self.hybrid_configs
+        out = []
+        if hc.get("pp_degree", 1) > 1:
+            out.append((f"hybrid_configs['pp_degree']={hc['pp_degree']}",
+                        _PIPELINE))
+        if hc.get("sep_degree", 1) > 1:
+            out.append((f"hybrid_configs['sep_degree']={hc['sep_degree']}",
+                        _SEP))
+        if self.sharding_stage not in (0, 1, 2, 3):
+            raise ValueError(f"sharding_stage {self.sharding_stage}; want "
+                             "1, 2 or 3")
         for field, item in (("amp", _AMP), ("pipeline", _LONG_TAIL),
                             ("comm_opt", _MULTI_GPU),
                             ("localsgd", _MULTI_GPU), ("dgc", _MULTI_GPU),
@@ -86,3 +99,79 @@ class DistributedStrategy:
             if getattr(self, field):
                 out.append((field, item))
         return out
+
+    def check(self):
+        """Raise ``NotImplementedError`` naming what ``unsupported()``
+        lists."""
+        bad = self.unsupported()
+        if bad:
+            raise NotImplementedError(
+                "this strategy needs what the port does not run yet: "
+                + "; ".join(f"{s} ({item})" for s, item in bad))
+
+
+class HybridCommunicateGroup:
+    """The strategy's mesh with this rank's coordinates and groups
+    (reference ``fleet/base/topology.py``). Building it builds the
+    mesh's process groups, so every rank of the world builds it."""
+
+    def __init__(self, strategy: DistributedStrategy, mesh=None):
+        hc = strategy.hybrid_configs
+        if mesh is None:
+            mesh = mesh_mod.build_mesh(
+                dp=max(1, hc.get("dp_degree", 1)),
+                tp=max(1, hc.get("mp_degree", 1)),
+                pp=max(1, hc.get("pp_degree", 1)),
+                sharding=max(1, hc.get("sharding_degree", 1)),
+                sep=max(1, hc.get("sep_degree", 1)))
+            mesh.init_groups()
+        self.mesh = mesh
+        mesh_mod.set_mesh(mesh)
+
+    def _rank(self, axis):
+        return self.mesh.coords[axis] if self.mesh.coords else -1
+
+    # degrees (reference names)
+    def get_data_parallel_world_size(self):
+        return self.mesh.shape["dp"]
+
+    def get_model_parallel_world_size(self):
+        return self.mesh.shape["tp"]
+
+    def get_pipe_parallel_world_size(self):
+        return self.mesh.shape["pp"]
+
+    def get_sharding_parallel_world_size(self):
+        return self.mesh.shape["sharding"]
+
+    def get_sep_parallel_world_size(self):
+        return self.mesh.shape["sep"]
+
+    # this rank's coordinates
+    def get_data_parallel_rank(self):
+        return self._rank("dp")
+
+    def get_model_parallel_rank(self):
+        return self._rank("tp")
+
+    def get_sharding_parallel_rank(self):
+        return self._rank("sharding")
+
+    def get_stage_id(self):
+        return self._rank("pp")
+
+    # groups
+    def get_data_parallel_group(self):
+        return self.mesh.group("dp")
+
+    def get_model_parallel_group(self):
+        return self.mesh.group("tp")
+
+    def get_sharding_parallel_group(self):
+        return self.mesh.group("sharding")
+
+    def get_pipe_parallel_group(self):
+        return self.mesh.group("pp")
+
+    def topology(self):
+        return self.mesh

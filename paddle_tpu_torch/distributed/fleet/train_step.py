@@ -1,19 +1,41 @@
-"""The world-size-1 train step. Counterpart of
+"""The hybrid-parallel train step. Counterpart of
 ``paddle_tpu/distributed/fleet/train_step.py`` (``CompiledTrainStep``,
 ``make_train_step``).
 
-Each call runs what the JAX package compiles into one program, eagerly:
-drop the old gradients, run ``loss_fn(model, *batch)`` and its backward,
-clip, update every parameter through the optimizer (written in place
-one parameter at a time; see ``Optimizer.apply_in_place``), then step
-the LR scheduler. It returns the loss as a detached fp32 scalar.
+Each call runs, eagerly and with the collectives written out, what the
+JAX package compiles into one GSPMD program. The caller passes the
+global batch; on the mesh of ``fleet.init`` (``distributed.mesh``):
 
-``accumulate_steps=k`` (or ``strategy.gradient_merge``) splits every
-batch tensor along its first dim into k micro-batches, sums their
-gradients in fp32, applies one update with the mean, and returns the
-mean of the micro losses; with equal micro-batches that is the
-full-batch step. Loss scaling (``scaler=``) and ``amp_level=`` come with
-the amp slice and raise.
+1. each rank takes its ``data_pspec`` slice of every batch tensor (the
+   batch dim over ``(dp, sharding)``, whole when it does not divide);
+2. ``loss_fn(model, *batch)`` and its backward run on the slice. Under
+   tensor parallel the ``mp_layers`` do their collectives; at stage 3
+   the sharded parameters are gathered per unit and their gradients
+   reduce-scattered over the sharding group (``placement.Stage3``);
+3. gradients are averaged over ``(dp, sharding)``. Where the optimizer
+   state is sharded beyond the parameter (``opt_state_pspec``: stages 1
+   and 2, and stage 3's tp parameters), this rank keeps its block: at
+   stage 1 by an all-reduce and a slice, at stages 2 and 3 by a
+   reduce-scatter over the sharding group and an all-reduce over dp;
+4. clip (norms over the full gradients), then the optimizer updates this
+   rank's blocks in place one parameter at a time (``Optimizer
+   .apply_in_place``: moments, master copies, decay per block), and
+   blocks narrower than their parameter are all-gathered back into it;
+5. the LR scheduler steps. The loss returned is the global mean, a
+   detached fp32 scalar.
+
+On a mesh of one rank every collective is the identity and the step is
+the single-GPU step exactly. ``accumulate_steps=k`` (or
+``strategy.gradient_merge``) splits this rank's slice into k
+micro-batches, sums their gradients in fp32, and applies one update with
+the mean; with equal micro-batches that is the full-batch step. Loss
+scaling (``scaler=``) and ``amp_level=`` come with the amp slice and
+raise.
+
+The collectives are explicit, driven by the ported placement rules,
+rather than FSDP2's: FSDP2 shards dim 0 of every parameter, and the JAX
+rule shards the largest divisible dim and leaves tp and small
+parameters whole.
 """
 from __future__ import annotations
 
@@ -22,10 +44,23 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import mesh as mesh_mod
+from ..collective import all_reduce, gather_dim, reduce_scatter_dim
+from .placement import place_model, placement, saving
+
 __all__ = ["TrainStep", "make_train_step"]
 
 _AMP = ("amp and loss scaling are not in the port yet (ROADMAP.md, port "
         "queue item 10: amp and attention dropout)")
+
+
+def _opt_dim(pspec, ospec):
+    """The dim where the optimizer state's spec adds "sharding" to the
+    parameter's, or None."""
+    for d, (p, o) in enumerate(zip(pspec, ospec)):
+        if o == "sharding" and p != "sharding":
+            return d
+    return None
 
 
 class TrainStep:
@@ -37,23 +72,50 @@ class TrainStep:
                  scaler=None):
         if amp_level or scaler is not None:
             raise NotImplementedError(_AMP)
+        if strategy is not None:
+            strategy.check()
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.strategy = strategy
+        self.stage = strategy.sharding_stage if strategy is not None else 0
         if accumulate_steps is None:
             accumulate_steps = 1
             if strategy is not None and strategy.gradient_merge:
                 accumulate_steps = int(
                     strategy.gradient_merge_configs.get("k_steps", 1))
         self.accumulate_steps = max(1, int(accumulate_steps))
+        self.mesh = m = mesh_mod.get_mesh()
+        place_model(model, m, self.stage)
         self._params = {k: p for k, p in model.named_parameters()
                         if p.requires_grad}
-        self._views = {k: p.detach() for k, p in self._params.items()}
+        self._pspec = {k: placement(p) for k, p in self._params.items()}
+        self._ospec = {k: mesh_mod.opt_state_pspec(
+            self._pspec[k], p.full_shape, p.full_shape, self.stage, mesh=m)
+            for k, p in self._params.items()}
+        self._odim = {k: _opt_dim(self._pspec[k], self._ospec[k])
+                      for k in self._params}
+        # this rank's parameter blocks, and the blocks its optimizer
+        # state covers (narrower where the state is sharded further)
+        self._locals = {k: p.detach() for k, p in self._params.items()}
+        self._views = {k: self._narrow(t, self._odim[k])
+                       for k, t in self._locals.items()}
         self._state = optimizer.init_state(self._views)
+        self._data = m.group(("dp", "sharding"))
+
+    def _narrow(self, t, d):
+        if d is None:
+            return t
+        k = t.shape[d] // self.mesh.axis_size("sharding")
+        return t.narrow(d, self.mesh.axis_index("sharding") * k, k)
+
+    def _local_batch(self, x):
+        spec = mesh_mod.data_pspec(x.shape, self.mesh)
+        return mesh_mod.local_block(x, spec, self.mesh) if any(spec) else x
 
     def _loss(self, batch):
-        return self.loss_fn(self.model, *batch).float()
+        with saving(self.model):
+            return self.loss_fn(self.model, *batch).float()
 
     def _micro_batches(self, batch):
         k = self.accumulate_steps
@@ -65,9 +127,9 @@ class TrainStep:
         return list(zip(*parts))
 
     def _grads(self, batch):
-        """(loss, {name: grad}) over the batch: one backward, or k with
-        fp32 accumulation. A parameter the loss does not reach gets a
-        zero gradient, as jax.grad gives it."""
+        """(loss, {name: grad}) over this rank's batch: one backward, or k
+        with fp32 accumulation. A parameter the loss does not reach gets
+        a zero gradient, as jax.grad gives it."""
         if self.accumulate_steps == 1:
             loss = self._loss(batch)
             loss.backward()
@@ -89,15 +151,43 @@ class TrainStep:
         grads = {k: (a / n).to(self._params[k].dtype) for k, a in acc.items()}
         return torch.stack(losses).mean(), grads
 
+    def _reduce(self, k, g):
+        """This rank's block of the gradient averaged over (dp,
+        sharding), as the optimizer state of ``k`` covers it."""
+        m, d = self.mesh, self._odim[k]
+        n = self._data.nranks
+        if n == 1:
+            return g
+        if "sharding" in self._pspec[k]:
+            # stage 3: the backward reduce-scattered it over sharding
+            g = all_reduce(g, group=m.group("dp"))
+        elif d is not None and self.stage >= 2:
+            g = reduce_scatter_dim(g, d, m.group("sharding"))
+            g = all_reduce(g, group=m.group("dp"))
+        else:
+            g = self._narrow(all_reduce(g, group=self._data), d)
+        return g / n
+
     def __call__(self, *batch):
-        batch = tuple(x if isinstance(x, torch.Tensor)
-                      else torch.as_tensor(np.asarray(x)) for x in batch)
+        batch = tuple(
+            self._local_batch(x if isinstance(x, torch.Tensor)
+                              else torch.as_tensor(np.asarray(x)))
+            for x in batch)
         for p in self._params.values():
             p.grad = None
         loss, grads = self._grads(batch)
-        self.optimizer.apply_in_place(self._views, grads, self._state,
-                                      self.optimizer.get_lr())
+        grads = {k: self._reduce(k, g) for k, g in grads.items()}
+        if self._data.nranks > 1:
+            loss = all_reduce(loss.clone(), group=self._data) \
+                / self._data.nranks
+        self.optimizer.apply_in_place(
+            self._views, grads, self._state, self.optimizer.get_lr(),
+            specs=self._ospec if self.mesh.size > 1 else None)
         del grads
+        for k, d in self._odim.items():
+            if d is not None:
+                self._locals[k].copy_(gather_dim(
+                    self._views[k], d, self.mesh.group("sharding")))
         for p in self._params.values():
             p.grad = None
         sched = self.optimizer._lr_scheduler()
@@ -107,15 +197,16 @@ class TrainStep:
 
     # -- snapshot surface ---------------------------------------------------
     def state_dict(self):
-        """The step's parameters and optimizer state (tensors, not
+        """This rank's parameter blocks and optimizer state (tensors, not
         copies)."""
-        return {"params": dict(self._views), "opt": self._state}
+        return {"params": dict(self._locals), "opt": self._state}
 
     def load_state_dict(self, state):
-        """Copy a ``state_dict()`` into this step's parameters (in their
-        dtypes) and optimizer state, on the parameters' devices."""
+        """Copy a ``state_dict()`` of this rank into this step's
+        parameters (in their dtypes) and optimizer state, on the
+        parameters' devices."""
         with torch.no_grad():
-            for k, v in self._views.items():
+            for k, v in self._locals.items():
                 v.copy_(state["params"][k])
         self._state = {
             k: {n: t.detach().to(self._views[k].device, copy=True)

@@ -8,11 +8,18 @@ so both packages then compute the same function. Layouts are shared
 key the two modules share carries: quantized models' int8 ``qweight``
 (copied as int8, never through a float), their 0-d ``act_scale``, and
 QAT's ``*.inner.weight`` and ``*.act_fake_quant.{scale,initialized}``.
+
+On a model placed by ``fleet.distributed_model`` the arrays are still the
+full ones: each rank takes its block of every array by the parameter's
+placement (its tp slice, its stage-3 shard), and ``gather_state_dict``
+gives every rank the full arrays back.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+__all__ = ["load_numpy_state_dict", "gather_state_dict"]
 
 
 def load_numpy_state_dict(model: torch.nn.Module, arrays: dict) -> None:
@@ -22,7 +29,7 @@ def load_numpy_state_dict(model: torch.nn.Module, arrays: dict) -> None:
     Raises KeyError when the key sets differ and ValueError on a shape
     mismatch; nothing is written unless every key and shape matches.
     """
-    own = model.state_dict()
+    own = model.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
     if missing or extra:
@@ -30,14 +37,39 @@ def load_numpy_state_dict(model: torch.nn.Module, arrays: dict) -> None:
                        f"unexpected {extra}")
     for k, t in own.items():
         shape = tuple(np.shape(arrays[k]))
-        if shape != tuple(t.shape):
+        want = tuple(getattr(t, "full_shape", t.shape))
+        if shape != want:
             raise ValueError(f"{k}: shape {shape} does not match the "
-                             f"model's {tuple(t.shape)}")
+                             f"model's {want}")
     with torch.no_grad():
         for k, t in own.items():
+            a = arrays[k]
+            spec = getattr(t, "placement", None)
+            if spec is not None and any(spec):
+                from ..distributed.mesh import local_block
+                a = local_block(a, spec)
             # bfloat16 (an ml_dtypes array: numpy has none) goes via
             # float32, exactly; every other dtype, int8 included, as it is
-            a = np.asarray(arrays[k])
+            a = np.asarray(a)
             if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
                 a = a.astype(np.float32)
             t.copy_(torch.from_numpy(np.array(a, copy=True)).to(t.dtype))
+
+
+def gather_state_dict(model: torch.nn.Module) -> dict:
+    """The model's full state as numpy arrays (name -> np.ndarray, in the
+    parameters' dtypes; bfloat16 as float32): each placed parameter is
+    all-gathered over the mesh axes its placement shards. Every rank of
+    the mesh calls it and gets the whole."""
+    out = {}
+    with torch.no_grad():
+        for k, t in model.state_dict(keep_vars=True).items():
+            spec = getattr(t, "placement", None)
+            t = t.detach()
+            if spec is not None and any(spec):
+                from ..distributed.mesh import gather_full
+                t = gather_full(t, spec)
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            out[k] = t.cpu().numpy().copy()
+    return out

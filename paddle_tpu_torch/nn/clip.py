@@ -4,6 +4,13 @@ Each clip takes ``[(param, grad), ...]`` (``__call__``, the optimizer's
 eager step) or a ``{name: grad}`` dict (``apply_functional``, the train
 step) and returns the same with clipped gradients in their own dtype.
 Norms are taken in fp32; the scale is ``min(clip / max(norm, 1e-12), 1)``.
+
+Under hybrid parallelism each rank holds blocks of some gradients. The
+train step then passes ``specs`` (name -> the block's placement spec,
+``distributed.mesh``): a block's squared norm is summed over the mesh
+axes its spec shards (a tp-sharded gradient over the tp group, a
+sharding block over the sharding group), a replicated one is counted
+once, so every rank's norm is the norm of the full gradients.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ class ClipGradBase:
             {i: g for i, (_, g) in enumerate(params_grads)})
         return [(p, clipped[i]) for i, (p, _) in enumerate(params_grads)]
 
-    def apply_functional(self, grads: dict) -> dict:
+    def apply_functional(self, grads: dict, specs=None) -> dict:
         raise NotImplementedError
 
 
@@ -27,12 +34,32 @@ def _scale(norm, clip_norm):
     return torch.clamp(clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
 
 
+def _sharded_axes(spec):
+    """The axes of size > 1 that ``spec`` shards over (() without a
+    spec)."""
+    if not spec:
+        return ()
+    from ..distributed import mesh
+    m = mesh.get_mesh()
+    return tuple(a for a in mesh.spec_axes(spec) if m.axis_size(a) > 1)
+
+
+def _sum_over(t, axes):
+    """``t`` summed in place over the mesh groups of ``axes``."""
+    if axes:
+        from ..distributed import collective, mesh
+        m = mesh.get_mesh()
+        for a in axes:
+            collective.all_reduce(t, group=m.group(a))
+    return t
+
+
 class ClipGradByValue(ClipGradBase):
     def __init__(self, max, min=None):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def apply_functional(self, grads):
+    def apply_functional(self, grads, specs=None):
         return {k: g.clamp(self.min, self.max) for k, g in grads.items()}
 
 
@@ -42,10 +69,12 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def apply_functional(self, grads):
+    def apply_functional(self, grads, specs=None):
         out = {}
         for k, g in grads.items():
-            norm = torch.sqrt(torch.sum(g.float() ** 2))
+            sq = torch.sum(g.float() ** 2)
+            norm = torch.sqrt(_sum_over(sq, _sharded_axes(
+                specs and specs.get(k))))
             out[k] = (g.float() * _scale(norm, self.clip_norm)).to(g.dtype)
         return out
 
@@ -56,12 +85,21 @@ class ClipGradByGlobalNorm(ClipGradBase):
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
 
-    def global_norm(self, grads) -> torch.Tensor:
-        return torch.sqrt(sum(torch.sum(g.float() ** 2)
-                              for g in grads.values()))
+    def global_norm(self, grads, specs=None) -> torch.Tensor:
+        """The fp32 L2 norm of all gradients; with ``specs``, of the full
+        gradients whose blocks this rank holds."""
+        if not specs:
+            return torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                  for g in grads.values()))
+        parts = {}          # squared sums by the axes their blocks span
+        for k, g in grads.items():
+            axes = _sharded_axes(specs.get(k))
+            parts[axes] = parts.get(axes, 0) + torch.sum(g.float() ** 2)
+        # every rank holds the same names and specs: the same collectives
+        return torch.sqrt(sum(_sum_over(parts[a], a) for a in sorted(parts)))
 
-    def apply_functional(self, grads):
+    def apply_functional(self, grads, specs=None):
         if not grads:
             return {}
-        scale = _scale(self.global_norm(grads), self.clip_norm)
+        scale = _scale(self.global_norm(grads, specs), self.clip_norm)
         return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}

@@ -17,9 +17,12 @@ from ...ops.fused_ce import fused_ce_loss
 __all__ = ["fused_linear_cross_entropy"]
 
 
-def fused_linear_cross_entropy(hidden, weight, labels, chunk_size=8192):
+def fused_linear_cross_entropy(hidden, weight, labels, chunk_size=8192,
+                               tp_group=None):
     """Mean CE of ``hidden @ weight`` against int ``labels`` without
     materializing the ``[N, V]`` logits. hidden ``[..., H]``, weight
-    ``[H, V]``, labels ``[...]`` int; returns a scalar fp32 tensor."""
+    ``[H, V]``, labels ``[...]`` int; returns a scalar fp32 tensor. With a
+    ``tp_group`` of several ranks, ``weight`` is this rank's ``[H, V/tp]``
+    column shard (``ops.fused_ce.fused_ce_loss``'s ``group``)."""
     return fused_ce_loss(hidden.reshape(-1, hidden.shape[-1]), weight,
-                         labels.reshape(-1), int(chunk_size))
+                         labels.reshape(-1), int(chunk_size), tp_group)

@@ -20,10 +20,16 @@ Counterpart of ``paddle_tpu/ops/pallas/fused_ce.py`` (single-device part):
   JAX package left them to XLA with fp32 results.
 - ``fused_ce_reference``: the dense log-softmax oracle.
 
+- ``fused_ce_loss(..., group=tp)``: the counterpart of the JAX
+  ``sharded_vocab_ce``, for a head split over a tensor-parallel group:
+  rank r's kernel launch covers its ``[H, V/tp]`` shard, columns
+  ``[r V/tp, (r+1) V/tp)`` (``vocab_offset``), the (max, exp-sum, label
+  logit) triples are merged over the group, and the backward runs the
+  chunked grads on the local shard and sums dhidden over the group.
+
 hidden ``[N, H]``, w ``[H, V]`` (the paddle ``Linear`` layout
 ``[in, out]``), labels ``[N]`` integers. CUDA tensors launch the kernel
-or raise; CPU tensors take the plain version. The tensor-parallel
-``sharded_vocab_ce`` comes with the multi-GPU slice.
+or raise; CPU tensors take the plain version.
 """
 from __future__ import annotations
 
@@ -149,14 +155,16 @@ def fused_ce_stats(hidden, w, labels, vocab_offset=0):
     _build.check(err, _ENTRY[variant])
     fused_ce_stats.launches += 1
     fused_ce_stats.launches_by_variant[variant] += 1
+    fused_ce_stats.last_columns = (int(vocab_offset), int(vocab_offset) + V)
     return out[0], out[1], out[2]
 
 
-def _nll_grads_chunked(hidden, w, labels, m, s, g, chunk):
+def _nll_grads_chunked(hidden, w, labels, m, s, g, chunk, vocab_offset=0):
     """Backward over vocabulary chunks: ``dlogits = (softmax - onehot) *
-    g`` rebuilt per chunk from the saved stats, never ``[N, V]``. The
-    products are fp32 (bf16 operands are exact in fp32), as the JAX
-    package's ``preferred_element_type=float32`` dots."""
+    g`` rebuilt per chunk from the saved stats, never ``[N, V]``; ``w``'s
+    column j is vocabulary entry ``vocab_offset + j``. The products are
+    fp32 (bf16 operands are exact in fp32), as the JAX package's
+    ``preferred_element_type=float32`` dots."""
     N, H = hidden.shape
     V = w.shape[1]
     h32 = hidden.float()
@@ -168,7 +176,8 @@ def _nll_grads_chunked(hidden, w, labels, m, s, g, chunk):
         w_c = w[:, off:off + chunk].float()
         logits = torch.matmul(h32, w_c)                       # [N, chunk]
         p = torch.exp(logits - lse[:, None])
-        col = off + torch.arange(w_c.shape[1], device=w.device)
+        col = vocab_offset + off + torch.arange(w_c.shape[1],
+                                                device=w.device)
         d = (p - (col[None, :] == labels[:, None]).float()) * g[:, None]
         dh += torch.matmul(d, w_c.t())
         dw[:, off:off + chunk] = torch.matmul(h32.t(), d).to(w.dtype)
@@ -177,10 +186,17 @@ def _nll_grads_chunked(hidden, w, labels, m, s, g, chunk):
 
 class _FusedCELoss(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, hidden, w, labels, chunk_size):
-        m, s, lab = fused_ce_stats(hidden, w, labels)
+    def forward(ctx, hidden, w, labels, chunk_size, group):
+        off = 0 if group is None else group.rank * w.shape[1]
+        m, s, lab = fused_ce_stats(hidden, w, labels, vocab_offset=off)
+        if group is not None:               # merge the shards' triples
+            from ..distributed.collective import ReduceOp, all_reduce
+            gm = all_reduce(m.clone(), ReduceOp.MAX, group)
+            s = all_reduce(s * torch.exp(m - gm), group=group)
+            lab = all_reduce(lab, group=group)
+            m = gm
         ctx.save_for_backward(hidden, w, labels, m, s)
-        ctx.chunk_size = chunk_size
+        ctx.chunk_size, ctx.group, ctx.off = chunk_size, group, off
         return (torch.log(s) + m - lab).mean()
 
     @staticmethod
@@ -188,16 +204,30 @@ class _FusedCELoss(torch.autograd.Function):
         hidden, w, labels, m, s = ctx.saved_tensors
         N = hidden.shape[0]
         g = (ct.float() / N).expand(N)
-        dh, dw = _nll_grads_chunked(hidden, w, labels, m, s, g,
-                                    ctx.chunk_size)
-        return dh, dw, None, None
+        if ctx.group is None:
+            dh, dw = _nll_grads_chunked(hidden, w, labels, m, s, g,
+                                        ctx.chunk_size)
+            return dh, dw, None, None, None
+        from ..distributed.collective import all_reduce
+        # this shard's part of dhidden, summed over the group in fp32
+        dh, dw = _nll_grads_chunked(hidden.float(), w, labels, m, s, g,
+                                    ctx.chunk_size, ctx.off)
+        dh = all_reduce(dh, group=ctx.group)
+        return dh.to(hidden.dtype), dw, None, None, None
 
 
-def fused_ce_loss(hidden, w, labels, chunk_size=1024):
+def fused_ce_loss(hidden, w, labels, chunk_size=1024, group=None):
     """Mean cross-entropy of ``hidden @ w`` against ``labels`` without
     the ``[N, V]`` logits (scalar fp32); differentiable in hidden and w,
-    the backward walking ``chunk_size`` vocabulary columns at a time."""
-    return _FusedCELoss.apply(hidden, w, labels, int(chunk_size))
+    the backward walking ``chunk_size`` vocabulary columns at a time.
+    With a tensor-parallel ``group`` of several ranks, ``w`` is rank r's
+    ``[H, V/tp]`` column shard (columns ``[r V/tp, (r+1) V/tp)``),
+    ``hidden`` and the global ``labels`` are the same on every rank, and
+    every rank gets the full mean; dhidden is summed over the group, dw
+    stays local."""
+    if group is not None and group.nranks == 1:
+        group = None
+    return _FusedCELoss.apply(hidden, w, labels, int(chunk_size), group)
 
 
 def fused_ce_reference(hidden, w, labels):
@@ -210,3 +240,5 @@ def fused_ce_reference(hidden, w, labels):
 #: kernel launches since the count was last reset (CPU calls not counted)
 fused_ce_stats.launches = 0
 fused_ce_stats.launches_by_variant = {"tc": 0, "cuda_core": 0}
+#: the vocabulary columns ``(first, end)`` the last launch covered
+fused_ce_stats.last_columns = None

@@ -85,12 +85,15 @@ class Optimizer:
         return lr if isinstance(lr, LRScheduler) else None
 
     # -- the update, shared by both ways in --------------------------------
-    def _updates(self, params: dict, grads: dict, state: dict, lr):
+    def _updates(self, params: dict, grads: dict, state: dict, lr,
+                 specs=None):
         """Yield ``(name, new_param, new_state)`` one parameter at a
         time, after the clip and the coupled L2 decay. A missing state is
-        initialised."""
+        initialised. Under hybrid parallelism ``params``, ``grads`` and
+        ``state`` are this rank's blocks (the update is elementwise) and
+        ``specs`` their placements, which the clip's norms read."""
         if self._grad_clip is not None:
-            grads = self._grad_clip.apply_functional(grads)
+            grads = self._grad_clip.apply_functional(grads, specs)
         for k, p in params.items():
             g = grads[k]
             if self._l2_coeff and not self._decoupled:
@@ -104,11 +107,13 @@ class Optimizer:
             new_p, new_st = self.update_param(p, g, st, lr, k)
             yield k, new_p, new_st
 
-    def apply_in_place(self, params: dict, grads: dict, state: dict, lr):
+    def apply_in_place(self, params: dict, grads: dict, state: dict, lr,
+                       specs=None):
         """Run the update and write each new parameter into ``params[k]``
         and its new state into ``state[k]`` before the next one."""
         with torch.no_grad():
-            for k, new_p, new_st in self._updates(params, grads, state, lr):
+            for k, new_p, new_st in self._updates(params, grads, state, lr,
+                                                  specs):
                 params[k].copy_(new_p)
                 state[k] = new_st
 

@@ -39,7 +39,15 @@ __all__ = ["layer_weights", "generate"]
 def layer_weights(model):
     """Per-layer weight views of a LlamaForCausalLM (no copies):
     ``{"layers": [{"wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln1",
-    "ln2"}, ...], "embed", "norm", "head"}``; ``head`` is ``[h, vocab]``."""
+    "ln2"}, ...], "embed", "norm", "head"}``; ``head`` is ``[h, vocab]``.
+    A model whose parameters ``fleet.distributed_model`` split over ranks
+    holds blocks, not weights: it raises."""
+    if any(a is not None for p in model.parameters()
+           for a in getattr(p, "placement", ())):
+        raise NotImplementedError(
+            "generation and serving on a model split over ranks (tp or "
+            "sharding stage 3) are not in the port yet (ROADMAP.md, port "
+            "queue item 4: multi-GPU, Engine(tp))")
     layers = []
     for l in model.llama.layers:
         a, m = l.self_attn, l.mlp
@@ -358,7 +366,12 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False, top_k=0,
     and each row's generated tokens take rotary positions continuing from
     its own prompt length. Without either, every token is real context.
     Sampling draws from ``PRNGKey(seed)``, split once per token, as the
-    JAX package does. Returns int64 [B, L0 + max_new_tokens]."""
+    JAX package does. Returns int64 [B, L0 + max_new_tokens]; raises
+    ValueError for ``max_new_tokens < 1`` (the JAX package refuses it
+    too: its first token has nowhere to go)."""
+    if int(max_new_tokens) < 1:
+        raise ValueError(f"generate: max_new_tokens={max_new_tokens}; want "
+                         "at least 1")
     c = model.config
     dev = model.device
     ids = torch.as_tensor(input_ids, device=dev).long()

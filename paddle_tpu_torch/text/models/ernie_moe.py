@@ -134,6 +134,14 @@ class ErnieMoEForPretraining(nn.Module):
     def moe_layers(self):
         return [blk.moe for blk in self.ernie.blocks if blk.use_moe]
 
+    def check_tensor_parallel(self, tp):
+        """``fleet.distributed_model`` asks before it splits layers over
+        tp > 1: ERNIE-MoE under tensor parallel is not ported yet."""
+        raise NotImplementedError(
+            "ERNIE-MoE under tensor parallel (mp_degree > 1) is not in the "
+            "port yet (ROADMAP.md, port queue item 4: multi-GPU, "
+            "ERNIE-MoE under tp)")
+
     def forward(self, input_ids, labels=None):
         """input_ids [B, L] -> logits [B, L, vocab]; with labels [B, L],
         the fp32 mean CE (labels -100 ignored) plus the weighted aux

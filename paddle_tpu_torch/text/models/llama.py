@@ -21,8 +21,18 @@ package.
 ``remat=True``/``"full"`` recomputes each decoder layer in the backward
 (``torch.utils.checkpoint``); ``"selective"`` keeps the matmul outputs
 and recomputes the rest, as the JAX package's
-``dots_with_no_batch_dims_saveable`` policy. ``sequence_parallel``
-needs several GPUs and raises.
+``dots_with_no_batch_dims_saveable`` policy.
+
+The weights carry the JAX model's tensor-parallel annotations
+(``param.pspec``): q/k/v, gate and up ``(None, "tp")``, o and down
+``("tp", None)``, ``embed_tokens`` ``("tp", None)``, ``lm_head``
+``(None, "tp")``. ``fleet.distributed_model`` at tp > 1 swaps those
+layers for their ``mp_layers`` counterparts; attention then takes its
+head counts from the local projection widths (``num_heads / tp``,
+``num_key_value_heads / tp``), and the loss runs on the vocabulary
+shard: the fused head through ``fused_ce_loss`` over the tp group, the
+dense one through the vocab-parallel cross-entropy.
+``sequence_parallel`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -75,7 +85,8 @@ def _check_config(c: LlamaConfig):
     if c.sequence_parallel:
         raise NotImplementedError(
             "LlamaConfig.sequence_parallel shards the sequence over GPUs "
-            "(ROADMAP.md, port queue item 4: multi-GPU)")
+            "(ROADMAP.md, port queue item 4: multi-GPU, sequence "
+            "parallel)")
     if c.remat not in (False, True, "full", "selective"):
         raise ValueError(f"LlamaConfig.remat={c.remat!r}; want False, "
                          "True, 'full' or 'selective'")
@@ -133,16 +144,23 @@ class LlamaAttention(nn.Module):
         self.k_proj = Linear(h, kv, **kw)
         self.v_proj = Linear(h, kv, **kw)
         self.o_proj = Linear(h, h, **kw)
+        # Megatron tp: heads (the output dim) split on q/k/v, o's input
+        for lin in (self.q_proj, self.k_proj, self.v_proj):
+            lin.weight.pspec = (None, "tp")
+        self.o_proj.weight.pspec = ("tp", None)
 
     def forward(self, x):
-        b, l, h = x.shape
-        q = self.q_proj(x).reshape(b, l, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, l, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(b, l, self.num_kv_heads, self.head_dim)
+        # head counts from the (local) projection widths: all of them, or
+        # num_heads / tp and num_kv_heads / tp under tensor parallel
+        b, l, _ = x.shape
+        hd = self.head_dim
+        q = self.q_proj(x).reshape(b, l, -1, hd)
+        k = self.k_proj(x).reshape(b, l, -1, hd)
+        v = self.v_proj(x).reshape(b, l, -1, hd)
         q, k = _rope(q, k, torch.arange(l, device=x.device), self.theta,
                      q.dtype)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self.o_proj(out.reshape(b, l, h))
+        return self.o_proj(out.reshape(b, l, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -153,6 +171,9 @@ class LlamaMLP(nn.Module):
         self.gate_proj = Linear(h, ff, **kw)
         self.up_proj = Linear(h, ff, **kw)
         self.down_proj = Linear(ff, h, **kw)
+        self.gate_proj.weight.pspec = (None, "tp")
+        self.up_proj.weight.pspec = (None, "tp")
+        self.down_proj.weight.pspec = ("tp", None)
 
     def forward(self, x):
         return self.down_proj(TF.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -181,6 +202,7 @@ class LlamaModel(nn.Module):
         kw = dict(device=device, dtype=config.dtype)
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       **kw)
+        self.embed_tokens.weight.pspec = ("tp", None)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device=device)
              for _ in range(config.num_hidden_layers)])
@@ -211,6 +233,32 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
                                   bias_attr=False, device=self.device,
                                   dtype=config.dtype)
+            self.lm_head.weight.pspec = (None, "tp")
+
+    def check_tensor_parallel(self, tp):
+        """Raise ValueError unless ``tp`` splits the heads evenly (the KV
+        heads included): ``fleet.distributed_model`` asks before it
+        splits the layers."""
+        c = self.config
+        for what, n in (("num_attention_heads", c.num_attention_heads),
+                        ("num_key_value_heads", c.num_key_value_heads)):
+            if n % tp:
+                raise ValueError(f"tensor-parallel degree {tp} does not "
+                                 f"divide {what}={n}")
+
+    def _tp_group(self):
+        """The tensor-parallel group the vocabulary is split over, or
+        None (not split)."""
+        mod = self.llama.embed_tokens if self.tie else self.lm_head
+        g = getattr(mod, "mp_group", None)
+        return g if g is not None and g.nranks > 1 else None
+
+    def _local_logits(self, hidden, tp):
+        """The logits of this rank's vocabulary shard."""
+        from ...distributed.fleet.meta_parallel.mp_layers import copy_to_tp
+        if self.tie:
+            return copy_to_tp(hidden, tp) @ self.llama.embed_tokens.weight.t()
+        return self.lm_head(hidden)
 
     def head_weight(self):
         """The LM head as ``[h, vocab]`` (a view for the tied head)."""
@@ -222,6 +270,11 @@ class LlamaForCausalLM(nn.Module):
         """The head applied to ``hidden``: the tied embedding's transpose,
         or the ``lm_head`` module itself, so a head swapped by quantization
         (``Int8Linear``, QAT's ``QuantizedLinear``) takes part."""
+        tp = self._tp_group()
+        if tp is not None:
+            from ...distributed.fleet.meta_parallel.mp_layers import \
+                gather_last_dim
+            return gather_last_dim(self._local_logits(hidden, tp), tp)
         return hidden @ self.head_weight() if self.tie else \
             self.lm_head(hidden)
 
@@ -234,11 +287,20 @@ class LlamaForCausalLM(nn.Module):
         if labels is None:
             return self._logits(hidden)
         labels = torch.as_tensor(labels, device=self.device).long()
+        tp = self._tp_group()
         if self.config.fused_ce_chunk and not self.tie:
             # the [N, vocab] fp32 logits never materialize
             return F.fused_linear_cross_entropy(
                 hidden[:, :-1], self.lm_head.weight, labels[:, 1:],
-                chunk_size=self.config.fused_ce_chunk)
+                chunk_size=self.config.fused_ce_chunk, tp_group=tp)
+        if tp is not None:
+            from ...distributed.fleet.meta_parallel.mp_layers import \
+                vocab_parallel_cross_entropy
+            logits = self._local_logits(hidden, tp)[:, :-1]
+            lbl = labels[:, 1:].reshape(-1)
+            loss = vocab_parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), lbl, tp)
+            return loss.sum() / (lbl != -100).sum().float().clamp_min(1e-12)
         logits = self._logits(hidden)
         return F.cross_entropy(
             logits[:, :-1].reshape(-1, self.config.vocab_size).float(),

@@ -871,3 +871,37 @@ def test_stochastic_kernels_reject_what_they_do_not_take(cuda):
     before = sr.stochastic_round_bf16.launches
     assert tq.stochastic_round(x.t(), seed=1).shape == (6, 8)
     assert sr.stochastic_round_bf16.launches == before + 1
+
+
+# -- phase 12: hybrid Fleet training at a small size --------------------------
+
+def _bf16_tiny():
+    # head dim 32, L = 256: the flash kernels' tensor-core variants; vocab
+    # 1024: the fused CE's
+    return dataclasses.replace(LLAMA_TINY, dtype="bfloat16")
+
+
+def test_phase12a_world1_hybrid_step_equals_the_plain_step(cuda):
+    """``chip_smoke`` 12a at LLAMA_TINY size: stage 3 over NCCL at world 1
+    gives the plain step's losses bit for bit and its launches."""
+    small = _bf16_tiny()
+    _, train = chip_smoke.phase_train(fa, fc, rm, LlamaForCausalLM, small,
+                                      fleet, optimizer, pt.seed, layers=2,
+                                      batch=(2, 256))
+    out = chip_smoke.phase_hybrid_world1(fa, fc, rm, LlamaForCausalLM, small,
+                                         fleet, optimizer, pt.seed, train,
+                                         layers=2, batch=(2, 256))
+    assert out["backend"] == "nccl" and out["losses"] == train["losses"]
+
+
+def test_phase12b_two_ranks_on_one_card_match_world1(cuda, tmp_path):
+    """``chip_smoke`` 12b at LLAMA_TINY size: mp2 and sharding2 stage 3 on
+    two gloo ranks sharing the card, against the world-1 run."""
+    out = chip_smoke.phase_hybrid_pair(
+        fa, fc, rm, LlamaForCausalLM, _bf16_tiny(), fleet, optimizer,
+        pt.seed, layers=2, batch=(2, 256), workdir=str(tmp_path / "p12"))
+    ran = [n for n, c in out["configs"].items() if "left_out" not in c]
+    assert ran, out["probe"]
+    for name in ran:
+        assert out["configs"][name]["max_rel_to_world1"] <= \
+            chip_smoke.PAIR_REL_TOL

@@ -2,10 +2,11 @@
 
 ``paddle_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any
 module of the JAX package (even those that do not import JAX): checked by
-an AST scan and by serving a request, taking Llama and ERNIE-MoE train
-steps, and quantizing and running a tiny Llama and both stochastic
-quantizers in a process where importing either fails. Entry points
-default to CUDA and raise when it is absent.
+an AST scan, by importing every module of the port, and by serving a
+request, taking Llama and ERNIE-MoE train steps, a tensor-parallel Llama
+step on two spawned ranks, and quantizing and running a tiny Llama and
+both stochastic quantizers in processes where importing either fails.
+Entry points default to CUDA and raise when it is absent.
 """
 import ast
 import os
@@ -187,6 +188,48 @@ def test_quantizes_a_model_with_jax_unimportable():
                        capture_output=True, text=True, timeout=120,
                        env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
+
+
+def test_every_module_imports_with_jax_unimportable():
+    """Every module of the port, the distributed ones included."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import importlib, pkgutil
+        import paddle_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            paddle_tpu_torch.__path__, "paddle_tpu_torch.")]
+        for n in names:
+            importlib.import_module(n)
+        assert "paddle_tpu_torch.distributed.fleet.placement" in names
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("OK", len(names))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr
+
+
+def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
+    """A tp2 Llama step over gloo in two spawned ranks, each of which
+    makes JAX and the JAX package unimportable first."""
+    import pickle
+
+    import torch_dist_worker as W
+    from paddle_tpu_torch import distributed as dist
+    dist.spawn(W.isolation_worker, args=(str(tmp_path),), nprocs=2,
+               timeout=120)
+    outs = []
+    for r in range(2):
+        with open(tmp_path / f"isolation.r{r}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    assert outs[0]["losses"] == outs[1]["losses"]
+    assert outs[0]["losses"][1] < outs[0]["losses"][0]
+    assert not outs[0]["loaded"] and not outs[1]["loaded"]
 
 
 def test_default_device_is_cuda_and_raises_without_it():

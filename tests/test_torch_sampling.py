@@ -120,3 +120,17 @@ def test_beam_search_is_not_in_the_slice(models):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tm.generate(torch.zeros((1, 4), dtype=torch.long), num_beams=2)
+
+
+def test_generate_refuses_zero_new_tokens_as_jax_does(models):
+    """``max_new_tokens=0``: the JAX package's first token has nowhere to
+    go (``IndexError``); the port refuses it up front (``ValueError``)
+    instead of returning a token nobody asked for."""
+    jm, tm = models
+    ids = _prompts(False)
+    with pytest.raises(IndexError):
+        jm.generate(paddle.to_tensor(ids), max_new_tokens=0)
+    with pytest.raises(ValueError, match="max_new_tokens"):
+        tm.generate(torch.from_numpy(ids), max_new_tokens=0)
+    with pytest.raises(ValueError, match="max_new_tokens"):
+        G.generate(tm, torch.from_numpy(ids), max_new_tokens=-1)

@@ -143,10 +143,15 @@ def test_strategy_options_outside_the_slice_raise():
         with pytest.raises(NotImplementedError, match=item):
             fleet.distributed_optimizer(opt, s).make_train_step(model,
                                                                 loss_fn)
-    s = fleet.DistributedStrategy()
-    s.hybrid_configs["dp_degree"] = 2
-    with pytest.raises(NotImplementedError, match="dp_degree"):
-        fleet.distributed_optimizer(opt, s).make_train_step(model, loss_fn)
+    # dp, mp and sharding degrees run since the multi-GPU slice
+    # (tests/test_torch_hybrid_train.py); pipeline and sequence parallel
+    # degrees still raise
+    for degree in ("pp_degree", "sep_degree"):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs[degree] = 2
+        with pytest.raises(NotImplementedError, match=degree):
+            fleet.distributed_optimizer(opt, s).make_train_step(model,
+                                                                loss_fn)
     with pytest.raises(NotImplementedError, match="amp"):
         fleet.make_train_step(model, opt, loss_fn, amp_level="O1")
     s = fleet.DistributedStrategy()

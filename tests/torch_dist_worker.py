@@ -1,0 +1,328 @@
+"""Worker functions of the port's multi-process tests (gloo, CPU).
+
+``spawn`` starts its workers with the ``spawn`` method, so each child
+imports this module by name: it imports torch, numpy and the port, and
+never JAX. Each worker writes what it saw to files under ``out_dir``
+(pickles that the same test run writes and reads); the tests compare them
+with numpy or with the JAX package.
+"""
+import os
+import pickle
+
+import numpy as np
+import torch
+
+# (dp, sharding, tp) degrees, sharding stage and the step's options of
+# each hybrid configuration (with the model options of MODEL_KEYS);
+# "group_sharded" goes through
+# distributed.sharding.group_sharded_parallel(level="p_g_os") instead of a
+# strategy, which puts every rank of the world on the sharding axis
+HYBRID_CONFIGS = {
+    "dp4": dict(dp=4),
+    "sharding4_stage1": dict(sharding=4, stage=1),
+    "sharding4_stage2": dict(sharding=4, stage=2),
+    "sharding4_stage3": dict(sharding=4, stage=3),
+    "tp2": dict(mp=2),
+    "tp2_fused_ce": dict(mp=2, fused_ce_chunk=256),
+    "tp2_tied_head": dict(mp=2, tie_word_embeddings=True),
+    "tp2_sharding2_stage3": dict(mp=2, sharding=2, stage=3),
+    "dp2_sharding2_tp2_stage3": dict(dp=2, sharding=2, mp=2, stage=3),
+    "sharding4_stage3_remat_full": dict(sharding=4, stage=3, remat="full"),
+    "sharding4_stage3_remat_selective": dict(sharding=4, stage=3,
+                                             remat="selective"),
+    "sharding4_stage3_accumulate2": dict(sharding=4, stage=3,
+                                         accumulate_steps=2),
+    "group_sharded_p_g_os": dict(group_sharded="p_g_os"),
+}
+MODEL_KEYS = ("fused_ce_chunk", "remat", "tie_word_embeddings")
+LR = 1e-3
+STEPS = 3
+
+
+def _dump(path, obj):
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def clip_grad(name, shape):
+    """A stand-in full gradient for parameter ``name``: seeded by its
+    name, the same on every rank."""
+    seed = sum(ord(c) * (i + 1) for i, c in enumerate(name))
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _global_norm(model, step):
+    """``ClipGradByGlobalNorm.global_norm`` over this rank's blocks of the
+    ``clip_grad`` gradients, each placed as its optimizer state is."""
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    specs, blocks = {}, {}
+    for k, p in model.named_parameters():
+        specs[k] = mesh.opt_state_pspec(p.placement, p.full_shape,
+                                        p.full_shape, step.stage)
+        blocks[k] = torch.from_numpy(mesh.local_block(
+            clip_grad(k, p.full_shape), specs[k]).copy())
+    return float(ClipGradByGlobalNorm(1.0).global_norm(blocks, specs))
+
+
+def _shapes(step):
+    """This rank's parameter and optimizer-state blocks: name -> (shape,
+    itemsize)."""
+    params = {k: (tuple(t.shape), t.element_size())
+              for k, t in step.state_dict()["params"].items()}
+    opt = {f"{k}/{n}": (tuple(t.shape), t.element_size())
+           for k, st in step.state_dict()["opt"].items()
+           for n, t in st.items()}
+    return params, opt
+
+
+def hybrid_worker(out_dir, init_paths, batch_path, names):
+    """Train LLAMA_TINY (fp32, the JAX model's initial weights from
+    ``init_paths[name]``) for STEPS steps under each configuration of
+    ``names``, on the first ranks of the world its degrees need; rank 0
+    writes the losses and the gathered parameters, every rank of the mesh
+    its block shapes."""
+    import dataclasses
+
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import (
+        group_sharded_parallel, save_group_sharded_model)
+    from paddle_tpu_torch.framework.io import (gather_state_dict,
+                                               load_numpy_state_dict)
+    from paddle_tpu_torch.text.models.llama import (LLAMA_TINY,
+                                                    LlamaForCausalLM)
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank = dist.get_rank()
+    ids = np.load(batch_path)
+    for name in names:
+        with np.load(init_paths[name]) as z:
+            init = {k: z[k] for k in z.files}
+        c = dict(HYBRID_CONFIGS[name])
+        kw = {k: c.pop(k) for k in MODEL_KEYS if k in c}
+        accumulate = c.pop("accumulate_steps", None)
+        cfg = dataclasses.replace(LLAMA_TINY, dtype="float32", **kw)
+
+        def build():
+            model = LlamaForCausalLM(cfg, device="cpu")
+            return model, optimizer.AdamW(learning_rate=LR,
+                                          parameters=model.parameters())
+
+        if "group_sharded" in c:
+            fleet.init(strategy=fleet.DistributedStrategy())
+            model, opt, _ = group_sharded_parallel(*build(),
+                                                   c["group_sharded"])
+        else:
+            s = fleet.DistributedStrategy()
+            s.hybrid_configs.update(dp_degree=c.get("dp", 1),
+                                    mp_degree=c.get("mp", 1),
+                                    sharding_degree=c.get("sharding", 1))
+            s.sharding = c.get("sharding", 1) > 1
+            s.sharding_configs["sharding_stage"] = c.get("stage", 1)
+            fleet.init(is_collective=True, strategy=s)
+        mesh = fleet.get_hybrid_communicate_group().mesh
+        if mesh.coords is not None:      # the ranks this mesh covers
+            if "group_sharded" not in c:
+                model, opt = build()
+                model = fleet.distributed_model(model)
+                opt = fleet.distributed_optimizer(opt)
+            load_numpy_state_dict(model, init)
+            step = opt.make_train_step(
+                model, lambda m, x, y: m(x, labels=y),
+                accumulate_steps=accumulate)
+            losses = [float(step(ids, ids)) for _ in range(STEPS)]
+            full = gather_state_dict(model)
+            params, state = _shapes(step)
+            saved = None
+            if "group_sharded" in c:
+                save_group_sharded_model(model, os.path.join(out_dir, name),
+                                         opt)
+                saved = sorted(os.listdir(os.path.join(out_dir, name)))
+            # this rank's snapshot restores the trajectory
+            snap = {"params": {k: v.clone() for k, v in
+                               step.state_dict()["params"].items()},
+                    "opt": {k: {n: t.clone() for n, t in st.items()}
+                            for k, st in step.state_dict()["opt"].items()}}
+            again = [float(step(ids, ids))]
+            step.load_state_dict(snap)
+            again.append(float(step(ids, ids)))
+            _dump(os.path.join(out_dir, f"{name}.r{rank}.pkl"),
+                  dict(shape=mesh.shape, params=params, opt=state,
+                       losses=losses, global_norm=_global_norm(model, step),
+                       replayed=again, saved=saved))
+            if rank == 0:
+                _dump(os.path.join(out_dir, f"{name}.pkl"),
+                      dict(losses=losses, params=full))
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+# -- collectives -----------------------------------------------------------
+
+def rank_input(rank):
+    """Rank r's input to every collective: float32 [4, 2]."""
+    return (np.arange(8, dtype=np.float32).reshape(4, 2) * (rank + 1)
+            + rank)
+
+
+def collective_worker(out_dir):
+    """Run each collective on the world group and on this rank's groups
+    of a 2 x 2 (dp, tp) mesh; write every result to ``out_dir``."""
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    m = mesh_mod.build_mesh(dp=2, tp=2).init_groups()
+    groups = {"world": None, "dp": m.group("dp"), "tp": m.group("tp")}
+    out = {"rank": rank, "world_size": world,
+           "is_initialized": dist.is_initialized(),
+           "members": {k: (g.ranks if g is not None else list(range(world)))
+                       for k, g in groups.items()}}
+    x = torch.from_numpy(rank_input(rank))
+    for gname, g in groups.items():
+        members = out["members"][gname]
+        first = members[0]
+        r = {}
+        for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+            r[f"all_reduce_{op}"] = dist.all_reduce(
+                x.clone(), getattr(dist.ReduceOp, op), group=g).numpy()
+        lst = []
+        r["all_gather"] = dist.all_gather(lst, x, group=g).numpy()
+        r["all_gather_list"] = np.stack([t.numpy() for t in lst])
+        r["reduce_scatter"] = dist.reduce_scatter(x.clone(),
+                                                  group=g).numpy()
+        piece = torch.empty(4 // len(members), 2)
+        dist.reduce_scatter(piece, list(x.chunk(len(members))), group=g)
+        r["reduce_scatter_list"] = piece.numpy()
+        r["broadcast"] = dist.broadcast(x.clone(), src=first,
+                                        group=g).numpy()
+        red = dist.reduce(x.clone(), dst=first, group=g)
+        if rank == first:
+            r["reduce"] = red.numpy()
+        recv = torch.empty(4 // len(members), 2)
+        dist.scatter(recv, list(x.chunk(len(members))), src=first, group=g)
+        r["scatter"] = recv.numpy()
+        outs = []
+        dist.alltoall(list(x.chunk(len(members))), outs, group=g)
+        r["alltoall"] = np.concatenate([t.numpy() for t in outs])
+        r["alltoall_single"] = dist.alltoall_single(x, group=g).numpy()
+        dist.barrier(group=g)
+        out[gname] = r
+    # DataParallel averages the gradients over the mesh's dp group
+    mesh_mod.set_mesh(m)
+    lin = torch.nn.Linear(2, 1, bias=False)
+    with torch.no_grad():
+        lin.weight.fill_(1.0)
+    model = dist.DataParallel(lin)
+    model(x).sum().backward()
+    model.apply_collective_grads()
+    out["data_parallel_grad"] = lin.weight.grad.numpy().copy()
+    env = dist.ParallelEnv()
+    out["parallel_env"] = (env.rank, env.world_size, env.local_rank)
+    out["mp_layers"] = _mp_layers_check(m.group("tp"))
+    _dump(os.path.join(out_dir, f"collective.r{rank}.pkl"), out)
+    dist.destroy_process_group()
+    out_after = dist.is_initialized()
+    _dump(os.path.join(out_dir, f"destroyed.r{rank}.pkl"), out_after)
+
+
+def _mp_layers_check(g):
+    """The tensor-parallel layers on group ``g`` against the full layers
+    they were cut from (the same weights on every rank): an embedding, a
+    column layer gathering its output, a row layer splitting its input, a
+    column head and the vocab-parallel CE. Returns {name: (got, want)}:
+    the per-token losses and this rank's slice of each gradient."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+        VocabParallelEmbedding)
+
+    pt.seed(0)
+    full = dict(emb=pnn.Embedding(10, 8, device="cpu"),
+                col=pnn.Linear(8, 6, device="cpu"),
+                row=pnn.Linear(6, 4, device="cpu"),
+                head=pnn.Linear(4, 10, bias_attr=False, device="cpu"))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():          # non-zero biases, the same on every rank
+        full["col"].bias.uniform_(-1, 1, generator=gen)
+        full["row"].bias.uniform_(-1, 1, generator=gen)
+    par = dict(emb=VocabParallelEmbedding.from_embedding(full["emb"], g),
+               col=ColumnParallelLinear.from_linear(full["col"], g, True),
+               row=RowParallelLinear.from_linear(full["row"], g, False),
+               head=ColumnParallelLinear.from_linear(full["head"], g, False))
+    ids = torch.tensor([[1, 7, 3], [9, 0, 5]])
+    ce = ParallelCrossEntropy(g)
+    got = ce(par["head"](par["row"](par["col"](par["emb"](ids)))), ids)
+    got.sum().backward()
+    logits = full["head"](full["row"](full["col"](full["emb"](ids))))
+    want = pnn.functional.cross_entropy(logits, ids, reduction="none")
+    want.sum().backward()
+    r, n = g.rank, g.nranks
+
+    def cut(t, dim):
+        k = t.shape[dim] // n
+        return t.narrow(dim, r * k, k)
+
+    res = {"loss": (got.detach().numpy(), want.detach().numpy())}
+    for name, dim in (("emb", 0), ("col", 1), ("row", 0), ("head", 1)):
+        res[name] = (par[name].weight.grad.numpy(),
+                     cut(full[name].weight.grad, dim).numpy())
+    res["col_bias"] = (par["col"].bias.grad.numpy(),
+                       cut(full["col"].bias.grad, 0).numpy())
+    res["row_bias"] = (par["row"].bias.grad.numpy(),
+                       full["row"].bias.grad.numpy())
+    return res
+
+
+def spawn_env_worker(path):
+    """``tests/test_distributed.py:_spawn_worker``'s twin: record the
+    environment ``spawn`` gave this rank."""
+    with open(os.path.join(path, f"r{os.environ['PADDLE_TRAINER_ID']}"),
+              "w") as f:
+        f.write(os.environ["PADDLE_TRAINERS_NUM"] + " "
+                + os.environ["RANK"] + " " + os.environ["WORLD_SIZE"])
+
+
+def isolation_worker(out_dir):
+    """A tp2 x sharding-free Llama step on 2 ranks with JAX and the JAX
+    package unimportable; writes the modules that got loaded anyway."""
+    import sys
+    for name in ("jax", "jaxlib", "paddle_tpu"):
+        sys.modules[name] = None
+    import dataclasses
+
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io import gather_state_dict
+    from paddle_tpu_torch.text.models.llama import (LLAMA_TINY,
+                                                    LlamaForCausalLM)
+
+    dist.init_parallel_env(device="cpu", timeout=120)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["mp_degree"] = 2
+    fleet.init(is_collective=True, strategy=s)
+    torch.manual_seed(0)
+    model = fleet.distributed_model(LlamaForCausalLM(dataclasses.replace(
+        LLAMA_TINY, dtype="float32", num_hidden_layers=1), device="cpu"))
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=LR, parameters=model.parameters()))
+    step = opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
+    ids = np.random.default_rng(0).integers(0, 1024, (2, 16))
+    losses = [float(step(ids, ids)) for _ in range(2)]
+    gather_state_dict(model)
+    loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
+        k in ("jax", "jaxlib", "paddle_tpu")
+        or k.startswith(("jax.", "jaxlib.", "paddle_tpu."))))
+    _dump(os.path.join(out_dir, f"isolation.r{dist.get_rank()}.pkl"),
+          dict(losses=losses, loaded=loaded))
+    dist.destroy_process_group()
