@@ -21,11 +21,15 @@ failure raises and exits non-zero before the result line is printed:
    must take the variant it should (bf16 on the tensor cores; fp32,
    unaligned bf16 and the backward at D = 256 on the CUDA cores; the
    ragged kernel's bf16 operands that TMA cannot read on its first,
-   ``mma.sync`` kernel); flash decode under ``judge_decode`` (relative
-   error per (slot, head), zeros in a slot that attends nothing) up to
-   4096 positions, on the split kernel, with slots at a split edge,
-   which its four planted faults (``decode_faults``) must fail with
-   their chunk edges at 64 positions and at the split length; the int8
+   ``mma.sync`` kernel); the forward also at GPT-2 small's scoring call
+   (causal, B=1, L=1024, H=12, D=64, q/k/v views of one fused
+   projection) with its two planted faults; flash decode under
+   ``judge_decode`` (relative error per (slot, head), zeros in a slot
+   that attends nothing) up to 4096 positions, on the split kernel, with
+   slots at a split edge, also at GPT-2's heads (head dim 64, group 1)
+   with 512- and 1,024-position tables in bf16 and fp32, which its four
+   planted faults (``decode_faults``) must fail with their chunk edges at
+   64 positions and at the split length; the int8
    matmul bit for bit with wq in both layouts at the 7B shapes and its
    tile edges, the K-major wq on the tensor cores
    (``"tc"``), the row-major one and the odd tail on the first kernel
@@ -51,8 +55,9 @@ failure raises and exits non-zero before the result line is printed:
    plain version and a PyTorch library call, beside the card's bound;
    the redesigned flash forward, flash backward (dq, dk/dv), fused CE,
    ragged matmul, int8 matmul and flash decode (at 512 and 4096
-   positions; with ptxas' lines of its split kernel) also beside their
-   first versions (the
+   positions, and at GPT-2's heads at 512 and 1,024; with ptxas' lines of
+   its split kernel) also beside their first versions (the flash forward
+   also at GPT-2's scoring call; the
    int8 matmul at the 7B q/k/v/o, up, down and head shapes, beside
    ``torch._int_mm`` on the same K-major wq and on a row-major one);
 8. training: Llama-2-7B widths cut to 8 layers (bf16, random seeded
@@ -117,6 +122,26 @@ failure raises and exits non-zero before the result line is printed:
     collectives gloo does not carry is left out and named. 12b's times
     are two processes sharing one card through the host, not multi-GPU
     speeds.
+13. GPT-2 serving (after phase 12): GPT-2 small at its published widths
+    (``GPTConfig()``: hidden 768, 12 layers, 12 heads, FFN 3072, 1,024
+    positions, vocab 50304), random weights from seed 0, ``eval()``, in
+    bf16. 13a: ``model(ids[1, 1024])`` under inference_mode, 12
+    flash-forward launches all ``"tc"`` on GPT's strided q/k/v, finite
+    logits within ``judge_forward``'s bf16 limits of the same model's with
+    the plain forward swapped in (``judge_logits``). 13b:
+    ``Engine(n_slots=8, max_len=1024, block_size=16, flash_decode=True)``
+    on phase 5's workload plus a 960-token prompt (``gpt2_workload``), 32
+    new tokens each: flash-decode launches = 12 x decode steps all
+    ``"split"``, a prefix hit. 13c: the same, sampled (top_k 50, top_p
+    0.9, temperature 0.6, seeds 1000 + i) with ``prefill_chunk=64``:
+    prompts chunked, the same seeds the same tokens. Both beside the
+    gathered engine, whose bf16 token agreement is printed. The token
+    identities are held on the fp32 twin (the same draws, TF32 off; bf16
+    round-off flips greedy near-ties, ``phase_gpt2``): 13b and 13c kernel
+    vs gathered, and 13d ``model.generate`` on a right-padded batch of two
+    of the prompts, 16 tokens, equal to 13b's engine tokens. Tokens/s,
+    TTFT and ITL p50/p95, the scoring latency and peak memory are printed
+    beside the card's name and power limit.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -372,8 +397,10 @@ def decode_faults(fd, q, kc, vc, tables, wp, chunk=64):
     """Planted faults of flash decode, from its plain version: each slot's
     last attended position dropped; the last ``chunk``-position chunk of
     the longest slot dropped; one block-table entry of the longest slot
-    read one block off where a block starts on a chunk edge; with GQA,
-    each query head read against the next kv head. Returns {name: out}."""
+    read one block off where a block starts on a chunk edge; with more
+    than one kv head, each query head read against the next kv head (head
+    h against kv head h + 1 at group 1, as GPT-2's MHA). Returns {name:
+    out}."""
     ref = fd.flash_decode_reference
     S, H, _ = q.shape
     bs, n_kv = kc.shape[1], kc.shape[2]
@@ -392,25 +419,31 @@ def decode_faults(fd, q, kc, vc, tables, wp, chunk=64):
         off[s_long, e] = tables[s_long, e + 1]
         faults["a table entry read one block off at a chunk edge"] = ref(
             q, kc, vc, off, wp)
-    if n_kv < H:
+    if n_kv > 1:
         faults["query heads read against the next kv head"] = ref(
             q, kc.roll(-1, 2), vc.roll(-1, 2), tables, wp)
     return faults
 
 
-# (S, H, n_kv, block size, blocks per slot, dtype, an empty slot): the
-# engine's shape (bs=16) at 512, 2048 and 4096 positions, GQA (at 2048
-# positions its splits are 128 long, so the 2-stage ring runs), fp32, and a
-# 128-position block (one block spans two 64-position chunks)
+# (S, H, n_kv, head dim, block size, blocks per slot, dtype, an empty slot):
+# the Llama engine's shape (bs=16) at 512, 2048 and 4096 positions, GQA (at
+# 2048 positions its splits are 128 long, so the 2-stage ring runs), fp32,
+# a 128-position block (one block spans two 64-position chunks), and
+# GPT-2's heads (64, 1) at its engine's 512- and 1,024-position tables in
+# both dtypes
 DECODE_CASES = (
-    (8, 32, 32, 16, 32, torch.bfloat16, False),
-    (8, 32, 8, 16, 32, torch.bfloat16, True),
-    (8, 32, 8, 16, 32, torch.float32, False),
-    (8, 32, 8, 16, 128, torch.bfloat16, True),
-    (8, 32, 8, 16, 128, torch.float32, False),
-    (8, 32, 32, 128, 4, torch.bfloat16, False),
-    (8, 32, 32, 16, 128, torch.bfloat16, False),
-    (8, 32, 32, 16, 256, torch.bfloat16, False),
+    (8, 32, 32, 128, 16, 32, torch.bfloat16, False),
+    (8, 32, 8, 128, 16, 32, torch.bfloat16, True),
+    (8, 32, 8, 128, 16, 32, torch.float32, False),
+    (8, 32, 8, 128, 16, 128, torch.bfloat16, True),
+    (8, 32, 8, 128, 16, 128, torch.float32, False),
+    (8, 32, 32, 128, 128, 4, torch.bfloat16, False),
+    (8, 32, 32, 128, 16, 128, torch.bfloat16, False),
+    (8, 32, 32, 128, 16, 256, torch.bfloat16, False),
+    (8, 12, 12, 64, 16, 32, torch.bfloat16, True),
+    (8, 12, 12, 64, 16, 64, torch.bfloat16, False),
+    (8, 12, 12, 64, 16, 32, torch.float32, False),
+    (8, 12, 12, 64, 16, 64, torch.float32, True),
 )
 
 
@@ -421,10 +454,10 @@ def parity_decode(fd):
     planted fault (``decode_faults``) must fail the same judge on the same
     case, its chunk edges at 64 positions and at ``P``."""
     err = 0.0
-    for (S, H, n_kv, bs, mb, dtype, empty) in DECODE_CASES:
+    for (S, H, n_kv, hd, bs, mb, dtype, empty) in DECODE_CASES:
         P = fd.split_plan(mb, bs)[0]
         q, kc, vc, tables, wp = decode_case(
-            S, H, n_kv, 128, bs, mb, mb + 1, dtype, seed=S + H + mb,
+            S, H, n_kv, hd, bs, mb, mb + 1, dtype, seed=S + H + mb,
             fixed=((2, P - 1), (3, P), (4, P + 1)))
         if empty:
             wp[1] = -1                       # a slot that attends nothing
@@ -435,7 +468,7 @@ def parity_decode(fd):
         rel, zeros, ok = judge_decode(got, want, wp, tol)
         live = wp.long() >= 0            # an empty slot is judged by zeros
         err = max(err, (got.float() - want.float())[live].abs().max().item())
-        log(f"  flash_decode S={S} H={H} n_kv={n_kv} bs={bs} "
+        log(f"  flash_decode S={S} H={H} n_kv={n_kv} hd={hd} bs={bs} "
             f"positions={mb * bs} {dtype} on {variant} (P={P}): worst "
             f"(slot, head) rel err {rel:.3e} (tol {tol}), empty slot zeros "
             f"{zeros} {'ok' if ok else 'FAIL'}")
@@ -490,19 +523,34 @@ FWD_CASES = (
     ("D=256, group 4", 1, 300, 300, 4, 1, 256, True, torch.bfloat16, "tc"),
     ("D=32 non-causal", 1, 200, 200, 4, 4, 32, False, torch.bfloat16, "tc"),
     ("strided qkv", 2, 333, 333, 8, 8, 128, True, torch.bfloat16, "tc"),
+    # GPT-2 small's scoring call: q/k/v views of one [B, L, 3h] projection
+    ("GPT-2 fused qkv", 1, 1024, 1024, 12, 12, 64, True, torch.bfloat16,
+     "tc"),
     ("misaligned", 1, 256, 256, 4, 4, 128, True, torch.bfloat16,
      "cuda_core"),
     ("fp32", 1, 512, 512, 8, 8, 128, True, torch.float32, "cuda_core"))
 
 
+def gpt_qkv(qkv, H):
+    """q, k, v [B, L, H, D] as GPT's block makes them: views of the fused
+    projection [B, L, 3h] (row stride 3h, k and v at offsets h and 2h)."""
+    B, L, h3 = qkv.shape
+    return tuple(t.reshape(B, L, H, h3 // 3 // H)
+                 for t in qkv.split(h3 // 3, dim=-1))
+
+
 def fwd_inputs(what, B, Lq, Lk, Hq, Hkv, D, dtype, seed):
     """q, k, v for a FWD_CASES entry: randn, or views of one fused qkv
-    tensor (strided), or views offset by one element (not 16-byte
-    aligned)."""
+    tensor (strided: heads-major, or GPT's [B, L, 3h] split), or views
+    offset by one element (not 16-byte aligned)."""
     if what == "strided qkv":
         g = torch.Generator(device="cuda").manual_seed(seed)
         qkv = torch.randn(B, Lq, 3, Hq, D, generator=g, device="cuda")
         return qkv.to(dtype).unbind(2)
+    if what == "GPT-2 fused qkv":
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        qkv = torch.randn(B, Lq, 3 * Hq * D, generator=g, device="cuda")
+        return gpt_qkv(qkv.to(dtype), Hq)
     if what == "misaligned":
         q, k, v = attn_case(B, Lq, Lk, Hq, Hkv, D + 8, dtype, seed)
         return q[..., 1:D + 1], k[..., 1:D + 1], v[..., 1:D + 1]
@@ -511,8 +559,9 @@ def fwd_inputs(what, B, Lq, Lk, Hq, Hkv, D, dtype, seed):
 
 def parity_forward(fa):
     """The forward kernel against its plain version under judge_forward,
-    at FWD_CASES, each taking the variant it must; at L=2048 both planted
-    faults of forward_faults must fail the same judge."""
+    at FWD_CASES, each taking the variant it must; at L=2048 and at GPT-2's
+    causal D=64 both planted faults of forward_faults must fail the same
+    judge."""
     err = 0.0
     for case in FWD_CASES:
         what, B, Lq, Lk, Hq, Hkv, D, causal, dtype, variant = case
@@ -534,7 +583,7 @@ def parity_forward(fa):
         if not ok:
             raise AssertionError("flash_attention disagrees with its plain "
                                  "version or took the wrong variant")
-        if what == "L=2048":
+        if what in ("L=2048", "GPT-2 fused qkv"):
             for name, (fo, fl) in forward_faults(q, k, v, causal).items():
                 r = judge_forward(fo, fl, rout, rlse)
                 log(f"  planted fault ({name}): rel_err {r[0]:.3e} / last "
@@ -682,6 +731,9 @@ BWD_CASES = (
     ("D=256, group 4", 1, 300, 300, 4, 1, 256, True, torch.bfloat16,
      "cuda_core"),
     ("strided qkv", 2, 333, 333, 8, 8, 128, True, torch.bfloat16, "tc"),
+    # GPT-2 small's scoring call: q/k/v views of one [B, L, 3h] projection
+    ("GPT-2 fused qkv", 1, 1024, 1024, 12, 12, 64, True, torch.bfloat16,
+     "tc"),
     ("misaligned", 1, 256, 256, 4, 4, 128, True, torch.bfloat16,
      "cuda_core"),
     ("fp32", 1, 384, 512, 8, 8, 128, True, torch.float32, "cuda_core"))
@@ -1794,6 +1846,7 @@ def phase_timings(fa, fd, fc, rm, im, sr, flush):
             bound_by="bytes" if byts / PEAK_BYTES >= flops / PEAK_BF16_FLOPS
             else "operations",
             shape=f"B=1 L={L} H=32 D=128 causal bf16")
+    out.update(timings_gpt_forward(fa, flush))
     out.update(timings_bwd(fa, flush))
     out.update(timings_fused_ce(fc, flush))
     out.update(timings_ragged(rm, flush))
@@ -1828,48 +1881,87 @@ def split_kernel_ptxas(_build):
 
 
 def timings_decode(fd, flush):
-    """Flash decode at the engine's shape (S=8, H=n_kv=32, hd=128, bs=16,
-    bf16) with a 512-position table (the engine's ``max_len``) and a
-    4096-position one (``mb=256``); each pool holds ``8 * mb`` blocks
-    besides block 0, dealt to the slots without overlap, so no row is
-    read twice. The split kernel, the first
-    version (``"one_pass"``, median of 5), the plain version and SDPA on a
-    pre-gathered view (never called by the port). Bound: each attended
-    K/V row read once, q read and out written once, the tables and write
-    positions; operations ``4 * positions * H * hd`` (bytes bound it)."""
-    TF = torch.nn.functional
+    """Flash decode at the Llama engine's shape (S=8, H=n_kv=32, hd=128,
+    bs=16, bf16) with a 512-position table (the engine's ``max_len``) and
+    a 4096-position one (``mb=256``), and at GPT-2 small's (H=n_kv=12,
+    hd=64) with its engine's 512- and 1,024-position tables
+    (``time_decode``)."""
     out = {}
-    for tag, mb, nb, seed in (("", 32, 257, 40), ("_T4096", 256, 8 * 256 + 1,
-                                                  41)):
-        q, kc, vc, tables, wp = decode_case(8, 32, 32, 128, 16, mb, nb,
-                                            torch.bfloat16, seed=seed)
-        S, H, hd = q.shape
-        n_kv = kc.shape[2]
-        keys = int((wp.long() + 1).sum())               # attended positions
-        byts = 2 * keys * n_kv * hd * 2 + 2 * q.numel() * 2 \
-            + tables.numel() * 4 + S * 4
-        T = mb * kc.shape[1]
-        kview = kc[tables.long()].reshape(S, T, n_kv, hd).transpose(1, 2)
-        vview = vc[tables.long()].reshape(S, T, n_kv, hd).transpose(1, 2)
-        valid = (torch.arange(T, device="cuda")[None, :]
-                 <= wp[:, None])[:, None, None, :]
-        def run():
-            return fd.flash_decode(q, kc, vc, tables, wp)
-        with forced_variant(fd, "one_pass"):
-            first = time_ms(run, flush, reps=5)
-        out["flash_decode" + tag] = dict(
-            ms=time_ms(run, flush), variant=fd._variant(q, kc),
-            first_version_ms=first,
-            plain_ms=time_ms(lambda: fd.flash_decode_reference(
-                q, kc, vc, tables, wp), flush, reps=5),
-            library_ms=time_ms(lambda: TF.scaled_dot_product_attention(
-                q[:, :, None], kview, vview, attn_mask=valid), flush),
-            shape=f"S=8 H=32 n_kv=32 hd=128 bs=16 bf16, {T}-position "
-                  f"table, {keys} positions, P={fd.split_plan(mb, 16)[0]}",
-            **bound(byts, 4 * keys * H * hd))
-        del q, kc, vc, kview, vview
+    for tag, H, hd, mb, seed in (("", 32, 128, 32, 40),
+                                 ("_T4096", 32, 128, 256, 41),
+                                 ("_gpt2", 12, 64, 32, 42),
+                                 ("_gpt2_T1024", 12, 64, 64, 43)):
+        out["flash_decode" + tag] = time_decode(fd, flush, H, hd, mb, seed)
     torch.cuda.empty_cache()
     return out
+
+
+def time_decode(fd, flush, H, hd, mb, seed, S=8, bs=16):
+    """One decode shape (MHA, bf16): each pool holds ``S * mb`` blocks
+    besides block 0, dealt to the slots without overlap, so no row is
+    read twice. The split kernel, the first version (``"one_pass"``,
+    median of 5), the plain version and SDPA on a pre-gathered view
+    (never called by the port). Bound: each attended K/V row read once, q
+    read and out written once, the tables and write positions; operations
+    ``4 * positions * H * hd`` (bytes bound it)."""
+    TF = torch.nn.functional
+    q, kc, vc, tables, wp = decode_case(S, H, H, hd, bs, mb, S * mb + 1,
+                                        torch.bfloat16, seed=seed)
+    n_kv = kc.shape[2]
+    keys = int((wp.long() + 1).sum())                   # attended positions
+    byts = 2 * keys * n_kv * hd * 2 + 2 * q.numel() * 2 \
+        + tables.numel() * 4 + S * 4
+    T = mb * bs
+    kview = kc[tables.long()].reshape(S, T, n_kv, hd).transpose(1, 2)
+    vview = vc[tables.long()].reshape(S, T, n_kv, hd).transpose(1, 2)
+    valid = (torch.arange(T, device="cuda")[None, :]
+             <= wp[:, None])[:, None, None, :]
+
+    def run():
+        return fd.flash_decode(q, kc, vc, tables, wp)
+    with forced_variant(fd, "one_pass"):
+        first = time_ms(run, flush, reps=5)
+    return dict(
+        ms=time_ms(run, flush), variant=fd._variant(q, kc),
+        first_version_ms=first,
+        plain_ms=time_ms(lambda: fd.flash_decode_reference(
+            q, kc, vc, tables, wp), flush, reps=5),
+        library_ms=time_ms(lambda: TF.scaled_dot_product_attention(
+            q[:, :, None], kview, vview, attn_mask=valid), flush),
+        shape=f"S={S} H={H} n_kv={n_kv} hd={hd} bs={bs} bf16, {T}-position "
+              f"table, {keys} positions, P={fd.split_plan(mb, bs)[0]}",
+        **bound(byts, 4 * keys * H * hd))
+
+
+def timings_gpt_forward(fa, flush):
+    """The flash forward at GPT-2 small's scoring call: B=1, L=1024, H=12,
+    D=64, causal, bf16, q/k/v the strided views of one fused projection
+    (``gpt_qkv``), as the model hands them; yardsticks as at the Llama
+    shapes."""
+    TF = torch.nn.functional
+    B, L, H, D = 1, 1024, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(96)
+    q, k, v = gpt_qkv(torch.randn(B, L, 3 * H * D, generator=g,
+                                  device="cuda").to(torch.bfloat16), H)
+    pairs = B * H * L * (L + 1) // 2
+    byts = 4 * B * L * H * D * 2 + B * H * L * 4          # q, k, v, out; lse
+    with forced_variant(fa, "cuda_core"):
+        first = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                        flush, reps=5)
+    out = dict(
+        first_version_ms=first, variant=fa._variant(q, k, v),
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True), flush),
+        plain_ms=time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, causal=True), flush, reps=5),
+        library_ms=time_ms(lambda: TF.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True), flush),
+        shape=f"B={B} L={L} H={H} D={D} causal bf16, q/k/v views of the "
+              f"fused qkv",
+        **bound(byts, 4 * D * pairs))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd_gpt2": out}
 
 
 class forced_variant:
@@ -2648,6 +2740,267 @@ def phase_hybrid_pair(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet,
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 13: GPT-2 serving
+# ---------------------------------------------------------------------------
+
+# GPT-2 small's engine: its whole 1,024-position table per slot
+GPT2_GEO = dict(n_slots=8, max_len=1024, block_size=16)
+GPT2_LONG = 960         # a prompt whose decode reads a near-full table
+GPT2_GEN = (0, 1)       # 13d's batch: the first two of 13b's prompts
+GPT2_GEN_NEW = 16
+
+
+def gpt2_workload(vocab):
+    """Phase 5's workload (8 prompts: a shared 64-token system prefix +
+    16..192-token suffixes) and one 960-token prompt (9 requests), so that
+    row 4 reads tables from ~80 to ~990 positions, every split of the
+    1,024-position table live."""
+    prompts = workload(vocab, seed=3)
+    rng = np.random.default_rng(4)
+    return prompts + [rng.integers(0, vocab, GPT2_LONG).astype(np.int32)]
+
+
+def judge_logits(got, want):
+    """Logits against the plain forward's: ``judge_forward``'s limits on
+    out (``||got - want|| / ||want||`` over all rows and over the last
+    quarter of the rows, bf16 1e-2); logits have no lse. Returns
+    (rel_all, rel_tail, ok)."""
+    none = torch.zeros(1, device=got.device)
+    rel_all, rel_tail, _, ok = judge_forward(got, none, want, none)
+    return rel_all, rel_tail, ok
+
+
+def gpt2_scoring(model, fa, F):
+    """13a: ``model(ids[1, 1024])`` under inference_mode: 12 flash-forward
+    launches, all ``"tc"``, on GPT's strided q/k/v; finite logits equal
+    to those of the same model with the plain forward swapped in, under
+    ``judge_logits``; the scoring latency (``forward_ms``)."""
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, model.config.vocab_size, (1, 1024))).cuda()
+    with torch.inference_mode():
+        model(ids)                               # warm-up
+        torch.cuda.synchronize()
+        reset_counts(fa.flash_attention)
+        logits = model(ids)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        by_variant = dict(fa.flash_attention.launches_by_variant)
+        path = F.attention_path()
+        kernel = fa.flash_attention
+        fa.flash_attention = (
+            lambda q, k, v, causal=False, scale=None:
+            fa.flash_attention_reference(q, k, v, causal=causal,
+                                         scale=scale))
+        try:
+            plain = model(ids)
+            torch.cuda.synchronize()
+        finally:
+            fa.flash_attention = kernel
+    rel_all, rel_tail, ok = judge_logits(logits, plain)
+    n = model.config.num_hidden_layers
+    out = dict(launches=launches, variants=by_variant,
+               logits=list(logits.shape), rel_err_vs_plain=rel_all,
+               rel_err_vs_plain_last_quarter=rel_tail,
+               top1_agreement_vs_plain=(logits.argmax(-1) == plain.argmax(
+                   -1)).float().mean().item(),
+               scoring_ms=forward_ms(model, ids))
+    log(f"  13a scoring [1, 1024]: logits {tuple(logits.shape)} "
+        f"{logits.dtype}, path {path['path']}, flash_attention launches "
+        f"{launches} {by_variant}, rel err vs the plain forward {rel_all:.3e}"
+        f" / last quarter {rel_tail:.3e} (tol {FWD_REL_TOL[logits.dtype]}),"
+        f" latency {out['scoring_ms']:.3f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if path["path"] != "flash" or launches != n \
+            or by_variant != {"tc": n, "cuda_core": 0}:
+        raise AssertionError(f"13a: flash_attention launched {launches} "
+                             f"times ({by_variant}, path {path}), want {n}, "
+                             f"all on the tensor cores")
+    if not ok:
+        raise AssertionError("13a: the logits are not finite or disagree "
+                             "with the plain forward's")
+    return out
+
+
+def gpt2_serve(model, fd, Engine, prompts, sampled=False, **kw):
+    """One run of the GPT-2 engine on ``prompts`` (32 new tokens each,
+    staggered; sampled runs with temperature 0.6 and seeds 1000 + i), the
+    flash-decode counts reset just before it and read just after.
+    Returns (tokens, stats, handles, launches, launches by variant)."""
+    eng = Engine(model, **GPT2_GEO, **kw)
+    per_request = ([dict(temperature=0.6, seed=1000 + i)
+                    for i in range(len(prompts))] if sampled else None)
+    torch.cuda.synchronize()
+    reset_counts(fd.flash_decode)
+    hs = staggered(eng, prompts, 32, per_request)
+    torch.cuda.synchronize()
+    launches = fd.flash_decode.launches
+    by_variant = dict(fd.flash_decode.launches_by_variant)
+    st = eng.stats()
+    if not all(h.finished and h.finish_reason == "length"
+               and len(h.tokens) == 32 for h in hs):
+        raise AssertionError(f"{kw}: a request did not finish with 32 "
+                             f"tokens")
+    if eng.cache.n_free != eng.n_slots or not eng.cache.check_refcounts():
+        raise AssertionError(f"{kw}: the engine did not free its KV")
+    return [list(h.tokens) for h in hs], st, hs, launches, by_variant
+
+
+def check_decode_launches(what, n_layers, st, launches, by_variant):
+    want = n_layers * st["decode_steps"]
+    if launches != want or launches == 0 \
+            or by_variant != {"split": want, "one_pass": 0}:
+        raise AssertionError(f"{what}: flash_decode launched {launches} "
+                             f"times ({by_variant}), want {want} (12 x "
+                             f"decode steps), all on the split kernel")
+
+
+def agreement(a, b):
+    """How far two runs' tokens agree: requests identical, and each
+    request's first differing token (None where identical)."""
+    first = [next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                  None) for ta, tb in zip(a, b)]
+    return dict(identical_requests=sum(f is None for f in first),
+                requests=len(first), first_difference=first)
+
+
+def gpt2_identity(model32, fd, Engine, prompts, sampled):
+    """The token identity of 13b-13d on the fp32 twin (TF32 off): the kernel
+    engine and the gathered one, greedy (13b) and sampled + chunked (13c),
+    give identical tokens, the kernel launching 12 times a decode step on
+    the split kernel; batch ``generate`` (slot cache, plain attention)
+    gives the greedy engine's tokens (13d). Returns the greedy tokens."""
+    n = model32.config.num_hidden_layers
+    out = {}
+    for what, kw, per in (("13b", {}, False), ("13c", sampled, True)):
+        toks, st, _, launches, by_variant = gpt2_serve(
+            model32, fd, Engine, prompts, sampled=per, flash_decode=True,
+            **kw)
+        plain = gpt2_serve(model32, fd, Engine, prompts, sampled=per,
+                           flash_decode=False, **kw)[0]
+        check_decode_launches(f"{what} fp32", n, st, launches, by_variant)
+        out[what] = toks
+        log(f"  {what} fp32 twin: tokens identical to flash_decode=False: "
+            f"{toks == plain} ({agreement(toks, plain)}), flash_decode "
+            f"launches {launches} {by_variant}")
+        if toks != plain:
+            raise AssertionError(f"{what} fp32: the kernel and gathered "
+                                 f"engines gave other tokens")
+    batch = [prompts[i] for i in GPT2_GEN]
+    L0 = max(len(p) for p in batch)
+    ids = np.zeros((len(batch), L0), np.int64)
+    mask = np.zeros((len(batch), L0), np.int64)
+    for r, p in enumerate(batch):
+        ids[r, :len(p)], mask[r, :len(p)] = p, 1
+    gen = model32.generate(torch.from_numpy(ids).cuda(),
+                           max_new_tokens=GPT2_GEN_NEW,
+                           attention_mask=torch.from_numpy(mask).cuda())
+    got = gen[:, L0:].tolist()
+    want = [out["13b"][i][:GPT2_GEN_NEW] for i in GPT2_GEN]
+    log(f"  13d fp32 twin: generate on a batch of {len(batch)} (prompts of "
+        f"{[len(p) for p in batch]} tokens, right-padded), {GPT2_GEN_NEW} "
+        f"tokens, equal to 13b's engine tokens: {got == want}")
+    if got != want:
+        raise AssertionError("13d: generate() disagrees with the engine")
+    return out
+
+
+def phase_gpt2(fa, fd, F, Engine, ledger, GPTConfig, GPTForCausalLM, seed):
+    """Phase 13: GPT-2 small at its published widths (hidden 768, 12
+    layers, 12 heads, FFN 3072, 1,024 positions, vocab 50304), random
+    weights from seed 0, ``eval()``. In bf16: 13a scoring; 13b greedy
+    paged serving and 13c sampled + chunked serving with the kernel
+    (launches, prefix hits, chunking, seed repeatability, latencies),
+    each beside the gathered engine's run, whose token agreement is
+    printed. bf16 cannot hold the two engines to identical tokens: two
+    right attention sums differ by a bf16 ulp, which 12 layers carry to
+    ~1e-2 of the logits (13a measures it), and a greedy near-tie among
+    50,304 logits then flips. So the identities of 13b-13d are held on
+    the fp32 twin (the same seed-0 draws before their bf16 rounding, TF32
+    off), as phase 6 holds Llama's. Returns (flash-forward launches of
+    13a, flash-decode launches of 13b and of 13c in bf16, printed
+    numbers)."""
+    cfg = dataclasses.replace(GPTConfig(), dtype="bfloat16")
+    seed(0)
+    model = GPTForCausalLM(cfg, device="cuda").eval()
+    n = cfg.num_hidden_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"13a": gpt2_scoring(model, fa, F)}
+    smi = smi_line()
+    prompts = gpt2_workload(cfg.vocab_size)
+
+    # ---- 13b: greedy paged, bf16 --------------------------------------------
+    t0 = time.perf_counter()
+    toks, st, hs, launches, by_variant = gpt2_serve(
+        model, fd, Engine, prompts, flash_decode=True)
+    wall = time.perf_counter() - t0
+    led = ledger(hs)
+    plain, _, _, plain_launches, _ = gpt2_serve(model, fd, Engine, prompts,
+                                                flash_decode=False)
+    agree = agreement(toks, plain)
+    log(f"  13b greedy: {len(hs)} requests, wall {wall:.2f} s, decode steps "
+        f"{st['decode_steps']}, prefix_hit_tokens {st['prefix_hit_tokens']},"
+        f" flash_decode launches {launches} {by_variant} (gathered run: "
+        f"{plain_launches}); bf16 agreement with flash_decode=False: "
+        f"{agree}")
+    log(f"  13b ledger {json.dumps(led)} ({smi})")
+    check_decode_launches("13b", n, st, launches, by_variant)
+    if st["prefix_hit_tokens"] <= 0 or plain_launches:
+        raise AssertionError(f"13b: no prefix hit, or the gathered run "
+                             f"launched the kernel: {st}")
+    out["13b"] = dict(wall_s=wall, decode_steps=st["decode_steps"],
+                      prefix_hit_tokens=st["prefix_hit_tokens"],
+                      flash_decode_launches=launches, ledger=led,
+                      bf16_agreement_with_gathered=agree)
+
+    # ---- 13c: sampled + chunked, bf16; the same seeds repeat ----------------
+    sampled = dict(do_sample=True, top_k=50, top_p=0.9, prefill_chunk=64)
+    t0 = time.perf_counter()
+    stoks, sst, shs, slaunches, sby_variant = gpt2_serve(
+        model, fd, Engine, prompts, sampled=True, flash_decode=True,
+        **sampled)
+    swall = time.perf_counter() - t0
+    sled = ledger(shs)
+    again = gpt2_serve(model, fd, Engine, prompts, sampled=True,
+                       flash_decode=True, **sampled)[0]
+    splain = gpt2_serve(model, fd, Engine, prompts, sampled=True,
+                        flash_decode=False, **sampled)[0]
+    sagree = agreement(stoks, splain)
+    log(f"  13c sampled + chunked: wall {swall:.2f} s, decode steps "
+        f"{sst['decode_steps']}, chunk steps {sst['chunk_steps']} "
+        f"({sst['chunked_prefills']} chunked prefills), flash_decode "
+        f"launches {slaunches} {sby_variant}; the same seeds give the same "
+        f"tokens: {stoks == again}; bf16 agreement with flash_decode=False: "
+        f"{sagree}")
+    log(f"  13c ledger {json.dumps(sled)} ({smi})")
+    check_decode_launches("13c", n, sst, slaunches, sby_variant)
+    if not sst["chunked_prefills"] > 0:
+        raise AssertionError(f"13c: no prompt was chunked: {sst}")
+    if stoks != again:
+        raise AssertionError("13c: two runs with the same seeds gave other "
+                             "tokens")
+    out["13c"] = dict(wall_s=swall, decode_steps=sst["decode_steps"],
+                      chunk_steps=sst["chunk_steps"],
+                      chunked_prefills=sst["chunked_prefills"],
+                      flash_decode_launches=slaunches, ledger=sled,
+                      bf16_agreement_with_gathered=sagree)
+    peak = torch.cuda.max_memory_allocated()
+    out["peak_memory_gib"] = peak / 2**30
+    log(f"  phase 13 bf16 peak memory {peak / 2**30:.2f} GiB ({smi})")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 13b-13d token identity on the fp32 twin ---------------------------
+    seed(0)
+    model32 = GPTForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                             device="cuda").eval()
+    gpt2_identity(model32, fd, Engine, prompts, sampled)
+    del model32
+    torch.cuda.empty_cache()
+    return out["13a"]["launches"], launches, slaunches, out
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2677,7 +3030,8 @@ def main():
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.serving import Engine, ledger
     from paddle_tpu_torch.text.models import (ErnieMoEConfig,
-                                              ErnieMoEForPretraining)
+                                              ErnieMoEForPretraining,
+                                              GPTConfig, GPTForCausalLM)
     from paddle_tpu_torch.text.models.llama import (LLAMA2_7B, LLAMA_TINY,
                                                     LlamaForCausalLM)
 
@@ -2774,6 +3128,15 @@ def main():
         "backend", "step_ms", "phase8_step_ms", "overhead_ms")},
         pair=pair)))
 
+    # ---- 13. GPT-2 serving ---------------------------------------------------
+    log("[13] GPT-2 small (hidden 768, 12 layers, 12 heads, FFN 3072, 1024 "
+        "positions, vocab 50304), bf16: scoring, Engine(n_slots=8, "
+        "max_len=1024, block_size=16, flash_decode=True) greedy and sampled "
+        "+ chunked, batch generate")
+    gpt_fa_launches, gpt_fd_launches, gpt_fd_sampled, gpt2 = phase_gpt2(
+        fa, fd, F, Engine, ledger, GPTConfig, GPTForCausalLM, pt.seed)
+    log("  gpt2 " + json.dumps(gpt2))
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -2785,7 +3148,10 @@ def main():
              max_err=errs["flash_attention_fwd"],
              **{k: t["flash_attention_fwd_L512"][k] for k in cols + first},
              L2048={k: t["flash_attention_fwd_L2048"][k]
-                    for k in cols + first}),
+                    for k in cols + first},
+             gpt2=dict(launches=gpt_fa_launches,
+                       **{k: t["flash_attention_fwd_gpt2"][k]
+                          for k in cols + first + ("shape",)})),
         dict(name="flash_decode", route="cuda",
              source="paddle_tpu_torch/csrc/flash_decode.cu",
              replaces="paddle_tpu/ops/pallas/flash_decode.py:100",
@@ -2793,7 +3159,13 @@ def main():
              max_abs_err=errs["flash_decode"],
              max_err=errs["flash_decode"],
              **{k: t["flash_decode"][k] for k in cols + first},
-             T4096={k: t["flash_decode_T4096"][k] for k in cols + first}),
+             T4096={k: t["flash_decode_T4096"][k] for k in cols + first},
+             gpt2=dict(launches=gpt_fd_launches,
+                       launches_sampled=gpt_fd_sampled,
+                       **{k: t["flash_decode_gpt2"][k]
+                          for k in cols + first + ("shape",)}),
+             gpt2_T1024={k: t["flash_decode_gpt2_T1024"][k]
+                         for k in cols + first + ("shape",)}),
     ]
     for kname, source, replaces in (
             ("flash_attention_bwd_dq", "flash_attention_bwd.cu",

@@ -1,12 +1,14 @@
 // Paged flash-decode: one-token attention over a block-paged KV pool.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/flash_decode.py:flash_decode
-// (_kernel). Same contract: q [S, H, hd] attends, through the per-slot block
-// tables [S, mb] (int32), the pool positions 0..write_pos[s] of kv head
-// h // (H / n_kv); online softmax in fp32; p rounded to v's dtype before the
-// PV product (the TPU kernel's p.astype(v.dtype)); the finite mask value
-// -0.7 * FLT_MAX; a slot that attends nothing writes zeros; output [S, H, hd]
-// in q's dtype.
+// (_kernel). Same contract: q [S, H, hd] (slot s's row at q + s *
+// q_stride, its heads and dims contiguous: GPT's q is a view of the fused
+// qkv projection, row stride 3h, read as it is) attends, through the
+// per-slot block tables [S, mb] (int32), the pool positions 0..write_pos[s]
+// of kv head h // (H / n_kv); online softmax in fp32; p rounded to v's
+// dtype before the PV product (the TPU kernel's p.astype(v.dtype)); the
+// finite mask value -0.7 * FLT_MAX; a slot that attends nothing writes
+// zeros; output [S, H, hd], contiguous, in q's dtype.
 //
 // Two kernels, picked by ops/flash_decode.py:_variant:
 //  - flash_decode_split_kernel ("split", every operand on the main path):
@@ -37,19 +39,24 @@
 //    engine's table (mb * bs = 512, P = 64) a slot of ~290 positions puts
 //    5 blocks per kv head to work, and the 8-slot engine step up to ~830
 //    live blocks on 132 SMs (1,120 at the 512-position timing shape): more
-//    than two per SM, with 6 resident per SM (32 KB of shared memory each),
-//    so long and short slots spread over the whole card
+//    than two per SM, with 6 resident per SM (32 KB of shared memory each;
+//    at GPT-2's hd = 64 a stage is 16 KB and the 12 heads of an 8-slot step
+//    give up to 1,536 blocks at 1,024 positions), so long and short slots
+//    spread over the whole card
 //    (tools/torch_decode_probe.py times other split lengths);
 //  - pages are staged in shared memory by the copy engine: each of the 128
 //    threads issues one cp.async.bulk per 64-position chunk (thread t the K
-//    row of position t % 64 for t < 64, else its V row; one 256-byte row
-//    per position at hd = 128 bf16, whatever the block size, so P need not
-//    be a multiple of bs), all completing on the chunk's mbarrier. K and V
-//    are requested together, so V's bytes arrive while the scores are
-//    computed, and a block has its whole chunk (32 KB) in flight from its
-//    first instruction on. The table entries of the first chunks are read
-//    before any copy is issued, and each later chunk's entry one chunk
-//    ahead, so no table read waits in the chunk loop;
+//    row of position t % 64 for t < 64, else its V row; one row of hd
+//    elements per position -- 256 bytes at hd = 128 bf16, 128 bytes at
+//    GPT-2's hd = 64, 64 at hd = 32, always a multiple of the copy's 16 --
+//    whatever the block size, so P need not be a multiple of bs), all
+//    completing on the chunk's mbarrier. K and V are requested together,
+//    so V's bytes arrive while the scores are computed, and a block has its
+//    whole chunk (a stage: 2 * 64 rows, 32 KB at hd = 128 bf16, 16 KB at
+//    hd = 64 bf16 or hd = 32 fp32) in flight from its first instruction
+//    on. The table entries of the first chunks are read before any copy is
+//    issued, and each later chunk's entry one chunk ahead, so no table read
+//    waits in the chunk loop;
 //  - a split longer than one chunk (tables over 1,024 positions: P grows
 //    so that n_split stays <= 16) runs a 2-stage ring: chunk c + 2 is
 //    issued into the stage chunk c leaves;
@@ -70,7 +77,11 @@
 // half-warp w owns rows w, w + 8, ..., w + 56; lane l owns kNV vectors of
 // kVE head dims (vector v: dims [(16 v + l) kVE, +kVE)), so a half-warp
 // reads each row as one contiguous run of shared memory (no bank
-// conflict). Scores: per row, a partial q.k over the lane's dims reduced
+// conflict). At hd = 128 bf16 a lane holds 8 dims as one 16-byte vector;
+// at hd = 64 it holds 4 (one 8-byte vector in bf16, one 16-byte vector in
+// fp32); at hd = 32, 2. The merges at the end loop over the G * hd
+// outputs of a block with its 128 threads (threads past G * hd idle when
+// G * hd < 128, as at (64, 1)), so every (g, d) is covered. Scores: per row, a partial q.k over the lane's dims reduced
 // over the 16 lanes with shuffles; the warp's two half-warps then agree on
 // the running max and sum with one shuffle each.
 
@@ -145,7 +156,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                           T* __restrict__ out, float* __restrict__ part,
                           int* __restrict__ counters, int H, int n_kv,
                           int bs, int mb, int P, int n_split, int stages,
-                          float scale) {
+                          int q_stride, float scale) {
   using Sh = SplitShape<T, HD>;
   constexpr int kNV = Sh::kNV, kVE = Sh::kVE;
   extern __shared__ __align__(128) unsigned char ring[];
@@ -219,7 +230,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float qr[G][kNV][kVE], acc[G][kNV][kVE], m[G], l[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qg = q + ((size_t)s * H + kvh * G + g) * HD;
+    const T* qg = q + (size_t)s * q_stride + (kvh * G + g) * HD;
 #pragma unroll
     for (int v = 0; v < kNV; ++v) {
       load_vec<T, kVE>(qg + (v * 16 + ln) * kVE, qr[g][v]);
@@ -419,7 +430,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const int* __restrict__ tables,
                     const int* __restrict__ write_pos, T* __restrict__ out,
-                    int H, int n_kv, int bs, int mb, float scale) {
+                    int H, int n_kv, int bs, int mb, int q_stride,
+                    float scale) {
   constexpr int DPL = HD / 16;                  // dims per lane
   constexpr int PRE = sizeof(T) == 2 ? 8 : 4;   // loads in flight per lane
   __shared__ float sc[G][kChunk];               // scores, then p
@@ -433,8 +445,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float qr[G][DPL], acc[G][DPL];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
-    load_vec<T, DPL>(q + ((size_t)s * H + kvh * G + r) * HD + ln * DPL,
-                     qr[r]);
+    load_vec<T, DPL>(
+        q + (size_t)s * q_stride + (kvh * G + r) * HD + ln * DPL, qr[r]);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   }
@@ -571,7 +583,7 @@ struct Args {
   void* out;
   float* part;
   int* counters;
-  int S, H, n_kv, bs, mb, P, n_split;
+  int S, H, n_kv, bs, mb, P, n_split, q_stride;
   float scale;
   cudaStream_t stream;
 };
@@ -591,7 +603,7 @@ cudaError_t launch_split(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
       static_cast<const T*>(a.vc), a.tables, a.write_pos,
       static_cast<T*>(a.out), a.part, a.counters, a.H, a.n_kv, a.bs, a.mb,
-      a.P, a.n_split, stages, a.scale);
+      a.P, a.n_split, stages, a.q_stride, a.scale);
   return cudaGetLastError();
 }
 
@@ -601,20 +613,22 @@ cudaError_t launch_one_pass(const Args& a) {
                                   a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
       static_cast<const T*>(a.vc), a.tables, a.write_pos,
-      static_cast<T*>(a.out), a.H, a.n_kv, a.bs, a.mb, a.scale);
+      static_cast<T*>(a.out), a.H, a.n_kv, a.bs, a.mb, a.q_stride, a.scale);
   return cudaGetLastError();
 }
 
 // Only the (head dim, group) pairs of ops/flash_decode.py SHAPES are
-// instantiated: LLAMA_TINY's (32, 2), Llama-2-7B/13B's (128, 1) and the GQA
-// parity case (128, 4). Another pair returns cudaErrorInvalidValue (the
-// wrapper rejects it first).
+// instantiated: LLAMA_TINY's (32, 2), GPT-2's (64, 1) (every size: small,
+// medium, large and XL have 64-dim heads and no GQA), Llama-2-7B/13B's
+// (128, 1) and the GQA parity case (128, 4). Another pair returns
+// cudaErrorInvalidValue (the wrapper rejects it first).
 template <bool kSplit, typename T>
 cudaError_t launch_t(const Args& a, int hd) {
   const int group = a.H / a.n_kv;
 #define FD_LAUNCH(HD, G) \
   return kSplit ? launch_split<T, HD, G>(a) : launch_one_pass<T, HD, G>(a)
   if (hd == 32 && group == 2) FD_LAUNCH(32, 2);
+  if (hd == 64 && group == 1) FD_LAUNCH(64, 1);
   if (hd == 128 && group == 1) FD_LAUNCH(128, 1);
   if (hd == 128 && group == 4) FD_LAUNCH(128, 4);
 #undef FD_LAUNCH
@@ -631,20 +645,21 @@ int launch(const Args& a, int hd, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers of
-// contiguous tensors: q/out [S, H, hd], kc/vc [nb, bs, n_kv, hd] (16-byte
-// aligned), tables [S, mb] int32, write_pos [S] int32. Return
-// cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers: q [S, H,
+// hd] with slot rows q_stride elements apart (heads and dims contiguous;
+// q_stride * sizeof(T) a multiple of 16), contiguous out [S, H, hd] and
+// kc/vc [nb, bs, n_kv, hd] (q, kc, vc 16-byte aligned), tables [S, mb]
+// int32, write_pos [S] int32. Return cudaGetLastError().
 
 // The first version: one block per (slot, kv head).
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
                             const void* tables, const void* write_pos,
                             void* out, int S, int H, int n_kv, int hd,
-                            int bs, int mb, float scale, int dtype,
-                            void* stream) {
+                            int bs, int mb, int q_stride, float scale,
+                            int dtype, void* stream) {
   const Args a{q, kc, vc, static_cast<const int*>(tables),
                static_cast<const int*>(write_pos), out, nullptr, nullptr,
-               S, H, n_kv, bs, mb, 0, 0, scale,
+               S, H, n_kv, bs, mb, 0, 0, q_stride, scale,
                static_cast<cudaStream_t>(stream)};
   return launch<false>(a, hd, dtype);
 }
@@ -659,8 +674,8 @@ extern "C" int flash_decode_split(const void* q, const void* kc,
                                   const void* write_pos, void* out,
                                   void* part, void* counters, int S, int H,
                                   int n_kv, int hd, int bs, int mb, int P,
-                                  int n_split, float scale, int dtype,
-                                  void* stream) {
+                                  int n_split, int q_stride, float scale,
+                                  int dtype, void* stream) {
   const long long T = (long long)mb * bs;
   if (P <= 0 || P % kRows || n_split > kMaxSplits
       || n_split != (T > 0 ? (T + P - 1) / P : 1)
@@ -669,7 +684,7 @@ extern "C" int flash_decode_split(const void* q, const void* kc,
   const Args a{q, kc, vc, static_cast<const int*>(tables),
                static_cast<const int*>(write_pos), out,
                static_cast<float*>(part), static_cast<int*>(counters),
-               S, H, n_kv, bs, mb, P, n_split, scale,
+               S, H, n_kv, bs, mb, P, n_split, q_stride, scale,
                static_cast<cudaStream_t>(stream)};
   return launch<true>(a, hd, dtype);
 }

@@ -4,7 +4,9 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_decode.py:flash_decode``
 (the TPU kernel this replaces). One-token attention for every serving
 slot: q ``[S, H, hd]`` against the paged pools ``[n_blocks, block_size,
 n_kv, hd]`` through the block tables ``[S, max_blocks]`` (int32),
-attending positions ``<= write_pos[s]``. GQA maps query head ``h`` onto kv
+attending positions ``<= write_pos[s]``. q's slot rows may lie apart
+(GPT's q is a view of its fused qkv projection, rows ``3 * hidden``
+apart): the kernels read it through its slot stride, no copy. GQA maps query head ``h`` onto kv
 head ``h // (H // n_kv)``. Returns ``[S, H, hd]`` in q's dtype.
 
 The TPU kernel's ``kv_heads_per_step`` tuner knob shaped its VMEM use; the
@@ -33,9 +35,9 @@ from . import _build
 __all__ = ["flash_decode", "flash_decode_reference", "split_plan"]
 
 # (head dim, H // n_kv) pairs the kernels are instantiated for, each in bf16
-# and fp32: LLAMA_TINY's (32, 2), Llama-2-7B's and 13B's (128, 1), and the
-# GQA parity case (128, 4)
-SHAPES = ((32, 2), (128, 1), (128, 4))
+# and fp32: LLAMA_TINY's (32, 2), every GPT-2 size's (64, 1), Llama-2-7B's
+# and 13B's (128, 1), and the GQA parity case (128, 4)
+SHAPES = ((32, 2), (64, 1), (128, 1), (128, 4))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the split kernel's chunk (positions staged at a time) and most splits per
 # slot: csrc/flash_decode.cu's kRows and kMaxSplits, whose C entry rejects
@@ -44,9 +46,9 @@ CHUNK = 64
 MAX_SPLITS = 16
 _ENTRY = {"split": "flash_decode_split", "one_pass": "flash_decode"}
 _ARGTYPES = {
-    "split": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    "split": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
-    "one_pass": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    "one_pass": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
 }
 # per (device, stream): the split kernel's merge counters, one per (slot,
@@ -124,8 +126,12 @@ def _check(q, kc_pool, vc_pool, tables, write_pos):
         raise ValueError("flash_decode: q, pools, tables and write_pos "
                          "disagree in shape")
     check_supported(q.dtype, H, n_kv, hd)
-    for name, t in zip(("q", "kc_pool", "vc_pool", "tables", "write_pos"),
-                       ts):
+    if q.stride(2) != 1 or q.stride(1) != hd or q.stride(0) < H * hd \
+            or q.stride(0) * q.element_size() % 16:
+        raise ValueError(f"flash_decode: q strides {q.stride()}; want each "
+                         "slot's heads and dims contiguous and slot rows a "
+                         "multiple of 16 bytes apart")
+    for name, t in zip(("kc_pool", "vc_pool", "tables", "write_pos"), ts[1:]):
         if not t.is_contiguous():
             raise ValueError(f"flash_decode: {name} must be contiguous")
     for name, t in (("q", q), ("kc_pool", kc_pool), ("vc_pool", vc_pool)):
@@ -162,7 +168,7 @@ def flash_decode(q, kc_pool, vc_pool, tables, write_pos, scale=None):
     mb = tables.shape[1]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     variant = _variant(q, kc_pool)
     fn = _build.load("flash_decode", _ENTRY[variant], _ARGTYPES[variant])
     args = (q.data_ptr(), kc_pool.data_ptr(), vc_pool.data_ptr(),
@@ -178,11 +184,11 @@ def flash_decode(q, kc_pool, vc_pool, tables, write_pos, scale=None):
                 cnt = _counter_buffer(q.device, stream, S * n_kv)
             err = fn(*args, 0 if part is None else part.data_ptr(),
                      0 if cnt is None else cnt.data_ptr(), S, H, n_kv, hd,
-                     bs, mb, P, n_split, float(scale), _DTYPES[q.dtype],
-                     stream)
-        else:
-            err = fn(*args, S, H, n_kv, hd, bs, mb, float(scale),
+                     bs, mb, P, n_split, q.stride(0), float(scale),
                      _DTYPES[q.dtype], stream)
+        else:
+            err = fn(*args, S, H, n_kv, hd, bs, mb, q.stride(0),
+                     float(scale), _DTYPES[q.dtype], stream)
     _build.check(err, _ENTRY[variant])
     flash_decode.launches += 1
     flash_decode.launches_by_variant[variant] += 1

@@ -1,4 +1,4 @@
-"""Iteration-level (continuous) batching engine for Llama.
+"""Iteration-level (continuous) batching engine for Llama and GPT.
 
 Counterpart of ``paddle_tpu/serving/engine.py``:
 
@@ -30,7 +30,11 @@ Counterpart of ``paddle_tpu/serving/engine.py``:
   chain past the tokens it already emitted. Greedy engines never touch
   the keys.
 - The ``_*_impl`` functions are plain torch functions over
-  ``text/generation.py``'s per-layer bodies, run under
+  ``text/generation.py``'s per-layer bodies, reached through the model's
+  arch object (``generation.arch_for``, the counterpart of JAX's
+  ``_make_arch`` and of its programs' ``arch`` branches: GPT's learned
+  positions enter at the embedding, its KV heads are its query heads,
+  and ``max_len`` may not run past its position table), run under
   ``torch.inference_mode()``. They update the KV storage and the keys IN
   PLACE (the JAX programs donated and returned them).
 
@@ -42,7 +46,7 @@ device synchronisation, with or without sampling.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item): tensor parallelism (``tp>1``), speculative decoding,
-``adopt``/supervisor/fleet, AOT program handles and GPT. Tracing spans are
+``adopt``/supervisor/fleet and AOT program handles. Tracing spans are
 not emitted. A seed is taken modulo 2^32 (the JAX engine's
 ``np.uint32(seed)`` refuses one outside ``[0, 2^32)``).
 """
@@ -133,46 +137,42 @@ def _next_tokens(logits, tok, active, keys, temps, *, do_sample, top_k,
     return torch.where(active, nxt, tok.long())
 
 
-def _prefill_impl(w, kc, vc, keys, ids, n_prompt, slot, seed, skip, temp,
-                  vmask, *, n_heads, n_kv, eps, theta, do_sample, top_k,
-                  top_p):
+def _prefill_impl(arch, kc, vc, keys, ids, n_prompt, slot, seed, skip, temp,
+                  vmask, *, do_sample, top_k, top_p):
     """Slot layout: prefill one request (ids [1, Lb], right-padded to its
     bucket) into lines ``[0, Lb)`` of slab row ``slot``, in place. Lines
     past ``n_prompt`` hold padding KV, which the causal bound hides until
     a decode step overwrites them. Returns the first token (0-dim)."""
     Lb = ids.shape[1]
     pos = torch.arange(Lb, device=ids.device)
-    x = w["embed"][ids]
-    for l, lw in enumerate(w["layers"]):
-        x, (k, v) = G._llama_prefill_layer(x, lw, pos, n_heads=n_heads,
-                                           n_kv=n_kv, eps=eps, theta=theta)
+    x = arch.embed(ids, pos)
+    for l, lw in enumerate(arch.layers):
+        x, (k, v) = arch.prefill_layer(x, lw, pos)
         kc[l, slot, :Lb] = k[0]
         vc[l, slot, :Lb] = v[0]
-    logits0 = G._rms(x[0, n_prompt - 1], w["norm"], eps) @ w["head"]
+    logits0 = arch.logits(x[0, n_prompt - 1])
     return _first_token(logits0, keys, slot, seed, skip, temp, vmask,
                         do_sample=do_sample, top_k=top_k, top_p=top_p)
 
 
-def _decode_impl(w, kc, vc, tok, cur_pos, active, keys, temps, vmasks, *,
-                 n_heads, n_kv, eps, theta, do_sample, top_k, top_p):
+def _decode_impl(arch, kc, vc, tok, cur_pos, active, keys, temps, vmasks, *,
+                 do_sample, top_k, top_p):
     """Slot layout: one fused decode step; every row writes its new K/V at
     line ``cur_pos`` of its own slab row (an inactive row writes garbage
     into a line of its free slot that any later occupant overwrites
     before reading). Returns the next token of every slot [S]."""
-    xt = w["embed"][tok][:, None]
-    for l, lw in enumerate(w["layers"]):
-        xt = G._llama_decode_layer(xt, lw, kc[l], vc[l], cur_pos, cur_pos,
-                                   None, n_heads=n_heads, n_kv=n_kv,
-                                   eps=eps, theta=theta)
-    logits = G._rms(xt[:, 0], w["norm"], eps) @ w["head"]
+    xt = arch.embed(tok, cur_pos)[:, None]
+    for l, lw in enumerate(arch.layers):
+        xt = arch.decode_layer(xt, lw, kc[l], vc[l], cur_pos, cur_pos, None)
+    logits = arch.logits(xt[:, 0])
     logits = torch.where(vmasks > 0, logits, float("-inf"))
     return _next_tokens(logits, tok, active, keys, temps,
                         do_sample=do_sample, top_k=top_k, top_p=top_p)
 
 
-def _paged_prefill_impl(w, kc, vc, keys, ids, n_prompt, slot, seed, skip,
-                        temp, table_row, skip_write, vmask, *, n_heads, n_kv,
-                        eps, theta, do_sample, top_k, top_p, block_size):
+def _paged_prefill_impl(arch, kc, vc, keys, ids, n_prompt, slot, seed, skip,
+                        temp, table_row, skip_write, vmask, *, do_sample,
+                        top_k, top_p, block_size):
     """Prefill one request (ids [1, Lb], right-padded to its bucket): the
     full causal forward, K/V written in place into the pools through the
     slot's block-table row. Positions below ``skip_write`` (radix-shared
@@ -186,47 +186,44 @@ def _paged_prefill_impl(w, kc, vc, keys, ids, n_prompt, slot, seed, skip,
     dest = torch.where(writable, table_row[pos // bs] * bs + pos % bs,
                        pos % bs)
     _, nb, _, kvh, hd = kc.shape
-    x = w["embed"][ids]
-    for l, lw in enumerate(w["layers"]):
-        x, (k, v) = G._llama_prefill_layer(x, lw, pos, n_heads=n_heads,
-                                           n_kv=n_kv, eps=eps, theta=theta)
+    x = arch.embed(ids, pos)
+    for l, lw in enumerate(arch.layers):
+        x, (k, v) = arch.prefill_layer(x, lw, pos)
         kc[l].view(nb * bs, kvh, hd)[dest] = k[0]
         vc[l].view(nb * bs, kvh, hd)[dest] = v[0]
-    logits0 = G._rms(x[0, n_prompt - 1], w["norm"], eps) @ w["head"]
+    logits0 = arch.logits(x[0, n_prompt - 1])
     return _first_token(logits0, keys, slot, seed, skip, temp, vmask,
                         do_sample=do_sample, top_k=top_k, top_p=top_p)
 
 
-def _paged_decode_impl(w, kc, vc, tables, tok, cur_pos, active, keys, temps,
-                       vmasks, *, n_heads, n_kv, eps, theta, do_sample, top_k,
-                       top_p, block_size, flash_decode=False):
+def _paged_decode_impl(arch, kc, vc, tables, tok, cur_pos, active, keys,
+                       temps, vmasks, *, do_sample, top_k, top_p, block_size,
+                       flash_decode=False):
     """One fused paged decode step: every decode-active slot advances one
-    token at its own position, writing K/V in place through its block
-    table (inactive rows, a slot part-way through a chunked prefill
-    among them, write into the trash block) and attending over its pages
-    -- gathered, or through the flash-decode kernel. Returns the next
-    token of every slot [S]."""
+    token at its own position (GPT's learned position ``wpe[cur_pos]``
+    enters at the embedding), writing K/V in place through its block
+    table (inactive rows, a slot part-way through a chunked prefill among
+    them, write into the trash block) and attending over its pages --
+    gathered, or through the flash-decode kernel. Returns the next token
+    of every slot [S]."""
     S = tok.shape[0]
     bs = block_size
     rows = torch.arange(S, device=tok.device)
     blk = tables[rows, cur_pos // bs]
     dest = torch.where(active, blk * bs + cur_pos % bs, cur_pos % bs)
-    xt = w["embed"][tok][:, None]
-    for l, lw in enumerate(w["layers"]):
-        xt = G._llama_decode_layer_paged(
-            xt, lw, kc[l], vc[l], tables, dest, cur_pos, cur_pos,
-            n_heads=n_heads, n_kv=n_kv, eps=eps, theta=theta,
-            flash_decode=flash_decode)
-    logits = G._rms(xt[:, 0], w["norm"], eps) @ w["head"]
+    xt = arch.embed(tok, cur_pos)[:, None]
+    for l, lw in enumerate(arch.layers):
+        xt = arch.paged_decode_layer(xt, lw, kc[l], vc[l], tables, dest,
+                                     cur_pos, flash_decode)
+    logits = arch.logits(xt[:, 0])
     logits = torch.where(vmasks > 0, logits, float("-inf"))
     return _next_tokens(logits, tok, active, keys, temps,
                         do_sample=do_sample, top_k=top_k, top_p=top_p)
 
 
-def _paged_chunk_impl(w, kc, vc, keys, ids, chunk_start, n_prompt, slot,
+def _paged_chunk_impl(arch, kc, vc, keys, ids, chunk_start, n_prompt, slot,
                       table_row, skip_write, is_final, seed, skip, temp,
-                      vmask, *, n_heads, n_kv, eps, theta, do_sample, top_k,
-                      top_p, block_size):
+                      vmask, *, do_sample, top_k, top_p, block_size):
     """One block-aligned prefill CHUNK of one slot (ids [1, C], global
     positions ``chunk_start + j``), co-scheduled with the fused decode
     step: through every layer, its K/V scattered in place into the pool
@@ -241,15 +238,14 @@ def _paged_chunk_impl(w, kc, vc, keys, ids, chunk_start, n_prompt, slot,
     # the last chunk may run past the table; those rows write nowhere real
     blk = table_row[(gpos // bs).clamp(max=table_row.shape[0] - 1)]
     wdest = torch.where(writable, blk * bs + gpos % bs, gpos % bs)
-    x = w["embed"][ids]
-    for l, lw in enumerate(w["layers"]):
-        x = G._llama_chunk_layer(x, lw, kc[l], vc[l], table_row, gpos, wdest,
-                                 n_heads=n_heads, n_kv=n_kv, eps=eps,
-                                 theta=theta, block_size=bs)
+    x = arch.embed(ids, gpos)
+    for l, lw in enumerate(arch.layers):
+        x = arch.chunk_layer(x, lw, kc[l], vc[l], table_row, gpos, wdest,
+                             bs)
     if not is_final:
         return None
     li = min(max(n_prompt - 1 - chunk_start, 0), C - 1)
-    logits0 = G._rms(x[0, li], w["norm"], eps) @ w["head"]
+    logits0 = arch.logits(x[0, li])
     return _first_token(logits0, keys, slot, seed, skip, temp, vmask,
                         do_sample=do_sample, top_k=top_k, top_p=top_p)
 
@@ -328,8 +324,9 @@ class _ChunkState:
 
 
 class Engine:
-    """Continuous-batching serving engine over a ``LlamaForCausalLM`` of
-    this package (see the module docstring). Runs on the model's device.
+    """Continuous-batching serving engine over a ``LlamaForCausalLM`` or
+    ``GPTForCausalLM`` of this package (see the module docstring). Runs on
+    the model's device.
 
     The sampling mode (``do_sample``, ``top_k``, ``top_p``) is engine-wide;
     temperature, seed, length and logit mask are per request."""
@@ -340,11 +337,8 @@ class Engine:
                  kv_layout="paged", block_size=16, n_blocks=None,
                  prefill_chunk=None, prefix_sharing=True, tp=1,
                  flash_decode=False, speculative=None):
-        name = type(model).__name__
-        if name == "GPTForCausalLM":
-            raise _not_in_slice("serving GPT", "GPT serving")
-        if name != "LlamaForCausalLM":
-            raise TypeError(f"Engine serves LlamaForCausalLM, got {name}")
+        # the arch dispatch (JAX's _make_arch): Llama or GPT, TypeError else
+        self._arch = arch = G.arch_for(model)
         if int(tp) != 1:
             raise _not_in_slice("tp > 1", "multi-GPU (tensor-parallel "
                                 "serving)")
@@ -359,15 +353,13 @@ class Engine:
                              "'paged' (the block-table operands)")
         c = model.config
         self.device = model.device
-        self._w = G.layer_weights(model)
-        hp = dict(n_heads=c.num_attention_heads, n_kv=c.num_key_value_heads,
-                  eps=c.rms_norm_eps, theta=c.rope_theta)
-        self._statics = dict(hp, do_sample=bool(do_sample),
-                             top_k=int(top_k),
+        self._statics = dict(do_sample=bool(do_sample), top_k=int(top_k),
                              top_p=None if top_p is None else float(top_p))
         self.n_slots = int(n_slots)
         self.max_len = int(max_len if max_len is not None
                            else c.max_position_embeddings)
+        if arch.max_pos is not None and self.max_len > arch.max_pos:
+            raise ValueError("max_len exceeds the position table")
         self.eos_token_id = eos_token_id
         self.min_prompt_bucket = int(min_prompt_bucket)
         self.base_seed = int(base_seed)
@@ -375,15 +367,12 @@ class Engine:
         self.prefix_sharing = bool(prefix_sharing) and kv_layout == "paged"
         self._chunking = []        # in-progress chunked prefills (paged)
         self.chunk_used = False    # the chunk program has run
-        dtype = self._w["embed"].dtype
-        geo = (c.num_hidden_layers, self.n_slots, self.max_len,
-               c.num_key_value_heads, c.hidden_size // c.num_attention_heads,
-               dtype)
+        geo = (c.num_hidden_layers, self.n_slots, self.max_len, arch.n_kv,
+               arch.head_dim, arch.dtype)
         if kv_layout == "paged":
             if self.flash_decode and self.device.type == "cuda":
-                _fd.check_supported(dtype, c.num_attention_heads,
-                                    c.num_key_value_heads,
-                                    c.hidden_size // c.num_attention_heads)
+                _fd.check_supported(arch.dtype, arch.n_heads, arch.n_kv,
+                                    arch.head_dim)
             self.block_size = int(block_size)
             if prefill_chunk is not None:
                 prefill_chunk = int(prefill_chunk)
@@ -406,7 +395,7 @@ class Engine:
         # per-slot key chains, temperatures and vocab masks live on the
         # device: admission writes a slot's row, the decode step splits
         # the keys in place, and nothing reads them back
-        self._vocab = int(self._w["head"].shape[-1])
+        self._vocab = arch.vocab
         self._keys = torch.zeros((self.n_slots, 2), dtype=torch.int64,
                                  device=self.device)
         self._temps = torch.ones(self.n_slots, dtype=torch.float32,
@@ -565,7 +554,7 @@ class Engine:
         with torch.inference_mode():
             self._set_request_rows(h, slot)
             tok0 = int(_prefill_impl(
-                self._w, self.cache.kc, self.cache.vc, self._keys,
+                self._arch, self.cache.kc, self.cache.vc, self._keys,
                 torch.from_numpy(ids).to(self.device), n_eff, slot, h.seed,
                 k, self._temps[slot], self._vmask[slot], **self._statics))
         self.metrics.prefills += 1
@@ -615,7 +604,7 @@ class Engine:
         dev = self.device
         with torch.inference_mode():
             tok0 = int(_paged_prefill_impl(
-                self._w, self.cache.kc, self.cache.vc, self._keys,
+                self._arch, self.cache.kc, self.cache.vc, self._keys,
                 torch.from_numpy(ids).to(dev), n_eff, slot, h.seed, k,
                 self._temps[slot],
                 torch.from_numpy(self.cache.block_tables[slot]).to(dev),
@@ -643,7 +632,7 @@ class Engine:
         dev = self.device
         with torch.inference_mode():
             tok0 = _paged_chunk_impl(
-                self._w, self.cache.kc, self.cache.vc, self._keys,
+                self._arch, self.cache.kc, self.cache.vc, self._keys,
                 torch.from_numpy(ids).to(dev), start, cs.n_eff, h.slot,
                 torch.from_numpy(self.cache.block_tables[h.slot]).to(dev),
                 cs.n_shared, is_final, h.seed, cs.skip,
@@ -782,11 +771,11 @@ class Engine:
                      self._keys, self._temps, self._vmask)
             if paged:
                 nxt = _paged_decode_impl(
-                    self._w, self.cache.kc, self.cache.vc,
+                    self._arch, self.cache.kc, self.cache.vc,
                     buf[3 * S:].view(S, -1), *state,
                     flash_decode=self.flash_decode, **self._paged_statics)
             else:
-                nxt = _decode_impl(self._w, self.cache.kc, self.cache.vc,
+                nxt = _decode_impl(self._arch, self.cache.kc, self.cache.vc,
                                    *state, **self._statics)
             toks = nxt.cpu().numpy().astype(np.int32)    # the step's sync
         self._tok = toks

@@ -1,25 +1,31 @@
-"""Per-layer Llama bodies, sampling filters and ``generate()``.
+"""Per-layer Llama and GPT bodies, sampling filters and ``generate()``.
 
-Counterpart of the Llama parts of ``paddle_tpu/text/generation.py``:
-``_rms``, ``_rope_rows``, ``_nucleus_filter``, ``_filter_logits``,
-``_prompt_mask``, the slot-layout bodies ``_llama_prefill_layer`` and
-``_llama_decode_layer``, the paged bodies ``_paged_view``,
-``_paged_decode_attention``, ``_llama_decode_layer_paged`` and
-``_llama_chunk_layer``, and batch ``generate()`` (``_generate`` stands for
-``_generate_jit``). The serving engine and ``generate()`` run the same
-bodies, as in the JAX package. The arithmetic mirrors the JAX bodies step
-for step, including where bf16 rounds (RMSNorm casts before the weight
-multiply, rotary rotates in fp32, softmax probabilities are cast to the
-model dtype before the PV product) and where masked scores are set to
-``-1e30``. Sampling draws its noise from ``ops.prng``, JAX's threefry
-words bit for bit.
+Counterpart of ``paddle_tpu/text/generation.py`` on one device: ``_rms``,
+``_ln``, ``_rope_rows``, ``_nucleus_filter``, ``_filter_logits``,
+``_prompt_mask``; the slot-layout bodies ``_llama_prefill_layer``,
+``_llama_decode_layer``, ``_gpt_prefill_layer`` and ``_gpt_decode_layer``;
+the paged bodies ``_paged_view``, ``_paged_decode_attention``,
+``_llama_decode_layer_paged``, ``_gpt_decode_layer_paged``,
+``_llama_chunk_layer`` and ``_gpt_chunk_layer``; and batch ``generate()``
+/ ``gpt_generate()`` (``_generate`` stands for both ``_generate_jit`` and
+``_gpt_generate_jit``). The serving engine and ``generate()`` run the
+same bodies, as in the JAX package, through an arch object
+(``arch_for``: ``_LlamaArch`` or ``_GPTArch``, the counterpart of the
+JAX engine's ``_make_arch`` and of the ``arch`` branches of its
+programs). The arithmetic mirrors the JAX bodies step for step,
+including where bf16 rounds (RMSNorm and LayerNorm cast before the
+weight multiply, rotary rotates in fp32, softmax probabilities are cast
+to the model dtype before the PV product) and where masked scores are
+set to ``-1e30``. Sampling draws its noise from ``ops.prng``, JAX's
+threefry words bit for bit.
 
 The bodies write K/V IN PLACE into the caches they are given (the JAX
-bodies return updated caches). ``layer_weights`` takes the place of
-``_stacked_weights``: a list of per-layer dicts that reference the
+bodies return updated caches). ``layer_weights`` and
+``gpt_layer_weights`` take the place of ``_stacked_weights`` and
+``_gpt_stacked_weights``: a list of per-layer dicts that reference the
 module's parameters. Stacking would copy every weight (13.5 GB more at
 7B), and a Python loop over layers needs no stacked operand. Beam search
-and GPT generation are not ported (``ROADMAP.md``, port queue item 3).
+is not ported (``ROADMAP.md``, port queue item 3).
 """
 from __future__ import annotations
 
@@ -28,26 +34,34 @@ import math
 import torch
 import torch.nn.functional as TF
 
+from ..nn.functional.norm import layer_norm
 from ..nn.layer.norm import rms_norm as _rms
 from ..ops import flash_decode as _fd
 from ..ops import prng as _prng
-from .models.llama import _rope
+from .models.gpt import GPTForCausalLM
+from .models.llama import LlamaForCausalLM, _rope
 
-__all__ = ["layer_weights", "generate"]
+__all__ = ["arch_for", "layer_weights", "gpt_layer_weights", "generate",
+           "gpt_generate"]
 
 
-def layer_weights(model):
-    """Per-layer weight views of a LlamaForCausalLM (no copies):
-    ``{"layers": [{"wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln1",
-    "ln2"}, ...], "embed", "norm", "head"}``; ``head`` is ``[h, vocab]``.
-    A model whose parameters ``fleet.distributed_model`` split over ranks
-    holds blocks, not weights: it raises."""
+def _check_unsplit(model):
+    """A model whose parameters ``fleet.distributed_model`` split over
+    ranks holds blocks, not weights: generation and serving raise."""
     if any(a is not None for p in model.parameters()
            for a in getattr(p, "placement", ())):
         raise NotImplementedError(
             "generation and serving on a model split over ranks (tp or "
             "sharding stage 3) are not in the port yet (ROADMAP.md, port "
             "queue item 4: multi-GPU, Engine(tp))")
+
+
+def layer_weights(model):
+    """Per-layer weight views of a LlamaForCausalLM (no copies):
+    ``{"layers": [{"wq", "wk", "wv", "wo", "wg", "wu", "wd", "ln1",
+    "ln2"}, ...], "embed", "norm", "head"}``; ``head`` is ``[h, vocab]``.
+    Raises on a model split over ranks."""
+    _check_unsplit(model)
     layers = []
     for l in model.llama.layers:
         a, m = l.self_attn, l.mlp
@@ -61,6 +75,33 @@ def layer_weights(model):
         })
     return {"layers": layers, "embed": model.llama.embed_tokens.weight,
             "norm": model.llama.norm.weight, "head": model.head_weight()}
+
+
+# the per-layer keys of _GPT_STACK_KEYS, each a view of a block's parameter
+_GPT_LAYER_PARAMS = {
+    "wqkv": ("qkv", "weight"), "bqkv": ("qkv", "bias"),
+    "wproj": ("proj", "weight"), "bproj": ("proj", "bias"),
+    "ln1w": ("ln_1", "weight"), "ln1b": ("ln_1", "bias"),
+    "ln2w": ("ln_2", "weight"), "ln2b": ("ln_2", "bias"),
+    "wfc1": ("fc1", "weight"), "bfc1": ("fc1", "bias"),
+    "wfc2": ("fc2", "weight"), "bfc2": ("fc2", "bias"),
+}
+
+
+def gpt_layer_weights(model):
+    """Per-layer weight views of a GPTForCausalLM (no copies): ``{"layers":
+    [{"wqkv", "bqkv", "wproj", "bproj", "ln1w", "ln1b", "ln2w", "ln2b",
+    "wfc1", "bfc1", "wfc2", "bfc2"}, ...], "wte", "wpe", "lnfw", "lnfb",
+    "head"}``; ``head`` is ``[h, vocab]``. Raises on a model split over
+    ranks."""
+    _check_unsplit(model)
+    g = model.gpt
+    layers = [{k: getattr(getattr(b, mod), attr)
+               for k, (mod, attr) in _GPT_LAYER_PARAMS.items()}
+              for b in g.blocks]
+    return {"layers": layers, "wte": g.wte.weight, "wpe": g.wpe.weight,
+            "lnfw": g.ln_f.weight, "lnfb": g.ln_f.bias,
+            "head": model.lm_head.weight}
 
 
 def _rope_rows(q, k, pos, theta, dtype):
@@ -286,36 +327,248 @@ def _llama_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
 
 
 # ---------------------------------------------------------------------------
+# GPT (pre-LN, learned positions, one fused qkv projection)
+# ---------------------------------------------------------------------------
+
+def _ln(x, w, b, eps=1e-5):
+    """LayerNorm as the JAX ``_ln``: fp32 mean and population variance,
+    the normalized value cast to x's dtype, then times w, plus b."""
+    return layer_norm(x, x.shape[-1], w, b, eps)
+
+
+def _gpt_qkv(x, lw, n_heads):
+    """q, k, v [B, L, H, hd] of one GPT block: the fused projection of
+    ``ln_1(x)`` split into views (no copy)."""
+    B, L, h = x.shape
+    qkv = _ln(x, lw["ln1w"], lw["ln1b"]) @ lw["wqkv"] + lw["bqkv"]
+    return (t.reshape(B, L, n_heads, h // n_heads)
+            for t in qkv.split(h, dim=-1))
+
+
+def _gpt_tail(x, o, lw):
+    """A GPT block after attention: the projected attention output o
+    [B, L, h] added to x, then the erf-GELU MLP of ``ln_2`` added."""
+    x = x + o @ lw["wproj"] + lw["bproj"]
+    h2 = _ln(x, lw["ln2w"], lw["ln2b"])
+    return x + TF.gelu(h2 @ lw["wfc1"] + lw["bfc1"]) @ lw["wfc2"] \
+        + lw["bfc2"]
+
+
+def _gpt_prefill_layer(x, lw, *, n_heads):
+    """One GPT block over a full [B, L] prompt (causal; positions enter at
+    the wpe embedding). Returns (x, (k, v)), k/v [B, L, H, hd]."""
+    B, L, h = x.shape
+    hd = h // n_heads
+    q, k, v = _gpt_qkv(x, lw, n_heads)
+    s = torch.matmul(q.transpose(1, 2).float(),
+                     k.transpose(1, 2).float().transpose(-1, -2)) \
+        / math.sqrt(hd)
+    cm = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    s = s.masked_fill(~cm, -1e30)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.matmul(p, v.transpose(1, 2)).transpose(1, 2).reshape(B, L, h)
+    return _gpt_tail(x, o, lw), (k, v)
+
+
+def _gpt_decode_layer(xt, lw, kc_l, vc_l, write_idx, key_mask, *, n_heads):
+    """One GPT block advancing every row one token against a slot-layout
+    cache (learned positions enter at the embedding, so only the cache
+    line matters here). kc_l/vc_l [B, T, H, hd], written in place at row
+    ``b``, line ``write_idx[b]``; key_mask as in the Llama decode layer."""
+    B, T = kc_l.shape[0], kc_l.shape[1]
+    h = xt.shape[-1]
+    hd = h // n_heads
+    q, k, v = _gpt_qkv(xt, lw, n_heads)
+    rows = torch.arange(B, device=xt.device)
+    kc_l[rows, write_idx] = k[:, 0]
+    vc_l[rows, write_idx] = v[:, 0]
+    s = torch.einsum("bhd,bthd->bht", q[:, 0].float(), kc_l.float()) \
+        / math.sqrt(hd)
+    valid = (torch.arange(T, device=xt.device)[None, :]
+             <= write_idx[:, None])
+    if key_mask is not None:
+        valid = valid & key_mask
+    s = s.masked_fill(~valid[:, None, :], -1e30)
+    p = torch.softmax(s, dim=-1).to(xt.dtype)
+    o = torch.einsum("bht,bthd->bhd", p, vc_l).reshape(B, 1, h)
+    return _gpt_tail(xt, o, lw)
+
+
+def _gpt_decode_layer_paged(xt, lw, kc_pool, vc_pool, tables, dest,
+                            write_pos, *, n_heads, flash_decode=False):
+    """One GPT block advancing every slot one token against the paged pool:
+    only the pool write (in place, at flat pool index ``dest``; inactive
+    rows into the trash block) and the attention through the block tables
+    differ from the slot body. ``flash_decode=True`` runs the flash-decode
+    kernel (its plain version on a CPU tensor)."""
+    S = xt.shape[0]
+    h = xt.shape[-1]
+    hd = h // n_heads
+    q, k, v = _gpt_qkv(xt, lw, n_heads)
+    nb, bs = kc_pool.shape[0], kc_pool.shape[1]
+    kc_pool.view(nb * bs, n_heads, hd)[dest] = k[:, 0]
+    vc_pool.view(nb * bs, n_heads, hd)[dest] = v[:, 0]
+    o = _paged_decode_attention(q[:, 0], kc_pool, vc_pool, tables,
+                                write_pos, flash_decode,
+                                xt.dtype).reshape(S, 1, h)
+    return _gpt_tail(xt, o, lw)
+
+
+def _gpt_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
+                     n_heads, block_size):
+    """One GPT block over one block-aligned prefill CHUNK of one slot (x
+    [1, C, h] at global positions ``gpos``, which entered at the wpe
+    embedding): K/V in place to ``wdest``, then the chunk's rows attend
+    over the slot's gathered view under ``view_pos <= gpos``."""
+    B, C, h = x.shape
+    hd = h // n_heads
+    q, k, v = _gpt_qkv(x, lw, n_heads)
+    nb, bs = kc_pool.shape[0], kc_pool.shape[1]
+    kc_pool.view(nb * bs, n_heads, hd)[wdest] = k[0]
+    vc_pool.view(nb * bs, n_heads, hd)[wdest] = v[0]
+    kview = _paged_view(kc_pool, table_row[None], block_size)
+    vview = _paged_view(vc_pool, table_row[None], block_size)
+    s = torch.matmul(q.transpose(1, 2).float(),
+                     kview.transpose(1, 2).float().transpose(-1, -2)) \
+        / math.sqrt(hd)
+    T = kview.shape[1]
+    cm = torch.arange(T, device=x.device)[None, :] <= gpos[:, None]
+    s = s.masked_fill(~cm[None, None], -1e30)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.matmul(p, vview.transpose(1, 2)).transpose(1, 2).reshape(
+        B, C, h)
+    return _gpt_tail(x, o, lw)
+
+
+# ---------------------------------------------------------------------------
+# the arch dispatch: generate() and the serving engine's programs
+# ---------------------------------------------------------------------------
+
+class _Arch:
+    """What ``generate()`` and the engine's programs need of a model:
+    its per-layer weights (``layers``), head counts, KV dtype, vocabulary,
+    position table (``max_pos``, None where positions have no table), and
+    how a token enters (``embed``), passes one layer in each KV layout,
+    and leaves (``logits``)."""
+
+    max_pos = None
+
+    def __init__(self, w, n_heads, n_kv, head_dim):
+        self.w = w
+        self.layers = w["layers"]
+        self.n_heads, self.n_kv, self.head_dim = n_heads, n_kv, head_dim
+        self.vocab = int(w["head"].shape[-1])
+
+
+class _LlamaArch(_Arch):
+    def __init__(self, model):
+        c = model.config
+        w = layer_weights(model)
+        super().__init__(w, c.num_attention_heads, c.num_key_value_heads,
+                         c.hidden_size // c.num_attention_heads)
+        self.dtype = w["embed"].dtype
+        self.eps = c.rms_norm_eps
+        self.hp = dict(n_heads=self.n_heads, n_kv=self.n_kv, eps=self.eps,
+                       theta=c.rope_theta)
+
+    def embed(self, ids, pos):
+        return self.w["embed"][ids]
+
+    def logits(self, x):
+        return _rms(x, self.w["norm"], self.eps) @ self.w["head"]
+
+    def prefill_layer(self, x, lw, pos):
+        return _llama_prefill_layer(x, lw, pos, **self.hp)
+
+    def decode_layer(self, xt, lw, kc, vc, write_idx, rope_pos, key_mask):
+        return _llama_decode_layer(xt, lw, kc, vc, write_idx, rope_pos,
+                                   key_mask, **self.hp)
+
+    def paged_decode_layer(self, xt, lw, kc, vc, tables, dest, pos, flash):
+        return _llama_decode_layer_paged(xt, lw, kc, vc, tables, dest, pos,
+                                         pos, flash_decode=flash, **self.hp)
+
+    def chunk_layer(self, x, lw, kc, vc, table_row, gpos, wdest,
+                    block_size):
+        return _llama_chunk_layer(x, lw, kc, vc, table_row, gpos, wdest,
+                                  block_size=block_size, **self.hp)
+
+
+class _GPTArch(_Arch):
+    def __init__(self, model):
+        c = model.config
+        w = gpt_layer_weights(model)
+        n_heads = c.num_attention_heads
+        super().__init__(w, n_heads, n_heads, c.hidden_size // n_heads)
+        self.dtype = w["wte"].dtype
+        self.max_pos = c.max_position_embeddings
+
+    def embed(self, ids, pos):
+        # a last prefill chunk's pad rows may lie past the table: they read
+        # its last row, as JAX's gather clamps, and write only to the trash
+        # block
+        pos = pos.clamp(max=self.max_pos - 1)
+        return self.w["wte"][ids] + self.w["wpe"][pos]
+
+    def logits(self, x):
+        return _ln(x, self.w["lnfw"], self.w["lnfb"]) @ self.w["head"]
+
+    def prefill_layer(self, x, lw, pos):
+        return _gpt_prefill_layer(x, lw, n_heads=self.n_heads)
+
+    def decode_layer(self, xt, lw, kc, vc, write_idx, rope_pos, key_mask):
+        return _gpt_decode_layer(xt, lw, kc, vc, write_idx, key_mask,
+                                 n_heads=self.n_heads)
+
+    def paged_decode_layer(self, xt, lw, kc, vc, tables, dest, pos, flash):
+        return _gpt_decode_layer_paged(xt, lw, kc, vc, tables, dest, pos,
+                                       n_heads=self.n_heads,
+                                       flash_decode=flash)
+
+    def chunk_layer(self, x, lw, kc, vc, table_row, gpos, wdest,
+                    block_size):
+        return _gpt_chunk_layer(x, lw, kc, vc, table_row, gpos, wdest,
+                                n_heads=self.n_heads, block_size=block_size)
+
+
+def arch_for(model):
+    """The arch object of a LlamaForCausalLM or GPTForCausalLM of this
+    package (per-layer weight views, no copies); TypeError otherwise."""
+    if isinstance(model, LlamaForCausalLM):
+        return _LlamaArch(model)
+    if isinstance(model, GPTForCausalLM):
+        return _GPTArch(model)
+    raise TypeError(f"generation and serving take LlamaForCausalLM or "
+                    f"GPTForCausalLM, got {type(model).__name__}")
+
+
+# ---------------------------------------------------------------------------
 # batch generate()
 # ---------------------------------------------------------------------------
 
-def _generate(w, ids, prompt_len_mask, key, *, n_heads, n_kv, eps, theta,
-              max_new, do_sample, top_k, eos_id, temperature, top_p=None,
-              padded=False):
-    """``_generate_jit``'s counterpart. ids [B, L0] (right-padded prompt),
-    prompt_len_mask [B, L0] (1 = real token), key [2] on ids' device. With
-    ``padded`` each row's rotary positions continue from its own prompt
-    length and its pad lines are masked out of decode attention. Returns
-    [B, L0 + max_new] int64."""
+def _generate(arch, ids, prompt_len_mask, key, *, max_new, do_sample, top_k,
+              eos_id, temperature, top_p=None, padded=False):
+    """``_generate_jit``'s and ``_gpt_generate_jit``'s counterpart. ids
+    [B, L0] (right-padded prompt), prompt_len_mask [B, L0] (1 = real
+    token), key [2] on ids' device. With ``padded`` each row's positions
+    (rotary, or GPT's wpe row) continue from its own prompt length and its
+    pad lines are masked out of decode attention. Returns [B, L0 +
+    max_new] int64."""
     B, L0 = ids.shape
     dev = ids.device
-    hd = w["embed"].shape[1] // n_heads
     T = L0 + max_new
-    dt = w["embed"].dtype
-    hp = dict(n_heads=n_heads, n_kv=n_kv, eps=eps, theta=theta)
     # prefill: the full causal pass over the (padded) prompt
-    x = w["embed"][ids]
     pos = torch.arange(L0, device=dev)
-    kcache = [torch.zeros((B, T, n_kv, hd), dtype=dt, device=dev)
-              for _ in w["layers"]]
+    x = arch.embed(ids, pos)
+    kcache = [torch.zeros((B, T, arch.n_kv, arch.head_dim),
+                          dtype=arch.dtype, device=dev) for _ in arch.layers]
     vcache = [torch.zeros_like(c) for c in kcache]
-    for lw, kc, vc in zip(w["layers"], kcache, vcache):
-        x, (k, v) = _llama_prefill_layer(x, lw, pos, **hp)
+    for lw, kc, vc in zip(arch.layers, kcache, vcache):
+        x, (k, v) = arch.prefill_layer(x, lw, pos)
         kc[:, :L0] = k
         vc[:, :L0] = v
     prompt_len = prompt_len_mask.sum(dim=1).long()
-    hidden = _rms(x, w["norm"], eps)
-    logits0 = hidden[torch.arange(B, device=dev), prompt_len - 1] @ w["head"]
+    logits0 = arch.logits(x[torch.arange(B, device=dev), prompt_len - 1])
 
     def sample(logits, sk):
         # one key draws over all B * V logits, as one
@@ -336,14 +589,14 @@ def _generate(w, ids, prompt_len_mask, key, *, n_heads, n_kv, eps, theta,
                                       device=dev)], dim=1)
                 if padded else None)
     for i in range(1, max_new):
-        xt = w["embed"][tok][:, None]
         write_idx = torch.full((B,), L0 + i - 1, dtype=torch.long,
                                device=dev)
         rope_pos = prompt_len + (i - 1) if padded else write_idx
-        for lw, kc, vc in zip(w["layers"], kcache, vcache):
-            xt = _llama_decode_layer(xt, lw, kc, vc, write_idx, rope_pos,
-                                     key_mask, **hp)
-        logits = _rms(xt[:, 0], w["norm"], eps) @ w["head"]
+        xt = arch.embed(tok, rope_pos)[:, None]
+        for lw, kc, vc in zip(arch.layers, kcache, vcache):
+            xt = arch.decode_layer(xt, lw, kc, vc, write_idx, rope_pos,
+                                   key_mask)
+        logits = arch.logits(xt[:, 0])
         key, sk = _prng.split(key)
         nxt = sample(logits, sk)
         if eos_id is not None:
@@ -358,33 +611,43 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False, top_k=0,
              temperature=1.0, eos_token_id=None, seed=0, top_p=None,
              pad_token_id=None, attention_mask=None):
     """Greedy or sampled (top-k / top-p) generation for a
-    ``LlamaForCausalLM`` of this package, on the model's device.
+    ``LlamaForCausalLM`` or ``GPTForCausalLM`` of this package, on the
+    model's device.
 
     input_ids [B, L0]. Right-padded prompts: pass ``pad_token_id`` (the
     mask follows from trailing pad tokens) and/or an explicit
     ``attention_mask`` [B, L0]; pad positions are excluded from attention
-    and each row's generated tokens take rotary positions continuing from
-    its own prompt length. Without either, every token is real context.
-    Sampling draws from ``PRNGKey(seed)``, split once per token, as the
-    JAX package does. Returns int64 [B, L0 + max_new_tokens]; raises
-    ValueError for ``max_new_tokens < 1`` (the JAX package refuses it
-    too: its first token has nowhere to go)."""
+    and each row's generated tokens take positions continuing from its own
+    prompt length. Without either, every token is real context. Sampling
+    draws from ``PRNGKey(seed)``, split once per token, as the JAX package
+    does. Returns int64 [B, L0 + max_new_tokens]. Raises ValueError for
+    ``max_new_tokens < 1`` (the JAX package refuses it too: its first
+    token has nowhere to go) and, for GPT, when a position would run past
+    the wpe table (``L0 + max_new_tokens - 1 > max_position_embeddings``;
+    the JAX package reads clamped or NaN-filled rows there)."""
     if int(max_new_tokens) < 1:
         raise ValueError(f"generate: max_new_tokens={max_new_tokens}; want "
                          "at least 1")
-    c = model.config
+    arch = arch_for(model)
     dev = model.device
     ids = torch.as_tensor(input_ids, device=dev).long()
     if ids.dim() == 1:
         ids = ids[None]
+    max_new = int(max_new_tokens)
+    if arch.max_pos is not None and ids.shape[1] + max_new - 1 \
+            > arch.max_pos:
+        raise ValueError(f"generate: prompt ({ids.shape[1]}) + "
+                         f"max_new_tokens ({max_new}) runs past the position "
+                         f"table ({arch.max_pos} positions)")
     mask = _prompt_mask(ids, pad_token_id, attention_mask)
     padded = pad_token_id is not None or attention_mask is not None
     with torch.inference_mode():
         return _generate(
-            layer_weights(model), ids, mask, _prng.prng_key(seed, dev),
-            n_heads=c.num_attention_heads, n_kv=c.num_key_value_heads,
-            eps=c.rms_norm_eps, theta=c.rope_theta,
-            max_new=int(max_new_tokens), do_sample=bool(do_sample),
-            top_k=int(top_k), eos_id=eos_token_id,
+            arch, ids, mask, _prng.prng_key(seed, dev), max_new=max_new,
+            do_sample=bool(do_sample), top_k=int(top_k), eos_id=eos_token_id,
             temperature=torch.tensor(float(temperature), device=dev),
             top_p=None if top_p is None else float(top_p), padded=padded)
+
+
+#: ``paddle_tpu``'s name for GPT generation; ``generate`` takes both archs
+gpt_generate = generate

@@ -1,8 +1,10 @@
 from .ernie_moe import (ERNIE_MOE_TINY, ErnieMoEConfig, ErnieMoEForPretraining,
                         ErnieMoEModel)
+from .gpt import GPT_TINY, GPTConfig, GPTForCausalLM, GPTModel
 from .llama import (LLAMA2_7B, LLAMA2_13B, LLAMA_TINY, LlamaConfig,
                     LlamaForCausalLM)
 
 __all__ = ["ERNIE_MOE_TINY", "ErnieMoEConfig", "ErnieMoEForPretraining",
-           "ErnieMoEModel", "LLAMA2_7B", "LLAMA2_13B", "LLAMA_TINY",
+           "ErnieMoEModel", "GPT_TINY", "GPTConfig", "GPTForCausalLM",
+           "GPTModel", "LLAMA2_7B", "LLAMA2_13B", "LLAMA_TINY",
            "LlamaConfig", "LlamaForCausalLM"]

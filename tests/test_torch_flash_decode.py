@@ -98,9 +98,18 @@ def test_kernel_is_built_for_every_llama_config(name, dtype):
                        c.hidden_size // c.num_attention_heads)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,heads", [(768, 12), (1024, 16), (1280, 20),
+                                          (1600, 25)])
+def test_kernel_is_built_for_every_gpt2_size(hidden, heads, dtype):
+    """GPT-2 small, medium, large and XL: 64-dim heads, no GQA."""
+    fd.check_supported(dtype, heads, heads, hidden // heads)
+
+
 @pytest.mark.parametrize("dtype,H,n_kv,hd,exc", [
     (torch.float16, 32, 32, 128, TypeError),
-    (torch.float32, 32, 32, 64, ValueError),      # head dim not built
+    (torch.float32, 32, 16, 64, ValueError),      # group 2 at hd 64 not built
+    (torch.float32, 32, 32, 96, ValueError),      # head dim not built
     (torch.bfloat16, 64, 8, 128, ValueError),     # group 8 not built
     (torch.float32, 6, 4, 32, ValueError),        # heads not a multiple
 ])

@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
 PyTorch version, the engine's kernel path against its gathered path
-(greedy, and sampled with chunked prefill), the threefry words against
-the known ``jax.random`` words, and the tiny Llama and ERNIE-MoE trainers
-and a PTQ'd tiny Llama on the card against the same models on the CPU.
+(greedy, and sampled with chunked prefill; Llama and GPT), the threefry
+words against the known ``jax.random`` words, and the tiny Llama and
+ERNIE-MoE trainers and a PTQ'd tiny Llama on the card against the same
+models on the CPU.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -35,7 +36,8 @@ from paddle_tpu_torch.ops import stochastic_round as sr
 from paddle_tpu_torch.nn import quant as tq
 from paddle_tpu_torch.serving import Engine
 from paddle_tpu_torch.text.models import (ERNIE_MOE_TINY,
-                                          ErnieMoEForPretraining)
+                                          ErnieMoEForPretraining, GPTConfig,
+                                          GPTForCausalLM)
 from paddle_tpu_torch.text.models.llama import LLAMA_TINY, LlamaForCausalLM
 
 pytestmark = pytest.mark.gpu
@@ -75,7 +77,9 @@ def _decode_case(rng, S, H, n_kv, hd, nb, bs, mb):
     (5, 32, 8, 128, 128, 8, True),           # an edge inside a block
     (5, 8, 4, 32, 8, 200, True),             # 1600 positions, P = 128
     (5, 32, 8, 128, 16, 128, True),          # GQA 4 on the 2-stage ring
-    (5, 32, 32, 128, 16, 256, True)])        # 4096 positions, P = 256
+    (5, 32, 32, 128, 16, 256, True),         # 4096 positions, P = 256
+    (5, 12, 12, 64, 16, 32, True),           # GPT-2's (64, 1), 512
+    (5, 12, 12, 64, 16, 64, True)])          # and 1,024 positions
 def test_flash_decode_kernel_matches_plain(cuda, dtype, S, H, n_kv, hd, bs,
                                            mb, edges):
     """Under ``chip_smoke.judge_decode`` (per (slot, head) relative
@@ -127,6 +131,58 @@ def test_flash_decode_first_kernel_still_matches_plain(cuda, dtype):
     assert ok, (rel, zeros)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mb", [32, 64])
+def test_flash_decode_gpt2_heads_and_their_planted_faults(cuda, dtype, mb):
+    """GPT-2's heads (head dim 64, group 1) at its engine's 512- and
+    1,024-position tables, slots at a split edge, one slot empty, q a
+    strided view as GPT's fused qkv projection gives it: the split kernel
+    passes ``judge_decode`` and all four planted faults (``decode_faults``,
+    the next-kv-head one reading head h against kv head h + 1) fail it,
+    with chunk edges at 64 and at ``P``."""
+    P = fd.split_plan(mb, 16)[0]
+    q, kc, vc, tables, wp = chip_smoke.decode_case(
+        8, 12, 12, 64, 16, mb, mb + 1, dtype, seed=mb,
+        fixed=((2, P - 1), (3, P), (4, P + 1)))
+    wp[1] = -1
+    qkv = torch.zeros((8, 3 * 768), dtype=dtype, device=cuda)
+    qkv[:, :768] = q.reshape(8, 768)
+    q_view = qkv[:, :768].view(8, 12, 64)             # rows 3h apart
+    before = fd.flash_decode.launches_by_variant["split"]
+    got = fd.flash_decode(q_view, kc, vc, tables, wp)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches_by_variant["split"] == before + 1
+    want = fd.flash_decode_reference(q, kc, vc, tables, wp)
+    tol = chip_smoke.DECODE_TOL[dtype]
+    rel, zeros, ok = chip_smoke.judge_decode(got, want, wp, tol)
+    assert ok, (rel, zeros)
+    for chunk in sorted({64, P}):
+        faults = chip_smoke.decode_faults(fd, q, kc, vc, tables, wp, chunk)
+        assert len(faults) == 4
+        for name, bad in faults.items():
+            assert not chip_smoke.judge_decode(bad, want, wp, tol)[2], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_first_kernel_at_gpt2_heads(cuda, dtype):
+    """The first version forced at GPT-2's heads (64, 1), 1,024 positions,
+    on a strided q: phase 7 times it beside the split kernel."""
+    q, kc, vc, tables, wp = chip_smoke.decode_case(8, 12, 12, 64, 16, 64,
+                                                   65, dtype, seed=7)
+    qkv = torch.zeros((8, 3 * 768), dtype=dtype, device=cuda)
+    qkv[:, :768] = q.reshape(8, 768)
+    before = fd.flash_decode.launches_by_variant["one_pass"]
+    with chip_smoke.forced_variant(fd, "one_pass"):
+        got = fd.flash_decode(qkv[:, :768].view(8, 12, 64), kc, vc, tables,
+                              wp)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches_by_variant["one_pass"] == before + 1
+    want = fd.flash_decode_reference(q, kc, vc, tables, wp)
+    rel, zeros, ok = chip_smoke.judge_decode(got, want, wp,
+                                             chip_smoke.DECODE_TOL[dtype])
+    assert ok, (rel, zeros)
+
+
 def test_flash_decode_rejects_what_the_kernel_does_not_take(cuda):
     args = _decode_case(np.random.default_rng(4), 2, 8, 4, 32, 10, 8, 3)
     q, kc, vc, tables, wp = (torch.from_numpy(a).to(cuda) for a in args)
@@ -138,6 +194,12 @@ def test_flash_decode_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="built for"):   # group 8
         fd.flash_decode(q, kc[:, :, :1].contiguous(),
                         vc[:, :, :1].contiguous(), tables, wp)
+    odd = torch.zeros((2, 8 * 32 + 1), device=cuda)     # rows 1028 B apart
+    with pytest.raises(ValueError, match="strides"):
+        fd.flash_decode(odd[:, :256].view(2, 8, 32), kc, vc, tables, wp)
+    with pytest.raises(ValueError, match="strides"):      # heads apart
+        fd.flash_decode(q.transpose(0, 1).contiguous().transpose(0, 1), kc,
+                        vc, tables, wp)
 
 
 def test_engine_rejects_an_unbuilt_decode_shape_at_construction(cuda):
@@ -499,6 +561,50 @@ def test_sampled_chunked_engine_kernel_and_gathered_token_identical(cuda):
                             if flash else 0)
         assert st["chunked_prefills"] == 4 and eng.cache.check_refcounts()
     assert toks[True] == toks[False]
+
+
+def test_gpt_engine_kernel_and_gathered_paths_token_identical(cuda):
+    """A GPT at head dim 64 (hidden 256, 4 heads, 2 layers, fp32, full fp32
+    products) through the kernel engine and the gathered engine, greedy
+    and sampled with chunked prefill: identical tokens, one launch per
+    layer per decode step on the kernel path, equal to ``generate()``'s
+    for greedy; the scoring forward takes the flash path."""
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=1024,
+                    max_position_embeddings=256, dropout=0.0)
+    pt.seed(0)
+    m = GPTForCausalLM(cfg, device=cuda).eval()
+    rng = np.random.default_rng(9)
+    sys_p = rng.integers(0, cfg.vocab_size, 18)
+    prompts = [np.concatenate([sys_p, rng.integers(0, cfg.vocab_size, n)])
+               for n in (3, 30, 4, 41)]
+    for kw in ({}, dict(do_sample=True, top_k=8, top_p=0.9,
+                        prefill_chunk=16)):
+        toks = {}
+        for flash in (False, True):
+            eng = Engine(m, n_slots=2, max_len=256, min_prompt_bucket=4,
+                         block_size=8, flash_decode=flash, **kw)
+            start = fd.flash_decode.launches
+            hs = [eng.submit(p, max_new_tokens=6, temperature=0.7,
+                             seed=1000 + i) for i, p in enumerate(prompts)]
+            eng.drain()
+            toks[flash] = [list(h.tokens) for h in hs]
+            launches = fd.flash_decode.launches - start
+            assert launches == (cfg.num_hidden_layers
+                                * eng.stats()["decode_steps"] if flash
+                                else 0)
+            assert eng.cache.check_refcounts()
+        assert toks[True] == toks[False], kw
+        if not kw:
+            for p, t in zip(prompts, toks[True]):
+                gen = m.generate(torch.from_numpy(p[None]).to(cuda),
+                                 max_new_tokens=6)
+                assert gen[0, len(p):].tolist() == t
+    before = fa.flash_attention.launches
+    with torch.inference_mode():
+        m(torch.zeros((1, 128), dtype=torch.long, device=cuda))
+    assert F.attention_path()["path"] == "flash"
+    assert fa.flash_attention.launches == before + cfg.num_hidden_layers
 
 
 def test_prng_words_on_the_card_equal_the_known_words(cuda):

@@ -3,9 +3,10 @@
 ``paddle_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any
 module of the JAX package (even those that do not import JAX): checked by
 an AST scan, by importing every module of the port, and by serving a
-request, taking Llama and ERNIE-MoE train steps, a tensor-parallel Llama
-step on two spawned ranks, and quantizing and running a tiny Llama and
-both stochastic quantizers in processes where importing either fails.
+Llama and a GPT request, taking Llama and ERNIE-MoE train steps, a
+tensor-parallel Llama step on two spawned ranks, and quantizing and
+running a tiny Llama and both stochastic quantizers in processes where
+importing either fails.
 Entry points default to CUDA and raise when it is absent.
 """
 import ast
@@ -68,6 +69,14 @@ def test_serves_a_request_with_jax_unimportable():
                      flash_decode=True)
         out = eng.submit(np.arange(5), max_new_tokens=3).result()
         assert out.shape == (8,), out
+        from paddle_tpu_torch.text.models import GPT_TINY, GPTForCausalLM
+        gpt = GPTForCausalLM(GPT_TINY, device="cpu").eval()
+        eng = Engine(gpt, n_slots=1, max_len=32, block_size=8,
+                     flash_decode=True, prefill_chunk=8)
+        out = eng.submit(np.arange(11), max_new_tokens=3).result()
+        assert out.shape == (14,), out
+        assert gpt.generate(np.arange(11)[None], max_new_tokens=3)[
+            0].tolist() == out.tolist()
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK")

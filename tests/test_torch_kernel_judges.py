@@ -32,9 +32,10 @@ every planted fault made from the plain version.
   split-K form whose chunks are merged by their lse. Faults
   (``decode_faults``): each slot's last attended position dropped; the
   last chunk of the longest slot dropped; a block-table entry of the
-  longest slot read one block off at a chunk edge; with GQA, each query
-  head read against the next kv head -- chunks of 64 positions and of the
-  split kernel's split length.
+  longest slot read one block off at a chunk edge; with more than one kv
+  head, each query head read against the next kv head (at group 1, head h
+  against kv head h + 1) -- chunks of 64 positions and of the split
+  kernel's split length.
 
 The judges import torch and numpy only; the card applies them to the
 kernels (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
@@ -93,6 +94,7 @@ def _tiled_online(q, k, v, causal, tile=64):
     (1, 160, 224, 4, 2, 32, True),      # Lq < Lk, GQA
     (2, 200, 136, 2, 2, 16, True),      # Lq > Lk: fully masked rows
     (1, 128, 200, 2, 1, 32, False),     # non-causal, ragged keys
+    (1, 256, 256, 3, 3, 64, True),      # GPT-2's causal D=64, MHA
 ])
 def test_forward_judge_passes_the_plain_version_and_fails_the_faults(
         dtype, B, Lq, Lk, Hq, Hkv, D, causal):
@@ -382,6 +384,8 @@ def _decode_split_k(q, kc, vc, tables, wp, split=256):
     (4, 8, 8, 64, 16, 128),      # 2048 positions at the engine's bs
     (4, 8, 2, 64, 16, 32),       # GQA
     (3, 4, 4, 64, 128, 4),       # a block spans two 64-position chunks
+    (4, 12, 12, 64, 16, 32),     # GPT-2's heads (64, 1) at 512 positions
+    (4, 12, 12, 64, 16, 64),     # and at its 1,024-position table
 ])
 def test_decode_judge_passes_the_plain_version_and_fails_the_faults(
         dtype, S, H, n_kv, hd, bs, mb, edge):
@@ -398,7 +402,7 @@ def test_decode_judge_passes_the_plain_version_and_fails_the_faults(
         assert ok, (form.__name__, rel, zeros)
     chunk = 64 if edge == "64" else fd.split_plan(mb, bs)[0]
     faults = chip_smoke.decode_faults(fd, *args, chunk=chunk)
-    assert len(faults) == (4 if n_kv < H else 3)
+    assert len(faults) == (4 if n_kv > 1 else 3)
     for name, bad in faults.items():
         assert not chip_smoke.judge_decode(bad, want, wp, tol)[2], name
 
