@@ -142,6 +142,23 @@ failure raises and exits non-zero before the result line is printed:
     of the prompts, 16 tokens, equal to 13b's engine tokens. Tokens/s,
     TTFT and ITL p50/p95, the scoring latency and peak memory are printed
     beside the card's name and power limit.
+14. tensor-parallel serving (after phase 13): ``Engine(model, tp=2)`` as
+    two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+    device), each holding the whole fp32 model on the CPU and only its
+    shards and half the KV heads on the card. 14a: GPT-2 small at its
+    published widths and depth with phase 13's 9 requests; 14b:
+    Llama-2-7B widths cut to 4 layers (12b's cut) with phase 5's
+    workload; each greedy, then sampled + chunked (top_k 50, top_p 0.9,
+    temperature 0.6, seeds 1000 + i, ``prefill_chunk=64``). Each rank's
+    tokens must equal those of a tp=1 engine on the same weights on the
+    card (fp32, TF32 off); no flash-decode launch (refused with tp > 1,
+    as in JAX); each run's collectives as counted by
+    ``collective_matmul.launches`` equal 2 per layer per prefill, chunk
+    and decode step plus one all-gather per decode step and sampling
+    prefill (``tp_collectives``); each rank's pool holds half the kv
+    heads. Peak memory per rank, tokens/s, TTFT and ITL over gloo are
+    printed: two processes sharing one card through the host, not
+    multi-GPU speeds.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -3001,6 +3018,207 @@ def phase_gpt2(fa, fd, F, Engine, ledger, GPTConfig, GPTForCausalLM, seed):
     return out["13a"]["launches"], launches, slaunches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_LLAMA_LAYERS = PAIR_LAYERS   # 14b's depth cut, 12b's: two ranks' gloo
+                                # traffic is staged through the host
+TP_SAMPLED = dict(do_sample=True, top_k=50, top_p=0.9, prefill_chunk=64)
+TP_STATS = ("decode_steps", "prefills", "chunked_prefills", "chunk_steps",
+            "prefix_hit_tokens", "preemptions", "kv_cache_bytes")
+
+
+def tp_cell(name):
+    """(model class, fp32 config, engine geometry, prompts) of a phase-14
+    cell: 14a GPT-2 small at its published widths and depth with phase
+    13's 9 requests; 14b Llama-2-7B widths cut to ``TP_LLAMA_LAYERS``
+    layers with phase 5's workload."""
+    from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.text.models.llama import (LLAMA2_7B,
+                                                    LlamaForCausalLM)
+    if name == "14a":
+        cfg = dataclasses.replace(GPTConfig(), dtype="float32")
+        return GPTForCausalLM, cfg, GPT2_GEO, gpt2_workload(cfg.vocab_size)
+    cfg = dataclasses.replace(LLAMA2_7B, dtype="float32",
+                              num_hidden_layers=TP_LLAMA_LAYERS)
+    return LlamaForCausalLM, cfg, SERVE_GEO, workload(cfg.vocab_size, seed=1)
+
+
+def tp_model(name, device):
+    """The cell's fp32 model from seed 0 on ``device``, in eval mode."""
+    import paddle_tpu_torch as pt
+    cls, cfg, _, _ = tp_cell(name)
+    pt.seed(0)
+    return cls(cfg, device=device).eval()
+
+
+def tp_serve(model, Engine, ledger, geo, prompts, sampled, **kw):
+    """One staggered run, 32 new tokens each (sampled: ``TP_SAMPLED``,
+    temperature 0.6, seeds 1000 + i): every request must finish with 32
+    tokens and the engine free its KV. Returns (tokens, stats, ledger,
+    wall seconds)."""
+    eng = Engine(model, **geo, **(TP_SAMPLED if sampled else {}), **kw)
+    per_request = ([dict(temperature=0.6, seed=1000 + i)
+                    for i in range(len(prompts))] if sampled else None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = staggered(eng, prompts, 32, per_request)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(h.finished and h.finish_reason == "length"
+               and len(h.tokens) == 32 for h in hs):
+        raise AssertionError(f"{kw}: a request did not finish with 32 "
+                             f"tokens")
+    if eng.cache.n_free != eng.n_slots or not eng.cache.check_refcounts():
+        raise AssertionError(f"{kw}: the engine did not free its KV")
+    return [list(h.tokens) for h in hs], eng.stats(), ledger(hs), wall
+
+
+def _tp_worker(workdir, name):
+    """One of phase 14's two ranks on cuda:0 (gloo): the cell's whole fp32
+    model on the CPU, ``Engine(model, tp=2)`` holding this rank's shards
+    and half the KV heads on the card, greedy then sampled + chunked, the
+    flash-decode and collective counts set to 0 just before each run and
+    read just after."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective_matmul as cm
+    from paddle_tpu_torch.ops import flash_decode as fd
+    from paddle_tpu_torch.serving import Engine, ledger
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", device="cuda:0", timeout=600)
+    rank = dist.get_rank()
+    _, _, geo, prompts = tp_cell(name)
+    model = tp_model(name, "cpu")          # no card holds all of it
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(rank=rank, backend=torch.distributed.get_backend(), runs={})
+    for what, sampled in (("greedy", False), ("sampled", True)):
+        reset_counts(fd.flash_decode)
+        for k in cm.launches:
+            cm.launches[k] = 0
+        toks, st, led, wall = tp_serve(model, Engine, ledger, geo, prompts,
+                                       sampled, tp=2)
+        out["runs"][what] = dict(
+            tokens=toks, wall_s=wall, ledger=led,
+            flash_decode_launches=fd.flash_decode.launches,
+            collectives=dict(cm.launches), mesh=st["mesh"],
+            **{k: st[k] for k in TP_STATS})
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(workdir, f"tp.{name}.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def tp_collectives(n_layers, run):
+    """The collectives the tp programs of a run must issue: an all-reduce
+    for each row-parallel projection (2 a layer) of every prefill, chunk
+    and decode step, and the head's all-gather for every decode step and
+    every prefill that samples (a chunked prompt's final chunk)."""
+    calls = run["prefills"] - run["chunked_prefills"] + run["chunk_steps"]
+    return {"all_reduce": 2 * n_layers * (calls + run["decode_steps"]),
+            "all_gather": run["decode_steps"] + run["prefills"]}
+
+
+def phase_tp(Engine, ledger, load_numpy_state_dict,
+             workdir="build/phase14"):
+    """Phase 14: ``Engine(model, tp=2)`` as two ranks sharing cuda:0 over
+    gloo (NCCL refuses two ranks on one device), each holding the whole
+    fp32 model on the CPU and its shards and half the KV heads on the
+    card. Per cell (``tp_cell``), greedy and then sampled + chunked, each
+    rank's tokens must equal those of a tp=1 fp32 engine on the same
+    weights on the card (TF32 off): fp32 changes only the order of the
+    sums. No flash-decode launch (refused with tp > 1, as in JAX); the
+    collectives each run issues (``tp_collectives``); the pool at half
+    the kv heads. Throughput and ITL over gloo are two processes sharing
+    one card through the host, not multi-GPU speeds."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    smi = smi_line()
+    result = {}
+    try:
+        for name in ("14a", "14b"):
+            _, cfg, geo, prompts = tp_cell(name)
+            # the tp=1 reference: the same seed-0 draws, made on the CPU as
+            # the ranks make them, copied into a model on the card
+            card = tp_model(name, "cuda")
+            load_numpy_state_dict(card, {
+                k: v.numpy() for k, v in tp_model(name, "cpu")
+                .state_dict().items()})
+            ref = {what: tp_serve(card, Engine, ledger, geo, prompts, s)
+                   for what, s in (("greedy", False), ("sampled", True))}
+            del card
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            dist.spawn(_tp_worker, args=(workdir, name), nprocs=2,
+                       timeout=900)
+            spawn_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(workdir, f"tp.{name}.r{r}.json")) as f:
+                    ranks.append(json.load(f))
+            n = cfg.num_hidden_layers
+            n_kv = getattr(cfg, "num_key_value_heads",
+                           cfg.num_attention_heads)
+            cell = dict(layers=n, backend=ranks[0]["backend"],
+                        peak_gib_per_rank=[rk["peak_gib"] for rk in ranks],
+                        spawn_s=spawn_s, runs={})
+            for what, (toks, st, led, wall) in ref.items():
+                got = [rk["runs"][what] for rk in ranks]
+                same = [g["tokens"] == toks for g in got]
+                log(f"  {name} {what}: tp=2 tokens identical to tp=1 on "
+                    f"rank 0 / rank 1: {same} ({agreement(got[0]['tokens'], toks)})"
+                    f"; decode steps {got[0]['decode_steps']}, chunk steps "
+                    f"{got[0]['chunk_steps']}, prefix_hit_tokens "
+                    f"{got[0]['prefix_hit_tokens']}, collectives "
+                    f"{got[0]['collectives']}, flash_decode launches "
+                    f"{[g['flash_decode_launches'] for g in got]}")
+                log(f"  {name} {what} tp=2 over gloo, rank 0: wall "
+                    f"{got[0]['wall_s']:.2f} s, ledger "
+                    f"{json.dumps(got[0]['ledger'])}; tp=1 on the card: "
+                    f"wall {wall:.2f} s, ledger {json.dumps(led)} ({smi})")
+                if not all(same):
+                    raise AssertionError(f"{name} {what}: tp=2 tokens differ "
+                                         f"from tp=1's")
+                for r, g in enumerate(got):
+                    want = tp_collectives(n, g)
+                    if g["flash_decode_launches"] or g["collectives"] != want:
+                        raise AssertionError(
+                            f"{name} {what} rank {r}: flash_decode launched "
+                            f"{g['flash_decode_launches']}, collectives "
+                            f"{g['collectives']} (want 0 and {want})")
+                    m = g["mesh"]
+                    if m["kv_heads_per_device"] != n_kv // 2 \
+                            or 2 * m["kv_pool_bytes_per_device"] \
+                            != st["kv_cache_bytes"]:
+                        raise AssertionError(f"{name} rank {r}: the pool is "
+                                             f"not half the tp=1 one: {m}")
+                if what == "greedy" and got[0]["prefix_hit_tokens"] <= 0:
+                    raise AssertionError(f"{name}: no prefix hit")
+                if what == "sampled" and got[0]["chunked_prefills"] <= 0:
+                    raise AssertionError(f"{name}: no prompt was chunked")
+                cell["runs"][what] = dict(
+                    tokens_identical=True, decode_steps=got[0]["decode_steps"],
+                    chunk_steps=got[0]["chunk_steps"],
+                    collectives=got[0]["collectives"],
+                    wall_s=[g["wall_s"] for g in got],
+                    ledger=got[0]["ledger"], tp1_wall_s=wall, tp1_ledger=led,
+                    kv_pool_bytes_per_rank=got[0]["mesh"][
+                        "kv_pool_bytes_per_device"],
+                    tp1_kv_pool_bytes=st["kv_cache_bytes"])
+            log(f"  {name} peak memory per rank "
+                f"{[round(p, 3) for p in cell['peak_gib_per_rank']]} GiB "
+                f"(the pool at {n_kv // 2} of {n_kv} kv heads), spawn and "
+                f"both runs {spawn_s:.1f} s ({smi})")
+            result[name] = cell
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return result
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3136,6 +3354,14 @@ def main():
     gpt_fa_launches, gpt_fd_launches, gpt_fd_sampled, gpt2 = phase_gpt2(
         fa, fd, F, Engine, ledger, GPTConfig, GPTForCausalLM, pt.seed)
     log("  gpt2 " + json.dumps(gpt2))
+
+    # ---- 14. tensor-parallel serving -----------------------------------------
+    log(f"[14] Engine(model, tp=2) as two ranks on cuda:0 over gloo, fp32: "
+        f"14a GPT-2 small, 14b Llama-2-7B width at {TP_LLAMA_LAYERS} layers; "
+        f"greedy, then sampled + chunked, against tp=1")
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    tp = phase_tp(Engine, ledger, load_numpy_state_dict)
+    log("  tp serving " + json.dumps(tp))
 
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)

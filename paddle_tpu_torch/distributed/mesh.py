@@ -36,9 +36,9 @@ import torch
 from . import collective as C
 
 __all__ = ["AXES", "Mesh", "build_mesh", "set_mesh", "get_mesh",
-           "mesh_axis_size", "data_pspec", "infer_param_pspec",
-           "opt_state_pspec", "spec_axes", "local_block",
-           "gather_full"]
+           "configured_mesh", "mesh_axis_size", "data_pspec",
+           "infer_param_pspec", "opt_state_pspec", "spec_axes",
+           "local_block", "gather_full"]
 
 AXES = ("pp", "dp", "sharding", "sep", "tp")
 # the groups init_groups makes: each axis, and the batch-splitting pair
@@ -92,7 +92,10 @@ class Mesh:
     def init_groups(self):
         """Create the process group of every axis of size > 1, and of
         ``("dp", "sharding")``. Every rank of the world calls it, members
-        or not, so every rank creates the groups in the same order."""
+        or not, so every rank creates the groups in the same order. A mesh
+        whose groups exist keeps them."""
+        if self._groups:
+            return self
         for axes in _GROUP_AXES:
             if self.axis_size(axes) == 1:
                 continue
@@ -145,6 +148,12 @@ def build_mesh(dp=1, tp=1, pp=1, sharding=1, sep=1, world_size=None,
 def set_mesh(mesh: Optional[Mesh]):
     global _global_mesh
     _global_mesh = mesh
+
+
+def configured_mesh() -> Optional[Mesh]:
+    """The mesh ``fleet.init`` or ``set_mesh`` set (or ``get_mesh``'s
+    default once made); None before any."""
+    return _global_mesh
 
 
 def get_mesh() -> Mesh:

@@ -1,6 +1,6 @@
 """Continuous-batching serving (PyTorch port of ``paddle_tpu.serving``;
 Llama and GPT, greedy or sampled, paged or slot KV layout, chunked
-prefill)."""
+prefill, tensor parallel over ranks)."""
 from .engine import (DEFAULT_RETRY_AFTER_S, Engine, EngineOverloaded,
                      RequestCancelled, RequestHandle, RequestTimeout)
 from .kv_cache import (TRASH_BLOCK, BlockPool, PagedKVCache, RadixIndex,

@@ -37,6 +37,16 @@ Counterpart of ``paddle_tpu/serving/engine.py``:
   and ``max_len`` may not run past its position table), run under
   ``torch.inference_mode()``. They update the KV storage and the keys IN
   PLACE (the JAX programs donated and returned them).
+- ``tp=N`` (paged layout) serves one model over the N ranks of a mesh's
+  ``tp`` axis, one process per GPU: each rank holds its shards of the
+  weights (the JAX placement: column-parallel q/k/v and gate/up,
+  row-parallel o/down, the vocab-sharded head; GPT's fused qkv
+  device-major) and ``n_kv // N`` heads of the KV pool, and the same
+  three programs run through a tp arch object, whose bodies reduce the
+  row-parallel projections and gather the logits over the tp group
+  (``distributed.collective_matmul``): 2 x layers + 1 collectives a
+  decode step. The JAX engine's three ``shard_map`` programs have no twin
+  here: SPMD processes need none.
 
 Host bookkeeping (scheduler, block tables, radix, positions) is numpy.
 The keys ``[n_slots, 2]``, temperatures and vocab masks live on the
@@ -45,18 +55,22 @@ copy and reads the sampled tokens back once: that read is the step's only
 device synchronisation, with or without sampling.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): tensor parallelism (``tp>1``), speculative decoding,
-``adopt``/supervisor/fleet and AOT program handles. Tracing spans are
-not emitted. A seed is taken modulo 2^32 (the JAX engine's
-``np.uint32(seed)`` refuses one outside ``[0, 2^32)``).
+``ROADMAP.md`` item): speculative decoding, ``adopt``/supervisor/fleet
+and AOT program handles. Tracing spans are not emitted. A seed is taken
+modulo 2^32 (the JAX engine's ``np.uint32(seed)`` refuses one outside
+``[0, 2^32)``).
 """
 from __future__ import annotations
 
+import hashlib
 import time
 
 import numpy as np
 import torch
 
+from ..distributed import collective as _C
+from ..distributed import mesh as _mesh
+from ..framework.device import resolve_device
 from ..ops import flash_decode as _fd
 from ..ops import prng as _prng
 from ..text import generation as G
@@ -329,19 +343,45 @@ class Engine:
     the model's device.
 
     The sampling mode (``do_sample``, ``top_k``, ``top_p``) is engine-wide;
-    temperature, seed, length and logit mask are per request."""
+    temperature, seed, length and logit mask are per request.
+
+    ``tp=N > 1`` serves the model tensor-parallel over the ``tp`` axis of
+    ``mesh`` (default: the mesh ``fleet.init`` or ``set_mesh`` set, else
+    ``build_mesh(tp=N)``; its ``tp`` axis must be N), on the process's
+    device (``cuda:LOCAL_RANK`` after ``init_parallel_env``; the CPU when
+    it was given ``device="cpu"``). The engine takes the whole model, as
+    the JAX engine does, and copies only this rank's shards to that
+    device, so the model may stay on the CPU. Paged layout only; tp must
+    divide the heads, KV heads, vocabulary, FFN and hidden sizes;
+    ``flash_decode`` is refused, as in JAX.
+
+    The SPMD contract under tp: every rank of the tp group builds the
+    engine with the same arguments and runs the same driver, calling
+    ``submit``, ``step``, ``cancel`` (and ``result``/``drain``, which
+    step) in the same order with the same arguments. Every rank then
+    samples the same token from the gathered full logits with the same
+    key chain, so every rank emits the same tokens. Two guards: each
+    ``submit`` all-reduces a hash of its arguments and raises
+    ``RuntimeError`` on every rank when they differ, instead of leaving
+    the ranks' collectives out of step; and deadlines (``max_time_s``)
+    are rank 0's, both their values (sent at ``submit``) and the clock
+    that expires them (sent at each step while a request has one), so a
+    rank whose clock disagrees cannot free a slot alone."""
 
     def __init__(self, model, n_slots=8, max_len=None, *, do_sample=False,
                  top_k=0, top_p=None, eos_token_id=None, min_prompt_bucket=8,
                  token_budget=None, max_queue=None, base_seed=0,
                  kv_layout="paged", block_size=16, n_blocks=None,
-                 prefill_chunk=None, prefix_sharing=True, tp=1,
+                 prefill_chunk=None, prefix_sharing=True, tp=1, mesh=None,
                  flash_decode=False, speculative=None):
         # the arch dispatch (JAX's _make_arch): Llama or GPT, TypeError else
         self._arch = arch = G.arch_for(model)
-        if int(tp) != 1:
-            raise _not_in_slice("tp > 1", "multi-GPU (tensor-parallel "
-                                "serving)")
+        self.tp = int(tp)
+        self._group = None
+        if self.tp > 1:
+            mesh = self._check_tp(mesh, arch, kv_layout)
+        elif mesh is not None:
+            raise ValueError("mesh= requires tp > 1")
         if speculative is not None:
             raise _not_in_slice("speculative decoding", "speculative "
                                 "decoding")
@@ -351,8 +391,18 @@ class Engine:
         if self.flash_decode and kv_layout != "paged":
             raise ValueError("flash_decode=True requires kv_layout="
                              "'paged' (the block-table operands)")
+        if self.flash_decode and self.tp > 1:
+            raise ValueError("flash_decode is not supported with tp > 1 "
+                             "yet (the TP decode shards attention over "
+                             "the mesh)")
         c = model.config
         self.device = model.device
+        if self.tp > 1:
+            # every rank makes the mesh's groups (the SPMD contract), then
+            # copies its own shards to its device
+            self._group = mesh.init_groups().group("tp")
+            self.device = resolve_device(None)
+            self._arch = arch = G.arch_for(model, self._group, self.device)
         self._statics = dict(do_sample=bool(do_sample), top_k=int(top_k),
                              top_p=None if top_p is None else float(top_p))
         self.n_slots = int(n_slots)
@@ -367,8 +417,9 @@ class Engine:
         self.prefix_sharing = bool(prefix_sharing) and kv_layout == "paged"
         self._chunking = []        # in-progress chunked prefills (paged)
         self.chunk_used = False    # the chunk program has run
-        geo = (c.num_hidden_layers, self.n_slots, self.max_len, arch.n_kv,
-               arch.head_dim, arch.dtype)
+        # under tp the pool holds this rank's n_kv // tp heads
+        geo = (c.num_hidden_layers, self.n_slots, self.max_len,
+               arch.n_kv // self.tp, arch.head_dim, arch.dtype)
         if kv_layout == "paged":
             if self.flash_decode and self.device.type == "cuda":
                 _fd.check_supported(arch.dtype, arch.n_heads, arch.n_kv,
@@ -409,6 +460,94 @@ class Engine:
         self._by_slot = [None] * self.n_slots
         self._next_id = 0
         self.buckets_seen = set()
+        self.metrics.tp = self.tp
+        if self.tp > 1:
+            g = self.tp_geometry()
+            self.metrics.kv_pool_bytes_per_device = \
+                g["kv_pool_bytes_per_device"]
+            self.metrics.collectives_per_decode_step = \
+                g["collectives_per_decode_step"]
+
+    # -- tensor parallelism ---------------------------------------------------
+
+    def _check_tp(self, mesh, arch, kv_layout):
+        """JAX's ``_init_tp`` checks: the paged layout, a tp that divides
+        every split dim, and a mesh whose ``tp`` axis is tp. Returns the
+        mesh; nothing is placed and no collective runs yet."""
+        if kv_layout != "paged":
+            raise ValueError(
+                "tensor-parallel serving requires kv_layout='paged' "
+                "(the sharded pool + block-table operands)")
+        tp = self.tp
+        for name, dim in (("num_attention_heads", arch.n_heads),
+                          ("num_key_value_heads", arch.n_kv),
+                          ("vocab (head columns)", arch.vocab),
+                          ("intermediate_size", arch.ffn),
+                          ("hidden_size", arch.n_heads * arch.head_dim)):
+            if dim % tp:
+                raise ValueError(f"tp={tp} does not divide {name}={dim}")
+        if mesh is None:
+            mesh = _mesh.configured_mesh() or _mesh.build_mesh(tp=tp)
+        if mesh.shape["tp"] != tp:
+            raise ValueError(f"mesh tp axis {mesh.shape['tp']} != tp={tp}")
+        if mesh.coords is None:
+            raise ValueError(f"rank {mesh.rank} is outside the mesh "
+                             f"{mesh.shape}")
+        return mesh
+
+    def tp_geometry(self):
+        """The tp layout at a glance: the tp degree, the group's ranks,
+        this rank's KV pool bytes and heads, and the collectives one fused
+        decode step issues (an all-reduce per row-parallel projection, two
+        a layer, and the head's all-gather). None on a single-rank
+        engine."""
+        if self.tp <= 1:
+            return None
+        return {
+            "tp": self.tp,
+            "ranks": list(self._group.ranks),
+            "device": str(self.device),
+            "kv_pool_bytes_per_device": self.cache.nbytes(),
+            "kv_heads_per_device": self.cache.kv_heads,
+            "weight_sharding": "column(qkv/gate-up) row(o/down) "
+                               "vocab(head)",
+            "collectives_per_decode_step": 2 * len(self._arch.layers) + 1,
+            "collective_kind": "all_reduce (o/down) + all_gather (head)",
+        }
+
+    def _agree(self, ids, args, logit_mask, max_time_s):
+        """The submit-time SPMD guard: one all-reduce (max) over the tp
+        group of a hash of this request's arguments and of its negation,
+        and of rank 0's deadline. Raises RuntimeError on every rank when
+        the ranks' arguments differ; returns rank 0's deadline (None
+        without ``max_time_s``)."""
+        blob = hashlib.blake2b(digest_size=8)
+        blob.update(ids.tobytes())
+        blob.update(repr(args).encode())
+        if logit_mask is not None:
+            blob.update(np.asarray(logit_mask).tobytes())
+        # 52 bits of it, exact in float64
+        hv = float(int.from_bytes(blob.digest(), "little") >> 12)
+        deadline = float("-inf")
+        if max_time_s is not None and self._group.rank == 0:
+            deadline = time.monotonic() + float(max_time_s)
+        t = torch.tensor([hv, -hv, deadline], dtype=torch.float64,
+                         device=self.device)
+        _C.all_reduce(t, _C.ReduceOp.MAX, group=self._group)
+        hi, neg_lo, deadline = t.tolist()
+        if hi != -neg_lo:
+            raise RuntimeError(
+                f"tp ranks disagree on submit() #{self._next_id}: every "
+                "rank must call submit/step/cancel in the same order with "
+                "the same arguments (the Engine's SPMD contract)")
+        return None if max_time_s is None else deadline
+
+    def _rank0_clock(self, now):
+        """Rank 0's ``time.monotonic()``, the clock every rank expires
+        deadlines by."""
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        _C.broadcast(t, src=self._group.ranks[0], group=self._group)
+        return float(t.item())
 
     # -- out of this slice --------------------------------------------------
 
@@ -450,8 +589,13 @@ class Engine:
         seed and arguments only; ``max_time_s`` is a wall-clock deadline
         over queueing and decoding; ``priority`` is the admission class (0
         first); ``logit_mask`` ([vocab], nonzero = allowed) constrains
-        every sampled position of this request."""
+        every sampled position of this request. Under tp every rank makes
+        the same calls (see the class docstring)."""
         ids = self._as_ids(prompt)
+        if self.tp > 1:
+            deadline = self._agree(
+                ids, (self._next_id, max_new_tokens, temperature, seed,
+                      max_time_s, priority), logit_mask, max_time_s)
         if ids.shape[0] < 1:
             raise ValueError("empty prompt")
         if logit_mask is not None:
@@ -482,6 +626,8 @@ class Engine:
                           self.base_seed + rid if seed is None else seed,
                           on_token, max_time_s=max_time_s, priority=priority,
                           logit_mask=logit_mask)
+        if self.tp > 1:
+            h.deadline = deadline        # rank 0's, on every rank
         self.metrics.requests_submitted += 1
         try:
             self.scheduler.enqueue(h, retry_after_s=self._retry_after_hint())
@@ -717,8 +863,16 @@ class Engine:
 
     def _expire(self):
         """Expired queued requests drop before taking a slot; expired
-        active ones free their slot and resolve with a timeout."""
+        active ones free their slot and resolve with a timeout. Under tp
+        rank 0's clock decides for every rank (the deadlines are already
+        rank 0's), read only while some request has a deadline."""
         now = time.monotonic()
+        if self.tp > 1:
+            if not (self.scheduler.has_deadlines() or any(
+                    h is not None and h.deadline is not None
+                    for h in self._by_slot)):
+                return
+            now = self._rank0_clock(now)
         for h in self.scheduler.drop_expired(now):
             self._finish(h, "timeout")
         for h in list(self._by_slot):
@@ -834,7 +988,8 @@ class Engine:
                "kv_layout": self.kv_layout,
                "active": self.cache.n_active,
                "queue_depth": self.scheduler.queue_depth,
-               "kv_cache_bytes": self.cache.nbytes(),
+               # the whole pool, over every rank under tp
+               "kv_cache_bytes": self.cache.nbytes() * self.tp,
                "prefill_buckets": sorted(self.buckets_seen),
                "chunk_program": self.chunk_used,
                "prefill_chunk": self.prefill_chunk,
@@ -846,4 +1001,6 @@ class Engine:
                "device": str(self.device)}
         if self.kv_layout == "paged":
             out.update(self.cache.pool_stats())
+        if self.tp > 1:
+            out["mesh"] = self.tp_geometry()
         return out

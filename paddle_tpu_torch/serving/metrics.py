@@ -141,6 +141,10 @@ class EngineMetrics:
         # decode-step wall times: the ~64-observation rolling window
         # drives the live ITL p50/p95 behind EngineOverloaded.retry_after_s
         self.itl_hist = Histogram(window=64)
+        # tp geometry (stamped by the engine; tp=1 on a single rank)
+        self.tp = 1
+        self.kv_pool_bytes_per_device = None
+        self.collectives_per_decode_step = None
 
     def sample(self, occupancy, queue_depth, active=0, pool_free=None,
                pool_total=None):
@@ -212,6 +216,10 @@ class EngineMetrics:
                                 else round(itl * 1e3, 3)),
             "itl_p95_ms": (None if p95 is None
                            else round(p95 * 1e3, 3)),
+            "tp": self.tp,
+            "kv_pool_bytes_per_device": self.kv_pool_bytes_per_device,
+            "collectives_per_decode_step":
+                self.collectives_per_decode_step,
         }
 
 

@@ -88,6 +88,11 @@ class FIFOScheduler:
                 replica=getattr(handle, "replica_id", None))
         self._queue.append(handle)
 
+    def has_deadlines(self):
+        """True when a queued handle carries a deadline."""
+        return any(getattr(h, "deadline", None) is not None
+                   for h in self._queue)
+
     def drop_expired(self, now):
         """Remove and return queued handles whose deadline passed while
         they waited — they never held a slot or token-budget share, so

@@ -26,14 +26,34 @@ bodies return updated caches). ``layer_weights`` and
 module's parameters. Stacking would copy every weight (13.5 GB more at
 7B), and a Python loop over layers needs no stacked operand. Beam search
 is not ported (``ROADMAP.md``, port queue item 3).
+
+Tensor parallelism (``Engine(tp=N)``): the placement rules
+``_llama_tp_specs``, ``_gpt_tp_specs`` and ``_gpt_qkv_tp_permutation``
+are the JAX functions over plain tuples (per-layer specs: the JAX ones
+without the stacked layer dim). Given a tp ``group``, the prefill, paged
+decode and chunk bodies are JAX's ``_llama_prefill_layer_tp``,
+``_llama_decode_layer_paged_tp``, ``_llama_chunk_layer_tp``,
+``_gpt_prefill_layer_tp``, ``_gpt_decode_layer_paged_tp`` and
+``_gpt_chunk_layer_tp``: the same arithmetic over this rank's shards
+(``n_heads // tp`` query and ``n_kv // tp`` KV heads; GPT's fused qkv
+permuted device-major), the o-/down-projections (GPT: proj, fc2)
+row-parallel through ``distributed.collective_matmul``, their biases
+added once, after the reduce. ``arch_for(model, group)`` holds the
+rank's shards on its device, and its ``logits`` gathers the
+vocab-sharded head (``matmul_allgather``). Without a group (or with one
+of one rank) every body is the single-device one.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ..distributed import mesh as _mesh
+from ..distributed.collective_matmul import (matmul_allgather,
+                                             ring_rowparallel_matmul)
 from ..nn.functional.norm import layer_norm
 from ..nn.layer.norm import rms_norm as _rms
 from ..ops import flash_decode as _fd
@@ -47,13 +67,16 @@ __all__ = ["arch_for", "layer_weights", "gpt_layer_weights", "generate",
 
 def _check_unsplit(model):
     """A model whose parameters ``fleet.distributed_model`` split over
-    ranks holds blocks, not weights: generation and serving raise."""
+    ranks holds blocks, not weights: generation and serving raise
+    (``Engine(model, tp=N)`` takes the whole model, as the JAX engine
+    does, and places its own shards)."""
     if any(a is not None for p in model.parameters()
            for a in getattr(p, "placement", ())):
         raise NotImplementedError(
-            "generation and serving on a model split over ranks (tp or "
-            "sharding stage 3) are not in the port yet (ROADMAP.md, port "
-            "queue item 4: multi-GPU, Engine(tp))")
+            "generation and serving take the whole model (Engine(model, "
+            "tp=N) places its own shards); a model split over ranks by "
+            "fleet.distributed_model (tp or sharding stage 3) is not "
+            "served (ROADMAP.md, port queue item 4: multi-GPU)")
 
 
 def layer_weights(model):
@@ -102,6 +125,79 @@ def gpt_layer_weights(model):
     return {"layers": layers, "wte": g.wte.weight, "wpe": g.wpe.weight,
             "lnfw": g.ln_f.weight, "lnfb": g.ln_f.bias,
             "head": model.lm_head.weight}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel placement (the JAX specs, per layer, as plain tuples)
+# ---------------------------------------------------------------------------
+
+_TP_AXIS = "tp"
+
+
+def _llama_tp_specs():
+    """Spec per Llama weight key over the ``tp`` axis: column-parallel
+    QKV/gate-up (output dim sharded), row-parallel o-/down-proj
+    (contraction dim sharded), vocab-sharded head; norms and the
+    embedding table replicated."""
+    col, row = (None, _TP_AXIS), (_TP_AXIS, None)
+    return {"wq": col, "wk": col, "wv": col, "wg": col, "wu": col,
+            "wo": row, "wd": row, "ln1": (), "ln2": (),
+            "embed": (), "norm": (), "head": (None, _TP_AXIS)}
+
+
+def _gpt_tp_specs():
+    """GPT weight placement: the fused qkv columns are taken in the
+    device-major ``[q_d | k_d | v_d]`` order of
+    :func:`_gpt_qkv_tp_permutation`, so a rank's block carries one head
+    slice of each of q, k and v; the row-parallel proj/fc2 biases stay
+    replicated (added once, after the reduce)."""
+    col, row = (None, _TP_AXIS), (_TP_AXIS, None)
+    return {"wqkv": col, "bqkv": (_TP_AXIS,),
+            "wproj": row, "bproj": (),
+            "wfc1": col, "bfc1": (_TP_AXIS,),
+            "wfc2": row, "bfc2": (),
+            "ln1w": (), "ln1b": (), "ln2w": (), "ln2b": (),
+            "wte": (), "wpe": (), "lnfw": (), "lnfb": (),
+            "head": (None, _TP_AXIS)}
+
+
+def _gpt_qkv_tp_permutation(h, tp):
+    """Column permutation mapping the fused ``[q | k | v]`` qkv layout to
+    device-major ``[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]``: block d of the
+    permuted columns is rank d's head slice of all three projections."""
+    hc = h // tp
+    return np.concatenate([np.arange(blk * h + d * hc, blk * h + (d + 1) * hc)
+                           for d in range(tp) for blk in range(3)])
+
+
+def _rank_block(t, spec, mesh, device, perm=None):
+    """This rank's block of weight ``t`` placed by ``spec``, copied to
+    ``device`` (no copy where it is whole and already there). With
+    ``perm``, ``t``'s last dim is read in that column order, and only the
+    rank's own columns are gathered."""
+    t = t.detach()
+    if perm is not None:
+        cols = _mesh.local_block(perm, spec[-1:], mesh)
+        t = t[..., torch.from_numpy(cols).to(t.device)]
+        spec = spec[:-1] + (None,)
+    return _mesh.local_block(t, spec, mesh).to(device).contiguous()
+
+
+def _shard_weights(w, specs, group, device, perms=None):
+    """Every weight of ``w`` (the dict of ``layer_weights`` or
+    ``gpt_layer_weights``) as this rank's block on ``device``: rank
+    ``group.rank`` of a tp group of ``group.nranks`` takes block
+    ``group.rank`` of each sharded dim. ``perms`` maps a key to its column
+    order."""
+    mesh = _mesh.Mesh(tp=group.nranks, rank=group.rank)
+    perms = perms or {}
+
+    def place(k, t):
+        return _rank_block(t, specs[k], mesh, device, perms.get(k))
+
+    return {"layers": [{k: place(k, t) for k, t in lw.items()}
+                       for lw in w["layers"]],
+            **{k: place(k, t) for k, t in w.items() if k != "layers"}}
 
 
 def _rope_rows(q, k, pos, theta, dtype):
@@ -171,16 +267,33 @@ def _prompt_mask(ids, pad_token_id, attention_mask):
     return (ar[None, :] - 1 < plen[:, None]).int()
 
 
-def _llama_prefill_layer(x, lw, pos, *, n_heads, n_kv, eps, theta):
+def _tp(group):
+    """The tp degree of ``group`` (1 for None)."""
+    return 1 if group is None else group.nranks
+
+
+def _llama_mlp(x, lw, eps, group):
+    """x plus the SwiGLU MLP of ``rms(x)``; the down-projection is
+    row-parallel over ``group``."""
+    h2 = _rms(x, lw["ln2"], eps)
+    act = TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])
+    return x + ring_rowparallel_matmul(act, lw["wd"], group)
+
+
+def _llama_prefill_layer(x, lw, pos, *, n_heads, n_kv, eps, theta,
+                         group=None):
     """One Llama decoder layer over a full [B, L] prompt (causal).
-    Returns (x, (k, v)) with k/v [B, L, n_kv, hd] for the KV cache."""
+    Returns (x, (k, v)) with k/v [B, L, n_kv // tp, hd] for the KV cache.
+    With a tp ``group`` (JAX's ``_llama_prefill_layer_tp``) ``lw`` holds
+    this rank's shards and x stays replicated."""
     B, L, h = x.shape
     hd = h // n_heads
+    hl, kvl = n_heads // _tp(group), n_kv // _tp(group)
     dt = x.dtype
     h1 = _rms(x, lw["ln1"], eps)
-    q = (h1 @ lw["wq"]).reshape(B, L, n_heads, hd)
-    k = (h1 @ lw["wk"]).reshape(B, L, n_kv, hd)
-    v = (h1 @ lw["wv"]).reshape(B, L, n_kv, hd)
+    q = (h1 @ lw["wq"]).reshape(B, L, hl, hd)
+    k = (h1 @ lw["wk"]).reshape(B, L, kvl, hd)
+    v = (h1 @ lw["wv"]).reshape(B, L, kvl, hd)
     q, k = _rope(q, k, pos, theta, dt)
     qh = q.transpose(1, 2)
     kh = k.transpose(1, 2).repeat_interleave(n_heads // n_kv, dim=1)
@@ -191,11 +304,9 @@ def _llama_prefill_layer(x, lw, pos, *, n_heads, n_kv, eps, theta):
     s = s.masked_fill(~cm, -1e30)
     p = torch.softmax(s, dim=-1).to(dt)
     o = torch.matmul(p, vh)
-    o = o.transpose(1, 2).reshape(B, L, h)
-    x = x + o @ lw["wo"]
-    h2 = _rms(x, lw["ln2"], eps)
-    x = x + (TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])) @ lw["wd"]
-    return x, (k, v)
+    o = o.transpose(1, 2).reshape(B, L, hl * hd)
+    x = x + ring_rowparallel_matmul(o, lw["wo"], group)
+    return _llama_mlp(x, lw, eps, group), (k, v)
 
 
 def _llama_decode_layer(xt, lw, kc_l, vc_l, write_idx, rope_pos, key_mask,
@@ -231,9 +342,7 @@ def _llama_decode_layer(xt, lw, kc_l, vc_l, write_idx, rope_pos, key_mask,
     s = s.masked_fill(~valid[:, None, :], -1e30)
     p = torch.softmax(s, dim=-1).to(dt)
     o = torch.einsum("bht,bthd->bhd", p, vh).reshape(B, 1, h)
-    xt2 = xt + o @ lw["wo"]
-    h2 = _rms(xt2, lw["ln2"], eps)
-    return xt2 + (TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])) @ lw["wd"]
+    return _llama_mlp(xt + o @ lw["wo"], lw, eps, None)
 
 
 def _paged_view(pool_l, tables, block_size):
@@ -261,7 +370,7 @@ def _paged_decode_attention(q, kc_pool, vc_pool, tables, write_pos, flash,
 
 def _llama_decode_layer_paged(xt, lw, kc_pool, vc_pool, tables, dest,
                               write_pos, rope_pos, *, n_heads, n_kv, eps,
-                              theta, flash_decode=False):
+                              theta, flash_decode=False, group=None):
     """One Llama decoder layer advancing every slot one token against the
     paged pool. The new K/V is written IN PLACE into ``kc_pool``/``vc_pool``
     at flat pool index ``dest`` (the JAX body returns updated pools; here
@@ -269,46 +378,51 @@ def _llama_decode_layer_paged(xt, lw, kc_pool, vc_pool, tables, dest,
     in the trash block; several of them may land on one line there, and
     which write wins is unspecified on CUDA -- harmless, because the trash
     block is never read below the causal bound. kc_pool/vc_pool
-    [n_blocks, bs, n_kv, hd] (one layer); tables [S, mb]; dest [S];
-    write_pos/rope_pos [S]."""
+    [n_blocks, bs, n_kv // tp, hd] (one layer); tables [S, mb]; dest [S];
+    write_pos/rope_pos [S]. With a tp ``group`` (JAX's
+    ``_llama_decode_layer_paged_tp``; ``flash_decode`` is refused there)
+    the pool holds this rank's kv-head slice."""
     S = xt.shape[0]
     h = xt.shape[-1]
     hd = h // n_heads
+    hl, kvl = n_heads // _tp(group), n_kv // _tp(group)
     dt = xt.dtype
     h1 = _rms(xt, lw["ln1"], eps)
-    q = (h1 @ lw["wq"]).reshape(S, 1, n_heads, hd)
-    k = (h1 @ lw["wk"]).reshape(S, 1, n_kv, hd)
-    v = (h1 @ lw["wv"]).reshape(S, 1, n_kv, hd)
+    q = (h1 @ lw["wq"]).reshape(S, 1, hl, hd)
+    k = (h1 @ lw["wk"]).reshape(S, 1, kvl, hd)
+    v = (h1 @ lw["wv"]).reshape(S, 1, kvl, hd)
     q, k = _rope_rows(q, k, rope_pos, theta, dt)
     nb, bs = kc_pool.shape[0], kc_pool.shape[1]
-    kc_pool.view(nb * bs, n_kv, hd)[dest] = k[:, 0]
-    vc_pool.view(nb * bs, n_kv, hd)[dest] = v[:, 0]
+    kc_pool.view(nb * bs, kvl, hd)[dest] = k[:, 0]
+    vc_pool.view(nb * bs, kvl, hd)[dest] = v[:, 0]
     o = _paged_decode_attention(q[:, 0], kc_pool, vc_pool, tables,
-                                write_pos, flash_decode, dt).reshape(S, 1, h)
-    xt2 = xt + o @ lw["wo"]
-    h2 = _rms(xt2, lw["ln2"], eps)
-    return xt2 + (TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])) @ lw["wd"]
+                                write_pos, flash_decode,
+                                dt).reshape(S, 1, hl * hd)
+    xt2 = xt + ring_rowparallel_matmul(o, lw["wo"], group)
+    return _llama_mlp(xt2, lw, eps, group)
 
 
 def _llama_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
-                       n_heads, n_kv, eps, theta, block_size):
+                       n_heads, n_kv, eps, theta, block_size, group=None):
     """One Llama layer over one block-aligned prefill CHUNK of one slot:
     x [1, C, h] at global positions ``gpos`` [C]. The chunk's K/V go IN
     PLACE to flat pool indices ``wdest`` [C] (shared-prefix and pad
     positions redirected into the trash block), then the chunk's rows
     attend over the slot's whole gathered view (earlier chunks and this
-    one) under ``view_pos <= gpos``, masked scores at -1e30."""
+    one) under ``view_pos <= gpos``, masked scores at -1e30. With a tp
+    ``group``, JAX's ``_llama_chunk_layer_tp``."""
     B, C, h = x.shape
     hd = h // n_heads
+    hl, kvl = n_heads // _tp(group), n_kv // _tp(group)
     dt = x.dtype
     h1 = _rms(x, lw["ln1"], eps)
-    q = (h1 @ lw["wq"]).reshape(B, C, n_heads, hd)
-    k = (h1 @ lw["wk"]).reshape(B, C, n_kv, hd)
-    v = (h1 @ lw["wv"]).reshape(B, C, n_kv, hd)
+    q = (h1 @ lw["wq"]).reshape(B, C, hl, hd)
+    k = (h1 @ lw["wk"]).reshape(B, C, kvl, hd)
+    v = (h1 @ lw["wv"]).reshape(B, C, kvl, hd)
     q, k = _rope(q, k, gpos, theta, dt)
     nb, bs = kc_pool.shape[0], kc_pool.shape[1]
-    kc_pool.view(nb * bs, n_kv, hd)[wdest] = k[0]
-    vc_pool.view(nb * bs, n_kv, hd)[wdest] = v[0]
+    kc_pool.view(nb * bs, kvl, hd)[wdest] = k[0]
+    vc_pool.view(nb * bs, kvl, hd)[wdest] = v[0]
     kview = _paged_view(kc_pool, table_row[None], block_size)  # [1,T,kv,hd]
     vview = _paged_view(vc_pool, table_row[None], block_size)
     qh = q.transpose(1, 2)                                     # [1,H,C,hd]
@@ -320,10 +434,9 @@ def _llama_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
     cm = torch.arange(T, device=x.device)[None, :] <= gpos[:, None]
     s = s.masked_fill(~cm[None, None], -1e30)
     p = torch.softmax(s, dim=-1).to(dt)
-    o = torch.matmul(p, vh).transpose(1, 2).reshape(B, C, h)
-    x = x + o @ lw["wo"]
-    h2 = _rms(x, lw["ln2"], eps)
-    return x + (TF.silu(h2 @ lw["wg"]) * (h2 @ lw["wu"])) @ lw["wd"]
+    o = torch.matmul(p, vh).transpose(1, 2).reshape(B, C, hl * hd)
+    x = x + ring_rowparallel_matmul(o, lw["wo"], group)
+    return _llama_mlp(x, lw, eps, group)
 
 
 # ---------------------------------------------------------------------------
@@ -336,38 +449,43 @@ def _ln(x, w, b, eps=1e-5):
     return layer_norm(x, x.shape[-1], w, b, eps)
 
 
-def _gpt_qkv(x, lw, n_heads):
-    """q, k, v [B, L, H, hd] of one GPT block: the fused projection of
-    ``ln_1(x)`` split into views (no copy)."""
+def _gpt_qkv(x, lw, n_heads, tp=1):
+    """q, k, v [B, L, H // tp, hd] of one GPT block: the fused projection
+    of ``ln_1(x)`` split into views (no copy). Under tp the rank's qkv
+    block is ``[q_d | k_d | v_d]`` (``_gpt_qkv_tp_permutation``)."""
     B, L, h = x.shape
     qkv = _ln(x, lw["ln1w"], lw["ln1b"]) @ lw["wqkv"] + lw["bqkv"]
-    return (t.reshape(B, L, n_heads, h // n_heads)
-            for t in qkv.split(h, dim=-1))
+    return (t.reshape(B, L, n_heads // tp, h // n_heads)
+            for t in qkv.split(h // tp, dim=-1))
 
 
-def _gpt_tail(x, o, lw):
+def _gpt_tail(x, o, lw, group=None):
     """A GPT block after attention: the projected attention output o
-    [B, L, h] added to x, then the erf-GELU MLP of ``ln_2`` added."""
-    x = x + o @ lw["wproj"] + lw["bproj"]
+    [B, L, h // tp] added to x, then the erf-GELU MLP of ``ln_2`` added;
+    proj and fc2 are row-parallel over ``group``, their biases added once,
+    after the reduce."""
+    x = x + ring_rowparallel_matmul(o, lw["wproj"], group) + lw["bproj"]
     h2 = _ln(x, lw["ln2w"], lw["ln2b"])
-    return x + TF.gelu(h2 @ lw["wfc1"] + lw["bfc1"]) @ lw["wfc2"] \
-        + lw["bfc2"]
+    act = TF.gelu(h2 @ lw["wfc1"] + lw["bfc1"])
+    return x + ring_rowparallel_matmul(act, lw["wfc2"], group) + lw["bfc2"]
 
 
-def _gpt_prefill_layer(x, lw, *, n_heads):
+def _gpt_prefill_layer(x, lw, *, n_heads, group=None):
     """One GPT block over a full [B, L] prompt (causal; positions enter at
-    the wpe embedding). Returns (x, (k, v)), k/v [B, L, H, hd]."""
+    the wpe embedding). Returns (x, (k, v)), k/v [B, L, H // tp, hd].
+    With a tp ``group``, JAX's ``_gpt_prefill_layer_tp``."""
     B, L, h = x.shape
     hd = h // n_heads
-    q, k, v = _gpt_qkv(x, lw, n_heads)
+    q, k, v = _gpt_qkv(x, lw, n_heads, _tp(group))
     s = torch.matmul(q.transpose(1, 2).float(),
                      k.transpose(1, 2).float().transpose(-1, -2)) \
         / math.sqrt(hd)
     cm = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     s = s.masked_fill(~cm, -1e30)
     p = torch.softmax(s, dim=-1).to(x.dtype)
-    o = torch.matmul(p, v.transpose(1, 2)).transpose(1, 2).reshape(B, L, h)
-    return _gpt_tail(x, o, lw), (k, v)
+    o = torch.matmul(p, v.transpose(1, 2)).transpose(1, 2).reshape(
+        B, L, h // _tp(group))
+    return _gpt_tail(x, o, lw, group), (k, v)
 
 
 def _gpt_decode_layer(xt, lw, kc_l, vc_l, write_idx, key_mask, *, n_heads):
@@ -395,37 +513,42 @@ def _gpt_decode_layer(xt, lw, kc_l, vc_l, write_idx, key_mask, *, n_heads):
 
 
 def _gpt_decode_layer_paged(xt, lw, kc_pool, vc_pool, tables, dest,
-                            write_pos, *, n_heads, flash_decode=False):
+                            write_pos, *, n_heads, flash_decode=False,
+                            group=None):
     """One GPT block advancing every slot one token against the paged pool:
     only the pool write (in place, at flat pool index ``dest``; inactive
     rows into the trash block) and the attention through the block tables
     differ from the slot body. ``flash_decode=True`` runs the flash-decode
-    kernel (its plain version on a CPU tensor)."""
+    kernel (its plain version on a CPU tensor). With a tp ``group``, JAX's
+    ``_gpt_decode_layer_paged_tp`` (the pool holds this rank's heads)."""
     S = xt.shape[0]
     h = xt.shape[-1]
     hd = h // n_heads
-    q, k, v = _gpt_qkv(xt, lw, n_heads)
+    hl = n_heads // _tp(group)
+    q, k, v = _gpt_qkv(xt, lw, n_heads, _tp(group))
     nb, bs = kc_pool.shape[0], kc_pool.shape[1]
-    kc_pool.view(nb * bs, n_heads, hd)[dest] = k[:, 0]
-    vc_pool.view(nb * bs, n_heads, hd)[dest] = v[:, 0]
+    kc_pool.view(nb * bs, hl, hd)[dest] = k[:, 0]
+    vc_pool.view(nb * bs, hl, hd)[dest] = v[:, 0]
     o = _paged_decode_attention(q[:, 0], kc_pool, vc_pool, tables,
                                 write_pos, flash_decode,
-                                xt.dtype).reshape(S, 1, h)
-    return _gpt_tail(xt, o, lw)
+                                xt.dtype).reshape(S, 1, hl * hd)
+    return _gpt_tail(xt, o, lw, group)
 
 
 def _gpt_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
-                     n_heads, block_size):
+                     n_heads, block_size, group=None):
     """One GPT block over one block-aligned prefill CHUNK of one slot (x
     [1, C, h] at global positions ``gpos``, which entered at the wpe
     embedding): K/V in place to ``wdest``, then the chunk's rows attend
-    over the slot's gathered view under ``view_pos <= gpos``."""
+    over the slot's gathered view under ``view_pos <= gpos``. With a tp
+    ``group``, JAX's ``_gpt_chunk_layer_tp``."""
     B, C, h = x.shape
     hd = h // n_heads
-    q, k, v = _gpt_qkv(x, lw, n_heads)
+    hl = n_heads // _tp(group)
+    q, k, v = _gpt_qkv(x, lw, n_heads, _tp(group))
     nb, bs = kc_pool.shape[0], kc_pool.shape[1]
-    kc_pool.view(nb * bs, n_heads, hd)[wdest] = k[0]
-    vc_pool.view(nb * bs, n_heads, hd)[wdest] = v[0]
+    kc_pool.view(nb * bs, hl, hd)[wdest] = k[0]
+    vc_pool.view(nb * bs, hl, hd)[wdest] = v[0]
     kview = _paged_view(kc_pool, table_row[None], block_size)
     vview = _paged_view(vc_pool, table_row[None], block_size)
     s = torch.matmul(q.transpose(1, 2).float(),
@@ -436,8 +559,8 @@ def _gpt_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
     s = s.masked_fill(~cm[None, None], -1e30)
     p = torch.softmax(s, dim=-1).to(x.dtype)
     o = torch.matmul(p, vview.transpose(1, 2)).transpose(1, 2).reshape(
-        B, C, h)
-    return _gpt_tail(x, o, lw)
+        B, C, hl * hd)
+    return _gpt_tail(x, o, lw, group)
 
 
 # ---------------------------------------------------------------------------
@@ -446,26 +569,40 @@ def _gpt_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
 
 class _Arch:
     """What ``generate()`` and the engine's programs need of a model:
-    its per-layer weights (``layers``), head counts, KV dtype, vocabulary,
-    position table (``max_pos``, None where positions have no table), and
-    how a token enters (``embed``), passes one layer in each KV layout,
-    and leaves (``logits``)."""
+    its per-layer weights (``layers``), head counts (the model's, not a
+    rank's), FFN width, KV dtype, vocabulary, position table
+    (``max_pos``, None where positions have no table), and how a token
+    enters (``embed``), passes one layer in each KV layout, and leaves
+    (``logits``).
+
+    With a tp ``group`` of several ranks the arch holds this rank's
+    shards of every weight on ``device`` (``_shard_weights``; the model
+    itself may stay elsewhere), its paged and prefill layers are the tp
+    bodies, and ``logits`` gathers the vocab-sharded head. It has no slot
+    layout (the engine refuses ``kv_layout="slot"`` under tp)."""
 
     max_pos = None
 
-    def __init__(self, w, n_heads, n_kv, head_dim):
+    def __init__(self, w, n_heads, n_kv, head_dim, ffn, specs, group=None,
+                 device=None, perms=None):
+        self.vocab = int(w["head"].shape[-1])
+        self.group = group if _tp(group) > 1 else None
+        if self.group is not None:
+            w = _shard_weights(w, specs, group, device, perms)
         self.w = w
         self.layers = w["layers"]
         self.n_heads, self.n_kv, self.head_dim = n_heads, n_kv, head_dim
-        self.vocab = int(w["head"].shape[-1])
+        self.ffn = ffn
 
 
 class _LlamaArch(_Arch):
-    def __init__(self, model):
+    def __init__(self, model, group=None, device=None):
         c = model.config
         w = layer_weights(model)
         super().__init__(w, c.num_attention_heads, c.num_key_value_heads,
-                         c.hidden_size // c.num_attention_heads)
+                         c.hidden_size // c.num_attention_heads,
+                         c.intermediate_size, _llama_tp_specs(), group,
+                         device)
         self.dtype = w["embed"].dtype
         self.eps = c.rms_norm_eps
         self.hp = dict(n_heads=self.n_heads, n_kv=self.n_kv, eps=self.eps,
@@ -475,10 +612,11 @@ class _LlamaArch(_Arch):
         return self.w["embed"][ids]
 
     def logits(self, x):
-        return _rms(x, self.w["norm"], self.eps) @ self.w["head"]
+        return matmul_allgather(_rms(x, self.w["norm"], self.eps),
+                                self.w["head"], self.group)
 
     def prefill_layer(self, x, lw, pos):
-        return _llama_prefill_layer(x, lw, pos, **self.hp)
+        return _llama_prefill_layer(x, lw, pos, group=self.group, **self.hp)
 
     def decode_layer(self, xt, lw, kc, vc, write_idx, rope_pos, key_mask):
         return _llama_decode_layer(xt, lw, kc, vc, write_idx, rope_pos,
@@ -486,20 +624,29 @@ class _LlamaArch(_Arch):
 
     def paged_decode_layer(self, xt, lw, kc, vc, tables, dest, pos, flash):
         return _llama_decode_layer_paged(xt, lw, kc, vc, tables, dest, pos,
-                                         pos, flash_decode=flash, **self.hp)
+                                         pos, flash_decode=flash,
+                                         group=self.group, **self.hp)
 
     def chunk_layer(self, x, lw, kc, vc, table_row, gpos, wdest,
                     block_size):
         return _llama_chunk_layer(x, lw, kc, vc, table_row, gpos, wdest,
-                                  block_size=block_size, **self.hp)
+                                  block_size=block_size, group=self.group,
+                                  **self.hp)
 
 
 class _GPTArch(_Arch):
-    def __init__(self, model):
+    def __init__(self, model, group=None, device=None):
         c = model.config
         w = gpt_layer_weights(model)
-        n_heads = c.num_attention_heads
-        super().__init__(w, n_heads, n_heads, c.hidden_size // n_heads)
+        n_heads, h = c.num_attention_heads, c.hidden_size
+        perms = None
+        if _tp(group) > 1:
+            # each rank takes its [q_d | k_d | v_d] columns of the fused qkv
+            perm = _gpt_qkv_tp_permutation(h, group.nranks)
+            perms = {"wqkv": perm, "bqkv": perm}
+        super().__init__(w, n_heads, n_heads, h // n_heads,
+                         int(w["layers"][0]["wfc1"].shape[-1]),
+                         _gpt_tp_specs(), group, device, perms)
         self.dtype = w["wte"].dtype
         self.max_pos = c.max_position_embeddings
 
@@ -511,10 +658,12 @@ class _GPTArch(_Arch):
         return self.w["wte"][ids] + self.w["wpe"][pos]
 
     def logits(self, x):
-        return _ln(x, self.w["lnfw"], self.w["lnfb"]) @ self.w["head"]
+        return matmul_allgather(_ln(x, self.w["lnfw"], self.w["lnfb"]),
+                                self.w["head"], self.group)
 
     def prefill_layer(self, x, lw, pos):
-        return _gpt_prefill_layer(x, lw, n_heads=self.n_heads)
+        return _gpt_prefill_layer(x, lw, n_heads=self.n_heads,
+                                  group=self.group)
 
     def decode_layer(self, xt, lw, kc, vc, write_idx, rope_pos, key_mask):
         return _gpt_decode_layer(xt, lw, kc, vc, write_idx, key_mask,
@@ -523,21 +672,25 @@ class _GPTArch(_Arch):
     def paged_decode_layer(self, xt, lw, kc, vc, tables, dest, pos, flash):
         return _gpt_decode_layer_paged(xt, lw, kc, vc, tables, dest, pos,
                                        n_heads=self.n_heads,
-                                       flash_decode=flash)
+                                       flash_decode=flash, group=self.group)
 
     def chunk_layer(self, x, lw, kc, vc, table_row, gpos, wdest,
                     block_size):
         return _gpt_chunk_layer(x, lw, kc, vc, table_row, gpos, wdest,
-                                n_heads=self.n_heads, block_size=block_size)
+                                n_heads=self.n_heads, block_size=block_size,
+                                group=self.group)
 
 
-def arch_for(model):
+def arch_for(model, group=None, device=None):
     """The arch object of a LlamaForCausalLM or GPTForCausalLM of this
-    package (per-layer weight views, no copies); TypeError otherwise."""
-    if isinstance(model, LlamaForCausalLM):
-        return _LlamaArch(model)
-    if isinstance(model, GPTForCausalLM):
-        return _GPTArch(model)
+    package (per-layer weight views, no copies); TypeError otherwise.
+    With a tp ``group`` of several ranks, this rank's weight shards,
+    copied to ``device`` (default: the model's), and the tp bodies."""
+    for cls, arch in ((LlamaForCausalLM, _LlamaArch),
+                      (GPTForCausalLM, _GPTArch)):
+        if isinstance(model, cls):
+            return arch(model, group,
+                        model.device if device is None else device)
     raise TypeError(f"generation and serving take LlamaForCausalLM or "
                     f"GPTForCausalLM, got {type(model).__name__}")
 

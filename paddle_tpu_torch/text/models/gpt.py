@@ -18,8 +18,8 @@ float32 and cast with ``.to``): parameters are made in it.
 fp32 mean CE of the logits at t against the labels at t + 1.
 ``generate(...)`` runs ``text.generation.gpt_generate``. The weights
 carry the JAX model's tensor-parallel annotations (``param.pspec``), but
-GPT under tensor parallel is not ported: ``fleet.distributed_model`` at
-tp > 1 raises.
+GPT training under tensor parallel is not ported: ``fleet.distributed_model``
+at tp > 1 raises (``serving.Engine(model, tp=N)`` serves it sharded).
 """
 from __future__ import annotations
 

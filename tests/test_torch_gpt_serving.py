@@ -17,6 +17,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.serving import Engine as JaxEngine
 from paddle_tpu.text.models import gpt as jgpt
+from paddle_tpu_torch.distributed import mesh
 from paddle_tpu_torch.framework.io import load_numpy_state_dict
 from paddle_tpu_torch.serving import Engine
 from paddle_tpu_torch.text.models import GPT_TINY, GPTForCausalLM
@@ -176,8 +177,11 @@ def test_max_len_past_the_position_table_is_refused(models):
 
 def test_out_of_slice_options_still_raise(models):
     _, tm = models
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        Engine(tm, **GEO, tp=2)
+    # tp=2 serves GPT now (tests/test_torch_serving_tp.py); speculative
+    # decoding stays out under tp too
+    with pytest.raises(NotImplementedError, match="speculative"):
+        Engine(tm, **GEO, tp=2, speculative=object(),
+               mesh=mesh.build_mesh(tp=2, world_size=2, rank=0))
     with pytest.raises(NotImplementedError, match="speculative"):
         Engine(tm, **GEO, speculative=object())
     with pytest.raises(TypeError, match="GPTForCausalLM"):

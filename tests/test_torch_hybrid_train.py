@@ -294,8 +294,12 @@ def test_strategy_surface(case, exc, match):
         elif case == "sequence_parallel":
             _tiny(sequence_parallel=True)
         elif case == "engine_tp":
+            # Engine(tp=N) takes the whole model and places its own
+            # shards: a model that fleet already split is refused
             from paddle_tpu_torch.serving import Engine
-            Engine(_tiny(), n_slots=1, max_len=32, block_size=8, tp=2)
+            model = _tiny()
+            model.lm_head.weight.placement = (None, "tp")
+            Engine(model, n_slots=1, max_len=32, block_size=8, tp=2)
         elif case == "ernie_moe_tp":
             cfg = ErnieMoEConfig(vocab_size=64, hidden_size=32,
                                  num_hidden_layers=2, num_attention_heads=2,

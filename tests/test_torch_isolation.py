@@ -4,7 +4,8 @@
 module of the JAX package (even those that do not import JAX): checked by
 an AST scan, by importing every module of the port, and by serving a
 Llama and a GPT request, taking Llama and ERNIE-MoE train steps, a
-tensor-parallel Llama step on two spawned ranks, and quantizing and
+tensor-parallel Llama step and a request through a tensor-parallel
+engine on two spawned ranks, and quantizing and
 running a tiny Llama and both stochastic quantizers in processes where
 importing either fails.
 Entry points default to CUDA and raise when it is absent.
@@ -213,6 +214,7 @@ def test_every_module_imports_with_jax_unimportable():
         for n in names:
             importlib.import_module(n)
         assert "paddle_tpu_torch.distributed.fleet.placement" in names
+        assert "paddle_tpu_torch.distributed.collective_matmul" in names
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK", len(names))
@@ -224,8 +226,9 @@ def test_every_module_imports_with_jax_unimportable():
 
 
 def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
-    """A tp2 Llama step over gloo in two spawned ranks, each of which
-    makes JAX and the JAX package unimportable first."""
+    """A tp2 Llama step and a request through a tp2 ``Engine`` over gloo
+    in two spawned ranks, each of which makes JAX and the JAX package
+    unimportable first."""
     import pickle
 
     import torch_dist_worker as W
@@ -238,6 +241,8 @@ def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
             outs.append(pickle.load(f))
     assert outs[0]["losses"] == outs[1]["losses"]
     assert outs[0]["losses"][1] < outs[0]["losses"][0]
+    assert outs[0]["tokens"] == outs[1]["tokens"]
+    assert len(outs[0]["tokens"]) == 5 + 3
     assert not outs[0]["loaded"] and not outs[1]["loaded"]
 
 

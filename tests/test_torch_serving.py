@@ -19,6 +19,7 @@ from paddle_tpu.serving import Engine as JaxEngine
 from paddle_tpu.serving import RadixIndex as JaxRadix
 from paddle_tpu.text.models.llama import LLAMA_TINY as JAX_TINY
 from paddle_tpu.text.models.llama import LlamaForCausalLM as JaxLlama
+from paddle_tpu_torch.distributed import mesh
 from paddle_tpu_torch.framework.io import load_numpy_state_dict
 from paddle_tpu_torch.serving import (BlockPool, Engine, EngineOverloaded,
                                       RadixIndex, RequestCancelled)
@@ -171,7 +172,13 @@ def test_block_pool_and_radix_match_jax_classes():
     assert got[0] == got[1]
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(speculative=object())])
+# tp=2 serves since Engine(tp=N) was ported (tests/test_torch_serving_tp.py);
+# speculative decoding stays out, with or without tp (a mesh of two ranks
+# that makes no process group passes the tp checks)
+@pytest.mark.parametrize("kw", [
+    dict(tp=2, mesh=mesh.build_mesh(tp=2, world_size=2, rank=0),
+         speculative=object()),
+    dict(speculative=object())])
 def test_out_of_slice_arguments_raise(models, kw):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

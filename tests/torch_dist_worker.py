@@ -292,8 +292,9 @@ def spawn_env_worker(path):
 
 
 def isolation_worker(out_dir):
-    """A tp2 x sharding-free Llama step on 2 ranks with JAX and the JAX
-    package unimportable; writes the modules that got loaded anyway."""
+    """A tp2 x sharding-free Llama step and a request through a tp2
+    ``Engine`` on 2 ranks with JAX and the JAX package unimportable;
+    writes the modules that got loaded anyway."""
     import sys
     for name in ("jax", "jaxlib", "paddle_tpu"):
         sys.modules[name] = None
@@ -320,9 +321,203 @@ def isolation_worker(out_dir):
     ids = np.random.default_rng(0).integers(0, 1024, (2, 16))
     losses = [float(step(ids, ids)) for _ in range(2)]
     gather_state_dict(model)
+    from paddle_tpu_torch.serving import Engine
+    torch.manual_seed(0)
+    served = LlamaForCausalLM(dataclasses.replace(
+        LLAMA_TINY, dtype="float32", num_hidden_layers=1), device="cpu")
+    tokens = list(Engine(served, tp=2, n_slots=1, max_len=32, block_size=8)
+                  .submit(np.arange(5), max_new_tokens=3).result())
     loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
         k in ("jax", "jaxlib", "paddle_tpu")
         or k.startswith(("jax.", "jaxlib.", "paddle_tpu."))))
     _dump(os.path.join(out_dir, f"isolation.r{dist.get_rank()}.pkl"),
-          dict(losses=losses, loaded=loaded))
+          dict(losses=losses, tokens=tokens, loaded=loaded))
+    dist.destroy_process_group()
+
+
+# -- tensor-parallel serving ------------------------------------------------
+
+def run_workload(eng, wl):
+    """Serve workload ``wl`` on ``eng`` (the port's engine or the JAX
+    package's: the same API) and return each request's tokens. ``wl``:
+    ``prompts``; ``max_new``; ``kwargs`` (per-request ``submit``
+    arguments) and ``common`` (arguments of every request), optional;
+    ``staggered`` (two requests, two steps, then one request a step, then
+    drain) or, without it, every request submitted before the drain."""
+    prompts = wl["prompts"]
+    kws = wl.get("kwargs") or [{}] * len(prompts)
+    common = dict(wl.get("common", {}), max_new_tokens=wl["max_new"])
+    hs = []
+    for i, (p, kw) in enumerate(zip(prompts, kws)):
+        hs.append(eng.submit(p, **common, **kw))
+        if wl.get("staggered") and i >= 1:
+            eng.step()
+            if i == 1:
+                eng.step()
+    eng.drain()
+    return [[int(t) for t in h.tokens] for h in hs]
+
+
+def tp_model(arch, weights_path):
+    """The port's fp32 tiny model of ``arch`` ("llama": LLAMA_TINY cut to
+    2 layers, as ``tests/test_serving_tp.py``'s; "gpt": GPT_TINY) on the
+    CPU, its weights from ``weights_path`` (the JAX model's, as .npz)."""
+    import dataclasses
+
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    from paddle_tpu_torch.text.models import (GPT_TINY, LLAMA_TINY,
+                                              GPTForCausalLM,
+                                              LlamaForCausalLM)
+    if arch == "llama":
+        model = LlamaForCausalLM(dataclasses.replace(
+            LLAMA_TINY, dtype="float32", num_hidden_layers=2), device="cpu")
+    else:
+        model = GPTForCausalLM(GPT_TINY, device="cpu")
+    with np.load(weights_path) as z:
+        load_numpy_state_dict(model, {k: z[k] for k in z.files})
+    return model.eval()
+
+
+LAYER_GEO = dict(L=8, S=2, nb=6, bs=8)
+
+
+def layer_inputs(h, n_kv, hd, seed=0):
+    """The inputs of one layer in each body, made with numpy from ``seed``:
+    a prompt x [1, 8, h] at positions 0..7; a decode batch xt [2, 1, h]
+    over a full pool [6, 8, n_kv, hd] (slot 0 at position 19, slot 1 at
+    9); a chunk x [1, 8, h] of slot 0 at positions 16..23."""
+    g = LAYER_GEO
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    tables = np.array([[1, 2, 3, 0], [4, 5, 0, 0]], np.int32)
+    write_pos = np.array([19, 9], np.int32)
+    gpos = np.arange(16, 24, dtype=np.int32)
+    bs = g["bs"]
+    return dict(
+        x=randn(1, g["L"], h), pos=np.arange(g["L"], dtype=np.int32),
+        xt=randn(g["S"], 1, h), kc=randn(g["nb"], bs, n_kv, hd),
+        vc=randn(g["nb"], bs, n_kv, hd), tables=tables,
+        write_pos=write_pos,
+        dest=(tables[np.arange(g["S"]), write_pos // bs] * bs
+              + write_pos % bs).astype(np.int32),
+        xc=randn(1, 8, h), gpos=gpos, table_row=tables[0],
+        wdest=(tables[0][gpos // bs] * bs + gpos % bs).astype(np.int32))
+
+
+def _tp_layers(model, group):
+    """Layer 0's prefill, paged decode and chunk bodies on this rank's
+    shards (``arch_for(model, group)``) over ``layer_inputs``: the
+    hidden state each returns (replicated)."""
+    from paddle_tpu_torch.text import generation as G
+
+    arch = G.arch_for(model, group, "cpu")
+    a = {k: torch.from_numpy(v) for k, v in layer_inputs(
+        arch.n_heads * arch.head_dim, arch.n_kv, arch.head_dim).items()}
+    kvl = arch.n_kv // group.nranks
+    heads = slice(group.rank * kvl, (group.rank + 1) * kvl)
+
+    def pool():     # this rank's kv heads of the pools, fresh each call
+        return a["kc"][:, :, heads].clone(), a["vc"][:, :, heads].clone()
+
+    lw = arch.layers[0]
+    with torch.inference_mode():
+        out = {"prefill": arch.prefill_layer(a["x"], lw, a["pos"])[0],
+               "decode": arch.paged_decode_layer(
+                   a["xt"], lw, *pool(), a["tables"], a["dest"],
+                   a["write_pos"], False),
+               "chunk": arch.chunk_layer(
+                   a["xc"], lw, *pool(), a["table_row"], a["gpos"],
+                   a["wdest"], LAYER_GEO["bs"])}
+    return {k: v.numpy() for k, v in out.items()}
+
+
+class _SkewedClock:
+    """``time`` for the engine module with ``monotonic()`` moved by
+    ``offset`` seconds."""
+
+    def __init__(self):
+        import time
+        self._time = time
+        self.offset = 0.0
+        self.perf_counter = time.perf_counter
+
+    def monotonic(self):
+        return self._time.monotonic() + self.offset
+
+
+def _skew(model, rank, skewed_rank, steps_before):
+    """One request with a 600 s deadline; after ``steps_before`` steps
+    rank ``skewed_rank``'s clock jumps 10^4 s ahead. Returns (finish
+    reason, tokens)."""
+    from paddle_tpu_torch.serving import engine as E
+
+    clock = _SkewedClock()
+    saved, E.time = E.time, clock
+    try:
+        eng = E.Engine(model, tp=2, n_slots=2, max_len=64,
+                       min_prompt_bucket=4, block_size=8)
+        h = eng.submit(np.arange(5), max_new_tokens=8, max_time_s=600.0)
+        for _ in range(steps_before):
+            eng.step()
+        if rank == skewed_rank:
+            clock.offset = 1e4
+        eng.drain()
+    finally:
+        E.time = saved
+    return h.finish_reason, list(h.tokens)
+
+
+def serving_tp_worker(out_dir, spec_path):
+    """One rank of a tp engine over gloo on the CPU: every job of the
+    spec (an engine's arguments and a workload) on ``Engine(model,
+    tp=world)``; with 2 ranks also the tp bodies of layer 0, the
+    collectives of one decode step, a skewed clock on either rank, and
+    the submit guard. Writes what it saw to ``out_dir``."""
+    import pickle as pk
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective_matmul as cm
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.serving import Engine
+
+    dist.init_parallel_env(device="cpu", timeout=120)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    with open(spec_path, "rb") as f:
+        spec = pk.load(f)
+    models = {a: tp_model(a, p) for a, p in spec["weights"].items()}
+    out = {"jobs": {}}
+    for name, job in spec["jobs"].items():
+        eng = Engine(models[job["arch"]], tp=world, **job["engine"])
+        toks = run_workload(eng, job["workload"])
+        out["jobs"][name] = dict(tokens=toks, stats=eng.stats(),
+                                 refcounts=eng.cache.check_refcounts(),
+                                 snapshot=eng.metrics.snapshot())
+    if world == 2:
+        group = mesh.build_mesh(tp=2).init_groups().group("tp")
+        out["layers"] = {a: _tp_layers(m, group) for a, m in models.items()}
+        # the collectives of one decode step, nothing else in the step
+        eng = Engine(models["llama"], tp=2, n_slots=2, max_len=64,
+                     min_prompt_bucket=4, block_size=8)
+        h = eng.submit(np.arange(5), max_new_tokens=4)
+        for k in cm.launches:
+            cm.launches[k] = 0
+        eng.step()
+        out["step_collectives"] = dict(cm.launches)
+        out["step_geometry"] = eng.tp_geometry()
+        h.result()
+        out["skew"] = {f"rank {r} ahead": _skew(models["llama"], rank, r, 2)
+                       for r in (1, 0)}
+        # the submit guard: the ranks submit different prompts
+        try:
+            eng.submit(np.arange(3 + rank), max_new_tokens=2)
+            out["guard"] = "no error"
+        except RuntimeError as e:
+            out["guard"] = str(e)
+        out["after_guard"] = list(eng.submit(np.arange(4),
+                                             max_new_tokens=2).result())
+    with open(os.path.join(out_dir, f"tp{world}.r{rank}.pkl"), "wb") as f:
+        pk.dump(out, f)
     dist.destroy_process_group()
