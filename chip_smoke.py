@@ -159,6 +159,27 @@ failure raises and exits non-zero before the result line is printed:
     heads. Peak memory per rank, tokens/s, TTFT and ITL over gloo are
     printed: two processes sharing one card through the host, not
     multi-GPU speeds.
+15. sequence-parallel training (after phase 14), ``phase_sep``. A probe
+    of gloo on CUDA tensors: point-to-point unstaged (two throwaway
+    ranks; gloo refuses it), the tiled all-to-all, and the ring rotation
+    that ``collective.ppermute`` stages through the host. 15a, two ranks
+    on cuda:0 over gloo: ``ring_attention_local`` and
+    ``ulysses_attention_local`` at [1, 8192, 16, 128] bf16 causal, sep
+    2, gathered and judged against world-1 ``flash_attention_fn`` on the
+    whole sequence (``judge_forward``, ``judge_backward``), launches of
+    rows 1-3 per rank equal to the kept chunk pairs, all on the tensor
+    cores; three planted faults (the wraparound pair left unmasked, dk/dv
+    one rotation short of home, Ulysses' return all-to-all in the wrong
+    rank order) must fail the judges. 15b: ``bench.py:
+    bench_llama_long_context``'s cell, nothing cut (vocab 32000, hidden
+    2048, 8 layers, 16 heads, FFN 5504, 8,192 positions, bf16, selective
+    remat, AdamW lr 1e-4), batch 1 x 8192 from seed 0: at world 1 on the
+    card, then ``sep_degree=2`` ring and Ulysses as two gloo ranks, a
+    warm-up and 3 steps each; every rank's losses within 1e-2 relative of
+    world 1's, rows 1-3 launches per rank and step equal to
+    ``want_sep_launches``, all on the tensor cores; step time, tokens/s
+    and peak memory per rank printed (gloo between two processes on one
+    card: not a multi-GPU speed).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -2313,13 +2334,14 @@ def profile_step(step, *batch):
                                 if any(p in k for p in PORT_KERNELS)}}
 
 
-def llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer, seed):
+def llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer, seed,
+                  device="cuda"):
     """Phase 8's trainer: random weights from seed 0 (bf16), placed by
     ``fleet.distributed_model`` on the current mesh, and
     ``fleet.distributed_optimizer(AdamW(lr=1e-4, wd=0.01,
     multi_precision)).make_train_step``."""
     seed(0)
-    model = fleet.distributed_model(LlamaForCausalLM(cfg, device="cuda"))
+    model = fleet.distributed_model(LlamaForCausalLM(cfg, device=device))
     opt = fleet.distributed_optimizer(optimizer.AdamW(
         learning_rate=1e-4, weight_decay=0.01,
         parameters=model.parameters()))
@@ -2333,15 +2355,17 @@ def train_ids(vocab, B, L):
         0, vocab, (B, L))).cuda()
 
 
-def run_steps(fa, fc, rm, step, ids, n, tag="", warm_up=True):
-    """``n`` steps on ``ids``: (losses, seconds, launches per step); each
-    step's counts are reset before it and read after it."""
+def run_steps(fa, fc, rm, step, ids, n, tag="", warm_up=True, labels=None):
+    """``n`` steps on ``ids`` (the labels too, unless ``labels`` are
+    given): (losses, seconds, launches per step); each step's counts are
+    reset before it and read after it."""
     losses, secs, per_step = [], [], []
+    labels = ids if labels is None else labels
     for i in range(n):
         _reset(fa, fc, rm)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(float(step(ids, ids)))    # reads the loss: a sync
+        losses.append(float(step(ids, labels)))  # reads the loss: a sync
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         per_step.append(_counts(fa, fc, rm))
@@ -3219,6 +3243,372 @@ def phase_tp(Engine, ledger, load_numpy_state_dict,
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sequence-parallel training
+# ---------------------------------------------------------------------------
+
+# bench.py:bench_llama_long_context's configuration (bench.py:363): the
+# 0.5B Llama at 8,192 positions with selective remat, batch 1 x 8192
+SEP_CELL = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                num_hidden_layers=8, num_attention_heads=16,
+                num_key_value_heads=16, max_position_embeddings=8192,
+                dtype="bfloat16", remat="selective")
+SEP_BATCH = (1, 8192)
+SEP_OPS = (1, 8192, 16, 128)    # 15a: [B, L, H, D], bf16, causal
+SEP_DEGREE = 2
+SEP_MODES = ("ring", "ulysses")
+SEP_REL_TOL = PAIR_REL_TOL      # bf16 training, other reduction orders
+
+
+def sep_batch(vocab, B, L, device="cuda"):
+    """The cell's batch, as ``bench_llama_long_context`` draws it: ids,
+    then labels, from ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, (B, L))
+    labels = rng.integers(0, vocab, (B, L))
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def want_sep_launches(layers, n, rank, mode, remat):
+    """Rows 1-3 launches per rank and train step under sequence parallel
+    (``mode`` "ring" or "ulysses"; n = 1 is the world-1 step): per layer
+    the ring runs rank + 1 causal chunk pairs (the wraparound pairs are
+    not launched), Ulysses and world 1 one attention over the whole
+    sequence (on the rank's heads); remat recomputes the forward in the
+    backward. No fused head in the cell, so no row-5 launch."""
+    pairs = min(rank + 1, n) if mode == "ring" else 1
+    want = dict(flash_attention_fwd=layers * pairs * (2 if remat else 1),
+                flash_attention_bwd_dq=layers * pairs,
+                flash_attention_bwd_dkv=layers * pairs,
+                fused_ce_stats=0, ragged_group_matmul=0)
+    want.update({k + "_tc": v for k, v in list(want.items())})
+    return want
+
+
+def weights_fingerprint(model):
+    """Each parameter's fp64 sum, on the host: equal models, equal
+    fingerprints."""
+    return {k: float(p.detach().double().cpu().sum())
+            for k, p in model.state_dict().items()}
+
+
+def _raw_p2p_worker(path):
+    """One rank of the raw probe: a gloo ``batch_isend_irecv`` of a CUDA
+    tensor, not staged."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed as dist
+    dist.init_parallel_env(backend="gloo", device="cuda:0", timeout=60)
+    r = dist.get_rank()
+    x = torch.full((8,), float(r + 1), device="cuda")
+    y = torch.empty_like(x)
+    for w in tdist.batch_isend_irecv([tdist.P2POp(tdist.isend, x, 1 - r),
+                                      tdist.P2POp(tdist.irecv, y, 1 - r)]):
+        w.wait()
+    torch.cuda.synchronize()
+    with open(os.path.join(path, f"p2p.r{r}"), "w") as f:
+        f.write("ok" if bool((y == 2 - r).all()) else "wrong values")
+    dist.destroy_process_group()
+
+
+def raw_p2p_probe(workdir):
+    """Whether gloo carries point-to-point on CUDA tensors when nothing
+    stages them (two throwaway ranks: the failing case aborts its
+    process)."""
+    from paddle_tpu_torch import distributed as dist
+    try:
+        dist.spawn(_raw_p2p_worker, args=(workdir,), nprocs=2, timeout=120)
+    except RuntimeError as e:
+        return f"refused: {e}"
+    with open(os.path.join(workdir, "p2p.r0")) as f:
+        return f.read()
+
+
+def sep_probe(C, world):
+    """The sequence-parallel collectives on CUDA tensors, by name: the
+    tiled all-to-all (gloo carries it) and the ring rotation (staged
+    through the host on gloo, counted in ``host_staged``), each checked
+    for its values."""
+    n, r = world.nranks, world.rank
+    out = {}
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        x = torch.full((2 * n, 8), float(r + 1), dtype=dt, device="cuda")
+        staged = C.host_staged["ppermute"]
+        try:
+            y = C.all_to_all(x, 0, 0, world)
+            out[f"all_to_all_{tag}"] = "ok" if all(
+                bool((y[2 * i:2 * i + 2] == i + 1).all())
+                for i in range(n)) else "wrong values"
+            y = C.ppermute(x, 1, world)
+            ok = bool((y == (r - 1) % n + 1).all())
+            out[f"ppermute_{tag}"] = ("ok" if ok else "wrong values") + (
+                ", host-staged" if C.host_staged["ppermute"] > staged
+                else "")
+        except RuntimeError as e:
+            out[f"sep_{tag}"] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def _gather_seq(C, g, *xs, dim=1):
+    return [C.gather_dim(x.detach().contiguous(), dim, g) for x in xs]
+
+
+def _head_to_seq_wrong_order(C):
+    """Ulysses' return all-to-all with the heads concatenated in the
+    wrong rank order (a planted fault)."""
+    def wrong(x, group):
+        y = C.all_to_all(x, 1, 2, group)
+        return y.unflatten(2, (group.nranks, -1)).flip(2).flatten(2, 3)
+    return wrong
+
+
+def sep_ops(fa, fc, rm, C, ra, ua, g, shape=SEP_OPS, device="cuda"):
+    """15a on this rank: ring and Ulysses at ``shape`` (bf16, causal) on
+    the rank's block, gathered over the group and judged against world-1
+    ``flash_attention_fn`` on the whole sequence (``judge_forward``,
+    ``judge_backward``); the launches of rows 1-3 counted around each
+    body; three planted faults (the wraparound pair left unmasked, dk/dv
+    one rotation short of home, Ulysses' return all-to-all in the wrong
+    rank order) must fail the judges."""
+    from unittest import mock
+    B, L, H, D = shape
+    gen = torch.Generator(device=device).manual_seed(15)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    qw, kw, vw = (t.clone().requires_grad_() for t in (q, k, v))
+    want_out = fa.flash_attention_fn(qw, kw, vw, causal=True)
+    want_out.backward(do)
+    want_lse = fa.flash_attention(q, k, v, causal=True)[1]
+    want_grads = (qw.grad, kw.grad, vw.grad)
+    per = L // g.nranks
+    blk = slice(g.rank * per, (g.rank + 1) * per)
+    scale = 1.0 / D ** 0.5
+    res = {}
+    for mode, body in (("ring", ra.ring_attention_local),
+                       ("ulysses", ua.ulysses_attention_local)):
+        qs, ks, vs = (t[:, blk].clone().requires_grad_() for t in (q, k, v))
+        _reset(fa, fc, rm)
+        o = body(qs, ks, vs, g, causal=True)
+        o.backward(do[:, blk])
+        if o.is_cuda:
+            torch.cuda.synchronize()
+        launches = _counts(fa, fc, rm)
+        out, dq, dk, dv = _gather_seq(C, g, o, qs.grad, ks.grad, vs.grad)
+        if mode == "ring":
+            lse = ra._ring_fwd_pass(qs.detach(), ks.detach(), vs.detach(), g,
+                                    True, scale)[1]
+            lse = _gather_seq(C, g, lse, dim=2)[0]
+        else:
+            lse = want_lse               # Ulysses keeps no lse
+        fwd = judge_forward(out, lse, want_out, want_lse)
+        bwd = judge_backward((dq, dk, dv), want_grads)
+        res[mode] = dict(launches=launches, forward=fwd[:3],
+                         forward_ok=fwd[3], backward=bwd[0],
+                         backward_ok=bwd[1])
+    # planted faults
+    qs, ks, vs = (t[:, blk].contiguous() for t in (q, k, v))
+    with mock.patch.object(ra, "_kept", lambda idx, s, causal: True):
+        o, lse = ra._ring_fwd_pass(qs, ks, vs, g, True, scale)
+    out, lse = _gather_seq(C, g, o)[0], _gather_seq(C, g, lse, dim=2)[0]
+    faults = {"wraparound pair unmasked":
+              judge_forward(out, lse, want_out, want_lse)[3]}
+    qs, ks, vs = (t[:, blk].clone().requires_grad_() for t in (q, k, v))
+    ra.ring_attention_local(qs, ks, vs, g, causal=True).backward(do[:, blk])
+    dq, dk, dv = _gather_seq(C, g, qs.grad, C.ppermute(ks.grad, -1, g),
+                             C.ppermute(vs.grad, -1, g))
+    faults["dk/dv one rotation short of home"] = judge_backward(
+        (dq, dk, dv), want_grads)[1]
+    with mock.patch.object(ua, "_head_to_seq", _head_to_seq_wrong_order(C)):
+        o = ua.ulysses_attention_local(qs.detach(), ks.detach(),
+                                       vs.detach(), g, causal=True)
+    faults["Ulysses heads in the wrong rank order"] = judge_forward(
+        _gather_seq(C, g, o)[0], want_lse, want_out, want_lse)[3]
+    res["faults_passed"] = faults
+    return res
+
+
+def _sep_worker(workdir, cell, batch, ops_shape, steps, fingerprint,
+                device="cuda"):
+    """One of phase 15's two ranks on cuda:0 (gloo): the sequence-parallel
+    probe, 15a's ops, then 15b's cell under sep 2, ring then Ulysses, from
+    the seed-0 weights (their fingerprint checked against the world-1
+    run's), each step's counts set to 0 before it and read after it."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import ragged_matmul as rm
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.ops import ulysses_attention as ua
+    from paddle_tpu_torch.text.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", device="cuda:0" if device == "cuda"
+                           else device, timeout=900)
+    rank = dist.get_rank()
+    out = dict(rank=rank, probe=sep_probe(C, C.get_group()), cells={})
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["sep_degree"] = SEP_DEGREE
+    fleet.init(is_collective=True, strategy=s)
+    g = fleet.get_hybrid_communicate_group().mesh.group("sep")
+    out["ops"] = sep_ops(fa, fc, rm, C, ra, ua, g, ops_shape, device)
+    for mode in SEP_MODES:
+        cfg = LlamaConfig(**{**cell, "sequence_parallel": True,
+                             "sep_mode": mode})
+        model, step = llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer,
+                                    pt.seed, device)
+        if weights_fingerprint(model) != fingerprint:
+            raise AssertionError(f"rank {rank} {mode}: the seed-0 weights "
+                                 "differ from the world-1 run's")
+        ids, labels = sep_batch(cfg.vocab_size, *batch, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        staged = C.host_staged["ppermute"]
+        losses, secs, per_step = run_steps(
+            fa, fc, rm, step, ids, steps + 1, tag=f"[rank {rank}, {mode}] ",
+            labels=labels)
+        out["cells"][mode] = dict(
+            losses=losses, step_secs=secs, launches=per_step,
+            staged_ppermutes_per_step=(C.host_staged["ppermute"] - staged)
+            / (steps + 1),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del step, model
+        torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"sep.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_sep(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
+              seed, cell=SEP_CELL, batch=SEP_BATCH, ops_shape=SEP_OPS,
+              steps=3, workdir="build/phase15", device="cuda"):
+    """Phase 15: sequence-parallel training. First the raw probe (gloo
+    point-to-point on CUDA tensors, unstaged) and the cell at world 1 on
+    the card (``sdpa_raw``: rows 1-3 over all 8,192 positions), then two
+    gloo ranks sharing the card (``_sep_worker``): 15a, ring and Ulysses
+    at ``ops_shape`` under the judges, their launches and three planted
+    faults; 15b, the cell under ``sep_degree=2``, ring then Ulysses, a
+    warm-up and ``steps`` steps each: every rank's losses within
+    ``SEP_REL_TOL`` of world 1's, rows 1-3 launches per rank and step
+    equal to ``want_sep_launches``, all on the tensor cores. Times are two
+    processes sharing one card through the host: not multi-GPU speeds."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    smi = smi_line()
+    try:
+        p2p = raw_p2p_probe(workdir)
+        log(f"  gloo point-to-point on CUDA tensors, unstaged: {p2p}")
+        cfg = LlamaConfig(**cell)
+        layers, remat = cfg.num_hidden_layers, bool(cfg.remat)
+        model, step = llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer,
+                                    seed, device)
+        fingerprint = weights_fingerprint(model)
+        ids, labels = sep_batch(cfg.vocab_size, *batch, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, per_step = run_steps(fa, fc, rm, step, ids, steps + 1,
+                                           tag="world 1: ", labels=labels)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del step, model
+        torch.cuda.empty_cache()
+        want1 = want_sep_launches(layers, 1, 0, "world 1", remat)
+        for i, c in enumerate(per_step):
+            if c != want1:
+                raise AssertionError(f"15b world 1 step {i} launched {c}, "
+                                     f"want {want1}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"15b world 1: non-finite loss {losses}")
+        t0 = time.perf_counter()
+        dist.spawn(_sep_worker, args=(workdir, cell, batch, ops_shape, steps,
+                                      fingerprint, device),
+                   nprocs=SEP_DEGREE, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(SEP_DEGREE):
+            with open(os.path.join(workdir, f"sep.r{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    B, L = batch
+    step1 = float(np.median(secs[1:]))
+    result = dict(raw_p2p=p2p, probe=ranks[0]["probe"], spawn_s=spawn_s,
+                  world1=dict(losses=losses, step_ms=step1 * 1e3,
+                              tokens_per_s=B * L / step1, peak_gib=peak,
+                              launches=per_step[-1]),
+                  ops={}, cells={})
+    log(f"  sequence-parallel collectives on CUDA tensors over gloo: "
+        + json.dumps(ranks[0]["probe"]))
+    # 15a
+    for r, rk in enumerate(ranks):
+        ops = rk["ops"]
+        for mode in SEP_MODES:
+            o = ops[mode]
+            want = want_sep_launches(1, SEP_DEGREE, r, mode, False)
+            log(f"  15a {mode} rank {r}: forward (rel all, rel tail, lse "
+                f"err) {o['forward']}, backward (rel all, rel tail) "
+                f"{o['backward']}, launches {o['launches']}")
+            if not (o["forward_ok"] and o["backward_ok"]):
+                raise AssertionError(f"15a {mode} rank {r} fails its judge")
+            if o["launches"] != want:
+                raise AssertionError(f"15a {mode} rank {r} launched "
+                                     f"{o['launches']}, want {want}")
+        passed = [k for k, ok in ops["faults_passed"].items() if ok]
+        if passed:
+            raise AssertionError(f"15a rank {r}: planted faults pass the "
+                                 f"judges: {passed}")
+        result["ops"][f"rank{r}"] = {m: {k: ops[m][k] for k in (
+            "forward", "backward")} for m in SEP_MODES}
+    log(f"  15a planted faults, each failing its judge on both ranks: "
+        f"{list(ranks[0]['ops']['faults_passed'])}")
+    # 15b
+    for mode in SEP_MODES:
+        got = [rk["cells"][mode] for rk in ranks]
+        worst = 0.0
+        for r, gr in enumerate(got):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(gr["losses"],
+                                                           losses))
+            worst = max(worst, rel)
+            if not rel <= SEP_REL_TOL:
+                raise AssertionError(f"15b {mode} rank {r}: losses "
+                                     f"{gr['losses']} vs world 1 {losses} "
+                                     f"(relative {rel:.3g})")
+            want = want_sep_launches(layers, SEP_DEGREE, r, mode, remat)
+            for i, c in enumerate(gr["launches"]):
+                if c != want:
+                    raise AssertionError(f"15b {mode} rank {r} step {i} "
+                                         f"launched {c}, want {want}")
+        med = [float(np.median(gr["step_secs"][1:])) for gr in got]
+        result["cells"][mode] = dict(
+            losses=got[0]["losses"], max_rel_to_world1=worst,
+            step_ms_per_rank=[m * 1e3 for m in med],
+            tokens_per_s=B * L / max(med),
+            peak_gib_per_rank=[gr["peak_gib"] for gr in got],
+            launches_per_rank_step=[gr["launches"][-1] for gr in got],
+            staged_ppermutes_per_rank_step=[gr["staged_ppermutes_per_step"]
+                                            for gr in got])
+        steps_ms = [round(m * 1e3, 1) for m in med]
+        log(f"  15b {mode}, sep 2 over gloo on one card: losses "
+            f"{got[0]['losses']} vs world 1 {losses}, worst relative "
+            f"{worst:.3g} (limit {SEP_REL_TOL}); step {steps_ms} ms "
+            f"per rank, {B * L / max(med):.1f} tokens/s, peak "
+            f"{[gr['peak_gib'] for gr in got]} GiB per rank, host-staged "
+            f"ppermutes per rank and step "
+            f"{[gr['staged_ppermutes_per_step'] for gr in got]} (two "
+            f"processes sharing one card through gloo: not a multi-GPU "
+            f"speed; {smi})")
+    log(f"  15b world 1 on the card: step {step1 * 1e3:.1f} ms, "
+        f"{B * L / step1:.1f} tokens/s, peak {peak} GiB ({smi}); spawn and "
+        f"both sep runs {spawn_s:.1f} s")
+    return result
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3363,6 +3753,18 @@ def main():
     tp = phase_tp(Engine, ledger, load_numpy_state_dict)
     log("  tp serving " + json.dumps(tp))
 
+    # ---- 15. sequence-parallel training -------------------------------------
+    log(f"[15] sequence-parallel training: 15a ring and Ulysses at "
+        f"{list(SEP_OPS)} bf16 causal, sep {SEP_DEGREE}, against world 1; "
+        f"15b bench.py:bench_llama_long_context's cell (hidden 2048, 8 "
+        f"layers, 16 heads, FFN 5504, {SEP_BATCH[0]}x{SEP_BATCH[1]}, bf16, "
+        f"selective remat, AdamW) at world 1, then sep {SEP_DEGREE} ring and "
+        f"Ulysses as two ranks on cuda:0 over gloo")
+    from paddle_tpu_torch.text.models.llama import LlamaConfig
+    sep = phase_sep(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet,
+                    optimizer, pt.seed)
+    log("  sequence parallel " + json.dumps(sep))
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -3423,6 +3825,14 @@ def main():
                              kd["name"]]))
         if kd["name"] == "fused_ce_stats" and "left_out" not in mp2:
             kd["tp_rank"]["vocab_columns"] = mp2["ce_columns"]
+    # rows 1-3 on 15b's sequence shards: launches per rank and step, by
+    # sep mode and rank, and at world 1
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_"):
+            kd["sep"] = dict(world1=sep["world1"]["launches"][kd["name"]],
+                             **{mode: [c[kd["name"]] for c in sep["cells"][
+                                 mode]["launches_per_rank_step"]]
+                                for mode in SEP_MODES})
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

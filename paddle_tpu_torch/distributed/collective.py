@@ -16,8 +16,20 @@ or the reference's ``PADDLE_TRAINERS_NUM``/``PADDLE_TRAINER_ID``
 (``spawn`` sets both). The backend is NCCL on ``cuda:LOCAL_RANK``; gloo
 is taken only when the caller asks for the CPU (``device="cpu"``) or for
 ``backend="gloo"`` (as two ranks that share one card must). Nothing
-falls back from one backend to the other. Point-to-point (send, recv,
-``P2POp``) comes with the pipeline slice (ROADMAP.md, port queue item 4).
+falls back from one backend to the other. Point-to-point for the
+pipeline (send, recv, ``P2POp``) comes with the pipeline slice
+(ROADMAP.md, port queue item 4).
+
+Sequence parallel adds the two collectives its bodies need, the JAX
+package's ``lax.ppermute`` and tiled ``lax.all_to_all``: ``ppermute``
+rotates tensors around a group (``batch_isend_irecv``), and
+``all_to_all`` re-shards one dim onto another (``all_to_all_single``),
+differentiably. Gloo carries ``all_to_all_single`` on CUDA tensors but
+not point-to-point (its TCP transport reads the device pointer as host
+memory: "Bad address"), so ``ppermute`` on gloo stages CUDA tensors
+through the host, one copy each way, and counts each such call in
+``host_staged``. No other call is staged, and nothing chooses another
+algorithm.
 """
 from __future__ import annotations
 
@@ -36,7 +48,7 @@ __all__ = ["ReduceOp", "Group", "init_parallel_env", "is_initialized",
            "all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "reduce", "scatter", "alltoall", "alltoall_single", "barrier",
            "destroy_process_group", "free_port", "gather_dim",
-           "reduce_scatter_dim"]
+           "reduce_scatter_dim", "ppermute", "all_to_all", "host_staged"]
 
 
 class ReduceOp:
@@ -361,3 +373,85 @@ def reduce_scatter_dim(t, dim, group):
                       device=t.device)
     dist.reduce_scatter_tensor(out, src, group=_pg(group))
     return out.movedim(0, dim).contiguous()
+
+
+# -- sequence parallel: ring rotation and tiled all-to-all ------------------
+
+#: calls staged through the host because the backend refuses their CUDA
+#: tensors (gloo's point-to-point), by collective
+host_staged = {"ppermute": 0}
+
+
+def _gloo(group) -> bool:
+    return dist.get_backend(_pg(group)) == "gloo"
+
+
+def ppermute(x, shift=1, group=None):
+    """Rotate ``x`` (a tensor, or a list of tensors sent together) around
+    the group: group rank i sends to rank ``(i + shift) % n`` and receives
+    from rank ``(i - shift) % n`` (``lax.ppermute`` with ``perm=[(i, (i +
+    shift) % n)]``). Returns new tensors in the structure given. On gloo a
+    CUDA tensor goes through the host (``host_staged["ppermute"]``)."""
+    single = isinstance(x, torch.Tensor)
+    xs = [x] if single else list(x)
+    n = get_world_size(group)
+    if n == 1 or shift % n == 0:
+        out = [t.clone() for t in xs]
+        return out[0] if single else out
+    r = get_rank(group)
+    ranks = group.ranks if group is not None else list(range(n))
+    dst, src = ranks[(r + shift) % n], ranks[(r - shift) % n]
+    staged = xs[0].is_cuda and _gloo(group)
+    sends = [(t.cpu() if staged else t).contiguous() for t in xs]
+    recvs = [torch.empty_like(t) for t in sends]
+    pg = _pg(group)
+    ops = ([dist.P2POp(dist.isend, t, dst, pg, tag=i)
+            for i, t in enumerate(sends)]
+           + [dist.P2POp(dist.irecv, t, src, pg, tag=i)
+              for i, t in enumerate(recvs)])
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if staged:
+        host_staged["ppermute"] += 1
+        recvs = [t.to(x0.device, non_blocking=False)
+                 for t, x0 in zip(recvs, xs)]
+    return recvs[0] if single else recvs
+
+
+def _all_to_all(x, split_axis, concat_axis, group):
+    n = get_world_size(group)
+    if n == 1:
+        return x
+    size = x.shape[split_axis]
+    if size % n:
+        raise ValueError(f"all_to_all: dim {split_axis} ({size}) is not a "
+                         f"multiple of the group's {n} ranks")
+    # piece j (the j-th block of split_axis) goes to rank j, first
+    pieces = x.unflatten(split_axis, (n, -1)).movedim(split_axis, 0)
+    pieces = pieces.contiguous()
+    out = torch.empty_like(pieces)
+    dist.all_to_all_single(out, pieces, group=_pg(group))
+    # out[i] came from rank i: concatenate along concat_axis in rank order
+    return out.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group):
+        ctx.axes, ctx.group = (split_axis, concat_axis), group
+        return _all_to_all(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (_all_to_all(g, concat_axis, split_axis, ctx.group), None,
+                None, None)
+
+
+def all_to_all(x, split_axis, concat_axis, group=None):
+    """``lax.all_to_all(x, split_axis=, concat_axis=, tiled=True)`` over
+    the group, differentiable: ``x``'s ``split_axis`` is cut into n
+    blocks, block j goes to rank j, and the blocks received are
+    concatenated along ``concat_axis`` in rank order. The backward is the
+    reverse all-to-all."""
+    return _AllToAll.apply(x, split_axis, concat_axis, group)

@@ -4,10 +4,13 @@
 
 The port keeps the fields the JAX package reads, so a strategy written
 for it drives the port unchanged. ``dp_degree``, ``mp_degree``,
-``sharding_degree`` and sharding stages 1-3 run (``fleet.init`` builds
-the mesh and its process groups); ``unsupported()`` names each toggled
-field the port cannot run yet with its ROADMAP item, and ``fleet.init``
-and ``make_train_step`` raise ``NotImplementedError`` for them.
+``sharding_degree``, sharding stages 1-3 and ``sep_degree`` (alone or
+with dp) run (``fleet.init`` builds the mesh and its process groups);
+``unsupported()`` names each toggled field the port cannot run yet with
+its ROADMAP item, and ``fleet.init`` and ``make_train_step`` raise
+``NotImplementedError`` for them. ``sep_degree`` beside sharding or
+tensor parallel is among them: the JAX package's partial-manual
+``shard_map`` guard refuses it (``mesh.sep_guard``).
 ``gradient_merge`` (micro-batch accumulation) and ``recompute`` (a flag
 only: remat is ``LlamaConfig.remat``, as in the JAX package) run.
 """
@@ -19,7 +22,6 @@ __all__ = ["DistributedStrategy", "HybridCommunicateGroup"]
 
 _MULTI_GPU = "ROADMAP.md, port queue item 4: multi-GPU"
 _PIPELINE = "ROADMAP.md, port queue item 4: multi-GPU, pipeline parallel"
-_SEP = "ROADMAP.md, port queue item 4: multi-GPU, sequence parallel"
 _AMP = "ROADMAP.md, port queue item 10: amp and attention dropout"
 _LONG_TAIL = "ROADMAP.md, port queue item 9: long tail"
 
@@ -78,15 +80,21 @@ class DistributedStrategy:
 
     def unsupported(self) -> list:
         """``[(setting, ROADMAP item), ...]`` for what the port cannot run
-        yet; empty when the strategy is dp / sharding stages 1-3 / tp."""
+        yet; empty when the strategy is dp / sharding stages 1-3 / tp, or
+        sep with dp."""
         hc = self.hybrid_configs
         out = []
         if hc.get("pp_degree", 1) > 1:
             out.append((f"hybrid_configs['pp_degree']={hc['pp_degree']}",
                         _PIPELINE))
-        if hc.get("sep_degree", 1) > 1:
+        try:
+            mesh_mod.sep_guard(mesh_mod.Mesh(
+                sharding=max(1, hc.get("sharding_degree", 1)),
+                sep=max(1, hc.get("sep_degree", 1)),
+                tp=max(1, hc.get("mp_degree", 1))))
+        except NotImplementedError as e:
             out.append((f"hybrid_configs['sep_degree']={hc['sep_degree']}",
-                        _SEP))
+                        str(e)))
         if self.sharding_stage not in (0, 1, 2, 3):
             raise ValueError(f"sharding_stage {self.sharding_stage}; want "
                              "1, 2 or 3")

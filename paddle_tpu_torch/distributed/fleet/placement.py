@@ -3,6 +3,9 @@ does, and the stage-3 parameter gathering the train step runs.
 
 ``place_model(model, mesh, stage)``:
 
+0. at sep > 1, asks the model whether it runs sequence-parallel
+   attention (``check_sequence_parallel``); a model without it is
+   refused, since each rank holds only its shard of the sequence;
 1. at tp > 1, asks the model (``check_tensor_parallel``) and swaps its
    tp-annotated layers for their ``mp_layers`` counterparts, each holding
    this rank's slice;
@@ -42,13 +45,24 @@ from .. import mesh as mesh_mod
 from ..collective import gather_dim, reduce_scatter_dim
 from .meta_parallel.mp_layers import split_tp_layers
 
-__all__ = ["place_model", "placement", "Stage3"]
+__all__ = ["place_model", "placement", "Stage3", "no_sequence_parallel"]
 
 
 def placement(p) -> tuple:
     """A parameter's placement spec (replicated when it has none)."""
     spec = getattr(p, "placement", None)
     return tuple(spec) if spec is not None else (None,) * p.dim()
+
+
+def no_sequence_parallel(model, sep):
+    """The error for a model without sequence-parallel attention on a
+    mesh with ``sep`` > 1."""
+    return NotImplementedError(
+        f"{type(model).__name__} has no sequence-parallel attention, and "
+        f"under sep_degree {sep} each rank holds only its shard of the "
+        "sequence (the JAX package's GSPMD would gather it instead; the "
+        "port refuses: ROADMAP.md, Queue 3, divergences kept on purpose). "
+        "Use LlamaForCausalLM with LlamaConfig(sequence_parallel=True)")
 
 
 def _sharding_dim(spec):
@@ -158,6 +172,12 @@ def place_model(model, mesh, stage):
             raise RuntimeError("the model is already placed otherwise "
                                "(another mesh or sharding stage)")
         return model
+    sep = mesh.axis_size("sep")
+    if sep > 1:
+        check = getattr(model, "check_sequence_parallel", None)
+        if check is None:
+            raise no_sequence_parallel(model, sep)
+        check(mesh)
     tp = mesh.axis_size("tp")
     if tp > 1:
         check = getattr(model, "check_tensor_parallel", None)

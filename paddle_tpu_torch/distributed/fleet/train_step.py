@@ -7,12 +7,20 @@ JAX package compiles into one GSPMD program. The caller passes the
 global batch; on the mesh of ``fleet.init`` (``distributed.mesh``):
 
 1. each rank takes its ``data_pspec`` slice of every batch tensor (the
-   batch dim over ``(dp, sharding)``, whole when it does not divide);
+   batch dim over ``(dp, sharding)``, whole when it does not divide; the
+   sequence dim over ``sep``, which it must divide);
 2. ``loss_fn(model, *batch)`` and its backward run on the slice. Under
    tensor parallel the ``mp_layers`` do their collectives; at stage 3
    the sharded parameters are gathered per unit and their gradients
    reduce-scattered over the sharding group (``placement.Stage3``);
-3. gradients are averaged over ``(dp, sharding)``. Where the optimizer
+   under sequence parallel both run inside ``mesh.sequence_shard``, so
+   the model attends over the ring and returns its part of the global
+   loss (the parts of the ``(dp, sep)`` ranks sum to it), and a remat
+   layer's recompute (collectives included) runs to its end;
+3. gradients are averaged over ``(dp, sharding)``; under sequence
+   parallel (sharding and tp are 1 there) they are summed over
+   ``(dp, sep)``, one all-reduce, as the losses are. Where the
+   optimizer
    state is sharded beyond the parameter (``opt_state_pspec``: stages 1
    and 2, and stage 3's tp parameters), this rank keeps its block: at
    stage 1 by an all-reduce and a slice, at stages 2 and 3 by a
@@ -23,6 +31,10 @@ global batch; on the mesh of ``fleet.init`` (``distributed.mesh``):
    blocks narrower than their parameter are all-gathered back into it;
 5. the LR scheduler steps. The loss returned is the global mean, a
    detached fp32 scalar.
+
+On a mesh with sep > 1 the model must run sequence-parallel attention
+(``placement.place_model`` asks it), as ``LlamaConfig(sequence_parallel
+=True)`` does; any other model is refused here.
 
 On a mesh of one rank every collective is the identity and the step is
 the single-GPU step exactly. ``accumulate_steps=k`` (or
@@ -39,10 +51,12 @@ parameters whole.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from .. import mesh as mesh_mod
 from ..collective import all_reduce, gather_dim, reduce_scatter_dim
@@ -102,6 +116,9 @@ class TrainStep:
                        for k, t in self._locals.items()}
         self._state = optimizer.init_state(self._views)
         self._data = m.group(("dp", "sharding"))
+        # sequence parallel: gradients and the loss sum over (dp, sep)
+        self._sep = (m.group(("dp", "sep")) if m.axis_size("sep") > 1
+                     else None)
 
     def _narrow(self, t, d):
         if d is None:
@@ -110,8 +127,22 @@ class TrainStep:
         return t.narrow(d, self.mesh.axis_index("sharding") * k, k)
 
     def _local_batch(self, x):
+        n = self.mesh.axis_size("sep")
+        if n > 1 and x.dim() >= 2 and x.shape[1] % n:
+            raise ValueError(f"seq len {x.shape[1]} not divisible by {n}")
         spec = mesh_mod.data_pspec(x.shape, self.mesh)
         return mesh_mod.local_block(x, spec, self.mesh) if any(spec) else x
+
+    def _sequence_shard(self):
+        """The sequence-shard context of a sep mesh: the model's inputs
+        are this rank's shard, and remat recomputes whole layers (their
+        collectives in the same order on every rank)."""
+        if self._sep is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(mesh_mod.sequence_shard(self.mesh))
+        stack.enter_context(set_checkpoint_early_stop(False))
+        return stack
 
     def _loss(self, batch):
         with saving(self.model):
@@ -131,8 +162,9 @@ class TrainStep:
         with fp32 accumulation. A parameter the loss does not reach gets
         a zero gradient, as jax.grad gives it."""
         if self.accumulate_steps == 1:
-            loss = self._loss(batch)
-            loss.backward()
+            with self._sequence_shard():
+                loss = self._loss(batch)
+                loss.backward()
             grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                      for k, p in self._params.items()}
             return loss.detach(), grads
@@ -140,8 +172,9 @@ class TrainStep:
                for k, p in self._params.items()}
         losses = []
         for mb in self._micro_batches(batch):
-            loss = self._loss(mb)
-            loss.backward()
+            with self._sequence_shard():
+                loss = self._loss(mb)
+                loss.backward()
             for k, p in self._params.items():
                 if p.grad is not None:
                     acc[k] += p.grad.float()
@@ -153,9 +186,12 @@ class TrainStep:
 
     def _reduce(self, k, g):
         """This rank's block of the gradient averaged over (dp,
-        sharding), as the optimizer state of ``k`` covers it."""
+        sharding), as the optimizer state of ``k`` covers it; under
+        sequence parallel summed over (dp, sep)."""
         m, d = self.mesh, self._odim[k]
         n = self._data.nranks
+        if self._sep is not None:
+            return all_reduce(g, group=self._sep)
         if n == 1:
             return g
         if "sharding" in self._pspec[k]:
@@ -177,7 +213,9 @@ class TrainStep:
             p.grad = None
         loss, grads = self._grads(batch)
         grads = {k: self._reduce(k, g) for k, g in grads.items()}
-        if self._data.nranks > 1:
+        if self._sep is not None:
+            loss = all_reduce(loss.clone(), group=self._sep)
+        elif self._data.nranks > 1:
             loss = all_reduce(loss.clone(), group=self._data) \
                 / self._data.nranks
         self.optimizer.apply_in_place(

@@ -23,11 +23,26 @@ the JAX functions, returning the same specs as plain tuples:
 An entry of a spec is None, an axis name, or a tuple of axis names. A
 ``Mesh`` without process groups (``build_mesh(..., world_size=, rank=)``)
 answers these questions for any rank; ``init_groups`` (``fleet.init``)
-creates one ``torch.distributed`` group per axis of size > 1 and one for
-``("dp", "sharding")``, the ranks that split the batch.
+creates one ``torch.distributed`` group per axis of size > 1, one for
+``("dp", "sharding")``, the ranks that split the batch, and one for
+``("dp", "sep")``, the ranks whose gradients sum under sequence parallel
+(a group whose ranks another group already spans is that group).
+
+Sequence parallel: ``data_pspec`` puts the sequence dim on ``"sep"``, so
+each rank of a sep group holds ``[B, L/n]`` of the batch. The train step
+declares that with ``sequence_shard(mesh)``; inside it
+``current_sequence_shard()`` says which shard this rank holds
+(``SequenceShard``: the sep group, the rank's index on it, the degree,
+and the ``(dp, sep)`` group whose ranks' losses sum to the global one),
+and a model reads it to offset its positions, to run its attention over
+the ring and to scale its loss. Outside it a model's input is the whole
+sequence.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -38,11 +53,13 @@ from . import collective as C
 __all__ = ["AXES", "Mesh", "build_mesh", "set_mesh", "get_mesh",
            "configured_mesh", "mesh_axis_size", "data_pspec",
            "infer_param_pspec", "opt_state_pspec", "spec_axes",
-           "local_block", "gather_full"]
+           "local_block", "gather_full", "SequenceShard", "sequence_shard",
+           "current_sequence_shard", "sep_guard"]
 
 AXES = ("pp", "dp", "sharding", "sep", "tp")
-# the groups init_groups makes: each axis, and the batch-splitting pair
-_GROUP_AXES = tuple((a,) for a in AXES) + (("dp", "sharding"),)
+# the groups init_groups makes: each axis, the batch-splitting pair, and
+# the ranks that sum gradients under sequence parallel
+_GROUP_AXES = tuple((a,) for a in AXES) + (("dp", "sharding"), ("dp", "sep"))
 
 
 def _axes(entry) -> tuple:
@@ -90,24 +107,23 @@ class Mesh:
         return i
 
     def init_groups(self):
-        """Create the process group of every axis of size > 1, and of
-        ``("dp", "sharding")``. Every rank of the world calls it, members
-        or not, so every rank creates the groups in the same order. A mesh
-        whose groups exist keeps them."""
+        """Create the process group of every axis of size > 1, of
+        ``("dp", "sharding")`` and of ``("dp", "sep")``; a group whose
+        ranks an earlier one already spans is that group. Every rank of
+        the world calls it, members or not, so every rank creates the
+        groups in the same order. A mesh whose groups exist keeps them."""
         if self._groups:
             return self
+        made = {}
         for axes in _GROUP_AXES:
             if self.axis_size(axes) == 1:
                 continue
-            seen = set()
             for r in range(self.size):
                 members = tuple(self.axis_ranks(axes, r))
-                if members in seen:
-                    continue
-                seen.add(members)
-                g = C.new_group(members, axis_names=axes)
-                if self.rank in members:
-                    self._groups[axes] = g
+                if members not in made:
+                    made[members] = C.new_group(members, axis_names=axes)
+                if r == self.rank:
+                    self._groups[axes] = made[members]
         return self
 
     def group(self, axes) -> C.Group:
@@ -241,6 +257,61 @@ def opt_state_pspec(param_spec, leaf_shape, param_shape, stage,
                     spec[d] = "sharding"
                     break
     return tuple(spec)
+
+
+# -- sequence parallel ------------------------------------------------------
+
+def sep_guard(mesh, axis_name="sep"):
+    """The JAX ``_partial_manual_guard``'s rule: a sequence-parallel axis
+    beside sharding, tp or pp degrees > 1 is refused. dp is allowed: the
+    JAX package's own dp x sep test trains, and the port's losses and
+    gradients summed over (dp, sep) give its single-device step."""
+    others = sorted(a for a in ("pp", "sharding", "tp")
+                    if a != axis_name and mesh.axis_size(a) > 1)
+    if mesh.axis_size(axis_name) > 1 and others:
+        raise NotImplementedError(
+            f"sequence parallel over {axis_name!r} beside the non-trivial "
+            f"axes {others} is refused, as the JAX package's "
+            "partial-manual shard_map guard refuses it (ROADMAP.md, port "
+            "queue item 4: multi-GPU, sequence parallel, with sharding or "
+            "tp)")
+
+
+@dataclass(frozen=True)
+class SequenceShard:
+    """This rank's shard of the sequence: block ``index`` of ``n`` along
+    the sep ``group``. The losses of the ``loss_group`` ranks (dp x sep)
+    sum to the global loss."""
+    group: C.Group
+    index: int
+    n: int
+    loss_group: C.Group
+
+
+_sequence_shard = contextvars.ContextVar("sequence_shard", default=None)
+
+
+@contextlib.contextmanager
+def sequence_shard(mesh=None):
+    """Declare that the model inputs inside are this rank's
+    ``data_pspec`` shard of the sequence on ``mesh`` (no-op at sep 1)."""
+    mesh = mesh or get_mesh()
+    n = mesh.axis_size("sep")
+    if n == 1:
+        yield None
+        return
+    shard = SequenceShard(mesh.group("sep"), mesh.axis_index("sep"), n,
+                          mesh.group(("dp", "sep")))
+    token = _sequence_shard.set(shard)
+    try:
+        yield shard
+    finally:
+        _sequence_shard.reset(token)
+
+
+def current_sequence_shard() -> Optional[SequenceShard]:
+    """The shard ``sequence_shard`` declared, or None (whole sequences)."""
+    return _sequence_shard.get()
 
 
 # -- acting on a spec --------------------------------------------------------

@@ -32,7 +32,22 @@ head counts from the local projection widths (``num_heads / tp``,
 ``num_key_value_heads / tp``), and the loss runs on the vocabulary
 shard: the fused head through ``fused_ce_loss`` over the tp group, the
 dense one through the vocab-parallel cross-entropy.
-``sequence_parallel`` is not ported yet and raises.
+
+``sequence_parallel=True`` runs attention over sequence shards when the
+caller declares that the inputs are this rank's shard
+(``distributed.mesh.sequence_shard``, which the train step enters on a
+mesh with sep > 1): ``sep_mode="ring"`` through
+``ops.ring_attention.ring_attention_local``, ``"ulysses"`` through
+``ops.ulysses_attention.ulysses_attention_local``, the rotary positions
+starting at the shard's global offset. With labels the rank's loss is
+its part of the global next-token mean: the last local position's target
+is the next rank's first label (one ``ppermute``), the last rank's last
+position has none, and the sum over the rank's targets is divided by
+the count over every rank of the dp x sep group, so the sum of those
+ranks' losses is the JAX model's mean. Outside a declared shard the
+input is the whole sequence and attention is the usual one. A model
+without ``sequence_parallel`` is refused on a mesh with sep > 1
+(``check_sequence_parallel``).
 """
 from __future__ import annotations
 
@@ -45,9 +60,13 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ...distributed import collective as C
+from ...distributed.mesh import current_sequence_shard, sep_guard
 from ...framework.device import resolve_device
 from ...nn import Embedding, Linear, RMSNorm
 from ...nn import functional as F
+from ...ops.ring_attention import ring_attention_local
+from ...ops.ulysses_attention import ulysses_attention_local
 
 
 @dataclass
@@ -66,7 +85,10 @@ class LlamaConfig:
     # False | True/"full" (recompute whole layers) | "selective" (keep
     # matmul outputs, recompute the rest)
     remat: object = False
+    # attention over the mesh's "sep" shards of the sequence
     sequence_parallel: bool = False
+    # "ring" (ppermute KV ring) or "ulysses" (all-to-all head re-shard;
+    # needs heads % sep == 0)
     sep_mode: str = "ring"
     fused_ce_chunk: int = 0
 
@@ -81,12 +103,14 @@ LLAMA_TINY = LlamaConfig(vocab_size=1024, hidden_size=256,
                          max_position_embeddings=512)
 
 
+_SEP_BODIES = {"ring": ring_attention_local,
+               "ulysses": ulysses_attention_local}
+
+
 def _check_config(c: LlamaConfig):
-    if c.sequence_parallel:
-        raise NotImplementedError(
-            "LlamaConfig.sequence_parallel shards the sequence over GPUs "
-            "(ROADMAP.md, port queue item 4: multi-GPU, sequence "
-            "parallel)")
+    if c.sequence_parallel and c.sep_mode not in _SEP_BODIES:
+        raise ValueError(f"LlamaConfig.sep_mode={c.sep_mode!r}; want 'ring' "
+                         "or 'ulysses'")
     if c.remat not in (False, True, "full", "selective"):
         raise ValueError(f"LlamaConfig.remat={c.remat!r}; want False, "
                          "True, 'full' or 'selective'")
@@ -100,15 +124,16 @@ def _save_matmuls(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_layer(layer, x, mode):
+def _remat_layer(layer, x, mode, seq=None):
     """One decoder layer under ``torch.utils.checkpoint`` (the JAX
-    package's ``jax.checkpoint`` per layer)."""
+    package's ``jax.checkpoint`` per layer); ``seq`` (the sequence shard)
+    reaches the recompute too."""
     if mode == "selective":
-        return checkpoint(layer, x, use_reentrant=False,
+        return checkpoint(layer, x, seq, use_reentrant=False,
                           context_fn=partial(
                               create_selective_checkpoint_contexts,
                               _save_matmuls))
-    return checkpoint(layer, x, use_reentrant=False)
+    return checkpoint(layer, x, seq, use_reentrant=False)
 
 
 def _rope(q, k, positions, theta, dtype):
@@ -137,6 +162,7 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = c.num_key_value_heads
         self.head_dim = c.hidden_size // c.num_attention_heads
         self.theta = c.rope_theta
+        self.sep_mode = c.sep_mode
         h = c.hidden_size
         kv = self.num_kv_heads * self.head_dim
         kw = dict(bias_attr=False, device=device, dtype=c.dtype)
@@ -149,7 +175,9 @@ class LlamaAttention(nn.Module):
             lin.weight.pspec = (None, "tp")
         self.o_proj.weight.pspec = ("tp", None)
 
-    def forward(self, x):
+    def forward(self, x, seq=None):
+        """``x`` is the whole sequence, or with ``seq`` (a
+        ``SequenceShard``) this rank's shard of it."""
         # head counts from the (local) projection widths: all of them, or
         # num_heads / tp and num_kv_heads / tp under tensor parallel
         b, l, _ = x.shape
@@ -157,9 +185,13 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).reshape(b, l, -1, hd)
         k = self.k_proj(x).reshape(b, l, -1, hd)
         v = self.v_proj(x).reshape(b, l, -1, hd)
-        q, k = _rope(q, k, torch.arange(l, device=x.device), self.theta,
-                     q.dtype)
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        off = 0 if seq is None else seq.index * l
+        q, k = _rope(q, k, torch.arange(off, off + l, device=x.device),
+                     self.theta, q.dtype)
+        if seq is not None:
+            out = _SEP_BODIES[self.sep_mode](q, k, v, seq.group, causal=True)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, l, -1))
 
 
@@ -190,8 +222,8 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, device=device)
 
-    def forward(self, x):
-        x = x + self.self_attn(self.input_layernorm(x))
+    def forward(self, x, seq=None):
+        x = x + self.self_attn(self.input_layernorm(x), seq)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -208,12 +240,12 @@ class LlamaModel(nn.Module):
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, seq=None):
         x = self.embed_tokens(input_ids)
         remat = self.config.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = _remat_layer(layer, x, self.config.remat) if remat \
-                else layer(x)
+            x = _remat_layer(layer, x, self.config.remat, seq) if remat \
+                else layer(x, seq)
         return self.norm(x)
 
 
@@ -245,6 +277,21 @@ class LlamaForCausalLM(nn.Module):
             if n % tp:
                 raise ValueError(f"tensor-parallel degree {tp} does not "
                                  f"divide {what}={n}")
+
+    def check_sequence_parallel(self, mesh):
+        """Raise unless this model runs on ``mesh``'s sep shards:
+        ``sequence_parallel`` set, no sharding or tp beside sep (the JAX
+        guard), and for Ulysses heads that divide by the sep degree.
+        ``fleet.distributed_model`` asks before it places the model."""
+        from ...distributed.fleet.placement import no_sequence_parallel
+        n = mesh.axis_size("sep")
+        if not self.config.sequence_parallel:
+            raise no_sequence_parallel(self, n)
+        sep_guard(mesh)
+        h = self.config.num_attention_heads
+        if self.config.sep_mode == "ulysses" and h % n:
+            raise ValueError(f"num heads {h} not divisible by axis size "
+                             f"{n}")
 
     def _tp_group(self):
         """The tensor-parallel group the vocabulary is split over, or
@@ -281,12 +328,21 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None):
         """input_ids [B, L] -> logits [B, L, vocab] in the model dtype; with
         labels [B, L], the mean CE of the logits at t against the labels
-        at t + 1 (fp32 scalar)."""
+        at t + 1 (fp32 scalar). Inside ``mesh.sequence_shard`` both are
+        this rank's shard [B, L/n], and the loss is this rank's part of
+        the global mean."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
-        hidden = self.llama(ids)
+        seq = current_sequence_shard()
+        if seq is not None:
+            from ...distributed.fleet.placement import no_sequence_parallel
+            if not self.config.sequence_parallel:
+                raise no_sequence_parallel(self, seq.n)
+        hidden = self.llama(ids, seq)
         if labels is None:
             return self._logits(hidden)
         labels = torch.as_tensor(labels, device=self.device).long()
+        if seq is not None:
+            return self._shard_loss(hidden, labels, seq)
         tp = self._tp_group()
         if self.config.fused_ce_chunk and not self.tie:
             # the [N, vocab] fp32 logits never materialize
@@ -305,6 +361,34 @@ class LlamaForCausalLM(nn.Module):
         return F.cross_entropy(
             logits[:, :-1].reshape(-1, self.config.vocab_size).float(),
             labels[:, 1:].reshape(-1))
+
+    def _shard_loss(self, hidden, labels, seq):
+        """This rank's part of the global next-token mean over a sequence
+        shard: the sum of its targets' CE over the count of the targets of
+        every rank of ``seq.loss_group`` (dp x sep), whose parts sum to
+        the mean. A rank's last position scores the next rank's first
+        label; the last rank's last position scores nothing."""
+        b, l = labels.shape
+        nxt = C.ppermute(labels[:, :1], -1, seq.group)     # from rank i + 1
+        if seq.index == seq.n - 1:
+            hidden, target = hidden[:, :-1], labels[:, 1:]
+        else:
+            target = torch.cat([labels[:, 1:], nxt], dim=1)
+        if self.config.fused_ce_chunk and not self.tie:
+            # the fused head's mean over its rows, reweighted by the rows
+            # of every rank (the JAX fused head counts every row)
+            rows = seq.loss_group.nranks // seq.n * b * (seq.n * l - 1)
+            return F.fused_linear_cross_entropy(
+                hidden, self.lm_head.weight, target,
+                chunk_size=self.config.fused_ce_chunk) * (
+                    target.numel() / rows)
+        logits = self._logits(hidden)
+        loss = F.cross_entropy(
+            logits.reshape(-1, self.config.vocab_size).float(),
+            target.reshape(-1), reduction="sum")
+        count = C.all_reduce((target != -100).sum().float(),
+                             group=seq.loss_group)
+        return loss / count.clamp_min(1e-12)
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  top_k=0, temperature=1.0, eos_token_id=None, seed=0,

@@ -1011,3 +1011,57 @@ def test_phase12b_two_ranks_on_one_card_match_world1(cuda, tmp_path):
     for name in ran:
         assert out["configs"][name]["max_rel_to_world1"] <= \
             chip_smoke.PAIR_REL_TOL
+
+
+# -- sequence parallel (ring contract; phase 15) ------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(4, 4, 128), (8, 2, 64)])
+def test_bwd_kernels_with_a_lse_merged_from_two_key_chunks(cuda, dtype, Hq,
+                                                         Hkv, D):
+    """The ring's contract for rows 2-3: each key chunk's dq and dk/dv
+    from the lse and delta merged over both chunks (the diagonal chunk
+    causal, the earlier one whole) match their plain versions, and summed
+    over the chunks they are the whole sequence's gradients."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    q, k, v, do = _attn_inputs(cuda, dtype, 1, 512, 1024, Hq, Hkv, D)
+    chunks = ((k[:, :512], v[:, :512], False), (k[:, 512:], v[:, 512:], True))
+    parts = [ra._chunk_attn(q, kc, vc, 1.0 / D ** 0.5, c)
+             for kc, vc, c in chunks]
+    out, lse = ra._merge(*parts[0], *parts[1])
+    delta = fa.attention_delta(out, do)
+    grads = []
+    for kc, vc, c in chunks:
+        dq = fa.flash_attention_bwd_dq(q, kc, vc, do, lse, delta, c)
+        dk, dv = fa.flash_attention_bwd_dkv(q, kc, vc, do, lse, delta, c)
+        want = (fa.flash_attention_bwd_dq_reference(q, kc, vc, do, lse,
+                                                    delta, c),
+                *fa.flash_attention_bwd_dkv_reference(q, kc, vc, do, lse,
+                                                      delta, c))
+        assert chip_smoke.judge_backward((dq, dk, dv), want)[1]
+        grads.append((dq, dk, dv))
+    # the whole sequence: queries at the last 512 of 1024 keys
+    o1, lse1 = fa.flash_attention(q, k, v, causal=True)
+    assert chip_smoke.judge_forward(out, lse, o1, lse1)[3]
+    want = fa.flash_attention_backward_reference(q, k, v, o1, lse1, do,
+                                                 causal=True)
+    dq = (grads[0][0].float() + grads[1][0].float()).to(dtype)
+    dk = torch.cat([grads[0][1], grads[1][1]], dim=1)
+    dv = torch.cat([grads[0][2], grads[1][2]], dim=1)
+    assert chip_smoke.judge_backward((dq, dk, dv), want)[1]
+
+
+def test_phase15_sequence_parallel_at_tiny_size(cuda, tmp_path):
+    """``chip_smoke`` phase 15 at LLAMA_TINY size (bf16, head dim 32, 512
+    positions, selective remat): the probe, 15a at [1, 512, 8, 64] with
+    its planted faults, and 15b ring and Ulysses on two gloo ranks
+    against world 1, launches per ``want_sep_launches``."""
+    from paddle_tpu_torch.text.models.llama import LlamaConfig
+    cell = dict(dataclasses.asdict(_bf16_tiny()), remat="selective")
+    out = chip_smoke.phase_sep(fa, fc, rm, LlamaConfig, LlamaForCausalLM,
+                               fleet, optimizer, pt.seed, cell=cell,
+                               batch=(1, 512), ops_shape=(1, 512, 8, 64),
+                               workdir=str(tmp_path / "p15"))
+    for mode in chip_smoke.SEP_MODES:
+        assert out["cells"][mode]["max_rel_to_world1"] <= \
+            chip_smoke.SEP_REL_TOL

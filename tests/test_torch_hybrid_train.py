@@ -290,9 +290,17 @@ def test_strategy_surface(case, exc, match):
         if case in ("pp_degree", "sep_degree"):
             s = fleet.DistributedStrategy()
             s.hybrid_configs[case] = 2
+            if case == "sep_degree":
+                # sep runs alone or with dp (tests/test_torch_sep_train.py);
+                # beside sharding the JAX guard refuses it
+                s.hybrid_configs["sharding_degree"] = 2
             fleet.init(is_collective=True, strategy=s)
         elif case == "sequence_parallel":
-            _tiny(sequence_parallel=True)
+            # a sequence-parallel model placed on sep beside tp: refused,
+            # as the JAX guard refuses it
+            place_model(_tiny(sequence_parallel=True),
+                        mesh.build_mesh(sep=2, tp=2, world_size=4, rank=0),
+                        0)
         elif case == "engine_tp":
             # Engine(tp=N) takes the whole model and places its own
             # shards: a model that fleet already split is refused

@@ -4,8 +4,9 @@
 module of the JAX package (even those that do not import JAX): checked by
 an AST scan, by importing every module of the port, and by serving a
 Llama and a GPT request, taking Llama and ERNIE-MoE train steps, a
-tensor-parallel Llama step and a request through a tensor-parallel
-engine on two spawned ranks, and quantizing and
+tensor-parallel Llama step, a request through a tensor-parallel
+engine and sequence-parallel (ring and Ulysses) steps on two spawned
+ranks, and quantizing and
 running a tiny Llama and both stochastic quantizers in processes where
 importing either fails.
 Entry points default to CUDA and raise when it is absent.
@@ -226,9 +227,9 @@ def test_every_module_imports_with_jax_unimportable():
 
 
 def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
-    """A tp2 Llama step and a request through a tp2 ``Engine`` over gloo
-    in two spawned ranks, each of which makes JAX and the JAX package
-    unimportable first."""
+    """A tp2 Llama step, a request through a tp2 ``Engine`` and sep2 ring
+    and Ulysses steps over gloo in two spawned ranks, each of which makes
+    JAX and the JAX package unimportable first."""
     import pickle
 
     import torch_dist_worker as W
@@ -243,6 +244,10 @@ def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
     assert outs[0]["losses"][1] < outs[0]["losses"][0]
     assert outs[0]["tokens"] == outs[1]["tokens"]
     assert len(outs[0]["tokens"]) == 5 + 3
+    for mode in ("ring", "ulysses"):
+        assert outs[0]["sep_losses"][mode] == outs[1]["sep_losses"][mode]
+        assert outs[0]["sep_losses"][mode][1] < \
+            outs[0]["sep_losses"][mode][0]
     assert not outs[0]["loaded"] and not outs[1]["loaded"]
 
 

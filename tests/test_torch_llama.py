@@ -90,10 +90,15 @@ def test_seeded_init_is_reproducible_and_training_options_raise():
     b = LlamaForCausalLM(CFG, device="cpu")
     for (k, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(x, y), k
+    # sequence parallel runs since the sequence-parallel slice
+    # (tests/test_torch_sep_train.py); beside tp the JAX guard refuses it
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.fleet.placement import place_model
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        LlamaForCausalLM(LlamaConfig(**{**dataclasses.asdict(CFG),
-                                        "sequence_parallel": True}),
-                         device="cpu")
+        place_model(LlamaForCausalLM(LlamaConfig(
+            **{**dataclasses.asdict(CFG), "sequence_parallel": True}),
+            device="cpu"), mesh.build_mesh(sep=2, tp=2, world_size=4,
+                                           rank=0), 0)
     with pytest.raises(ValueError, match="remat"):
         LlamaForCausalLM(dataclasses.replace(CFG, remat="some"),
                          device="cpu")

@@ -144,11 +144,14 @@ def test_strategy_options_outside_the_slice_raise():
             fleet.distributed_optimizer(opt, s).make_train_step(model,
                                                                 loss_fn)
     # dp, mp and sharding degrees run since the multi-GPU slice
-    # (tests/test_torch_hybrid_train.py); pipeline and sequence parallel
-    # degrees still raise
+    # (tests/test_torch_hybrid_train.py), sep alone or with dp since the
+    # sequence-parallel slice (tests/test_torch_sep_train.py); pipeline
+    # degrees, and sep beside mp, still raise
     for degree in ("pp_degree", "sep_degree"):
         s = fleet.DistributedStrategy()
         s.hybrid_configs[degree] = 2
+        if degree == "sep_degree":
+            s.hybrid_configs["mp_degree"] = 2
         with pytest.raises(NotImplementedError, match=degree):
             fleet.distributed_optimizer(opt, s).make_train_step(model,
                                                                 loss_fn)
