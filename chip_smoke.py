@@ -180,6 +180,27 @@ failure raises and exits non-zero before the result line is printed:
     ``want_sep_launches``, all on the tensor cores; step time, tokens/s
     and peak memory per rank printed (gloo between two processes on one
     card: not a multi-GPU speed).
+16. pipeline-parallel training (after phase 15), ``phase_pp``:
+    ``LlamaForCausalLMPipe`` at Llama-2-7B width cut to 4 layers (2 a
+    stage at pp 2), batch 4 x 2048 (ids then labels from
+    ``default_rng(0)``), 4 micro-batches of [1, 2048, 4096] bf16. 16a, two
+    gloo ranks on cuda:0: ``spmd_pipeline`` (backward of a seeded
+    cotangent) and ``pipeline_1f1b`` (the model's norm, head and CE in
+    the last stage) against world 1 on the same stack and inputs
+    (``judge_rel``: output, each stacked weight's gradient on the rank's
+    chunk, dx, the loss and the last-stage gradients, bf16 1e-2 over all
+    and over the last quarter), rows 1-3 launches per rank = 2 layers x 4
+    micro-batches, all on the tensor cores; three planted faults (the
+    stages in the wrong order, a micro-batch's cotangent paired with a
+    neighbour's saved graph, the replicated output's backward summing
+    over pp) must fail. 16b: the GPipe step at world 1 on the card, then
+    ``pp_degree=2`` GPipe and 1F1B steps (AdamW, a warm-up and 3 steps)
+    as two gloo ranks: every rank's losses within 1e-2 relative of world
+    1's, rows 1-3 launches per rank and step = ``want_pp_launches``, all
+    ``"tc"``, host-staged point-to-point calls = ``pp_p2p_calls``, 1F1B's
+    micro-batches in flight at most 2 - stage, each rank holding 2 of the
+    4 layers; step time, tokens/s and peak memory per rank printed (not a
+    multi-GPU speed).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -3609,6 +3630,419 @@ def phase_sep(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 16: pipeline-parallel training
+# ---------------------------------------------------------------------------
+
+# Llama-2-7B widths cut to 4 layers (12b's cut: two ranks' gloo traffic is
+# staged through the host), 2 a stage at pp 2; 4 micro-batches of 1 x 2048
+PP_LAYERS = PAIR_LAYERS
+PP_DEGREE = 2
+PP_MICRO = 4
+PP_BATCH = (4, 2048)
+PP_REL_TOL = PAIR_REL_TOL     # bf16, other micro-batch shapes and orders
+PP_SCHEDULES = ("gpipe", "1f1b")
+# the planted faults of 16a, by key: (what, the bodies it is planted into)
+PP_FAULTS = {
+    "wrong_order": ("stages applied in the wrong order", ("gpipe", "1f1b")),
+    "next_input": ("micro-batch b's cotangent paired with a neighbour's "
+                   "saved graph", ("gpipe", "1f1b")),
+    "sum_over_pp": ("the replicated output's backward summing over pp",
+                    ("gpipe",)),
+}
+
+
+def want_pp_launches(layers_per_stage, n_micro, remat=False):
+    """Rows 1-3 launches per rank and train step under pp: every
+    micro-batch runs the rank's layers forward once and backward once (a
+    remat stage recomputes the forward); no fused head, no row 5."""
+    n = layers_per_stage * n_micro
+    want = dict(flash_attention_fwd=n * (2 if remat else 1),
+                flash_attention_bwd_dq=n, flash_attention_bwd_dkv=n,
+                fused_ce_stats=0, ragged_group_matmul=0)
+    want.update({k + "_tc": v for k, v in list(want.items())})
+    return want
+
+
+def pp_p2p_calls(schedule, n, p, m):
+    """The ``batch_isend_irecv`` calls rank p of n makes in one pipeline
+    call with m micro-batches (each carries a transfer; on gloo each is
+    staged through the host): GPipe's ticks with a transfer, forward and
+    backward; 1F1B's warm-up, steady and cool-down transfers."""
+    first, last = p == 0, p == n - 1
+    if schedule == "gpipe":
+        return 2 * (m + (not first and not last))
+    w = min(n - p - 1, m)
+    s = m - w
+    return (w * (1 + (not first)) + (s > 0 and not first)
+            + s * ((not last) + (not first)) + w * ((not last) + (not first)))
+
+
+def pp_fault(pl, C, fault):
+    """A context that plants ``fault`` (a key of ``PP_FAULTS``) into
+    ``ops.pipeline``."""
+    from unittest import mock
+    if fault == "wrong_order":
+        real = pl._local_chunk
+        return mock.patch.object(
+            pl, "_local_chunk",
+            lambda st, n, p, ax: real(st, n, n - 1 - p, ax))
+    if fault == "next_input":
+        real_take = pl._InFlight.take
+
+        def take(self, i):
+            # micro-batch i's entry swapped with a neighbour's still held:
+            # i + 1's (1F1B), or i - 1's (GPipe's backward runs in reverse)
+            h = self._held
+            j = i + 1 if i + 1 in h else i - 1
+            if j in h:
+                h[i], h[j] = h[j], h[i]
+            return real_take(self, i)
+        return mock.patch.object(pl._InFlight, "take", take)
+    return mock.patch.object(
+        pl, "_output_cotangent",
+        lambda ring, g: C.all_reduce(g.clone(), group=ring.group))
+
+
+def judge_rel(got, want, tol):
+    """(``||got - want|| / ||want||`` over everything, the same over the
+    last quarter of dim 1 (the sequence, or a weight's rows), within
+    ``tol``)."""
+    got, want = got.detach().double(), want.detach().double()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+    if want.dim() < 2:
+        r = rel(got, want)
+        return r, r, r <= tol
+    q = want.shape[1] - want.shape[1] // 4
+    a, t = rel(got, want), rel(got[:, q:], want[:, q:])
+    return a, t, a <= tol and t <= tol
+
+
+def _pp_body(pl, body, parts, x, labels, ct, mesh, n_micro):
+    """One body on this rank: GPipe's output and, after the backward of
+    ``ct``, the gradients of the rank's chunk and of x; or 1F1B's loss,
+    chunk gradients, last-stage gradients and dx."""
+    _, stacked, last, _, stage_fn, last_fn = parts
+    n, p = mesh.axis_size("pp"), mesh.axis_index("pp")
+    if body == "gpipe":
+        w = {k: v.detach().clone().requires_grad_()
+             for k, v in stacked.items()}
+        xl = x.detach().clone().requires_grad_()
+        y = pl.spmd_pipeline(stage_fn, w, xl, mesh=mesh, n_micro=n_micro)
+        y.backward(ct)
+        k0 = next(iter(w.values())).shape[0] // n
+        return dict(out=y.detach(), dx=xl.grad,
+                    **{f"grad {k}": v.grad[p * k0:(p + 1) * k0]
+                       for k, v in w.items()})
+    loss, g, lg, dx = pl.pipeline_1f1b(
+        stage_fn, last_fn, {k: v.detach() for k, v in stacked.items()},
+        x.detach(), labels, last_params={k: v.detach()
+                                         for k, v in last.items()},
+        mesh=mesh, n_micro=n_micro)
+    return dict(loss=loss.reshape(1), dx=dx,
+                **{f"grad {k}": v for k, v in g.items()},
+                **{f"last grad {k}": v for k, v in lg.items()})
+
+
+def _pp_reference(body, parts, x, labels, ct, n_micro, chunk):
+    """World 1 on the same inputs: ``stage_fn`` over every layer (the
+    model's ``_decoder_chunk``), autograd for the gradients; the stacked
+    gradients cut to the rank's ``chunk`` of layers."""
+    _, stacked, last, _, stage_fn, last_fn = parts
+    w = {k: v.detach().clone().requires_grad_() for k, v in stacked.items()}
+    xl = x.detach().clone().requires_grad_()
+    lp = {k: v.detach().clone().requires_grad_() for k, v in last.items()}
+    if body == "gpipe":
+        y = stage_fn(w, xl)
+        y.backward(ct)
+        out = dict(out=y.detach())
+    else:
+        mb = x.shape[0] // n_micro
+        loss = sum(last_fn(lp, stage_fn(w, xl[i * mb:(i + 1) * mb]),
+                           labels[i * mb:(i + 1) * mb])
+                   for i in range(n_micro)) / n_micro
+        loss.backward()
+        out = dict(loss=loss.detach().reshape(1),
+                   **{f"last grad {k}": v.grad for k, v in lp.items()})
+    out["dx"] = xl.grad
+    out.update({f"grad {k}": v.grad[chunk] for k, v in w.items()})
+    return out
+
+
+def pp_bodies(fa, fc, rm, C, pl, LlamaForCausalLMPipe, cfg, batch, n_micro,
+              mesh, seed, device="cuda"):
+    """16a on this rank: ``spmd_pipeline`` (the backward of a seeded
+    cotangent) and ``pipeline_1f1b`` (the model's ``last_fn``: final norm,
+    head, CE) on the whole seed-0 stack of ``LlamaForCausalLMPipe(cfg)``,
+    each rank running its chunk, against world 1 on the same inputs
+    (``_pp_reference``), every result under ``judge_rel`` at bf16's
+    ``PP_REL_TOL``; rows 1-3 launches counted around each body; the
+    planted faults of ``PP_FAULTS`` must fail the judge on some rank."""
+    seed(0)
+    model = LlamaForCausalLMPipe(cfg, device=device)
+    parts = model.pipeline_parts()
+    ids, labels = sep_batch(cfg.vocab_size, *batch, device=device)
+    x = parts[3](parts[0], ids).detach()
+    gen = torch.Generator(device=device).manual_seed(16)
+    ct = torch.randn(x.shape, generator=gen, device=device, dtype=x.dtype)
+    n, p = mesh.axis_size("pp"), mesh.axis_index("pp")
+    k = cfg.num_hidden_layers // n
+    chunk = slice(p * k, (p + 1) * k)
+    res = {}
+    for body in PP_SCHEDULES:
+        want = _pp_reference(body, parts, x, labels, ct, n_micro, chunk)
+        _reset(fa, fc, rm)
+        got = _pp_body(pl, body, parts, x, labels, ct, mesh, n_micro)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        launches = _counts(fa, fc, rm)
+        judged = {key: judge_rel(got[key], v, PP_REL_TOL)
+                  for key, v in want.items()}
+        faults = {}
+        for fault, (_, bodies) in PP_FAULTS.items():
+            if body in bodies:
+                with pp_fault(pl, C, fault):
+                    bad = _pp_body(pl, body, parts, x, labels, ct, mesh,
+                                   n_micro)
+                faults[fault] = all(judge_rel(bad[key], v, PP_REL_TOL)[2]
+                                    for key, v in want.items())
+        res[body] = dict(judged={key: j[:2] for key, j in judged.items()},
+                         ok=all(j[2] for j in judged.values()),
+                         launches=launches,
+                         max_in_flight=pl.counters["max_in_flight"],
+                         faults_passed=faults)
+        del want, got
+    del model, parts
+    if x.is_cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def pipe_trainer(LlamaForCausalLMPipe, cfg, fleet, optimizer, seed,
+                 schedule, n_micro, device="cuda"):
+    """Phase 16's trainer: ``LlamaForCausalLMPipe`` from seed 0 (its
+    fingerprint taken before placement), placed by
+    ``fleet.distributed_model`` on the current mesh, AdamW(lr=1e-4,
+    wd=0.01, multi_precision) as phase 8's; the GPipe step
+    (``make_train_step``) or the 1F1B one (``make_1f1b_train_step``)."""
+    seed(0)
+    bare = LlamaForCausalLMPipe(cfg, n_micro=n_micro, device=device)
+    fingerprint = weights_fingerprint(bare)
+    model = fleet.distributed_model(bare)
+    adam = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                           parameters=model.parameters())
+    if schedule == "1f1b":
+        step = fleet.make_1f1b_train_step(model, adam, n_micro=n_micro)
+    else:
+        step = fleet.distributed_optimizer(adam).make_train_step(
+            model, lambda m, x, y: m(x, labels=y))
+    return model, step, fingerprint
+
+
+def _pp_worker(workdir, cfg, batch, n_micro, steps, fingerprint,
+               device="cuda"):
+    """One of phase 16's two ranks on cuda:0 (gloo): 16a's bodies, then
+    16b's GPipe and 1F1B steps from the seed-0 weights (their fingerprint
+    checked against the world-1 run's), each step's counts set to 0
+    before it and read after it."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import pipeline as pl
+    from paddle_tpu_torch.ops import ragged_matmul as rm
+    from paddle_tpu_torch.text.models import LlamaForCausalLMPipe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", device="cuda:0" if device == "cuda"
+                           else device, timeout=900)
+    rank = dist.get_rank()
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["pp_degree"] = PP_DEGREE
+    fleet.init(is_collective=True, strategy=s)
+    mesh = fleet.get_hybrid_communicate_group().mesh
+    out = dict(rank=rank, stage=mesh.axis_index("pp"), cells={},
+               bodies=pp_bodies(fa, fc, rm, C, pl, LlamaForCausalLMPipe, cfg,
+                                batch, n_micro, mesh, pt.seed, device))
+    for schedule in PP_SCHEDULES:
+        model, step, fp = pipe_trainer(LlamaForCausalLMPipe, cfg, fleet,
+                                       optimizer, pt.seed, schedule, n_micro,
+                                       device)
+        if fp != fingerprint:
+            raise AssertionError(f"rank {rank} {schedule}: the seed-0 "
+                                 "weights differ from the world-1 run's")
+        ids, labels = sep_batch(cfg.vocab_size, *batch, device=device)
+        if ids.is_cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        staged = C.host_staged["batch_isend_irecv"]
+        losses, secs, per_step = run_steps(
+            fa, fc, rm, step, ids, steps + 1,
+            tag=f"[rank {rank}, {schedule}] ", labels=labels)
+        out["cells"][schedule] = dict(
+            losses=losses, step_secs=secs, launches=per_step,
+            staged_p2p_per_step=(C.host_staged["batch_isend_irecv"] - staged)
+            / (steps + 1),
+            max_in_flight=pl.counters["max_in_flight"],
+            held={k: list(p.shape) for k, p in model.named_parameters()},
+            peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                      if ids.is_cuda else 0.0))
+        del step, model
+        if ids.is_cuda:
+            torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"pp.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_pp(fa, fc, rm, LlamaConfig, LlamaForCausalLMPipe, fleet, optimizer,
+             seed, cfg=None, batch=PP_BATCH, n_micro=PP_MICRO, steps=3,
+             workdir="build/phase16", device="cuda"):
+    """Phase 16: pipeline-parallel training. The world-1 run on the card
+    (pp 1: ``_decoder_chunk`` over every layer), then two gloo ranks
+    sharing the card (``_pp_worker``): 16a, ``spmd_pipeline`` and
+    ``pipeline_1f1b`` against world 1 under ``judge_rel`` (bf16
+    ``PP_REL_TOL``), rows 1-3 launches per rank equal to
+    ``want_pp_launches``, all on the tensor cores, and the planted faults
+    failing; 16b, ``pp_degree=2`` GPipe then 1F1B, a warm-up and ``steps``
+    steps each: every rank's losses within ``PP_REL_TOL`` of world 1's,
+    launches per rank and step equal to ``want_pp_launches``, host-staged
+    point-to-point calls per step equal to ``pp_p2p_calls``, 1F1B's
+    ``max_in_flight`` at most ``PP_DEGREE - stage``, each rank holding
+    only its chunk. Times are two processes sharing one card through the
+    host: not multi-GPU speeds."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    if cfg is None:
+        cfg = LlamaConfig(num_hidden_layers=PP_LAYERS)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    smi = smi_line()
+    B, L = batch
+    layers = cfg.num_hidden_layers
+    try:
+        model, step, fingerprint = pipe_trainer(
+            LlamaForCausalLMPipe, cfg, fleet, optimizer, seed, "gpipe",
+            n_micro, device)
+        ids, labels = sep_batch(cfg.vocab_size, *batch, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, per_step = run_steps(fa, fc, rm, step, ids, steps + 1,
+                                           tag="world 1: ", labels=labels)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del step, model
+        torch.cuda.empty_cache()
+        want1 = want_pp_launches(layers, 1)
+        for i, c in enumerate(per_step):
+            if c != want1:
+                raise AssertionError(f"16b world 1 step {i} launched {c}, "
+                                     f"want {want1}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"16b world 1: non-finite loss {losses}")
+        t0 = time.perf_counter()
+        dist.spawn(_pp_worker, args=(workdir, cfg, batch, n_micro, steps,
+                                     fingerprint, device),
+                   nprocs=PP_DEGREE, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(PP_DEGREE):
+            with open(os.path.join(workdir, f"pp.r{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    per_stage = layers // PP_DEGREE
+    want = want_pp_launches(per_stage, n_micro)
+    step1 = float(np.median(secs[1:]))
+    result = dict(world1=dict(losses=losses, step_ms=step1 * 1e3,
+                              tokens_per_s=B * L / step1, peak_gib=peak,
+                              launches=per_step[-1]),
+                  spawn_s=spawn_s, bodies={}, cells={})
+    # 16a
+    for r, rk in enumerate(ranks):
+        for body in PP_SCHEDULES:
+            b = rk["bodies"][body]
+            log(f"  16a {body} rank {r}: (rel all, rel last quarter) "
+                + json.dumps(b["judged"]) + f", launches {b['launches']}, "
+                f"max in flight {b['max_in_flight']}")
+            if not b["ok"]:
+                raise AssertionError(f"16a {body} rank {r} fails the judge")
+            if b["launches"] != want:
+                raise AssertionError(f"16a {body} rank {r} launched "
+                                     f"{b['launches']}, want {want}")
+            result["bodies"].setdefault(body, {})[f"rank{r}"] = b["judged"]
+    for body in PP_SCHEDULES:
+        planted = list(ranks[0]["bodies"][body]["faults_passed"])
+        for fault in planted:
+            if all(rk["bodies"][body]["faults_passed"][fault]
+                   for rk in ranks):
+                raise AssertionError(f"16a {body}: the planted fault "
+                                     f"{PP_FAULTS[fault][0]!r} passes the "
+                                     f"judge on every rank")
+        log(f"  16a {body} planted faults, each failing the judge: "
+            f"{[PP_FAULTS[f][0] for f in planted]}")
+    # 16b
+    for schedule in PP_SCHEDULES:
+        got = [rk["cells"][schedule] for rk in ranks]
+        worst = 0.0
+        for r, g in enumerate(got):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                           losses))
+            worst = max(worst, rel)
+            if not rel <= PP_REL_TOL:
+                raise AssertionError(f"16b {schedule} rank {r}: losses "
+                                     f"{g['losses']} vs world 1 {losses} "
+                                     f"(relative {rel:.3g})")
+            for i, c in enumerate(g["launches"]):
+                if c != want:
+                    raise AssertionError(f"16b {schedule} rank {r} step {i} "
+                                         f"launched {c}, want {want}")
+            stage = ranks[r]["stage"]
+            calls = pp_p2p_calls(schedule, PP_DEGREE, stage, n_micro)
+            if g["staged_p2p_per_step"] != calls:
+                raise AssertionError(f"16b {schedule} rank {r}: "
+                                     f"{g['staged_p2p_per_step']} host-staged "
+                                     f"point-to-point calls a step, want "
+                                     f"{calls}")
+            cap = (min(PP_DEGREE - stage, n_micro) if schedule == "1f1b"
+                   else n_micro)
+            if g["max_in_flight"] != cap:
+                raise AssertionError(f"16b {schedule} rank {r}: "
+                                     f"{g['max_in_flight']} micro-batches in "
+                                     f"flight, want {cap}")
+            if g["held"]["wq"][0] != per_stage:
+                raise AssertionError(f"16b rank {r} holds {g['held']['wq']} "
+                                     f"of wq, want {per_stage} layers")
+        med = [float(np.median(g["step_secs"][1:])) for g in got]
+        result["cells"][schedule] = dict(
+            losses=got[0]["losses"], max_rel_to_world1=worst,
+            step_ms_per_rank=[m * 1e3 for m in med],
+            tokens_per_s=B * L / max(med),
+            peak_gib_per_rank=[g["peak_gib"] for g in got],
+            launches_per_rank_step=[g["launches"][-1] for g in got],
+            staged_p2p_per_rank_step=[g["staged_p2p_per_step"] for g in got],
+            max_in_flight_per_rank=[g["max_in_flight"] for g in got])
+        log(f"  16b {schedule}, pp {PP_DEGREE} over gloo on one card: losses "
+            f"{got[0]['losses']} vs world 1 {losses}, worst relative "
+            f"{worst:.3g} (limit {PP_REL_TOL}); step "
+            f"{[round(m * 1e3, 1) for m in med]} ms per rank, "
+            f"{B * L / max(med):.1f} tokens/s, peak "
+            f"{[round(g['peak_gib'], 2) for g in got]} GiB per rank, "
+            f"host-staged point-to-point calls per rank and step "
+            f"{[g['staged_p2p_per_step'] for g in got]}, in flight "
+            f"{[g['max_in_flight'] for g in got]} (two processes sharing one "
+            f"card through gloo: not a multi-GPU speed; {smi})")
+    log(f"  16b world 1 on the card: step {step1 * 1e3:.1f} ms, "
+        f"{B * L / step1:.1f} tokens/s, peak {peak:.2f} GiB ({smi}); spawn "
+        f"and both pp runs {spawn_s:.1f} s")
+    return result
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3765,6 +4199,17 @@ def main():
                     optimizer, pt.seed)
     log("  sequence parallel " + json.dumps(sep))
 
+    # ---- 16. pipeline-parallel training -------------------------------------
+    log(f"[16] pipeline-parallel training: Llama-2-7B width, {PP_LAYERS} "
+        f"layers, LlamaForCausalLMPipe, batch {PP_BATCH[0]}x{PP_BATCH[1]}, "
+        f"{PP_MICRO} micro-batches, bf16, AdamW; 16a spmd_pipeline and "
+        f"pipeline_1f1b against world 1, 16b the GPipe and 1F1B steps at "
+        f"world 1, then pp {PP_DEGREE} as two ranks on cuda:0 over gloo")
+    from paddle_tpu_torch.text.models import LlamaForCausalLMPipe
+    pp = phase_pp(fa, fc, rm, LlamaConfig, LlamaForCausalLMPipe, fleet,
+                  optimizer, pt.seed)
+    log("  pipeline parallel " + json.dumps(pp))
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -3833,6 +4278,14 @@ def main():
                              **{mode: [c[kd["name"]] for c in sep["cells"][
                                  mode]["launches_per_rank_step"]]
                                 for mode in SEP_MODES})
+    # rows 1-3 on 16b's pipeline stages: launches per rank and step, by
+    # schedule and rank, and at world 1
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_"):
+            kd["pp"] = dict(world1=pp["world1"]["launches"][kd["name"]],
+                            **{s: [c[kd["name"]] for c in pp["cells"][s][
+                                "launches_per_rank_step"]]
+                               for s in PP_SCHEDULES})
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

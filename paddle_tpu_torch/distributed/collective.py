@@ -16,9 +16,7 @@ or the reference's ``PADDLE_TRAINERS_NUM``/``PADDLE_TRAINER_ID``
 (``spawn`` sets both). The backend is NCCL on ``cuda:LOCAL_RANK``; gloo
 is taken only when the caller asks for the CPU (``device="cpu"``) or for
 ``backend="gloo"`` (as two ranks that share one card must). Nothing
-falls back from one backend to the other. Point-to-point for the
-pipeline (send, recv, ``P2POp``) comes with the pipeline slice
-(ROADMAP.md, port queue item 4).
+falls back from one backend to the other.
 
 Sequence parallel adds the two collectives its bodies need, the JAX
 package's ``lax.ppermute`` and tiled ``lax.all_to_all``: ``ppermute``
@@ -28,8 +26,16 @@ differentiably. Gloo carries ``all_to_all_single`` on CUDA tensors but
 not point-to-point (its TCP transport reads the device pointer as host
 memory: "Bad address"), so ``ppermute`` on gloo stages CUDA tensors
 through the host, one copy each way, and counts each such call in
-``host_staged``. No other call is staged, and nothing chooses another
-algorithm.
+``host_staged``.
+
+Pipeline parallel adds point-to-point: ``send``, ``recv``, ``isend``,
+``irecv``, and ``P2POp`` with ``batch_isend_irecv``, which posts several
+sends and receives together (a pipeline tick's transfers; NCCL then
+cannot deadlock on their order). Peers are global ranks, as in the
+reference. NCCL carries CUDA tensors directly; on gloo a CUDA tensor is
+staged through the host, one copy each way, and each such call counts
+in ``host_staged`` under its function's name. No other call is staged,
+and nothing chooses another algorithm.
 """
 from __future__ import annotations
 
@@ -48,7 +54,8 @@ __all__ = ["ReduceOp", "Group", "init_parallel_env", "is_initialized",
            "all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "reduce", "scatter", "alltoall", "alltoall_single", "barrier",
            "destroy_process_group", "free_port", "gather_dim",
-           "reduce_scatter_dim", "ppermute", "all_to_all", "host_staged"]
+           "reduce_scatter_dim", "ppermute", "all_to_all", "host_staged",
+           "send", "recv", "isend", "irecv", "P2POp", "batch_isend_irecv"]
 
 
 class ReduceOp:
@@ -375,16 +382,101 @@ def reduce_scatter_dim(t, dim, group):
     return out.movedim(0, dim).contiguous()
 
 
-# -- sequence parallel: ring rotation and tiled all-to-all ------------------
+# -- point-to-point ----------------------------------------------------------
 
 #: calls staged through the host because the backend refuses their CUDA
-#: tensors (gloo's point-to-point), by collective
-host_staged = {"ppermute": 0}
+#: tensors (gloo's point-to-point), by function
+host_staged = {"ppermute": 0, "send": 0, "recv": 0, "isend": 0, "irecv": 0,
+               "batch_isend_irecv": 0}
 
 
 def _gloo(group) -> bool:
     return dist.get_backend(_pg(group)) == "gloo"
 
+
+class P2POp:
+    """One transfer for ``batch_isend_irecv``: ``op`` is ``isend`` or
+    ``irecv``, ``peer`` the other end's global rank."""
+
+    def __init__(self, op, tensor, peer, group=None, tag=0):
+        if op not in (isend, irecv):
+            raise ValueError("P2POp takes isend or irecv")
+        self.op, self.tensor, self.peer = op, tensor, int(peer)
+        self.group, self.tag = group, tag
+
+
+class _Work:
+    """A posted transfer: ``wait()`` blocks until it is done; a receive
+    staged through the host is then copied into its CUDA tensor."""
+
+    def __init__(self, work, posted, into=None):
+        # ``posted`` (the tensor handed to the backend) lives until wait()
+        self._work, self._posted, self._into = work, posted, into
+
+    def wait(self):
+        self._work.wait()
+        if self._into is not None:
+            self._into.copy_(self._posted)
+        self._posted = self._into = None
+        return True
+
+
+def _post(ops, key):
+    """Post ``ops`` (``P2POp``s) together; returns their ``_Work``s. On
+    gloo a CUDA tensor goes through the host, and the call counts once in
+    ``host_staged[key]``."""
+    posted, intos, staged = [], [], False
+    for o in ops:
+        t, into = o.tensor, None
+        if not t.is_contiguous():
+            raise ValueError("point-to-point takes contiguous tensors")
+        if t.is_cuda and _gloo(o.group):
+            staged = True
+            if o.op is isend:
+                t = t.detach().cpu()
+            else:
+                into, t = t, torch.empty(t.shape, dtype=t.dtype)
+        fn = dist.isend if o.op is isend else dist.irecv
+        posted.append(dist.P2POp(fn, t, o.peer, _pg(o.group), tag=o.tag))
+        intos.append(into)
+    if staged:
+        host_staged[key] += 1
+    reqs = dist.batch_isend_irecv(posted) if posted else []
+    return [_Work(w, p.tensor, into)
+            for w, p, into in zip(reqs, posted, intos)]
+
+
+def batch_isend_irecv(p2p_op_list):
+    """Post every ``P2POp`` of the list together and return one work per
+    op (``wait()`` each). Every rank named as a peer posts the matching
+    op."""
+    return _post(list(p2p_op_list), "batch_isend_irecv")
+
+
+def isend(tensor, dst=0, group=None):
+    """Start sending ``tensor`` to global rank ``dst``; returns a work."""
+    return _post([P2POp(isend, tensor, dst, group)], "isend")[0]
+
+
+def irecv(tensor, src=0, group=None):
+    """Start receiving into ``tensor`` from global rank ``src``; returns a
+    work, after whose ``wait()`` the tensor holds the data."""
+    return _post([P2POp(irecv, tensor, src, group)], "irecv")[0]
+
+
+def send(tensor, dst=0, group=None, sync_op=True, use_calc_stream=True):
+    """Send ``tensor`` to global rank ``dst`` and wait for it."""
+    _post([P2POp(isend, tensor, dst, group)], "send")[0].wait()
+    return tensor
+
+
+def recv(tensor, src=0, group=None, sync_op=True, use_calc_stream=True):
+    """Receive into ``tensor`` from global rank ``src``."""
+    _post([P2POp(irecv, tensor, src, group)], "recv")[0].wait()
+    return tensor
+
+
+# -- sequence parallel: ring rotation and tiled all-to-all ------------------
 
 def ppermute(x, shift=1, group=None):
     """Rotate ``x`` (a tensor, or a list of tensors sent together) around
@@ -401,20 +493,13 @@ def ppermute(x, shift=1, group=None):
     r = get_rank(group)
     ranks = group.ranks if group is not None else list(range(n))
     dst, src = ranks[(r + shift) % n], ranks[(r - shift) % n]
-    staged = xs[0].is_cuda and _gloo(group)
-    sends = [(t.cpu() if staged else t).contiguous() for t in xs]
+    sends = [t.contiguous() for t in xs]
     recvs = [torch.empty_like(t) for t in sends]
-    pg = _pg(group)
-    ops = ([dist.P2POp(dist.isend, t, dst, pg, tag=i)
-            for i, t in enumerate(sends)]
-           + [dist.P2POp(dist.irecv, t, src, pg, tag=i)
+    ops = ([P2POp(isend, t, dst, group, tag=i) for i, t in enumerate(sends)]
+           + [P2POp(irecv, t, src, group, tag=i)
               for i, t in enumerate(recvs)])
-    for w in dist.batch_isend_irecv(ops):
+    for w in _post(ops, "ppermute"):
         w.wait()
-    if staged:
-        host_staged["ppermute"] += 1
-        recvs = [t.to(x0.device, non_blocking=False)
-                 for t, x0 in zip(recvs, xs)]
     return recvs[0] if single else recvs
 
 

@@ -8,12 +8,17 @@
     step = opt.make_train_step(model, lambda m, ids, lbl: m(ids, labels=lbl))
     loss = step(ids, labels)              # the global batch, on every rank
 
+Pipeline parallel (``pp_degree``) trains ``LlamaForCausalLMPipe``
+through that same step (GPipe: the model's forward runs
+``ops.pipeline.spmd_pipeline`` and autograd gives the backward) or
+through ``make_1f1b_train_step(model, optimizer, n_micro)`` (1F1B).
+
 ``init`` joins the process group a launcher's environment describes
 (``spawn``, torchrun), builds the strategy's mesh and its process groups
 (every rank of the world calls it), and records the strategy.
 ``distributed_model`` places the model on the mesh
-(``placement.place_model``: tp layers split, stage-3 parameters
-sharded); ``distributed_optimizer`` wraps the optimizer with
+(``placement.place_model``: tp layers split, pp chunks kept, stage-3
+parameters sharded); ``distributed_optimizer`` wraps the optimizer with
 ``make_train_step``. Without a launcher's environment the world is this
 one process.
 """
@@ -24,11 +29,13 @@ from typing import Optional
 from .. import collective
 from .base import DistributedStrategy, HybridCommunicateGroup
 from .placement import place_model
+from .pp_train_step import Pipeline1F1BTrainStep, make_1f1b_train_step
 from .train_step import TrainStep, make_train_step
 from . import meta_parallel  # noqa: F401
 
 __all__ = ["DistributedStrategy", "HybridCommunicateGroup", "TrainStep",
-           "make_train_step", "init", "get_strategy",
+           "make_train_step", "Pipeline1F1BTrainStep",
+           "make_1f1b_train_step", "init", "get_strategy",
            "get_hybrid_communicate_group", "distributed_model",
            "distributed_optimizer", "worker_num", "worker_index",
            "is_first_worker", "barrier_worker"]
@@ -65,7 +72,8 @@ def get_strategy() -> DistributedStrategy:
 
 def distributed_model(model):
     """Place ``model`` on the mesh for the strategy's sharding stage (its
-    tp layers split, its stage-3 parameters sharded)."""
+    tp layers split, its pp chunks kept, its stage-3 parameters
+    sharded)."""
     stage = get_strategy().sharding_stage
     return place_model(model, get_hybrid_communicate_group().mesh, stage)
 

@@ -4,14 +4,17 @@
 
 The port keeps the fields the JAX package reads, so a strategy written
 for it drives the port unchanged. ``dp_degree``, ``mp_degree``,
-``sharding_degree``, sharding stages 1-3 and ``sep_degree`` (alone or
-with dp) run (``fleet.init`` builds the mesh and its process groups);
-``unsupported()`` names each toggled field the port cannot run yet with
-its ROADMAP item, and ``fleet.init`` and ``make_train_step`` raise
-``NotImplementedError`` for them. ``sep_degree`` beside sharding or
-tensor parallel is among them: the JAX package's partial-manual
-``shard_map`` guard refuses it (``mesh.sep_guard``).
-``gradient_merge`` (micro-batch accumulation) and ``recompute`` (a flag
+``sharding_degree``, sharding stages 1-3, and ``sep_degree`` and
+``pp_degree`` (each alone or with dp) run (``fleet.init`` builds the
+mesh and its process groups); ``unsupported()`` names each toggled field
+the port cannot run yet with its ROADMAP item, and ``fleet.init`` and
+``make_train_step`` raise ``NotImplementedError`` for them. ``sep_degree``
+or ``pp_degree`` beside sharding or tensor parallel (or each other) is
+among them: the JAX package's partial-manual ``shard_map`` guard refuses
+it (``mesh.sep_guard``, ``mesh.pp_guard``). ``gradient_merge``
+(micro-batch accumulation), ``pipeline`` (its ``accumulate_steps``
+become the train step's, as in the JAX package; the micro-batches of the
+pipeline schedule are the model's ``n_micro``) and ``recompute`` (a flag
 only: remat is ``LlamaConfig.remat``, as in the JAX package) run.
 """
 from __future__ import annotations
@@ -21,7 +24,6 @@ from .. import mesh as mesh_mod
 __all__ = ["DistributedStrategy", "HybridCommunicateGroup"]
 
 _MULTI_GPU = "ROADMAP.md, port queue item 4: multi-GPU"
-_PIPELINE = "ROADMAP.md, port queue item 4: multi-GPU, pipeline parallel"
 _AMP = "ROADMAP.md, port queue item 10: amp and attention dropout"
 _LONG_TAIL = "ROADMAP.md, port queue item 9: long tail"
 
@@ -81,25 +83,23 @@ class DistributedStrategy:
     def unsupported(self) -> list:
         """``[(setting, ROADMAP item), ...]`` for what the port cannot run
         yet; empty when the strategy is dp / sharding stages 1-3 / tp, or
-        sep with dp."""
+        sep or pp with dp."""
         hc = self.hybrid_configs
         out = []
-        if hc.get("pp_degree", 1) > 1:
-            out.append((f"hybrid_configs['pp_degree']={hc['pp_degree']}",
-                        _PIPELINE))
-        try:
-            mesh_mod.sep_guard(mesh_mod.Mesh(
-                sharding=max(1, hc.get("sharding_degree", 1)),
-                sep=max(1, hc.get("sep_degree", 1)),
-                tp=max(1, hc.get("mp_degree", 1))))
-        except NotImplementedError as e:
-            out.append((f"hybrid_configs['sep_degree']={hc['sep_degree']}",
-                        str(e)))
+        m = mesh_mod.Mesh(pp=max(1, hc.get("pp_degree", 1)),
+                          sharding=max(1, hc.get("sharding_degree", 1)),
+                          sep=max(1, hc.get("sep_degree", 1)),
+                          tp=max(1, hc.get("mp_degree", 1)))
+        for key, guard in (("sep_degree", mesh_mod.sep_guard),
+                           ("pp_degree", mesh_mod.pp_guard)):
+            try:
+                guard(m)
+            except NotImplementedError as e:
+                out.append((f"hybrid_configs[{key!r}]={hc[key]}", str(e)))
         if self.sharding_stage not in (0, 1, 2, 3):
             raise ValueError(f"sharding_stage {self.sharding_stage}; want "
                              "1, 2 or 3")
-        for field, item in (("amp", _AMP), ("pipeline", _LONG_TAIL),
-                            ("comm_opt", _MULTI_GPU),
+        for field, item in (("amp", _AMP), ("comm_opt", _MULTI_GPU),
                             ("localsgd", _MULTI_GPU), ("dgc", _MULTI_GPU),
                             ("fp16_allreduce", _MULTI_GPU),
                             ("a_sync", _LONG_TAIL), ("lamb", _LONG_TAIL),
@@ -166,6 +166,9 @@ class HybridCommunicateGroup:
         return self._rank("sharding")
 
     def get_stage_id(self):
+        return self._rank("pp")
+
+    def get_pipe_parallel_rank(self):
         return self._rank("pp")
 
     # groups

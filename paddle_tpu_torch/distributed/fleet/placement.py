@@ -3,7 +3,8 @@ does, and the stage-3 parameter gathering the train step runs.
 
 ``place_model(model, mesh, stage)``:
 
-0. at sep > 1, asks the model whether it runs sequence-parallel
+0. at pp > 1, refuses pp beside sharding, tp or sep (``mesh.pp_guard``);
+   at sep > 1, asks the model whether it runs sequence-parallel
    attention (``check_sequence_parallel``); a model without it is
    refused, since each rank holds only its shard of the sequence;
 1. at tp > 1, asks the model (``check_tensor_parallel``) and swaps its
@@ -12,8 +13,10 @@ does, and the stage-3 parameter gathering the train step runs.
 2. gives every parameter its placement ``param.placement =
    infer_param_pspec(full shape, param.pspec, stage)`` (the JAX rule) and
    its logical ``full_shape``;
-3. at stage 3, keeps only this rank's block of each parameter whose
-   placement has ``"sharding"`` and registers ``Stage3`` on the model.
+3. keeps only this rank's block of each parameter whose placement has
+   ``"pp"`` (a stacked parameter's chunk of the layers: stage p holds
+   layers ``[p L/P, (p + 1) L/P)``) or ``"sharding"``, and at stage 3
+   registers ``Stage3`` on the model.
 
 ``Stage3`` makes the sharded parameters whole only while they are used
 (ZeRO-3). The model's units are the children of its ``ModuleList``s (the
@@ -172,6 +175,7 @@ def place_model(model, mesh, stage):
             raise RuntimeError("the model is already placed otherwise "
                                "(another mesh or sharding stage)")
         return model
+    mesh_mod.pp_guard(mesh)
     sep = mesh.axis_size("sep")
     if sep > 1:
         check = getattr(model, "check_sequence_parallel", None)
@@ -192,7 +196,7 @@ def place_model(model, mesh, stage):
         spec = mesh_mod.infer_param_pspec(shape, getattr(p, "pspec", None),
                                           stage, mesh=mesh)
         p.full_shape, p.placement = shape, spec
-        if "sharding" in spec:       # a tp-free parameter: the data is whole
+        if "sharding" in spec or "pp" in spec:   # tp-free: the data is whole
             with torch.no_grad():
                 p.data = mesh_mod.local_block(p.data, spec, mesh).clone()
     model._placed = mesh

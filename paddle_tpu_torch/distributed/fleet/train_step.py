@@ -95,9 +95,13 @@ class TrainStep:
         self.stage = strategy.sharding_stage if strategy is not None else 0
         if accumulate_steps is None:
             accumulate_steps = 1
-            if strategy is not None and strategy.gradient_merge:
-                accumulate_steps = int(
-                    strategy.gradient_merge_configs.get("k_steps", 1))
+            if strategy is not None:
+                if strategy.gradient_merge:
+                    accumulate_steps = int(
+                        strategy.gradient_merge_configs.get("k_steps", 1))
+                elif strategy.pipeline:
+                    accumulate_steps = int(
+                        strategy.pipeline_configs.get("accumulate_steps", 1))
         self.accumulate_steps = max(1, int(accumulate_steps))
         self.mesh = m = mesh_mod.get_mesh()
         place_model(model, m, self.stage)

@@ -28,6 +28,13 @@ creates one ``torch.distributed`` group per axis of size > 1, one for
 ``("dp", "sep")``, the ranks whose gradients sum under sequence parallel
 (a group whose ranks another group already spans is that group).
 
+Pipeline parallel: a stacked parameter (the layer dim first) is
+annotated ``("pp", None, "tp")`` (o and down ``("pp", "tp", None)``),
+so ``infer_param_pspec`` places each rank's contiguous chunk of the
+layer dim, stage p holding layers ``[p L/P, (p + 1) L/P)``; the batch is
+not split over pp (every stage sees the same batch), and ``pp_guard``
+refuses pp beside sharding, tp or sep.
+
 Sequence parallel: ``data_pspec`` puts the sequence dim on ``"sep"``, so
 each rank of a sep group holds ``[B, L/n]`` of the batch. The train step
 declares that with ``sequence_shard(mesh)``; inside it
@@ -54,7 +61,7 @@ __all__ = ["AXES", "Mesh", "build_mesh", "set_mesh", "get_mesh",
            "configured_mesh", "mesh_axis_size", "data_pspec",
            "infer_param_pspec", "opt_state_pspec", "spec_axes",
            "local_block", "gather_full", "SequenceShard", "sequence_shard",
-           "current_sequence_shard", "sep_guard"]
+           "current_sequence_shard", "sep_guard", "pp_guard"]
 
 AXES = ("pp", "dp", "sharding", "sep", "tp")
 # the groups init_groups makes: each axis, the batch-splitting pair, and
@@ -259,23 +266,39 @@ def opt_state_pspec(param_spec, leaf_shape, param_shape, stage,
     return tuple(spec)
 
 
-# -- sequence parallel ------------------------------------------------------
+# -- the partial-manual guard -----------------------------------------------
+
+def _manual_guard(mesh, axis, what, others, item):
+    """Refuse ``axis`` (size > 1) beside any of ``others`` of size > 1, as
+    the JAX package's partial-manual ``shard_map`` guard refuses it."""
+    big = sorted(a for a in others if mesh.axis_size(a) > 1)
+    if mesh.axis_size(axis) > 1 and big:
+        raise NotImplementedError(
+            f"{what} over {axis!r} beside the non-trivial axes {big} is "
+            "refused, as the JAX package's partial-manual shard_map guard "
+            f"refuses it (ROADMAP.md, port queue item 4: multi-GPU, {item})")
+
 
 def sep_guard(mesh, axis_name="sep"):
     """The JAX ``_partial_manual_guard``'s rule: a sequence-parallel axis
     beside sharding, tp or pp degrees > 1 is refused. dp is allowed: the
     JAX package's own dp x sep test trains, and the port's losses and
     gradients summed over (dp, sep) give its single-device step."""
-    others = sorted(a for a in ("pp", "sharding", "tp")
-                    if a != axis_name and mesh.axis_size(a) > 1)
-    if mesh.axis_size(axis_name) > 1 and others:
-        raise NotImplementedError(
-            f"sequence parallel over {axis_name!r} beside the non-trivial "
-            f"axes {others} is refused, as the JAX package's "
-            "partial-manual shard_map guard refuses it (ROADMAP.md, port "
-            "queue item 4: multi-GPU, sequence parallel, with sharding or "
-            "tp)")
+    _manual_guard(mesh, axis_name, "sequence parallel",
+                  [a for a in ("pp", "sharding", "tp") if a != axis_name],
+                  "sequence parallel, with sharding or tp")
 
+
+def pp_guard(mesh):
+    """The same rule for the pipeline (``paddle_tpu/ops/pipeline.py:
+    _partial_manual_guard``): pp beside sharding, tp or sep degrees > 1 is
+    refused. dp is allowed: the JAX package's own 1F1B test trains pp2 x
+    dp2, and gradients averaged over dp give its single-device step."""
+    _manual_guard(mesh, "pp", "pipeline parallel", ("sep", "sharding", "tp"),
+                  "pipeline parallel, with sharding, tp or sep")
+
+
+# -- sequence parallel ------------------------------------------------------
 
 @dataclass(frozen=True)
 class SequenceShard:

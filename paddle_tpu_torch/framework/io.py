@@ -11,8 +11,9 @@ QAT's ``*.inner.weight`` and ``*.act_fake_quant.{scale,initialized}``.
 
 On a model placed by ``fleet.distributed_model`` the arrays are still the
 full ones: each rank takes its block of every array by the parameter's
-placement (its tp slice, its stage-3 shard), and ``gather_state_dict``
-gives every rank the full arrays back.
+placement (its tp slice, its pp chunk of a stacked ``[L, ...]`` array,
+its stage-3 shard), and ``gather_state_dict`` gives every rank the full
+arrays back (the chunks all-gathered over pp).
 """
 from __future__ import annotations
 

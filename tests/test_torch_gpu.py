@@ -1065,3 +1065,23 @@ def test_phase15_sequence_parallel_at_tiny_size(cuda, tmp_path):
     for mode in chip_smoke.SEP_MODES:
         assert out["cells"][mode]["max_rel_to_world1"] <= \
             chip_smoke.SEP_REL_TOL
+
+
+# -- pipeline parallel (phase 16) ---------------------------------------------
+
+def test_phase16_pipeline_parallel_at_tiny_size(cuda, tmp_path):
+    """``chip_smoke`` phase 16 at LLAMA_TINY size (bf16, head dim 32, 256
+    positions, 4 layers, 4 micro-batches): 16a's bodies against world 1
+    under ``judge_rel`` with their planted faults, and 16b's GPipe and
+    1F1B steps on two gloo ranks against world 1, launches per
+    ``want_pp_launches``, host-staged calls per ``pp_p2p_calls``."""
+    from paddle_tpu_torch.text.models import LlamaForCausalLMPipe
+    from paddle_tpu_torch.text.models.llama import LlamaConfig
+    cfg = dataclasses.replace(_bf16_tiny(), num_hidden_layers=4)
+    out = chip_smoke.phase_pp(fa, fc, rm, LlamaConfig, LlamaForCausalLMPipe,
+                              fleet, optimizer, pt.seed, cfg=cfg,
+                              batch=(4, 256), workdir=str(tmp_path / "p16"))
+    for schedule in chip_smoke.PP_SCHEDULES:
+        assert out["cells"][schedule]["max_rel_to_world1"] <= \
+            chip_smoke.PP_REL_TOL
+    assert out["cells"]["1f1b"]["max_in_flight_per_rank"] == [2, 1]

@@ -290,10 +290,10 @@ def test_strategy_surface(case, exc, match):
         if case in ("pp_degree", "sep_degree"):
             s = fleet.DistributedStrategy()
             s.hybrid_configs[case] = 2
-            if case == "sep_degree":
-                # sep runs alone or with dp (tests/test_torch_sep_train.py);
-                # beside sharding the JAX guard refuses it
-                s.hybrid_configs["sharding_degree"] = 2
+            # sep and pp run alone or with dp
+            # (tests/test_torch_sep_train.py, tests/test_torch_pp_train.py);
+            # beside sharding the JAX guard refuses them
+            s.hybrid_configs["sharding_degree"] = 2
             fleet.init(is_collective=True, strategy=s)
         elif case == "sequence_parallel":
             # a sequence-parallel model placed on sep beside tp: refused,

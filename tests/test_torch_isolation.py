@@ -5,8 +5,8 @@ module of the JAX package (even those that do not import JAX): checked by
 an AST scan, by importing every module of the port, and by serving a
 Llama and a GPT request, taking Llama and ERNIE-MoE train steps, a
 tensor-parallel Llama step, a request through a tensor-parallel
-engine and sequence-parallel (ring and Ulysses) steps on two spawned
-ranks, and quantizing and
+engine, sequence-parallel (ring and Ulysses) and pipeline-parallel
+(GPipe and 1F1B) steps on two spawned ranks, and quantizing and
 running a tiny Llama and both stochastic quantizers in processes where
 importing either fails.
 Entry points default to CUDA and raise when it is absent.
@@ -27,6 +27,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 def _sources():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.extend(sorted((ROOT / "tools").glob("torch_*.py")))
     return files
 
 
@@ -216,6 +217,9 @@ def test_every_module_imports_with_jax_unimportable():
             importlib.import_module(n)
         assert "paddle_tpu_torch.distributed.fleet.placement" in names
         assert "paddle_tpu_torch.distributed.collective_matmul" in names
+        assert "paddle_tpu_torch.ops.pipeline" in names
+        assert "paddle_tpu_torch.distributed.fleet.pp_train_step" in names
+        assert "paddle_tpu_torch.text.models.llama_pipe" in names
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK", len(names))
@@ -227,9 +231,10 @@ def test_every_module_imports_with_jax_unimportable():
 
 
 def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
-    """A tp2 Llama step, a request through a tp2 ``Engine`` and sep2 ring
-    and Ulysses steps over gloo in two spawned ranks, each of which makes
-    JAX and the JAX package unimportable first."""
+    """A tp2 Llama step, a request through a tp2 ``Engine``, sep2 ring
+    and Ulysses steps and pp2 GPipe and 1F1B steps over gloo in two
+    spawned ranks, each of which makes JAX and the JAX package
+    unimportable first."""
     import pickle
 
     import torch_dist_worker as W
@@ -248,6 +253,11 @@ def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
         assert outs[0]["sep_losses"][mode] == outs[1]["sep_losses"][mode]
         assert outs[0]["sep_losses"][mode][1] < \
             outs[0]["sep_losses"][mode][0]
+    for schedule in ("gpipe", "1f1b"):
+        assert outs[0]["pp_losses"][schedule] == \
+            outs[1]["pp_losses"][schedule]
+        assert outs[0]["pp_losses"][schedule][1] < \
+            outs[0]["pp_losses"][schedule][0]
     assert not outs[0]["loaded"] and not outs[1]["loaded"]
 
 

@@ -137,7 +137,7 @@ def test_strategy_options_outside_the_slice_raise():
     opt = optimizer.AdamW(parameters=model.parameters())
     loss_fn = (lambda m, ids, lbl: m(ids, labels=lbl))
     for field, item in (("amp", "item 10"), ("dgc", "item 4"),
-                        ("pipeline", "item 9")):
+                        ("lamb", "item 9")):
         s = fleet.DistributedStrategy()
         setattr(s, field, True)
         with pytest.raises(NotImplementedError, match=item):
@@ -145,13 +145,13 @@ def test_strategy_options_outside_the_slice_raise():
                                                                 loss_fn)
     # dp, mp and sharding degrees run since the multi-GPU slice
     # (tests/test_torch_hybrid_train.py), sep alone or with dp since the
-    # sequence-parallel slice (tests/test_torch_sep_train.py); pipeline
-    # degrees, and sep beside mp, still raise
+    # sequence-parallel slice (tests/test_torch_sep_train.py), pp alone
+    # or with dp since the pipeline slice (tests/test_torch_pp_train.py);
+    # sep or pp beside mp still raise
     for degree in ("pp_degree", "sep_degree"):
         s = fleet.DistributedStrategy()
         s.hybrid_configs[degree] = 2
-        if degree == "sep_degree":
-            s.hybrid_configs["mp_degree"] = 2
+        s.hybrid_configs["mp_degree"] = 2
         with pytest.raises(NotImplementedError, match=degree):
             fleet.distributed_optimizer(opt, s).make_train_step(model,
                                                                 loss_fn)
@@ -163,6 +163,11 @@ def test_strategy_options_outside_the_slice_raise():
     step = fleet.distributed_optimizer(opt, s).make_train_step(model,
                                                                loss_fn)
     assert step.accumulate_steps == 2
+    s = fleet.DistributedStrategy()
+    s.pipeline = True
+    s.pipeline_configs["accumulate_steps"] = 4
+    assert fleet.distributed_optimizer(opt, s).make_train_step(
+        model, loss_fn).accumulate_steps == 4
     with pytest.raises(ValueError, match="not divisible"):
         step(np.zeros((3, 8), np.int64), np.zeros((3, 8), np.int64))
 

@@ -293,9 +293,9 @@ def spawn_env_worker(path):
 
 def isolation_worker(out_dir):
     """A tp2 x sharding-free Llama step, a request through a tp2
-    ``Engine`` and sep2 ring and Ulysses steps on 2 ranks with JAX and the
-    JAX package unimportable; writes the modules that got loaded
-    anyway."""
+    ``Engine``, sep2 ring and Ulysses steps and pp2 GPipe and 1F1B steps
+    on 2 ranks with JAX and the JAX package unimportable; writes the
+    modules that got loaded anyway."""
     import sys
     for name in ("jax", "jaxlib", "paddle_tpu"):
         sys.modules[name] = None
@@ -342,12 +342,30 @@ def isolation_worker(out_dir):
             learning_rate=LR, parameters=model.parameters())
         ).make_train_step(model, lambda m, x, y: m(x, labels=y))
         sep_losses[mode] = [float(step(ids, ids)) for _ in range(2)]
+    # a pipeline-parallel step, each schedule
+    from paddle_tpu_torch.text.models import LlamaForCausalLMPipe
+    pp_losses = {}
+    for schedule in ("gpipe", "1f1b"):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs["pp_degree"] = 2
+        fleet.init(is_collective=True, strategy=s)
+        torch.manual_seed(0)
+        model = fleet.distributed_model(LlamaForCausalLMPipe(
+            dataclasses.replace(LLAMA_TINY, dtype="float32",
+                                num_hidden_layers=2), device="cpu"))
+        adam = optimizer.AdamW(learning_rate=LR,
+                               parameters=model.parameters())
+        step = (fleet.make_1f1b_train_step(model, adam, n_micro=2)
+                if schedule == "1f1b" else
+                fleet.distributed_optimizer(adam).make_train_step(
+                    model, lambda m, x, y: m(x, labels=y)))
+        pp_losses[schedule] = [float(step(ids, ids)) for _ in range(2)]
     loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
         k in ("jax", "jaxlib", "paddle_tpu")
         or k.startswith(("jax.", "jaxlib.", "paddle_tpu."))))
     _dump(os.path.join(out_dir, f"isolation.r{dist.get_rank()}.pkl"),
           dict(losses=losses, tokens=tokens, sep_losses=sep_losses,
-               loaded=loaded))
+               pp_losses=pp_losses, loaded=loaded))
     dist.destroy_process_group()
 
 
@@ -706,5 +724,232 @@ def sep_worker(out_dir, init_paths, batch_path, names):
                 _dump(os.path.join(out_dir, f"{name}.pkl"),
                       dict(losses=losses, params=full, logits=logits,
                            odd_length=odd))
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+# -- pipeline parallel --------------------------------------------------------
+
+# name -> (body, stage, pp degree, n_micro): the port's pipeline bodies
+# against the JAX ones (tests/test_torch_pipeline.py)
+PIPE_OP_CASES = {
+    **{f"{body}_tanh_pp{P}_micro{M}": (body, "tanh", P, M)
+       for body in ("gpipe", "1f1b") for P in (2, 4) for M in (2, 4, 8)},
+    **{f"{body}_decoder_pp{P}_micro{M}": (body, "decoder", P, M)
+       for body in ("gpipe", "1f1b") for P, M in ((2, 4), (4, 4))},
+}
+# name -> (case it plants into, fault: a key of chip_smoke.PP_FAULTS)
+PIPE_FAULTS = {
+    "gpipe_stages_in_the_wrong_order": ("gpipe_tanh_pp4_micro4",
+                                        "wrong_order"),
+    "1f1b_stages_in_the_wrong_order": ("1f1b_tanh_pp4_micro4",
+                                       "wrong_order"),
+    "gpipe_cotangent_paired_with_the_next_input": ("gpipe_tanh_pp2_micro4",
+                                                   "next_input"),
+    "1f1b_cotangent_paired_with_the_next_input": ("1f1b_tanh_pp2_micro4",
+                                                  "next_input"),
+    "gpipe_replicate_backward_sums_over_pp": ("gpipe_tanh_pp2_micro4",
+                                              "sum_over_pp"),
+}
+PIPE_TINY = dict(hidden=256, heads=8, kv=4, ffn=688, seq=32, eps=1e-5,
+                 theta=10000.0)
+
+
+def pipe_op_inputs(name):
+    """float32 numpy inputs of a case: the stacked stage weights (a dict),
+    the last stage's parameters, the batch x, the targets and the
+    cotangent of the GPipe output."""
+    _, stage, P, M = PIPE_OP_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def rnd(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    if stage == "tanh":            # 2 layers a stage, hidden 16
+        stacked = {"w": rnd(2 * P, 16, 16, scale=0.3)}
+        last = {"w": rnd(16, 16, scale=0.3)}
+        x, tgt, ct = (rnd(2 * M, 16) for _ in range(3))
+    else:                          # one LLAMA_TINY layer a stage
+        c = PIPE_TINY
+        h, ff, kvw = c["hidden"], c["ffn"], c["kv"] * c["hidden"] // c["heads"]
+        stacked = {"wq": rnd(P, h, h, scale=0.05),
+                   "wk": rnd(P, h, kvw, scale=0.05),
+                   "wv": rnd(P, h, kvw, scale=0.05),
+                   "wo": rnd(P, h, h, scale=0.05),
+                   "wg": rnd(P, h, ff, scale=0.05),
+                   "wu": rnd(P, h, ff, scale=0.05),
+                   "wd": rnd(P, ff, h, scale=0.05),
+                   "ln1": 1 + rnd(P, h, scale=0.1),
+                   "ln2": 1 + rnd(P, h, scale=0.1)}
+        last = {"w": rnd(h, scale=0.3)}
+        x, tgt, ct = (rnd(M, c["seq"], h) for _ in range(3))
+    return stacked, last, x, tgt, ct
+
+
+def pipe_last_fn(lp, y, t):
+    """The per-micro-batch loss after the last stage, in either package
+    (``@`` and ``*`` on their arrays)."""
+    y = y @ lp["w"] if lp["w"].ndim == 2 else y * lp["w"]
+    return ((y - t) ** 2).mean()
+
+
+def _pipe_stage(stage):
+    import functools
+
+    import torch as T
+    if stage == "tanh":
+        def tanh_stack(c, x):
+            for i in range(c["w"].shape[0]):
+                x = T.tanh(x @ c["w"][i])
+            return x
+        return tanh_stack
+    from paddle_tpu_torch.text.models.llama_pipe import _decoder_chunk
+    c = PIPE_TINY
+    return functools.partial(_decoder_chunk, n_heads=c["heads"],
+                             n_kv=c["kv"], eps=c["eps"], theta=c["theta"])
+
+
+def pipe_ops_worker(out_dir, names):
+    """Run each case (or planted fault) of ``names`` on the first P ranks
+    of the world: GPipe's output and, after a backward of the case's
+    cotangent, this rank's chunk gradients and x's gradient; 1F1B's loss,
+    chunk gradients, last-stage gradients and dx; and max_in_flight.
+    Each rank of the case's mesh writes its own."""
+    import contextlib
+
+    torch.set_num_threads(1)
+    from chip_smoke import pp_fault
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M_
+    from paddle_tpu_torch.ops import pipeline as pl
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank = dist.get_rank()
+    meshes = {}
+    for name in names:
+        case, fault = (name, None) if name in PIPE_OP_CASES \
+            else PIPE_FAULTS[name]
+        body, stage, P, n_micro = PIPE_OP_CASES[case]
+        if P not in meshes:
+            meshes[P] = M_.build_mesh(pp=P).init_groups()
+        m = meshes[P]
+        if m.coords is not None:
+            stacked, last, x, tgt, ct = (
+                {k: torch.from_numpy(v) for k, v in a.items()}
+                if isinstance(a, dict) else torch.from_numpy(a)
+                for a in pipe_op_inputs(case))
+            fn = _pipe_stage(stage)
+            p = m.axis_index("pp")
+            with (pp_fault(pl, C, fault) if fault else
+                  contextlib.nullcontext()):
+                if body == "gpipe":
+                    w = {k: v.clone().requires_grad_()
+                         for k, v in stacked.items()}
+                    xg = x.clone().requires_grad_()
+                    y = pl.spmd_pipeline(fn, w, xg, mesh=m, n_micro=n_micro)
+                    y.backward(ct)
+                    k0 = next(iter(w.values())).shape[0] // P
+                    res = dict(out=y.detach().numpy(),
+                               grads={k: v.grad[p * k0:(p + 1) * k0].numpy()
+                                      for k, v in w.items()},
+                               dx=xg.grad.numpy())
+                else:
+                    loss, g, lg, dx = pl.pipeline_1f1b(
+                        fn, pipe_last_fn, stacked, x, tgt, last_params=last,
+                        mesh=m, n_micro=n_micro)
+                    res = dict(loss=float(loss),
+                               grads={k: v.numpy() for k, v in g.items()},
+                               last_grads={k: v.numpy()
+                                           for k, v in lg.items()},
+                               dx=dx.numpy())
+            res["max_in_flight"] = pl.counters["max_in_flight"]
+            _dump(os.path.join(out_dir, f"{name}.r{p}.pkl"), res)
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+# pipeline-parallel train steps: (dp, pp) degrees, the schedule, the
+# model's n_micro and strategy.pipeline's accumulate_steps
+PP_CONFIGS = {
+    "gpipe_pp2": dict(pp=2),
+    "gpipe_pp4": dict(pp=4),
+    "1f1b_pp2_micro2": dict(pp=2, schedule="1f1b", n_micro=2),
+    "1f1b_pp2_micro4": dict(pp=2, schedule="1f1b", n_micro=4),
+    "1f1b_pp4": dict(pp=4, schedule="1f1b", n_micro=4),
+    "gpipe_dp2_pp2": dict(dp=2, pp=2),
+    "1f1b_dp2_pp2": dict(dp=2, pp=2, schedule="1f1b", n_micro=2),
+    "gpipe_pp2_pipeline_accumulate2": dict(pp=2, accumulate=2),
+}
+PP_LAYERS = 4
+REPLICATED = ("embed_tokens.weight", "norm.weight", "lm_head.weight")
+
+
+def pp_worker(out_dir, init_path, batch_path, names):
+    """Train fp32 ``LlamaForCausalLMPipe`` (LLAMA_TINY, PP_LAYERS layers,
+    the JAX model's initial weights) for STEPS steps under each
+    configuration of ``names`` on the first ranks of the world its degrees
+    need. Every rank of the mesh writes its losses, a digest of its
+    replicated parameters after each step, max_in_flight and the shapes
+    it holds; rank 0 also the gathered parameters."""
+    import dataclasses
+    import hashlib
+
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io import (gather_state_dict,
+                                               load_numpy_state_dict)
+    from paddle_tpu_torch.ops import pipeline as pl
+    from paddle_tpu_torch.text.models import LlamaForCausalLMPipe
+    from paddle_tpu_torch.text.models.llama import LLAMA_TINY
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank = dist.get_rank()
+    with np.load(init_path) as z:
+        init = {k: z[k] for k in z.files}
+    with np.load(batch_path) as z:
+        ids, labels = z["ids"], z["labels"]
+    cfg = dataclasses.replace(LLAMA_TINY, dtype="float32",
+                              num_hidden_layers=PP_LAYERS)
+    for name in names:
+        c = PP_CONFIGS[name]
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs.update(dp_degree=c.get("dp", 1), pp_degree=c["pp"])
+        if "accumulate" in c:
+            s.pipeline = True
+            s.pipeline_configs["accumulate_steps"] = c["accumulate"]
+        fleet.init(is_collective=True, strategy=s)
+        mesh = fleet.get_hybrid_communicate_group().mesh
+        if mesh.coords is not None:
+            model = fleet.distributed_model(LlamaForCausalLMPipe(
+                cfg, n_micro=c.get("n_micro"), device="cpu"))
+            load_numpy_state_dict(model, init)
+            adam = optimizer.AdamW(learning_rate=LR,
+                                   parameters=model.parameters())
+            if c.get("schedule") == "1f1b":
+                step = fleet.make_1f1b_train_step(
+                    model, adam, n_micro=c["n_micro"],
+                    strategy=fleet.get_strategy())
+            else:
+                step = fleet.distributed_optimizer(adam).make_train_step(
+                    model, lambda m, x, y: m(x, labels=y))
+            losses, digests, in_flight = [], [], []
+            for _ in range(STEPS):
+                losses.append(float(step(ids, labels)))
+                in_flight.append(pl.counters["max_in_flight"])
+                digests.append({k: hashlib.sha256(
+                    p.detach().numpy().tobytes()).hexdigest()
+                    for k, p in model.named_parameters() if k in REPLICATED})
+            full = gather_state_dict(model)
+            _dump(os.path.join(out_dir, f"{name}.r{rank}.pkl"), dict(
+                losses=losses, digests=digests, in_flight=in_flight,
+                stage=fleet.get_hybrid_communicate_group().get_stage_id(),
+                shapes={k: tuple(p.shape)
+                        for k, p in model.named_parameters()}))
+            if rank == 0:
+                _dump(os.path.join(out_dir, f"{name}.pkl"),
+                      dict(losses=losses, params=full))
         dist.barrier()
     dist.destroy_process_group()
