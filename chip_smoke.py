@@ -201,6 +201,30 @@ failure raises and exits non-zero before the result line is printed:
     micro-batches in flight at most 2 - stage, each rank holding 2 of the
     4 layers; step time, tokens/s and peak memory per rank printed (not a
     multi-GPU speed).
+17. GPT-2 small training (after phase 16), ``phase_gpt2_train``. 17a:
+    OpenAI's widths (hidden 768, 12 layers, 12 heads, FFN 3072, vocab
+    50,304, dropout 0.1), bf16, AdamW(lr=1e-4, wd=0.01), a repeated
+    8 x 1024 batch, a warm-up + 3 steps on the card: the loss finite, its
+    first value within 1.0 of ln 50304, the last timed below the first;
+    rows 1-3 12 launches each a step, all on the tensor cores, on the
+    q/k/v views of the fused qkv; step time, tokens/s, peak memory and a
+    profiled step. 17b: the same weights under ``mp_degree=2`` as two
+    gloo ranks on the card: every rank's losses within 1e-2 relative of
+    17a's, rows 1-3 12 each per rank and step on its 6 heads, all
+    ``"tc"``. Phase 3 holds rows 2-3 at 17a's batch (views of the fused
+    qkv) under ``judge_backward`` with its planted faults, and phase 7
+    times them there.
+18. expert-parallel ERNIE-MoE training (after phase 17), ``phase_ep``:
+    phase 9's configuration under ``mp_degree=2`` as two gloo ranks on
+    the card, each holding 4 of the 8 experts, against world 1 on the same
+    weights and seeds: the gradients of ``EP_PROBED`` within 1e-2 of world
+    1's (``judge_rel``), outside it with each planted fault of
+    ``EP_FAULTS`` (the expert input's dx not all-reduced over tp;
+    ``reduce_from_tp``'s backward summing over tp); a warm-up + 3 steps
+    within 1e-2 relative of world 1's losses; per rank and step 12 ragged
+    launches on ``[4, 2560, d]`` expert inputs and rows 1-3 6 each, all
+    on the tensor cores. Phase 7 times the ragged kernel on the 4 experts
+    of a rank.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -606,7 +630,7 @@ def fwd_inputs(what, B, Lq, Lk, Hq, Hkv, D, dtype, seed):
         g = torch.Generator(device="cuda").manual_seed(seed)
         qkv = torch.randn(B, Lq, 3, Hq, D, generator=g, device="cuda")
         return qkv.to(dtype).unbind(2)
-    if what == "GPT-2 fused qkv":
+    if what.startswith("GPT-2"):
         g = torch.Generator(device="cuda").manual_seed(seed)
         qkv = torch.randn(B, Lq, 3 * Hq * D, generator=g, device="cuda")
         return gpt_qkv(qkv.to(dtype), Hq)
@@ -793,6 +817,9 @@ BWD_CASES = (
     # GPT-2 small's scoring call: q/k/v views of one [B, L, 3h] projection
     ("GPT-2 fused qkv", 1, 1024, 1024, 12, 12, 64, True, torch.bfloat16,
      "tc"),
+    # and its training batch (phase 17), with the planted faults
+    ("GPT-2 training", 8, 1024, 1024, 12, 12, 64, True, torch.bfloat16,
+     "tc"),
     ("misaligned", 1, 256, 256, 4, 4, 128, True, torch.bfloat16,
      "cuda_core"),
     ("fp32", 1, 384, 512, 8, 8, 128, True, torch.float32, "cuda_core"))
@@ -814,7 +841,8 @@ def parity_bwd(fa):
     """dq and dk/dv kernels against their plain versions under
     judge_backward, from the forward kernel's (out, lse), at BWD_CASES,
     each kernel taking the variant it must; fully masked rows (Lq > Lk,
-    causal) must give exactly 0 in dq. At the trainer's shape every planted
+    causal) must give exactly 0 in dq. At the trainer's shape and at
+    GPT-2's training batch (q/k/v views of the fused qkv) every planted
     fault of backward_faults must fail the same judge."""
     errs = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
     for case in BWD_CASES:
@@ -851,7 +879,7 @@ def parity_bwd(fa):
             raise AssertionError("flash_attention backward disagrees with "
                                  "its plain version or took the wrong "
                                  "variant")
-        if what == "trainer":
+        if what in ("trainer", "GPT-2 training"):
             check_backward_faults(q, k, v, do, lse, delta, causal, want)
         errs["flash_attention_bwd_dq"] = max(
             errs["flash_attention_bwd_dq"], e[0])
@@ -1907,8 +1935,13 @@ def phase_timings(fa, fd, fc, rm, im, sr, flush):
             shape=f"B=1 L={L} H=32 D=128 causal bf16")
     out.update(timings_gpt_forward(fa, flush))
     out.update(timings_bwd(fa, flush))
+    # GPT-2 small's training batch (phase 17): q/k/v views of the fused qkv
+    out.update(timings_bwd(fa, flush, B=8, L=1024, H=12, D=64,
+                           what="GPT-2 training", suffix="_gpt2_train"))
     out.update(timings_fused_ce(fc, flush))
     out.update(timings_ragged(rm, flush))
+    # one expert-parallel rank's 4 of the 8 experts (phase 18, mp2)
+    out.update(timings_ragged(rm, flush, E=MOE_E // EP_DEGREE, suffix="_ep"))
     out.update(timings_ernie_attention(fa, flush))
     out.update(timings_int8(im, flush))
     out.update(timings_stochastic(sr, flush))
@@ -2125,15 +2158,17 @@ def timings_stochastic(sr, flush):
     return out
 
 
-def timings_bwd(fa, flush):
+def timings_bwd(fa, flush, B=2, L=2048, H=32, D=128, what="trainer",
+                suffix=""):
     """The backward kernels at the trainer's attention shape (B=2, L=2048,
-    H=32, D=128, causal, bf16), the first (CUDA-core) versions beside the
-    tensor-core ones. Yardstick: the backward of
-    TF.scaled_dot_product_attention (dq, dk and dv together), timed alone
-    through autograd.grad on a retained graph."""
+    H=32, D=128, causal, bf16; or another, its q/k/v made by
+    ``fwd_inputs(what, ...)``: at GPT-2's training batch, views of the
+    fused qkv), the first (CUDA-core) versions beside the tensor-core
+    ones. Yardstick: the backward of TF.scaled_dot_product_attention (dq,
+    dk and dv together), timed alone through autograd.grad on a retained
+    graph."""
     TF = torch.nn.functional
-    B, L, H, D = 2, 2048, 32, 128
-    q, k, v = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=91)
+    q, k, v = fwd_inputs(what, B, L, L, H, H, D, torch.bfloat16, seed=91)
     do = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=92)[0]
     out, lse = fa.flash_attention(q, k, v, causal=True)
     delta = fa.attention_delta(out, do)
@@ -2145,13 +2180,17 @@ def timings_bwd(fa, flush):
     pairs = B * H * L * (L + 1) // 2
     elems = B * L * H * D
     reads = 4 * elems * 2 + 2 * B * H * L * 4      # q, k, v, dO; lse, delta
-    shape = f"B={B} L={L} H={H} D={D} causal bf16"
+    shape = f"B={B} L={L} H={H} D={D} causal bf16" + (
+        ", q/k/v views of the fused qkv" if what.startswith("GPT-2") else "")
+    _, took = launched_variant(fa.flash_attention_bwd_dq,
+                               lambda: fa.flash_attention_bwd_dq(
+                                   q, k, v, do, lse, delta, True))
     with forced_variant(fa, "cuda_core", "_bwd_variant"):
         first = [time_ms(lambda: fa.flash_attention_bwd_dq(
                      q, k, v, do, lse, delta, True), flush, reps=5),
                  time_ms(lambda: fa.flash_attention_bwd_dkv(
                      q, k, v, do, lse, delta, True), flush, reps=5)]
-    return {
+    res = {
         "flash_attention_bwd_dq": dict(
             first_version_ms=first[0],
             ms=time_ms(lambda: fa.flash_attention_bwd_dq(
@@ -2169,6 +2208,9 @@ def timings_bwd(fa, flush):
             library_ms=lib, shape=shape,
             **bound(reads + 2 * elems * 2, 8 * D * pairs)),
     }
+    del q, k, v, do, out, lse, delta, leaves, o
+    torch.cuda.empty_cache()
+    return {k + suffix: dict(t, variant=took) for k, t in res.items()}
 
 
 def timings_fused_ce(fc, flush):
@@ -2191,9 +2233,10 @@ def timings_fused_ce(fc, flush):
         **bound(N * H * 2 + H * V * 2 + N * 8 + 3 * N * 4, 2 * N * H * V))}
 
 
-def timings_ragged(rm, flush):
+def timings_ragged(rm, flush, E=MOE_E, suffix=""):
     """The ragged kernel at the MoE expert shapes (bench.py's
-    ``_bench_moe_ragged_kernel``: E=8, C=2560, bf16, counts [C, C/2] x 4),
+    ``_bench_moe_ragged_kernel``: E=8, C=2560, bf16, counts [C, C/2] x 4;
+    or E=4, one expert-parallel rank's share at mp2, phase 18),
     up (K=1024, N=4096), down (K=4096, N=1024) and the backward's dx of
     the up projection (dy [E, C, 4096] @ w_up^T, w read through the
     strides of the transposed view), each on the variant the main path
@@ -2203,7 +2246,7 @@ def timings_ragged(rm, flush):
     ``expert_kernel="einsum"`` runs). The bound counts this run's data:
     the live rows' products and x rows, all of w, all of out (zeros
     included) and counts."""
-    E, C = MOE_E, MOE_C
+    C = MOE_C
     counts = [C if e % 2 == 0 else C // 2 for e in range(E)]
     rows = sum(counts)
     out = {}
@@ -2219,7 +2262,7 @@ def timings_ragged(rm, flush):
         with forced_variant(rm, "mma_sync"):
             first = time_ms(lambda: rm.ragged_group_matmul(x, w, cnt), flush,
                             reps=5)
-        out[f"ragged_group_matmul_{name}"] = dict(
+        out[f"ragged_group_matmul_{name}{suffix}"] = dict(
             variant=variant,
             first_version_ms=first,
             ms=time_ms(lambda: rm.ragged_group_matmul(x, w, cnt), flush),
@@ -2555,6 +2598,19 @@ PAIR_NEEDS = {"mp2": ("all_reduce_sum_bf16", "all_reduce_sum_fp32",
 PAIR_REL_TOL = 1e-2     # bf16 training, other reduction orders
 
 
+def save_weights(workdir, model):
+    """Every parameter of ``model`` as ``<name>.npy`` (float32)."""
+    for k, v in model.state_dict().items():
+        np.save(os.path.join(workdir, k + ".npy"),
+                v.detach().float().cpu().numpy())
+
+
+def saved_weights(workdir):
+    """The arrays ``save_weights`` wrote: name -> array (memory-mapped)."""
+    return {f[:-4]: np.load(os.path.join(workdir, f), mmap_mode="r")
+            for f in os.listdir(workdir) if f.endswith(".npy")}
+
+
 def _strategy(fleet, mp_degree=1, sharding_degree=1, stage=0):
     s = fleet.DistributedStrategy()
     s.hybrid_configs.update(mp_degree=mp_degree,
@@ -2660,11 +2716,6 @@ def gloo_probe(dist):
     return out
 
 
-def _pair_weights(workdir, model):
-    return {k: np.load(os.path.join(workdir, k + ".npy"), mmap_mode="r")
-            for k in model.state_dict()}
-
-
 def _pair_worker(workdir, cfg, steps):
     """One of 12b's two ranks on cuda:0 (gloo): the probe, then each
     configuration the probe allows, from the saved weights and batch."""
@@ -2683,7 +2734,8 @@ def _pair_worker(workdir, cfg, steps):
     rank = dist.get_rank()
     out = dict(rank=rank, backend=torch.distributed.get_backend(),
                torch=torch.__version__, probe=gloo_probe(dist), configs={})
-    ids = torch.from_numpy(np.load(os.path.join(workdir, "ids.npy"))).cuda()
+    with np.load(os.path.join(workdir, "batch.npz")) as z:
+        ids = torch.from_numpy(z["ids"]).cuda()
     for name, kw in PAIR_CONFIGS.items():
         missing = [op for op in PAIR_NEEDS[name] if out["probe"][op] != "ok"]
         if missing:
@@ -2692,7 +2744,7 @@ def _pair_worker(workdir, cfg, steps):
         fleet.init(is_collective=True, strategy=_strategy(fleet, **kw))
         model, step = llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer,
                                     pt.seed)
-        load_numpy_state_dict(model, _pair_weights(workdir, model))
+        load_numpy_state_dict(model, saved_weights(workdir))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses, secs, per_step = run_steps(
@@ -2735,12 +2787,10 @@ def phase_hybrid_pair(fa, fc, rm, LlamaForCausalLM, LLAMA2_7B, fleet,
     try:
         model, step = llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer,
                                     seed)
-        for k, v in model.state_dict().items():
-            np.save(os.path.join(workdir, k + ".npy"),
-                    v.detach().float().cpu().numpy())
-        load_numpy_state_dict(model, _pair_weights(workdir, model))
+        save_weights(workdir, model)
+        load_numpy_state_dict(model, saved_weights(workdir))
         ids = train_ids(cfg.vocab_size, *batch)
-        np.save(os.path.join(workdir, "ids.npy"), ids.cpu().numpy())
+        np.savez(os.path.join(workdir, "batch.npz"), ids=ids.cpu().numpy())
         losses, secs, _ = run_steps(fa, fc, rm, step, ids, steps,
                                     tag="world 1: ", warm_up=False)
         del step, model
@@ -4043,6 +4093,487 @@ def phase_pp(fa, fc, rm, LlamaConfig, LlamaForCausalLMPipe, fleet, optimizer,
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 17: GPT-2 small training
+# ---------------------------------------------------------------------------
+
+GPT2_TRAIN_BATCH = (8, 1024)
+TRAIN_STEPS = 4                 # a warm-up + 3 timed steps
+
+
+def gpt2_train_ids(vocab, B, L, device="cuda"):
+    """Phase 17's batch: one repeated B x L batch of seeded random ids (the
+    labels are the ids, shifted inside the model)."""
+    return torch.from_numpy(np.random.default_rng(5).integers(
+        0, vocab, (B, L))).to(device)
+
+
+def gpt2_trainer(GPTForCausalLM, cfg, fleet, optimizer, seed, weights=None,
+                 device="cuda"):
+    """GPT-2 from seed 0 (or ``weights``: name -> full array) placed by
+    ``fleet.distributed_model`` on the current mesh, and
+    ``fleet.distributed_optimizer(AdamW(lr=1e-4, wd=0.01))
+    .make_train_step``."""
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    seed(0)
+    model = fleet.distributed_model(GPTForCausalLM(cfg, device=device))
+    if weights is not None:
+        load_numpy_state_dict(model, weights)
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01,
+        parameters=model.parameters()))
+    return model, opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
+
+
+def want_attention_launches(layers, ragged=0):
+    """Rows 1-3 once per layer and step (and row 7 ``ragged`` times), all
+    on the tensor cores; no fused head."""
+    want = dict(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
+                flash_attention_bwd_dkv=layers, fused_ce_stats=0,
+                ragged_group_matmul=ragged)
+    want.update({k + "_tc": v for k, v in list(want.items())})
+    return want
+
+
+def _rank_device(device):
+    """The device both ranks of a pair share: cuda:0 on the card."""
+    return "cuda:0" if device == "cuda" else device
+
+
+def check_pair(tag, ranks, world1, want, tol=PAIR_REL_TOL):
+    """Every rank's losses within ``tol`` relative of world 1's, equal on
+    both ranks, and its launches per step ``want``; returns the worst
+    relative loss difference."""
+    worst = 0.0
+    for r, g in enumerate(ranks):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], world1))
+        worst = max(worst, rel)
+        if not rel <= tol:
+            raise AssertionError(f"{tag} rank {r}: losses {g['losses']} vs "
+                                 f"world 1 {world1} (relative {rel:.3g})")
+        for i, c in enumerate(g["launches"]):
+            if c != want:
+                raise AssertionError(f"{tag} rank {r} step {i} launched "
+                                     f"{c}, want {want}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"{tag}: the ranks' losses differ: "
+                             f"{ranks[0]['losses']} {ranks[1]['losses']}")
+    return worst
+
+
+def _gpt_tp_worker(workdir, cfg, batch, steps, device):
+    """One of 17b's two ranks on ``device`` (gloo): GPT-2 under
+    mp_degree=2 from the saved weights, ``steps`` steps on phase 17's
+    batch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import ragged_matmul as rm
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", device=device, timeout=600)
+    rank = dist.get_rank()
+    fleet.init(is_collective=True, strategy=_strategy(fleet, mp_degree=2))
+    model, step = gpt2_trainer(GPTForCausalLM, cfg, fleet, optimizer,
+                               pt.seed, saved_weights(workdir),
+                               device=device)
+    ids = gpt2_train_ids(cfg.vocab_size, *batch, device=device)
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    losses, secs, per_step = run_steps(fa, fc, rm, step, ids, steps,
+                                       tag=f"[rank {rank}, tp2] ",
+                                       warm_up=False)
+    out = dict(rank=rank, losses=losses, step_secs=secs, launches=per_step,
+               qkv_shape=list(model.gpt.blocks[0].qkv.weight.shape),
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if device != "cpu" else 0.0))
+    with open(os.path.join(workdir, f"gpt_tp.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_gpt2_train(fa, fc, rm, GPTConfig, GPTForCausalLM, fleet, optimizer,
+                     seed, cfg=None, batch=GPT2_TRAIN_BATCH,
+                     workdir="build/phase17", device="cuda"):
+    """17a: GPT-2 small at OpenAI's widths (``GPTConfig``'s defaults:
+    hidden 768, 12 layers, 12 heads, FFN 3072, vocab 50,304, dropout
+    0.1), bf16, AdamW(lr=1e-4, wd=0.01), a warm-up + 3 steps on one
+    repeated 8 x 1024 batch, one card: the loss finite, its first value
+    within 1.0 of ln 50304, the last timed below the first (dropout makes
+    it noisy); rows 1-3 once per layer and step, all on the tensor cores,
+    on the q/k/v views of the fused qkv; the step time, tokens/s and peak
+    memory, and one profiled step. 17b: the same weights (saved as numpy
+    arrays) under ``mp_degree=2`` as two gloo ranks on the card: every
+    rank's losses within ``PAIR_REL_TOL`` of 17a's (the ranks seed alike,
+    so their dropout masks are 17a's), rows 1-3 once per layer and step
+    on each rank's 6 heads, all ``"tc"``. Returns (17a's launches per
+    step, the report)."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    cfg = cfg or GPTConfig(dtype="bfloat16")
+    B, L = batch
+    fleet.init()                        # world 1: the default mesh
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        model, step = gpt2_trainer(GPTForCausalLM, cfg, fleet, optimizer,
+                                   seed, device=device)
+        save_weights(workdir, model)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  17a: {n_params / 1e6:.1f}M params, batch {B} x {L}, "
+            f"AdamW(lr=1e-4, wd=0.01), dropout {cfg.dropout}")
+        ids = gpt2_train_ids(cfg.vocab_size, B, L, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, secs, per_step = run_steps(fa, fc, rm, step, ids,
+                                           TRAIN_STEPS, tag="17a ")
+        peak = (torch.cuda.max_memory_allocated() if device != "cpu"
+                else 0)
+        step_s = float(np.median(secs[1:]))
+        log(f"  17a step time median {step_s * 1e3:.1f} ms over 3, "
+            f"{B * L / step_s:.1f} tokens/s, peak memory "
+            f"{peak / 2**30:.2f} GiB ({smi_line()})")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"17a: non-finite loss {losses}")
+        if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+            raise AssertionError(f"17a: first loss {losses[0]} not within "
+                                 f"1.0 of ln({cfg.vocab_size})")
+        if not losses[3] < losses[1]:
+            raise AssertionError(f"17a: the last timed loss is not below "
+                                 f"the first: {losses[1:]}")
+        want = want_attention_launches(cfg.num_hidden_layers)
+        for i, c in enumerate(per_step):
+            if c != want:
+                raise AssertionError(f"17a step {i} launched {c}, want "
+                                     f"{want}")
+        prof = profile_step(step, ids, ids) if device != "cpu" else None
+        log("  17a profiled step " + json.dumps(prof))
+        del step, model
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        dist.spawn(_gpt_tp_worker, args=(workdir, cfg, batch, TRAIN_STEPS,
+                                         _rank_device(device)),
+                   nprocs=2, timeout=900)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"gpt_tp.r{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    worst = check_pair("17b tp2", ranks, losses, want)
+    h = cfg.hidden_size
+    if ranks[0]["qkv_shape"] != [h, 3 * h // 2]:
+        raise AssertionError(f"17b: a rank's qkv is {ranks[0]['qkv_shape']}")
+    log(f"  17b tp2: losses {ranks[0]['losses']} vs 17a {losses} (worst "
+        f"relative {worst:.3g}); step times "
+        f"{[[round(t, 3) for t in g['step_secs']] for g in ranks]} s per "
+        f"rank (two ranks sharing one card through gloo: not multi-GPU "
+        f"speeds)")
+    return per_step[1], dict(
+        losses=losses, step_ms=step_s * 1e3, step_secs=secs,
+        tokens_per_s=B * L / step_s, peak_gib=peak / 2**30, profile=prof,
+        tp2=dict(losses=ranks[0]["losses"], max_rel_to_world1=worst,
+                 step_secs=[g["step_secs"] for g in ranks],
+                 peak_gib=[g["peak_gib"] for g in ranks],
+                 launches_per_rank_step=ranks[0]["launches"][-1]))
+
+
+# ---------------------------------------------------------------------------
+# phase 18: expert-parallel ERNIE-MoE training
+# ---------------------------------------------------------------------------
+
+EP_DEGREE = 2
+# the gradients phase 18 holds against world 1's (``ep_grads``): the norm
+# that feeds the first MoE layer (block 1), reached only through the
+# experts' dx; its gate, reached through the routing weights; and block
+# 0's attention, upstream of it
+EP_PROBED = ("ernie.blocks.1.ln_2.weight", "ernie.blocks.1.moe.gate.weight",
+             "ernie.blocks.0.qkv.weight")
+EP_FAULTS = {
+    "dx_not_reduced": "the expert input's dx not all-reduced over tp",
+    "reduce_backward_sums": "reduce_from_tp's backward summing over tp",
+}
+
+
+class _SumBothWays(torch.autograd.Function):
+    """All-reduce forward and backward: ``reduce_from_tp`` with a backward
+    that sums the ranks' equal cotangents (tp x the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from paddle_tpu_torch.distributed.collective import all_reduce
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from paddle_tpu_torch.distributed.collective import all_reduce
+        return all_reduce(g.contiguous().clone(), group=ctx.group), None
+
+
+def ep_fault(moe, fault):
+    """A context that plants ``fault`` (a key of ``EP_FAULTS``) into the
+    port's ``nn.moe``."""
+    from unittest import mock
+    if fault == "dx_not_reduced":
+        real = moe.copy_to_tp
+        # the expert input is the one 2-d operand of copy_to_tp; the
+        # routing weights (1-d) and the dense combine (3-d) keep theirs
+        return mock.patch.object(
+            moe, "copy_to_tp", lambda x, g: x if x.dim() == 2 else real(x, g))
+    return mock.patch.object(
+        moe, "reduce_from_tp",
+        lambda x, g: x if g.nranks == 1 else _SumBothWays.apply(x, g))
+
+
+def ernie_batch(vocab, B, L, device="cuda"):
+    """Phase 9's batch: random ids and labels."""
+    rng = np.random.default_rng(4)
+    return tuple(torch.from_numpy(rng.integers(0, vocab, (B, L))).to(device)
+                 for _ in range(2))
+
+
+def ep_grads(model, ids, labels, seed):
+    """The gradients of ``EP_PROBED`` from one forward and backward on the
+    batch (dropout masks from ``seed(1)``), as float32 numpy arrays. The
+    gates read their input detached here, so the norm before an MoE
+    layer gets the experts' dx alone: at random weights (Xavier with
+    ``fan_in = d * f`` on the banks) the experts' share of dx is ~1% of
+    the gate's, and a wrong expert dx would hide under it."""
+    from unittest import mock
+
+    from paddle_tpu_torch.nn.moe import TopKGate
+    logits = TopKGate._logits
+    seed(1)
+    model.zero_grad(set_to_none=True)
+    with mock.patch.object(TopKGate, "_logits",
+                           lambda gate, x: logits(gate, x.detach())):
+        model(ids, labels=labels).backward()
+    params = dict(model.named_parameters())
+    out = {k: params[k].grad.float().cpu().numpy() for k in EP_PROBED}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def ep_train(fa, fc, rm, model, cfg, fleet, optimizer, seed, ids, labels,
+             steps, tag):
+    """``steps`` steps of AdamW(lr=1e-4) on the batch (dropout masks from
+    ``seed(2)``): (losses, seconds, launches per step, the expert inputs'
+    shapes the ragged matmul took)."""
+    from paddle_tpu_torch.nn import moe as moe_mod
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters()))
+    step = opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
+    shapes = set()
+    real = moe_mod.ragged_dot
+
+    def ragged(x, w, counts):
+        shapes.add(tuple(x.shape))
+        return real(x, w, counts)
+
+    from unittest import mock
+    seed(2)
+    with mock.patch.object(moe_mod, "ragged_dot", ragged):
+        losses, secs, per_step = run_steps(fa, fc, rm, step, ids, steps,
+                                           tag=tag, labels=labels)
+    return step, losses, secs, per_step, sorted(shapes)
+
+
+def _ep_worker(workdir, cfg, batch, steps, tp, backend="gloo",
+               device="cuda:0", profile=False, faults=True):
+    """One of ``tp`` expert-parallel ranks (phase 18: two gloo ranks on
+    cuda:0; ``tools/torch_ep_train.py``: NCCL, one card a rank): the
+    model from the saved weights under ``mp_degree=tp``, the probed
+    gradients (and with each planted fault), then ``steps`` steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.device import resolve_device
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    from paddle_tpu_torch.nn import moe as moe_mod
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import ragged_matmul as rm
+    from paddle_tpu_torch.text.models import ErnieMoEForPretraining
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend=backend, device=device, timeout=900)
+    dev = resolve_device(None)
+    rank = dist.get_rank()
+    fleet.init(is_collective=True, strategy=_strategy(fleet, mp_degree=tp))
+    pt.seed(0)
+    model = fleet.distributed_model(ErnieMoEForPretraining(cfg, device=dev))
+    load_numpy_state_dict(model, saved_weights(workdir))
+    for m in model.moe_layers():
+        m.dispatch_mode, m.expert_kernel = "sparse", "ragged"
+    ids, labels = ernie_batch(cfg.vocab_size, *batch, device=dev)
+    grads = {"": ep_grads(model, ids, labels, pt.seed)}
+    for fault in (EP_FAULTS if faults else ()):
+        with ep_fault(moe_mod, fault):
+            grads[fault] = ep_grads(model, ids, labels, pt.seed)
+    np.savez(os.path.join(workdir, f"ep_grads.r{rank}.npz"),
+             **{f"{f}|{k}": v for f, g in grads.items() for k, v in g.items()})
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    step, losses, secs, per_step, shapes = ep_train(
+        fa, fc, rm, model, cfg, fleet, optimizer, pt.seed, ids, labels,
+        steps, f"[rank {rank}, mp{tp}] ")
+    from paddle_tpu_torch.distributed import collective as C
+    out = dict(rank=rank, backend=torch.distributed.get_backend(),
+               losses=losses, step_secs=secs, launches=per_step,
+               ragged_shapes=shapes, host_staged=sum(C.host_staged.values()),
+               banks=sorted({tuple(p.shape)
+                             for k, p in model.named_parameters()
+                             if k.endswith("w_up")}),
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else 0.0))
+    if profile:
+        out["profile"] = profile_step(step, ids, labels)
+    with open(os.path.join(workdir, f"ep.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def ep_world1(fa, fc, rm, cfg, batch, steps, ErnieMoEForPretraining, fleet,
+              optimizer, seed, workdir, device="cuda"):
+    """World 1 on one card: the model from seed 0 (its weights saved for
+    the ranks), the probed gradients, then ``steps`` steps."""
+    fleet.init()                        # world 1: the default mesh
+    seed(0)
+    model = fleet.distributed_model(ErnieMoEForPretraining(cfg,
+                                                           device=device))
+    save_weights(workdir, model)
+    for m in model.moe_layers():
+        m.dispatch_mode, m.expert_kernel = "sparse", "ragged"
+    ids, labels = ernie_batch(cfg.vocab_size, *batch, device=device)
+    grads = ep_grads(model, ids, labels, seed)
+    step, losses, secs, per_step, shapes = ep_train(
+        fa, fc, rm, model, cfg, fleet, optimizer, seed, ids, labels, steps,
+        "world 1: ")
+    del step, model
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return dict(grads=grads, losses=losses, step_secs=secs,
+                launches=per_step, ragged_shapes=shapes)
+
+
+def check_ep(tag, ranks, grads, world1, want, tp, faults=True):
+    """Each rank's probed gradients within 1e-2 of world 1's under
+    ``judge_rel`` (and every planted fault failing it), its losses within
+    ``PAIR_REL_TOL``, its launches per step ``want``, its banks and
+    expert inputs at ``E / tp`` experts. Returns the report's numbers."""
+    rels = {}
+    for r, g in enumerate(grads):
+        for k in EP_PROBED:
+            a, t, ok = judge_rel(torch.from_numpy(g[f"|{k}"]),
+                                 torch.from_numpy(world1["grads"][k]), 1e-2)
+            rels[f"rank{r} {k}"] = [a, t]
+            if not ok:
+                raise AssertionError(f"{tag} rank {r}: the gradient of {k} "
+                                     f"is {a:.3g} / {t:.3g} from world 1's")
+        for fault in (EP_FAULTS if faults else ()):
+            bad = [judge_rel(torch.from_numpy(g[f"{fault}|{k}"]),
+                             torch.from_numpy(world1["grads"][k]), 1e-2)
+                   for k in EP_PROBED]
+            log(f"  {tag} rank {r}, planted fault ({EP_FAULTS[fault]}): "
+                + ", ".join(f"{k} {a:.3e} / {t:.3e}"
+                            for k, (a, t, _) in zip(EP_PROBED, bad))
+                + (": PASSES (bad)" if all(b[2] for b in bad)
+                   else ": fails, as it must"))
+            if all(b[2] for b in bad):
+                raise AssertionError(f"{tag}: the gradient check does not "
+                                     f"see the planted fault {fault}")
+    worst = 0.0
+    for r, g in enumerate(ranks):
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(g["losses"], world1["losses"]))
+        worst = max(worst, rel)
+        if not rel <= PAIR_REL_TOL:
+            raise AssertionError(f"{tag} rank {r}: losses {g['losses']} vs "
+                                 f"world 1 {world1['losses']} (relative "
+                                 f"{rel:.3g})")
+        for i, c in enumerate(g["launches"]):
+            if c != want:
+                raise AssertionError(f"{tag} rank {r} step {i} launched "
+                                     f"{c}, want {want}")
+        E = world1["ragged_shapes"][0][0]
+        want_shapes = [[E // tp] + list(s[1:])
+                       for s in world1["ragged_shapes"]]
+        if [list(s) for s in g["ragged_shapes"]] != want_shapes:
+            raise AssertionError(f"{tag} rank {r}: expert inputs "
+                                 f"{g['ragged_shapes']}, want {want_shapes}")
+        if [b[0] for b in g["banks"]] != [E // tp]:
+            raise AssertionError(f"{tag} rank {r}: banks {g['banks']}")
+        if g["host_staged"]:
+            raise AssertionError(f"{tag} rank {r}: {g['host_staged']} calls "
+                                 "staged through the host")
+    return dict(grad_rel=rels, max_rel_to_world1=worst)
+
+
+def phase_ep(fa, fc, rm, ErnieMoEConfig, ErnieMoEForPretraining, fleet,
+             optimizer, seed, cfg=None, batch=ERNIE_BATCH,
+             workdir="build/phase18", device="cuda"):
+    """Phase 9's configuration (``bench.py:bench_ernie_moe``: vocab 32000,
+    hidden 1024, 6 layers, 8 experts top-2, dropout 0.1, 8 x 1024, bf16,
+    the ragged kernel) at ``mp_degree=2``, expert parallel, as two gloo
+    ranks on the card, against world 1 on the same weights and seeds.
+    Each rank: the gradients of ``EP_PROBED`` from one forward and
+    backward (``ep_grads``) within 1e-2 of world 1's (``judge_rel``), and
+    with each
+    planted fault of ``EP_FAULTS`` outside it; a warm-up + 3 steps whose
+    losses are within ``PAIR_REL_TOL`` of world 1's; per step 12 ragged
+    launches on ``[4, 2560, d]`` expert inputs (4 of the 8 experts) and
+    rows 1-3 6 each, all on the tensor cores."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    cfg = cfg or ErnieMoEConfig(**ERNIE_MOE)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        world1 = ep_world1(fa, fc, rm, cfg, batch, TRAIN_STEPS,
+                           ErnieMoEForPretraining, fleet, optimizer, seed,
+                           workdir, device=device)
+        dist.spawn(_ep_worker, args=(workdir, cfg, batch, TRAIN_STEPS,
+                                     EP_DEGREE, "gloo",
+                                     _rank_device(device)),
+                   nprocs=EP_DEGREE, timeout=900)
+        ranks, grads = [], []
+        for r in range(EP_DEGREE):
+            with open(os.path.join(workdir, f"ep.r{r}.json")) as f:
+                ranks.append(json.load(f))
+            with np.load(os.path.join(workdir, f"ep_grads.r{r}.npz")) as z:
+                grads.append({k: z[k] for k in z.files})
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    n_moe = cfg.num_hidden_layers // cfg.moe_every
+    want = want_attention_launches(cfg.num_hidden_layers, ragged=4 * n_moe)
+    for i, c in enumerate(world1["launches"]):
+        if c != want:
+            raise AssertionError(f"18 world 1 step {i} launched {c}, want "
+                                 f"{want}")
+    res = check_ep("18 mp2", ranks, grads, world1, want, EP_DEGREE)
+    log(f"  18 mp2: losses {ranks[0]['losses']} vs world 1 "
+        f"{world1['losses']} (worst relative {res['max_rel_to_world1']:.3g})"
+        f"; gradients {json.dumps(res['grad_rel'])}; expert inputs "
+        f"{ranks[0]['ragged_shapes']}; step times "
+        f"{[[round(t, 3) for t in g['step_secs']] for g in ranks]} s per "
+        f"rank (gloo through the host: not multi-GPU speeds)")
+    return ranks[0]["launches"][-1], dict(
+        world1=dict(losses=world1["losses"],
+                    step_secs=world1["step_secs"]),
+        losses=ranks[0]["losses"], ragged_shapes=ranks[0]["ragged_shapes"],
+        step_secs=[g["step_secs"] for g in ranks],
+        peak_gib=[g["peak_gib"] for g in ranks], **res)
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4210,6 +4741,23 @@ def main():
                   optimizer, pt.seed)
     log("  pipeline parallel " + json.dumps(pp))
 
+    # ---- 17. GPT-2 small training ------------------------------------------
+    log("[17] GPT-2 small training (hidden 768, 12 layers, 12 heads, FFN "
+        "3072, vocab 50304), bf16, 8x1024, AdamW: 17a one card, 17b "
+        "mp_degree=2 as two ranks on cuda:0 over gloo against 17a")
+    gpt_train_launches, gpt_train = phase_gpt2_train(
+        fa, fc, rm, GPTConfig, GPTForCausalLM, fleet, optimizer, pt.seed)
+    log("  gpt2 training " + json.dumps(gpt_train))
+
+    # ---- 18. expert-parallel ERNIE-MoE training ----------------------------
+    log(f"[18] expert-parallel ERNIE-MoE training: phase 9's configuration "
+        f"at mp_degree={EP_DEGREE} as two ranks on cuda:0 over gloo, "
+        f"against world 1")
+    ep_launches, ep = phase_ep(fa, fc, rm, ErnieMoEConfig,
+                               ErnieMoEForPretraining, fleet, optimizer,
+                               pt.seed)
+    log("  expert parallel " + json.dumps(ep))
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -4286,6 +4834,19 @@ def main():
                             **{s: [c[kd["name"]] for c in pp["cells"][s][
                                 "launches_per_rank_step"]]
                                for s in PP_SCHEDULES})
+    # rows 1-3 in GPT-2 small's training (17a a step; 17b per tp rank and
+    # step) and rows 2-3 timed at its batch; in phase 18, per EP rank and
+    # step
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_"):
+            kd["gpt2_train"] = dict(
+                launches=gpt_train_launches[kd["name"]],
+                tp2_rank=gpt_train["tp2"]["launches_per_rank_step"][
+                    kd["name"]],
+                **{k: t[kd["name"] + "_gpt2_train"][k]
+                   for k in cols + first + ("shape",)
+                   if kd["name"] + "_gpt2_train" in t})
+            kd["ep_rank"] = dict(launches=ep_launches[kd["name"]])
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",
@@ -4298,7 +4859,13 @@ def main():
         **{k: t["ragged_group_matmul_up"][k] for k in cols + ragged_cols},
         down={k: t["ragged_group_matmul_down"][k]
               for k in cols + ragged_cols},
-        dx={k: t["ragged_group_matmul_dx"][k] for k in cols + ragged_cols}))
+        dx={k: t["ragged_group_matmul_dx"][k] for k in cols + ragged_cols},
+        ep_rank=dict(launches=ep_launches["ragged_group_matmul"],
+                     launches_tc=ep_launches["ragged_group_matmul_tc"],
+                     expert_inputs=ep["ragged_shapes"],
+                     **{n: {k: t[f"ragged_group_matmul_{n}_ep"][k]
+                            for k in cols + ragged_cols + ("shape",)}
+                        for n in ("up", "down", "dx")})))
     int8_cols = cols + ("variant", "first_version_ms",
                         "int_mm_row_major_ms", "bf16_ms")
     kernels.append(dict(

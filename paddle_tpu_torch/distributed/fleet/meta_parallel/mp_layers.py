@@ -20,16 +20,19 @@ through autograd Functions:
   over the group; its backward is local.
 
 A parameter's ``pspec`` is its tp annotation and ``full_shape`` its
-logical shape, which the placement rules read. ``split_tp_layers``
-swaps every annotated ``Linear``/``Embedding`` of a model for its
-parallel counterpart, slicing the weights it has.
+logical shape, which the placement rules read. ``split_tp_layers`` swaps
+every annotated ``Linear``/``Embedding`` of a model for its parallel
+counterpart, slicing the weights it has. A column-parallel layer whose
+columns are cut in another order than the contiguous one (GPT's fused
+qkv: each rank takes the q, k and v columns of its heads) records that
+order as ``column_order`` on its parameters: rank r holds block r of
+``full[..., column_order]``, which ``framework.io`` reads and writes.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .... import nn as pnn
 from ...collective import ReduceOp, all_reduce, gather_dim
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
@@ -145,24 +148,32 @@ class ColumnParallelLinear(nn.Module):
         self._take(full, mp_group, gather_output)
 
     @classmethod
-    def from_linear(cls, linear, mp_group=None, gather_output=True):
-        """The parallel layer holding this rank's columns of ``linear``."""
+    def from_linear(cls, linear, mp_group=None, gather_output=True,
+                    column_order=None):
+        """The parallel layer holding this rank's columns of ``linear``
+        (block r of its columns taken in ``column_order``, when given)."""
         self = cls.__new__(cls)
         nn.Module.__init__(self)
-        self._take(linear, mp_group, gather_output)
+        self._take(linear, mp_group, gather_output, column_order)
         return self
 
-    def _take(self, linear, mp_group, gather_output):
+    def _take(self, linear, mp_group, gather_output, column_order=None):
         g = self.mp_group = _tp_group(mp_group)
         self.in_features = linear.in_features
         self.out_features = linear.out_features
         _check_divides(self.out_features, g, "out_features")
         self.gather_output = gather_output
-        self.weight = _param(_shard(linear.weight, 1, g), (None, "tp"),
-                             linear.weight.shape)
-        self.bias = (None if linear.bias is None else
-                     _param(_shard(linear.bias, 0, g), ("tp",),
-                            linear.bias.shape))
+        w, b = linear.weight, linear.bias
+        if column_order is not None:
+            cols = torch.from_numpy(column_order).to(w.device)
+            w = w[:, cols]
+            b = None if b is None else b[cols]
+        self.weight = _param(_shard(w, 1, g), (None, "tp"), w.shape)
+        self.bias = (None if b is None else
+                     _param(_shard(b, 0, g), ("tp",), b.shape))
+        if column_order is not None:
+            for p in self.parameters():
+                p.column_order = column_order
 
     def forward(self, x):
         y = pnn.functional.linear(copy_to_tp(x, self.mp_group), self.weight,
@@ -305,7 +316,8 @@ class ParallelCrossEntropy(nn.Module):
 
 def split_tp_layers(model, group):
     """Swap each ``Linear`` whose weight is annotated ``(None, "tp")`` for
-    a ``ColumnParallelLinear`` (output left split), each ``("tp",
+    a ``ColumnParallelLinear`` (output left split; its columns in the
+    Linear's ``tp_column_order(tp)`` when it has one), each ``("tp",
     None)`` one for a ``RowParallelLinear`` (input already split), and
     each ``("tp", None)`` ``Embedding`` for a ``VocabParallelEmbedding``,
     each holding this rank's slice of the weights. A dim the degree does
@@ -317,7 +329,9 @@ def split_tp_layers(model, group):
             w = getattr(child, "weight", None)
             if type(child) is pnn.Linear and spec == (None, "tp") \
                     and w.shape[1] % n == 0:
-                new = ColumnParallelLinear.from_linear(child, group, False)
+                order = getattr(child, "tp_column_order", None)
+                new = ColumnParallelLinear.from_linear(
+                    child, group, False, order(n) if order else None)
             elif type(child) is pnn.Linear and spec == ("tp", None) \
                     and w.shape[0] % n == 0:
                 new = RowParallelLinear.from_linear(child, group, True)
@@ -328,3 +342,8 @@ def split_tp_layers(model, group):
                 continue
             setattr(parent, name, new)
     return model
+
+
+# imported last: nn.moe imports this module's tp collectives, so they must
+# exist before nn starts loading
+from .... import nn as pnn  # noqa: E402

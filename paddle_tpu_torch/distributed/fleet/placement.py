@@ -9,7 +9,9 @@ does, and the stage-3 parameter gathering the train step runs.
    refused, since each rank holds only its shard of the sequence;
 1. at tp > 1, asks the model (``check_tensor_parallel``) and swaps its
    tp-annotated layers for their ``mp_layers`` counterparts, each holding
-   this rank's slice;
+   this rank's slice; every MoE layer is told its tp group (whose ranks
+   split its experts) and its data group (whose ranks split the batch it
+   routes: ``MoELayer.distribute``);
 2. gives every parameter its placement ``param.placement =
    infer_param_pspec(full shape, param.pspec, stage)`` (the JAX rule) and
    its logical ``full_shape``;
@@ -191,6 +193,10 @@ def place_model(model, mesh, stage):
                 "the port (ROADMAP.md, port queue item 4: multi-GPU)")
         check(tp)
         split_tp_layers(model, mesh.group("tp"))
+    from ...nn.moe import MoELayer      # nn imports this package
+    for mod in model.modules():
+        if isinstance(mod, MoELayer):
+            mod.distribute(mesh.group("tp"), mesh.group(("dp", "sharding")))
     for p in model.parameters():
         shape = tuple(getattr(p, "full_shape", p.shape))
         spec = mesh_mod.infer_param_pspec(shape, getattr(p, "pspec", None),

@@ -12,8 +12,10 @@ QAT's ``*.inner.weight`` and ``*.act_fake_quant.{scale,initialized}``.
 On a model placed by ``fleet.distributed_model`` the arrays are still the
 full ones: each rank takes its block of every array by the parameter's
 placement (its tp slice, its pp chunk of a stacked ``[L, ...]`` array,
-its stage-3 shard), and ``gather_state_dict`` gives every rank the full
-arrays back (the chunks all-gathered over pp).
+its stage-3 shard; a parameter with a ``column_order``, such as GPT's
+fused qkv under tp, its block of the columns in that order), and
+``gather_state_dict`` gives every rank the full arrays back (the chunks
+all-gathered over pp, the columns back in the JAX layout).
 """
 from __future__ import annotations
 
@@ -48,6 +50,9 @@ def load_numpy_state_dict(model: torch.nn.Module, arrays: dict) -> None:
             spec = getattr(t, "placement", None)
             if spec is not None and any(spec):
                 from ..distributed.mesh import local_block
+                order = getattr(t, "column_order", None)
+                if order is not None:
+                    a = np.asarray(a)[..., order]
                 a = local_block(a, spec)
             # bfloat16 (an ml_dtypes array: numpy has none) goes via
             # float32, exactly; every other dtype, int8 included, as it is
@@ -66,10 +71,14 @@ def gather_state_dict(model: torch.nn.Module) -> dict:
     with torch.no_grad():
         for k, t in model.state_dict(keep_vars=True).items():
             spec = getattr(t, "placement", None)
+            order = getattr(t, "column_order", None)
             t = t.detach()
             if spec is not None and any(spec):
                 from ..distributed.mesh import gather_full
                 t = gather_full(t, spec)
+                if order is not None:
+                    t = t[..., torch.from_numpy(np.argsort(order)).to(
+                        t.device)]
             if t.dtype == torch.bfloat16:
                 t = t.float()
             out[k] = t.cpu().numpy().copy()

@@ -7,6 +7,10 @@ initialisers and ``nn.functional.dropout`` draw from
 the same weights and the same dropout masks. The numbers differ from the JAX
 package's for the same seed (threefry vs Philox/mt19937): tests carry
 weights across with ``framework.io.load_numpy_state_dict`` instead.
+
+``swap_generator(g)`` installs ``g`` as its device's generator and returns
+the one it replaces (``random_seed.swap_key``'s counterpart): the
+model-parallel RNG tracker swaps a named stream in for a block.
 """
 from __future__ import annotations
 
@@ -37,3 +41,11 @@ def generator(device) -> torch.Generator:
         g.manual_seed(_seed_value)
         _generators[key] = g
     return g
+
+
+def swap_generator(g: torch.Generator) -> torch.Generator:
+    """Install ``g`` as the generator of its device; return the previous
+    one (created from the current seed when the device had none)."""
+    prev = generator(g.device)
+    _generators[str(prev.device)] = g
+    return prev

@@ -29,7 +29,8 @@ is not ported (``ROADMAP.md``, port queue item 3).
 
 Tensor parallelism (``Engine(tp=N)``): the placement rules
 ``_llama_tp_specs``, ``_gpt_tp_specs`` and ``_gpt_qkv_tp_permutation``
-are the JAX functions over plain tuples (per-layer specs: the JAX ones
+(defined beside the GPT model, whose training split uses it too) are
+the JAX functions over plain tuples (per-layer specs: the JAX ones
 without the stacked layer dim). Given a tp ``group``, the prefill, paged
 decode and chunk bodies are JAX's ``_llama_prefill_layer_tp``,
 ``_llama_decode_layer_paged_tp``, ``_llama_chunk_layer_tp``,
@@ -47,7 +48,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as TF
 
@@ -58,7 +58,7 @@ from ..nn.functional.norm import layer_norm
 from ..nn.layer.norm import rms_norm as _rms
 from ..ops import flash_decode as _fd
 from ..ops import prng as _prng
-from .models.gpt import GPTForCausalLM
+from .models.gpt import GPTForCausalLM, _gpt_qkv_tp_permutation
 from .models.llama import LlamaForCausalLM, _rope
 
 __all__ = ["arch_for", "layer_weights", "gpt_layer_weights", "generate",
@@ -159,15 +159,6 @@ def _gpt_tp_specs():
             "ln1w": (), "ln1b": (), "ln2w": (), "ln2b": (),
             "wte": (), "wpe": (), "lnfw": (), "lnfb": (),
             "head": (None, _TP_AXIS)}
-
-
-def _gpt_qkv_tp_permutation(h, tp):
-    """Column permutation mapping the fused ``[q | k | v]`` qkv layout to
-    device-major ``[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]``: block d of the
-    permuted columns is rank d's head slice of all three projections."""
-    hc = h // tp
-    return np.concatenate([np.arange(blk * h + d * hc, blk * h + (d + 1) * hc)
-                           for d in range(tp) for blk in range(3)])
 
 
 def _rank_block(t, spec, mesh, device, perm=None):

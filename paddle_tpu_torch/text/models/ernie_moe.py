@@ -14,6 +14,12 @@ Attention is bidirectional, through ``F.scaled_dot_product_attention``
 in float32 and cast with ``.to``): parameters are made in it. With
 ``labels`` the forward returns the fp32 mean CE of the logits plus
 ``aux_loss_weight`` times the MoE layers' summed load-balance losses.
+
+Under ``mp_degree`` > 1 the model trains expert parallel, as the JAX
+one does (``nn.moe``): each tp rank holds ``E / tp`` experts of every
+MoE layer and computes the rest of the model whole on the same tokens.
+Every rank seeds alike and draws its dropout masks in the same order, so
+the masks agree across the tp ranks.
 """
 from __future__ import annotations
 
@@ -136,11 +142,11 @@ class ErnieMoEForPretraining(nn.Module):
 
     def check_tensor_parallel(self, tp):
         """``fleet.distributed_model`` asks before it splits layers over
-        tp > 1: ERNIE-MoE under tensor parallel is not ported yet."""
-        raise NotImplementedError(
-            "ERNIE-MoE under tensor parallel (mp_degree > 1) is not in the "
-            "port yet (ROADMAP.md, port queue item 4: multi-GPU, "
-            "ERNIE-MoE under tp)")
+        tp > 1. Any degree runs: tp is expert parallel here (the banks
+        of each ``MoELayer`` cut to the rank's experts, or kept whole with
+        a warning when tp does not divide them), and the attention and
+        dense FFN Linears carry no tp annotation, as in the JAX model, so
+        every tp rank computes them whole."""
 
     def forward(self, input_ids, labels=None):
         """input_ids [B, L] -> logits [B, L, vocab]; with labels [B, L],

@@ -16,15 +16,28 @@ float32 and cast with ``.to``): parameters are made in it.
 ``forward(input_ids, labels=None)`` follows the caller's grad mode
 (score under ``torch.inference_mode()``); with ``labels`` it returns the
 fp32 mean CE of the logits at t against the labels at t + 1.
-``generate(...)`` runs ``text.generation.gpt_generate``. The weights
-carry the JAX model's tensor-parallel annotations (``param.pspec``), but
-GPT training under tensor parallel is not ported: ``fleet.distributed_model``
-at tp > 1 raises (``serving.Engine(model, tp=N)`` serves it sharded).
+``generate(...)`` runs ``text.generation.gpt_generate``.
+
+Tensor parallel: the weights carry the JAX model's annotations
+(``param.pspec``: qkv and fc1 split by columns, proj and fc2 by rows), and
+``fleet.distributed_model`` at tp > 1 swaps those Linears for
+``mp_layers``' column- and row-parallel ones (``check_tensor_parallel``
+first asks that tp divide the heads). GSPMD splits the JAX model's fused
+``qkv`` by contiguous columns; a rank here needs the q, k and v columns
+of its own heads, so ``qkv``'s columns (weight and bias) are cut in the
+order of ``_gpt_qkv_tp_permutation`` (``qkv.tp_column_order``), and
+``framework.io`` reads and writes full arrays in the JAX layout. A
+block runs on its rank's ``hidden / tp`` columns: ``H / tp`` heads,
+proj and fc2 reduced over tp with their biases added once, after the sum.
+``wte``, ``wpe`` and ``lm_head`` stay whole and the CE dense, as in JAX.
+``serving.Engine(model, tp=N)`` takes the whole model instead.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -50,6 +63,15 @@ GPT_TINY = GPTConfig(vocab_size=1024, hidden_size=128, num_hidden_layers=2,
                      max_position_embeddings=128)
 
 
+def _gpt_qkv_tp_permutation(h, tp):
+    """Column permutation mapping the fused ``[q | k | v]`` qkv layout to
+    device-major ``[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]``: block d of the
+    permuted columns is rank d's head slice of all three projections."""
+    hc = h // tp
+    return np.concatenate([np.arange(blk * h + d * hc, blk * h + (d + 1) * hc)
+                           for d in range(tp) for blk in range(3)])
+
+
 class GPTBlock(nn.Module):
     def __init__(self, c: GPTConfig, *, device=None):
         super().__init__()
@@ -61,6 +83,7 @@ class GPTBlock(nn.Module):
         self.qkv = Linear(h, 3 * h, **kw)
         self.proj = Linear(h, h, **kw)
         self.qkv.weight.pspec = (None, "tp")
+        self.qkv.tp_column_order = partial(_gpt_qkv_tp_permutation, h)
         self.proj.weight.pspec = ("tp", None)
         self.ln_2 = LayerNorm(h, **kw)
         self.fc1 = Linear(h, c.intermediate_size, **kw)
@@ -70,9 +93,11 @@ class GPTBlock(nn.Module):
         self.drop = Dropout(c.dropout)
 
     def forward(self, x):
-        b, l, h = x.shape
-        heads = (b, l, self.num_heads, self.head_dim)
-        q, k, v = self.qkv(self.ln_1(x)).split(h, dim=-1)
+        b, l, _ = x.shape
+        qkv = self.qkv(self.ln_1(x))
+        h = qkv.shape[-1] // 3          # this rank's width (hidden / tp)
+        heads = (b, l, h // self.head_dim, self.head_dim)
+        q, k, v = qkv.split(h, dim=-1)
         attn = F.scaled_dot_product_attention(
             q.reshape(heads), k.reshape(heads), v.reshape(heads),
             is_causal=True)
@@ -114,6 +139,14 @@ class GPTForCausalLM(nn.Module):
         self.lm_head = Linear(config.hidden_size, config.vocab_size,
                               bias_attr=False, device=self.device,
                               dtype=config.dtype)
+
+    def check_tensor_parallel(self, tp):
+        """Raise ValueError unless ``tp`` splits the heads evenly:
+        ``fleet.distributed_model`` asks before it splits the layers."""
+        n = self.config.num_attention_heads
+        if n % tp:
+            raise ValueError(f"tensor-parallel degree {tp} does not divide "
+                             f"num_attention_heads={n}")
 
     def forward(self, input_ids, labels=None):
         """input_ids [B, L] -> logits [B, L, vocab] in the model dtype;

@@ -1085,3 +1085,42 @@ def test_phase16_pipeline_parallel_at_tiny_size(cuda, tmp_path):
         assert out["cells"][schedule]["max_rel_to_world1"] <= \
             chip_smoke.PP_REL_TOL
     assert out["cells"]["1f1b"]["max_in_flight_per_rank"] == [2, 1]
+
+
+# -- GPT training and expert parallel (phases 17 and 18) ----------------------
+
+def test_phase17_gpt_training_at_tiny_size(cuda, tmp_path):
+    """``chip_smoke`` phase 17 at GPT_TINY size (bf16, head dim 32, 128
+    positions, dropout 0.1): 17a on the card with rows 1-3 on the q/k/v
+    views of the fused qkv, each launch on ``"tc"``
+    (``want_attention_launches``), and 17b at tp2 on two gloo ranks
+    against 17a."""
+    from paddle_tpu_torch.text.models import GPT_TINY
+    cfg = dataclasses.replace(GPT_TINY, dtype="bfloat16")
+    launches, out = chip_smoke.phase_gpt2_train(
+        fa, fc, rm, GPTConfig, GPTForCausalLM, fleet, optimizer, pt.seed,
+        cfg=cfg, batch=(4, 128), workdir=str(tmp_path / "p17"))
+    want = chip_smoke.want_attention_launches(cfg.num_hidden_layers)
+    assert launches == want
+    assert out["tp2"]["launches_per_rank_step"] == want
+    assert out["tp2"]["max_rel_to_world1"] <= chip_smoke.PAIR_REL_TOL
+
+
+def test_phase18_expert_parallel_at_tiny_size(cuda, tmp_path):
+    """``chip_smoke`` phase 18 at ERNIE_MOE_TINY size (bf16, 4 experts,
+    head dim 32, 4 x 128 tokens): mp2 on two gloo ranks against world 1,
+    the ragged kernel on each rank's 2 experts and rows 1-3, every launch
+    on ``"tc"``; the probed gradients within 1e-2 and both planted faults
+    outside."""
+    from paddle_tpu_torch.text.models import ErnieMoEConfig
+    cfg = dataclasses.replace(ERNIE_MOE_TINY, dtype="bfloat16")
+    launches, out = chip_smoke.phase_ep(
+        fa, fc, rm, ErnieMoEConfig, ErnieMoEForPretraining, fleet,
+        optimizer, pt.seed, cfg=cfg, batch=(4, 128),
+        workdir=str(tmp_path / "p18"))
+    assert launches == chip_smoke.want_attention_launches(
+        cfg.num_hidden_layers, ragged=4)
+    C = -(-2 * 4 * 128 * 5 // (4 * cfg.num_experts))
+    assert out["ragged_shapes"] == [[2, C, cfg.hidden_size],
+                                    [2, C, cfg.intermediate_size]]
+    assert out["max_rel_to_world1"] <= chip_smoke.PAIR_REL_TOL

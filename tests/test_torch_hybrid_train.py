@@ -50,8 +50,6 @@ from paddle_tpu_torch import distributed as dist
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch.distributed import fleet, mesh
 from paddle_tpu_torch.distributed.fleet.placement import place_model
-from paddle_tpu_torch.text.models import (ErnieMoEConfig,
-                                          ErnieMoEForPretraining)
 from paddle_tpu_torch.text.models.llama import LLAMA_TINY, LlamaForCausalLM
 
 WORLD = 8
@@ -281,7 +279,6 @@ def _train_step_raises(field):
     ("dgc", NotImplementedError, "item 4"),
     ("fp16_allreduce", NotImplementedError, "item 4"),
     ("engine_tp", NotImplementedError, "multi-GPU"),
-    ("ernie_moe_tp", NotImplementedError, "item 4: multi-GPU, ERNIE-MoE"),
     ("tp_not_dividing_kv_heads", ValueError, "num_key_value_heads"),
     ("generate_on_a_split_model", NotImplementedError, "item 4"),
 ])
@@ -308,12 +305,6 @@ def test_strategy_surface(case, exc, match):
             model = _tiny()
             model.lm_head.weight.placement = (None, "tp")
             Engine(model, n_slots=1, max_len=32, block_size=8, tp=2)
-        elif case == "ernie_moe_tp":
-            cfg = ErnieMoEConfig(vocab_size=64, hidden_size=32,
-                                 num_hidden_layers=2, num_attention_heads=2,
-                                 intermediate_size=64, num_experts=2)
-            place_model(ErnieMoEForPretraining(cfg, device="cpu"),
-                        mesh.build_mesh(tp=2, world_size=2, rank=0), 0)
         elif case == "generate_on_a_split_model":
             model = _tiny()
             model.lm_head.weight.placement = (None, "tp")

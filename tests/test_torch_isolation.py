@@ -5,8 +5,10 @@ module of the JAX package (even those that do not import JAX): checked by
 an AST scan, by importing every module of the port, and by serving a
 Llama and a GPT request, taking Llama and ERNIE-MoE train steps, a
 tensor-parallel Llama step, a request through a tensor-parallel
-engine, sequence-parallel (ring and Ulysses) and pipeline-parallel
-(GPipe and 1F1B) steps on two spawned ranks, and quantizing and
+engine, sequence-parallel (ring and Ulysses), pipeline-parallel (GPipe
+and 1F1B), expert-parallel ERNIE-MoE and tensor-parallel GPT steps, the
+MoE dispatch collectives and the RNG tracker on two spawned ranks (and
+importing ``tools/torch_ep_train.py``), and quantizing and
 running a tiny Llama and both stochastic quantizers in processes where
 importing either fails.
 Entry points default to CUDA and raise when it is absent.
@@ -220,6 +222,11 @@ def test_every_module_imports_with_jax_unimportable():
         assert "paddle_tpu_torch.ops.pipeline" in names
         assert "paddle_tpu_torch.distributed.fleet.pp_train_step" in names
         assert "paddle_tpu_torch.text.models.llama_pipe" in names
+        assert "paddle_tpu_torch.distributed.utils" in names
+        assert "paddle_tpu_torch.distributed.fleet.meta_parallel.random" \
+            in names
+        sys.path.insert(0, "tools")
+        importlib.import_module("torch_ep_train")
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK", len(names))
@@ -232,7 +239,8 @@ def test_every_module_imports_with_jax_unimportable():
 
 def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
     """A tp2 Llama step, a request through a tp2 ``Engine``, sep2 ring
-    and Ulysses steps and pp2 GPipe and 1F1B steps over gloo in two
+    and Ulysses steps, pp2 GPipe and 1F1B steps, ERNIE-MoE mp2 and GPT
+    tp2 steps, a dispatch round trip and the RNG tracker over gloo in two
     spawned ranks, each of which makes JAX and the JAX package
     unimportable first."""
     import pickle
@@ -258,6 +266,13 @@ def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
             outs[1]["pp_losses"][schedule]
         assert outs[0]["pp_losses"][schedule][1] < \
             outs[0]["pp_losses"][schedule][0]
+    for model in ("ernie_moe", "gpt"):
+        assert outs[0]["tp_losses"][model] == outs[1]["tp_losses"][model]
+        assert outs[0]["tp_losses"][model][1] < \
+            outs[0]["tp_losses"][model][0]
+    for r in range(2):
+        assert (outs[r]["dispatched"] == 1).all()
+        assert outs[r]["tracker_seeds"] == [3 * 1024 + r * 100]
     assert not outs[0]["loaded"] and not outs[1]["loaded"]
 
 

@@ -293,9 +293,11 @@ def spawn_env_worker(path):
 
 def isolation_worker(out_dir):
     """A tp2 x sharding-free Llama step, a request through a tp2
-    ``Engine``, sep2 ring and Ulysses steps and pp2 GPipe and 1F1B steps
-    on 2 ranks with JAX and the JAX package unimportable; writes the
-    modules that got loaded anyway."""
+    ``Engine``, sep2 ring and Ulysses steps, pp2 GPipe and 1F1B steps,
+    expert-parallel ERNIE-MoE and GPT tp2 steps, a global_scatter /
+    global_gather round trip and the RNG tracker's seeding on 2 ranks
+    with JAX and the JAX package unimportable; writes the modules that
+    got loaded anyway."""
     import sys
     for name in ("jax", "jaxlib", "paddle_tpu"):
         sys.modules[name] = None
@@ -360,12 +362,43 @@ def isolation_worker(out_dir):
                 fleet.distributed_optimizer(adam).make_train_step(
                     model, lambda m, x, y: m(x, labels=y)))
         pp_losses[schedule] = [float(step(ids, ids)) for _ in range(2)]
+    # expert-parallel ERNIE-MoE and GPT under tp2, each a step pair; the
+    # dispatch collectives and the RNG tracker
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mp
+    from paddle_tpu_torch.distributed.utils import (global_gather,
+                                                    global_scatter)
+    from paddle_tpu_torch.text.models import (ERNIE_MOE_TINY, GPT_TINY,
+                                              ErnieMoEForPretraining,
+                                              GPTForCausalLM)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["mp_degree"] = 2
+    fleet.init(is_collective=True, strategy=s)
+    mp.model_parallel_random_seed(3)
+    tp_losses = {}
+    for name, cls, cfg in (("ernie_moe", ErnieMoEForPretraining,
+                            dataclasses.replace(ERNIE_MOE_TINY,
+                                                dropout=0.0)),
+                           ("gpt", GPTForCausalLM,
+                            dataclasses.replace(GPT_TINY, dropout=0.0))):
+        torch.manual_seed(0)
+        model = fleet.distributed_model(cls(cfg, device="cpu"))
+        step = fleet.distributed_optimizer(optimizer.AdamW(
+            learning_rate=LR, parameters=model.parameters())
+        ).make_train_step(model, lambda m, x, y: m(x, labels=y))
+        tp_losses[name] = [float(step(ids, ids)) for _ in range(2)]
+    lc = np.array([1, 1])
+    x = torch.ones(2, 3)
+    back = global_gather(global_scatter(x, lc, lc, capacity=2), lc, lc,
+                         capacity=2)
     loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
         k in ("jax", "jaxlib", "paddle_tpu")
         or k.startswith(("jax.", "jaxlib.", "paddle_tpu."))))
     _dump(os.path.join(out_dir, f"isolation.r{dist.get_rank()}.pkl"),
           dict(losses=losses, tokens=tokens, sep_losses=sep_losses,
-               pp_losses=pp_losses, loaded=loaded))
+               pp_losses=pp_losses, tp_losses=tp_losses,
+               dispatched=back[:2].numpy(),
+               tracker_seeds=sorted(mp.get_rng_state_tracker().seeds_),
+               loaded=loaded))
     dist.destroy_process_group()
 
 
@@ -952,4 +985,260 @@ def pp_worker(out_dir, init_path, batch_path, names):
                 _dump(os.path.join(out_dir, f"{name}.pkl"),
                       dict(losses=losses, params=full))
         dist.barrier()
+    dist.destroy_process_group()
+
+
+# -- expert parallel (ERNIE-MoE under mp_degree) ------------------------------
+
+# degrees and options of each expert-parallel configuration: "dispatch"
+# the MoE layers' dispatch mode (sparse: with the ragged kernel),
+# "dropout" the config's, "fault" a key of chip_smoke.EP_FAULTS, and
+# "world1" a one-rank mesh on rank 0 (the port's own single-rank step)
+EP_CONFIGS = {
+    "mp2": dict(mp=2),
+    "mp4": dict(mp=4),
+    "dp2_mp2": dict(dp=2, mp=2),
+    "dp4": dict(dp=4),
+    "mp2_dense": dict(mp=2, dispatch="dense"),
+    "mp3": dict(mp=3),
+    "mp2_dropout": dict(mp=2, dropout=0.1),
+    "world1_dropout": dict(world1=True, dropout=0.1),
+    "mp2_dx_not_reduced": dict(mp=2, fault="dx_not_reduced"),
+    "mp2_reduce_backward_sums": dict(mp=2, fault="reduce_backward_sums"),
+}
+EP_SEED = 7
+
+
+def _fleet_mesh(fleet, mesh_mod, c):
+    """The configuration's mesh: ``fleet.init`` over its degrees, or a
+    one-rank mesh on rank 0 (None on the other ranks) for "world1"."""
+    from paddle_tpu_torch import distributed as dist
+    if c.get("world1"):
+        m = mesh_mod.build_mesh(world_size=1, rank=0)
+        mesh_mod.set_mesh(m if dist.get_rank() == 0 else None)
+        return m if dist.get_rank() == 0 else None
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=c.get("dp", 1),
+                            mp_degree=c.get("mp", 1),
+                            sharding_degree=c.get("sharding", 1))
+    s.sharding = c.get("sharding", 1) > 1
+    s.sharding_configs["sharding_stage"] = c.get("stage", 1)
+    fleet.init(is_collective=True, strategy=s)
+    m = fleet.get_hybrid_communicate_group().mesh
+    return m if m.coords is not None else None
+
+
+def ep_worker(out_dir, init_path, batch_path, names):
+    """Train ERNIE_MOE_TINY (fp32, the JAX model's initial weights) for
+    STEPS steps under each configuration of ``names`` on the first ranks
+    of the world its degrees need. Every rank of the mesh writes its
+    losses, its expert banks' shapes, the shapes of the expert inputs
+    ``ragged_dot`` was given, the MoE layers' tp groups, the warnings the
+    model's construction gave and the tracker's seeds of
+    ``model_parallel_random_seed``; rank 0 also the gathered
+    parameters."""
+    import contextlib
+    import dataclasses
+    import warnings
+    from unittest import mock
+
+    torch.set_num_threads(1)
+    import chip_smoke
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer, seed
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mp
+    from paddle_tpu_torch.framework import random_seed
+    from paddle_tpu_torch.framework.io import (gather_state_dict,
+                                               load_numpy_state_dict)
+    from paddle_tpu_torch.nn import moe as moe_mod
+    from paddle_tpu_torch.text.models import (ERNIE_MOE_TINY,
+                                              ErnieMoEForPretraining)
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank = dist.get_rank()
+    with np.load(init_path) as z:
+        init = {k: z[k] for k in z.files}
+    with np.load(batch_path) as z:
+        ids, labels = z["ids"], z["labels"]
+    real_ragged = moe_mod.ragged_dot
+    for name in names:
+        c = EP_CONFIGS[name]
+        m = _fleet_mesh(fleet, mesh_mod, c)
+        if m is not None:
+            seed(EP_SEED)
+            cfg = dataclasses.replace(ERNIE_MOE_TINY,
+                                      dropout=c.get("dropout", 0.0))
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                model = ErnieMoEForPretraining(cfg, device="cpu")
+            for layer in model.moe_layers():
+                layer.dispatch_mode = c.get("dispatch", "sparse")
+                layer.expert_kernel = "ragged"
+            opt = optimizer.AdamW
+            if c.get("world1"):     # the one-rank mesh: no fleet
+                load_numpy_state_dict(model, init)
+                step = fleet.make_train_step(
+                    model, opt(learning_rate=LR,
+                               parameters=model.parameters()),
+                    lambda mm, x, y: mm(x, labels=y))
+            else:
+                model = fleet.distributed_model(model)
+                load_numpy_state_dict(model, init)
+                step = fleet.distributed_optimizer(opt(
+                    learning_rate=LR, parameters=model.parameters())
+                ).make_train_step(model, lambda mm, x, y: mm(x, labels=y))
+            shapes = []
+
+            def ragged(x, w, counts):
+                shapes.append(tuple(x.shape))
+                return real_ragged(x, w, counts)
+
+            fault = (chip_smoke.ep_fault(moe_mod, c["fault"])
+                     if "fault" in c else contextlib.nullcontext())
+            with fault, mock.patch.object(moe_mod, "ragged_dot", ragged):
+                losses = [float(step(ids, labels)) for _ in range(STEPS)]
+            full = gather_state_dict(model)
+            if not c.get("world1"):
+                mp.model_parallel_random_seed(1234)
+            _dump(os.path.join(out_dir, f"{name}.r{rank}.pkl"), dict(
+                losses=losses,
+                banks={k: tuple(p.shape) for k, p in model.named_parameters()
+                       if k.endswith(("w_up", "w_down"))},
+                ragged_shapes=sorted(set(shapes)),
+                ep_ranks=[None if layer.ep_group is None
+                          else list(layer.ep_group.ranks)
+                          for layer in model.moe_layers()],
+                warnings=[str(w.message) for w in caught],
+                tracker_seeds=sorted(mp.get_rng_state_tracker().seeds_),
+                global_seed=random_seed._seed_value))
+            if rank == 0:
+                _dump(os.path.join(out_dir, f"{name}.pkl"),
+                      dict(losses=losses, params=full))
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+# -- GPT training (one rank and tp) -------------------------------------------
+
+GPT_CONFIGS = {
+    "world1": dict(world1=True),
+    "tp2": dict(mp=2),
+    "tp4": dict(mp=4),
+    "dp2_tp2": dict(dp=2, mp=2),
+    "sharding2_stage3": dict(sharding=2, stage=3),
+    "sharding2_tp2_stage3": dict(sharding=2, mp=2, stage=3),
+}
+
+
+def gpt_worker(out_dir, init_path, batch_path, names):
+    """Train GPT_TINY (fp32, dropout 0, the JAX model's initial weights)
+    for STEPS steps under each configuration of ``names`` on the first
+    ranks of the world its degrees need. Every rank of the mesh writes its
+    losses, its parameter blocks (name -> array) and the stage-3 units;
+    rank 0 also the gathered parameters."""
+    import dataclasses
+
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.framework.io import (gather_state_dict,
+                                               load_numpy_state_dict)
+    from paddle_tpu_torch.text.models import GPT_TINY, GPTForCausalLM
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank = dist.get_rank()
+    with np.load(init_path) as z:
+        init = {k: z[k] for k in z.files}
+    with np.load(batch_path) as z:
+        ids = z["ids"]
+    cfg = dataclasses.replace(GPT_TINY, dropout=0.0)
+    for name in names:
+        c = GPT_CONFIGS[name]
+        m = _fleet_mesh(fleet, mesh_mod, c)
+        if m is not None:
+            model = GPTForCausalLM(cfg, device="cpu")
+            adam = optimizer.AdamW
+            if c.get("world1"):
+                load_numpy_state_dict(model, init)
+                step = fleet.make_train_step(
+                    model, adam(learning_rate=LR,
+                                parameters=model.parameters()),
+                    lambda mm, x, y: mm(x, labels=y))
+            else:
+                model = fleet.distributed_model(model)
+                load_numpy_state_dict(model, init)
+                step = fleet.distributed_optimizer(adam(
+                    learning_rate=LR, parameters=model.parameters())
+                ).make_train_step(model, lambda mm, x, y: mm(x, labels=y))
+            losses = [float(step(ids, ids)) for _ in range(STEPS)]
+            full = gather_state_dict(model)
+            s3 = getattr(model, "_stage3", None)
+            _dump(os.path.join(out_dir, f"{name}.r{rank}.pkl"), dict(
+                losses=losses,
+                blocks={k: p.detach().numpy().copy()
+                        for k, p in model.named_parameters()},
+                units=None if s3 is None else sorted(
+                    type(u).__name__ for u, _ in s3._units.values())))
+            if rank == 0:
+                _dump(os.path.join(out_dir, f"{name}.pkl"),
+                      dict(losses=losses, params=full))
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+# -- global_scatter / global_gather -------------------------------------------
+
+# the reference docstring's example (tests/test_global_dispatch.py): world
+# size 2, 2 experts a rank, d_model 2; both ranks send the same rows
+DISPATCH_X = np.array([[1, 2], [3, 4], [5, 6], [7, 8], [9, 10]], np.float32)
+DISPATCH_LC = np.array([[2, 1, 1, 1], [1, 1, 2, 1]], np.int64)
+DISPATCH_GC = np.array([[2, 1, 1, 1], [1, 1, 2, 1]], np.int64)
+DISPATCH_CAPACITY = 5
+
+
+def dispatch_inputs():
+    """(x [2, 5, 3], cotangent of a scatter, of a gather): per-rank random
+    inputs for the round trip and the gradients."""
+    rng = np.random.default_rng(0)
+    n = 2 * 2 * DISPATCH_CAPACITY
+    return (rng.standard_normal((2, 5, 3)).astype(np.float32),
+            rng.standard_normal((2, n, 3)).astype(np.float32),
+            rng.standard_normal((2, n, 3)).astype(np.float32))
+
+
+def dispatch_worker(out_dir):
+    """On 2 ranks: ``global_scatter`` and ``global_gather`` of the
+    reference example, the round trip, each one's gradient under a random
+    cotangent, and the error a bucket above ``capacity`` gives."""
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.utils import (global_gather,
+                                                    global_scatter)
+
+    dist.init_parallel_env(device="cpu", timeout=120)
+    r = dist.get_rank()
+    lc, gc, cap = DISPATCH_LC[r], DISPATCH_GC[r], DISPATCH_CAPACITY
+    x = torch.from_numpy(DISPATCH_X)
+    out = dict(scatter=global_scatter(x, lc, gc, capacity=cap).numpy(),
+               gather=global_gather(x, torch.from_numpy(lc),
+                                    torch.from_numpy(gc),
+                                    capacity=cap).numpy())
+    xs, ct_s, ct_g = (torch.from_numpy(a[r]) for a in dispatch_inputs())
+    mid = global_scatter(xs, lc, gc, capacity=cap)
+    out["round_trip"] = global_gather(mid, lc, gc, capacity=cap).numpy()
+    for name, fn, ct in (("scatter", global_scatter, ct_s),
+                         ("gather", global_gather, ct_g)):
+        xg = xs.clone().requires_grad_()
+        (fn(xg, lc, gc, capacity=cap) * ct).sum().backward()
+        out[f"{name}_grad"] = xg.grad.numpy()
+    try:
+        global_scatter(x, lc, gc, capacity=1)
+        out["over_capacity"] = "no error"
+    except ValueError as e:
+        out["over_capacity"] = str(e)
+    _dump(os.path.join(out_dir, f"dispatch.r{r}.pkl"), out)
     dist.destroy_process_group()
