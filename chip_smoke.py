@@ -225,6 +225,22 @@ failure raises and exits non-zero before the result line is printed:
     launches on ``[4, 2560, d]`` expert inputs and rows 1-3 6 each, all
     on the tensor cores. Phase 7 times the ragged kernel on the 4 experts
     of a rank.
+19. comm-efficient data parallel (after phase 18), ``phase_comm``:
+    ``bench.py:bench_llama``'s 0.5B Llama (bf16, the fused head) at
+    ``PAIR_LAYERS`` layers on its 4 x 2048 batch, world 1 on the card,
+    then dp2 as two gloo ranks on the card from the same weights under
+    each arm of ``COMM_ARMS`` (``comm_opt`` exact, zero1, bf16, int8;
+    ``fp16_allreduce`` int8; ``localsgd`` k 2; ``a_sync`` k 2; ``dgc``
+    0.99 with Momentum; and the planted fault: int8 with ``e1``
+    dropped), a warm-up + 3 steps each: every loss finite and equal on
+    both ranks; exact and zero1 within 1e-2 of the comm_opt step at world 1
+    (its flat update keeps no fp32 master, as JAX's), zero1 bitwise the
+    replicated flat arm; the compressed arms within 5e-2 of the exact
+    arm; error feedback conserved on the int8 arm (``EFProbe``) and
+    broken by the fault; rows 1-3 once per layer and row 5 once per rank
+    and step, all on the tensor cores; the gloo probe of every dtype the
+    exchanges send (nothing bit-cast); the plain quantizer and top-k
+    timed at the model's flat size.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -2412,11 +2428,11 @@ def llama_trainer(LlamaForCausalLM, cfg, fleet, optimizer, seed,
     return model, opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
 
 
-def train_ids(vocab, B, L):
+def train_ids(vocab, B, L, device="cuda"):
     """Phase 8's batch: one repeated B x L batch of seeded random ids (the
     labels are the ids)."""
     return torch.from_numpy(np.random.default_rng(3).integers(
-        0, vocab, (B, L))).cuda()
+        0, vocab, (B, L))).to(device)
 
 
 def run_steps(fa, fc, rm, step, ids, n, tag="", warm_up=True, labels=None):
@@ -4574,6 +4590,566 @@ def phase_ep(fa, fc, rm, ErnieMoEConfig, ErnieMoEForPretraining, fleet,
         peak_gib=[g["peak_gib"] for g in ranks], **res)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the comm-efficient data-parallel strategies
+# ---------------------------------------------------------------------------
+
+COMM_FAULTS = {
+    "e1_dropped": "the compressed exchange's residual e1 not carried to "
+                  "the next step",
+    "zero1_slice_off": "ZeRO-1 updating the flat parameters' chunk one rank "
+                       "off",
+    "dgc_not_cleared": "DGC's sent entries left in the residuals u and v",
+    "geo_mean": "the Geo merge averaging the replicas' deltas instead of "
+                "summing them",
+}
+
+
+def comm_fault(fault):
+    """A context that plants ``fault`` (a key of ``COMM_FAULTS``) into the
+    port's comm-efficient steps, each built from the plain method."""
+    from unittest import mock
+
+    from paddle_tpu_torch.distributed import comm_opt as co
+    from paddle_tpu_torch.distributed.fleet import comm_efficient as ce
+    if fault == "e1_dropped":
+        real = co.CommOptTrainStep._exchange
+
+        def exchange(self, g, e1):
+            mine, new = real(self, g, e1)
+            return mine, None if new is None else new.zero_()
+        return mock.patch.object(co.CommOptTrainStep, "_exchange", exchange)
+    if fault == "zero1_slice_off":
+        real = co.CommOptTrainStep._owned
+        return mock.patch.object(
+            co.CommOptTrainStep, "_owned",
+            lambda self, flat: real(self, flat.roll(-self.chunk)))
+    if fault == "dgc_not_cleared":
+        real = ce.DGCTrainStep._send
+        return mock.patch.object(
+            ce.DGCTrainStep, "_send",
+            lambda self, u, v: real(self, u.clone(), v.clone()))
+    real = ce.GeoSGDTrainStep._delta_sum
+    return mock.patch.object(ce.GeoSGDTrainStep, "_delta_sum",
+                             lambda self, d: real(self, d) / self.dp)
+
+
+# bench.py:bench_llama's configuration (bench.py:67-71): the 0.5B Llama
+# (vocab 32000, hidden 2048, FFN 5504, 16 heads), bf16, here with the fused
+# head; phase 19 cuts it to PAIR_LAYERS layers, tools/torch_commopt_train.py
+# keeps its 8
+COMM_CELL = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                 num_hidden_layers=8, num_attention_heads=16,
+                 num_key_value_heads=16, max_position_embeddings=2048,
+                 dtype="bfloat16", fused_ce_chunk=8192)
+COMM_BATCH = (4, 2048)          # bench_llama's batch: 2 x 2048 a rank at dp2
+COMM_DEGREE = 2
+# phase 19's arms: (strategy field, its configs, optimizer, planted fault)
+COMM_ARMS = {
+    "comm_opt_exact": ("comm_opt", {"grad_compress": None}, "adamw", None),
+    "comm_opt_zero1": ("comm_opt", {"zero1": True}, "adamw", None),
+    "comm_opt_bf16": ("comm_opt", {"grad_compress": "bf16"}, "adamw", None),
+    "comm_opt_int8": ("comm_opt", {"grad_compress": "int8"}, "adamw", None),
+    "fp16_allreduce_int8": ("fp16_allreduce", {"dtype": "int8"}, "adamw",
+                            None),
+    "localsgd_k2": ("localsgd", {"k_steps": 2}, "adamw", None),
+    "a_sync_k2": ("a_sync", {"k_steps": 2}, "adamw", None),
+    "dgc": ("dgc", {"sparsity": 0.99}, "momentum", None),
+    "comm_opt_int8_e1_dropped": ("comm_opt", {"grad_compress": "int8"},
+                                 "adamw", "e1_dropped"),
+}
+COMM_COMPRESSED = ("comm_opt_bf16", "comm_opt_int8", "fp16_allreduce_int8",
+                   "fp16_allreduce_bf16")
+COMM_TOL = 5e-2     # compressed vs exact losses: JAX's int8 bound
+                    # (tests/test_comm_opt.py:141)
+EF_TOL = 1e-3       # error-feedback conservation, relative (fp32 rounding
+                    # of c = g + e1: ~1.5e-5)
+
+
+def comm_probe(C):
+    """Which of the collectives the comm-efficient exchanges send gloo (or
+    the backend) carries between this world's ranks, through the port's
+    wrappers, in the dtypes they send: ``{name: "ok" or the error}``,
+    each checked for its values."""
+    world = C.get_group()
+    n, r = world.nranks, world.rank
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+    out = {}
+    for dt in (torch.int8, torch.bfloat16, torch.float32, torch.int64):
+        tag = str(dt).split(".")[1]
+        x = torch.full((n, 4), r + 1, dtype=dt, device=dev)
+        cases = {
+            "all_to_all_single": (lambda: C.alltoall_single(x),
+                                  lambda y: all(bool((y[i] == i + 1).all())
+                                                for i in range(n))),
+            "all_gather": (lambda: C.all_gather(None, x[0]),
+                           lambda y: all(bool((y[i] == i + 1).all())
+                                         for i in range(n))),
+        }
+        if dt in (torch.float32,):
+            total = n * (n + 1) // 2
+            cases.update({
+                "reduce_scatter": (lambda: C.reduce_scatter(x.clone()),
+                                   lambda y: bool((y == total).all())),
+                "all_reduce": (lambda: C.all_reduce(x.clone()),
+                               lambda y: bool((y == total).all())),
+                "broadcast": (lambda: C.broadcast(x.clone(), src=0),
+                              lambda y: bool((y == 1).all()))})
+        for name, (run, ok) in cases.items():
+            try:
+                y = run()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                out[f"{name}_{tag}"] = "ok" if ok(y) else "wrong values"
+            except RuntimeError as e:
+                out[f"{name}_{tag}"] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+class EFProbe:
+    """Error feedback's conservation on one rank of a ``CommOptTrainStep``
+    with a compressed exchange: ``D = sum_t (g_t - sent_t)`` in fp64, with
+    ``sent_t`` the rows this rank puts on the wire (read from the
+    all-to-all's payload, dequantized), must equal the residual ``e1``
+    after the last step: what the quantizer dropped is delayed, not lost.
+    ``rel()`` is ``|D - e1| / max(|D|, |e1|)``."""
+
+    def __init__(self, step):
+        from paddle_tpu_torch.distributed import collective as C
+        from paddle_tpu_torch.distributed.fleet import comm_efficient as ce
+        self.step, self.C, self.ce = step, C, ce
+        self.d = None
+
+    def _exchange(self, g, e1):
+        C, step, sent = self.C, self.step, []
+        real = C.alltoall_single
+
+        def a2a(x, *a, **k):
+            sent.append(x.clone())
+            return real(x, *a, **k)
+        C.alltoall_single = a2a
+        try:
+            mine, new = type(step)._exchange(step, g, e1)
+        finally:
+            C.alltoall_single = real
+        rows = (self.ce._dequant_blocks(sent[0], sent[1], step.nblk)
+                if step.grad_compress == "int8" else sent[0].float())
+        if self.d is None:
+            self.d = torch.zeros(g.shape, dtype=torch.float64,
+                                 device=g.device)
+        self.d += g.double() - rows.reshape(-1).double()
+        return mine, new
+
+    def __enter__(self):
+        self.step._exchange = self._exchange
+        return self
+
+    def __exit__(self, *exc):
+        del self.step._exchange
+
+    def rel(self):
+        e1 = self.step._ef["e1"].double()
+        den = max(float(self.d.norm()), float(e1.norm()), 1e-300)
+        return float((self.d - e1).norm()) / den
+
+
+def wire_bytes(step, n_steps):
+    """Logical payload a step sends through its dp collectives, per rank
+    and step: each collective's full output, the convention of the JAX
+    package's byte plan (``CommOptTrainStep.exchange_bytes``)."""
+    kind = type(step).__name__
+    if kind == "CommOptTrainStep":
+        return step.exchange_bytes
+    if kind == "CompressedAllreduceTrainStep":
+        n = step._N + step._pad
+        return (4 * n if step.dtype == "bfloat16"
+                else 2 * (n + 4 * step.nblk * step.dp))
+    if kind == "DGCTrainStep":
+        return 12 * step.k * step.dp            # int64 indices + fp32 values
+    params = list(step._params.values())
+    n = sum(p.numel() for p in params)
+    if kind == "LocalSGDTrainStep":
+        return 4 * n * step.syncs / n_steps     # fp32 parameter all-reduces
+    if kind == "GeoSGDTrainStep":
+        return 4 * n * step.merges / n_steps
+    return sum(p.numel() * p.element_size() for p in params)   # TrainStep
+
+
+class timed_collectives:
+    """CUDA events around every collective the train steps call (the
+    port's ``collective`` functions, and the ones ``fleet.train_step``
+    imports by name): ``ms()`` sums the elapsed times recorded since
+    ``reset()`` (it synchronizes). NCCL's kernels spin while a rank waits,
+    so this, not the profiler's busy sum, is the collective time."""
+
+    NAMES = ("all_reduce", "all_gather", "reduce_scatter", "alltoall_single",
+             "broadcast", "gather_dim", "reduce_scatter_dim")
+
+    def __init__(self):
+        from paddle_tpu_torch.distributed import collective as C
+        from paddle_tpu_torch.distributed.fleet import train_step as ts
+        self.targets = [(C, n) for n in self.NAMES] + [
+            (ts, n) for n in ("all_reduce", "gather_dim",
+                              "reduce_scatter_dim")]
+        self.pairs, self.saved = [], []
+
+    def _wrap(self, fn):
+        def timed(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            self.pairs.append((e0, e1))
+            return out
+        return timed
+
+    def __enter__(self):
+        for mod, n in self.targets:
+            fn = getattr(mod, n)
+            self.saved.append((mod, n, fn))
+            setattr(mod, n, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in reversed(self.saved):
+            setattr(mod, n, fn)
+        self.saved = []
+
+    def reset(self):
+        self.pairs = []
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return float(sum(a.elapsed_time(b) for a, b in self.pairs))
+
+
+def comm_optimizer(optimizer, kind, params):
+    """Phase 8's AdamW (lr 1e-4, wd 0.01), or Momentum 0.9 at lr 1e-4 for
+    DGC."""
+    if kind == "momentum":
+        return optimizer.Momentum(learning_rate=1e-4, momentum=0.9,
+                                  parameters=params)
+    return optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                           parameters=params)
+
+
+def _comm_worker(workdir, cfg, batch, steps, arms, backend="gloo",
+                 device="cuda:0", timed=False):
+    """One of the dp ranks (phase 19: two gloo ranks on cuda:0;
+    ``tools/torch_commopt_train.py``: NCCL, one card a rank): the probe,
+    then each arm of ``arms`` (name -> (strategy field or None for the
+    plain dp ``TrainStep``, its configs, optimizer, planted fault[, steps])
+    as in ``COMM_ARMS``) from the saved weights, ``steps`` steps each (a
+    planted-fault arm 2), the counts set to 0 before each step and read
+    after it; with ``timed``, each step's collective time
+    (``timed_collectives``)."""
+    import contextlib
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.device import resolve_device
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import ragged_matmul as rm
+    from paddle_tpu_torch.text.models.llama import LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend=backend, device=device, timeout=900)
+    dev = resolve_device(None)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = dict(rank=rank, backend=torch.distributed.get_backend(),
+               probe=comm_probe(C), arms={})
+    bad = {k: v for k, v in out["probe"].items() if v != "ok"}
+    if bad:
+        raise AssertionError(f"rank {rank}: the backend does not carry "
+                             f"{bad}")
+    with np.load(os.path.join(workdir, "batch.npz")) as z:
+        ids = torch.from_numpy(z["ids"]).to(dev)
+    weights = saved_weights(workdir)
+    saved = None
+    timer = timed_collectives() if timed else contextlib.nullcontext()
+    for name, arm in arms.items():
+        field, cfgs, opt_kind, fault = arm[:4]
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs["dp_degree"] = world
+        if field is not None:
+            setattr(s, field, True)
+            getattr(s, field + "_configs").update(cfgs)
+        fleet.init(is_collective=True, strategy=s)
+        model = fleet.distributed_model(LlamaForCausalLM(cfg, device=dev))
+        load_numpy_state_dict(model, weights)
+        step = fleet.distributed_optimizer(comm_optimizer(
+            optimizer, opt_kind, model.parameters())).make_train_step(
+            model, lambda m, x, y: m(x, labels=y))
+        probe = (EFProbe(step) if field == "comm_opt"
+                 and cfgs.get("grad_compress") else contextlib.nullcontext())
+        planted = (comm_fault(fault) if fault else contextlib.nullcontext())
+        n = arm[4] if len(arm) > 4 else 2 if fault else steps
+        staged = sum(C.host_staged.values())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        coll, losses, secs, per_step = [], [], [], []
+        with planted, probe, timer:
+            for i in range(n):
+                if timed:
+                    timer.reset()
+                got = run_steps(fa, fc, rm, step, ids, 1,
+                                tag=f"[rank {rank}, {name} #{i}] ",
+                                warm_up=False)
+                losses += got[0]
+                secs += got[1]
+                per_step += got[2]
+                if timed:
+                    coll.append(timer.ms())
+        rep = dict(kind=type(step).__name__, losses=losses, step_secs=secs,
+                   launches=per_step, wire_bytes=wire_bytes(step, n),
+                   host_staged=sum(C.host_staged.values()) - staged,
+                   peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                             if dev.type == "cuda" else 0.0))
+        if timed:
+            rep["collective_ms"] = coll
+        if isinstance(probe, EFProbe):
+            rep["ef_rel"] = probe.rel()
+        if field == "comm_opt":
+            rep["comm_stats"] = step.comm_stats()
+            rep["opt_elems"] = step.optimizer_state_elems_per_replica()
+        if name in ("comm_opt_exact", "comm_opt_zero1"):
+            flat = torch.cat([p.detach().reshape(-1)
+                              for p in model.parameters()])
+            if saved is None:
+                saved = flat
+            else:
+                rep["bitwise_equal_to_exact"] = bool(torch.equal(saved, flat))
+                saved = None
+        out["arms"][name] = rep
+        del step, model, probe
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"comm.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def comm_world1(fa, fc, rm, LlamaForCausalLM, cfg, fleet, optimizer, seed,
+                batch, steps, workdir, device="cuda", field=None):
+    """World 1 on one card, ``steps`` steps on the whole batch from the
+    model of seed 0: phase 8's trainer (its weights and the batch saved
+    for the ranks), or with ``field`` (a comm-efficient strategy) that
+    strategy's step at world 1 (``comm_opt``: the flat update, which
+    keeps no fp32 master copy of a bf16 parameter, as in the JAX
+    package)."""
+    s = fleet.DistributedStrategy()
+    if field is not None:
+        setattr(s, field, True)
+    fleet.init(is_collective=True, strategy=s)   # world 1: the default mesh
+    seed(0)
+    model = fleet.distributed_model(LlamaForCausalLM(cfg, device=device))
+    step = fleet.distributed_optimizer(comm_optimizer(
+        optimizer, "adamw", model.parameters())).make_train_step(
+        model, lambda m, x, y: m(x, labels=y))
+    ids = train_ids(cfg.vocab_size, *batch, device=device)
+    if field is None:
+        save_weights(workdir, model)
+        np.savez(os.path.join(workdir, "batch.npz"), ids=ids.cpu().numpy())
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, secs, per_step = run_steps(fa, fc, rm, step, ids, steps,
+                                       tag=f"world 1, {field or 'plain'}: ")
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" \
+        else 0.0
+    del step, model
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return dict(losses=losses, step_secs=secs, launches=per_step,
+                n_params=n_params, peak_gib=peak)
+
+
+def comm_plain_timings(n, dp, flush, device="cuda"):
+    """The plain PyTorch pieces of the exchanges at a flat gradient of
+    ``n`` elements, timed on the card: the blockwise int8 quantizer (qblock
+    1024) of ``[dp, n/dp]`` and its dequantizer, and DGC's top-k of
+    ``|v|`` at 99% sparsity, each beside its memory bound."""
+    from paddle_tpu_torch.distributed.fleet import comm_efficient as ce
+    n -= n % (dp * 1024)
+    g = torch.randn(dp, n // dp, device=device)
+    nblk = n // dp // 1024
+    q, sc = ce._quant_blocks(g, nblk)
+    k = max(1, round(n * 0.01))
+    v = g.reshape(-1).abs()
+    out = {}
+    for name, fn, byts in (
+            ("quant_int8", lambda: ce._quant_blocks(g, nblk),
+             4 * n + n + 4 * n // 1024),
+            ("dequant_int8", lambda: ce._dequant_blocks(q, sc, nblk),
+             n + 4 * n // 1024 + 4 * n),
+            ("top_k", lambda: ce._top_k(v, k), 4 * n + 8 * k)):
+        out[name] = dict(ms=time_ms(fn, flush), shape=[dp, n // dp],
+                         k=k if name == "top_k" else None,
+                         **bound(byts, 0))
+    return out
+
+
+def check_comm(ranks, world1, flat1, want, tag="19", staged=True):
+    """The checks of phase 19 (and ``tools/torch_commopt_train.py``) over
+    the ranks' reports (``world1``: phase 8's trainer at world 1;
+    ``flat1``: the comm_opt step at world 1; ``staged``: whether a
+    collective may go through the host, as gloo's on CUDA tensors do);
+    returns the summary."""
+    arms = ranks[0]["arms"]
+    exact = arms["comm_opt_exact"]["losses"]
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    res = {}
+    for name in arms:
+        got = [rk["arms"][name] for rk in ranks]
+        for r, g in enumerate(got):
+            if not all(np.isfinite(g["losses"])):
+                raise AssertionError(f"{tag} {name} rank {r}: losses "
+                                     f"{g['losses']}")
+            for i, c in enumerate(g["launches"]):
+                if c != want:
+                    raise AssertionError(f"{tag} {name} rank {r} step {i} "
+                                         f"launched {c}, want {want}")
+            if g["losses"] != got[0]["losses"]:
+                raise AssertionError(f"{tag} {name}: the ranks' losses "
+                                     f"differ: {[x['losses'] for x in got]}")
+            if not staged and g["host_staged"]:
+                raise AssertionError(f"{tag} {name} rank {r}: "
+                                     f"{g['host_staged']} calls staged "
+                                     f"through the host")
+        losses = got[0]["losses"]
+        rel_w1, rel_flat1 = rel(losses, world1["losses"]), rel(
+            losses, flat1["losses"])
+        rel_exact = rel(losses, exact)
+        if name == "trainstep" and not rel_w1 <= PAIR_REL_TOL:
+            raise AssertionError(f"{tag} {name}: losses {losses} vs world 1 "
+                                 f"{world1['losses']} ({rel_w1:.3g})")
+        if name in ("comm_opt_exact", "comm_opt_zero1") and \
+                not rel_flat1 <= PAIR_REL_TOL:
+            raise AssertionError(f"{tag} {name}: losses {losses} vs the "
+                                 f"comm_opt step at world 1 "
+                                 f"{flat1['losses']} ({rel_flat1:.3g})")
+        if name in COMM_COMPRESSED and not rel_exact <= COMM_TOL:
+            raise AssertionError(f"{tag} {name}: losses {losses} vs the "
+                                 f"exact arm's {exact} ({rel_exact:.3g})")
+        res[name] = dict(
+            kind=got[0]["kind"], losses=losses, rel_to_world1=rel_w1,
+            rel_to_flat_world1=rel_flat1, rel_to_exact=rel_exact,
+            step_secs=[g["step_secs"] for g in got],
+            peak_gib=[g["peak_gib"] for g in got],
+            wire_bytes_per_step=got[0]["wire_bytes"],
+            host_staged=[g["host_staged"] for g in got],
+            **{k: [g[k] for g in got] for k in ("ef_rel", "collective_ms")
+               if k in got[0]})
+    z1 = [rk["arms"]["comm_opt_zero1"] for rk in ranks]
+    if not all(g["bitwise_equal_to_exact"] for g in z1) or \
+            z1[0]["losses"] != exact:
+        raise AssertionError(f"{tag}: zero1 is not bitwise the replicated "
+                             f"flat arm")
+    clean = [rk["arms"]["comm_opt_int8"]["ef_rel"] for rk in ranks]
+    if not max(clean) <= EF_TOL:
+        raise AssertionError(f"{tag} comm_opt_int8: error feedback lost "
+                             f"{clean} of the dropped error")
+    if "comm_opt_int8_e1_dropped" in arms:
+        faulty = [rk["arms"]["comm_opt_int8_e1_dropped"]["ef_rel"]
+                  for rk in ranks]
+        if not min(faulty) > EF_TOL:
+            raise AssertionError(f"{tag}: the planted fault (e1 dropped) "
+                                 f"passed the error-feedback judge: {faulty}")
+        res["comm_opt_int8_e1_dropped"]["fails_the_judge"] = True
+    return res
+
+
+def phase_comm(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
+               seed, cfg=None, batch=COMM_BATCH, layers=PAIR_LAYERS,
+               workdir="build/phase19", device="cuda", steps=TRAIN_STEPS):
+    """``bench.py:bench_llama``'s 0.5B Llama (bf16, the fused head), cut to
+    ``layers`` layers, on its 4 x 2048 batch: world 1 on the card (phase 8's
+    trainer, and the comm_opt step), then dp2 as two gloo ranks on the
+    card (2 x 2048 a rank), from the same weights, under each arm of
+    ``COMM_ARMS``: a warm-up + 3 steps each. Checks: every loss finite,
+    equal on both ranks; the exact and zero1 arms within ``PAIR_REL_TOL``
+    of the comm_opt step at world 1 (a flat update without an fp32
+    master: phase 8's trainer, which keeps one, moves otherwise at bf16),
+    zero1 bitwise the replicated flat arm (losses and parameters); the
+    compressed arms within ``COMM_TOL`` of the exact arm's losses; error
+    feedback conserved on the int8 arm (``EFProbe``) and broken by the
+    planted fault (e1 dropped); per rank and step rows 1-3 once per layer
+    and row 5 once, all on the tensor cores. Also times the plain quantizer and top-k at
+    the model's flat size. Times are two processes sharing one card
+    through gloo: not multi-GPU speeds."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    cfg = cfg or LlamaConfig(**{**COMM_CELL, "num_hidden_layers": layers})
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        world1 = comm_world1(fa, fc, rm, LlamaForCausalLM, cfg, fleet,
+                             optimizer, seed, batch, steps, workdir, device)
+        flat1 = comm_world1(fa, fc, rm, LlamaForCausalLM, cfg, fleet,
+                            optimizer, seed, batch, steps, workdir, device,
+                            field="comm_opt")
+        want = want_train_launches(cfg.num_hidden_layers)
+        for i, c in enumerate(world1["launches"] + flat1["launches"]):
+            if c != want:
+                raise AssertionError(f"19 world 1 step {i} launched {c}, "
+                                     f"want {want}")
+        plain = None
+        if device != "cpu":
+            flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+            plain = comm_plain_timings(world1["n_params"], COMM_DEGREE, flush)
+            del flush
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dist.spawn(_comm_worker, args=(workdir, cfg, batch, steps,
+                                       COMM_ARMS, "gloo",
+                                       _rank_device(device)),
+                   nprocs=COMM_DEGREE, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(COMM_DEGREE):
+            with open(os.path.join(workdir, f"comm.r{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    res = check_comm(ranks, world1, flat1, want)
+    log(f"  19 world 1: phase 8's trainer {world1['losses']}, the comm_opt "
+        f"step {flat1['losses']}")
+    for name, r in res.items():
+        log(f"  19 {name}: losses {r['losses']} (relative to world 1 "
+            f"{r['rel_to_world1']:.3g}, to the comm_opt step at world 1 "
+            f"{r['rel_to_flat_world1']:.3g}, to the exact arm "
+            f"{r['rel_to_exact']:.3g}); step times "
+            f"{[[round(t, 3) for t in s] for s in r['step_secs']]} s per "
+            f"rank (two ranks sharing one card through gloo: not multi-GPU "
+            f"speeds); peak {[round(p, 2) for p in r['peak_gib']]} GiB; "
+            f"wire {r['wire_bytes_per_step']:.4g} B a step"
+            + (f"; error feedback {r['ef_rel']}" if "ef_rel" in r else ""))
+    log(f"  19 gloo on CUDA tensors carried every collective the arms send "
+        f"in its own dtype (nothing bit-cast): {json.dumps(ranks[0]['probe'])}"
+        f"; the plain pieces on the card: {json.dumps(plain)}; spawn "
+        f"{spawn_s:.1f} s")
+    return ranks[0]["arms"]["comm_opt_int8"]["launches"][-1], dict(
+        world1=dict(losses=world1["losses"], step_secs=world1["step_secs"],
+                    peak_gib=world1["peak_gib"],
+                    n_params=world1["n_params"]),
+        world1_comm_opt=dict(losses=flat1["losses"],
+                             step_secs=flat1["step_secs"],
+                             peak_gib=flat1["peak_gib"]),
+        arms=res, probe=ranks[0]["probe"], plain=plain, spawn_s=spawn_s)
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4758,6 +5334,17 @@ def main():
                                pt.seed)
     log("  expert parallel " + json.dumps(ep))
 
+    # ---- 19. comm-efficient data parallel ----------------------------------
+    log(f"[19] comm-efficient data parallel: bench.py:bench_llama's 0.5B "
+        f"Llama (hidden 2048, FFN 5504, 16 heads, bf16, fused head) at "
+        f"{PAIR_LAYERS} layers, {COMM_BATCH[0]}x{COMM_BATCH[1]}: world 1, "
+        f"then dp{COMM_DEGREE} as two ranks on cuda:0 over gloo under "
+        f"{list(COMM_ARMS)}")
+    comm_launches, comm = phase_comm(fa, fc, rm, LlamaConfig,
+                                     LlamaForCausalLM, fleet, optimizer,
+                                     pt.seed)
+    log("  comm-efficient data parallel " + json.dumps(comm))
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -4847,6 +5434,13 @@ def main():
                    for k in cols + first + ("shape",)
                    if kd["name"] + "_gpt2_train" in t})
             kd["ep_rank"] = dict(launches=ep_launches[kd["name"]])
+    # rows 1-3 and 5 per dp rank and step under the comm-efficient steps
+    # (phase 19: the same on every arm)
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_") or \
+                kd["name"] == "fused_ce_stats":
+            kd["comm_dp_rank"] = dict(launches=comm_launches[kd["name"]],
+                                      tc=comm_launches[kd["name"] + "_tc"])
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

@@ -8,6 +8,15 @@
     step = opt.make_train_step(model, lambda m, ids, lbl: m(ids, labels=lbl))
     loss = step(ids, labels)              # the global batch, on every rank
 
+The comm-efficient data-parallel strategies pick their own step, as the
+JAX package's ``make_train_step`` routes them (one at a time, not with
+``amp``, no extra options): ``comm_opt`` -> ``distributed.comm_opt.
+CommOptTrainStep``; ``a_sync`` -> ``comm_efficient.GeoSGDTrainStep``;
+``localsgd`` -> ``LocalSGDTrainStep``; ``dgc`` -> ``DGCTrainStep``;
+``fp16_allreduce`` -> ``CompressedAllreduceTrainStep``. Under them
+``distributed_model`` keeps the model whole on every rank
+(``place_model(..., whole=True)``).
+
 Pipeline parallel (``pp_degree``) trains ``LlamaForCausalLMPipe``
 through that same step (GPipe: the model's forward runs
 ``ops.pipeline.spmd_pipeline`` and autograd gives the backward) or
@@ -27,6 +36,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .. import collective
+from . import comm_efficient as ce
 from .base import DistributedStrategy, HybridCommunicateGroup
 from .placement import place_model
 from .pp_train_step import Pipeline1F1BTrainStep, make_1f1b_train_step
@@ -73,9 +83,12 @@ def get_strategy() -> DistributedStrategy:
 def distributed_model(model):
     """Place ``model`` on the mesh for the strategy's sharding stage (its
     tp layers split, its pp chunks kept, its stage-3 parameters
-    sharded)."""
-    stage = get_strategy().sharding_stage
-    return place_model(model, get_hybrid_communicate_group().mesh, stage)
+    sharded), or whole under a comm-efficient strategy."""
+    s = get_strategy()
+    mesh = get_hybrid_communicate_group().mesh
+    if s.comm_modes():
+        return place_model(model, mesh, 0, whole=True)
+    return place_model(model, mesh, s.sharding_stage)
 
 
 class _FleetOptimizer:
@@ -89,9 +102,56 @@ class _FleetOptimizer:
     def __getattr__(self, name):
         return getattr(self._inner, name)
 
-    def make_train_step(self, model, loss_fn, **kw) -> TrainStep:
-        return make_train_step(model, self._inner, loss_fn,
-                               strategy=self._strategy, **kw)
+    def make_train_step(self, model, loss_fn, **kw):
+        s = self._strategy
+        modes = s.comm_modes()
+        if len(modes) > 1:
+            raise NotImplementedError(
+                f"strategies {modes} are mutually exclusive — enable one")
+        if not modes:
+            return make_train_step(model, self._inner, loss_fn, strategy=s,
+                                   **kw)
+        if s.amp:
+            raise NotImplementedError(
+                "strategy.amp is not supported together with "
+                "localsgd/dgc/fp16_allreduce — run them in full "
+                "precision")
+        if kw:
+            raise NotImplementedError(
+                f"options {sorted(kw)} are not supported by the "
+                f"{modes[0]} train step")
+        s.check()
+        if s.comm_opt:
+            from ..comm_opt import CommOptTrainStep
+            cfg = s.comm_opt_configs or {}
+            return CommOptTrainStep(
+                model, self._inner, loss_fn, strategy=s,
+                grad_compress=cfg.get("grad_compress"),
+                zero1=bool(cfg.get("zero1", False)),
+                tp_overlap=bool(cfg.get("tp_overlap", True)),
+                qblock=int(cfg.get("qblock", 1024)))
+        if s.a_sync:
+            cfg = s.a_sync_configs or {}
+            return ce.GeoSGDTrainStep(model, self._inner, loss_fn,
+                                      strategy=s,
+                                      k_steps=int(cfg.get("k_steps", 0)))
+        if s.localsgd:
+            cfg = s.localsgd_configs
+            return ce.LocalSGDTrainStep(
+                model, self._inner, loss_fn, strategy=s,
+                k_steps=int(cfg.get("k_steps", 4)),
+                begin_step=int(cfg.get("begin_step", 1)))
+        if s.dgc:
+            cfg = s.dgc_configs
+            return ce.DGCTrainStep(
+                model, loss_fn, strategy=s, optimizer=self._inner,
+                momentum=cfg.get("momentum"),
+                sparsity=float(cfg.get("sparsity", 0.99)),
+                clip_norm=cfg.get("clip_norm"))
+        cfg = s.fp16_allreduce_configs
+        return ce.CompressedAllreduceTrainStep(
+            model, self._inner, loss_fn, strategy=s,
+            dtype=cfg.get("dtype", "bfloat16"))
 
 
 def distributed_optimizer(optimizer, strategy=None):

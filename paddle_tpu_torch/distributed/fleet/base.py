@@ -15,15 +15,21 @@ it (``mesh.sep_guard``, ``mesh.pp_guard``). ``gradient_merge``
 (micro-batch accumulation), ``pipeline`` (its ``accumulate_steps``
 become the train step's, as in the JAX package; the micro-batches of the
 pipeline schedule are the model's ``n_micro``) and ``recompute`` (a flag
-only: remat is ``LlamaConfig.remat``, as in the JAX package) run.
+only: remat is ``LlamaConfig.remat``, as in the JAX package) run. So do
+the comm-efficient data-parallel strategies, one at a time
+(``comm_modes()``): ``comm_opt``, ``a_sync`` (geo, ``k_steps`` >= 1),
+``localsgd``, ``dgc`` and ``fp16_allreduce``, each with its own train
+step (``fleet.distributed_optimizer(...).make_train_step``).
 """
 from __future__ import annotations
 
 from .. import mesh as mesh_mod
 
-__all__ = ["DistributedStrategy", "HybridCommunicateGroup"]
+__all__ = ["DistributedStrategy", "HybridCommunicateGroup", "COMM_MODES"]
 
-_MULTI_GPU = "ROADMAP.md, port queue item 4: multi-GPU"
+#: the comm-efficient data-parallel strategies, as the JAX package lists them
+COMM_MODES = ("localsgd", "dgc", "fp16_allreduce", "a_sync", "comm_opt")
+
 _AMP = "ROADMAP.md, port queue item 10: amp and attention dropout"
 _LONG_TAIL = "ROADMAP.md, port queue item 9: long tail"
 
@@ -83,7 +89,7 @@ class DistributedStrategy:
     def unsupported(self) -> list:
         """``[(setting, ROADMAP item), ...]`` for what the port cannot run
         yet; empty when the strategy is dp / sharding stages 1-3 / tp, or
-        sep or pp with dp."""
+        sep or pp with dp, with or without a comm-efficient strategy."""
         hc = self.hybrid_configs
         out = []
         m = mesh_mod.Mesh(pp=max(1, hc.get("pp_degree", 1)),
@@ -99,14 +105,16 @@ class DistributedStrategy:
         if self.sharding_stage not in (0, 1, 2, 3):
             raise ValueError(f"sharding_stage {self.sharding_stage}; want "
                              "1, 2 or 3")
-        for field, item in (("amp", _AMP), ("comm_opt", _MULTI_GPU),
-                            ("localsgd", _MULTI_GPU), ("dgc", _MULTI_GPU),
-                            ("fp16_allreduce", _MULTI_GPU),
-                            ("a_sync", _LONG_TAIL), ("lamb", _LONG_TAIL),
+        for field, item in (("amp", _AMP), ("lamb", _LONG_TAIL),
                             ("lars", _LONG_TAIL), ("asp", _LONG_TAIL)):
             if getattr(self, field):
                 out.append((field, item))
         return out
+
+    def comm_modes(self) -> list:
+        """The comm-efficient strategies switched on, in the JAX
+        package's order; ``make_train_step`` refuses more than one."""
+        return [m for m in COMM_MODES if getattr(self, m, False)]
 
     def check(self):
         """Raise ``NotImplementedError`` naming what ``unsupported()``

@@ -20,6 +20,14 @@ does, and the stage-3 parameter gathering the train step runs.
    layers ``[p L/P, (p + 1) L/P)``) or ``"sharding"``, and at stage 3
    registers ``Stage3`` on the model.
 
+``place_model(model, mesh, 0, whole=True)`` is the placement of the
+comm-efficient data-parallel steps (``fleet.comm_efficient``,
+``distributed.comm_opt``), the JAX package's for them: nothing is split.
+Every parameter stays whole on every rank, tp-annotated ``Linear`` and
+``Embedding`` included, except the weights of ``ColumnParallelLinear`` and
+``RowParallelLinear`` layers the model itself holds, which keep their
+tp slices (``CommOptTrainStep``'s only tp-sharded weights).
+
 ``Stage3`` makes the sharded parameters whole only while they are used
 (ZeRO-3). The model's units are the children of its ``ModuleList``s (the
 decoder layers) and the model itself, for the sharded parameters outside
@@ -48,7 +56,8 @@ from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from .. import mesh as mesh_mod
 from ..collective import gather_dim, reduce_scatter_dim
-from .meta_parallel.mp_layers import split_tp_layers
+from .meta_parallel.mp_layers import (ColumnParallelLinear,
+                                      RowParallelLinear, split_tp_layers)
 
 __all__ = ["place_model", "placement", "Stage3", "no_sequence_parallel"]
 
@@ -164,18 +173,44 @@ class Stage3:
             yield
 
 
-def place_model(model, mesh, stage):
+def _whole_placement(model, mesh):
+    """The placement of every parameter under ``whole``: its tp slice in
+    a ``ColumnParallelLinear``/``RowParallelLinear``, else replicated."""
+    tp_ids = {id(p) for m in model.modules()
+              if isinstance(m, (ColumnParallelLinear, RowParallelLinear))
+              for p in m.parameters(recurse=False)}
+    return {id(p): (mesh_mod.infer_param_pspec(p.full_shape, p.pspec, 0,
+                                               mesh=mesh)
+                    if id(p) in tp_ids else (None,) * p.dim())
+            for p in model.parameters()}
+
+
+def place_model(model, mesh, stage, whole=False):
     """Place ``model`` on ``mesh`` for sharding ``stage`` (once; see the
-    module docstring). Returns the model."""
+    module docstring), or, with ``whole``, as the comm-efficient steps
+    keep it. Returns the model."""
     placed = getattr(model, "_placed", None)
     if placed is not None:
-        if placed.shape != mesh.shape or placed.rank != mesh.rank or any(
-                mesh_mod.infer_param_pspec(p.full_shape,
-                                           getattr(p, "pspec", None), stage,
-                                           mesh=mesh) != p.placement
-                for p in model.parameters()):
+        if whole:
+            want = _whole_placement(model, mesh)
+            other = any(want[id(p)] != p.placement
+                        for p in model.parameters())
+        else:
+            other = any(mesh_mod.infer_param_pspec(
+                p.full_shape, getattr(p, "pspec", None), stage,
+                mesh=mesh) != p.placement for p in model.parameters())
+        if (placed.shape != mesh.shape or placed.rank != mesh.rank
+                or getattr(model, "_whole", False) != whole or other):
             raise RuntimeError("the model is already placed otherwise "
-                               "(another mesh or sharding stage)")
+                               "(another mesh, sharding stage or step)")
+        return model
+    if whole:
+        for p in model.parameters():
+            p.full_shape = tuple(getattr(p, "full_shape", p.shape))
+        want = _whole_placement(model, mesh)
+        for p in model.parameters():
+            p.placement = want[id(p)]
+        model._placed, model._whole, model._stage3 = mesh, True, None
         return model
     mesh_mod.pp_guard(mesh)
     sep = mesh.axis_size("sep")

@@ -1,13 +1,14 @@
-"""Adam and AdamW. Counterpart of ``paddle_tpu/optimizer/algorithms.py``
-(``Adam``, ``AdamW``, ``_master_init``; the other algorithms are in the
-port's long tail).
+"""SGD, Momentum, Adam and AdamW. Counterpart of
+``paddle_tpu/optimizer/algorithms.py`` (``SGD``, ``Momentum``, ``Adam``,
+``AdamW``, ``_master_init``; the other algorithms are in the port's long
+tail).
 
 Each algorithm is one pure ``update_param`` over plain elementwise
 PyTorch (the JAX update is XLA, not a kernel; ``torch.optim`` is not
 used). With ``multi_precision`` (the default) a bf16 parameter keeps a
 persistent fp32 master copy and fp32 moments, so updates smaller than a
 bf16 ulp are not rounded away; the beta powers are fp32 scalars carried
-in the state.
+in the state. Momentum keeps its velocity in the same accumulator dtype.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from .optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["SGD", "Momentum", "Adam", "AdamW"]
 
 
 def _acc_dtype(p, multi_precision):
@@ -39,6 +40,45 @@ def _write_master(st, new_p32, p):
     if "master" in st:
         st["master"] = new_p32
     return new_p32.to(p.dtype)
+
+
+class SGD(Optimizer):
+    def init_param_state(self, p):
+        return _master_init(self, p, {})
+
+    def update_param(self, p, g, st, lr, name):
+        st = dict(st)
+        new_p32 = _read_master(st, p) - lr * g.float()
+        return _write_master(st, new_p32, p), st
+
+
+class Momentum(Optimizer):
+    """``v = momentum * v + g``, ``p -= lr * v`` (with ``use_nesterov``,
+    ``p -= lr * (g + momentum * v)``)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=True, name=None):
+        if momentum is None:
+            raise ValueError("momentum is not set")
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def init_param_state(self, p):
+        dt = _acc_dtype(p, self._multi_precision)
+        return _master_init(self, p, {
+            "velocity": torch.zeros(p.shape, dtype=dt, device=p.device)})
+
+    def update_param(self, p, g, st, lr, name):
+        st = dict(st)
+        g32 = g.float()
+        v = self._momentum * st["velocity"] + g32
+        upd = g32 + self._momentum * v if self._nesterov else v
+        st["velocity"] = v.to(st["velocity"].dtype)
+        new_p32 = _read_master(st, p) - lr * upd
+        return _write_master(st, new_p32, p), st
 
 
 class Adam(Optimizer):

@@ -29,8 +29,9 @@ ranks) trains in one module-scoped spawn of 8 gloo ranks on the CPU.
   of its optimizer state.
 
 Also the strategy surface: what the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item, and a tp degree that
-does not divide the KV heads a ``ValueError``.
+``NotImplementedError`` naming its ROADMAP item, each comm-efficient
+strategy refuses what the JAX step refuses, and a tp degree that does
+not divide the KV heads a ``ValueError``.
 """
 import dataclasses
 import pickle
@@ -261,23 +262,42 @@ def _tiny(**kw):
         device="cpu")
 
 
+# what each comm-efficient strategy still refuses, as the JAX step does
+# (they run: tests/test_torch_comm_opt.py, tests/test_torch_comm_efficient.py)
+_COMM_REFUSED = {"comm_opt": dict(grad_clip=True),
+                 "localsgd": dict(fields={"dgc": True}),
+                 "dgc": dict(fields={"amp": True}),
+                 "fp16_allreduce": dict(kw={"accumulate_steps": 2})}
+
+
 def _train_step_raises(field):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    how = _COMM_REFUSED.get(field, {})
     model = _tiny()
     s = fleet.DistributedStrategy()
     setattr(s, field, True)
+    for k, v in how.get("fields", {}).items():
+        setattr(s, k, v)
+    clip = ClipGradByGlobalNorm(1.0) if how.get("grad_clip") else None
     opt = fleet.distributed_optimizer(
-        optimizer.AdamW(parameters=model.parameters()), s)
-    opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
+        optimizer.AdamW(parameters=model.parameters(), grad_clip=clip), s)
+    opt.make_train_step(model, lambda m, x, y: m(x, labels=y),
+                        **how.get("kw", {}))
 
 
 @pytest.mark.parametrize("case,exc,match", [
     ("pp_degree", NotImplementedError, "item 4: multi-GPU, pipeline"),
     ("sep_degree", NotImplementedError, "item 4: multi-GPU, sequence"),
     ("sequence_parallel", NotImplementedError, "item 4: multi-GPU, sequence"),
-    ("comm_opt", NotImplementedError, "item 4"),
-    ("localsgd", NotImplementedError, "item 4"),
-    ("dgc", NotImplementedError, "item 4"),
-    ("fp16_allreduce", NotImplementedError, "item 4"),
+    pytest.param("comm_opt", NotImplementedError, "grad_clip is not",
+                 id="comm_opt-NotImplementedError-item 4"),
+    pytest.param("localsgd", NotImplementedError, "mutually exclusive",
+                 id="localsgd-NotImplementedError-item 4"),
+    pytest.param("dgc", NotImplementedError, "amp is not supported",
+                 id="dgc-NotImplementedError-item 4"),
+    pytest.param("fp16_allreduce", NotImplementedError,
+                 "not supported by the fp16_allreduce",
+                 id="fp16_allreduce-NotImplementedError-item 4"),
     ("engine_tp", NotImplementedError, "multi-GPU"),
     ("tp_not_dividing_kv_heads", ValueError, "num_key_value_heads"),
     ("generate_on_a_split_model", NotImplementedError, "item 4"),

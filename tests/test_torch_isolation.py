@@ -7,8 +7,10 @@ Llama and a GPT request, taking Llama and ERNIE-MoE train steps, a
 tensor-parallel Llama step, a request through a tensor-parallel
 engine, sequence-parallel (ring and Ulysses), pipeline-parallel (GPipe
 and 1F1B), expert-parallel ERNIE-MoE and tensor-parallel GPT steps, the
-MoE dispatch collectives and the RNG tracker on two spawned ranks (and
-importing ``tools/torch_ep_train.py``), and quantizing and
+MoE dispatch collectives, the RNG tracker and every comm-efficient
+strategy (``distributed/comm_opt.py``, ``fleet/comm_efficient.py``) on
+two spawned ranks (and importing ``tools/torch_ep_train.py``), and
+quantizing and
 running a tiny Llama and both stochastic quantizers in processes where
 importing either fails.
 Entry points default to CUDA and raise when it is absent.
@@ -240,9 +242,10 @@ def test_every_module_imports_with_jax_unimportable():
 def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
     """A tp2 Llama step, a request through a tp2 ``Engine``, sep2 ring
     and Ulysses steps, pp2 GPipe and 1F1B steps, ERNIE-MoE mp2 and GPT
-    tp2 steps, a dispatch round trip and the RNG tracker over gloo in two
-    spawned ranks, each of which makes JAX and the JAX package
-    unimportable first."""
+    tp2 steps, a step pair under each comm-efficient strategy (comm_opt,
+    fp16_allreduce, localsgd, a_sync, dgc) at dp2, a dispatch round trip
+    and the RNG tracker over gloo in two spawned ranks, each of which
+    makes JAX and the JAX package unimportable first."""
     import pickle
 
     import torch_dist_worker as W
@@ -270,6 +273,11 @@ def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
         assert outs[0]["tp_losses"][model] == outs[1]["tp_losses"][model]
         assert outs[0]["tp_losses"][model][1] < \
             outs[0]["tp_losses"][model][0]
+    for field in ("comm_opt", "fp16_allreduce", "localsgd", "a_sync", "dgc"):
+        assert outs[0]["comm_losses"][field] == \
+            outs[1]["comm_losses"][field]
+        assert outs[0]["comm_losses"][field][1] < \
+            outs[0]["comm_losses"][field][0]
     for r in range(2):
         assert (outs[r]["dispatched"] == 1).all()
         assert outs[r]["tracker_seeds"] == [3 * 1024 + r * 100]

@@ -1,7 +1,8 @@
 """Optimizers, clipping and LR schedules of the PyTorch port against the
 JAX package.
 
-Adam and AdamW step for step against JAX ``apply_gradients_functional``
+SGD and Momentum (with Nesterov, and with coupled L2 decay), Adam and
+AdamW step for step against JAX ``apply_gradients_functional``
 over 5 steps, on fp32 and bf16 parameters (the bf16 ones keep an fp32
 master copy and fp32 moments); coupled L2 decay (Adam) and decoupled
 decay filtered by ``apply_decay_param_fun`` (AdamW, which gets the
@@ -83,7 +84,7 @@ def _assert_match(jp, js, tp, ts, dtype):
                                        err_msg=f"{k}/{n}")
             if n != "beta1_pow" and n != "beta2_pow":
                 want = torch.float32 if (dtype == "float32" or n in (
-                    "master", "moment1", "moment2")) else torch.bfloat16
+                    "master", "moment1", "moment2", "velocity")) else torch.bfloat16
                 assert ts[k][n].dtype == want, (k, n)
         assert ("master" in ts[k]) == (dtype == "bfloat16")
 
@@ -94,6 +95,18 @@ def test_step_for_step_against_jax(algo, dtype):
     jp, js, tp, ts = _run_both(
         lambda: getattr(jax_optim, algo)(learning_rate=1e-2),
         lambda: getattr(optimizer, algo)(learning_rate=1e-2), dtype)
+    _assert_match(jp, js, tp, ts, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("algo,kw", [
+    ("SGD", {}), ("SGD", dict(weight_decay=0.05)), ("Momentum", {}),
+    ("Momentum", dict(momentum=0.8, use_nesterov=True)),
+    ("Momentum", dict(weight_decay=0.05))])
+def test_sgd_and_momentum_step_for_step_against_jax(algo, kw, dtype):
+    jp, js, tp, ts = _run_both(
+        lambda: getattr(jax_optim, algo)(learning_rate=1e-2, **kw),
+        lambda: getattr(optimizer, algo)(learning_rate=1e-2, **kw), dtype)
     _assert_match(jp, js, tp, ts, dtype)
 
 

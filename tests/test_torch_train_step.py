@@ -136,13 +136,20 @@ def test_strategy_options_outside_the_slice_raise():
     model = LlamaForCausalLM(cfg, device="cpu")
     opt = optimizer.AdamW(parameters=model.parameters())
     loss_fn = (lambda m, ids, lbl: m(ids, labels=lbl))
-    for field, item in (("amp", "item 10"), ("dgc", "item 4"),
+    for field, item in (("amp", "item 10"), ("asp", "item 9"),
                         ("lamb", "item 9")):
         s = fleet.DistributedStrategy()
         setattr(s, field, True)
         with pytest.raises(NotImplementedError, match=item):
             fleet.distributed_optimizer(opt, s).make_train_step(model,
                                                                 loss_fn)
+    # dgc runs since the comm-efficient slice
+    # (tests/test_torch_comm_efficient.py), with SGD or Momentum only, as
+    # the JAX step
+    s = fleet.DistributedStrategy()
+    s.dgc = True
+    with pytest.raises(TypeError, match="DGC requires SGD/Momentum"):
+        fleet.distributed_optimizer(opt, s).make_train_step(model, loss_fn)
     # dp, mp and sharding degrees run since the multi-GPU slice
     # (tests/test_torch_hybrid_train.py), sep alone or with dp since the
     # sequence-parallel slice (tests/test_torch_sep_train.py), pp alone

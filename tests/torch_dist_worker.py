@@ -294,8 +294,9 @@ def spawn_env_worker(path):
 def isolation_worker(out_dir):
     """A tp2 x sharding-free Llama step, a request through a tp2
     ``Engine``, sep2 ring and Ulysses steps, pp2 GPipe and 1F1B steps,
-    expert-parallel ERNIE-MoE and GPT tp2 steps, a global_scatter /
-    global_gather round trip and the RNG tracker's seeding on 2 ranks
+    expert-parallel ERNIE-MoE and GPT tp2 steps, a step pair under each
+    comm-efficient strategy at dp2, a global_scatter / global_gather
+    round trip and the RNG tracker's seeding on 2 ranks
     with JAX and the JAX package unimportable; writes the modules that
     got loaded anyway."""
     import sys
@@ -386,6 +387,26 @@ def isolation_worker(out_dir):
             learning_rate=LR, parameters=model.parameters())
         ).make_train_step(model, lambda m, x, y: m(x, labels=y))
         tp_losses[name] = [float(step(ids, ids)) for _ in range(2)]
+    # each comm-efficient strategy at dp2, a step pair
+    comm_losses = {}
+    for field, cfg in (("comm_opt", {"grad_compress": "int8",
+                                     "zero1": True}),
+                       ("fp16_allreduce", {"dtype": "int8"}),
+                       ("localsgd", {"k_steps": 2}),
+                       ("a_sync", {"k_steps": 2}),
+                       ("dgc", {"sparsity": 0.99})):
+        s = fleet.DistributedStrategy()
+        setattr(s, field, True)
+        getattr(s, field + "_configs").update(cfg)
+        fleet.init(is_collective=True, strategy=s)
+        torch.manual_seed(0)
+        model = fleet.distributed_model(LlamaForCausalLM(dataclasses.replace(
+            LLAMA_TINY, dtype="float32", num_hidden_layers=1), device="cpu"))
+        opt = (optimizer.Momentum if field == "dgc" else optimizer.AdamW)(
+            learning_rate=LR, parameters=model.parameters())
+        step = fleet.distributed_optimizer(opt).make_train_step(
+            model, lambda m, x, y: m(x, labels=y))
+        comm_losses[field] = [float(step(ids, ids)) for _ in range(2)]
     lc = np.array([1, 1])
     x = torch.ones(2, 3)
     back = global_gather(global_scatter(x, lc, lc, capacity=2), lc, lc,
@@ -396,7 +417,7 @@ def isolation_worker(out_dir):
     _dump(os.path.join(out_dir, f"isolation.r{dist.get_rank()}.pkl"),
           dict(losses=losses, tokens=tokens, sep_losses=sep_losses,
                pp_losses=pp_losses, tp_losses=tp_losses,
-               dispatched=back[:2].numpy(),
+               comm_losses=comm_losses, dispatched=back[:2].numpy(),
                tracker_seeds=sorted(mp.get_rng_state_tracker().seeds_),
                loaded=loaded))
     dist.destroy_process_group()
@@ -1242,3 +1263,221 @@ def dispatch_worker(out_dir):
         out["over_capacity"] = str(e)
     _dump(os.path.join(out_dir, f"dispatch.r{r}.pkl"), out)
     dist.destroy_process_group()
+
+
+# -- the comm-efficient data-parallel strategies ------------------------------
+
+def _co(dp, compress=None, zero1=False, **kw):
+    return dict(mode="comm_opt", dp=dp,
+                cfg={"grad_compress": compress, "zero1": zero1,
+                     "tp_overlap": True, "qblock": 64}, **kw)
+
+
+# each configuration: the strategy field ("mode") and its configs, the dp
+# and mp degrees, the model ("llama": LLAMA_TINY fp32 on the 8 x 32 batch;
+# "tp_mlp": the JAX package's TP MLP on its 64 x 8 regression), the
+# optimizer ("adamw" lr 1e-3; "adam" lr 1e-2, the TP MLP's; "momentum" 0.9
+# lr 1e-3; "sgd" lr 5e-2; "adamw_decay_fun": AdamW with
+# apply_decay_param_fun, the per-parameter arm) and a planted fault (a
+# key of chip_smoke.COMM_FAULTS); "trainstep" is the port's plain dp
+# TrainStep
+COMM_CONFIGS = {
+    **{f"co_dp{dp}_{name}": _co(dp, *args)
+       for dp in (2, 4)
+       for name, args in (("exact", ()), ("bf16", ("bf16",)),
+                          ("int8", ("int8",)), ("zero1", (None, True)),
+                          ("zero1_int8", ("int8", True)))},
+    "co_dp2_tp2_llama_int8": _co(2, "int8", mp=2),
+    "co_dp2_tp2_mlp": _co(2, mp=2, model="tp_mlp", opt="adam"),
+    "co_dp2_tp2_mlp_int8": _co(2, "int8", mp=2, model="tp_mlp", opt="adam"),
+    "co_dp2_int8_per_param": _co(2, "int8", opt="adamw_decay_fun"),
+    "co_dp2_int8_e1_dropped": _co(2, "int8", fault="e1_dropped"),
+    "co_dp2_zero1_slice_off": _co(2, None, True, fault="zero1_slice_off"),
+    "fp_dp4_bf16": dict(mode="fp16_allreduce", dp=4,
+                        cfg={"dtype": "bfloat16"}),
+    "fp_dp4_int8": dict(mode="fp16_allreduce", dp=4, cfg={"dtype": "int8"}),
+    "lsgd_dp2_k1": dict(mode="localsgd", dp=2, opt="sgd",
+                        cfg={"k_steps": 1, "begin_step": 1}),
+    "lsgd_dp4_k2": dict(mode="localsgd", dp=4,
+                        cfg={"k_steps": 2, "begin_step": 1}),
+    "trainstep_dp2": dict(mode="trainstep", dp=2, opt="sgd", cfg={}),
+    "geo_dp4_k2": dict(mode="a_sync", dp=4, cfg={"k_steps": 2}),
+    "geo_dp4_k2_mean": dict(mode="a_sync", dp=4, cfg={"k_steps": 2},
+                            fault="geo_mean"),
+    "dgc_dp2": dict(mode="dgc", dp=2, opt="momentum",
+                    cfg={"momentum": None, "sparsity": 0.99}),
+    "dgc_dp2_clip": dict(mode="dgc", dp=2, opt="momentum",
+                         cfg={"momentum": None, "sparsity": 0.99,
+                              "clip_norm": 0.5}),
+    "dgc_dp2_not_cleared": dict(mode="dgc", dp=2, opt="momentum",
+                                cfg={"momentum": None, "sparsity": 0.99},
+                                fault="dgc_not_cleared"),
+}
+COMM_LR = {"adamw": 1e-3, "adam": 1e-2, "momentum": 1e-3, "sgd": 5e-2,
+           "adamw_decay_fun": 1e-3}
+
+
+def comm_decay(name):
+    """The per-parameter arm's ``apply_decay_param_fun``: every name
+    decays (the JAX package passes another name than the port)."""
+    return True
+
+
+def comm_optimizer(optimizer, kind, params):
+    lr = COMM_LR[kind]
+    if kind == "momentum":
+        return optimizer.Momentum(learning_rate=lr, momentum=0.9,
+                                  parameters=params)
+    if kind == "adam":
+        return optimizer.Adam(learning_rate=lr, parameters=params)
+    if kind == "sgd":
+        return optimizer.SGD(learning_rate=lr, parameters=params)
+    return optimizer.AdamW(
+        learning_rate=lr, parameters=params,
+        apply_decay_param_fun=comm_decay if kind == "adamw_decay_fun"
+        else None)
+
+
+def tp_mlp_data():
+    """The JAX package's TP MLP regression (tests/test_comm_opt.py)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((64, 8)).astype(np.float32)
+    w = rng.standard_normal((8,)).astype(np.float32)
+    return x, (x @ w)[:, None].astype(np.float32)
+
+
+def mse(m, x, y):
+    return ((m(x) - y) ** 2).mean()
+
+
+def _tp_mlp():
+    """The JAX package's TP MLP: ``ColumnParallelLinear(8, 32)`` (output
+    split), tanh, ``RowParallelLinear(32, 8)`` (input split), tanh, a
+    head."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ColumnParallelLinear, RowParallelLinear)
+
+    class TPMLP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.c = ColumnParallelLinear(8, 32, gather_output=False,
+                                          device="cpu")
+            self.r = RowParallelLinear(32, 8, input_is_parallel=True,
+                                       device="cpu")
+            self.head = pnn.Linear(8, 1, device="cpu")
+
+        def forward(self, x):
+            return self.head(torch.tanh(self.r(torch.tanh(self.c(x)))))
+
+    return TPMLP()
+
+
+def _cloned(tree):
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _spread(reps):
+    """Max abs difference of any replica's parameter from replica 0's."""
+    return max(float((v - v[:1]).abs().max()) for v in reps.values())
+
+
+def comm_worker(out_dir, init_paths, batch_path, names):
+    """Train under each comm-efficient configuration of ``names`` for
+    STEPS steps on the first ranks of the world its degrees need, from the
+    JAX model's initial weights (``init_paths[name]``), with the planted
+    fault of the configuration. Every rank of the mesh writes its losses
+    and what its step reports; rank 0 also the parameters (every
+    replica's, ``[dp, ...]``, for LocalSGD and Geo)."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    torch.set_num_threads(1)
+    import chip_smoke
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import comm_efficient as ce
+    from paddle_tpu_torch.framework.io import (gather_state_dict,
+                                               load_numpy_state_dict)
+    from paddle_tpu_torch.text.models.llama import (LLAMA_TINY,
+                                                    LlamaForCausalLM)
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank = dist.get_rank()
+    ids = np.load(batch_path)
+    real_top_k = ce._top_k
+    for name in names:
+        c = COMM_CONFIGS[name]
+        with np.load(init_paths[name]) as z:
+            init = {k: z[k] for k in z.files}
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs.update(dp_degree=c["dp"], mp_degree=c.get("mp", 1))
+        if c["mode"] != "trainstep":
+            setattr(s, c["mode"], True)
+            setattr(s, c["mode"] + "_configs", dict(c["cfg"]))
+        fleet.init(is_collective=True, strategy=s)
+        mesh = fleet.get_hybrid_communicate_group().mesh
+        if mesh.coords is not None:
+            if c.get("model") == "tp_mlp":
+                model = fleet.distributed_model(_tp_mlp())
+                batch, loss_fn = tp_mlp_data(), mse
+            else:
+                model = fleet.distributed_model(LlamaForCausalLM(
+                    dataclasses.replace(LLAMA_TINY, dtype="float32"),
+                    device="cpu"))
+                batch, loss_fn = (ids, ids), (lambda m, x, y: m(x, labels=y))
+            load_numpy_state_dict(model, init)
+            opt = fleet.distributed_optimizer(comm_optimizer(
+                optimizer, c.get("opt", "adamw"), model.parameters()))
+            step = opt.make_train_step(model, loss_fn)
+            gaps = []
+
+            def top_k(x, k):
+                # the k-th largest |v| must be strictly above the next:
+                # no tie decides which entries travel
+                top = torch.topk(x, k + 1).values
+                gaps.append(float(top[k - 1] - top[k]))
+                return real_top_k(x, k)
+
+            fault = (chip_smoke.comm_fault(c["fault"]) if "fault" in c
+                     else contextlib.nullcontext())
+            out = dict(kind=type(step).__name__, losses=[], spread=[])
+            with fault, mock.patch.object(ce, "_top_k", top_k):
+                for _ in range(STEPS):
+                    out["losses"].append(float(step(*batch)))
+                    if c["mode"] == "localsgd":
+                        out["spread"].append(_spread(step.replicas()))
+                    elif c["mode"] == "a_sync":
+                        out["spread"].append(step.replica_divergence())
+            out["tie_gaps"] = gaps
+            out["fingerprint"] = float(sum(p.detach().double().sum()
+                                           for p in model.parameters()))
+            if c["mode"] in ("localsgd", "a_sync"):
+                params = {k: v.numpy() for k, v in step.replicas().items()}
+                out["syncs"] = getattr(step, "syncs",
+                                       getattr(step, "merges", None))
+            else:
+                params = gather_state_dict(model)
+            if c["mode"] == "comm_opt":
+                out.update(stats=step.comm_stats(),
+                           opt_elems=step.optimizer_state_elems_per_replica(),
+                           gathered=step.gathered_state(),
+                           n_local=step.n_local, n_pad=step.n_pad)
+                if "fault" not in c:
+                    # this rank's state_dict restores the trajectory
+                    snap = _cloned(step.state_dict())
+                    again = [float(step(*batch))]
+                    step.load_state_dict(snap)
+                    again.append(float(step(*batch)))
+                    out["replayed"] = again
+            _dump(os.path.join(out_dir, f"{name}.r{rank}.pkl"), out)
+            if rank == 0:
+                _dump(os.path.join(out_dir, f"{name}.pkl"),
+                      dict(losses=out["losses"], params=params))
+        dist.barrier()
+    dist.destroy_process_group()
+
