@@ -241,6 +241,32 @@ failure raises and exits non-zero before the result line is printed:
     and step, all on the tensor cores; the gloo probe of every dtype the
     exchanges send (nothing bit-cast); the plain quantizer and top-k
     timed at the model's flat size.
+20. speculative decoding and beam search (after phase 11, on phase 4's
+    model), ``phase_spec``. 20b, latency-shaped (``bench.py:
+    bench_serving_spec``'s shape): Llama-2-7B bf16 on phase 5's geometry
+    with ``flash_decode=True``, phase 5's 8 prompts submitted one at a
+    time (each finished before the next), 48 new tokens, greedy; arms:
+    plain, n-gram (k 4), the model as its own draft (k 4), and
+    ``bench.py:bench_llama``'s 0.5B widths at 8 layers as a small
+    same-family draft (random weights: acceptance near 0, what a rejected
+    draft costs). Each arm prints ITL p50/p95, tokens/s, target steps per
+    token, acceptance, draft steps, row 4's launches, peak memory and the
+    share of its tokens equal to the plain arm's; every request finishes
+    with 48 tokens, the self-draft takes fewer than 0.6 target steps a
+    token, and row 4 launches layers x (decode steps - verifies) times,
+    all ``"split"`` (> 0 over the arms: a draft that is always accepted
+    may take no plain step). 20c: ``generate(ids[2, 128], 32 new,
+    num_beams=4)`` timed with its peak memory; one beam equals greedy
+    ``generate``. 20a, token identity on fp32 twins (TF32 off):
+    Llama-2-7B widths at 2 layers and GPT-2 small, ``Engine(n_slots=4,
+    max_len=256, block_size=16, flash_decode=True)``, greedy then sampled
+    + chunked (top_k 50, top_p 0.9, temperature 0.6, seeds 1000 + i,
+    ``prefill_chunk=64``), two logit-masked repetitive and two random
+    requests, 32 new tokens; arms plain, n-gram, self-draft and a hostile
+    proposer, every one token-identical to the plain engine, with 20b's
+    launch equation and refcounts; the greedy self-draft under 0.6 target
+    steps a token; on the Llama twin each row's beam-4 sequence log-prob
+    at least greedy's - 1e-4.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -252,6 +278,7 @@ quantizers at the Llama-2-7B shapes.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -5150,6 +5177,306 @@ def phase_comm(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
         arms=res, probe=ranks[0]["probe"], plain=plain, spawn_s=spawn_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: speculative decoding and beam search
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_GEO = dict(n_slots=4, max_len=256, block_size=16, flash_decode=True)
+SPEC_SAMPLED = dict(do_sample=True, top_k=50, top_p=0.9, prefill_chunk=64)
+SPEC_NEW = 32           # 20a's new tokens a request
+SPEC_SERIAL_NEW = 48    # 20b: bench.py:bench_serving_spec's 48
+SPEC_STEP_RATIO = 0.6   # target steps per emitted token, self-draft
+BEAM_SHAPE = (2, 128)   # 20c: generate(ids[2, 128], 32 new, 4 beams)
+BEAM_NEW = 32
+BEAM_LOGPROB_TOL = 1e-4
+
+
+class HostileDraft:
+    """A custom proposer (the ``propose`` protocol) that always proposes
+    token 9, which the masked requests forbid and the others almost never
+    sample: every verify rejects at its first position."""
+
+    def propose(self, ctx, k):
+        return np.full(k, 9, np.int32)
+
+
+def spec_traffic(vocab, seed):
+    """20a's mixed traffic: two logit-masked repetitive requests (n-grams
+    match: verifies fire) and two random ones (40 and 96 tokens, the
+    latter chunked at ``prefill_chunk=64``), as (prompt, submit
+    arguments)."""
+    rng = np.random.default_rng(seed)
+    masks = [np.isin(np.arange(vocab), [7]), None,
+             np.isin(np.arange(vocab), [11, 13]), None]
+    prompts = [np.full(9, 7, np.int32), rng.integers(0, vocab, 40),
+               np.asarray([11, 13] * 5, np.int32), rng.integers(0, vocab, 96)]
+    return [(p.astype(np.int32), dict(logit_mask=m))
+            for p, m in zip(prompts, masks)]
+
+
+def spec_run(model, fd, Engine, reqs, max_new, serial=False, **kw):
+    """One engine run over ``reqs`` [(prompt, submit arguments)]: staggered
+    (a step between submissions) or serial (each request finished before
+    the next is submitted); the flash-decode counts reset just before the
+    run and read just after. Checks that every request finished with
+    ``max_new`` tokens and that the engine freed its KV."""
+    free_cycles()
+    eng = Engine(model, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fd.flash_decode)
+    t0 = time.perf_counter()
+    hs = []
+    for i, (p, skw) in enumerate(reqs):
+        if i and not serial:
+            eng.step()
+        hs.append(eng.submit(p, max_new_tokens=max_new, **skw))
+        if serial:
+            eng.drain()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r = dict(tokens=[list(h.tokens) for h in hs], stats=eng.stats(),
+             handles=hs, wall_s=wall, launches=fd.flash_decode.launches,
+             variants=dict(fd.flash_decode.launches_by_variant),
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not all(h.finished and h.finish_reason == "length"
+               and len(h.tokens) == max_new for h in hs):
+        raise AssertionError(f"{kw}: a request did not finish with "
+                             f"{max_new} tokens")
+    if eng.cache.n_free != eng.n_slots or not eng.cache.check_refcounts():
+        raise AssertionError(f"{kw}: the engine did not free its KV")
+    return r
+
+
+def free_cycles():
+    """Collect garbage held in reference cycles (an engine and its
+    handles hold each other, with its KV pool and a draft's cache), so
+    that a peak-memory reading sees one run's tensors only."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_spec_launches(what, n_layers, r):
+    """Row 4 runs on the speculative engine's plain decode steps only (the
+    slots with no proposal, and a request's last token when one remains):
+    launches = layers x (decode steps - verifies), all on the split
+    kernel. A draft that is always accepted may take no plain step (48
+    tokens = the prefill's + 9 verifies of 5 + one of 2), so > 0 is
+    required of each phase's runs together (``check_spec_total``)."""
+    st = r["stats"]
+    want = n_layers * (st["decode_steps"] - st["spec_steps"])
+    if r["launches"] != want \
+            or r["variants"] != {"split": want, "one_pass": 0}:
+        raise AssertionError(f"{what}: flash_decode launched "
+                             f"{r['launches']} times ({r['variants']}), want "
+                             f"{want} = {n_layers} x (decode steps "
+                             f"{st['decode_steps']} - verifies "
+                             f"{st['spec_steps']}), all on the split kernel")
+
+
+def check_spec_total(what, runs):
+    """Row 4 launched in the runs of ``what`` (the plain arm's alone
+    launches it every decode step)."""
+    if sum(x["flash_decode_launches"] for x in runs.values()) <= 0:
+        raise AssertionError(f"{what}: flash_decode never launched")
+
+
+def steps_per_token(st):
+    """Target-model steps (decode steps and verifies) per emitted token."""
+    return st["decode_steps"] / st["tokens_generated"]
+
+
+def spec_identity(model, fd, Engine, SpecConfig, what):
+    """20a on one fp32 model (TF32 off): greedy, then sampled + chunked
+    (temperature 0.6, seeds 1000 + i), the plain engine and the n-gram,
+    self-draft and hostile arms at k = 4 on ``spec_traffic``. Every arm's
+    tokens must be the plain engine's; row 4's launches obey
+    ``check_spec_launches``; the greedy self-draft takes fewer than
+    ``SPEC_STEP_RATIO`` target steps a token. Returns per mode and arm the
+    printed numbers."""
+    n = model.config.num_hidden_layers
+    out = {}
+    for mode, kw in (("greedy", {}), ("sampled", SPEC_SAMPLED)):
+        reqs = spec_traffic(model.config.vocab_size, seed=20)
+        if kw:
+            reqs = [(p, dict(skw, temperature=0.6, seed=1000 + i))
+                    for i, (p, skw) in enumerate(reqs)]
+        runs = {}
+        for arm, spec in (
+                ("plain", None),
+                ("ngram", SpecConfig(draft="ngram", k=SPEC_K)),
+                ("self_draft", SpecConfig(draft=model, k=SPEC_K)),
+                ("hostile", SpecConfig(draft=HostileDraft(), k=SPEC_K))):
+            r = spec_run(model, fd, Engine, reqs, SPEC_NEW, **SPEC_GEO,
+                         **kw, speculative=spec)
+            check_spec_launches(f"20a {what} {mode} {arm}", n, r)
+            st = r["stats"]
+            runs[arm] = dict(
+                identical_to_plain=r["tokens"] == (
+                    runs["plain"]["tokens"] if runs else r["tokens"]),
+                tokens=r["tokens"], decode_steps=st["decode_steps"],
+                spec_steps=st["spec_steps"],
+                acceptance=st["spec_acceptance_rate"],
+                target_steps_per_token=steps_per_token(st),
+                flash_decode_launches=r["launches"],
+                chunked_prefills=st["chunked_prefills"])
+        check_spec_total(f"20a {what} {mode}", runs)
+        if kw and not runs["plain"]["chunked_prefills"]:
+            raise AssertionError(f"20a {what} sampled: no prompt chunked")
+        for arm, x in runs.items():
+            log(f"  20a {what} {mode} {arm}: tokens identical to the plain "
+                f"engine's {x['identical_to_plain']}, decode steps "
+                f"{x['decode_steps']} (verifies {x['spec_steps']}), "
+                f"acceptance {x['acceptance']}, target steps a token "
+                f"{x['target_steps_per_token']:.3f}, flash_decode launches "
+                f"{x['flash_decode_launches']}")
+        bad = [a for a, x in runs.items() if not x["identical_to_plain"]]
+        if bad:
+            raise AssertionError(f"20a {what} {mode}: {bad} gave other "
+                                 f"tokens than the plain engine")
+        if mode == "greedy" and runs["self_draft"][
+                "target_steps_per_token"] >= SPEC_STEP_RATIO:
+            raise AssertionError(f"20a {what}: the self-draft took "
+                                 f"{runs['self_draft']} target steps a token")
+        out[mode] = {a: {k: v for k, v in x.items() if k != "tokens"}
+                     for a, x in runs.items()}
+    return out
+
+
+def token_share(a, b):
+    """The share of positions where two runs' tokens agree."""
+    pairs = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def spec_latency(model, fd, Engine, SpecConfig, ledger, draft):
+    """20b: phase 5's prompts (``workload(vocab, seed=1)``) served one at a
+    time, 48 new tokens each, greedy, ``flash_decode=True``, on phase 5's
+    geometry: the plain engine and the n-gram, self-draft and small-draft
+    arms at k = 4. Each run finishes every request with 48 tokens and
+    obeys ``check_spec_launches``; the self-draft takes fewer than
+    ``SPEC_STEP_RATIO`` target steps a token. Returns per arm the printed
+    numbers."""
+    n = model.config.num_hidden_layers
+    reqs = [(p, {}) for p in workload(model.config.vocab_size, seed=1)]
+    smi = smi_line()
+    runs, plain = {}, None
+    for arm, spec in (("plain", None),
+                      ("ngram", SpecConfig(draft="ngram", k=SPEC_K)),
+                      ("self_draft", SpecConfig(draft=model, k=SPEC_K)),
+                      ("small_draft", SpecConfig(draft=draft, k=SPEC_K))):
+        r = spec_run(model, fd, Engine, reqs, SPEC_SERIAL_NEW, serial=True,
+                     **SERVE_GEO, flash_decode=True, speculative=spec)
+        check_spec_launches(f"20b {arm}", n, r)
+        # the handles hold their engine: drop them before the next arm's
+        # peak-memory reading
+        st, led = r["stats"], ledger(r.pop("handles"))
+        plain = plain or r["tokens"]
+        runs[arm] = dict(
+            itl_ms_p50=led["itl_ms_p50"], itl_ms_p95=led["itl_ms_p95"],
+            tokens_per_s=led["tokens_per_sec"], wall_s=r["wall_s"],
+            target_steps_per_token=steps_per_token(st),
+            acceptance=st["spec_acceptance_rate"],
+            draft_steps=st["draft_steps"], decode_steps=st["decode_steps"],
+            verifies=st["spec_steps"], flash_decode_launches=r["launches"],
+            peak_gib=r["peak_gib"],
+            token_share_vs_plain=token_share(r["tokens"], plain))
+        log(f"  20b {arm}: " + json.dumps(runs[arm]) + f" ({smi})")
+    check_spec_total("20b", runs)
+    if runs["self_draft"]["target_steps_per_token"] >= SPEC_STEP_RATIO:
+        raise AssertionError(f"20b: the self-draft took "
+                             f"{runs['self_draft']} target steps a token")
+    return runs
+
+
+def seq_logprob(model, full, prompt_len):
+    """Per row, the sum of log p(token_t | prefix) over the generated
+    tokens (fp64 log-softmax of the model's logits)."""
+    with torch.inference_mode():
+        logp = torch.log_softmax(model(full).double(), dim=-1)
+    tgt = full[:, prompt_len:]
+    return logp[:, prompt_len - 1:-1].gather(
+        -1, tgt[..., None])[..., 0].sum(dim=1).tolist()
+
+
+def beam_checks(model, beam_search_generate, ids, logprob=False):
+    """20c on one model: ``generate(ids, 32 new, num_beams=4)`` timed with
+    its peak memory; ``beam_search_generate(num_beams=1)`` equal to greedy
+    ``generate`` token for token; with ``logprob``, each row's beam-4
+    sequence log-prob at least greedy's - ``BEAM_LOGPROB_TOL``."""
+    free_cycles()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    beam = model.generate(ids, max_new_tokens=BEAM_NEW, num_beams=4)
+    torch.cuda.synchronize()
+    out = dict(beam4_wall_s=time.perf_counter() - t0,
+               beam4_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    greedy = model.generate(ids, max_new_tokens=BEAM_NEW)
+    one = beam_search_generate(model, ids, max_new_tokens=BEAM_NEW,
+                               num_beams=1)
+    out["beam1_equals_greedy"] = bool(torch.equal(one, greedy))
+    if not out["beam1_equals_greedy"]:
+        raise AssertionError("20c: num_beams=1 is not greedy generate")
+    if tuple(beam.shape) != (ids.shape[0], ids.shape[1] + BEAM_NEW):
+        raise AssertionError(f"20c: beam output {tuple(beam.shape)}")
+    if logprob:
+        L0 = ids.shape[1]
+        sb, sg = seq_logprob(model, beam, L0), seq_logprob(model, greedy, L0)
+        out.update(beam4_logprob=sb, greedy_logprob=sg)
+        if not all(b >= g - BEAM_LOGPROB_TOL for b, g in zip(sb, sg)):
+            raise AssertionError(f"20c: a beam-4 sequence scored below "
+                                 f"greedy's: {sb} vs {sg}")
+    return out
+
+
+def phase_spec(model, fd, Engine, SpecConfig, ledger, beam_search_generate,
+               LlamaConfig, LlamaForCausalLM, GPTConfig, GPTForCausalLM,
+               seed, device="cuda"):
+    """Phase 20 on phase 4's Llama-2-7B (bf16, full depth): 20b
+    (``spec_latency``, with ``bench.py:bench_llama``'s 0.5B widths at 8
+    layers as the small draft, random weights from seed 1) and 20c's
+    beam search; then 20a (``spec_identity``) on the fp32 twins, Llama-2-7B
+    widths at 2 layers and GPT-2 small, and 20c's log-prob check on the
+    Llama twin. Returns (row 4's launches: 20a by model, mode and arm, and
+    20b by arm; the printed numbers)."""
+    out = {}
+    seed(1)
+    draft = LlamaForCausalLM(LlamaConfig(**COMM_CELL), device=device)
+    out["20b"] = spec_latency(model, fd, Engine, SpecConfig, ledger, draft)
+    del draft
+    ids = torch.from_numpy(np.random.default_rng(21).integers(
+        0, model.config.vocab_size, BEAM_SHAPE)).to(device)
+    out["20c"] = beam_checks(model, beam_search_generate, ids)
+    log("  20c Llama-2-7B bf16 " + json.dumps(out["20c"]) + f" "
+        f"({smi_line()})")
+    twins = {
+        "llama": (LlamaForCausalLM, dataclasses.replace(
+            model.config, dtype="float32", num_hidden_layers=2)),
+        "gpt2": (GPTForCausalLM, GPTConfig(dtype="float32"))}
+    for what, (cls, cfg) in twins.items():
+        seed(0)
+        twin = cls(cfg, device=device)
+        if what == "gpt2":
+            twin.eval()
+        out[f"20a_{what}"] = spec_identity(twin, fd, Engine, SpecConfig, what)
+        if what == "llama":
+            out["20c_fp32"] = beam_checks(twin, beam_search_generate, ids,
+                                          logprob=True)
+            log("  20c fp32 twin " + json.dumps(out["20c_fp32"]))
+        del twin
+        free_cycles()
+    launches = dict(
+        **{f"20a_{w}_{m}_{a}": x["flash_decode_launches"]
+           for w in twins for m, arms in out[f"20a_{w}"].items()
+           for a, x in arms.items()},
+        **{f"20b_{a}": x["flash_decode_launches"]
+           for a, x in out["20b"].items()})
+    return launches, out
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5177,11 +5504,13 @@ def main():
     from paddle_tpu_torch.nn import quant as tq
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.serving import Engine, ledger
+    from paddle_tpu_torch.serving import Engine, SpecConfig, ledger
+    from paddle_tpu_torch.text.generation import beam_search_generate
     from paddle_tpu_torch.text.models import (ErnieMoEConfig,
                                               ErnieMoEForPretraining,
                                               GPTConfig, GPTForCausalLM)
     from paddle_tpu_torch.text.models.llama import (LLAMA2_7B, LLAMA_TINY,
+                                                    LlamaConfig,
                                                     LlamaForCausalLM)
 
     # ---- 2. build -----------------------------------------------------------
@@ -5227,6 +5556,20 @@ def main():
         "temperature 0.6; then kv_layout='slot', greedy")
     sampled_launches, sampled = phase_sampled(model, fd, Engine, ledger)
     log("  sampled serving " + json.dumps(sampled))
+
+    # ---- 20. speculative decoding and beam search (phase 4's model) --------
+    log(f"[20] speculative decoding (k={SPEC_K}) and beam search: 20b "
+        f"Llama-2-7B bf16, phase 5's prompts one at a time, "
+        f"{SPEC_SERIAL_NEW} new tokens, greedy, flash_decode=True: plain, "
+        f"n-gram, self-draft and a 0.5B-width 8-layer draft; 20c "
+        f"generate(ids{list(BEAM_SHAPE)}, {BEAM_NEW} new, num_beams=4); 20a "
+        f"fp32 twins (Llama-2-7B widths at 2 layers, GPT-2 small), "
+        f"{SPEC_GEO}, greedy then sampled + chunked: plain, n-gram, "
+        f"self-draft and hostile")
+    spec_launches, spec = phase_spec(
+        model, fd, Engine, SpecConfig, ledger, beam_search_generate,
+        LlamaConfig, LlamaForCausalLM, GPTConfig, GPTForCausalLM, pt.seed)
+    log("  speculative decoding " + json.dumps(spec))
 
     # ---- 10. PTQ Llama-2-7B (phase 4's model) ------------------------------
     log("[10] PTQ Llama-2-7B, 32 layers: PostTrainingQuantization -> "
@@ -5301,7 +5644,6 @@ def main():
         f"layers, 16 heads, FFN 5504, {SEP_BATCH[0]}x{SEP_BATCH[1]}, bf16, "
         f"selective remat, AdamW) at world 1, then sep {SEP_DEGREE} ring and "
         f"Ulysses as two ranks on cuda:0 over gloo")
-    from paddle_tpu_torch.text.models.llama import LlamaConfig
     sep = phase_sep(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet,
                     optimizer, pt.seed)
     log("  sequence parallel " + json.dumps(sep))
@@ -5364,6 +5706,7 @@ def main():
              source="paddle_tpu_torch/csrc/flash_decode.cu",
              replaces="paddle_tpu/ops/pallas/flash_decode.py:100",
              launches=fd_launches, launches_sampled=sampled_launches,
+             launches_speculative=spec_launches,
              max_abs_err=errs["flash_decode"],
              max_err=errs["flash_decode"],
              **{k: t["flash_decode"][k] for k in cols + first},

@@ -47,6 +47,12 @@ Counterpart of ``paddle_tpu/serving/engine.py``:
   (``distributed.collective_matmul``): 2 x layers + 1 collectives a
   decode step. The JAX engine's three ``shard_map`` programs have no twin
   here: SPMD processes need none.
+- ``speculative=SpecConfig(...)`` (paged, one rank) is draft-verify
+  decoding (``serving/speculative.py``: n-gram, custom or model drafts):
+  each step the slots with a proposal verify it in one chunk-shaped pass
+  (``_spec_verify_impl``), the others take the plain decode step (the
+  flash-decode kernel under ``flash_decode=True``); the emitted tokens
+  are the non-speculative engine's, greedy and sampled.
 
 Host bookkeeping (scheduler, block tables, radix, positions) is numpy.
 The keys ``[n_slots, 2]``, temperatures and vocab masks live on the
@@ -55,8 +61,8 @@ copy and reads the sampled tokens back once: that read is the step's only
 device synchronisation, with or without sampling.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): speculative decoding, ``adopt``/supervisor/fleet
-and AOT program handles. Tracing spans are not emitted. A seed is taken
+``ROADMAP.md`` item): ``adopt``/supervisor/fleet and AOT program
+handles. Tracing spans are not emitted. A seed is taken
 modulo 2^32 (the JAX engine's ``np.uint32(seed)`` refuses one outside
 ``[0, 2^32)``).
 """
@@ -77,6 +83,7 @@ from ..text import generation as G
 from .kv_cache import PagedKVCache, SlotKVCache
 from .metrics import EngineMetrics, RequestMetrics
 from .scheduler import EngineOverloaded, PriorityScheduler
+from .speculative import SpecConfig, make_runtime
 
 __all__ = ["Engine", "RequestHandle", "EngineOverloaded", "RequestTimeout",
            "RequestCancelled", "DEFAULT_RETRY_AFTER_S"]
@@ -264,6 +271,61 @@ def _paged_chunk_impl(arch, kc, vc, keys, ids, chunk_start, n_prompt, slot,
                         do_sample=do_sample, top_k=top_k, top_p=top_p)
 
 
+def _spec_verify_impl(arch, kc, vc, keys, ids, start, slot, table_row,
+                      n_write, temp, vmask, *, do_sample, top_k, top_p,
+                      block_size):
+    """Speculative verify: ONE pass over one slot's draft chunk, scoring
+    k+1 positions (the chunk layers, as ``verify_layer``). ``ids`` [1, k+1]
+    = [last emitted token, d_1..d_k] at positions ``start + j``; their K/V
+    go in place through the slot's table row, positions at or past
+    ``n_write`` (past the draft's width) to the trash block. The vocab
+    mask applies as in decode.
+
+    From the slot's current key ``keys[slot]``, position j samples with
+    exactly the split the non-speculative decode step would consume:
+    ``key, sk = split(key)``, then filter and sample with ``sk``. Returns
+    the k+1 samples [k+1] and the key after each split [k+1, 2] (the
+    engine accepts the drafts that equal their samples and restores the
+    slot's key to the one after the last emitted token). With ``keys``
+    None (a greedy engine, whose keys nothing reads) no chain is made
+    and None is returned for it."""
+    K1 = ids.shape[1]
+    bs = block_size
+    j = torch.arange(K1, device=ids.device)
+    gpos = start + j
+    # padded positions may run past the table: they write nowhere real
+    blk = table_row[(gpos // bs).clamp(max=table_row.shape[0] - 1)]
+    wdest = torch.where(j < n_write, blk * bs + gpos % bs, gpos % bs)
+    x = arch.embed(ids, gpos)
+    for l, lw in enumerate(arch.layers):
+        x = arch.verify_layer(x, lw, kc[l], vc[l], table_row, gpos, wdest,
+                              bs)
+    logits = arch.logits(x[0])
+    logits = torch.where(vmask[None] > 0, logits, float("-inf"))
+    logits_f = G._filter_logits(logits, temp, do_sample, top_k, top_p)
+    if keys is None:
+        return torch.argmax(logits_f, dim=-1), None
+    key, chain, sks = keys[slot], [], []
+    for _ in range(K1):
+        key, sk = _prng.split(key)
+        chain.append(key)
+        sks.append(sk)
+    if do_sample:
+        samples = _prng.categorical_rows(torch.stack(sks), logits_f)
+    else:
+        samples = torch.argmax(logits_f, dim=-1)
+    return samples, torch.stack(chain)
+
+
+def _accept_len(samples, props):
+    """How many draft tokens a verify accepts: the longest prefix of
+    ``props`` equal to the chain's samples."""
+    m = 0
+    while m < len(props) and samples[m] == props[m]:
+        m += 1
+    return m
+
+
 # ---------------------------------------------------------------------------
 # requests and the engine
 # ---------------------------------------------------------------------------
@@ -353,7 +415,11 @@ class Engine:
     the JAX engine does, and copies only this rank's shards to that
     device, so the model may stay on the CPU. Paged layout only; tp must
     divide the heads, KV heads, vocabulary, FFN and hidden sizes;
-    ``flash_decode`` is refused, as in JAX.
+    ``flash_decode`` and ``speculative`` are refused, as in JAX.
+
+    ``speculative=SpecConfig(...)`` decodes draft-verify (paged layout;
+    ``TypeError`` for anything but a ``SpecConfig``). A model draft must
+    be of the target's family and vocabulary and on its device.
 
     The SPMD contract under tp: every rank of the tp group builds the
     engine with the same arguments and runs the same driver, calling
@@ -382,9 +448,6 @@ class Engine:
             mesh = self._check_tp(mesh, arch, kv_layout)
         elif mesh is not None:
             raise ValueError("mesh= requires tp > 1")
-        if speculative is not None:
-            raise _not_in_slice("speculative decoding", "speculative "
-                                "decoding")
         if kv_layout not in ("paged", "slot"):
             raise ValueError("kv_layout must be 'paged' or 'slot'")
         self.flash_decode = bool(flash_decode)
@@ -395,6 +458,19 @@ class Engine:
             raise ValueError("flash_decode is not supported with tp > 1 "
                              "yet (the TP decode shards attention over "
                              "the mesh)")
+        # speculative decoding: the verify writes through block tables,
+        # and the TP decode shards attention over the mesh
+        self.spec = speculative
+        if self.spec is not None:
+            if not isinstance(self.spec, SpecConfig):
+                raise TypeError("speculative= takes a SpecConfig")
+            if kv_layout != "paged":
+                raise ValueError("speculative decoding requires "
+                                 "kv_layout='paged' (the verify program "
+                                 "writes through block tables)")
+            if self.tp > 1:
+                raise ValueError("speculative decoding is not supported "
+                                 "with tp > 1 yet")
         c = model.config
         self.device = model.device
         if self.tp > 1:
@@ -467,6 +543,13 @@ class Engine:
                 g["kv_pool_bytes_per_device"]
             self.metrics.collectives_per_decode_step = \
                 g["collectives_per_decode_step"]
+        # the speculative ledger: the verify has run; a model draft's
+        # prefill buckets and fused decode
+        self.verify_used = False
+        self.draft_buckets_seen = set()
+        self.draft_decode_used = False
+        self._spec = (None if self.spec is None
+                      else make_runtime(self, self.spec))
 
     # -- tensor parallelism ---------------------------------------------------
 
@@ -761,6 +844,8 @@ class Engine:
         if self.prefix_sharing:
             self.cache.commit_prefix(slot, full)
         self._emit(h, tok0)
+        if self._spec is not None and not h.finished:
+            self._spec.on_admit(h, full)
         return True
 
     def _chunk_tick(self):
@@ -796,6 +881,8 @@ class Engine:
             if self.prefix_sharing:
                 self.cache.commit_prefix(h.slot, cs.ids)
             self._emit(h, tok0)
+            if self._spec is not None and not h.finished:
+                self._spec.on_admit(h, cs.ids)
 
     # -- paged pool pressure ------------------------------------------------
 
@@ -884,8 +971,9 @@ class Engine:
         """One engine iteration: expire overdue requests, admit waiting
         ones, advance ONE chunk of the oldest chunked prefill, then
         advance every decode-active slot one token with the fused decode
-        step (paged: preempting first on pool exhaustion). Returns the
-        number of requests that decoded this step."""
+        step (paged: preempting first on pool exhaustion; speculative:
+        ``_spec_step``). Returns the number of requests that decoded this
+        step."""
         self._expire()
         self._admit()
         paged = self.kv_layout == "paged"
@@ -907,6 +995,8 @@ class Engine:
         n_active = int(active.sum())
         if not n_active:
             return 0
+        if self._spec is not None:
+            return self._spec_step(active, n_active)
         self._decode_once(active)
         return n_active
 
@@ -936,6 +1026,113 @@ class Engine:
         self.metrics.mark_decode(time.perf_counter() - t0)
         for slot in np.nonzero(active)[0]:
             self._emit(self._by_slot[int(slot)], int(toks[slot]))
+
+    # -- speculative decoding (serving/speculative.py) -------------------------
+
+    def _ensure_spec_capacity(self, h, k_eff):
+        """Reserve writable blocks for the verify's k_eff + 1 candidate
+        lines (positions cur..cur+k_eff), preempting as the decode path
+        does on pool exhaustion. False when ``h`` itself was preempted on
+        the way (its verify is skipped)."""
+        base = int(self.cache.cur_pos[h.slot])
+        for pos in range(base, base + k_eff + 1):
+            while not self.cache.ensure(h.slot, pos):
+                victim = self._pick_preempt_victim(exclude=h)
+                if victim is None:
+                    return False     # lone request: the cap keeps it
+                self._preempt(victim)
+                if h.slot is None:
+                    return False
+        return True
+
+    def _spec_step(self, active, n_active):
+        """One speculative iteration: propose up to k tokens for every
+        slot that may take more than one (n-gram lookup or the draft
+        model's fused steps), run the plain decode step for the slots
+        with no proposal first, then verify each proposing slot's chunk
+        in one pass and emit its accepted drafts and one chain sample:
+        between 1 and k+1 tokens a slot, each the non-speculative
+        engine's."""
+        k = self.spec.k
+        cand, plain = [], np.zeros(self.n_slots, bool)
+        for slot in np.nonzero(active)[0]:
+            slot = int(slot)
+            h = self._by_slot[slot]
+            if h is None:
+                continue
+            remaining = h.max_new_tokens - len(h.tokens)
+            p = int(self.cache.cur_pos[slot])
+            k_cap = min(k, remaining - 1, self.max_len - 1 - p)
+            if k_cap >= 1:
+                cand.append((h, k_cap))
+            else:
+                plain[slot] = True
+        proposals = self._spec.propose_all(cand) if cand else {}
+        plan = []
+        for h, k_cap in cand:
+            props = proposals.get(h.slot)
+            if props is None or len(props) == 0:
+                plain[h.slot] = True
+            else:
+                plan.append((h, np.asarray(props[:k_cap], np.int32)))
+        if plain.any():
+            self._decode_once(plain)
+        for h, props in plan:
+            if h.finished or h.slot is None:
+                continue        # finished or preempted earlier this step
+            if not self._ensure_spec_capacity(h, len(props)):
+                continue        # preempted while reserving its lines
+            self._verify_one(h, props)
+        return n_active
+
+    def _verify_one(self, h, props):
+        """Verify one slot's draft chunk and emit the accepted drafts and
+        the chain's next sample (see ``_spec_verify_impl``). The samples
+        come back in one read, the verify's one synchronisation."""
+        slot, k_eff = h.slot, len(props)
+        p = int(self.cache.cur_pos[slot])
+        K1 = self.spec.k + 1
+        ids = np.zeros(K1, np.int32)
+        ids[0] = h.tokens[-1]
+        ids[1:1 + k_eff] = props
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            # the ids and the slot's table row travel in one int32 copy
+            buf = torch.from_numpy(np.concatenate(
+                [ids, self.cache.block_tables[slot]])).to(self.device)
+            samples, chain = _spec_verify_impl(
+                self._arch, self.cache.kc, self.cache.vc,
+                self._keys if self._statics["do_sample"] else None,
+                buf[None, :K1], p, slot, buf[K1:], k_eff + 1,
+                self._temps[slot], self._vmask[slot], **self._paged_statics)
+            samples = samples.cpu().numpy()
+        self.verify_used = True
+        m = _accept_len(samples, props)
+        e = m + 1           # the accepted drafts + the chain's own sample
+        self.metrics.mark_decode(time.perf_counter() - t0, tokens=e)
+        self.metrics.spec_steps += 1
+        self.metrics.spec_proposed_tokens += k_eff
+        self.metrics.spec_accepted_tokens += m
+        self.metrics.spec_emitted_tokens += e
+        for t in (*props[:m], samples[m]):
+            self._emit(h, int(t))
+            if h.finished:
+                return
+        self._rewind(h, p, e, samples, chain)
+
+    def _rewind(self, h, p, e, samples, chain):
+        """After a verify that emitted ``e`` tokens the slot continues as if
+        it had taken e decode steps: its next token is the last emitted
+        sample, its position p + e (rejected candidate lines lie past it,
+        behind the causal bound, and the decode step overwrites a line
+        before it reads it), its key the chain's after the e-th split."""
+        slot = h.slot
+        self._tok[slot] = samples[e - 1]
+        self.cache.cur_pos[slot] = p + e
+        if chain is not None:
+            with torch.inference_mode():
+                self._keys[slot] = chain[e - 1]
+        self._spec.after_verify(h, int(samples[e - 1]), p + e)
 
     def _emit(self, h, token):
         h.tokens.append(token)
@@ -1001,6 +1198,15 @@ class Engine:
                "device": str(self.device)}
         if self.kv_layout == "paged":
             out.update(self.cache.pool_stats())
+        if self.spec is not None:
+            ar = self.metrics.acceptance_rate()
+            out["speculative"] = {
+                "k": self.spec.k, "draft": self.spec.draft_kind(),
+                "verify_used": self.verify_used,
+                "draft_buckets_seen": sorted(self.draft_buckets_seen),
+                "draft_decode_used": self.draft_decode_used,
+                "acceptance_rate": (None if ar is None
+                                    else round(ar, 4))}
         if self.tp > 1:
             out["mesh"] = self.tp_geometry()
         return out

@@ -3,10 +3,12 @@
 Counterpart of ``paddle_tpu/serving/metrics.py``: per request TTFT
 (submit -> first token out of prefill), inter-token latencies and
 tokens/sec; per engine, slot occupancy and queue depth sampled every
-step, admission/eviction counters and the decode-step ITL histogram.
-``Histogram`` is the port's own copy of the part of
-``paddle_tpu/observability/metrics.py:Histogram`` the engine uses (the
-rolling-window percentile; no cumulative export, no registry).
+step, admission/eviction counters, the speculative-decoding ledger
+(verify and draft steps, proposed/accepted/emitted tokens) and the
+per-emitted-token ITL histogram. ``Histogram`` is the port's own copy of
+the part of ``paddle_tpu/observability/metrics.py:Histogram`` the engine
+uses (the rolling-window percentile and the cumulative count and sum; no
+bucket export, no registry).
 
 Host clock only: a decode step's wall time ends at the engine's one
 device->host read of the sampled tokens, so on the GPU it includes the
@@ -35,9 +37,13 @@ class Histogram:
         self._hot = [0] * (len(self.bounds) + 1)       # last slot: +Inf
         self._cold = [0] * (len(self.bounds) + 1)
         self._hot_n = 0
+        self.count = 0                # every observation, cumulative
+        self.sum = 0.0
 
     def observe(self, v):
         i = bisect.bisect_left(self.bounds, float(v))
+        self.count += 1
+        self.sum += float(v)
         if self._hot_n >= self.window // 2:
             self._cold = self._hot
             self._hot = [0] * len(self._cold)
@@ -138,6 +144,14 @@ class EngineMetrics:
         self.pool_occupancy_sum = 0.0  # used/total blocks per sample
         self.pool_samples = 0
         self.pool_low_watermark = None  # min free blocks ever seen
+        # speculative decoding (zero on non-speculative engines): verify
+        # calls, fused draft-decode steps, and the proposed / accepted /
+        # emitted token ledger behind acceptance_rate
+        self.spec_steps = 0
+        self.draft_steps = 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_emitted_tokens = 0
         # decode-step wall times: the ~64-observation rolling window
         # drives the live ITL p50/p95 behind EngineOverloaded.retry_after_s
         self.itl_hist = Histogram(window=64)
@@ -167,10 +181,24 @@ class EngineMetrics:
             return None
         return self.prefix_hit_tokens / self.prompt_tokens
 
-    def mark_decode(self, duration_s):
-        """Record one fused decode step (one token per active request)."""
+    def mark_decode(self, duration_s, tokens=1):
+        """Record one target-model step (a fused decode step or a
+        speculative verify) that emitted ``tokens`` tokens per request in
+        it: the ITL histogram takes ``tokens`` intervals of ``duration_s
+        / tokens``, so its percentiles stay per emitted token (and at
+        ``tokens=1`` are what they were before speculation)."""
         self.decode_steps += 1
-        self.itl_hist.observe(duration_s)
+        n = max(int(tokens), 1)
+        per = duration_s / n
+        for _ in range(n):
+            self.itl_hist.observe(per)
+
+    def acceptance_rate(self):
+        """Fraction of proposed draft tokens the verify accepted; None
+        before any speculative step."""
+        if not self.spec_proposed_tokens:
+            return None
+        return self.spec_accepted_tokens / self.spec_proposed_tokens
 
     def itl_estimate(self):
         """Rolling-window median decode-step wall time (seconds), None
@@ -187,7 +215,15 @@ class EngineMetrics:
         itl = self.itl_estimate()
         p95 = self.itl_p95()
         hr = self.prefix_hit_rate()
+        ar = self.acceptance_rate()
         return {
+            "spec_steps": self.spec_steps,
+            "draft_steps": self.draft_steps,
+            "spec_proposed_tokens": self.spec_proposed_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_emitted_tokens": self.spec_emitted_tokens,
+            "spec_acceptance_rate": (None if ar is None
+                                     else round(ar, 4)),
             "requests_submitted": self.requests_submitted,
             "requests_completed": self.requests_completed,
             "requests_rejected": self.requests_rejected,

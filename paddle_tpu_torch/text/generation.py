@@ -6,9 +6,12 @@ Counterpart of ``paddle_tpu/text/generation.py`` on one device: ``_rms``,
 ``_llama_decode_layer``, ``_gpt_prefill_layer`` and ``_gpt_decode_layer``;
 the paged bodies ``_paged_view``, ``_paged_decode_attention``,
 ``_llama_decode_layer_paged``, ``_gpt_decode_layer_paged``,
-``_llama_chunk_layer`` and ``_gpt_chunk_layer``; and batch ``generate()``
-/ ``gpt_generate()`` (``_generate`` stands for both ``_generate_jit`` and
-``_gpt_generate_jit``). The serving engine and ``generate()`` run the
+``_llama_chunk_layer`` and ``_gpt_chunk_layer``, and the speculative
+verify layers ``_llama_verify_layer`` and ``_gpt_verify_layer`` (the chunk
+layers under the verify name, as in JAX); batch ``generate()`` /
+``gpt_generate()`` (``_generate`` stands for both ``_generate_jit`` and
+``_gpt_generate_jit``) and ``beam_search_generate`` (``_beam_generate``
+for ``_beam_generate_jit``). The serving engine and ``generate()`` run the
 same bodies, as in the JAX package, through an arch object
 (``arch_for``: ``_LlamaArch`` or ``_GPTArch``, the counterpart of the
 JAX engine's ``_make_arch`` and of the ``arch`` branches of its
@@ -24,8 +27,7 @@ bodies return updated caches). ``layer_weights`` and
 ``gpt_layer_weights`` take the place of ``_stacked_weights`` and
 ``_gpt_stacked_weights``: a list of per-layer dicts that reference the
 module's parameters. Stacking would copy every weight (13.5 GB more at
-7B), and a Python loop over layers needs no stacked operand. Beam search
-is not ported (``ROADMAP.md``, port queue item 3).
+7B), and a Python loop over layers needs no stacked operand.
 
 Tensor parallelism (``Engine(tp=N)``): the placement rules
 ``_llama_tp_specs``, ``_gpt_tp_specs`` and ``_gpt_qkv_tp_permutation``
@@ -62,7 +64,7 @@ from .models.gpt import GPTForCausalLM, _gpt_qkv_tp_permutation
 from .models.llama import LlamaForCausalLM, _rope
 
 __all__ = ["arch_for", "layer_weights", "gpt_layer_weights", "generate",
-           "gpt_generate"]
+           "gpt_generate", "beam_search_generate"]
 
 
 def _check_unsplit(model):
@@ -430,6 +432,19 @@ def _llama_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
     return _llama_mlp(x, lw, eps, group)
 
 
+def _llama_verify_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
+                        n_heads, n_kv, eps, theta, block_size):
+    """One Llama layer over a speculative VERIFY chunk: one slot's last
+    emitted token and its k draft tokens at positions ``gpos`` [k+1],
+    their K/V in place at ``wdest`` (positions past the draft's width
+    redirected to the trash block), attending over the slot's gathered
+    view under the causal bound. The chunk layer itself: a verify is a
+    (k+1)-token chunk, so there is one body to keep equal to prefill."""
+    return _llama_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos,
+                              wdest, n_heads=n_heads, n_kv=n_kv, eps=eps,
+                              theta=theta, block_size=block_size)
+
+
 # ---------------------------------------------------------------------------
 # GPT (pre-LN, learned positions, one fused qkv projection)
 # ---------------------------------------------------------------------------
@@ -554,16 +569,25 @@ def _gpt_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
     return _gpt_tail(x, o, lw, group)
 
 
+def _gpt_verify_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest, *,
+                      n_heads, block_size):
+    """One GPT block over a speculative verify chunk (see
+    ``_llama_verify_layer``): the chunk layer."""
+    return _gpt_chunk_layer(x, lw, kc_pool, vc_pool, table_row, gpos, wdest,
+                            n_heads=n_heads, block_size=block_size)
+
+
 # ---------------------------------------------------------------------------
 # the arch dispatch: generate() and the serving engine's programs
 # ---------------------------------------------------------------------------
 
 class _Arch:
     """What ``generate()`` and the engine's programs need of a model:
-    its per-layer weights (``layers``), head counts (the model's, not a
+    its family (``name``, JAX's ``arch`` static), its per-layer weights (``layers``), head counts (the model's, not a
     rank's), FFN width, KV dtype, vocabulary, position table
     (``max_pos``, None where positions have no table), and how a token
-    enters (``embed``), passes one layer in each KV layout, and leaves
+    enters (``embed``), passes one layer in each KV layout (and a
+    speculative verify chunk, ``verify_layer``), and leaves
     (``logits``).
 
     With a tp ``group`` of several ranks the arch holds this rank's
@@ -587,6 +611,8 @@ class _Arch:
 
 
 class _LlamaArch(_Arch):
+    name = "llama"
+
     def __init__(self, model, group=None, device=None):
         c = model.config
         w = layer_weights(model)
@@ -624,8 +650,15 @@ class _LlamaArch(_Arch):
                                   block_size=block_size, group=self.group,
                                   **self.hp)
 
+    def verify_layer(self, x, lw, kc, vc, table_row, gpos, wdest,
+                     block_size):
+        return _llama_verify_layer(x, lw, kc, vc, table_row, gpos, wdest,
+                                   block_size=block_size, **self.hp)
+
 
 class _GPTArch(_Arch):
+    name = "gpt"
+
     def __init__(self, model, group=None, device=None):
         c = model.config
         w = gpt_layer_weights(model)
@@ -670,6 +703,11 @@ class _GPTArch(_Arch):
         return _gpt_chunk_layer(x, lw, kc, vc, table_row, gpos, wdest,
                                 n_heads=self.n_heads, block_size=block_size,
                                 group=self.group)
+
+    def verify_layer(self, x, lw, kc, vc, table_row, gpos, wdest,
+                     block_size):
+        return _gpt_verify_layer(x, lw, kc, vc, table_row, gpos, wdest,
+                                 n_heads=self.n_heads, block_size=block_size)
 
 
 def arch_for(model, group=None, device=None):
@@ -795,3 +833,110 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False, top_k=0,
 
 #: ``paddle_tpu``'s name for GPT generation; ``generate`` takes both archs
 gpt_generate = generate
+
+
+# ---------------------------------------------------------------------------
+# beam search
+# ---------------------------------------------------------------------------
+
+def _top_k_first_index(x, k):
+    """``jax.lax.top_k`` over the last axis: the k largest values, equal
+    values in index order (a stable descending sort; ``torch.topk`` leaves
+    the order of ties open). Returns (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _beam_generate(arch, ids, *, max_new, num_beams, eos_id, length_penalty):
+    """``_beam_generate_jit``'s counterpart: the prompt prefilled once per
+    row, its K/V tiled to ``num_beams`` beams folded into the batch dim of
+    the slot caches; each step extends every beam by the top
+    ``num_beams`` of all (beam, token) continuations of the summed fp32
+    log-probs, and the caches, tokens and eos flags follow their beams. A
+    beam that emitted eos extends only with eos, at an unchanged score.
+    The best beam of each row by ``score / length ** length_penalty``
+    (length: through the first eos). ids [B, L0]; returns int64 [B, L0 +
+    max_new]."""
+    B, L0 = ids.shape
+    K = num_beams
+    dev = ids.device
+    T = L0 + max_new
+    neg = -1e9
+    pos = torch.arange(L0, device=dev)
+    x = arch.embed(ids, pos)
+    kcache, vcache = [], []
+    for lw in arch.layers:
+        x, (k, v) = arch.prefill_layer(x, lw, pos)
+        kc = torch.zeros((B * K, T, arch.n_kv, arch.head_dim),
+                         dtype=arch.dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :L0] = k.repeat_interleave(K, dim=0)
+        vc[:, :L0] = v.repeat_interleave(K, dim=0)
+        kcache.append(kc)
+        vcache.append(vc)
+    logp0 = torch.log_softmax(arch.logits(x[:, -1]).float(), dim=-1)  # [B,V]
+    V = logp0.shape[-1]
+    scores, tok0 = _top_k_first_index(logp0, K)                  # [B, K]
+    toks = torch.zeros((B, K, max_new), dtype=torch.long, device=dev)
+    toks[..., 0] = tok0
+    done = (tok0 == eos_id) if eos_id is not None else torch.zeros(
+        (B, K), dtype=torch.bool, device=dev)
+    if eos_id is not None:
+        frozen = torch.full((V,), neg, dtype=torch.float32, device=dev)
+        frozen[eos_id] = 0.0
+    rows = torch.arange(B, device=dev)[:, None] * K
+    for i in range(1, max_new):
+        write_idx = torch.full((B * K,), L0 + i - 1, dtype=torch.long,
+                               device=dev)
+        xt = arch.embed(toks[..., i - 1].reshape(B * K), write_idx)[:, None]
+        for lw, kc, vc in zip(arch.layers, kcache, vcache):
+            xt = arch.decode_layer(xt, lw, kc, vc, write_idx, write_idx,
+                                   None)
+        logp = torch.log_softmax(arch.logits(xt[:, 0]).float(),
+                                 dim=-1).reshape(B, K, V)
+        if eos_id is not None:
+            logp = torch.where(done[..., None], frozen, logp)
+        total = (scores[..., None] + logp).reshape(B, K * V)
+        scores, idx = _top_k_first_index(total, K)
+        beam = idx // V
+        gidx = (rows + beam).reshape(B * K)
+        kcache = [kc.index_select(0, gidx) for kc in kcache]
+        vcache = [vc.index_select(0, gidx) for vc in vcache]
+        toks = torch.gather(toks, 1, beam[..., None].expand(B, K, max_new))
+        done = torch.gather(done, 1, beam)
+        new_tok = idx % V
+        toks[..., i] = new_tok
+        if eos_id is not None:
+            done = done | (new_tok == eos_id)
+    if eos_id is not None:
+        hit = torch.cat([toks == eos_id,
+                         torch.ones((B, K, 1), dtype=torch.bool,
+                                    device=dev)], dim=2)
+        lengths = torch.argmax(hit.int(), dim=2) + 1
+    else:
+        lengths = torch.full((B, K), max_new, device=dev)
+    ranked = scores / lengths.float() ** torch.tensor(
+        float(length_penalty), dtype=torch.float32, device=dev)
+    best = torch.argmax(ranked, dim=1)
+    return torch.cat([ids.long(), toks[torch.arange(B, device=dev), best]],
+                     dim=1)
+
+
+def beam_search_generate(model, input_ids, max_new_tokens=32, num_beams=4,
+                         eos_token_id=None, length_penalty=1.0):
+    """Beam search for a ``LlamaForCausalLM`` of this package (the
+    HF/PaddleNLP beam semantics of the JAX package's
+    ``beam_search_generate``: length-penalised summed log-probs, finished
+    beams frozen at eos), on the model's device. input_ids [B, L0], every
+    token real context. Returns int64 [B, L0 + max_new_tokens]."""
+    if int(max_new_tokens) < 1:
+        raise ValueError(f"beam_search_generate: max_new_tokens="
+                         f"{max_new_tokens}; want at least 1")
+    arch = arch_for(model)
+    ids = torch.as_tensor(input_ids, device=model.device).long()
+    if ids.dim() == 1:
+        ids = ids[None]
+    with torch.inference_mode():
+        return _beam_generate(arch, ids, max_new=int(max_new_tokens),
+                              num_beams=int(num_beams), eos_id=eos_token_id,
+                              length_penalty=float(length_penalty))

@@ -396,16 +396,30 @@ class LlamaForCausalLM(nn.Module):
                  pad_token_id=None, attention_mask=None):
         """Autoregressive decode with a preallocated KV cache
         (``text.generation.generate``): greedy, or sampled with top-k /
-        top-p from ``seed``. Beam search (``num_beams > 1``) is not
-        ported."""
+        top-p from ``seed``. ``num_beams > 1`` runs beam search
+        (``text.generation.beam_search_generate``; the sampling and
+        padding arguments are ignored there, as in JAX)."""
         if num_beams and num_beams > 1:
-            raise NotImplementedError(
-                "beam search (num_beams > 1) is not in this slice of the "
-                "PyTorch port (ROADMAP.md, port queue: generation beyond "
-                "the engine)")
+            from ..generation import beam_search_generate
+            return beam_search_generate(
+                self, input_ids, max_new_tokens=max_new_tokens,
+                num_beams=num_beams, eos_token_id=eos_token_id,
+                length_penalty=length_penalty)
         from ..generation import generate as _gen
         return _gen(self, input_ids, max_new_tokens=max_new_tokens,
                     do_sample=do_sample, top_k=top_k, top_p=top_p,
                     temperature=temperature, eos_token_id=eos_token_id,
                     seed=seed, pad_token_id=pad_token_id,
                     attention_mask=attention_mask)
+
+    def init_cache(self, batch_size):
+        """An empty KV cache per layer: ``(k, v)`` pairs of ``[batch_size,
+        0, num_key_value_heads, head_dim]`` in the model's dtype, on its
+        device."""
+        c = self.config
+        hd = c.hidden_size // c.num_attention_heads
+        dt = self.llama.embed_tokens.weight.dtype
+        return [tuple(torch.zeros((batch_size, 0, c.num_key_value_heads, hd),
+                                  dtype=dt, device=self.device)
+                      for _ in range(2))
+                for _ in range(c.num_hidden_layers)]

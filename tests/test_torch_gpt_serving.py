@@ -19,7 +19,7 @@ from paddle_tpu.serving import Engine as JaxEngine
 from paddle_tpu.text.models import gpt as jgpt
 from paddle_tpu_torch.distributed import mesh
 from paddle_tpu_torch.framework.io import load_numpy_state_dict
-from paddle_tpu_torch.serving import Engine
+from paddle_tpu_torch.serving import Engine, SpecConfig
 from paddle_tpu_torch.text.models import GPT_TINY, GPTForCausalLM
 
 V = GPT_TINY.vocab_size
@@ -177,12 +177,14 @@ def test_max_len_past_the_position_table_is_refused(models):
 
 def test_out_of_slice_options_still_raise(models):
     _, tm = models
-    # tp=2 serves GPT now (tests/test_torch_serving_tp.py); speculative
-    # decoding stays out under tp too
-    with pytest.raises(NotImplementedError, match="speculative"):
-        Engine(tm, **GEO, tp=2, speculative=object(),
+    # tp=2 serves GPT (tests/test_torch_serving_tp.py) and speculative
+    # decoding serves it on one rank (tests/test_torch_serving_spec.py);
+    # together they are refused, as in JAX, and a speculative= that is not
+    # a SpecConfig is a TypeError
+    with pytest.raises(ValueError, match="not supported with tp > 1"):
+        Engine(tm, **GEO, tp=2, speculative=SpecConfig(),
                mesh=mesh.build_mesh(tp=2, world_size=2, rank=0))
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(TypeError, match="SpecConfig"):
         Engine(tm, **GEO, speculative=object())
     with pytest.raises(TypeError, match="GPTForCausalLM"):
         Engine(torch.nn.Linear(2, 2), **GEO)

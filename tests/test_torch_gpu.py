@@ -36,7 +36,7 @@ from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.ops import ragged_matmul as rm
 from paddle_tpu_torch.ops import stochastic_round as sr
 from paddle_tpu_torch.nn import quant as tq
-from paddle_tpu_torch.serving import Engine
+from paddle_tpu_torch.serving import Engine, SpecConfig
 from paddle_tpu_torch.text.models import (ERNIE_MOE_TINY,
                                           ErnieMoEForPretraining, GPTConfig,
                                           GPTForCausalLM)
@@ -607,6 +607,50 @@ def test_gpt_engine_kernel_and_gathered_paths_token_identical(cuda):
         m(torch.zeros((1, 128), dtype=torch.long, device=cuda))
     assert F.attention_path()["path"] == "flash"
     assert fa.flash_attention.launches == before + cfg.num_hidden_layers
+
+
+@pytest.mark.parametrize("draft", ["ngram", "self"])
+def test_speculative_engine_on_the_card_equals_the_plain_engine(cuda,
+                                                                draft):
+    """The tiny fp32 model with ``flash_decode=True``: the speculative
+    engine (n-gram, and the model as its own draft) gives the plain
+    engine's tokens; its plain decode steps (slots with no proposal, and
+    the last token of each request) run the flash-decode kernel once per
+    layer, all on the split kernel, and its verifies launch it never."""
+    cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
+    pt.seed(0)
+    m = LlamaForCausalLM(cfg, device=cuda)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(10)
+    masks = [np.isin(np.arange(V), [7]), None,
+             np.isin(np.arange(V), [11, 13]), None]
+    prompts = [np.full(9, 7), rng.integers(0, V, 6),
+               np.asarray([11, 13] * 5), rng.integers(0, V, 11)]
+    geo = dict(n_slots=2, max_len=64, min_prompt_bucket=4, block_size=8,
+               flash_decode=True)
+
+    def run(**kw):
+        eng = Engine(m, **geo, **kw)
+        start = fd.flash_decode.launches
+        split = fd.flash_decode.launches_by_variant["split"]
+        hs = []
+        for i, (p, mask) in enumerate(zip(prompts, masks)):
+            if i:
+                eng.step()
+            hs.append(eng.submit(p, max_new_tokens=12, logit_mask=mask))
+        eng.drain()
+        assert eng.cache.check_refcounts()
+        return ([list(h.tokens) for h in hs], eng.stats(),
+                fd.flash_decode.launches - start,
+                fd.flash_decode.launches_by_variant["split"] - split)
+
+    base = run()[0]
+    spec = SpecConfig(draft="ngram" if draft == "ngram" else m, k=4)
+    toks, st, launches, split = run(speculative=spec)
+    assert toks == base
+    assert st["spec_steps"] > 0 and st["spec_accepted_tokens"] > 0
+    want = cfg.num_hidden_layers * (st["decode_steps"] - st["spec_steps"])
+    assert launches == split == want > 0
 
 
 def test_prng_words_on_the_card_equal_the_known_words(cuda):

@@ -117,9 +117,13 @@ def test_generate_with_eos_and_attention_mask_matches_jax(models):
 
 
 def test_beam_search_is_not_in_the_slice(models):
+    """Beam search is ported (tests/test_torch_beam_search.py holds it to
+    JAX's): ``generate(num_beams=2)`` runs and returns [B, L0 +
+    max_new]."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.generate(torch.zeros((1, 4), dtype=torch.long), num_beams=2)
+    got = tm.generate(torch.zeros((1, 4), dtype=torch.long), num_beams=2,
+                      max_new_tokens=3)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (1, 7)
 
 
 def test_generate_refuses_zero_new_tokens_as_jax_does(models):

@@ -22,7 +22,8 @@ from paddle_tpu.text.models.llama import LlamaForCausalLM as JaxLlama
 from paddle_tpu_torch.distributed import mesh
 from paddle_tpu_torch.framework.io import load_numpy_state_dict
 from paddle_tpu_torch.serving import (BlockPool, Engine, EngineOverloaded,
-                                      RadixIndex, RequestCancelled)
+                                      RadixIndex, RequestCancelled,
+                                      SpecConfig)
 from paddle_tpu_torch.text.models.llama import LLAMA_TINY, LlamaForCausalLM
 
 CFG = dataclasses.replace(LLAMA_TINY, dtype="float32")
@@ -172,16 +173,17 @@ def test_block_pool_and_radix_match_jax_classes():
     assert got[0] == got[1]
 
 
-# tp=2 serves since Engine(tp=N) was ported (tests/test_torch_serving_tp.py);
-# speculative decoding stays out, with or without tp (a mesh of two ranks
-# that makes no process group passes the tp checks)
-@pytest.mark.parametrize("kw", [
-    dict(tp=2, mesh=mesh.build_mesh(tp=2, world_size=2, rank=0),
-         speculative=object()),
-    dict(speculative=object())])
-def test_out_of_slice_arguments_raise(models, kw):
+# speculative decoding serves since it was ported
+# (tests/test_torch_serving_spec.py); as in JAX, anything but a SpecConfig
+# is a TypeError and tp > 1 a ValueError (a mesh of two ranks that makes no
+# process group passes the tp checks)
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(tp=2, mesh=mesh.build_mesh(tp=2, world_size=2, rank=0),
+          speculative=SpecConfig()), ValueError, "not supported with tp > 1"),
+    (dict(speculative=object()), TypeError, "SpecConfig")])
+def test_out_of_slice_arguments_raise(models, kw, error, match):
     _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         Engine(tm, **GEO, **kw)
 
 
