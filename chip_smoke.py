@@ -268,6 +268,31 @@ failure raises and exits non-zero before the result line is printed:
     steps a token; on the Llama twin each row's beam-4 sequence log-prob
     at least greedy's - 1e-4.
 
+21. mixed precision and attention dropout (after phase 19),
+    ``phase_amp_train``, ``phase_mha``, ``phase_amp_pair``. 21a:
+    ``bench.py:bench_llama``'s 0.5B Llama with fp32 parameters (hidden
+    2048, 8 layers, 16 heads, FFN 5504, the fused head, AdamW lr 1e-4) on
+    its repeated 4 x 2048 batch, a warm-up + 3 steps in each arm: fp32; O1
+    (``amp_level="O1"``); O1 with a ``GradScaler``; O2 after
+    ``amp.decorate``. Launches by variant a step (``want_amp_launches``):
+    rows 1-3 8 each on the CUDA cores in fp32 and on the tensor cores
+    under O1 and O2, row 5 once, fp32 on the CUDA cores except under O2
+    (JAX's fused head does not cast); losses finite and falling, the
+    bf16 arms within 2e-2 of fp32's; step time, tokens/s and peak memory
+    per arm, and the scaler's host read as the difference of the two O1
+    arms. 21b: the scaler arm takes a step whose loss is inf: found_inf,
+    parameters and the whole optimizer state unchanged bit for bit, the
+    scale halved. 21c: ``nn.MultiHeadAttention`` at BERT-base widths on
+    ``bench_bert``'s 16 x 512 batch (head dim 64), bf16: in eval row 1
+    once on the tensor cores, within 1e-2 of the plain composite; in
+    training (dropout 0.1) the plain composite and no launch; the keep
+    rate over 50M probabilities within 6 binomial sigmas of 0.9. 21d: the
+    0.5B widths at 2 layers under O1 with a scaler, world 1, then
+    ``mp_degree=2`` as two gloo ranks on the card: losses within 1e-2 of
+    world 1, rows 1-3 on the tensor cores and row 5 once per rank and
+    step; an inf planted on rank 1 only makes both ranks skip bit for bit
+    and halve the scale.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
 989e12 bf16 FLOP/s, 1979e12 int8 OP/s and 3.35e12 B/s (H100 SXM data
@@ -5477,6 +5502,382 @@ def phase_spec(model, fd, Engine, SpecConfig, ledger, beam_search_generate,
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: mixed precision and attention dropout
+# ---------------------------------------------------------------------------
+
+AMP_CELL = dict(COMM_CELL, dtype="float32")     # bench_llama's 0.5B, fp32
+AMP_BATCH = (4, 2048)                           # bench_llama's batch
+AMP_ARMS = ("fp32", "o1", "o1_scaler", "o2")
+AMP_LOSS_TOL = 2e-2     # a bf16 arm's losses vs fp32's, relative
+AMP_PAIR_LAYERS = 2     # 21d's depth cut: two ranks' gloo traffic
+MHA_SHAPE = (16, 512, 768, 12)   # bench_bert's batch, seq, BERT-base widths
+MHA_DROPOUT = 0.1
+
+
+def _amp_counters(fa, fc):
+    """The wrappers of rows 1-3 and 5, by kernel name."""
+    return dict(flash_attention_fwd=fa.flash_attention,
+                flash_attention_bwd_dq=fa.flash_attention_bwd_dq,
+                flash_attention_bwd_dkv=fa.flash_attention_bwd_dkv,
+                fused_ce_stats=fc.fused_ce_stats)
+
+
+def _variant_counts(fa, fc):
+    """Rows 1-3 and 5: launches by variant since the last reset."""
+    return {k: dict(f.launches_by_variant)
+            for k, f in _amp_counters(fa, fc).items()}
+
+
+def want_amp_launches(arm, layers):
+    """An arm's launches by variant a step: rows 1-3 once per layer, row 5
+    once. fp32 takes the CUDA cores everywhere; O1 casts q/k/v to bf16 (the
+    tensor cores) and leaves the fused head fp32 (JAX's head does not
+    cast); O2 is bf16 throughout."""
+    attn = "cuda_core" if arm == "fp32" else "tc"
+    head = "tc" if arm == "o2" else "cuda_core"
+    out = {}
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        out[k] = {"tc": 0, "cuda_core": 0, attn: layers}
+    out["fused_ce_stats"] = {"tc": 0, "cuda_core": 0, head: 1}
+    return out
+
+
+class Poison:
+    """The loss function of phase 21's trainers: the model's loss times
+    ``factor`` (1, or inf to plant a non-finite step)."""
+
+    def __init__(self):
+        self.factor = 1.0
+
+    def __call__(self, m, x, y):
+        return m(x, labels=y) * self.factor
+
+
+def amp_trainer(LlamaForCausalLM, cfg, fleet, optimizer, amp, seed, arm,
+                weights=None, device="cuda"):
+    """The 0.5B trainer of one arm: fp32 parameters from seed 0 (or
+    ``weights``), AdamW(lr=1e-4, wd=0.01, multi_precision); "o1" and
+    "o1_scaler" train under ``amp_level="O1"`` (the second with a
+    ``GradScaler``), "o2" after ``amp.decorate`` (bf16 parameters, fp32
+    masters) under ``amp_level="O2"``."""
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    seed(0)
+    model = fleet.distributed_model(LlamaForCausalLM(cfg, device=device))
+    if weights is not None:
+        load_numpy_state_dict(model, weights)
+    if arm == "o2":
+        amp.decorate(model, level="O2")
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01,
+        parameters=model.parameters()))
+    loss_fn = Poison()
+    level = {"fp32": None, "o1": "O1", "o1_scaler": "O1", "o2": "O2"}[arm]
+    scaler = amp.GradScaler() if arm == "o1_scaler" else None
+    step = opt.make_train_step(model, loss_fn, amp_level=level,
+                               scaler=scaler)
+    return model, step, loss_fn
+
+
+def run_amp_steps(fa, fc, step, ids, n, tag):
+    """``n`` steps: (losses, seconds, launches by variant per step)."""
+    losses, secs, per_step = [], [], []
+    for i in range(n):
+        for f in _amp_counters(fa, fc).values():
+            reset_counts(f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, ids)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(_variant_counts(fa, fc))
+        log(f"  {tag}step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{losses[-1]:.6f}, {secs[-1] * 1e3:.1f} ms")
+    return losses, secs, per_step
+
+
+def snapshot(step):
+    """Copies of a train step's parameter blocks and optimizer state."""
+    sd = step.state_dict()
+    return ({k: v.detach().clone() for k, v in sd["params"].items()},
+            {k: {n: t.clone() for n, t in st.items()}
+             for k, st in sd["opt"].items()})
+
+
+def unchanged_since(step, snap):
+    """True when the step's parameters and optimizer state (masters, the
+    moments, the beta powers) equal ``snap`` bit for bit."""
+    params, state = snap
+    sd = step.state_dict()
+    return (all(torch.equal(v, params[k]) for k, v in sd["params"].items())
+            and all(torch.equal(t, state[k][n])
+                    for k, st in sd["opt"].items() for n, t in st.items()))
+
+
+def plant_inf(step, loss_fn, ids):
+    """One step with the loss multiplied by inf (the step's own poison):
+    (found_inf, everything unchanged bit for bit, scale before, after)."""
+    snap = snapshot(step)
+    before = float(step.state_dict()["scaler"]["scale"])
+    loss_fn.factor = float("inf")
+    loss = float(step(ids, ids))
+    loss_fn.factor = 1.0
+    if np.isfinite(loss):
+        raise AssertionError(f"21b: the planted step's loss is {loss}")
+    return (bool(step.last_found_inf), unchanged_since(step, snap), before,
+            float(step.state_dict()["scaler"]["scale"]))
+
+
+def phase_amp_train(fa, fc, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
+                    amp, seed, cfg=None, batch=AMP_BATCH, device="cuda",
+                    steps=TRAIN_STEPS):
+    """21a: ``bench.py:bench_llama``'s 0.5B Llama with fp32 parameters
+    (hidden 2048, 8 layers, 16 heads, FFN 5504, the fused head, AdamW)
+    on its repeated 4 x 2048 batch, a warm-up + 3 steps in each arm of
+    ``AMP_ARMS``: fp32; O1; O1 with a ``GradScaler`` (the step's one host
+    read of ``found_inf``: its cost is the difference to O1); O2 after
+    ``amp.decorate``. Each arm's launches by variant must be
+    ``want_amp_launches``; every loss finite and falling; the bf16 arms'
+    losses within ``AMP_LOSS_TOL`` of fp32's. 21b: then the O1-scaler
+    step takes a step whose loss is inf: found_inf, parameters and the
+    whole optimizer state unchanged bit for bit, the scale halved."""
+    cfg = cfg or LlamaConfig(**AMP_CELL)
+    B, L = batch
+    fleet.init()
+    ids = train_ids(cfg.vocab_size, B, L, device=device)
+    out, launches = {}, {}
+    for arm in AMP_ARMS:
+        model, step, loss_fn = amp_trainer(LlamaForCausalLM, cfg, fleet,
+                                           optimizer, amp, seed, arm,
+                                           device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, secs, per_step = run_amp_steps(fa, fc, step, ids, steps,
+                                               f"21a {arm} ")
+        peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
+        step_s = float(np.median(secs[1:]))
+        want = want_amp_launches(arm, cfg.num_hidden_layers)
+        for i, c in enumerate(per_step):
+            if c != want:
+                raise AssertionError(f"21a {arm} step {i} launched {c}, "
+                                     f"want {want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[1]:
+            raise AssertionError(f"21a {arm}: losses {losses}")
+        out[arm] = dict(losses=losses, step_ms=step_s * 1e3,
+                        step_secs=secs, tokens_per_s=B * L / step_s,
+                        peak_gib=peak / 2**30,
+                        params_dtype=str(next(model.parameters()).dtype))
+        launches[arm] = per_step[1]
+        log(f"  21a {arm}: step {step_s * 1e3:.1f} ms (median of 3), "
+            f"{B * L / step_s:.1f} tokens/s, peak {peak / 2**30:.2f} GiB, "
+            f"launches by variant {json.dumps(per_step[1])} ({smi_line()})")
+        if arm in ("o1", "o2") and device != "cpu":
+            out[arm]["profile"] = profile_step(step, ids, ids)
+            log(f"  21a {arm} profiled step "
+                + json.dumps(out[arm]["profile"]))
+        if arm == "o1_scaler":
+            found, same, before, after = plant_inf(step, loss_fn, ids)
+            if not (found and same and after == before / 2):
+                raise AssertionError(
+                    f"21b: found_inf {found}, unchanged {same}, scale "
+                    f"{before} -> {after}")
+            out["21b"] = dict(found_inf=found, unchanged=same,
+                              scale_before=before, scale_after=after)
+            log(f"  21b planted inf: found_inf, parameters and optimizer "
+                f"state unchanged bit for bit, scale {before} -> {after}")
+        del step, model, loss_fn
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    ref = out["fp32"]["losses"]
+    for arm in AMP_ARMS[1:]:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out[arm]["losses"],
+                                                      ref))
+        out[arm]["rel_to_fp32"] = rel
+        if not rel <= AMP_LOSS_TOL:
+            raise AssertionError(f"21a {arm}: losses {out[arm]['losses']} "
+                                 f"vs fp32 {ref} (relative {rel:.3g})")
+    out["scaler_read_ms"] = out["o1_scaler"]["step_ms"] - out["o1"]["step_ms"]
+    return launches, out
+
+
+def phase_mha(fa, F, nn, amp, seed, shape=MHA_SHAPE, device="cuda"):
+    """21c: ``nn.MultiHeadAttention`` at BERT-base widths on
+    ``bench_bert``'s 16 x 512 batch (head dim 64), bf16 after
+    ``amp.decorate``, dropout 0.1. In eval without a mask it must take row 1
+    once (on the tensor cores) and agree with the plain composite within
+    1e-2 relative; in training it must take the plain composite (no
+    launch, ``attention_path`` naming the dropout). Then the keep rate:
+    with q = k = 0 and v = 1 each output is the kept share of its row
+    over ``1 - p``, so the mean over 50M probabilities must be within 6
+    binomial sigmas of ``1 - p``."""
+    from paddle_tpu_torch.nn.functional.attention import _plain_sdpa
+    B, L, E, H = shape
+    seed(0)
+    mha = amp.decorate(nn.MultiHeadAttention(E, H, dropout=MHA_DROPOUT,
+                                             device=device))
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (B, L, E)).astype(np.float32)).to(device, torch.bfloat16)
+    out = {}
+    for mode in ("eval", "train"):
+        mha.train(mode == "train")
+        reset_counts(fa.flash_attention)
+        with torch.no_grad():
+            y = mha(x)
+            path = F.attention_path()
+            n = fa.flash_attention.launches
+            tc = fa.flash_attention.launches_by_variant["tc"]
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                mha(x)
+            if device != "cpu":
+                torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        out[mode] = dict(ms=ms, path=path, launches=n, launches_tc=tc)
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"21c {mode}: non-finite output")
+        if mode == "eval":
+            with torch.no_grad():
+                q, k, v = (mha._split(p(x)) for p in (
+                    mha.q_proj, mha.k_proj, mha.v_proj))
+                ref = mha.out_proj(_plain_sdpa(q, k, v).reshape(B, L, E))
+            rel = float((y.float() - ref.float()).norm()
+                        / ref.float().norm())
+            out[mode]["rel_to_plain"] = rel
+            want = 1 if device != "cpu" else 0
+            if n != want or tc != want or rel > 1e-2:
+                raise AssertionError(f"21c eval: {out[mode]}")
+        elif n != 0 or "dropout" not in path["reason"]:
+            raise AssertionError(f"21c train: {out[mode]}")
+        log(f"  21c MultiHeadAttention {mode}: {ms:.3f} ms a forward, "
+            f"path {path['path']} ({path['reason']}), row 1 launches {n}")
+    p = MHA_DROPOUT
+    seed(1)
+    z = torch.zeros(B, L, H, E // H, device=device)
+    got = F.scaled_dot_product_attention(z, z, torch.ones_like(z),
+                                         dropout_p=p)
+    rate = float(got.double().mean() * (1 - p))
+    n = B * H * L * L
+    sigma = float(np.sqrt(p * (1 - p) / n))
+    out["keep_rate"] = dict(rate=rate, want=1 - p, sigma=sigma, n=n)
+    log(f"  21c keep rate {rate:.6f} over {n} probabilities (want "
+        f"{1 - p}, sigma {sigma:.2e})")
+    if not abs(rate - (1 - p)) <= 6 * sigma:
+        raise AssertionError(f"21c keep rate {out['keep_rate']}")
+    return out
+
+
+def _amp_tp_worker(workdir, cfg, batch, steps, device):
+    """One of 21d's two ranks on ``device`` (gloo): the 0.5B widths cut to
+    ``AMP_PAIR_LAYERS`` under mp_degree=2, O1 with a GradScaler, from the
+    saved weights; ``steps`` steps, then a step whose loss is inf on rank
+    1 only."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.text.models.llama import LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", device=device, timeout=600)
+    rank = dist.get_rank()
+    fleet.init(is_collective=True, strategy=_strategy(fleet, mp_degree=2))
+    model, step, loss_fn = amp_trainer(
+        LlamaForCausalLM, cfg, fleet, optimizer, amp, pt.seed, "o1_scaler",
+        saved_weights(workdir), device=device)
+    ids = train_ids(cfg.vocab_size, *batch, device=device)
+    losses, secs, per_step = run_amp_steps(fa, fc, step, ids, steps,
+                                           f"[rank {rank}, tp2 O1] ")
+    snap = snapshot(step)
+    before = float(step.state_dict()["scaler"]["scale"])
+    loss_fn.factor = float("inf") if rank == 1 else 1.0
+    step(ids, ids)
+    out = dict(rank=rank, losses=losses, step_secs=secs, launches=per_step,
+               planted=rank == 1, found_inf=bool(step.last_found_inf),
+               unchanged=unchanged_since(step, snap), scale_before=before,
+               scale_after=float(step.state_dict()["scaler"]["scale"]))
+    with open(os.path.join(workdir, f"amp_tp.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_amp_pair(fa, fc, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
+                   amp, seed, cfg=None, batch=AMP_BATCH,
+                   workdir="build/phase21", device="cuda",
+                   steps=TRAIN_STEPS):
+    """21d: the 0.5B widths cut to ``AMP_PAIR_LAYERS`` layers (fp32
+    parameters, O1 with a GradScaler), world 1 on the card, then
+    ``mp_degree=2`` as two gloo ranks on the card from the same weights:
+    every rank's losses within ``PAIR_REL_TOL`` of world 1's; rows 1-3
+    once per layer a step on the tensor cores, row 5 once on the rank's
+    vocabulary shard (fp32, the CUDA cores); then a step whose loss is
+    inf on rank 1 only: both ranks see found_inf, keep their parameters
+    and optimizer state bit for bit and halve the scale."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    cfg = cfg or LlamaConfig(**{**AMP_CELL,
+                                "num_hidden_layers": AMP_PAIR_LAYERS})
+    fleet.init()
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        model, step, _ = amp_trainer(LlamaForCausalLM, cfg, fleet,
+                                     optimizer, amp, seed, "o1_scaler",
+                                     device=device)
+        save_weights(workdir, model)
+        ids = train_ids(cfg.vocab_size, *batch, device=device)
+        world1, _, _ = run_amp_steps(fa, fc, step, ids, steps,
+                                     "21d world 1 ")
+        del step, model
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dist.spawn(_amp_tp_worker, args=(workdir, cfg, batch, steps,
+                                         _rank_device(device)),
+                   nprocs=2, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"amp_tp.r{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = want_amp_launches("o1", cfg.num_hidden_layers)
+    worst = 0.0
+    for g in ranks:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], world1))
+        worst = max(worst, rel)
+        if rel > PAIR_REL_TOL or g["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"21d rank {g['rank']}: losses "
+                                 f"{g['losses']} vs world 1 {world1}")
+        for i, c in enumerate(g["launches"]):
+            if c != want:
+                raise AssertionError(f"21d rank {g['rank']} step {i} "
+                                     f"launched {c}, want {want}")
+        if not (g["found_inf"] and g["unchanged"]
+                and g["scale_after"] == g["scale_before"] / 2):
+            raise AssertionError(f"21d rank {g['rank']}: {g}")
+    log(f"  21d tp2 O1: losses {ranks[0]['losses']} vs world 1 {world1} "
+        f"(worst relative {worst:.3g}); inf planted on rank 1 only: both "
+        f"ranks skipped bit for bit, scale {ranks[0]['scale_before']} -> "
+        f"{ranks[0]['scale_after']}; step times "
+        f"{[[round(t, 3) for t in g['step_secs']] for g in ranks]} s per "
+        f"rank (two ranks sharing one card through gloo: not multi-GPU "
+        f"speeds); spawn {spawn_s:.1f} s")
+    return ranks[0]["launches"][-1], dict(
+        world1=world1, losses=ranks[0]["losses"], max_rel_to_world1=worst,
+        skipped=[g["found_inf"] and g["unchanged"] for g in ranks],
+        scale=[ranks[0]["scale_before"], ranks[0]["scale_after"]],
+        step_secs=[g["step_secs"] for g in ranks], spawn_s=spawn_s)
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5687,6 +6088,26 @@ def main():
                                      pt.seed)
     log("  comm-efficient data parallel " + json.dumps(comm))
 
+    # ---- 21. mixed precision and attention dropout --------------------------
+    log(f"[21] mixed precision: 21a bench.py:bench_llama's 0.5B Llama with "
+        f"fp32 parameters (hidden 2048, 8 layers, 16 heads, FFN 5504, fused "
+        f"head, AdamW), {AMP_BATCH[0]}x{AMP_BATCH[1]}, arms {list(AMP_ARMS)};"
+        f" 21b a planted inf under the scaler; 21c MultiHeadAttention at "
+        f"{list(MHA_SHAPE)} (batch, seq, embed, heads) bf16, eval and "
+        f"training dropout {MHA_DROPOUT}; 21d tp2 O1 as two ranks on cuda:0 "
+        f"over gloo, the inf on one rank")
+    from paddle_tpu_torch import amp, nn
+    amp_launches, amp_train = phase_amp_train(
+        fa, fc, LlamaConfig, LlamaForCausalLM, fleet, optimizer, amp,
+        pt.seed)
+    log("  amp training " + json.dumps(amp_train))
+    mha = phase_mha(fa, F, nn, amp, pt.seed)
+    log("  multi-head attention " + json.dumps(mha))
+    amp_tp_launches, amp_pair = phase_amp_pair(
+        fa, fc, LlamaConfig, LlamaForCausalLM, fleet, optimizer, amp,
+        pt.seed)
+    log("  amp tp2 " + json.dumps(amp_pair))
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -5784,6 +6205,16 @@ def main():
                 kd["name"] == "fused_ce_stats":
             kd["comm_dp_rank"] = dict(launches=comm_launches[kd["name"]],
                                       tc=comm_launches[kd["name"] + "_tc"])
+    # rows 1-3 and 5 in phase 21: launches a step by variant in each amp
+    # arm (21a) and per tp2 rank (21d); row 1 under MultiHeadAttention
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_") or \
+                kd["name"] == "fused_ce_stats":
+            kd["amp"] = dict(
+                **{arm: amp_launches[arm][kd["name"]] for arm in AMP_ARMS},
+                tp2_rank=amp_tp_launches[kd["name"]])
+        if kd["name"] == "flash_attention_fwd":
+            kd["amp"]["mha_eval"] = mha["eval"]["launches"]
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

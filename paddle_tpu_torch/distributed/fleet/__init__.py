@@ -8,6 +8,11 @@
     step = opt.make_train_step(model, lambda m, ids, lbl: m(ids, labels=lbl))
     loss = step(ids, labels)              # the global batch, on every rank
 
+``strategy.amp`` trains through that step under ``amp_level="O1"``
+(an explicit ``amp_level=`` wins), with the loss scaling of a
+``scaler=`` (``amp.GradScaler``; ``distributed_scaler`` returns it as
+given: the step agrees ``found_inf`` over every rank).
+
 The comm-efficient data-parallel strategies pick their own step, as the
 JAX package's ``make_train_step`` routes them (one at a time, not with
 ``amp``, no extra options): ``comm_opt`` -> ``distributed.comm_opt.
@@ -38,6 +43,7 @@ from typing import Optional
 from .. import collective
 from . import comm_efficient as ce
 from .base import DistributedStrategy, HybridCommunicateGroup
+from .meta_optimizers import HybridParallelGradScaler
 from .placement import place_model
 from .pp_train_step import Pipeline1F1BTrainStep, make_1f1b_train_step
 from .train_step import TrainStep, make_train_step
@@ -47,7 +53,8 @@ __all__ = ["DistributedStrategy", "HybridCommunicateGroup", "TrainStep",
            "make_train_step", "Pipeline1F1BTrainStep",
            "make_1f1b_train_step", "init", "get_strategy",
            "get_hybrid_communicate_group", "distributed_model",
-           "distributed_optimizer", "worker_num", "worker_index",
+           "distributed_optimizer", "distributed_scaler",
+           "HybridParallelGradScaler", "worker_num", "worker_index",
            "is_first_worker", "barrier_worker"]
 
 _strategy: Optional[DistributedStrategy] = None
@@ -109,8 +116,10 @@ class _FleetOptimizer:
             raise NotImplementedError(
                 f"strategies {modes} are mutually exclusive — enable one")
         if not modes:
+            amp_level = kw.pop("amp_level", None) or ("O1" if s.amp
+                                                      else None)
             return make_train_step(model, self._inner, loss_fn, strategy=s,
-                                   **kw)
+                                   amp_level=amp_level, **kw)
         if s.amp:
             raise NotImplementedError(
                 "strategy.amp is not supported together with "
@@ -156,6 +165,13 @@ class _FleetOptimizer:
 
 def distributed_optimizer(optimizer, strategy=None):
     return _FleetOptimizer(optimizer, strategy or get_strategy())
+
+
+def distributed_scaler(scaler):
+    """The reference's ``fleet/scaler.py``: returns ``scaler`` as given.
+    The train step reduces ``found_inf`` over every rank before it
+    decides, so the ranks agree without a wrapper."""
+    return scaler
 
 
 def worker_num():

@@ -19,7 +19,10 @@ only: remat is ``LlamaConfig.remat``, as in the JAX package) run. So do
 the comm-efficient data-parallel strategies, one at a time
 (``comm_modes()``): ``comm_opt``, ``a_sync`` (geo, ``k_steps`` >= 1),
 ``localsgd``, ``dgc`` and ``fp16_allreduce``, each with its own train
-step (``fleet.distributed_optimizer(...).make_train_step``).
+step (``fleet.distributed_optimizer(...).make_train_step``). ``amp``
+runs the ordinary step under O1 (``make_train_step`` passes
+``amp_level="O1"``), as in the JAX package; beside a comm-efficient
+strategy it is refused, as there.
 """
 from __future__ import annotations
 
@@ -30,7 +33,6 @@ __all__ = ["DistributedStrategy", "HybridCommunicateGroup", "COMM_MODES"]
 #: the comm-efficient data-parallel strategies, as the JAX package lists them
 COMM_MODES = ("localsgd", "dgc", "fp16_allreduce", "a_sync", "comm_opt")
 
-_AMP = "ROADMAP.md, port queue item 10: amp and attention dropout"
 _LONG_TAIL = "ROADMAP.md, port queue item 9: long tail"
 
 
@@ -89,7 +91,8 @@ class DistributedStrategy:
     def unsupported(self) -> list:
         """``[(setting, ROADMAP item), ...]`` for what the port cannot run
         yet; empty when the strategy is dp / sharding stages 1-3 / tp, or
-        sep or pp with dp, with or without a comm-efficient strategy."""
+        sep or pp with dp, with or without a comm-efficient strategy or
+        ``amp``."""
         hc = self.hybrid_configs
         out = []
         m = mesh_mod.Mesh(pp=max(1, hc.get("pp_degree", 1)),
@@ -105,8 +108,8 @@ class DistributedStrategy:
         if self.sharding_stage not in (0, 1, 2, 3):
             raise ValueError(f"sharding_stage {self.sharding_stage}; want "
                              "1, 2 or 3")
-        for field, item in (("amp", _AMP), ("lamb", _LONG_TAIL),
-                            ("lars", _LONG_TAIL), ("asp", _LONG_TAIL)):
+        for field, item in (("lamb", _LONG_TAIL), ("lars", _LONG_TAIL),
+                            ("asp", _LONG_TAIL)):
             if getattr(self, field):
                 out.append((field, item))
         return out

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ....amp.auto_cast import maybe_cast_compute
 from ...collective import ReduceOp, all_reduce, gather_dim
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
@@ -220,7 +221,10 @@ class RowParallelLinear(nn.Module):
         g = self.mp_group
         if not self.input_is_parallel and g.nranks > 1:
             x = _SplitLastDim.apply(x, g)
-        y = reduce_from_tp(x @ self.weight, g)
+        # an amp cast site, as ``F.linear`` (JAX's GSPMD splits the same
+        # ``Linear``)
+        x, w = maybe_cast_compute(x, self.weight)
+        y = reduce_from_tp(x @ w, g)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 

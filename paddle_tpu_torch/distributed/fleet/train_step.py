@@ -40,9 +40,20 @@ On a mesh of one rank every collective is the identity and the step is
 the single-GPU step exactly. ``accumulate_steps=k`` (or
 ``strategy.gradient_merge``) splits this rank's slice into k
 micro-batches, sums their gradients in fp32, and applies one update with
-the mean; with equal micro-batches that is the full-batch step. Loss
-scaling (``scaler=``) and ``amp_level=`` come with the amp slice and
-raise.
+the mean; with equal micro-batches that is the full-batch step.
+
+Mixed precision, as the JAX step compiles it: with ``amp_level`` ("O1",
+"O2") the loss runs under ``amp.auto_cast(level=, dtype=amp_dtype)``.
+With a ``scaler`` (an enabled ``amp.GradScaler``, whose configuration is
+read once) the backward runs on ``loss.float() * scale``, the (reduced)
+gradients are divided by ``scale`` in their own dtype, and ``found_inf``
+(any gradient non-finite on any rank: a MAX all-reduce over the world,
+since a rank may hold only its block of a gradient) is read on the host
+once: when set, the update is skipped, so the parameters and the whole
+optimizer state stay bit for bit as they were (JAX's ``where(found_inf,
+old, new)`` without a copy of the state); the LR scheduler still steps.
+The scale and its good/bad counters follow ``_next_scaler_state`` on the
+device; ``last_found_inf`` and ``state_dict()["scaler"]`` expose them.
 
 The collectives are explicit, driven by the ported placement rules,
 rather than FSDP2's: FSDP2 shards dim 0 of every parameter, and the JAX
@@ -58,14 +69,12 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import set_checkpoint_early_stop
 
+from ...amp.auto_cast import auto_cast
 from .. import mesh as mesh_mod
-from ..collective import all_reduce, gather_dim, reduce_scatter_dim
+from ..collective import ReduceOp, all_reduce, gather_dim, reduce_scatter_dim
 from .placement import place_model, placement, saving
 
 __all__ = ["TrainStep", "make_train_step"]
-
-_AMP = ("amp and loss scaling are not in the port yet (ROADMAP.md, port "
-        "queue item 10: amp and attention dropout)")
 
 
 def _opt_dim(pspec, ospec):
@@ -83,9 +92,7 @@ class TrainStep:
 
     def __init__(self, model, optimizer, loss_fn: Callable, strategy=None,
                  accumulate_steps: Optional[int] = None, amp_level=None,
-                 scaler=None):
-        if amp_level or scaler is not None:
-            raise NotImplementedError(_AMP)
+                 scaler=None, amp_dtype="bfloat16"):
         if strategy is not None:
             strategy.check()
         self.model = model
@@ -103,6 +110,8 @@ class TrainStep:
                     accumulate_steps = int(
                         strategy.pipeline_configs.get("accumulate_steps", 1))
         self.accumulate_steps = max(1, int(accumulate_steps))
+        self.amp_level = amp_level
+        self.amp_dtype = amp_dtype
         self.mesh = m = mesh_mod.get_mesh()
         place_model(model, m, self.stage)
         self._params = {k: p for k, p in model.named_parameters()
@@ -123,6 +132,27 @@ class TrainStep:
         # sequence parallel: gradients and the loss sum over (dp, sep)
         self._sep = (m.group(("dp", "sep")) if m.axis_size("sep") > 1
                      else None)
+        # dynamic loss scaling: the scaler's configuration, read as the
+        # JAX step reads it
+        self._scaler_cfg = None
+        if scaler is not None and getattr(scaler, "_enable", True):
+            self._scaler_cfg = {
+                "init": float(getattr(scaler, "_scale", 2.0 ** 15)),
+                "incr_ratio": float(getattr(scaler, "_incr_ratio", 2.0)),
+                "decr_ratio": float(getattr(scaler, "_decr_ratio", 0.5)),
+                "incr_every": int(getattr(scaler, "_incr_every", 1000)),
+                "decr_every": int(getattr(scaler, "_decr_every", 1)),
+                "dynamic": bool(getattr(scaler, "_dynamic", True)),
+            }
+        dev = next(iter(self._locals.values())).device if self._locals \
+            else torch.device("cpu")
+        self._scaler_state = {
+            "scale": torch.tensor(self._scaler_cfg["init"]
+                                  if self._scaler_cfg else 1.0,
+                                  dtype=torch.float32, device=dev),
+            "good": torch.zeros((), dtype=torch.int32, device=dev),
+            "bad": torch.zeros((), dtype=torch.int32, device=dev)}
+        self.last_found_inf = torch.zeros((), dtype=torch.bool, device=dev)
 
     def _narrow(self, t, d):
         if d is None:
@@ -149,8 +179,15 @@ class TrainStep:
         return stack
 
     def _loss(self, batch):
-        with saving(self.model):
+        amp = (auto_cast(True, level=self.amp_level, dtype=self.amp_dtype)
+               if self.amp_level else contextlib.nullcontext())
+        with saving(self.model), amp:
             return self.loss_fn(self.model, *batch).float()
+
+    def _backward(self, loss):
+        if self._scaler_cfg:
+            loss = loss * self._scaler_state["scale"]
+        loss.backward()
 
     def _micro_batches(self, batch):
         k = self.accumulate_steps
@@ -168,7 +205,7 @@ class TrainStep:
         if self.accumulate_steps == 1:
             with self._sequence_shard():
                 loss = self._loss(batch)
-                loss.backward()
+                self._backward(loss)
             grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                      for k, p in self._params.items()}
             return loss.detach(), grads
@@ -178,7 +215,7 @@ class TrainStep:
         for mb in self._micro_batches(batch):
             with self._sequence_shard():
                 loss = self._loss(mb)
-                loss.backward()
+                self._backward(loss)
             for k, p in self._params.items():
                 if p.grad is not None:
                     acc[k] += p.grad.float()
@@ -208,6 +245,36 @@ class TrainStep:
             g = self._narrow(all_reduce(g, group=self._data), d)
         return g / n
 
+    def _unscale(self, grads):
+        """Divide the gradients by the scale (in their dtypes); return
+        the world's ``found_inf`` as a device bool."""
+        scale = self._scaler_state["scale"]
+        bad = torch.zeros((), dtype=torch.float32,
+                          device=scale.device)
+        for g in grads.values():
+            g.div_(scale.to(g.dtype))
+            bad = torch.maximum(bad, (~torch.isfinite(g)).any().float())
+        if self.mesh.size > 1:
+            bad = all_reduce(bad, ReduceOp.MAX)
+        return bad > 0
+
+    def _next_scaler_state(self, st, found_inf):
+        cfg = self._scaler_cfg
+        if not cfg["dynamic"]:
+            return st
+        scale, good, bad = st["scale"], st["good"], st["bad"]
+        zero = torch.zeros_like(good)
+        bad2 = torch.where(found_inf, bad + 1, zero)
+        good2 = torch.where(found_inf, zero, good + 1)
+        shrink = bad2 >= cfg["decr_every"]
+        grow = good2 >= cfg["incr_every"]
+        new_scale = torch.where(
+            shrink, torch.clamp_min(scale * cfg["decr_ratio"], 1.0),
+            torch.where(grow, scale * cfg["incr_ratio"], scale))
+        return {"scale": new_scale.float(),
+                "good": torch.where(grow, zero, good2),
+                "bad": torch.where(shrink, zero, bad2)}
+
     def __call__(self, *batch):
         batch = tuple(
             self._local_batch(x if isinstance(x, torch.Tensor)
@@ -222,12 +289,20 @@ class TrainStep:
         elif self._data.nranks > 1:
             loss = all_reduce(loss.clone(), group=self._data) \
                 / self._data.nranks
-        self.optimizer.apply_in_place(
-            self._views, grads, self._state, self.optimizer.get_lr(),
-            specs=self._ospec if self.mesh.size > 1 else None)
+        skip = False
+        if self._scaler_cfg:
+            found = self._unscale(grads)
+            self.last_found_inf = found
+            self._scaler_state = self._next_scaler_state(self._scaler_state,
+                                                         found)
+            skip = bool(found)          # the step's one host read
+        if not skip:
+            self.optimizer.apply_in_place(
+                self._views, grads, self._state, self.optimizer.get_lr(),
+                specs=self._ospec if self.mesh.size > 1 else None)
         del grads
         for k, d in self._odim.items():
-            if d is not None:
+            if d is not None and not skip:
                 self._locals[k].copy_(gather_dim(
                     self._views[k], d, self.mesh.group("sharding")))
         for p in self._params.values():
@@ -239,9 +314,10 @@ class TrainStep:
 
     # -- snapshot surface ---------------------------------------------------
     def state_dict(self):
-        """This rank's parameter blocks and optimizer state (tensors, not
-        copies)."""
-        return {"params": dict(self._locals), "opt": self._state}
+        """This rank's parameter blocks, optimizer state and loss-scaler
+        state (tensors, not copies)."""
+        return {"params": dict(self._locals), "opt": self._state,
+                "scaler": self._scaler_state}
 
     def load_state_dict(self, state):
         """Copy a ``state_dict()`` of this rank into this step's
@@ -254,10 +330,15 @@ class TrainStep:
             k: {n: t.detach().to(self._views[k].device, copy=True)
                 for n, t in state["opt"][k].items()}
             for k in self._views}
+        if "scaler" in state:
+            self._scaler_state = {
+                k: torch.as_tensor(state["scaler"][k]).to(
+                    self._scaler_state[k].device, self._scaler_state[k].dtype,
+                    copy=True) for k in self._scaler_state}
 
 
 def make_train_step(model, optimizer, loss_fn, strategy=None,
-                    accumulate_steps=None, amp_level=None,
-                    scaler=None) -> TrainStep:
+                    accumulate_steps=None, amp_level=None, scaler=None,
+                    amp_dtype="bfloat16") -> TrainStep:
     return TrainStep(model, optimizer, loss_fn, strategy,
-                     accumulate_steps, amp_level, scaler)
+                     accumulate_steps, amp_level, scaler, amp_dtype)

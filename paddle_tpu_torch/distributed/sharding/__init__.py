@@ -5,7 +5,8 @@
 "os" / "os_g" / "p_g_os" to sharding stages 1 / 2 / 3 of the fleet
 strategy (with every rank on the sharding axis when no topology is set),
 and returns the placed model and the fleet optimizer, whose
-``make_train_step`` runs the stage. ``offload`` and the buffer sizes are
+``make_train_step`` runs the stage; ``scaler`` comes back as given (pass
+it to ``make_train_step(scaler=)``). ``offload`` and the buffer sizes are
 accepted for the reference API and change nothing.
 ``save_group_sharded_model`` writes the gathered full weights (rank 0)
 and each rank's optimizer state.
@@ -32,10 +33,6 @@ def group_sharded_parallel(model, optimizer, level, scaler=None,
     if level not in _LEVELS:
         raise ValueError(
             f"level must be one of {sorted(_LEVELS)}, got {level!r}")
-    if scaler is not None:
-        raise NotImplementedError(
-            "loss scaling is not in the port yet (ROADMAP.md, port queue "
-            "item 10: amp and attention dropout)")
     from .. import fleet
 
     strategy = fleet._strategy

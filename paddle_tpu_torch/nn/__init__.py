@@ -1,9 +1,14 @@
 from . import functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer import Dropout, Embedding, LayerNorm, Linear, RMSNorm
+from .layer import (Dropout, Embedding, LayerNorm, Linear,
+                    MultiHeadAttention, RMSNorm, Transformer,
+                    TransformerDecoder, TransformerDecoderLayer,
+                    TransformerEncoder, TransformerEncoderLayer)
 from .moe import MoELayer, SwitchGate, TopKGate
 
 __all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "Dropout", "Embedding",
-           "LayerNorm", "Linear", "MoELayer", "RMSNorm", "SwitchGate",
-           "TopKGate"]
+           "LayerNorm", "Linear", "MoELayer", "MultiHeadAttention",
+           "RMSNorm", "SwitchGate", "TopKGate", "Transformer",
+           "TransformerDecoder", "TransformerDecoderLayer",
+           "TransformerEncoder", "TransformerEncoderLayer"]

@@ -1,10 +1,14 @@
 """Common functionals. Counterpart of
 ``paddle_tpu/nn/functional/common.py`` (``linear``, ``dropout``).
+
+``linear`` is an amp cast site: its operands pass
+``amp.maybe_cast_compute``, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
+from ...amp.auto_cast import maybe_cast_compute
 from ...framework.random_seed import generator
 
 __all__ = ["linear", "dropout"]
@@ -13,7 +17,9 @@ _MODES = ("upscale_in_train", "downscale_in_infer", "downgrade_in_infer")
 
 
 def linear(x, weight, bias=None, name=None):
-    """``x @ weight + bias``, weight ``[in, out]`` (paddle layout)."""
+    """``x @ weight + bias``, weight ``[in, out]`` (paddle layout); under
+    ``amp.auto_cast`` fp32 operands are cast to the amp dtype first."""
+    x, weight = maybe_cast_compute(x, weight)
     y = x @ weight
     return y if bias is None else y + bias.to(y.dtype)
 

@@ -225,6 +225,12 @@ def fused_ce_loss(hidden, w, labels, chunk_size=1024, group=None):
     ``hidden`` and the global ``labels`` are the same on every rank, and
     every rank gets the full mean; dhidden is summed over the group, dw
     stays local."""
+    if torch.float16 in (hidden.dtype, w.dtype):
+        # amp.decorate(dtype="float16") beside the fused head: the JAX
+        # package's chunk scan takes any float dtype, the kernel does not
+        raise NotImplementedError(
+            "fused_ce_loss: fp16 operands; the fused-CE kernel takes bf16 "
+            "or fp32 (ROADMAP.md, port queue item 9: long tail)")
     if group is not None and group.nranks == 1:
         group = None
     return _FusedCELoss.apply(hidden, w, labels, int(chunk_size), group)

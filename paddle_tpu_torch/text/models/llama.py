@@ -60,6 +60,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ...amp.auto_cast import amp_state, amp_state_guard
 from ...distributed import collective as C
 from ...distributed.mesh import current_sequence_shard, sep_guard
 from ...framework.device import resolve_device
@@ -67,6 +68,7 @@ from ...nn import Embedding, Linear, RMSNorm
 from ...nn import functional as F
 from ...ops.ring_attention import ring_attention_local
 from ...ops.ulysses_attention import ulysses_attention_local
+from ...tensor_ops import matmul
 
 
 @dataclass
@@ -127,13 +129,19 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 def _remat_layer(layer, x, mode, seq=None):
     """One decoder layer under ``torch.utils.checkpoint`` (the JAX
     package's ``jax.checkpoint`` per layer); ``seq`` (the sequence shard)
-    reaches the recompute too."""
+    and the amp policy of the forward reach the recompute too."""
+    amp = amp_state()
+
+    def body(y, seq):
+        with amp_state_guard(amp):
+            return layer(y, seq)
+
     if mode == "selective":
-        return checkpoint(layer, x, seq, use_reentrant=False,
+        return checkpoint(body, x, seq, use_reentrant=False,
                           context_fn=partial(
                               create_selective_checkpoint_contexts,
                               _save_matmuls))
-    return checkpoint(layer, x, seq, use_reentrant=False)
+    return checkpoint(body, x, seq, use_reentrant=False)
 
 
 def _rope(q, k, positions, theta, dtype):
@@ -304,7 +312,8 @@ class LlamaForCausalLM(nn.Module):
         """The logits of this rank's vocabulary shard."""
         from ...distributed.fleet.meta_parallel.mp_layers import copy_to_tp
         if self.tie:
-            return copy_to_tp(hidden, tp) @ self.llama.embed_tokens.weight.t()
+            return matmul(copy_to_tp(hidden, tp),
+                          self.llama.embed_tokens.weight, transpose_y=True)
         return self.lm_head(hidden)
 
     def head_weight(self):
@@ -322,7 +331,7 @@ class LlamaForCausalLM(nn.Module):
             from ...distributed.fleet.meta_parallel.mp_layers import \
                 gather_last_dim
             return gather_last_dim(self._local_logits(hidden, tp), tp)
-        return hidden @ self.head_weight() if self.tie else \
+        return matmul(hidden, self.head_weight()) if self.tie else \
             self.lm_head(hidden)
 
     def forward(self, input_ids, labels=None):

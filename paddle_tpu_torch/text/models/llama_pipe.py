@@ -42,6 +42,7 @@ from ...nn.functional.attention import sdpa_raw
 from ...nn.initializer import Constant, Normal
 from ...nn.layer.common import _param
 from ...ops.pipeline import spmd_pipeline
+from ...tensor_ops import matmul
 from .llama import LlamaConfig, _check_config, _remat_layer, _rope
 
 __all__ = ["LlamaForCausalLMPipe"]
@@ -184,8 +185,8 @@ class LlamaForCausalLMPipe(nn.Module):
         else:
             x = stage(self._stacked(), x)
         x = self.norm(x)
-        logits = (x @ self.embed_tokens.weight.t() if self.tie
-                  else self.lm_head(x))
+        logits = (matmul(x, self.embed_tokens.weight, transpose_y=True)
+                  if self.tie else self.lm_head(x))
         if labels is None:
             return logits
         labels = torch.as_tensor(labels, device=self.device).long()

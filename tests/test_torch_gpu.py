@@ -4,8 +4,8 @@ PyTorch version, the engine's kernel path against its gathered path
 words against the known ``jax.random`` words, and the tiny Llama and
 ERNIE-MoE trainers and a PTQ'd tiny Llama on the card against the same
 models on the CPU, the comm-efficient exchanges' int8 quantizer on the
-card against the CPU, and ``chip_smoke``'s multi-rank phases at tiny
-size.
+card against the CPU, and ``chip_smoke``'s multi-rank phases and phase
+21 (mixed precision, attention dropout) at tiny size.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -1206,3 +1206,114 @@ def test_phase19_comm_efficient_dp_at_tiny_size(cuda, tmp_path):
         cfg=cfg, batch=(4, 128), workdir=str(tmp_path / "p19"))
     assert launches == chip_smoke.want_train_launches(cfg.num_hidden_layers)
     assert out["arms"]["comm_opt_int8_e1_dropped"]["fails_the_judge"]
+
+
+# -- mixed precision and attention dropout (phase 21) -------------------------
+
+def _tiny_fp32(**kw):
+    return dataclasses.replace(LLAMA_TINY, dtype="float32",
+                               fused_ce_chunk=256, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_o1_tiny_llama_on_the_card_matches_the_cpu(cuda, dtype):
+    """LLAMA_TINY with fp32 parameters under O1 with a GradScaler, 3 steps
+    on a 4 x 128 batch, the card's model loaded with the CPU model's
+    weights. bf16: rows 1-3 run on the tensor cores (q/k/v come out of the
+    cast projections in bf16); fp16: attention takes the plain composite,
+    as in JAX (the kernels take bf16 and fp32). Row 5 runs on the CUDA
+    cores either way (the fused head stays fp32, as in JAX). The losses
+    agree with the same steps on the CPU within 1e-2 relative (half
+    precision products summed in other orders)."""
+    from paddle_tpu_torch import amp
+    ids = np.random.default_rng(0).integers(0, LLAMA_TINY.vocab_size,
+                                            (4, 128))
+    pt.seed(0)
+    weights = {k: v.numpy() for k, v in LlamaForCausalLM(
+        _tiny_fp32(), device="cpu").state_dict().items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = LlamaForCausalLM(_tiny_fp32(), device=dev)
+        load_numpy_state_dict(m, weights)
+        opt = optimizer.AdamW(learning_rate=1e-3, parameters=m.parameters())
+        step = fleet.make_train_step(m, opt, lambda mm, x, y: mm(x, labels=y),
+                                     amp_level="O1", amp_dtype=dtype,
+                                     scaler=amp.GradScaler())
+        for f in chip_smoke._amp_counters(fa, fc).values():
+            chip_smoke.reset_counts(f)
+        x = torch.from_numpy(ids).to(dev)
+        out[dev] = [float(step(x, x)) for _ in range(3)]
+    want = chip_smoke.want_amp_launches("o1", LLAMA_TINY.num_hidden_layers)
+    if dtype == "float16":
+        want.update({k: {"tc": 0, "cuda_core": 0} for k in want
+                     if k.startswith("flash")})
+    assert chip_smoke._variant_counts(fa, fc) == {
+        k: {kk: 3 * vv for kk, vv in v.items()} for k, v in want.items()}
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-2)
+
+
+def test_plain_sdpa_dropout_on_the_card_matches_the_cpu(cuda):
+    """The plain composite with a mask and a given keep mask gives on the
+    card what it gives on the CPU (fp32, TF32 off); the card's own keep
+    mask comes from the card's generator, and ``seed(n)`` repeats it."""
+    from paddle_tpu_torch.nn.functional.attention import _plain_sdpa
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 64, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32)))
+    mask = torch.from_numpy(rng.random((2, 1, 64, 64)) < 0.8)
+    keep = torch.from_numpy(rng.random((2, 4, 64, 64)) < 0.9)
+    want = _plain_sdpa(q, k, v, mask=mask, dropout_p=0.1, _keep=keep)
+    got = _plain_sdpa(*(t.to(cuda) for t in (q, k, v)), mask=mask.to(cuda),
+                      dropout_p=0.1, _keep=keep.to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    qc, kc, vc = (t.to(cuda) for t in (q, k, v))
+    pt.seed(3)
+    a = F.scaled_dot_product_attention(qc, kc, vc, dropout_p=0.1)
+    pt.seed(3)
+    assert torch.equal(a, F.scaled_dot_product_attention(qc, kc, vc,
+                                                         dropout_p=0.1))
+
+
+def test_phase21a_amp_arms_at_tiny_size(cuda):
+    """``chip_smoke`` phase 21a/21b at LLAMA_TINY size (fp32 parameters,
+    the fused head, 4 x 128): every arm's launches by variant as
+    ``want_amp_launches`` says, the bf16 arms' losses near fp32's, and the
+    planted inf skipped bit for bit with the scale halved."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models.llama import LlamaConfig
+    launches, out = chip_smoke.phase_amp_train(
+        fa, fc, LlamaConfig, LlamaForCausalLM, fleet, optimizer, amp,
+        pt.seed, cfg=_tiny_fp32(), batch=(4, 128))
+    for arm in chip_smoke.AMP_ARMS:
+        assert launches[arm] == chip_smoke.want_amp_launches(
+            arm, LLAMA_TINY.num_hidden_layers)
+    assert out["21b"]["found_inf"] and out["21b"]["unchanged"]
+    assert out["o2"]["params_dtype"] == "torch.bfloat16"
+
+
+def test_phase21c_multi_head_attention_at_tiny_size(cuda):
+    """``chip_smoke`` phase 21c at [2, 128, 256, 4] (head dim 64): eval on
+    row 1 once (``"tc"``) within 1e-2 of the plain composite, training on
+    the plain composite, the keep rate within 6 sigmas."""
+    from paddle_tpu_torch import amp, nn
+    out = chip_smoke.phase_mha(fa, F, nn, amp, pt.seed,
+                               shape=(2, 128, 256, 4))
+    assert out["eval"]["launches"] == out["eval"]["launches_tc"] == 1
+    assert out["train"]["launches"] == 0
+
+
+def test_phase21d_amp_tp2_at_tiny_size(cuda, tmp_path):
+    """``chip_smoke`` phase 21d at LLAMA_TINY size (fp32 parameters, O1
+    with a scaler, 4 x 128): two gloo ranks at tp2 against world 1, the
+    inf planted on rank 1 only skipped by both."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models.llama import LlamaConfig
+    launches, out = chip_smoke.phase_amp_pair(
+        fa, fc, LlamaConfig, LlamaForCausalLM, fleet, optimizer, amp,
+        pt.seed, cfg=_tiny_fp32(), batch=(4, 128),
+        workdir=str(tmp_path / "p21"))
+    assert launches == chip_smoke.want_amp_launches(
+        "o1", LLAMA_TINY.num_hidden_layers)
+    assert out["skipped"] == [True, True]
+    assert out["scale"][1] == out["scale"][0] / 2

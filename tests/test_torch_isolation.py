@@ -3,7 +3,8 @@
 ``paddle_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any
 module of the JAX package (even those that do not import JAX): checked by
 an AST scan, by importing every module of the port, and by serving a
-Llama and a GPT request, taking Llama and ERNIE-MoE train steps, a
+Llama and a GPT request, taking Llama and ERNIE-MoE train steps (Llama
+also in O2 with a GradScaler), running a masked ``nn.Transformer``, a
 tensor-parallel Llama step, a request through a tensor-parallel
 engine, sequence-parallel (ring and Ulysses), pipeline-parallel (GPipe
 and 1F1B), expert-parallel ERNIE-MoE and tensor-parallel GPT steps, the
@@ -120,6 +121,21 @@ def test_trains_a_step_with_jax_unimportable():
         ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
         losses = [float(step(ids, ids)) for _ in range(3)]
         assert losses[2] < losses[0], losses
+        # mixed precision: O2 after decorate, with a GradScaler
+        from paddle_tpu_torch import amp, nn
+        m2 = amp.decorate(LlamaForCausalLM(cfg, device="cpu"))
+        step = fleet.distributed_optimizer(optimizer.AdamW(
+            learning_rate=1e-3, parameters=m2.parameters())
+        ).make_train_step(m2, lambda mm, x, y: mm(x, labels=y),
+                          amp_level="O2", scaler=amp.GradScaler())
+        amp_losses = [float(step(ids, ids)) for _ in range(3)]
+        assert amp_losses[2] < amp_losses[0], amp_losses
+        # the Transformer layers, with a mask and attention dropout
+        import torch
+        t = nn.Transformer(32, 4, 1, 1, 64, device="cpu")
+        out = t(torch.randn(2, 8, 32), torch.randn(2, 4, 32),
+                tgt_mask=nn.Transformer.generate_square_subsequent_mask(4))
+        assert out.shape == (2, 4, 32) and torch.isfinite(out).all()
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK")
@@ -227,6 +243,10 @@ def test_every_module_imports_with_jax_unimportable():
         assert "paddle_tpu_torch.distributed.utils" in names
         assert "paddle_tpu_torch.distributed.fleet.meta_parallel.random" \
             in names
+        for n in ("amp.auto_cast", "amp.grad_scaler", "tensor_ops.math",
+                  "nn.layer.transformer",
+                  "distributed.fleet.meta_optimizers"):
+            assert "paddle_tpu_torch." + n in names, n
         sys.path.insert(0, "tools")
         importlib.import_module("torch_ep_train")
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))

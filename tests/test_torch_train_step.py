@@ -136,13 +136,18 @@ def test_strategy_options_outside_the_slice_raise():
     model = LlamaForCausalLM(cfg, device="cpu")
     opt = optimizer.AdamW(parameters=model.parameters())
     loss_fn = (lambda m, ids, lbl: m(ids, labels=lbl))
-    for field, item in (("amp", "item 10"), ("asp", "item 9"),
-                        ("lamb", "item 9")):
+    for field, item in (("asp", "item 9"), ("lamb", "item 9")):
         s = fleet.DistributedStrategy()
         setattr(s, field, True)
         with pytest.raises(NotImplementedError, match=item):
             fleet.distributed_optimizer(opt, s).make_train_step(model,
                                                                 loss_fn)
+    # amp runs since the amp slice (tests/test_torch_amp.py): the strategy
+    # routes the step to O1, as the JAX step
+    s = fleet.DistributedStrategy()
+    s.amp = True
+    assert fleet.distributed_optimizer(opt, s).make_train_step(
+        model, loss_fn).amp_level == "O1"
     # dgc runs since the comm-efficient slice
     # (tests/test_torch_comm_efficient.py), with SGD or Momentum only, as
     # the JAX step
@@ -162,8 +167,9 @@ def test_strategy_options_outside_the_slice_raise():
         with pytest.raises(NotImplementedError, match=degree):
             fleet.distributed_optimizer(opt, s).make_train_step(model,
                                                                 loss_fn)
-    with pytest.raises(NotImplementedError, match="amp"):
-        fleet.make_train_step(model, opt, loss_fn, amp_level="O1")
+    o1 = fleet.make_train_step(model, opt, loss_fn, amp_level="O1")
+    assert (o1.amp_level, o1.amp_dtype, o1._scaler_cfg) == ("O1",
+                                                            "bfloat16", None)
     s = fleet.DistributedStrategy()
     s.gradient_merge = True
     s.gradient_merge_configs["k_steps"] = 2

@@ -1481,3 +1481,78 @@ def comm_worker(out_dir, init_paths, batch_path, names):
         dist.barrier()
     dist.destroy_process_group()
 
+
+
+AMP_SCALE = 1024.0
+AMP_LAYERS = 1
+
+
+def amp_worker(out_dir, init_path, ids_path):
+    """LLAMA_TINY at AMP_LAYERS layers (fp32, the JAX model's initial
+    weights) at dp2 x tp2
+    under ``strategy.amp`` (O1) with a ``GradScaler(AMP_SCALE)`` and SGD
+    (lr 0.5): 3 steps, then a step whose loss is multiplied by inf on rank
+    1 only. Each rank writes its losses, whether its own loss was
+    non-finite, the step's ``found_inf``, whether its parameters and
+    optimizer state stayed bit for bit, and the scale before and after;
+    rank 0 also the gathered parameters after the 3 steps."""
+    import dataclasses
+    import math
+
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io import (gather_state_dict,
+                                               load_numpy_state_dict)
+    from paddle_tpu_torch.text.models.llama import (LLAMA_TINY,
+                                                    LlamaForCausalLM)
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank = dist.get_rank()
+    ids = np.load(ids_path)
+    with np.load(init_path) as z:
+        init = {k: z[k] for k in z.files}
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=2, mp_degree=2)
+    s.amp = True
+    fleet.init(is_collective=True, strategy=s)
+    model = fleet.distributed_model(LlamaForCausalLM(
+        dataclasses.replace(LLAMA_TINY, dtype="float32",
+                            num_hidden_layers=AMP_LAYERS), device="cpu"))
+    load_numpy_state_dict(model, init)
+    opt = fleet.distributed_optimizer(optimizer.SGD(
+        learning_rate=0.5, parameters=model.parameters()))
+    poison, local = [1.0], []
+
+    def loss_fn(m, x, y):
+        loss = m(x, labels=y) * poison[0]
+        local.append(float(loss))
+        return loss
+
+    step = opt.make_train_step(
+        model, loss_fn, scaler=amp.GradScaler(init_loss_scaling=AMP_SCALE))
+    losses = [float(step(ids, ids)) for _ in range(3)]
+    full = gather_state_dict(model)
+    sd = step.state_dict()
+    params = {k: v.clone() for k, v in sd["params"].items()}
+    state = {k: {n: t.clone() for n, t in st.items()}
+             for k, st in sd["opt"].items()}
+    scale_before = float(sd["scaler"]["scale"])
+    local.clear()
+    poison[0] = math.inf if rank == 1 else 1.0
+    step(ids, ids)
+    sd = step.state_dict()
+    unchanged = (all(torch.equal(v, params[k])
+                     for k, v in sd["params"].items())
+                 and all(torch.equal(t, state[k][n])
+                         for k, st in sd["opt"].items()
+                         for n, t in st.items()))
+    _dump(os.path.join(out_dir, f"amp.r{rank}.pkl"), dict(
+        rank=rank, losses=losses, params=full if rank == 0 else None,
+        local_inf=not math.isfinite(local[0]),
+        found_inf=bool(step.last_found_inf), unchanged=unchanged,
+        scale_before=scale_before,
+        scale_after=float(sd["scaler"]["scale"])))
+    dist.barrier()
+    dist.destroy_process_group()
