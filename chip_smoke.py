@@ -292,6 +292,28 @@ failure raises and exits non-zero before the result line is printed:
     world 1, rows 1-3 on the tensor cores and row 5 once per rank and
     step; an inf planted on rank 1 only makes both ranks skip bit for bit
     and halve the scale.
+22. the encoder families (after phase 21), ``phase_bert``, ``phase_t5``,
+    ``phase_vit``. 22a: ``bench.py:bench_bert``'s configuration (BERT-base,
+    dropout 0.1, bf16, AdamW lr 1e-4, MLM labels at every position) on its
+    repeated 16 x 512 batch, a warm-up + 3 steps: losses finite, the first
+    within 1.0 of ln 30522, falling; attention on the plain composite (the
+    dropout), no launch of rows 1-3, as in JAX; step time, tokens/s, peak
+    memory, one profiled step. 22b: the same weights without dropout: rows
+    1-3 once per layer and step on the tensor cores, every loss within
+    1e-2 of the same steps with attention routed to the plain composite
+    (inside this script only). 22c: ``BertForSequenceClassification``'s
+    eval forward at 16 x 512, bf16: unmasked, row 1 once per layer and
+    the logits within 1e-2 of the plain-routed forward's; with a 2-D
+    padding mask no launch. 22d: T5 at ``T5Config()``'s widths, bf16
+    training (16 x (512 -> 128), AdamW) finite and falling, no flash
+    launch; fp32 untied ``generate(ids[8, 64], 32 new)`` token-identical
+    to an incremental greedy loop; the card's bucket tables equal to the
+    CPU's for every length used. 22e: ``bench.py:bench_vit``'s ViT-B/16
+    (32 images of 224 x 224, bf16, AdamW lr 3e-4, fp32 CE over 1000
+    classes): finite and falling, the plain composite (197 tokens),
+    images/s and peak memory. Phase 3 holds rows 1-3 at BERT-base's
+    [16, 512, 12, 64] non-causal shape under their judges and planted
+    faults, and phase 7 times them there.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -302,6 +324,7 @@ quantizers at the Llama-2-7B shapes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -677,6 +700,8 @@ FWD_CASES = (
     # GPT-2 small's scoring call: q/k/v views of one [B, L, 3h] projection
     ("GPT-2 fused qkv", 1, 1024, 1024, 12, 12, 64, True, torch.bfloat16,
      "tc"),
+    # BERT-base's attention (phase 22): bench_bert's batch, non-causal
+    ("BERT-base", 16, 512, 512, 12, 12, 64, False, torch.bfloat16, "tc"),
     ("misaligned", 1, 256, 256, 4, 4, 128, True, torch.bfloat16,
      "cuda_core"),
     ("fp32", 1, 512, 512, 8, 8, 128, True, torch.float32, "cuda_core"))
@@ -710,9 +735,9 @@ def fwd_inputs(what, B, Lq, Lk, Hq, Hkv, D, dtype, seed):
 
 def parity_forward(fa):
     """The forward kernel against its plain version under judge_forward,
-    at FWD_CASES, each taking the variant it must; at L=2048 and at GPT-2's
-    causal D=64 both planted faults of forward_faults must fail the same
-    judge."""
+    at FWD_CASES, each taking the variant it must; at L=2048, at GPT-2's
+    causal D=64 and at BERT-base's non-causal D=64 both planted faults of
+    forward_faults must fail the same judge."""
     err = 0.0
     for case in FWD_CASES:
         what, B, Lq, Lk, Hq, Hkv, D, causal, dtype, variant = case
@@ -734,7 +759,7 @@ def parity_forward(fa):
         if not ok:
             raise AssertionError("flash_attention disagrees with its plain "
                                  "version or took the wrong variant")
-        if what in ("L=2048", "GPT-2 fused qkv"):
+        if what in ("L=2048", "GPT-2 fused qkv", "BERT-base"):
             for name, (fo, fl) in forward_faults(q, k, v, causal).items():
                 r = judge_forward(fo, fl, rout, rlse)
                 log(f"  planted fault ({name}): rel_err {r[0]:.3e} / last "
@@ -888,6 +913,9 @@ BWD_CASES = (
     # and its training batch (phase 17), with the planted faults
     ("GPT-2 training", 8, 1024, 1024, 12, 12, 64, True, torch.bfloat16,
      "tc"),
+    # BERT-base's dropout-free step (phase 22b), non-causal, with the
+    # planted faults
+    ("BERT-base", 16, 512, 512, 12, 12, 64, False, torch.bfloat16, "tc"),
     ("misaligned", 1, 256, 256, 4, 4, 128, True, torch.bfloat16,
      "cuda_core"),
     ("fp32", 1, 384, 512, 8, 8, 128, True, torch.float32, "cuda_core"))
@@ -909,9 +937,10 @@ def parity_bwd(fa):
     """dq and dk/dv kernels against their plain versions under
     judge_backward, from the forward kernel's (out, lse), at BWD_CASES,
     each kernel taking the variant it must; fully masked rows (Lq > Lk,
-    causal) must give exactly 0 in dq. At the trainer's shape and at
-    GPT-2's training batch (q/k/v views of the fused qkv) every planted
-    fault of backward_faults must fail the same judge."""
+    causal) must give exactly 0 in dq. At the trainer's shape, at GPT-2's
+    training batch (q/k/v views of the fused qkv) and at BERT-base's
+    non-causal batch every planted fault of backward_faults must fail the
+    same judge."""
     errs = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
     for case in BWD_CASES:
         what, B, Lq, Lk, Hq, Hkv, D, causal, dtype, variant = case
@@ -947,7 +976,7 @@ def parity_bwd(fa):
             raise AssertionError("flash_attention backward disagrees with "
                                  "its plain version or took the wrong "
                                  "variant")
-        if what in ("trainer", "GPT-2 training"):
+        if what in ("trainer", "GPT-2 training", "BERT-base"):
             check_backward_faults(q, k, v, do, lse, delta, causal, want)
         errs["flash_attention_bwd_dq"] = max(
             errs["flash_attention_bwd_dq"], e[0])
@@ -2011,6 +2040,9 @@ def phase_timings(fa, fd, fc, rm, im, sr, flush):
     # one expert-parallel rank's 4 of the 8 experts (phase 18, mp2)
     out.update(timings_ragged(rm, flush, E=MOE_E // EP_DEGREE, suffix="_ep"))
     out.update(timings_ernie_attention(fa, flush))
+    # BERT-base's attention (phase 22b/22c): bench_bert's 16 x 512 batch
+    out.update(timings_ernie_attention(fa, flush, B=16, L=512, H=12, D=64,
+                                       suffix="_bert", seed=96))
     out.update(timings_int8(im, flush))
     out.update(timings_stochastic(sr, flush))
     for name, t in out.items():
@@ -2346,14 +2378,16 @@ def timings_ragged(rm, flush, E=MOE_E, suffix=""):
     return out
 
 
-def timings_ernie_attention(fa, flush):
+def timings_ernie_attention(fa, flush, B=8, L=1024, H=16, D=64,
+                            suffix="_ernie", seed=94):
     """The flash forward, dq and dk/dv kernels at ERNIE-MoE's attention
-    shape (B=8, L=1024, H=16, D=64, non-causal, bf16); yardsticks as at
-    the Llama shapes (SDPA forward; SDPA's whole backward)."""
+    shape (B=8, L=1024, H=16, D=64, non-causal, bf16), or at another
+    non-causal shape (BERT-base's: B=16, L=512, H=12, D=64, ``suffix``
+    "_bert"); yardsticks as at the Llama shapes (SDPA forward; SDPA's
+    whole backward)."""
     TF = torch.nn.functional
-    B, L, H, D = 8, 1024, 16, 64
-    q, k, v = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=94)
-    do = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=95)[0]
+    q, k, v = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=seed)
+    do = attn_case(B, L, L, H, H, D, torch.bfloat16, seed=seed + 1)[0]
     out, lse = fa.flash_attention(q, k, v, causal=False)
     delta = fa.attention_delta(out, do)
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
@@ -2401,7 +2435,7 @@ def timings_ernie_attention(fa, flush):
     }
     del q, k, v, do, out, lse, delta, leaves, o
     torch.cuda.empty_cache()
-    return {f"{k}_ernie": t for k, t in res.items()}
+    return {k + suffix: t for k, t in res.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -5878,6 +5912,405 @@ def phase_amp_pair(fa, fc, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
         step_secs=[g["step_secs"] for g in ranks], spawn_s=spawn_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the encoder families (BERT, T5, ViT)
+# ---------------------------------------------------------------------------
+
+BERT_BATCH = (16, 512)          # bench.py:bench_bert's batch
+# 22b: the kernel step's losses vs the plain-routed step's (bf16 training,
+# another attention arithmetic: a relative 1e-2, as the gloo pairs')
+BERT_PLAIN_REL_TOL = PAIR_REL_TOL
+BERT_LOGITS_REL_TOL = 1e-2      # 22c: bf16 logits vs the plain composite's
+# 22d: T5's source and target lengths (the T5 paper's 512 inputs; its 114
+# targets rounded up to 128) at batch 16, and generate's batch, source
+# length and new tokens
+T5_BATCH = (16, 512, 128)
+T5_GENERATE = (8, 64, 32)
+VIT_BATCH = (32, 224)           # bench.py:bench_vit's batch and image size
+
+
+class plain_attention_routed:
+    """``F.scaled_dot_product_attention``'s kernel route (``sdpa_raw``)
+    sent to the plain composite inside the block: the yardstick of 22b and
+    22c, in this script only (the package has no such switch)."""
+
+    def __init__(self, attention):
+        self.attention = attention
+
+    def __enter__(self):
+        att = self.attention
+        self.saved = att.sdpa_raw
+
+        def plain(q, k, v, causal=False, scale=None):
+            att._record("plain", "routed to the plain composite by "
+                                 "chip_smoke.py")
+            return att._plain_sdpa(q, k, v, causal=causal, scale=scale)
+        att.sdpa_raw = plain
+
+    def __exit__(self, *exc):
+        self.attention.sdpa_raw = self.saved
+
+
+def bert_trainer(BertForPretraining, cfg, fleet, optimizer, seed,
+                 device="cuda", lr=1e-4):
+    """``bench_bert``'s trainer: weights from seed 0 cast to bf16, placed
+    by ``fleet.distributed_model``, AdamW(lr=1e-4), the MLM loss."""
+    seed(0)
+    model = fleet.distributed_model(
+        BertForPretraining(cfg, device=device).to(torch.bfloat16))
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=lr, parameters=model.parameters()))
+    return model, opt.make_train_step(
+        model, lambda m, x, y: m(x, masked_lm_labels=y))
+
+
+def bert_batch(vocab, B, L, device="cuda"):
+    """``bench_bert``'s batch: seeded random ids and MLM labels at every
+    position."""
+    rng = np.random.default_rng(0)
+    return tuple(torch.from_numpy(rng.integers(0, vocab, (B, L))).to(device)
+                 for _ in range(2))
+
+
+def no_launches():
+    return want_attention_launches(0)
+
+
+def check_launches(tag, per_step, want):
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"{tag} step {i} launched {c}, want {want}")
+
+
+def check_training(tag, losses, first_near=None):
+    """Finite losses, the last timed below the first timed; with
+    ``first_near`` the first within 1.0 of it."""
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    if first_near is not None and abs(losses[0] - first_near) > 1.0:
+        raise AssertionError(f"{tag}: first loss {losses[0]} not within "
+                             f"1.0 of {first_near}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"{tag}: the last timed loss is not below the "
+                             f"first: {losses[1:]}")
+
+
+def peak_gib(device):
+    return (torch.cuda.max_memory_allocated() / 2**30 if device != "cpu"
+            else 0.0)
+
+
+def reset_peak(device):
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_bert(fa, fc, rm, F, attention, BertConfig, BertForPretraining,
+               BertForSequenceClassification, fleet, optimizer, seed,
+               cfg=None, batch=BERT_BATCH, device="cuda", lr=1e-4):
+    """22a: ``bench_bert``'s configuration (``BertConfig()``: BERT-base,
+    dropout 0.1; bf16; AdamW(lr=1e-4); MLM labels at every position) on
+    its repeated 16 x 512 batch, a warm-up + 3 steps: the loss finite, the
+    first within 1.0 of ln V, the last timed below the first; attention
+    on the plain composite (training dropout), no launch of rows 1-3, as
+    in JAX; step time, tokens/s, peak memory and one profiled step. 22b:
+    the same weights with both dropouts 0: rows 1-3 once per layer and
+    step, all on the tensor cores; the same steps again with attention
+    routed to the plain composite (``plain_attention_routed``): every
+    loss within ``BERT_PLAIN_REL_TOL``. 22c: the eval forward of
+    ``BertForSequenceClassification`` at the same batch, bf16: without a
+    mask row 1 once per layer on the tensor cores and the logits within
+    ``BERT_LOGITS_REL_TOL`` of the plain-routed forward's; with a 2-D
+    padding mask no launch and the plain path. Returns ({"step_22b": rows
+    1-3's launches in a 22b kernel step, "forward_22c": row 1's per 22c
+    forward, unmasked and masked}, the report)."""
+    cfg = cfg or BertConfig()
+    B, L = batch
+    layers = cfg.num_hidden_layers
+    on_card = device != "cpu"
+    fleet.init()                        # world 1: the default mesh
+    ids, labels = bert_batch(cfg.vocab_size, B, L, device)
+    out = {}
+
+    # ---- 22a ----
+    model, step = bert_trainer(BertForPretraining, cfg, fleet, optimizer,
+                               seed, device, lr)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  22a: {n_params / 1e6:.1f}M params, batch {B} x {L}, bf16, "
+        f"AdamW(lr={lr}), dropout {cfg.hidden_dropout_prob} / "
+        f"{cfg.attention_probs_dropout_prob}")
+    reset_peak(device)
+    losses, secs, per_step = run_steps(fa, fc, rm, step, ids, TRAIN_STEPS,
+                                       tag="22a ", labels=labels)
+    path = F.attention_path()
+    check_training("22a", losses, first_near=np.log(cfg.vocab_size))
+    check_launches("22a", per_step, no_launches())
+    if path["path"] != "plain" or "dropout" not in path["reason"]:
+        raise AssertionError(f"22a attention path {path}")
+    step_s = float(np.median(secs[1:]))
+    prof = profile_step(step, ids, labels) if on_card else None
+    out["22a"] = dict(losses=losses, step_ms=step_s * 1e3,
+                      tokens_per_s=B * L / step_s, peak_gib=peak_gib(device),
+                      attention_path=path, profile=prof)
+    log(f"  22a step time median {step_s * 1e3:.1f} ms over 3, "
+        f"{B * L / step_s:.1f} tokens/s, peak {peak_gib(device):.2f} GiB, "
+        f"attention {path['path']} ({path['reason']})"
+        + (f" ({smi_line()})" if on_card else ""))
+    log("  22a profiled step " + json.dumps(prof))
+    del model, step
+
+    # ---- 22b ----
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    want = want_attention_launches(layers) if on_card else no_launches()
+    runs = {}
+    for arm in ("kernels", "plain-routed"):
+        model, step = bert_trainer(BertForPretraining, cfg0, fleet,
+                                   optimizer, seed, device, lr)
+        reset_peak(device)
+        routed = (plain_attention_routed(attention) if arm == "plain-routed"
+                  else contextlib.nullcontext())
+        with routed:
+            losses, secs, per_step = run_steps(
+                fa, fc, rm, step, ids, TRAIN_STEPS, tag=f"22b {arm} ",
+                labels=labels)
+            path = F.attention_path()
+            prof = (profile_step(step, ids, labels)
+                    if on_card and arm == "kernels" else None)
+        check_training(f"22b {arm}", losses,
+                       first_near=np.log(cfg.vocab_size))
+        check_launches(f"22b {arm}", per_step,
+                       want if arm == "kernels" else no_launches())
+        if arm == "kernels":
+            kernel_steps = per_step
+        step_s = float(np.median(secs[1:]))
+        runs[arm] = dict(losses=losses, step_ms=step_s * 1e3,
+                         tokens_per_s=B * L / step_s,
+                         peak_gib=peak_gib(device), attention_path=path)
+        if prof is not None:
+            runs[arm]["profile"] = prof
+            log("  22b profiled kernel step " + json.dumps(prof))
+        log(f"  22b {arm}: step time median {step_s * 1e3:.1f} ms, "
+            f"{B * L / step_s:.1f} tokens/s, peak {peak_gib(device):.2f} "
+            f"GiB, attention {path['path']}")
+        del model, step
+    worst = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["kernels"]["losses"], runs["plain-routed"]["losses"]))
+    runs["max_rel_loss_to_plain"] = worst
+    log(f"  22b losses {runs['kernels']['losses']} vs plain-routed "
+        f"{runs['plain-routed']['losses']}: worst relative {worst:.3g} "
+        f"(tol {BERT_PLAIN_REL_TOL})")
+    if not worst <= BERT_PLAIN_REL_TOL:
+        raise AssertionError(f"22b: the kernel steps' losses are "
+                             f"{worst:.3g} from the plain-routed ones")
+    out["22b"] = runs
+
+    # ---- 22c ----
+    seed(0)
+    clf = BertForSequenceClassification(cfg, device=device).to(
+        torch.bfloat16).eval()
+    lengths = np.random.default_rng(1).integers(L // 2, L + 1, B)
+    mask = torch.from_numpy((np.arange(L)[None] < lengths[:, None]).astype(
+        np.int64)).to(device)
+    res = {}
+    with torch.no_grad():
+        for arm, kw in (("unmasked", {}), ("masked", dict(
+                attention_mask=mask))):
+            reset_counts(fa.flash_attention)
+            logits = clf(ids, **kw)
+            n = fa.flash_attention.launches
+            tc = fa.flash_attention.launches_by_variant["tc"]
+            path = F.attention_path()
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"22c {arm}: non-finite logits")
+            res[arm] = dict(launches=n, launches_tc=tc, path=path)
+            if on_card:
+                res[arm]["forward_ms"] = forward_ms(
+                    lambda x: clf(x, **kw), ids)
+            if arm == "unmasked":
+                with plain_attention_routed(attention):
+                    ref = clf(ids)
+                    if on_card:
+                        res[arm]["plain_routed_forward_ms"] = forward_ms(
+                            clf, ids)
+                res[arm]["rel_to_plain"] = rel_err(logits, ref)
+        wl = layers if on_card else 0
+        u, m = res["unmasked"], res["masked"]
+        log(f"  22c classification eval forward [{B}, {L}] bf16: unmasked "
+            f"{u}; masked {m}")
+        if (u["launches"] != wl or u["launches_tc"] != wl
+                or u["rel_to_plain"] > BERT_LOGITS_REL_TOL
+                or (on_card and u["path"]["path"] != "flash")):
+            raise AssertionError(f"22c unmasked: {u}")
+        if m["launches"] != 0 or m["path"]["path"] != "plain":
+            raise AssertionError(f"22c masked: {m}")
+    out["22c"] = res
+    del clf
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(step_22b=kernel_steps[1], forward_22c={
+        k: v["launches"] for k, v in res.items()}), out
+
+
+def t5_lengths_used(Ls, Lt, Lg, M):
+    """Every (qlen, klen, bidirectional) bucket table 22d's runs use:
+    training's encoder and decoder, generate's encoder and padded decoder,
+    and the incremental loop's decoder at every length."""
+    used = {(Ls, Ls, True), (Lt, Lt, False), (Lg, Lg, True),
+            (M + 1, M + 1, False)}
+    return sorted(used | {(t, t, False) for t in range(1, M + 1)})
+
+
+def phase_t5(fa, fc, rm, t5mod, fleet, optimizer, seed, cfg=None,
+             gen_cfg=None, batch=T5_BATCH, gen=T5_GENERATE, device="cuda"):
+    """22d: T5 at ``T5Config()``'s widths (d_model 512, 6 + 6 layers, 8
+    heads, vocab 32,128), bf16, AdamW(lr=1e-4, wd=0.01), a warm-up + 3
+    steps with labels on one repeated 16 x (512 -> 128) batch: finite and
+    falling; T5's attention is its own body, so no flash launch. Then, in
+    fp32 with untied embeddings (random tied ones emit the start token
+    throughout), ``generate(max_new_tokens=32)`` on a seeded 8 x 64 batch
+    token-identical to a step-by-step incremental greedy loop on the card
+    (JAX's ``tests/test_hf_interop.py`` check), and the card's bucket
+    table for every length those runs used equal to the CPU's."""
+    T5Config = t5mod.T5Config
+    cfg = cfg or T5Config(dtype="bfloat16")
+    gen_cfg = gen_cfg or T5Config(tie_word_embeddings=False)
+    B, Ls, Lt = batch
+    Bg, Lg, M = gen
+    on_card = device != "cpu"
+    fleet.init()
+    seed(0)
+    model = fleet.distributed_model(
+        t5mod.T5ForConditionalGeneration(cfg, device=device))
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01,
+        parameters=model.parameters()))
+    step = opt.make_train_step(model, lambda m, x, y: m(x, labels=y))
+    rng = np.random.default_rng(7)
+    src = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, Ls))).to(
+        device)
+    tgt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, Lt))).to(
+        device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  22d: {n_params / 1e6:.1f}M params, batch {B} x ({Ls} -> {Lt}), "
+        f"{cfg.dtype}, AdamW(lr=1e-4, wd=0.01)")
+    reset_peak(device)
+    losses, secs, per_step = run_steps(fa, fc, rm, step, src, TRAIN_STEPS,
+                                       tag="22d ", labels=tgt)
+    check_training("22d", losses)
+    check_launches("22d", per_step, no_launches())
+    step_s = float(np.median(secs[1:]))
+    train = dict(losses=losses, step_ms=step_s * 1e3,
+                 tokens_per_s=B * (Ls + Lt) / step_s,
+                 peak_gib=peak_gib(device))
+    log(f"  22d step time median {step_s * 1e3:.1f} ms, "
+        f"{B * (Ls + Lt) / step_s:.1f} (source + target) tokens/s, peak "
+        f"{peak_gib(device):.2f} GiB")
+    del model, step, opt
+
+    seed(1)
+    gm = t5mod.T5ForConditionalGeneration(gen_cfg, device=device).eval()
+    gsrc = torch.from_numpy(np.random.default_rng(8).integers(
+        2, gen_cfg.vocab_size, (Bg, Lg))).to(device)
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = gm.generate(gsrc, max_new_tokens=M, eos_token_id=None)
+    if on_card:
+        torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    dec = torch.full((Bg, 1), gen_cfg.decoder_start_token_id,
+                     dtype=torch.long, device=device)
+    with torch.no_grad():
+        for _ in range(M):
+            logits = gm(gsrc, decoder_input_ids=dec)
+            dec = torch.cat([dec, logits[:, -1].float().argmax(-1)[:, None]],
+                            dim=1)
+    same = bool(torch.equal(got, dec))
+    distinct = int(torch.unique(got[:, 1:]).numel())
+    log(f"  22d generate [{Bg}, {Lg}] -> {M} new, fp32, untied: "
+        f"{gen_s * 1e3:.1f} ms, {distinct} distinct tokens, identical to "
+        f"the incremental loop: {same}")
+    if not same:
+        raise AssertionError("22d: generate differs from the incremental "
+                             "greedy loop")
+    nb = gen_cfg.relative_attention_num_buckets
+    md = gen_cfg.relative_attention_max_distance
+    used = t5_lengths_used(Ls, Lt, Lg, M)
+    dev = torch.device(device)
+    bad = [u for u in used if not torch.equal(
+        t5mod._bucket_table(*u, nb, md, dev).cpu(),
+        t5mod._bucket_table(*u, nb, md, torch.device("cpu")))]
+    # the formula evaluated on the device instead (not what the model
+    # does): how many relative positions of lengths up to 2048 its log
+    # would put in another bucket
+    rel = torch.arange(-2047, 2048, dtype=torch.int32)
+    formula = {bi: int((t5mod._rel_bucket(rel.to(device), bi, nb, md).cpu()
+                        != t5mod._rel_bucket(rel, bi, nb, md)).sum())
+               for bi in (True, False)}
+    log(f"  22d bucket tables on the card equal the CPU's for all "
+        f"{len(used)} (qlen, klen, direction) used: {not bad}; the formula "
+        f"run on the device would differ at {formula} of 4095 relative "
+        f"positions (bidirectional, one-directional)")
+    if bad:
+        raise AssertionError(f"22d bucket tables differ at {bad}")
+    del gm
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(train=train, generate=dict(
+        shape=[Bg, Lg, M], ms=gen_s * 1e3, identical_to_incremental=same,
+        distinct_tokens=distinct), bucket_tables_checked=len(used),
+        device_formula_mismatches={str(k): v for k, v in formula.items()})
+
+
+def phase_vit(fa, fc, rm, F, vit_b_16, fleet, optimizer, seed,
+              batch=VIT_BATCH, device="cuda", **vit_kw):
+    """22e: ``bench_vit``'s configuration: ViT-B/16 (``vit_b_16``: width
+    768, 12 layers, 12 heads) over 1000 classes cast to bf16,
+    AdamW(lr=3e-4), the fp32 CE; a warm-up + 3 steps on one repeated
+    batch of 32 seeded 224 x 224 images (bf16): finite and falling; 197
+    tokens, so attention takes the plain composite and rows 1-3 never
+    launch, as in JAX; images/s and peak memory."""
+    B, S = batch
+    fleet.init()
+    seed(0)
+    model = fleet.distributed_model(
+        vit_b_16(num_classes=1000, device=device, **vit_kw).to(
+            torch.bfloat16))
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=3e-4, parameters=model.parameters()))
+    step = opt.make_train_step(
+        model, lambda m, x, y: F.cross_entropy(m(x).float(), y))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((B, 3, S, S)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, 1000, (B,))).to(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  22e: {n_params / 1e6:.1f}M params, {B} images {S} x {S}, bf16, "
+        f"AdamW(lr=3e-4)")
+    reset_peak(device)
+    losses, secs, per_step = run_steps(fa, fc, rm, step, x, TRAIN_STEPS,
+                                       tag="22e ", labels=y)
+    path = F.attention_path()
+    check_training("22e", losses)
+    check_launches("22e", per_step, no_launches())
+    if path["path"] != "plain":
+        raise AssertionError(f"22e attention path {path}")
+    step_s = float(np.median(secs[1:]))
+    log(f"  22e step time median {step_s * 1e3:.1f} ms, {B / step_s:.1f} "
+        f"images/s, peak {peak_gib(device):.2f} GiB, attention "
+        f"{path['path']} ({path['reason']})")
+    res = dict(losses=losses, step_ms=step_s * 1e3,
+               images_per_s=B / step_s, peak_gib=peak_gib(device),
+               attention_path=path)
+    del model, step, opt
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return res
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6108,6 +6541,31 @@ def main():
         pt.seed)
     log("  amp tp2 " + json.dumps(amp_pair))
 
+    # ---- 22. the encoder families -------------------------------------------
+    t22 = time.perf_counter()
+    log(f"[22] the encoder families: 22a-c BERT-base (bench.py:bench_bert's "
+        f"configuration, {BERT_BATCH[0]}x{BERT_BATCH[1]}, bf16): "
+        f"pretraining with dropout (the plain composite), without dropout "
+        f"(rows 1-3) against plain-routed steps, the classification eval "
+        f"forward unmasked and masked; 22d T5 at T5Config()'s widths, "
+        f"{T5_BATCH[0]}x({T5_BATCH[1]} -> {T5_BATCH[2]}), bf16 training, "
+        f"fp32 generate; 22e ViT-B/16 (bench.py:bench_vit's, "
+        f"{VIT_BATCH[0]}x{VIT_BATCH[1]}^2, bf16)")
+    from paddle_tpu_torch.nn.functional import attention
+    from paddle_tpu_torch.text.models import (BertConfig, BertForPretraining,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.text.models import t5 as t5mod
+    from paddle_tpu_torch.vision import vit_b_16
+    bert_launches, bert = phase_bert(
+        fa, fc, rm, F, attention, BertConfig, BertForPretraining,
+        BertForSequenceClassification, fleet, optimizer, pt.seed)
+    log("  bert " + json.dumps(bert))
+    t5 = phase_t5(fa, fc, rm, t5mod, fleet, optimizer, pt.seed)
+    log("  t5 " + json.dumps(t5))
+    vit = phase_vit(fa, fc, rm, F, vit_b_16, fleet, optimizer, pt.seed)
+    log("  vit " + json.dumps(vit))
+    log(f"  phase 22 took {time.perf_counter() - t22:.1f} s ({smi_line()})")
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -6215,6 +6673,19 @@ def main():
                 tp2_rank=amp_tp_launches[kd["name"]])
         if kd["name"] == "flash_attention_fwd":
             kd["amp"]["mha_eval"] = mha["eval"]["launches"]
+    # rows 1-3 in phase 22 at BERT-base's [16, 512, 12, 64] non-causal
+    # shape: launches in a dropout-free step (22b; 22a's dropout step takes
+    # the plain composite: 0), row 1's per classification forward (22c),
+    # and their phase-7 times there
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_"):
+            te = t[kd["name"] + "_bert"]
+            kd["bert"] = dict(
+                launches_22a=0,
+                launches_22b=bert_launches["step_22b"][kd["name"]],
+                **{k: te[k] for k in cols + first + ("shape",) if k in te})
+            if kd["name"] == "flash_attention_fwd":
+                kd["bert"]["launches_22c"] = bert_launches["forward_22c"]
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

@@ -8,8 +8,9 @@ or fp16 for any other ``dtype``). The product's result stays in that
 dtype; a later fp32 + bf16 add promotes back to fp32, so residual
 streams, norms and fp32 math outside the products stay as they were.
 The cast sites are exactly the JAX package's: ``nn.functional.linear``
-(and so every ``Linear``, the tensor-parallel ones included) and
-``tensor_ops.matmul`` (the tied LM heads). Attention's inner products,
+(and so every ``Linear``, the tensor-parallel ones included),
+``nn.functional.conv2d`` (``Conv2D``) and ``tensor_ops.matmul`` (the
+tied LM heads). Attention's inner products,
 the MoE einsums and the fused LM head do not cast, as in JAX.
 
 The white/black lists are accepted and ignored, as in JAX. ``level``

@@ -1,5 +1,5 @@
 """Activations. Counterpart of ``paddle_tpu/nn/functional/activation.py``
-(``gelu``, ``relu``, ``silu``).
+(``gelu``, ``relu``, ``silu``, ``tanh``).
 
 ``gelu`` defaults to the exact erf form (``approximate=False``), as
 paddle's does; ``approximate=True`` is the tanh form. The JAX package's
@@ -8,9 +8,10 @@ ERNIE's dense FFN calls ``F.gelu`` (erf): the port keeps both.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as TF
 
-__all__ = ["gelu", "relu", "silu"]
+__all__ = ["gelu", "relu", "silu", "tanh"]
 
 
 def gelu(x, approximate=False, name=None):
@@ -23,3 +24,7 @@ def relu(x, name=None):
 
 def silu(x, name=None):
     return TF.silu(x)
+
+
+def tanh(x, name=None):
+    return torch.tanh(x)

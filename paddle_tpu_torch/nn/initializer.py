@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["Constant", "Normal", "XavierUniform"]
+__all__ = ["Constant", "KaimingUniform", "Normal", "TruncatedNormal",
+           "Uniform", "XavierUniform"]
 
 
 def _fans(shape):
@@ -44,6 +45,45 @@ class Normal:
 
     def __call__(self, t, generator):
         return t.normal_(self.mean, self.std, generator=generator)
+
+
+class TruncatedNormal:
+    """N(mean, std) cut to ``mean +- 2 std``: a standard normal truncated
+    to [-2, 2] (inverse CDF of a uniform draw), scaled and shifted."""
+
+    def __init__(self, mean=0.0, std=1.0):
+        self.mean, self.std = float(mean), float(std)
+
+    def __call__(self, t, generator):
+        lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0)))
+                  for b in (-2.0, 2.0))
+        t.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+        return t.mul_(self.std).add_(self.mean)
+
+
+class Uniform:
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = float(low), float(high)
+
+    def __call__(self, t, generator):
+        return t.uniform_(self.low, self.high, generator=generator)
+
+
+class KaimingUniform:
+    """U(-limit, limit), ``limit = gain * sqrt(3 / fan_in)`` with the
+    leaky-relu gain ``sqrt(2 / (1 + negative_slope ** 2))``."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0,
+                 nonlinearity="relu"):
+        self.fan_in = fan_in
+        self.negative_slope = negative_slope
+
+    def __call__(self, t, generator):
+        fi = self.fan_in or _fans(t.shape)[0]
+        gain = math.sqrt(2.0 / (1 + self.negative_slope ** 2))
+        limit = gain * math.sqrt(3.0 / fi)
+        return t.uniform_(-limit, limit, generator=generator)
 
 
 class XavierUniform:

@@ -4,8 +4,10 @@ PyTorch version, the engine's kernel path against its gathered path
 words against the known ``jax.random`` words, and the tiny Llama and
 ERNIE-MoE trainers and a PTQ'd tiny Llama on the card against the same
 models on the CPU, the comm-efficient exchanges' int8 quantizer on the
-card against the CPU, and ``chip_smoke``'s multi-rank phases and phase
-21 (mixed precision, attention dropout) at tiny size.
+card against the CPU, ``chip_smoke``'s multi-rank phases and phase 21
+(mixed precision, attention dropout) at tiny size, and BERT, T5, ViT and
+``Conv2D`` at tiny size on the card against the CPU, with phase 22 (the
+encoder families) at tiny size.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -1317,3 +1319,153 @@ def test_phase21d_amp_tp2_at_tiny_size(cuda, tmp_path):
         "o1", LLAMA_TINY.num_hidden_layers)
     assert out["skipped"] == [True, True]
     assert out["scale"][1] == out["scale"][0] / 2
+
+
+# ---------------------------------------------------------------------------
+# the encoder families (phase 22): each at tiny size on the card against
+# the same model on the CPU, and phase 22 itself at tiny size
+# ---------------------------------------------------------------------------
+
+def _on_card(cpu_model, make, cuda):
+    """A model from ``make(cuda)`` holding ``cpu_model``'s weights."""
+    model = make(cuda)
+    load_numpy_state_dict(model, {k: v.detach().float().numpy()
+                                  for k, v in cpu_model.state_dict().items()})
+    return model
+
+
+def _close(got, want, tol=TOLS[torch.float32]):
+    got, want = got.detach().float().cpu(), want.detach().float()
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= tol, rel
+
+
+def test_bert_tiny_on_the_card_matches_the_cpu(cuda):
+    """BERT_TINY fp32 with dropout 0 at 2 x 128: unmasked the flash
+    forward's fp32 variant once per layer, masked the plain composite;
+    seq, pooled, the pretraining logits and the MLM + NSP loss within
+    1e-4 of the CPU's."""
+    from paddle_tpu_torch.text.models import bert
+    cfg = dataclasses.replace(bert.BERT_TINY, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    pt.seed(0)
+    cpu = bert.BertForPretraining(cfg, device="cpu")
+    card = _on_card(cpu, lambda d: bert.BertForPretraining(cfg, device=d),
+                    cuda)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128)))
+    mask = torch.ones(2, 128, dtype=torch.long)
+    mask[1, 90:] = 0
+    mlm = torch.where(torch.from_numpy(rng.random((2, 128)) < 0.15), ids,
+                      -100)
+    nsp = torch.tensor([0, 1])
+    with torch.no_grad():
+        chip_smoke.reset_counts(fa.flash_attention)
+        got = card.bert(ids.to(cuda))
+        assert fa.flash_attention.launches == cfg.num_hidden_layers
+        for g, w in zip(got, cpu.bert(ids)):
+            _close(g, w)
+        for g, w in zip(card(ids, attention_mask=mask),
+                        cpu(ids, attention_mask=mask)):
+            _close(g, w)
+        assert fa.flash_attention.launches == cfg.num_hidden_layers
+        _close(card(ids, attention_mask=mask, masked_lm_labels=mlm,
+                    next_sentence_label=nsp),
+               cpu(ids, attention_mask=mask, masked_lm_labels=mlm,
+                   next_sentence_label=nsp))
+
+
+@pytest.mark.parametrize("ff,tie", [("relu", True), ("gated-gelu", False)])
+def test_t5_tiny_on_the_card_matches_the_cpu(cuda, ff, tie):
+    """T5_TINY fp32: logits and the label loss within 1e-4 of the CPU's,
+    ``generate`` token-identical, the card's bucket tables the CPU's."""
+    from paddle_tpu_torch.text.models import t5
+    cfg = dataclasses.replace(t5.T5_TINY, feed_forward_proj=ff,
+                              tie_word_embeddings=tie)
+    pt.seed(1)
+    cpu = t5.T5ForConditionalGeneration(cfg, device="cpu")
+    card = _on_card(cpu, lambda d: t5.T5ForConditionalGeneration(
+        cfg, device=d), cuda)
+    rng = np.random.default_rng(2)
+    src = torch.from_numpy(rng.integers(2, 256, (3, 40)))
+    tgt = torch.from_numpy(rng.integers(2, 256, (3, 24)))
+    with torch.no_grad():
+        _close(card(src, decoder_input_ids=tgt),
+               cpu(src, decoder_input_ids=tgt))
+        _close(card(src, labels=tgt), cpu(src, labels=tgt))
+    assert torch.equal(card.generate(src, max_new_tokens=12).cpu(),
+                       cpu.generate(src, max_new_tokens=12))
+    for n, bi in ((40, True), (24, False), (13, False)):
+        args = (n, n, bi, cfg.relative_attention_num_buckets,
+                cfg.relative_attention_max_distance)
+        assert torch.equal(t5._bucket_table(*args, cuda).cpu(),
+                           t5._bucket_table(*args, torch.device("cpu")))
+
+
+@pytest.fixture
+def no_cudnn_tf32():
+    """cuDNN's convolutions in true fp32 inside the test (TF32 is its
+    default; ``chip_smoke.py`` turns it off too)."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def test_vit_and_conv2d_tiny_on_the_card_match_the_cpu(cuda, no_cudnn_tf32):
+    """A width-64 ViT at 32 x 32 (patch 16) and a strided, grouped,
+    "SAME"-padded ``Conv2D``, fp32 (TF32 off): within 1e-4 of the
+    CPU's."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.models import VisionTransformer
+    pt.seed(2)
+    kw = dict(img_size=32, embed_dim=64, depth=2, num_heads=2,
+              num_classes=10)
+    cpu = VisionTransformer(**kw, device="cpu")
+    card = _on_card(cpu, lambda d: VisionTransformer(**kw, device=d), cuda)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, 3, 32, 32)).astype(np.float32))
+    with torch.no_grad():
+        _close(card(x), cpu(x))
+        conv = nn.Conv2D(4, 8, 4, stride=2, padding="SAME", groups=2,
+                         device="cpu")
+        cconv = _on_card(conv, lambda d: nn.Conv2D(
+            4, 8, 4, stride=2, padding="SAME", groups=2, device=d), cuda)
+        _close(cconv(x[:, :1].repeat(1, 4, 1, 1).to(cuda)),
+               conv(x[:, :1].repeat(1, 4, 1, 1)))
+
+
+def test_phase22_at_tiny_size(cuda):
+    """``chip_smoke`` phase 22 at tiny size: BERT at width 256 (head dim
+    64), 2 layers, 4 x 128, lr 1e-3 (22a plain, 22b rows 1-3 once per
+    layer and step against the plain-routed steps, 22c); T5_TINY (bf16
+    training, fp32 untied generate); a width-64 ViT at 32 x 32."""
+    from paddle_tpu_torch.nn.functional import attention
+    from paddle_tpu_torch.text.models import (BertConfig, BertForPretraining,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.text.models import t5 as t5mod
+    from paddle_tpu_torch.vision.models import VisionTransformer
+    cfg = BertConfig(vocab_size=2048, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=512,
+                     max_position_embeddings=128)
+    launches, bert = chip_smoke.phase_bert(
+        fa, fc, rm, F, attention, BertConfig, BertForPretraining,
+        BertForSequenceClassification, fleet, optimizer, pt.seed, cfg=cfg,
+        batch=(4, 128), lr=1e-3)
+    assert launches["step_22b"] == chip_smoke.want_attention_launches(2)
+    assert launches["forward_22c"] == {"unmasked": 2, "masked": 0}
+    out = chip_smoke.phase_t5(
+        fa, fc, rm, t5mod, fleet, optimizer, pt.seed,
+        cfg=dataclasses.replace(t5mod.T5_TINY, dtype="bfloat16"),
+        gen_cfg=dataclasses.replace(t5mod.T5_TINY,
+                                    tie_word_embeddings=False),
+        batch=(4, 64, 32), gen=(2, 16, 8))
+    assert out["generate"]["identical_to_incremental"]
+
+    def tiny_vit(num_classes, device):
+        return VisionTransformer(img_size=32, embed_dim=64, depth=2,
+                                 num_heads=2, num_classes=num_classes,
+                                 device=device)
+    out = chip_smoke.phase_vit(fa, fc, rm, F, tiny_vit, fleet, optimizer,
+                               pt.seed, batch=(8, 32))
+    assert out["attention_path"]["path"] == "plain"

@@ -12,8 +12,9 @@ MoE dispatch collectives, the RNG tracker and every comm-efficient
 strategy (``distributed/comm_opt.py``, ``fleet/comm_efficient.py``) on
 two spawned ranks (and importing ``tools/torch_ep_train.py``), and
 quantizing and
-running a tiny Llama and both stochastic quantizers in processes where
-importing either fails.
+running a tiny Llama and both stochastic quantizers, and taking BERT,
+T5 (then ``generate``) and ViT steps, in processes where importing
+either fails.
 Entry points default to CUDA and raise when it is absent.
 """
 import ast
@@ -183,6 +184,73 @@ def test_trains_ernie_moe_with_jax_unimportable():
     assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
 
 
+def test_trains_bert_t5_and_vit_with_jax_unimportable():
+    """BERT (MLM + NSP), T5 (labels, then ``generate``) and ViT take fleet
+    + AdamW steps, and the HF converters load, in a process where
+    importing JAX or the JAX package fails."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import dataclasses
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import optimizer
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.nn import functional as F
+        from paddle_tpu_torch.text.models import (BERT_TINY, T5_TINY,
+                                                  BertForPretraining,
+                                                  T5ForConditionalGeneration,
+                                                  convert)
+        from paddle_tpu_torch.vision import VisionTransformer
+
+        def train(model, loss_fn, *batch):
+            m = fleet.distributed_model(model)
+            step = fleet.distributed_optimizer(optimizer.AdamW(
+                learning_rate=1e-3, parameters=m.parameters())
+            ).make_train_step(m, loss_fn)
+            losses = [float(step(*batch)) for _ in range(3)]
+            assert losses[2] < losses[0], losses
+            return m
+
+        pt.seed(0)
+        rng = np.random.default_rng(0)
+        cfg = dataclasses.replace(BERT_TINY, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+        ids = rng.integers(0, cfg.vocab_size, (2, 16))
+        mask = np.ones((2, 16), np.int64)
+        mask[1, 10:] = 0
+        train(BertForPretraining(cfg, device="cpu"),
+              lambda m, x, k, y, n: m(x, attention_mask=k,
+                                      masked_lm_labels=y,
+                                      next_sentence_label=n),
+              ids, mask, ids, np.array([0, 1]))
+        src = rng.integers(2, 256, (2, 10))
+        t5 = train(T5ForConditionalGeneration(T5_TINY, device="cpu"),
+                   lambda m, x, y: m(x, labels=y), src, src[:, :6])
+        out = t5.generate(src, max_new_tokens=4)
+        assert out.shape == (2, 5) and (out[:, 0] == 0).all()
+        vit = VisionTransformer(img_size=32, embed_dim=64, depth=1,
+                                num_heads=2, num_classes=10, device="cpu")
+        train(vit, lambda m, x, y: F.cross_entropy(m(x).float(), y),
+              rng.standard_normal((2, 3, 32, 32)).astype(np.float32),
+              np.array([1, 7]))
+        hf = {"vit." + k: v for k, v in {
+            "embeddings.cls_token": np.zeros((1, 1, 64), np.float32)}.items()}
+        assert list(convert.convert_hf_vit_state_dict(hf)) == ["cls_token"]
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
+
+
 def test_quantizes_a_model_with_jax_unimportable():
     code = textwrap.dedent("""
         import sys
@@ -245,7 +313,11 @@ def test_every_module_imports_with_jax_unimportable():
             in names
         for n in ("amp.auto_cast", "amp.grad_scaler", "tensor_ops.math",
                   "nn.layer.transformer",
-                  "distributed.fleet.meta_optimizers"):
+                  "distributed.fleet.meta_optimizers",
+                  "nn.layer.activation", "nn.layer.conv",
+                  "nn.functional.conv", "text.models.bert",
+                  "text.models.t5", "text.models.convert",
+                  "vision.models.vit"):
             assert "paddle_tpu_torch." + n in names, n
         sys.path.insert(0, "tools")
         importlib.import_module("torch_ep_train")
@@ -314,6 +386,17 @@ def test_default_device_is_cuda_and_raises_without_it():
     assert get_device() == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LlamaForCausalLM(LLAMA_TINY)
+    from paddle_tpu_torch.text.models import (BERT_TINY, T5_TINY,
+                                              BertForPretraining,
+                                              BertForSequenceClassification,
+                                              T5ForConditionalGeneration)
+    from paddle_tpu_torch.vision import vit_s_16
+    for make in (lambda: BertForPretraining(BERT_TINY),
+                 lambda: BertForSequenceClassification(BERT_TINY),
+                 lambda: T5ForConditionalGeneration(T5_TINY),
+                 lambda: vit_s_16(img_size=32)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("gpu:0")
     assert resolve_device("cpu") == torch.device("cpu")
