@@ -314,6 +314,31 @@ failure raises and exits non-zero before the result line is printed:
     images/s and peak memory. Phase 3 holds rows 1-3 at BERT-base's
     [16, 512, 12, 64] non-causal shape under their judges and planted
     faults, and phase 7 times them there.
+23. the serving deployment path (after phase 22), ``phase_deploy``, on
+    phase 20a's fp32 twins (TF32 off): GPT-2 small whole, then Llama-2-7B
+    widths at 2 layers, ``Engine(n_slots=4, max_len=256, block_size=16,
+    flash_decode=True)``, phase 5's staggered prompts that fit 256 with 32
+    new tokens (seven: shared 64-token prefix), greedy and phase 11's
+    sampled + chunked. 23a: ``serving.save_lm`` to a temporary directory,
+    ``inference.create_llm_predictor`` from it per mode: the predictor's
+    tokens equal the source engine's; the artifact's size, the save and
+    load walls. 23b: ``EngineSupervisor(kv_probe_interval=1)`` under
+    ChaosMonkey's decode-stall, decode-raise and kv-corrupt at supervised
+    step 5 (four requests decoding at different positions, two queued),
+    and a real wedge (``step_timeout_s`` 0.5, a decode step that sleeps
+    1.0 s inside): every request's tokens equal the uninterrupted
+    engine's, one rebuild, at least two replayed requests, the zombie's
+    late tokens dropped, row 4 once per layer per decode step summed over
+    both incarnations, all on the split kernel; the recovery wall (fault
+    to the first replayed token) beside the uninterrupted decode step, and
+    the KV probe's device span and wall. 23c, on the Llama twin:
+    ``ReplicaFleet(n_replicas=2)`` through replica-kill (greedy, sampled)
+    and route-flap: the migrated requests' tokens equal the uninterrupted
+    run's, row 4 per layer per decode step over every engine, each
+    replica's weights views of the model's, the peak memory above the
+    weights beside the two pools; a request sharing the prefix routes to
+    the busier replica that holds it; a GPT-2 handle offered to a Llama
+    replica raises ``AdoptMismatch``.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -331,6 +356,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -6311,6 +6338,469 @@ def phase_vit(fa, fc, rm, F, vit_b_16, fleet, optimizer, seed,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the serving deployment path
+# ---------------------------------------------------------------------------
+
+DEPLOY_GEO = dict(n_slots=4, max_len=256, block_size=16, flash_decode=True)
+DEPLOY_NEW = 32
+DEPLOY_FAULT_STEP = 5       # supervised step 5: four requests decoding at
+#                             different positions, two queued
+DEPLOY_FAULTS = ("decode-stall", "decode-raise", "kv-corrupt")
+DEPLOY_STALL_S = 0.05
+WEDGE_TIMEOUT_S = 0.5       # the real wedge: step_timeout_s, and the sleep
+WEDGE_SLEEP_S = 1.0         # inside the decode step past it
+
+
+def deploy_traffic(vocab, mode, max_len=DEPLOY_GEO["max_len"],
+                   new=DEPLOY_NEW):
+    """Phase 5's prompts (shared 64-token prefix) that fit ``max_len``
+    with ``new`` tokens (the 256-token one does not), and per request the
+    sampled mode's submit arguments (phase 11's: temperature 0.6, seeds
+    1000 + i)."""
+    prompts = [p for p in workload(vocab, seed=1) if len(p) + new <= max_len]
+    per = ([dict(temperature=0.6, seed=1000 + i) for i in range(len(prompts))]
+           if mode == "sampled" else None)
+    return prompts, per
+
+
+def mode_kw(mode):
+    """The engine arguments of a mode: sampled + chunked is phase 11's."""
+    return SAMPLED if mode == "sampled" else {}
+
+
+def track_engines(sups):
+    """Every engine the supervisors ``sups`` own, the ones their rebuilds
+    make included (their ``_build`` is wrapped)."""
+    engines = []
+    for sup in sups:
+        engines.append(sup.engine)
+
+        def build(orig=sup._build):
+            eng = orig()
+            engines.append(eng)
+            return eng
+        sup._build = build
+    return engines
+
+
+def join_zombies():
+    """Wait for the supervisors' abandoned step threads (a wedged step
+    returns on its own after its sleep)."""
+    for t in threading.enumerate():
+        if t.name == "supervised-decode":
+            t.join()
+
+
+def deploy_run(server, prompts, per, fd, engines, n_layers, tag,
+               new=DEPLOY_NEW, device="cuda"):
+    """Phase 5's staggered schedule on ``server`` (an engine, a
+    supervisor or a fleet); row 4's counts reset just before and read
+    just after (abandoned step threads joined first). Every request must
+    finish with ``new`` tokens and row 4 launch once per layer per decode
+    step of every engine in ``engines`` (the incarnations), all on the
+    split kernel. Returns the tokens, the handles, the supervised steps'
+    start times, the wall and the launches."""
+    free_cycles()
+    reset_counts(fd.flash_decode)
+    stamps = []
+    step = server.step
+
+    def stamped():
+        stamps.append(time.perf_counter())
+        return step()
+
+    server.step = stamped
+    t0 = time.perf_counter()
+    hs = staggered(server, prompts, new, per)
+    join_zombies()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del server.step
+    launches = fd.flash_decode.launches
+    variants = dict(fd.flash_decode.launches_by_variant)
+    steps = sum(e.metrics.decode_steps for e in engines)
+    want = n_layers * steps
+    if launches != want or not want \
+            or variants != {"split": want, "one_pass": 0}:
+        raise AssertionError(f"{tag}: flash_decode launched {launches} "
+                             f"times ({variants}), want {want} = "
+                             f"{n_layers} x {steps} decode steps over "
+                             f"{len(engines)} engines, all on the split "
+                             f"kernel")
+    if not all(h.finished and h.finish_reason == "length"
+               and len(h.tokens) == new for h in hs):
+        raise AssertionError(f"{tag}: a request did not finish with {new} "
+                             f"tokens")
+    return dict(tokens=[list(map(int, h.tokens)) for h in hs], handles=hs,
+                stamps=stamps, wall_s=wall, launches=launches,
+                decode_steps=steps, engines=len(engines))
+
+
+def first_token_after(handles, t):
+    """Seconds from ``t`` to the first token any handle emitted after it
+    (the recovery wall: the first replayed token)."""
+    return min(s for h in handles for s in h.metrics.token_times if s > t) - t
+
+
+def check_same(tag, got, want):
+    """Token identity; a difference names the first differing request and
+    position."""
+    if got == want:
+        return
+    i = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    j = next(j for j, (a, b) in enumerate(zip(got[i], want[i])) if a != b)
+    raise AssertionError(f"{tag}: request {i} differs from the "
+                         f"uninterrupted run at token {j}: {got[i][j]} vs "
+                         f"{want[i][j]}")
+
+
+def deploy_artifact(model, fd, save_lm, create_llm_predictor, base, what,
+                    launches, device="cuda"):
+    """23a: ``save_lm`` to a temporary directory, then one
+    ``create_llm_predictor`` per mode (greedy; sampled + chunked): the
+    predictor's tokens must be the source engine's (``base``). Returns the
+    artifact's size, the save and load walls and the runs' numbers."""
+    n = model.config.num_hidden_layers
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        path = save_lm(model, os.path.join(td, "lm"))
+        out["save_s"] = time.perf_counter() - t0
+        out["artifact_bytes"] = os.path.getsize(path)
+        for mode in ("greedy", "sampled"):
+            free_cycles()
+            t0 = time.perf_counter()
+            pred = create_llm_predictor(path, device=device, **DEPLOY_GEO,
+                                        **mode_kw(mode))
+            if device != "cpu":
+                torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            prompts, per = deploy_traffic(model.config.vocab_size, mode)
+            tag = f"23a {what} {mode}"
+            r = deploy_run(pred.engine, prompts, per, fd, [pred.engine], n,
+                           tag, device=device)
+            launches[tag] = r["launches"]
+            check_same(f"23a {what} {mode} predictor", r["tokens"],
+                       base[mode])
+            out[mode] = dict(load_s=load_s, identical=True,
+                             flash_decode_launches=r["launches"])
+            del pred, r
+    log(f"  23a {what}: artifact {out['artifact_bytes'] / 2**30:.3f} GiB, "
+        f"save {out['save_s']:.2f} s, load (predictor built) greedy "
+        f"{out['greedy']['load_s']:.2f} s, sampled "
+        f"{out['sampled']['load_s']:.2f} s; tokens identical to the source "
+        f"engine's")
+    return out
+
+
+def wedge_decode(eng, sleep_s, at_call):
+    """A real wedge: the ``at_call``-th decode step of ``eng`` sleeps
+    ``sleep_s`` inside the step (past the supervisor's condemnation
+    check), then decodes on the engine, condemned by then. Returns a dict
+    the wedge's start time goes into."""
+    orig = eng._decode_once
+    box = {"calls": 0}
+
+    def slow(active):
+        box["calls"] += 1
+        if box["calls"] == at_call:
+            box["t"] = time.perf_counter()
+            time.sleep(sleep_s)
+        return orig(active)
+
+    eng._decode_once = slow
+    return box
+
+
+def probe_cost(sup, prompts, device):
+    """One KV probe over the live blocks of ``prompts`` admitted on a
+    fresh engine, after a warm-up probe: its wall with the host read, and
+    on the card the device span between CUDA events recorded around it
+    (its gathers, finiteness reductions and two copies: the block ids in,
+    the verdict out). Returns (device ms or None, wall ms, live
+    blocks)."""
+    hs = [sup.submit(p, max_new_tokens=2) for p in prompts]
+    live = len(sup.engine.cache.live_blocks())
+    sup._probe_kv()                                  # warm-up
+    dev_ms = None
+    if device != "cpu":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        sup._probe_kv()
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    sup._probe_kv()
+    ms = (time.perf_counter() - t0) * 1e3
+    for h in hs:
+        sup.cancel(h)
+    return dev_ms, ms, live
+
+
+def deploy_supervisor(model, fd, EngineSupervisor, ChaosMonkey, base, step_ms,
+                      what, launches, device="cuda"):
+    """23b: ``EngineSupervisor(kv_probe_interval=1)`` under ChaosMonkey's
+    decode-stall, decode-raise and kv-corrupt at supervised step
+    ``DEPLOY_FAULT_STEP``, and a real wedge (``step_timeout_s``, a decode
+    step that sleeps past it), greedy and sampled + chunked: every
+    request's tokens are the uninterrupted engine's (``base``); one
+    rebuild, at least two replayed requests; row 4 once per layer per
+    decode step summed over both incarnations (the wedge's zombie step on
+    the condemned one included), on the split kernel; the zombie's late
+    tokens dropped. Returns per mode and fault the numbers, and the
+    probe's cost (``probe_cost``)."""
+    n = model.config.num_hidden_layers
+    out = {}
+    for mode in ("greedy", "sampled"):
+        prompts, per = deploy_traffic(model.config.vocab_size, mode)
+        runs = {}
+        for fault in DEPLOY_FAULTS + ("wedge",):
+            if fault == "wedge":
+                sup = EngineSupervisor(model, step_timeout_s=WEDGE_TIMEOUT_S,
+                                       kv_probe_interval=1, **DEPLOY_GEO,
+                                       **mode_kw(mode))
+                box = wedge_decode(sup.engine, WEDGE_SLEEP_S,
+                                   DEPLOY_FAULT_STEP + 1)
+            else:
+                chaos = ChaosMonkey(seed=0, at={DEPLOY_FAULT_STEP: fault},
+                                    stall_s=DEPLOY_STALL_S)
+                sup = EngineSupervisor(model, chaos=chaos,
+                                       kv_probe_interval=1, **DEPLOY_GEO,
+                                       **mode_kw(mode))
+            engines = track_engines([sup])
+            tag = f"23b {what} {mode} {fault}"
+            r = deploy_run(sup, prompts, per, fd, engines, n, tag,
+                           device=device)
+            launches[tag] = r["launches"]
+            check_same(tag, r["tokens"], base[mode])
+            t_fault = (box["t"] if fault == "wedge"
+                       else r["stamps"][DEPLOY_FAULT_STEP])
+            c = sup.counters()
+            if sup.rebuilds != 1 or sup.replayed < 2:
+                raise AssertionError(f"{tag}: {c}")
+            want_counter = {"decode-stall": "wedges",
+                            "decode-raise": "step_errors",
+                            "kv-corrupt": "kv_corruptions",
+                            "wedge": "wedges"}[fault]
+            if c[want_counter] != 1:
+                raise AssertionError(f"{tag}: {c}")
+            dropped = engines[0].dropped_emissions
+            if fault == "wedge" and not dropped:
+                raise AssertionError(f"{tag}: the zombie step emitted "
+                                     f"nothing to drop")
+            runs[fault] = dict(
+                identical=True, rebuilds=sup.rebuilds,
+                replayed=sup.replayed,
+                recovery_ms=first_token_after(r["handles"], t_fault) * 1e3,
+                flash_decode_launches=r["launches"],
+                decode_steps=r["decode_steps"],
+                zombie_tokens_dropped=dropped,
+                kv_probes=sup.kv_probes,
+                kv_probe_ms=sup.kv_probe_s / max(sup.kv_probes, 1) * 1e3)
+            log(f"  {tag}: identical, rebuilds {sup.rebuilds}, replayed "
+                f"{sup.replayed}, recovery (fault to the first replayed "
+                f"token) {runs[fault]['recovery_ms']:.1f} ms vs the "
+                f"uninterrupted decode step {step_ms[mode]:.2f} ms, "
+                f"flash_decode launches {r['launches']} = {n} x "
+                f"{r['decode_steps']}, zombie tokens dropped {dropped}, "
+                f"probes {sup.kv_probes} at "
+                f"{runs[fault]['kv_probe_ms']:.3f} ms")
+            del sup, engines, r
+        out[mode] = runs
+    sup = EngineSupervisor(model, kv_probe_interval=1, **DEPLOY_GEO)
+    prompts, _ = deploy_traffic(model.config.vocab_size, "greedy")
+    dev_ms, ms, live = probe_cost(sup, prompts[:DEPLOY_GEO["n_slots"]],
+                                  device)
+    pool = sup.engine.cache.nbytes()
+    out["kv_probe"] = dict(device_ms=dev_ms, wall_ms=ms, live_blocks=live,
+                           pool_blocks=sup.engine.cache.pool.n_blocks,
+                           pool_bytes=pool)
+    log(f"  23b {what} KV probe: {live} live blocks of "
+        f"{sup.engine.cache.pool.n_blocks} ({pool / 2**20:.1f} MiB pool): "
+        f"{dev_ms} ms between CUDA events, {ms:.3f} ms of wall with its "
+        f"host read")
+    return out
+
+
+def shares_weights(engine, model):
+    """Every weight tensor of ``engine``'s arch is a view of one of
+    ``model``'s parameters (the same storage)."""
+    own = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    stack = list(engine._arch.w.values())
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, torch.Tensor) \
+                and x.untyped_storage().data_ptr() not in own:
+            return False
+    return True
+
+
+def deploy_fleet(model, fd, ReplicaFleet, ChaosMonkey, AdoptMismatch, base,
+                 other_handle, what, launches, device="cuda"):
+    """23c: ``ReplicaFleet(n_replicas=2)``: replica-kill at supervised step
+    ``DEPLOY_FAULT_STEP`` (greedy; sampled + chunked) and route-flap
+    (sampled): the migrated requests' tokens are the uninterrupted
+    engine's, row 4 once per layer per decode step over every engine;
+    a request sharing the 64-token prefix routes to the replica holding
+    it although that replica is the busier; ``other_handle`` (another
+    model's) offered to a replica raises ``AdoptMismatch``. One copy of
+    the weights: every replica engine's weights are views of the model's
+    (``shares_weights``), and the peak memory above the model's over each
+    run is printed beside the two pools' bytes."""
+    n = model.config.num_hidden_layers
+    wbytes = weight_bytes(model)
+    out = {}
+    for mode, fault in (("greedy", "replica-kill"),
+                        ("sampled", "replica-kill"),
+                        ("sampled", "route-flap")):
+        prompts, per = deploy_traffic(model.config.vocab_size, mode)
+        at = {DEPLOY_FAULT_STEP: fault} if fault == "replica-kill" \
+            else {0: fault}
+        free_cycles()
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        fleet = ReplicaFleet(model, 2, chaos=ChaosMonkey(seed=1, at=at),
+                             kv_probe_interval=1, **DEPLOY_GEO,
+                             **mode_kw(mode))
+        engines = track_engines([r.sup for r in fleet.replicas.values()])
+        pools = sum(r.engine.cache.nbytes() for r in fleet.replicas.values())
+        tag = f"23c {what} {mode} {fault}"
+        r = deploy_run(fleet, prompts, per, fd, engines, n, tag,
+                       device=device)
+        launches[tag] = r["launches"]
+        check_same(tag, r["tokens"], base[mode])
+        if not all(shares_weights(e, model) for e in engines):
+            raise AssertionError(f"{tag}: an engine copied the weights")
+        c = fleet.counters()
+        if fault == "replica-kill" and (c["replica_kills"] != 1
+                                        or c["migrations"] < 1):
+            raise AssertionError(f"{tag}: {c}")
+        if fault == "route-flap" and c["route_flaps"] != 1:
+            raise AssertionError(f"{tag}: {c}")
+        extra = (0 if device == "cpu"
+                 else torch.cuda.max_memory_allocated() - before)
+        out[f"{mode}_{fault}"] = dict(
+            identical=True, migrations=c["migrations"],
+            flash_decode_launches=r["launches"],
+            decode_steps=r["decode_steps"], engines=r["engines"],
+            replicas=[h.replica_id for h in r["handles"]],
+            peak_over_weights_bytes=extra, two_pools_bytes=pools,
+            weights_bytes=wbytes)
+        log(f"  {tag}: identical, migrations {c['migrations']}, replicas "
+            f"{out[f'{mode}_{fault}']['replicas']}, flash_decode launches "
+            f"{r['launches']} = {n} x {r['decode_steps']} over "
+            f"{r['engines']} engines; memory above the weights "
+            f"({wbytes / 2**30:.2f} GiB, held once) peaked at "
+            f"{extra / 2**30:.3f} GiB, two pools {pools / 2**30:.3f} GiB")
+        del fleet, engines, r
+    # prefix routing: r0 holds the 64-token prefix and is the busier
+    prompts, _ = deploy_traffic(model.config.vocab_size, "greedy")
+    fleet = ReplicaFleet(model, 2, **DEPLOY_GEO)
+    h0 = fleet.submit(prompts[0], max_new_tokens=4)
+    while not h0.finished:
+        fleet.step()
+    holder = fleet.replicas[h0.replica_id]
+    rng = np.random.default_rng(23)
+    busy = [holder.sup.submit(rng.integers(0, model.config.vocab_size, 32),
+                              max_new_tokens=4) for _ in range(2)]
+    h1 = fleet.submit(prompts[1], max_new_tokens=4)
+    route = [x for x in fleet.ledger.to_list() if x["event"] == "route"]
+    if h1.replica_id != holder.id or route[-1]["prefix_tokens"] != 64:
+        raise AssertionError(f"23c {what}: the shared-prefix request went "
+                             f"to {h1.replica_id} ({route[-1]}), not to "
+                             f"{holder.id}, which holds its prefix")
+    fleet.drain()
+    out["prefix_route"] = dict(holder=holder.id, routed_to=h1.replica_id,
+                               prefix_tokens=route[-1]["prefix_tokens"],
+                               holder_active_at_route=len(busy))
+    try:
+        holder.engine.adopt(other_handle)
+        raise AssertionError(f"23c {what}: a handle of another model was "
+                             f"adopted")
+    except AdoptMismatch as e:
+        out["adopt_mismatch"] = str(e)[:80]
+    log(f"  23c {what}: the shared-prefix request routed to {h1.replica_id}"
+        f" (holds 64 prefix tokens, 2 requests busier); a GPT-2 handle "
+        f"raised AdoptMismatch")
+    return out
+
+
+def deploy_baseline(model, fd, Engine, what, launches, device="cuda"):
+    """The uninterrupted engine's tokens per mode, and its decode step
+    (the rolling ITL median, ms)."""
+    n = model.config.num_hidden_layers
+    base, step_ms = {}, {}
+    for mode in ("greedy", "sampled"):
+        prompts, per = deploy_traffic(model.config.vocab_size, mode)
+        eng = Engine(model, **DEPLOY_GEO, **mode_kw(mode))
+        tag = f"23 {what} {mode} uninterrupted"
+        r = deploy_run(eng, prompts, per, fd, [eng], n, tag, device=device)
+        launches[tag] = r["launches"]
+        if mode == "sampled" and not eng.metrics.chunked_prefills:
+            raise AssertionError(f"23 {what}: no prompt was chunked")
+        base[mode] = r["tokens"]
+        step_ms[mode] = eng.metrics.itl_estimate() * 1e3
+        del eng, r
+    return base, step_ms
+
+
+def phase_deploy(fd, Engine, EngineSupervisor, ReplicaFleet, ChaosMonkey,
+                 AdoptMismatch, save_lm, create_llm_predictor, LlamaConfig,
+                 LlamaForCausalLM, GPTConfig, GPTForCausalLM, seed,
+                 twins=None, device="cuda"):
+    """Phase 23 on phase 20a's fp32 twins (TF32 off, random weights from
+    seed 0): GPT-2 small whole, then Llama-2-7B widths at 2 layers, each
+    through 23a (``deploy_artifact``) and 23b (``deploy_supervisor``);
+    23c (``deploy_fleet``) on the Llama twin, offered a GPT-2 handle.
+    ``twins`` replaces the two (name, class, config) entries (tiny models
+    for the card tests). Returns (row 4's launches by run, the printed
+    numbers)."""
+    from paddle_tpu_torch.text.models.llama import LLAMA2_7B
+    twins = twins or (
+        ("gpt2", GPTForCausalLM, GPTConfig(dtype="float32")),
+        ("llama", LlamaForCausalLM, dataclasses.replace(
+            LLAMA2_7B, dtype="float32", num_hidden_layers=2)))
+    out, launches, other = {}, {}, None
+    for what, cls, cfg in twins:
+        t0 = time.perf_counter()
+        seed(0)
+        model = cls(cfg, device=device).eval()
+        base, step_ms = deploy_baseline(model, fd, Engine, what, launches,
+                                        device)
+        res = dict(step_ms=step_ms)
+        res["23a"] = deploy_artifact(model, fd, save_lm,
+                                     create_llm_predictor, base, what,
+                                     launches, device)
+        res["23b"] = deploy_supervisor(model, fd, EngineSupervisor,
+                                       ChaosMonkey, base, step_ms, what,
+                                       launches, device)
+        if other is None:
+            # the first twin's handle, offered to the second's fleet
+            eng = Engine(model, **DEPLOY_GEO)
+            other = eng.submit(deploy_traffic(cfg.vocab_size, "greedy")[0][0],
+                               max_new_tokens=1)
+            del eng
+        else:
+            res["23c"] = deploy_fleet(model, fd, ReplicaFleet, ChaosMonkey,
+                                      AdoptMismatch, base, other, what,
+                                      launches, device)
+        res["wall_s"] = time.perf_counter() - t0
+        out[what] = res
+        log(f"  23 {what}: {res['wall_s']:.1f} s")
+        del model
+        free_cycles()
+    return launches, out
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6566,6 +7056,26 @@ def main():
     log("  vit " + json.dumps(vit))
     log(f"  phase 22 took {time.perf_counter() - t22:.1f} s ({smi_line()})")
 
+    # ---- 23. the serving deployment path -----------------------------------
+    t23 = time.perf_counter()
+    log(f"[23] the serving deployment path on phase 20a's fp32 twins (GPT-2 "
+        f"small, Llama-2-7B widths at 2 layers), {DEPLOY_GEO}, phase 5's "
+        f"prompts, greedy and sampled + chunked: 23a save_lm -> "
+        f"create_llm_predictor, 23b EngineSupervisor under "
+        f"{list(DEPLOY_FAULTS)} and a real wedge, 23c ReplicaFleet(2) "
+        f"(Llama) under replica-kill and route-flap, prefix routing, the "
+        f"adopt guard")
+    from paddle_tpu_torch.inference import create_llm_predictor
+    from paddle_tpu_torch.resilience import ChaosMonkey
+    from paddle_tpu_torch.serving import (AdoptMismatch, EngineSupervisor,
+                                          ReplicaFleet, save_lm)
+    deploy_launches, deploy = phase_deploy(
+        fd, Engine, EngineSupervisor, ReplicaFleet, ChaosMonkey,
+        AdoptMismatch, save_lm, create_llm_predictor, LlamaConfig,
+        LlamaForCausalLM, GPTConfig, GPTForCausalLM, pt.seed)
+    log("  deployment " + json.dumps(deploy))
+    log(f"  phase 23 took {time.perf_counter() - t23:.1f} s ({smi_line()})")
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -6586,6 +7096,7 @@ def main():
              replaces="paddle_tpu/ops/pallas/flash_decode.py:100",
              launches=fd_launches, launches_sampled=sampled_launches,
              launches_speculative=spec_launches,
+             launches_deploy=deploy_launches,
              max_abs_err=errs["flash_decode"],
              max_err=errs["flash_decode"],
              **{k: t["flash_decode"][k] for k in cols + first},

@@ -13,11 +13,21 @@ The bias is added after the convolution, in its output dtype, as in JAX.
 
 ``conv2d`` is an amp cast site (``amp.maybe_cast_compute``), as the JAX
 package's ``_conv`` is. Channels-last (``NHWC``) is port queue item 9.
+
+fp32 means fp32: on CUDA, cuDNN rounds fp32 convolution operands to TF32
+by default (``torch.backends.cudnn.allow_tf32``), so on fp32 CUDA operands
+the convolution and its two backward convolutions run with TF32 off
+(``_Conv2dFp32``), as the port's fp32 matmuls do
+(``torch.backends.cuda.matmul.allow_tf32`` defaults to False). bf16 and
+fp16 operands, and CPU tensors, take ``torch.nn.functional.conv2d`` as
+it is.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
+import torch
 import torch.nn.functional as TF
 
 from ...amp.auto_cast import maybe_cast_compute
@@ -63,6 +73,44 @@ def _same_pads(sizes, kernel, stride, dilation):
     return pads
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN with TF32 off inside (the setting is put back after)."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = before
+
+
+class _Conv2dFp32(torch.autograd.Function):
+    """An fp32 CUDA convolution whose forward and backward convolutions
+    all run with cuDNN's TF32 off (autograd runs the backward outside
+    the forward's context, so it is pinned there too)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, dilation, groups)
+        with _no_tf32():
+            return TF.conv2d(x, weight, None, stride, padding, dilation,
+                             groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        conf = ctx.conf
+        dx = dw = None
+        with _no_tf32():
+            if ctx.needs_input_grad[0]:
+                dx = torch.nn.grad.conv2d_input(x.shape, weight, g, *conf)
+            if ctx.needs_input_grad[1]:
+                dw = torch.nn.grad.conv2d_weight(x, weight.shape, g, *conf)
+        return dx, dw, None, None, None, None
+
+
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
     """2-D convolution of ``x [N, C, H, W]`` with ``weight [O, C / groups,
@@ -83,8 +131,11 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
         (hlo, hhi), (wlo, whi) = pads
         x = TF.pad(x, (wlo, whi, hlo, hhi))
         pads = [(0, 0), (0, 0)]
-    out = TF.conv2d(x, weight, None, stride, tuple(lo for lo, _ in pads),
-                    dilation, groups)
+    pads = tuple(lo for lo, _ in pads)
+    if x.dtype == torch.float32 and x.device.type == "cuda":
+        out = _Conv2dFp32.apply(x, weight, stride, pads, dilation, groups)
+    else:
+        out = TF.conv2d(x, weight, None, stride, pads, dilation, groups)
     if bias is not None:
         out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
     return out

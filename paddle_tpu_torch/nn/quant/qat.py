@@ -11,9 +11,11 @@ not stop the gradient through the scale): where the clip bound cuts
 values, their gradient reaches the input's abs-max through the scale.
 
 ``ImperativeQuantAware.convert`` and ``PostTrainingQuantization`` emit the
-weight-only ``Int8Linear``. Conv2D waits for the port's Conv2D (ROADMAP.md,
-port queue item 9): ``QuantizedConv2D`` and every branch that would touch
-a convolution raise ``NotImplementedError``.
+weight-only ``Int8Linear``. Quantizing a convolution waits for the port's
+``QuantizedConv2D`` (ROADMAP.md, port queue item 9): it and every branch
+that meets a convolution (the port's ``nn.Conv2D``, ViT's ``PatchEmbed``
+projection among them, or a ``torch.nn.Conv2d``) raise
+``NotImplementedError`` rather than leave the convolution in float.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from torch import nn
 from ...ops.int8_matmul import div
 from .. import functional as F
 from ..layer.common import Linear
+from ..layer.conv import Conv2D
 
 __all__ = ["FakeQuantAbsMax", "FakeQuantMovingAverageAbsMax",
            "FakeQuantChannelWiseAbsMax", "QuantizedLinear",
@@ -30,12 +33,12 @@ __all__ = ["FakeQuantAbsMax", "FakeQuantMovingAverageAbsMax",
            "PostTrainingQuantization", "fake_quant_dequant",
            "calibration_pass"]
 
-_CONV_TODO = ("Conv2D quantization waits for the port's Conv2D (ROADMAP.md, "
-              "port queue item 9: long tail)")
+_CONV_TODO = ("Conv2D quantization waits for the port's QuantizedConv2D "
+              "(ROADMAP.md, port queue item 9: long tail)")
 
 
 def _is_conv(m) -> bool:
-    return isinstance(m, nn.Conv2d)
+    return isinstance(m, (Conv2D, nn.Conv2d))
 
 
 def _qdq_ste(x, scale, bits):
@@ -172,12 +175,14 @@ class ImperativeQuantAware:
                         activation_quantize_type=activation_quantize_type)
 
     def quantize(self, model: nn.Module) -> nn.Module:
+        # refuse before rewriting anything: a model is quantized whole or
+        # left as it was
+        if "Conv2D" in self._types and any(map(_is_conv, model.modules())):
+            raise NotImplementedError(_CONV_TODO)
         for _, sub in list(model.named_modules()):
             for cname, child in list(sub._modules.items()):
                 if type(child) is Linear and "Linear" in self._types:
                     sub._modules[cname] = QuantizedLinear(child, **self._kw)
-                elif _is_conv(child) and "Conv2D" in self._types:
-                    raise NotImplementedError(_CONV_TODO)
         return model
 
     @staticmethod

@@ -60,11 +60,23 @@ device. Each decode step sends its small int32 state to the device in one
 copy and reads the sampled tokens back once: that read is the step's only
 device synchronisation, with or without sampling.
 
+- ``adopt(handle)`` re-injects a handle from another engine over the
+  same model (``serving.resilience.EngineSupervisor``'s rebuild and
+  ``serving.fleet.ReplicaFleet``'s migration): admission re-prefills
+  ``prompt + emitted`` and fast-forwards the key chain past the emitted
+  tokens (the prefill's ``skip``), so the request continues
+  token-identically, greedy or sampled, speculative or not. A handle from
+  an engine with another ``model_fingerprint`` raises ``AdoptMismatch``.
+  ``shed_queued`` evicts the lowest queued priority class under brownout
+  (``RequestShed`` with a finite ``retry_after_s``). An engine the
+  supervisor replaced is condemned: its ``step()`` does nothing and a
+  late emission of a wedged step's thread is dropped.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): ``adopt``/supervisor/fleet and AOT program
-handles. Tracing spans are not emitted. A seed is taken
-modulo 2^32 (the JAX engine's ``np.uint32(seed)`` refuses one outside
-``[0, 2^32)``).
+``ROADMAP.md`` item): ``adopt`` under ``tp > 1`` (serving robustness) and
+AOT program handles (runtime services). Tracing spans are not emitted;
+handles carry a trace id all the same. A seed is taken modulo 2^32 (the
+JAX engine's ``np.uint32(seed)`` refuses one outside ``[0, 2^32)``).
 """
 from __future__ import annotations
 
@@ -77,6 +89,7 @@ import torch
 from ..distributed import collective as _C
 from ..distributed import mesh as _mesh
 from ..framework.device import resolve_device
+from ..framework.trace_id import new_trace_id
 from ..ops import flash_decode as _fd
 from ..ops import prng as _prng
 from ..text import generation as G
@@ -86,7 +99,8 @@ from .scheduler import EngineOverloaded, PriorityScheduler
 from .speculative import SpecConfig, make_runtime
 
 __all__ = ["Engine", "RequestHandle", "EngineOverloaded", "RequestTimeout",
-           "RequestCancelled", "DEFAULT_RETRY_AFTER_S"]
+           "RequestShed", "RequestCancelled", "AdoptMismatch",
+           "DEFAULT_RETRY_AFTER_S"]
 
 #: Conservative retry-after hint (seconds) when the engine has no basis
 #: for a live estimate (no decode history yet, or nothing active).
@@ -96,7 +110,24 @@ DEFAULT_RETRY_AFTER_S = 1.0
 class RequestTimeout(TimeoutError):
     """A request exceeded its ``max_time_s`` deadline: its KV blocks were
     reclaimed and ``result()`` raises this. Tokens generated before the
-    deadline remain on ``handle.tokens``."""
+    deadline remain on ``handle.tokens``. ``replica`` names the fleet
+    replica that held the request (None outside a ReplicaFleet)."""
+
+    def __init__(self, message, replica=None):
+        super().__init__(message)
+        self.replica = replica
+
+
+class RequestShed(RuntimeError):
+    """The request was evicted from the queue by overload brownout
+    (``serving.resilience.EngineSupervisor`` past its ITL SLO): retry after
+    ``retry_after_s`` seconds. ``replica`` names the fleet replica that
+    shed it (None outside a ReplicaFleet)."""
+
+    def __init__(self, message, retry_after_s=None, replica=None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+        self.replica = replica
 
 
 class RequestCancelled(RuntimeError):
@@ -104,10 +135,39 @@ class RequestCancelled(RuntimeError):
     cancellation stay on ``handle.tokens``."""
 
 
+class AdoptMismatch(RuntimeError):
+    """``Engine.adopt()`` refused a handle whose origin engine served
+    another model, config or sampling mode (another ``model_fingerprint``):
+    replaying its tokens here would silently diverge. The tp degree, KV
+    layout and geometry and the speculative config may differ: adopt
+    replays from tokens, not KV bytes."""
+
+
 def _not_in_slice(what, item):
     return NotImplementedError(
         f"{what} is not in this slice of the PyTorch port (ROADMAP.md, "
         f"port queue: {item})")
+
+
+def _model_fingerprint(model, arch, statics, eos_token_id):
+    """A cheap, deterministic identity of the token math an engine runs:
+    the model's class and config, the arch, the engine-wide sampling mode,
+    the eos token and the weights' names, shapes and dtypes. Engines with
+    equal fingerprints emit the same tokens for the same (prompt, seed,
+    arguments): the ``adopt()`` precondition. It leaves out the tp degree,
+    the KV layout and geometry and the speculative config (adopt replays
+    from tokens), and reads metadata only: no weight bytes, no device
+    work. The port's own digest; it need not equal the JAX engine's."""
+    import dataclasses
+    cfg = model.config
+    cfg_repr = (repr(sorted(dataclasses.asdict(cfg).items()))
+                if dataclasses.is_dataclass(cfg) else repr(cfg))
+    wspec = tuple(sorted((k, tuple(getattr(v, "full_shape", v.shape)),
+                          str(v.dtype))
+                         for k, v in model.state_dict().items()))
+    parts = (type(model).__name__, cfg_repr, arch.name,
+             tuple(sorted(statics.items())), eos_token_id, wspec)
+    return hashlib.sha256(repr(parts).encode()).hexdigest()[:16]
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +397,10 @@ class RequestHandle:
     per token (the first during prefill: that stamp is the TTFT);
     ``result()`` pumps the engine until this request finishes and returns
     prompt + generated tokens as int32 numpy. ``seed`` seeds the request's
-    key chain when the engine samples.
+    key chain when the engine samples. ``replica_id`` is the fleet replica
+    that serves it now (restamped by ``adopt``), ``model_fingerprint`` its
+    origin engine's (the adopt guard), ``trace_id`` one id for its whole
+    life, kept across adopt.
     """
 
     def __init__(self, engine, request_id, prompt_ids, max_new_tokens,
@@ -358,19 +421,33 @@ class RequestHandle:
                          else time.monotonic() + float(max_time_s))
         self.tokens = []
         self.finished = False
-        # "eos" | "length" | "timeout" | "cancelled"
+        # "eos" | "length" | "timeout" | "shed" | "cancelled"
         self.finish_reason = None
+        self.retry_after_s = None      # stamped when shed under brownout
+        self.replica_id = getattr(engine, "replica_id", None)
+        self.model_fingerprint = getattr(engine, "model_fingerprint", None)
         self.slot = None
         self.metrics = RequestMetrics()
+        self.trace_id = new_trace_id()
 
     def result(self):
         while not self.finished:
             self._engine.step()
         if self.finish_reason == "timeout":
+            where = (f" on replica {self.replica_id}"
+                     if self.replica_id is not None else "")
             raise RequestTimeout(
                 f"request {self.request_id} exceeded max_time_s="
-                f"{self.max_time_s} after {len(self.tokens)} tokens; its "
-                "slot was reclaimed")
+                f"{self.max_time_s} after {len(self.tokens)} tokens"
+                f"{where}; its slot was reclaimed", replica=self.replica_id)
+        if self.finish_reason == "shed":
+            where = (f" by replica {self.replica_id}"
+                     if self.replica_id is not None else "")
+            raise RequestShed(
+                f"request {self.request_id} (priority {self.priority}) "
+                f"was shed under overload{where}; retry after "
+                f"{self.retry_after_s}s", retry_after_s=self.retry_after_s,
+                replica=self.replica_id)
         if self.finish_reason == "cancelled":
             raise RequestCancelled(
                 f"request {self.request_id} was cancelled after "
@@ -421,6 +498,11 @@ class Engine:
     ``TypeError`` for anything but a ``SpecConfig``). A model draft must
     be of the target's family and vocabulary and on its device.
 
+    ``replica_id`` names the engine within a ``ReplicaFleet`` (stamped on
+    its handles and on the overload exceptions they raise);
+    ``default_retry_after_s`` is the retry hint it gives with no decode
+    history to estimate from.
+
     The SPMD contract under tp: every rank of the tp group builds the
     engine with the same arguments and runs the same driver, calling
     ``submit``, ``step``, ``cancel`` (and ``result``/``drain``, which
@@ -439,9 +521,16 @@ class Engine:
                  token_budget=None, max_queue=None, base_seed=0,
                  kv_layout="paged", block_size=16, n_blocks=None,
                  prefill_chunk=None, prefix_sharing=True, tp=1, mesh=None,
-                 flash_decode=False, speculative=None):
+                 flash_decode=False, speculative=None, replica_id=None,
+                 default_retry_after_s=DEFAULT_RETRY_AFTER_S):
         # the arch dispatch (JAX's _make_arch): Llama or GPT, TypeError else
         self._arch = arch = G.arch_for(model)
+        self.replica_id = replica_id
+        self.default_retry_after_s = float(default_retry_after_s)
+        # set by the supervisor when it replaces this engine: its step()
+        # does nothing and a wedged step's late emissions are dropped
+        self._condemned = False
+        self.dropped_emissions = 0
         self.tp = int(tp)
         self._group = None
         if self.tp > 1:
@@ -481,6 +570,8 @@ class Engine:
             self._arch = arch = G.arch_for(model, self._group, self.device)
         self._statics = dict(do_sample=bool(do_sample), top_k=int(top_k),
                              top_p=None if top_p is None else float(top_p))
+        self.model_fingerprint = _model_fingerprint(
+            model, arch, self._statics, eos_token_id)
         self.n_slots = int(n_slots)
         self.max_len = int(max_len if max_len is not None
                            else c.max_position_embeddings)
@@ -533,6 +624,7 @@ class Engine:
             token_budget=token_budget or self.n_slots * self.max_len,
             max_queue=max_queue or max(4 * self.n_slots, 16))
         self.metrics = EngineMetrics()
+        self.metrics.replica = replica_id
         self._by_slot = [None] * self.n_slots
         self._next_id = 0
         self.buckets_seen = set()
@@ -634,10 +726,6 @@ class Engine:
 
     # -- out of this slice --------------------------------------------------
 
-    def adopt(self, handle):
-        raise _not_in_slice("adopt() (supervisor/fleet replay)",
-                            "serving robustness")
-
     def precompile_aot(self, dest_dir, buckets=None):
         raise _not_in_slice("AOT program handles", "runtime services")
 
@@ -728,7 +816,7 @@ class Engine:
         remaining = [h.max_new_tokens - len(h.tokens)
                      for h in self._by_slot if h is not None]
         if itl is None or not remaining:
-            return DEFAULT_RETRY_AFTER_S
+            return self.default_retry_after_s
         return round(itl * max(1, min(remaining)), 3)
 
     def _admit(self):
@@ -773,7 +861,7 @@ class Engine:
         n_eff = h.n_prompt + k
         if self.kv_layout == "paged":
             return self._admit_one_paged(h, k, n_eff)
-        slot = self.cache.alloc()
+        slot = self.cache.alloc(h.request_id)
         h.slot = slot
         self._by_slot[slot] = h
         Lb = self._bucket(n_eff)
@@ -794,7 +882,7 @@ class Engine:
 
     def _admit_one_paged(self, h, k, n_eff):
         full = self._full_ids(h)
-        slot = self.cache.alloc()
+        slot = self.cache.alloc(h.request_id)
         # block coverage for [0, n_eff]: prompt + replay tokens + the
         # first decode write line; the radix shares any cached full-block
         # prefix, copy-on-write on a partial tail block
@@ -934,6 +1022,52 @@ class Engine:
         self.scheduler.requeue(h)
         self.metrics.preemptions += 1
 
+    def adopt(self, handle):
+        """Re-inject a handle from another engine over the same model (the
+        supervisor's rebuild and the fleet's migration): it keeps its id,
+        seed, priority, trace id and emitted tokens; admission re-prefills
+        ``prompt + tokens`` and fast-forwards its key chain past them, so
+        it continues token-identically to the uninterrupted run.
+
+        Raises :class:`AdoptMismatch` when the handle's origin engine had
+        another ``model_fingerprint``. The tp degree and the KV geometry
+        may differ; an engine with ``tp > 1`` does not adopt yet."""
+        if self.tp > 1:
+            raise _not_in_slice("adopt() under tp > 1", "serving robustness")
+        fp = getattr(handle, "model_fingerprint", None)
+        if fp is not None and fp != self.model_fingerprint:
+            raise AdoptMismatch(
+                f"request {handle.request_id} originates from an engine "
+                f"with model fingerprint {fp} but this engine serves "
+                f"{self.model_fingerprint}: adopting would replay its "
+                "token history through different math and silently "
+                "diverge -- migrate only between replicas of the SAME "
+                "model/config/sampling configuration")
+        handle.slot = None
+        handle._engine = self
+        handle.replica_id = self.replica_id
+        handle.model_fingerprint = self.model_fingerprint
+        self._next_id = max(self._next_id, handle.request_id + 1)
+        self.metrics.requests_submitted += 1
+        self.scheduler.enqueue(handle,
+                               retry_after_s=self._retry_after_hint())
+        self._admit()
+        return handle
+
+    def shed_queued(self, protect_priority=0, retry_after_s=None):
+        """Brownout degradation: evict the single lowest-priority class
+        of queued requests (classes <= ``protect_priority`` are never
+        shed). They finish with reason ``"shed"`` and ``result()`` raises
+        :class:`RequestShed` with a finite ``retry_after_s``. Returns the
+        evicted handles."""
+        if retry_after_s is None:
+            retry_after_s = self._retry_after_hint()
+        out = self.scheduler.shed_lowest(protect_priority)
+        for h in out:
+            h.retry_after_s = retry_after_s
+            self._finish(h, "shed")
+        return out
+
     def cancel(self, handle):
         """Client abandoned the stream: a queued handle leaves the
         scheduler, an active one (part-way through a chunked prefill or
@@ -973,7 +1107,9 @@ class Engine:
         advance every decode-active slot one token with the fused decode
         step (paged: preempting first on pool exhaustion; speculative:
         ``_spec_step``). Returns the number of requests that decoded this
-        step."""
+        step (0 on a condemned engine, which does nothing)."""
+        if self._condemned:
+            return 0
         self._expire()
         self._admit()
         paged = self.kv_layout == "paged"
@@ -1116,7 +1252,7 @@ class Engine:
         self.metrics.spec_emitted_tokens += e
         for t in (*props[:m], samples[m]):
             self._emit(h, int(t))
-            if h.finished:
+            if h.finished or self._condemned:
                 return
         self._rewind(h, p, e, samples, chain)
 
@@ -1135,6 +1271,12 @@ class Engine:
         self._spec.after_verify(h, int(samples[e - 1]), p + e)
 
     def _emit(self, h, token):
+        if self._condemned:
+            # a wedged step's thread returned after the supervisor replaced
+            # this engine: the handle lives on the new one now, and dropping
+            # the stale token keeps its replayed stream token-identical
+            self.dropped_emissions += 1
+            return
         h.tokens.append(token)
         h.metrics.mark_token()
         self.metrics.tokens_generated += 1
@@ -1165,6 +1307,8 @@ class Engine:
             self.metrics.requests_timed_out += 1
         elif reason == "cancelled":
             self.metrics.requests_cancelled += 1
+        elif reason == "shed":
+            self.metrics.requests_shed += 1
         else:
             self.metrics.requests_completed += 1
 
@@ -1195,7 +1339,9 @@ class Engine:
                # process-wide count of flash-decode kernel launches (CUDA
                # only; the plain CPU path launches nothing)
                "flash_decode_launches": _fd.flash_decode.launches,
-               "device": str(self.device)}
+               "device": str(self.device),
+               "replica": self.replica_id,
+               "model_fingerprint": self.model_fingerprint}
         if self.kv_layout == "paged":
             out.update(self.cache.pool_stats())
         if self.spec is not None:

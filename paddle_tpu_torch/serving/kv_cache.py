@@ -55,6 +55,7 @@ class SlotKVCache:
         # host mirrors of per-slot state
         self.cur_pos = np.zeros(self.n_slots, np.int32)
         self.active = np.zeros(self.n_slots, bool)
+        self._owner = [None] * self.n_slots
         self._free = collections.deque(range(self.n_slots))
 
     @property
@@ -69,13 +70,15 @@ class SlotKVCache:
     def occupancy(self):
         return self.n_active / self.n_slots
 
-    def alloc(self):
-        """Claim the lowest free slot (FIFO over frees) or return None."""
+    def alloc(self, request_id=None):
+        """Claim the lowest free slot (FIFO over frees) or return None;
+        ``request_id`` is recorded as the slot's owner."""
         if not self._free:
             return None
         slot = self._free.popleft()
         self.active[slot] = True
         self.cur_pos[slot] = 0
+        self._owner[slot] = request_id
         return slot
 
     def free(self, slot):
@@ -85,7 +88,11 @@ class SlotKVCache:
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not active")
         self.active[slot] = False
+        self._owner[slot] = None
         self._free.append(slot)
+
+    def owner(self, slot):
+        return self._owner[slot]
 
     def nbytes(self):
         return 2 * self.kc.numel() * self.kc.element_size()
@@ -191,6 +198,21 @@ class RadixIndex:
             node = child
         return out
 
+    def match_len(self, tokens):
+        """Length in TOKENS of the longest cached full-block prefix of
+        ``tokens`` -- a read-only probe (no LRU touch, no pool refs) for
+        the fleet router's prefix-affinity signal: probing every replica
+        per admission must not perturb any replica's eviction order."""
+        node = self.root
+        n = 0
+        for key in self._chunks(tokens):
+            child = node.children.get(key)
+            if child is None:
+                break
+            n += self.block_size
+            node = child
+        return n
+
     def insert(self, tokens, block_ids, pool):
         """Register ``tokens``' full blocks (already written to
         ``block_ids``, one per full chunk) for future sharing. Chunks
@@ -251,6 +273,15 @@ class RadixIndex:
             freed += 1
         return freed
 
+    def clear(self, pool):
+        """Drop every indexed block (the index's pool references) and
+        start empty."""
+        for n in self._nodes():
+            pool.deref(n.block)
+        self.root = _RadixNode()
+        self.n_nodes = 0
+        self._touch = {}
+
 
 class PagedKVCache:
     """Paged KV pool + host-side slot/block bookkeeping: the slot surface
@@ -289,6 +320,7 @@ class PagedKVCache:
                                      np.int32)      # 0 = trash/unused
         self.cur_pos = np.zeros(self.n_slots, np.int32)
         self.active = np.zeros(self.n_slots, bool)
+        self._owner = [None] * self.n_slots
         self._free = collections.deque(range(self.n_slots))
         self._slot_blocks = [[] for _ in range(self.n_slots)]
         self._slot_shared = np.zeros(self.n_slots, np.int32)  # blocks
@@ -309,12 +341,13 @@ class PagedKVCache:
     def occupancy(self):
         return self.n_active / self.n_slots
 
-    def alloc(self):
+    def alloc(self, request_id=None):
         if not self._free:
             return None
         slot = self._free.popleft()
         self.active[slot] = True
         self.cur_pos[slot] = 0
+        self._owner[slot] = request_id
         return slot
 
     def free(self, slot):
@@ -327,12 +360,16 @@ class PagedKVCache:
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not active")
         self.active[slot] = False
+        self._owner[slot] = None
         for b in self._slot_blocks[slot]:
             self.pool.deref(b)
         self._slot_blocks[slot] = []
         self._slot_shared[slot] = 0
         self.block_tables[slot, :] = TRASH_BLOCK
         self._free.append(slot)
+
+    def owner(self, slot):
+        return self._owner[slot]
 
     def nbytes(self):
         return 2 * self.kc.numel() * self.kc.element_size()
@@ -413,6 +450,27 @@ class PagedKVCache:
         return self.radix.insert(prompt_ids,
                                  self._slot_blocks[slot][:n_full],
                                  self.pool)
+
+    def shared_tokens(self, slot):
+        return int(self._slot_shared[slot]) * self.block_size
+
+    def live_blocks(self):
+        """Sorted unique block ids referenced by occupied slots (the KV
+        finiteness probe walks exactly these: trash and radix-only blocks
+        hold no live request state)."""
+        out = set()
+        for slot in range(self.n_slots):
+            if self.active[slot]:
+                out.update(self._slot_blocks[slot])
+        out.discard(TRASH_BLOCK)
+        return sorted(out)
+
+    def shared_live_blocks(self):
+        """Live blocks referenced by more than one holder (slot-shared
+        prefix blocks, index-resident shared blocks included): the chaos
+        kv-corrupt target set."""
+        return [b for b in self.live_blocks()
+                if self.pool.refcount[b] > 1]
 
     def check_refcounts(self):
         """Pool/table/radix invariant: every block's refcount equals the

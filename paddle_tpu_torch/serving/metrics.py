@@ -5,7 +5,10 @@ Counterpart of ``paddle_tpu/serving/metrics.py``: per request TTFT
 tokens/sec; per engine, slot occupancy and queue depth sampled every
 step, admission/eviction counters, the speculative-decoding ledger
 (verify and draft steps, proposed/accepted/emitted tokens) and the
-per-emitted-token ITL histogram. ``Histogram`` is the port's own copy of
+per-emitted-token ITL histogram. Live engines register in a module-wide
+weakref list, so ``global_counters()`` sums their snapshots (the
+supervisor and the fleet read it; the profiler lines that print it are
+port queue item 8). ``Histogram`` is the port's own copy of
 the part of ``paddle_tpu/observability/metrics.py:Histogram`` the engine
 uses (the rolling-window percentile and the cumulative count and sum; no
 bucket export, no registry).
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import bisect
 import time
+import weakref
 
 # Prometheus-style latency buckets (seconds), as the JAX package's
 DEFAULT_LATENCY_BUCKETS = (
@@ -117,9 +121,18 @@ class RequestMetrics:
         t = self.token_times
         return [b - a for a, b in zip(t, t[1:])]
 
+    @property
+    def tokens_per_sec(self):
+        """Tokens over submit -> finish wall time; None until finished."""
+        if self.finish_time is None or not self.token_times:
+            return None
+        dt = self.finish_time - self.submit_time
+        return self.n_tokens / dt if dt > 0 else float("inf")
+
 
 class EngineMetrics:
-    """Aggregate counters for one Engine."""
+    """Aggregate counters for one Engine; registered in the module-wide
+    list that ``global_counters()`` sums."""
 
     def __init__(self):
         self.requests_submitted = 0
@@ -127,6 +140,7 @@ class EngineMetrics:
         self.requests_rejected = 0
         self.requests_timed_out = 0
         self.requests_cancelled = 0
+        self.requests_shed = 0
         self.tokens_generated = 0
         self.prefills = 0
         self.decode_steps = 0
@@ -155,10 +169,13 @@ class EngineMetrics:
         # decode-step wall times: the ~64-observation rolling window
         # drives the live ITL p50/p95 behind EngineOverloaded.retry_after_s
         self.itl_hist = Histogram(window=64)
+        # fleet identity (stamped by the engine; None standalone)
+        self.replica = None
         # tp geometry (stamped by the engine; tp=1 on a single rank)
         self.tp = 1
         self.kv_pool_bytes_per_device = None
         self.collectives_per_decode_step = None
+        _register(self)
 
     def sample(self, occupancy, queue_depth, active=0, pool_free=None,
                pool_total=None):
@@ -229,6 +246,7 @@ class EngineMetrics:
             "requests_rejected": self.requests_rejected,
             "requests_timed_out": self.requests_timed_out,
             "requests_cancelled": self.requests_cancelled,
+            "requests_shed": self.requests_shed,
             "tokens_generated": self.tokens_generated,
             "prefills": self.prefills,
             "decode_steps": self.decode_steps,
@@ -252,11 +270,66 @@ class EngineMetrics:
                                 else round(itl * 1e3, 3)),
             "itl_p95_ms": (None if p95 is None
                            else round(p95 * 1e3, 3)),
+            "replica": self.replica,
             "tp": self.tp,
             "kv_pool_bytes_per_device": self.kv_pool_bytes_per_device,
             "collectives_per_decode_step":
                 self.collectives_per_decode_step,
         }
+
+
+_ENGINES = []   # weakrefs; dead engines drop out of the global snapshot
+
+
+def _register(m):
+    _ENGINES.append(weakref.ref(m))
+
+
+_SUMMED = ("requests_submitted", "requests_completed", "requests_rejected",
+           "requests_timed_out", "requests_cancelled", "requests_shed",
+           "tokens_generated", "prefills", "decode_steps", "preemptions",
+           "chunked_prefills", "chunk_steps", "prefix_hit_tokens",
+           "prompt_tokens", "cow_copies", "spec_steps", "draft_steps",
+           "spec_proposed_tokens", "spec_accepted_tokens",
+           "spec_emitted_tokens")
+
+
+def global_counters():
+    """The snapshot summed across every live engine: counts added, peaks
+    and the low watermark their extremes, the rates recomputed from the
+    sums."""
+    total = {"engines": 0, **{k: 0 for k in _SUMMED},
+             "peak_queue_depth": 0, "peak_active": 0,
+             "prefix_hit_rate": None, "pool_low_watermark": None,
+             "tp_max": 1, "spec_acceptance_rate": None}
+    live = []
+    for ref in _ENGINES:
+        m = ref()
+        if m is None:
+            continue
+        live.append(ref)
+        s = m.snapshot()
+        total["engines"] += 1
+        for k in _SUMMED:
+            total[k] += s[k]
+        total["peak_queue_depth"] = max(total["peak_queue_depth"],
+                                        s["peak_queue_depth"])
+        total["peak_active"] = max(total["peak_active"], s["peak_active"])
+        total["tp_max"] = max(total["tp_max"], s["tp"])
+        if s["pool_low_watermark"] is not None:
+            lw = total["pool_low_watermark"]
+            total["pool_low_watermark"] = (
+                s["pool_low_watermark"] if lw is None
+                else min(lw, s["pool_low_watermark"]))
+    _ENGINES[:] = live
+    if total["prompt_tokens"]:
+        total["prefix_hit_rate"] = round(
+            total["prefix_hit_tokens"] / total["prompt_tokens"], 4)
+    if total["spec_proposed_tokens"]:
+        total["spec_acceptance_rate"] = round(
+            total["spec_accepted_tokens"]
+            / total["spec_proposed_tokens"], 4)
+    return total
 
 
 def ledger(handles):

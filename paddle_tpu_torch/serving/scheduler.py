@@ -146,6 +146,23 @@ class FIFOScheduler:
         except ValueError:
             return False
 
+    def shed_lowest(self, protect_priority=0):
+        """Brownout eviction: remove and return every queued handle of
+        the single lowest-priority class present among priorities
+        strictly above ``protect_priority`` -- the least important work
+        goes first, one class at a time, and protected classes are never
+        shed."""
+        worst = max((getattr(h, "priority", 0) for h in self._queue
+                     if getattr(h, "priority", 0) > protect_priority),
+                    default=None)
+        if worst is None:
+            return []
+        out = [h for h in self._queue
+               if getattr(h, "priority", 0) == worst]
+        for h in out:
+            self._queue.remove(h)
+        return out
+
     def release(self, handle):
         self._inflight_tokens -= self._load(handle)
 

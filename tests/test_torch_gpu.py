@@ -5,9 +5,12 @@ words against the known ``jax.random`` words, and the tiny Llama and
 ERNIE-MoE trainers and a PTQ'd tiny Llama on the card against the same
 models on the CPU, the comm-efficient exchanges' int8 quantizer on the
 card against the CPU, ``chip_smoke``'s multi-rank phases and phase 21
-(mixed precision, attention dropout) at tiny size, and BERT, T5, ViT and
-``Conv2D`` at tiny size on the card against the CPU, with phase 22 (the
-encoder families) at tiny size.
+(mixed precision, attention dropout) at tiny size, BERT, T5, ViT and
+``Conv2D`` at tiny size on the card against the CPU (the fp32 ``Conv2D``
+also without the test's TF32 fixture), with phase 22 (the encoder
+families) at tiny size, and the serving deployment path: a supervisor's
+replay and a fleet's migration on the card against the CPU, and phase 23
+at tiny size.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -1469,3 +1472,128 @@ def test_phase22_at_tiny_size(cuda):
     out = chip_smoke.phase_vit(fa, fc, rm, F, tiny_vit, fleet, optimizer,
                                pt.seed, batch=(8, 32))
     assert out["attention_path"]["path"] == "plain"
+
+
+def test_conv2d_fp32_on_the_card_without_the_tf32_fixture(cuda):
+    """The port's fp32 ``conv2d`` pins cuDNN's TF32 off itself: with the
+    process default (``allow_tf32`` True) the strided, grouped,
+    "SAME"-padded ``Conv2D``'s output and both gradients are within 1e-4
+    of the CPU's, and the setting is put back after the call."""
+    from paddle_tpu_torch import nn
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pt.seed(2)
+        conv = nn.Conv2D(4, 8, 4, stride=2, padding="SAME", groups=2,
+                         device="cpu")
+        cconv = _on_card(conv, lambda d: nn.Conv2D(
+            4, 8, 4, stride=2, padding="SAME", groups=2, device=d), cuda)
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (4, 4, 32, 32)).astype(np.float32)).requires_grad_()
+        xc = x.detach().to(cuda).requires_grad_()
+        y, yc = conv(x), cconv(xc)
+        assert torch.backends.cudnn.allow_tf32
+        _close(yc, y)
+        g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            tuple(y.shape)).astype(np.float32))
+        y.backward(g)
+        yc.backward(g.to(cuda))
+        _close(xc.grad, x.grad)
+        _close(cconv.weight.grad, conv.weight.grad)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def _deploy_tiny():
+    cfg = dataclasses.replace(LLAMA_TINY, dtype="float32")
+    pt.seed(0)
+    return cfg
+
+
+def _serve_staggered(server):
+    """Phase 5's schedule on a tiny model's prompts, sampled per request."""
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 1024, n).astype(np.int32)
+               for n in (20, 36, 9, 44, 17)]
+    per = [dict(temperature=0.6, seed=1000 + i) for i in range(5)]
+    return [list(map(int, h.tokens))
+            for h in chip_smoke.staggered(server, prompts, 12, per)]
+
+
+@pytest.mark.parametrize("fault", ["decode-raise", "kv-corrupt"])
+def test_supervisor_replay_on_the_card_matches_the_cpu(cuda, fault):
+    """A tiny fp32 Llama under ``EngineSupervisor`` with the fault at
+    supervised step 3, sampled + chunked, ``flash_decode=True``: the
+    card's tokens are the CPU supervisor's and the uninterrupted card
+    engine's; row 4 launches once per layer per decode step summed over
+    both incarnations, all on the split kernel."""
+    from paddle_tpu_torch.resilience import ChaosMonkey
+    from paddle_tpu_torch.serving import EngineSupervisor
+    cfg = _deploy_tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu").eval()
+    card = _on_card(cpu, lambda d: LlamaForCausalLM(cfg, device=d), cuda)
+    kw = dict(n_slots=3, max_len=128, block_size=16, flash_decode=True,
+              do_sample=True, top_k=50, top_p=0.9, prefill_chunk=16)
+    runs = {}
+    for where, m in (("cpu", cpu), ("card", card)):
+        sup = EngineSupervisor(m, chaos=ChaosMonkey(at={3: fault}),
+                               kv_probe_interval=1, **kw)
+        engines = chip_smoke.track_engines([sup])
+        chip_smoke.reset_counts(fd.flash_decode)
+        runs[where] = _serve_staggered(sup)
+        assert sup.rebuilds == 1 and sup.replayed >= 1
+        steps = sum(e.metrics.decode_steps for e in engines)
+    want = cfg.num_hidden_layers * steps
+    assert fd.flash_decode.launches == want > 0
+    assert fd.flash_decode.launches_by_variant == {"split": want,
+                                                   "one_pass": 0}
+    assert runs["card"] == runs["cpu"] == _serve_staggered(Engine(card, **kw))
+
+
+def test_fleet_migration_on_the_card_matches_the_cpu(cuda):
+    """A two-replica ``ReplicaFleet`` of the tiny fp32 Llama through a
+    replica kill at fleet step 3: the card's tokens and replicas are the
+    CPU fleet's, its tokens the uninterrupted engine's."""
+    from paddle_tpu_torch.resilience import ChaosMonkey
+    from paddle_tpu_torch.serving import ReplicaFleet
+    cfg = _deploy_tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu").eval()
+    card = _on_card(cpu, lambda d: LlamaForCausalLM(cfg, device=d), cuda)
+    kw = dict(n_slots=3, max_len=128, block_size=16, flash_decode=True,
+              do_sample=True, top_k=50, top_p=0.9)
+    runs = {}
+    for where, m in (("cpu", cpu), ("card", card)):
+        fleet = ReplicaFleet(m, 2, chaos=ChaosMonkey(at={3: "replica-kill"}),
+                             kv_probe_interval=1, **kw)
+        runs[where] = _serve_staggered(fleet)
+        assert fleet.migrations >= 1 and fleet.replica_kills == 1
+    assert runs["card"] == runs["cpu"] == _serve_staggered(Engine(card, **kw))
+
+
+def test_phase23_at_tiny_size(cuda):
+    """``chip_smoke`` phase 23 at tiny size: a GPT at hidden 256 / 4 heads
+    and LLAMA_TINY, fp32, through the artifact, the supervisor (three
+    chaos faults and a real wedge, greedy and sampled + chunked) and the
+    fleet."""
+    from paddle_tpu_torch.inference import create_llm_predictor
+    from paddle_tpu_torch.resilience import ChaosMonkey
+    from paddle_tpu_torch.serving import (AdoptMismatch, EngineSupervisor,
+                                          ReplicaFleet, save_lm)
+    from paddle_tpu_torch.text.models.llama import LlamaConfig
+    twins = (("gpt2", GPTForCausalLM, GPTConfig(
+        vocab_size=1024, hidden_size=256, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=512,
+        max_position_embeddings=512, dtype="float32")),
+        ("llama", LlamaForCausalLM, dataclasses.replace(LLAMA_TINY,
+                                                        dtype="float32")))
+    launches, out = chip_smoke.phase_deploy(
+        fd, Engine, EngineSupervisor, ReplicaFleet, ChaosMonkey,
+        AdoptMismatch, save_lm, create_llm_predictor, LlamaConfig,
+        LlamaForCausalLM, GPTConfig, GPTForCausalLM, pt.seed, twins=twins)
+    assert all(v > 0 for v in launches.values())
+    assert out["llama"]["23c"]["prefix_route"]["prefix_tokens"] == 64
+    for what in ("gpt2", "llama"):
+        for mode in ("greedy", "sampled"):
+            assert out[what]["23b"][mode]["wedge"][
+                "zombie_tokens_dropped"] > 0

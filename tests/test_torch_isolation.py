@@ -12,9 +12,12 @@ MoE dispatch collectives, the RNG tracker and every comm-efficient
 strategy (``distributed/comm_opt.py``, ``fleet/comm_efficient.py``) on
 two spawned ranks (and importing ``tools/torch_ep_train.py``), and
 quantizing and
-running a tiny Llama and both stochastic quantizers, and taking BERT,
-T5 (then ``generate``) and ViT steps, in processes where importing
-either fails.
+running a tiny Llama and both stochastic quantizers, taking BERT,
+T5 (then ``generate``) and ViT steps, and deploying a Llama (``save_lm``
+-> ``create_llm_predictor``) behind an ``EngineSupervisor`` and a
+``ReplicaFleet`` through planted faults (and running
+``tools/torch_chaos_serve.py``), in processes where importing either
+fails.
 Entry points default to CUDA and raise when it is absent.
 """
 import ast
@@ -317,10 +320,15 @@ def test_every_module_imports_with_jax_unimportable():
                   "nn.layer.activation", "nn.layer.conv",
                   "nn.functional.conv", "text.models.bert",
                   "text.models.t5", "text.models.convert",
-                  "vision.models.vit"):
+                  "vision.models.vit", "jit", "jit.serialization",
+                  "inference", "resilience", "resilience.chaos",
+                  "resilience.ledger", "resilience.supervisor",
+                  "serving.resilience", "serving.fleet",
+                  "framework.trace_id"):
             assert "paddle_tpu_torch." + n in names, n
         sys.path.insert(0, "tools")
         importlib.import_module("torch_ep_train")
+        importlib.import_module("torch_chaos_serve")
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK", len(names))
@@ -329,6 +337,66 @@ def test_every_module_imports_with_jax_unimportable():
                        capture_output=True, text=True, timeout=120,
                        env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr
+
+
+def test_deploys_and_supervises_with_jax_unimportable(tmp_path):
+    """``save_lm`` -> ``create_llm_predictor``, an ``EngineSupervisor``
+    through a decode-raise and a kv-corrupt, a ``ReplicaFleet`` through a
+    replica kill, and ``tools/torch_chaos_serve.py``, all on the CPU in a
+    process where importing JAX or the JAX package fails."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import dataclasses
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.inference import create_llm_predictor
+        from paddle_tpu_torch.resilience import ChaosMonkey
+        from paddle_tpu_torch.serving import (Engine, EngineSupervisor,
+                                              ReplicaFleet, save_lm)
+        from paddle_tpu_torch.text.models.llama import (LLAMA_TINY,
+                                                        LlamaForCausalLM)
+        pt.seed(0)
+        m = LlamaForCausalLM(dataclasses.replace(LLAMA_TINY,
+                                                 dtype="float32",
+                                                 num_hidden_layers=1),
+                             device="cpu").eval()
+        kw = dict(n_slots=2, max_len=32, block_size=8, flash_decode=True)
+        ps = [np.arange(5) + 3 * i for i in range(3)]
+
+        def run(server):
+            hs = [server.submit(p, max_new_tokens=6) for p in ps]
+            while any(not h.finished for h in hs):
+                server.step()
+            return [list(h.tokens) for h in hs]
+
+        want = run(Engine(m, **kw))
+        pred = create_llm_predictor(save_lm(m, {str(tmp_path / "lm")!r}),
+                                    device="cpu", **kw)
+        assert run(pred.engine) == want
+        for fault in ("decode-raise", "kv-corrupt"):
+            sup = EngineSupervisor(m, chaos=ChaosMonkey(at={{2: fault}}),
+                                   kv_probe_interval=1, **kw)
+            assert run(sup) == want and sup.rebuilds == 1, fault
+        fleet = ReplicaFleet(m, 2, chaos=ChaosMonkey(
+            at={{2: "replica-kill"}}), **kw)
+        assert run(fleet) == want and fleet.migrations >= 1
+        sys.path.insert(0, "tools")
+        import torch_chaos_serve
+        assert torch_chaos_serve.main(["--fleet", "2", "--fault", "kill",
+                                       "--device", "cpu"]) == 0
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
 
 
 def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
@@ -376,7 +444,7 @@ def test_hybrid_step_on_two_ranks_with_jax_unimportable(tmp_path):
     assert not outs[0]["loaded"] and not outs[1]["loaded"]
 
 
-def test_default_device_is_cuda_and_raises_without_it():
+def test_default_device_is_cuda_and_raises_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
     from paddle_tpu_torch.framework.device import (get_device,
@@ -400,6 +468,27 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("gpu:0")
     assert resolve_device("cpu") == torch.device("cpu")
+    # the deployment path: the predictor rebuilds its model on the card
+    # unless told otherwise; the supervisor and the fleet serve on their
+    # model's device, the card by default
+    import dataclasses
+    from paddle_tpu_torch.inference import create_llm_predictor
+    from paddle_tpu_torch.serving import (EngineSupervisor, ReplicaFleet,
+                                          save_lm)
+    cpu = LlamaForCausalLM(dataclasses.replace(LLAMA_TINY,
+                                               num_hidden_layers=1),
+                           device="cpu")
+    path = save_lm(cpu, str(tmp_path / "lm"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_llm_predictor(path)
+    assert create_llm_predictor(path, device="cpu",
+                                n_slots=1).engine.device.type == "cpu"
+    for wrap in (EngineSupervisor, ReplicaFleet):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            wrap(LlamaForCausalLM(LLAMA_TINY))
+    assert EngineSupervisor(cpu, n_slots=1).engine.device.type == "cpu"
+    assert ReplicaFleet(cpu, 2, n_slots=1).replicas[
+        "r1"].engine.device.type == "cpu"
 
 
 def test_set_device_cpu_switches_the_default():

@@ -173,16 +173,30 @@ def test_qat_convert_matches_fake_quant_eval():
 
 
 def test_conv2d_waits_for_the_port_conv():
+    """QAT and PTQ refuse a model holding a convolution instead of leaving
+    it in float: a ``torch.nn.Conv2d``, the port's ``nn.Conv2D`` and
+    ViT's ``PatchEmbed`` (whose projection is a port ``Conv2D``)."""
+    from paddle_tpu_torch.nn import Conv2D
+    from paddle_tpu_torch.vision.models.vit import PatchEmbed
     with pytest.raises(NotImplementedError, match="item 9"):
         tq.QuantizedConv2D(None)
-    model = torch.nn.Sequential(torch.nn.Conv2d(1, 2, 3),
-                                torch.nn.Flatten(), Linear(8, 4,
-                                                           device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tq.ImperativeQuantAware().quantize(model)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tq.PostTrainingQuantization(model).quantize([torch.zeros(1, 1, 4,
-                                                                 4)])
+    models = [
+        torch.nn.Sequential(torch.nn.Conv2d(1, 2, 3), torch.nn.Flatten(),
+                            Linear(8, 4, device="cpu")),
+        torch.nn.Sequential(Conv2D(1, 2, 3, device="cpu"),
+                            torch.nn.Flatten(), Linear(8, 4, device="cpu")),
+        torch.nn.Sequential(PatchEmbed(4, 2, 1, 8, device="cpu"),
+                            torch.nn.Flatten(), Linear(32, 4, device="cpu")),
+    ]
+    for model in models:
+        before = [type(m) for m in model.modules()]
+        with pytest.raises(NotImplementedError, match="item 9"):
+            tq.ImperativeQuantAware().quantize(model)
+        with pytest.raises(NotImplementedError, match="item 9"):
+            tq.PostTrainingQuantization(model).quantize(
+                [torch.zeros(1, 1, 4, 4)])
+        # the refusals rewrote nothing before they raised
+        assert [type(m) for m in model.modules()] == before
 
 
 # ---------------------------------------------------------------------------

@@ -188,9 +188,16 @@ def test_out_of_slice_arguments_raise(models, kw, error, match):
 
 
 def test_adopt_raises(models):
+    """``adopt`` (ported since) refuses a handle of an engine with other
+    sampling math (``AdoptMismatch``) and, on an engine with tp > 1, names
+    the ROADMAP.md item that brings it."""
+    from paddle_tpu_torch.serving import AdoptMismatch
     _, tm = models
     eng = Engine(tm, **GEO)
     h = eng.submit(np.arange(5, dtype=np.int32), max_new_tokens=2)
+    with pytest.raises(AdoptMismatch):
+        Engine(tm, **GEO, do_sample=True).adopt(h)
+    eng.tp = 2                       # the tp guard, without a process group
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.adopt(h)
 
