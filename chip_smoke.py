@@ -339,6 +339,34 @@ failure raises and exits non-zero before the result line is printed:
     weights beside the two pools; a request sharing the prefix routes to
     the busier replica that holds it; a GPT-2 handle offered to a Llama
     replica raises ``AdoptMismatch``.
+24. training robustness (after phase 23), ``phase_robust_gpt2`` and
+    ``phase_robust_comm``. 24a: phase 17's GPT-2 small trainer (OpenAI's
+    widths, vocab 50,304, bf16, 8 x 1024, AdamW, dropout 0.1), nothing
+    cut, under ``resilience.Supervisor`` with a ``CheckpointManager`` on
+    local disk (``save_interval`` 4), batches from ``io.DataLoader`` over
+    a seeded 48-sequence ``TensorDataset`` with
+    ``DistributedBatchSampler(shuffle=True)`` in a ``ResumableLoader``,
+    11 steps over 2 epochs. The uninterrupted run twice: losses and final
+    parameters equal bit for bit. A chaos run (``P24_PLAN``: a transient
+    error, a real wedge under ``step_timeout_s`` that wakes and is
+    dropped, the newest checkpoint corrupted, a NaN streak of NaN
+    patience 2): ``P24_WANT``'s retries, skipped batch and rollback, the
+    rollback over the corrupted step 7 to step 3, the parameters at every
+    attempt's entry equal the uninterrupted run's at the same
+    consumed-batch count up to the first skipped batch and right after
+    the rollback. A child process SIGKILLed at step 10 (beside the repeat
+    run) and a resuming child: the resumed losses equal the uninterrupted
+    run's bit for bit. Rows 1-3 launch 12 each per executed step attempt,
+    all on the tensor cores. Printed: the guard capture, a step with and
+    without the supervisor, the first run's last cadence save (host copy,
+    pickle with its CRC, fsync, wall), the checkpoint's bytes, the
+    rollback and the resume walls. 24b: phase 19's 0.5B Llama at 2 layers, 4 x 2048,
+    ``CommOptTrainStep(zero1=True, grad_compress="int8")``: dp2 as two
+    gloo ranks on the card, 3 steps, a checkpoint (each rank its file,
+    rank 0 seals); the dp2 restore continues 2 steps bit for bit; world 1
+    restores the two rank files (moments joined in position, ``e1`` the
+    ranks' sum, bit for bit) and takes 2 steps within ``COMM_TOL`` of
+    dp2's.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -6801,6 +6829,628 @@ def phase_deploy(fd, Engine, EngineSupervisor, ReplicaFleet, ChaosMonkey,
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: training robustness
+# ---------------------------------------------------------------------------
+
+P24_SEQS = 48           # 24a's dataset: 6 batches of 8 an epoch
+P24_BATCH = 8
+P24_STEPS = 11          # 2 epochs: the cursor crosses an epoch boundary;
+                        # cadence saves after steps 4 and 8
+P24_SAVE = 4            # save_interval
+P24_TIMEOUT_S = 5.0     # the chaos run's step_timeout_s
+P24_WEDGE_S = 6.0       # the wedged attempt sleeps this long, then runs
+# the chaos run's plan, by invocation of the supervised step (a retry is an
+# invocation): a transient error; a real wedge right after the cadence
+# save of step 7 (not a ChaosMonkey fault: the step sleeps past the
+# deadline and then runs), so that save's write is done before the
+# corruption, which waits for it inside a supervised step; the newest
+# checkpoint corrupted; then a NaN streak of nan_patience (2) that rolls
+# back
+P24_PLAN = {4: "error", 11: "corrupt", 12: "nan", 13: "nan"}
+P24_WEDGE_AT = 9
+P24_AFTER_ROLLBACK = 2  # steps the chaos run takes after its rollback
+P24_KILL_AT = 10        # the victim child SIGKILLs itself at this step
+# what the plan must give: retries (error, wedge), one skipped batch, one
+# rollback over the corrupted step 7 to step 3
+P24_WANT = dict(retries=2, skipped=1, rollbacks=1, rollback_to=3,
+                anomalies={"step-error": 1, "stall": 1, "nonfinite": 2})
+P24B_LAYERS = 2
+P24B_BATCH = (4, 2048)
+P24B_CFG = {"grad_compress": "int8", "zero1": True}
+P24B_STEPS, P24B_MORE = 3, 2
+
+
+def p24_ids(vocab, n=P24_SEQS, L=1024):
+    """24a's seeded token dataset, ``[n, L]`` int64 on the host."""
+    return np.random.default_rng(24).integers(0, vocab, (n, L))
+
+
+def p24_loader(io, ids, device, epochs=2):
+    """``ResumableLoader`` over ``DataLoader(TensorDataset([ids]))`` with a
+    shuffling ``DistributedBatchSampler`` (one replica), batches on
+    ``device``."""
+    from paddle_tpu_torch.resilience import ResumableLoader
+    sampler = io.DistributedBatchSampler(ids, P24_BATCH, num_replicas=1,
+                                         rank=0, shuffle=True)
+    return ResumableLoader(io.DataLoader(io.TensorDataset([ids]),
+                                         batch_sampler=sampler,
+                                         device=device), epochs=epochs)
+
+
+def flat_params(model):
+    """Every parameter in one flat copy (for bitwise comparisons)."""
+    with torch.no_grad():
+        return torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()])
+
+
+def p24_trainer(GPTForCausalLM, cfg, fleet, optimizer, seed, io, ids, ckdir,
+                device, **sup_kw):
+    """Phase 17's GPT-2 trainer (seed 0, AdamW, dropout 0.1) under a
+    ``Supervisor`` with a ``CheckpointManager(ckdir)`` and 24a's loader:
+    (model, step, loader, manager, supervisor factory)."""
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.resilience import Supervisor, TrainState
+    model, step = gpt2_trainer(GPTForCausalLM, cfg, fleet, optimizer, seed,
+                               device=device)
+    loader = p24_loader(io, ids, device)
+    mgr = CheckpointManager(ckdir, max_to_keep=3, device=device)
+    state = TrainState(train_step=step, loader=loader)
+
+    def supervise(fn):
+        return Supervisor(fn, state, manager=mgr, save_interval=P24_SAVE,
+                          **sup_kw)
+    return model, step, loader, mgr, state, supervise
+
+
+def p24_run(fa, fc, rm, GPTForCausalLM, cfg, fleet, optimizer, seed, io, ids,
+            ckdir, device, snapshots=False):
+    """One uninterrupted supervised run of ``P24_STEPS`` steps: losses,
+    the parameters at each step's entry (with ``snapshots``) and at the
+    end, launches over the run, seconds."""
+    model, step, loader, mgr, state, supervise = p24_trainer(
+        GPTForCausalLM, cfg, fleet, optimizer, seed, io, ids, ckdir, device)
+    entries = []
+
+    def train(x):
+        if snapshots:
+            entries.append(flat_params(model))
+        return step(x, x)
+
+    sup = supervise(train)
+    _reset(fa, fc, rm)
+    sync(device)
+    t0 = time.perf_counter()
+    losses = []
+    for (x,) in loader:
+        losses.append(float(sup.step(x)))
+        if sup.steps_completed >= P24_STEPS:
+            break
+    sup.close()
+    sync(device)
+    secs = time.perf_counter() - t0
+    counts = _counts(fa, fc, rm)
+    return dict(losses=losses, entries=entries, final=flat_params(model),
+                launches=counts, secs=secs, model=model, step=step,
+                state=state, mgr=mgr, stats=sup.stats())
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p24_chaos(fa, fc, rm, GPTForCausalLM, cfg, fleet, optimizer, seed, io, ids,
+              ckdir, device, ChaosMonkey, attempt):
+    """24a's chaos run: ``P24_PLAN`` through a ``ChaosMonkey`` with the
+    manager, the wedge at ``P24_WEDGE_AT``, ``step_timeout_s``, NaN
+    patience 2, no emergency saves (with them the NaN streak's first
+    anomaly would persist the guard, and the newest checkpoint at the
+    rollback would always be intact). Returns the run's record: the
+    parameters at each attempt's entry by consumed-batch count, the
+    supervisor's stats and ledger, executed attempts, launches."""
+    model, step, loader, mgr, state, supervise = p24_trainer(
+        GPTForCausalLM, cfg, fleet, optimizer, seed, io, ids, ckdir, device,
+        step_timeout_s=P24_TIMEOUT_S, nan_patience=2, max_retries=2,
+        max_rollbacks=1, retry_backoff_s=0.0, emergency_save=False)
+    chaos = ChaosMonkey(seed=24, at=P24_PLAN, manager=mgr)
+    entries, executed = [], []
+    holder = {}
+
+    def train(x):
+        call = chaos.calls - 1
+        entries.append((call, holder["sup"].steps_completed,
+                        flat_params(model)))
+        if call == P24_WEDGE_AT:
+            time.sleep(P24_WEDGE_S)     # wedged: abandoned, then runs
+        out = step(x, x)
+        executed.append(call)
+        return out
+
+    sup = holder["sup"] = supervise(chaos.wrap(train))
+    rollback_s, rollback = [], sup._rollback
+
+    def timed_rollback(why):            # the restore wall, timed here
+        sync(device)
+        t0 = time.perf_counter()
+        out = rollback(why)
+        sync(device)
+        rollback_s.append(time.perf_counter() - t0)
+        return out
+    sup._rollback = timed_rollback
+    dropped0 = attempt.stats["dropped"]
+    _reset(fa, fc, rm)
+    t0 = time.perf_counter()
+    losses, after = [], None
+    for (x,) in loader:
+        out = sup.step(x)
+        losses.append(None if out is None else float(out))
+        if sup.rollbacks and after is None:
+            after = 0
+        elif after is not None:
+            after += 1
+        if after is not None and after >= P24_AFTER_ROLLBACK:
+            break
+    sup.close()
+    for t in sup.zombies:
+        t.join(P24_WEDGE_S + 30)
+    sync(device)
+    secs = time.perf_counter() - t0
+    counts = _counts(fa, fc, rm)
+    ledger = sup.ledger.to_list()
+    rb = [r for r in ledger if r["event"] == "rollback"]
+    return dict(losses=losses, entries=entries, executed=executed,
+                launches=counts, secs=secs, stats=sup.stats(), rollback=rb,
+                rollback_s=rollback_s,
+                fired=chaos.fired, dropped=attempt.stats["dropped"] - dropped0,
+                zombies=len(sup.zombies),
+                corrupt_skipped=[r for r in ledger
+                                 if r["event"] == "anomaly"])
+
+
+def _p24_child(workdir, ckdir, mode, cfg, device):
+    """24a's kill-and-resume child: 24a's uninterrupted run in a process of
+    its own; ``mode`` "victim" SIGKILLs itself at ``P24_KILL_AT``,
+    "resume" resumes from ``ckdir`` (timing ``Supervisor.resume``) and
+    runs to ``P24_STEPS``. Writes ``<mode>.json``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.resilience import ChaosMonkey
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fleet.init()
+    ids = p24_ids(cfg.vocab_size)
+    model, step, loader, mgr, state, supervise = p24_trainer(
+        GPTForCausalLM, cfg, fleet, optimizer, pt.seed, io, ids, ckdir,
+        device)
+
+    def train(x):
+        return step(x, x)
+
+    fn = train
+    if mode == "victim":
+        fn = ChaosMonkey(at={P24_KILL_AT: "kill"}).wrap(train)
+    sup = supervise(fn)
+    sync(device)
+    t0 = time.perf_counter()
+    start = sup.resume()
+    sync(device)
+    resume_s = time.perf_counter() - t0
+    losses = {}
+    for (x,) in loader:
+        if sup.steps_completed >= P24_STEPS:
+            break
+        i = sup.steps_completed
+        losses[i] = float(sup.step(x))
+    sup.close()
+    with open(os.path.join(workdir, f"{mode}.json"), "w") as f:
+        json.dump(dict(start=start, losses=losses, resume_s=resume_s,
+                       wall_s=time.perf_counter() - t_start), f)
+
+
+def p24_child(workdir, mode, cfg, device):
+    """Start 24a's kill-and-resume child ``mode`` (spawned; its checkpoints
+    in ``<workdir>/ck_kill``)."""
+    import multiprocessing
+    p = multiprocessing.get_context("spawn").Process(
+        target=_p24_child, args=(workdir, os.path.join(workdir, "ck_kill"),
+                                 mode, cfg, device))
+    p.start()
+    return p
+
+
+def p24_join(p, mode, want_code):
+    """Wait for a child of ``p24_child``; fail unless it exits
+    ``want_code`` (the victim: -9, SIGKILL)."""
+    p.join(600)
+    if p.is_alive():
+        p.kill()
+        p.join()
+        raise AssertionError(f"24a: the {mode} child did not finish")
+    if p.exitcode != want_code:
+        raise AssertionError(f"24a: the {mode} child exited {p.exitcode}, "
+                             f"want {want_code}")
+    return p.exitcode
+
+
+def p24_costs(step, state, mgr, ids, device, n=5):
+    """The snapshot surface's costs at 24a's state: the guard capture
+    alone; a step with and without the supervisor (no manager, so its
+    guard capture is all it adds), medians of ``n`` alternating steps;
+    and the run's last cadence save as the manager recorded it (the host
+    copy, the pickle with its CRC, the fsync, the wall to the publish,
+    the bytes)."""
+    from paddle_tpu_torch.resilience import Supervisor
+    sync(device)
+    t0 = time.perf_counter()
+    guard = state.capture()
+    sync(device)
+    capture_s = time.perf_counter() - t0
+    del guard
+    x = torch.as_tensor(ids[:P24_BATCH], device=device)
+    sup = Supervisor(lambda b: step(b, b), state)
+    plain, supervised = [], []
+    for _ in range(n):
+        sync(device)
+        t0 = time.perf_counter()
+        float(step(x, x))
+        plain.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        float(sup.step(x))
+        supervised.append(time.perf_counter() - t0)
+    save = dict(mgr.last_save)
+    return dict(capture_s=capture_s, step_s=float(np.median(plain)),
+                supervised_step_s=float(np.median(supervised)),
+                save_step=save.pop("step"), bytes=save.pop("bytes"),
+                **{f"save_{k}": v for k, v in save.items()})
+
+
+def p24_check_launches(tag, counts, attempts, layers):
+    want = {k: v * attempts for k, v in
+            want_attention_launches(layers).items()}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} over {attempts} "
+                             f"executed attempts, want {want}")
+
+
+def phase_robust_gpt2(fa, fc, rm, GPTConfig, GPTForCausalLM, fleet, optimizer,
+                      seed, io, ChaosMonkey, attempt, cfg=None,
+                      workdir="build/phase24", device="cuda"):
+    """24a: phase 17's GPT-2 small trainer, nothing cut, under a
+    ``Supervisor`` with a ``CheckpointManager`` on local disk
+    (``save_interval`` 4) and 24a's loader, 11 steps over 2 epochs.
+    The uninterrupted run twice: losses and final parameters equal bit
+    for bit (the repeat check). The chaos run (``P24_PLAN``, the wedge):
+    ``P24_WANT``'s counts, the rollback over the corrupted step 7 to step
+    3, the zombie's update dropped, the parameters at every attempt's
+    entry equal the uninterrupted run's at the same consumed-batch count
+    up to the first skipped batch and right after the rollback. A victim
+    child SIGKILLed at step 10 (run beside the repeat run, which only its
+    time shares) and a resuming child: the resumed losses equal the
+    uninterrupted run's bit for bit. Rows 1-3 launch 12 each per executed
+    attempt, all on the tensor cores. Prints the guard capture, a step
+    with and without the supervisor, the save (from the first run's last
+    cadence save), rollback and resume walls and the bytes a checkpoint
+    holds."""
+    import shutil
+    cfg = cfg or GPTConfig(dtype="bfloat16")
+    layers = cfg.num_hidden_layers
+    fleet.init()
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    ids = p24_ids(cfg.vocab_size)
+    t24 = time.perf_counter()
+    children = []
+    try:
+        runs = []
+        for i in range(2):
+            runs.append(p24_run(fa, fc, rm, GPTForCausalLM, cfg, fleet,
+                                optimizer, seed, io, ids,
+                                os.path.join(workdir, f"ck_run{i}"), device,
+                                snapshots=(i == 0)))
+            log(f"  24a uninterrupted run {i}: losses {runs[-1]['losses']} "
+                f"in {runs[-1]['secs']:.2f} s ({smi_line()})")
+            p24_check_launches(f"24a run {i}", runs[-1]["launches"],
+                               P24_STEPS, layers)
+            if i == 0:
+                costs = p24_costs(runs[0]["step"], runs[0]["state"],
+                                  runs[0]["mgr"], ids, device)
+                log("  24a snapshot surface " + json.dumps(costs))
+            for k in ("model", "step", "state", "mgr"):
+                runs[-1].pop(k)
+            gc.collect()
+            if device != "cpu":
+                torch.cuda.empty_cache()
+            if i == 0:
+                children.append(p24_child(workdir, "victim", cfg, device))
+        code = p24_join(children[0], "victim", -9)
+        base = runs[0]
+        if runs[1]["losses"] != base["losses"] or not torch.equal(
+                runs[1]["final"], base["final"]):
+            raise AssertionError(f"24a: the uninterrupted run does not "
+                                 f"repeat: {base['losses']} vs "
+                                 f"{runs[1]['losses']}")
+        del runs
+        chaos = p24_chaos(fa, fc, rm, GPTForCausalLM, cfg, fleet, optimizer,
+                          seed, io, ids, os.path.join(workdir, "ck_chaos"),
+                          device, ChaosMonkey, attempt)
+        log(f"  24a chaos run: {chaos['stats']}, fired {chaos['fired']}, "
+            f"rollback {chaos['rollback']}, executed attempts "
+            f"{chaos['executed']}, {chaos['secs']:.2f} s")
+        st = chaos["stats"]
+        for k in ("retries", "skipped", "rollbacks", "anomalies"):
+            if st[k] != P24_WANT[k]:
+                raise AssertionError(f"24a chaos: {k} {st[k]}, want "
+                                     f"{P24_WANT[k]}")
+        if [r["to_step"] for r in chaos["rollback"]] != \
+                [P24_WANT["rollback_to"]]:
+            raise AssertionError(f"24a chaos: rollback {chaos['rollback']}, "
+                                 f"want to step {P24_WANT['rollback_to']} "
+                                 f"past the corrupted step 7")
+        if chaos["zombies"] != 1 or chaos["dropped"] != 1 or \
+                P24_WEDGE_AT in chaos["executed"]:
+            raise AssertionError(f"24a chaos: the wedged attempt was not "
+                                 f"dropped ({chaos['zombies']} zombies, "
+                                 f"{chaos['dropped']} dropped, executed "
+                                 f"{chaos['executed']})")
+        # the state at each attempt's entry: the uninterrupted run's at the
+        # same consumed-batch count, until the first skipped batch, and
+        # again right after the rollback
+        first_nan = min(c for c, f in P24_PLAN.items() if f == "nan")
+        held = 0
+        for call, done, flat in chaos["entries"]:
+            if call < first_nan or (call > max(P24_PLAN) and done ==
+                                    P24_WANT["rollback_to"] + 1):
+                if not torch.equal(flat, base["entries"][done]):
+                    raise AssertionError(f"24a chaos: parameters at call "
+                                         f"{call} ({done} batches) differ "
+                                         f"from the uninterrupted run's")
+                held += 1
+        if held < 10:
+            raise AssertionError(f"24a chaos: only {held} states compared")
+        p24_check_launches("24a chaos", chaos["launches"],
+                           len(chaos["executed"]), layers)
+        entries = base.pop("entries")
+        del entries
+        base.pop("final")
+        chaos.pop("entries")
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        children.append(p24_child(workdir, "resume", cfg, device))
+        p24_join(children[1], "resume", 0)
+        with open(os.path.join(workdir, "resume.json")) as f:
+            resumed = json.load(f)
+        resumed["losses"] = {int(k): v for k, v in resumed["losses"].items()}
+        start = resumed["start"]
+        if start not in (P24_SAVE, 2 * P24_SAVE):
+            raise AssertionError(f"24a: resumed at step {start}")
+        want = {i: base["losses"][i] for i in range(start, P24_STEPS)}
+        if resumed["losses"] != want:
+            raise AssertionError(f"24a: resumed losses {resumed['losses']} "
+                                 f"!= the uninterrupted {want}")
+        log(f"  24a kill and resume: victim exit {code}, resumed at step "
+            f"{start} in {resumed['resume_s']:.2f} s (child wall "
+            f"{resumed['wall_s']:.1f} s), losses equal bit for bit")
+    finally:
+        for p in children:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(workdir, ignore_errors=True)
+    total = time.perf_counter() - t24
+    return dict(losses=base["losses"], run_s=base["secs"],
+                launches_per_step={k: v // P24_STEPS
+                                   for k, v in base["launches"].items()},
+                chaos=dict(stats=chaos["stats"], fired=chaos["fired"],
+                           rollback=chaos["rollback"],
+                           executed=chaos["executed"],
+                           launches=chaos["launches"], secs=chaos["secs"],
+                           states_held=held, rollback_s=chaos["rollback_s"]),
+                kill=dict(victim_exit=code, resumed_at=start,
+                          resume_s=resumed["resume_s"],
+                          child_wall_s=resumed["wall_s"]),
+                **costs, phase_s=total)
+
+
+def _p24b_worker(workdir, cfg, batch, device):
+    """One of 24b's two dp ranks (gloo on ``device``): the comm-opt step
+    (int8, zero1) from the saved weights, 3 steps, an async checkpoint
+    (each rank its file, rank 0 seals) written during 2 more steps; then a
+    fresh step restored from the checkpoint, 2 steps. Writes
+    ``p24b.r<rank>.json``."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.framework.device import resolve_device
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import ragged_matmul as rm
+    from paddle_tpu_torch.resilience import TrainState
+    from paddle_tpu_torch.text.models.llama import LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo", device=device, timeout=900)
+    dev = resolve_device(None)
+    rank = dist.get_rank()
+    with np.load(os.path.join(workdir, "batch.npz")) as z:
+        ids = torch.from_numpy(z["ids"]).to(dev)
+    weights = saved_weights(workdir)
+
+    def build():
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs["dp_degree"] = 2
+        s.comm_opt = True
+        s.comm_opt_configs.update(P24B_CFG)
+        fleet.init(is_collective=True, strategy=s)
+        model = fleet.distributed_model(LlamaForCausalLM(cfg, device=dev))
+        load_numpy_state_dict(model, weights)
+        return fleet.distributed_optimizer(comm_optimizer(
+            optimizer, "adamw", model.parameters())).make_train_step(
+            model, lambda m, x, y: m(x, labels=y))
+
+    step = build()
+    losses, _, launches = run_steps(fa, fc, rm, step, ids, P24B_STEPS,
+                                    tag=f"[24b rank {rank}] ", warm_up=False)
+    mgr = CheckpointManager(os.path.join(workdir, "ck"), device=dev)
+    # the write runs while the next steps update the state in place
+    mgr.save(P24B_STEPS - 1, TrainState(train_step=step).capture(copy=False))
+    cont = run_steps(fa, fc, rm, step, ids, P24B_MORE,
+                     tag=f"[24b rank {rank}, uninterrupted] ",
+                     warm_up=False)[0]
+    mgr.wait()
+    save_s = mgr.last_save["wall_s"]
+    meta = {k: int(v) for k, v in step.state_dict()["meta"].items()}
+    del step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fresh = build()
+    state = TrainState(train_step=fresh)
+    t0 = time.perf_counter()
+    at, snap = mgr.restore_latest(state.capture())
+    state.restore(snap)
+    restore_s = time.perf_counter() - t0
+    del snap
+    resumed, _, more = run_steps(fa, fc, rm, fresh, ids, P24B_MORE,
+                                 tag=f"[24b rank {rank}, restored] ",
+                                 warm_up=False)
+    with open(os.path.join(workdir, f"p24b.r{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, losses=losses, cont=cont, resumed=resumed,
+                       restored_at=at, launches=launches + more, meta=meta,
+                       save_s=save_s, restore_s=restore_s), f)
+    dist.destroy_process_group()
+
+
+def phase_robust_comm(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet,
+                      optimizer, seed, cfg=None, batch=P24B_BATCH,
+                      workdir="build/phase24b", device="cuda"):
+    """24b: phase 19's 0.5B Llama widths at 2 layers, 4 x 2048, the
+    comm-opt step with ``zero1=True, grad_compress="int8"``: dp2 as two
+    gloo ranks on the card trains 3 steps, both ranks write and rank 0
+    seals; a dp2 restore continues 2 steps bit for bit the uninterrupted
+    dp2 run's. Then world 1 restores the dp2 checkpoint (two rank files: a
+    ``RankStates``): its flat moments equal the two ranks' chunks joined
+    in position bit for bit, its ``e1`` their host sum, the beta pows rank
+    0's; 2 more steps finite and within ``COMM_TOL`` (relative) of the
+    uninterrupted dp2 run. Rows 1-3 once per layer and row 5 once a step,
+    all on the tensor cores, on every rank and at world 1."""
+    import shutil
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.resilience import TrainState
+    cfg = cfg or LlamaConfig(**{**COMM_CELL,
+                                "num_hidden_layers": P24B_LAYERS})
+    want = want_train_launches(cfg.num_hidden_layers)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    try:
+        fleet.init()
+        seed(0)
+        model = LlamaForCausalLM(cfg, device=device)
+        save_weights(workdir, model)
+        del model
+        ids = train_ids(cfg.vocab_size, *batch, device="cpu")
+        np.savez(os.path.join(workdir, "batch.npz"), ids=ids.numpy())
+        dist.spawn(_p24b_worker, args=(workdir, cfg, batch,
+                                       _rank_device(device)),
+                   nprocs=2, timeout=900)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"p24b.r{r}.json")) as f:
+                ranks.append(json.load(f))
+        for g in ranks:
+            if g["resumed"] != g["cont"]:
+                raise AssertionError(f"24b rank {g['rank']}: restored dp2 "
+                                     f"losses {g['resumed']} != the "
+                                     f"uninterrupted {g['cont']}")
+            for i, c in enumerate(g["launches"]):
+                if c != want:
+                    raise AssertionError(f"24b rank {g['rank']} step {i} "
+                                         f"launched {c}, want {want}")
+        if ranks[0]["losses"] != ranks[1]["losses"]:
+            raise AssertionError("24b: the ranks' losses differ")
+        # world 1 from the dp2 checkpoint
+        s = fleet.DistributedStrategy()
+        s.comm_opt = True
+        s.comm_opt_configs.update(P24B_CFG)
+        fleet.init(is_collective=True, strategy=s)
+        model = fleet.distributed_model(LlamaForCausalLM(cfg, device=device))
+        from paddle_tpu_torch.framework.io import load_numpy_state_dict
+        load_numpy_state_dict(model, saved_weights(workdir))
+        step = fleet.distributed_optimizer(comm_optimizer(
+            optimizer, "adamw", model.parameters())).make_train_step(
+            model, lambda m, x, y: m(x, labels=y))
+        mgr = CheckpointManager(os.path.join(workdir, "ck"), device=device)
+        t1 = time.perf_counter()
+        at, snap = mgr.restore_latest()
+        TrainState(train_step=step).restore(snap)
+        sync(device)
+        restore_s = time.perf_counter() - t1
+        if len(snap) != 2:
+            raise AssertionError(f"24b: {len(snap)} rank states, want 2")
+        files = [{"train_step": {part: {k: t.cpu() for k, t in
+                                        f["train_step"][part].items()}
+                                 for part in ("opt", "ef")}} for f in snap]
+        n = step.n_local
+        got = {k: t.detach().cpu() for k, t in step._opt_state.items()}
+        for k in ("moment1", "moment2"):
+            joined = torch.cat([f["train_step"]["opt"][k] for f in files])
+            if not (torch.equal(got[k][:n], joined[:n])
+                    and not got[k][n:].any()):
+                raise AssertionError(f"24b: world 1's {k} is not the ranks' "
+                                     f"chunks joined")
+        for k in ("beta1_pow", "beta2_pow"):
+            if not torch.equal(got[k], files[0]["train_step"]["opt"][k]):
+                raise AssertionError(f"24b: world 1's {k} is not rank 0's")
+        e1 = files[0]["train_step"]["ef"]["e1"] + \
+            files[1]["train_step"]["ef"]["e1"]
+        if not torch.equal(step._ef["e1"].cpu()[:n], e1[:n]):
+            raise AssertionError("24b: world 1's e1 is not the ranks' sum")
+        del snap, files
+        ids = ids.to(device)
+        more, secs, launches = run_steps(fa, fc, rm, step, ids, P24B_MORE,
+                                         tag="24b world 1 restored ",
+                                         warm_up=False)
+        cont = ranks[0]["cont"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(more, cont))
+        if not (all(np.isfinite(more)) and rel <= COMM_TOL):
+            raise AssertionError(f"24b: world 1 after the restore {more} vs "
+                                 f"dp2 {cont} (relative {rel:.3g})")
+        for i, c in enumerate(launches):
+            if c != want:
+                raise AssertionError(f"24b world 1 step {i} launched {c}, "
+                                     f"want {want}")
+        meta = ranks[0]["meta"]
+        del step, model
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  24b dp2: losses {ranks[0]['losses']}, then {ranks[0]['cont']} "
+        f"uninterrupted and {ranks[0]['resumed']} restored (equal); world 1 "
+        f"from the dp2 checkpoint (n_local {meta['n_local']}, dp2 n_pad "
+        f"{meta['n_pad']}, world 1 n_pad {n + (-n) % 1024}): moments joined, "
+        f"e1 summed, {more} (relative to dp2 {rel:.3g}); rank save "
+        f"{[round(g['save_s'], 2) for g in ranks]} s, rank restore "
+        f"{[round(g['restore_s'], 2) for g in ranks]} s, world-1 restore "
+        f"{restore_s:.2f} s")
+    return launches[-1], dict(
+        losses=ranks[0]["losses"], cont=ranks[0]["cont"],
+        world1=more, world1_rel=rel, rank_save_s=[g["save_s"] for g in ranks],
+        rank_restore_s=[g["restore_s"] for g in ranks],
+        world1_restore_s=restore_s, world1_step_secs=secs,
+        phase_s=time.perf_counter() - t0)
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -7076,6 +7726,30 @@ def main():
     log("  deployment " + json.dumps(deploy))
     log(f"  phase 23 took {time.perf_counter() - t23:.1f} s ({smi_line()})")
 
+    # ---- 24. training robustness ------------------------------------------
+    t24 = time.perf_counter()
+    log(f"[24] training robustness: 24a phase 17's GPT-2 small trainer "
+        f"(bf16, 8x1024, AdamW, dropout 0.1), nothing cut, under a "
+        f"Supervisor with a CheckpointManager (save_interval {P24_SAVE}), "
+        f"batches from DataLoader + DistributedBatchSampler(shuffle=True) + "
+        f"ResumableLoader over {P24_SEQS} seeded sequences, {P24_STEPS} "
+        f"steps over 2 epochs: twice uninterrupted, the chaos plan "
+        f"{P24_PLAN} + a {P24_WEDGE_S} s wedge at invocation {P24_WEDGE_AT} "
+        f"under step_timeout_s {P24_TIMEOUT_S}, a child SIGKILLed at step "
+        f"{P24_KILL_AT} and a resuming child; 24b phase 19's 0.5B Llama at "
+        f"{P24B_LAYERS} layers, {P24B_BATCH[0]}x{P24B_BATCH[1]}, comm_opt "
+        f"{P24B_CFG}: dp2 as two gloo ranks on cuda:0, checkpointed, "
+        f"restored at dp2 and at world 1")
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.framework import attempt
+    robust = phase_robust_gpt2(fa, fc, rm, GPTConfig, GPTForCausalLM, fleet,
+                               optimizer, pt.seed, pio, ChaosMonkey, attempt)
+    log("  robustness 24a " + json.dumps(robust))
+    robust_comm_launches, robust_comm = phase_robust_comm(
+        fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet, optimizer, pt.seed)
+    log("  robustness 24b " + json.dumps(robust_comm))
+    log(f"  phase 24 took {time.perf_counter() - t24:.1f} s ({smi_line()})")
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -7197,6 +7871,19 @@ def main():
                 **{k: te[k] for k in cols + first + ("shape",) if k in te})
             if kd["name"] == "flash_attention_fwd":
                 kd["bert"]["launches_22c"] = bert_launches["forward_22c"]
+    # rows 1-3 and 5 in phase 24: 24a's launches per step (uninterrupted)
+    # and over the chaos run's executed attempts; 24b's per step at world 1
+    # after the dp2 restore
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_"):
+            kd["robustness"] = dict(
+                launches_24a_step=robust["launches_per_step"][kd["name"]],
+                launches_24a_chaos=robust["chaos"]["launches"][kd["name"]],
+                executed_attempts_24a_chaos=len(robust["chaos"]["executed"]),
+                launches_24b_step=robust_comm_launches[kd["name"]])
+        if kd["name"] == "fused_ce_stats":
+            kd["robustness"] = dict(
+                launches_24b_step=robust_comm_launches[kd["name"]])
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

@@ -36,6 +36,16 @@ the JAX package computes its tp matmuls (ppermute rings), not what: the
 port's ``mp_layers`` compute the dot and then the collective for either
 value, and ``comm_stats()`` records the flag.
 
+Snapshots: ``state_dict()`` is this rank's state in the JAX package's
+keys; ``load_state_dict`` takes a state of this rank's layout, or every
+rank's (a ``distributed.checkpoint.RankStates``, or the JAX package's
+``[dp, tp, ...]`` layout that ``gathered_state`` gives) and then restores
+across dp degrees as the JAX package does: the flat owner-sharded moments
+and ``e2`` keep their positions (padding rebuilt), the scalar
+accumulators are replicated, the per-replica ``e1`` residuals are summed
+into replica 0. A step abandoned by its supervisor (``framework.attempt``)
+drops its in-place writes.
+
 Scope: ``(dp, tp)`` meshes; sharding/pp/sep degrees, gradient clipping,
 AMP and gradient accumulation are refused or stay on ``TrainStep``.
 """
@@ -47,6 +57,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..framework import attempt
 from . import collective as C
 from . import mesh as mesh_mod
 from .fleet.comm_efficient import (_dequant_blocks, _flatten_by,
@@ -62,10 +73,6 @@ _LIVE_STEPS: "weakref.WeakSet[CommOptTrainStep]" = weakref.WeakSet()
 #: the precondition for the flat ZeRO-1 shard update being bitwise equal
 #: to the replicated flat update
 _ZERO1_OPTIMIZERS = ("SGD", "Momentum", "Adam", "AdamW")
-
-_REMESH = ("restoring a comm-opt state across layouts (dp degree, "
-           "padding) is not in the port yet (ROADMAP.md, port queue item "
-           "7: robustness)")
 
 
 class CommOptTrainStep(_ReplicaStep):
@@ -286,49 +293,60 @@ class CommOptTrainStep(_ReplicaStep):
     # -- stepping ----------------------------------------------------------
 
     def __call__(self, *batch):
+        attempt.check()
         loss, grads = self._grads(batch)
         lr = self.optimizer.get_lr()
+        ef = dict(self._ef)
         with torch.no_grad():
             g = _flatten_by(grads, self._order, self._pad)
             del grads
-            mine, e1 = self._exchange(g, self._ef.get("e1"))
+            # e1 is updated in its own storage (a failed or abandoned
+            # attempt is followed by a restore, which replaces it)
+            mine, e1 = self._exchange(g, ef.get("e1"))
             del g
             if e1 is not None:
-                self._ef["e1"] = e1
+                ef["e1"] = e1
+            new_flat = new_state = grads = None
             if self.zero1:
                 p_shard = self._owned(_flatten_by(self._views, self._order,
                                                   self._pad))
-                new_shard, self._opt_state = self._flat_update(
+                new_shard, new_state = self._flat_update(
                     p_shard, mine, self._opt_state, lr)
-                self._write_flat(C.all_gather(
-                    None, new_shard, group=self._dp_group).reshape(-1))
+                new_flat = C.all_gather(
+                    None, new_shard, group=self._dp_group).reshape(-1)
             else:
-                g_avg, e2 = self._gather_grad(mine, self._ef.get("e2"))
+                g_avg, e2 = self._gather_grad(mine, ef.get("e2"))
                 if e2 is not None:
-                    self._ef["e2"] = e2
+                    ef["e2"] = e2
                 if self._flat_ok:
                     flat_p = _flatten_by(self._views, self._order, self._pad)
-                    new_flat, self._opt_state = self._flat_update(
+                    new_flat, new_state = self._flat_update(
                         flat_p, g_avg, self._opt_state, lr)
                     del flat_p
-                    self._write_flat(new_flat)
                 else:
                     g_tree = _unflatten_by(g_avg, self._order,
                                            self._local_shapes, self._sizes)
                     grads = {k: g_tree[k].to(p.dtype)
                              for k, p in self._views.items()}
+            buffers = {}
             if self._buffers and self.dp > 1:
                 # running-stat buffers: the dp mean keeps them replicated;
                 # integer buffers pass through
-                for b in self._buffers.values():
-                    if b.is_floating_point():
-                        b.copy_(C.all_reduce(b.clone(), group=self._dp_group)
-                                / self.dp)
-        if not self.zero1 and not self._flat_ok:
-            self.optimizer.apply_in_place(self._views, grads,
-                                          self._opt_state, lr)
-        self.steps_run += 1
-        self._sched_step(self.optimizer)
+                buffers = {k: C.all_reduce(b.clone(), group=self._dp_group)
+                           / self.dp for k, b in self._buffers.items()
+                           if b.is_floating_point()}
+            with attempt.commit():
+                self._ef = ef
+                if new_flat is not None:
+                    self._opt_state = new_state
+                    self._write_flat(new_flat)
+                for k, b in buffers.items():
+                    self._buffers[k].copy_(b)
+                if grads is not None:
+                    self.optimizer.apply_in_place(self._views, grads,
+                                                  self._opt_state, lr)
+                self.steps_run += 1
+                self._sched_step(self.optimizer)
         return self._dp_mean(loss)
 
     # -- snapshot surface --------------------------------------------------
@@ -352,38 +370,155 @@ class CommOptTrainStep(_ReplicaStep):
                                          .get(self.grad_compress, 0))}}
 
     def load_state_dict(self, state):
-        """Copy a ``state_dict()`` taken at the same dp and tp degrees and
-        layout into this step."""
+        """Copy a snapshot into this step: this rank's ``state_dict()``
+        at the same dp/tp layout, or every rank's state (a
+        ``RankStates``, or the JAX package's ``[dp, tp, ...]`` layout) at
+        any dp degree, re-sharded as the JAX package re-shards it. A
+        restore across tp degrees raises."""
+        if isinstance(state, (list, tuple)):
+            state = self._joined(state)
         meta = state.get("meta") or {}
         dp0 = int(meta.get("dp", self.dp))
         tp0 = int(meta.get("tp", self.tp))
+        n_valid = min(int(meta.get("n_local", self.n_local)), self.n_local)
         if tp0 != self.tp:
             raise NotImplementedError(
                 f"restore across tp degrees ({tp0} -> {self.tp}) is not "
                 "supported — tp re-shards the parameters themselves")
-        if dp0 != self.dp or int(meta.get("n_pad", self.n_pad)) != \
-                self.n_pad:
-            raise NotImplementedError(_REMESH)
+        joined = self._is_joined(state)
+        if not joined and (dp0 != self.dp or int(meta.get(
+                "n_pad", self.n_pad)) != self.n_pad) and (
+                self.zero1 or state.get("ef")):
+            raise ValueError(
+                f"restoring a dp{dp0} comm-opt state at dp{self.dp} needs "
+                "every rank's state (a RankStates, or the [dp, tp, ...] "
+                "layout of gathered_state()), not one rank's")
+
+        def host(t):
+            return torch.as_tensor(t).detach().to("cpu")
 
         def copied(t, like):
-            return t.detach().to(like.device, like.dtype, copy=True)
+            return torch.as_tensor(t).detach().to(like.device, like.dtype,
+                                                  copy=True)
 
         with torch.no_grad():
             for k, v in self._views.items():
-                v.copy_(state["params"][k])
+                src = torch.as_tensor(state["params"][k])
+                if tuple(src.shape) != tuple(v.shape):
+                    # a full array (JAX's layout): this rank's tp block
+                    src = mesh_mod.local_block(
+                        src, self._params[k].placement, self.mesh)
+                v.copy_(src)
             for k, b in self._buffers.items():
-                b.copy_(state["buffers"][k])
-        if self.zero1 or self._flat_ok:
+                b.copy_(torch.as_tensor(state["buffers"][k]))
+        stored = state["opt"]
+        if self.zero1 and joined:
+            self._opt_state = {
+                n: copied(host(t)[0, self._tp_index] if host(t).dim() == 2
+                          else self._reshard_flat(host(t), n_valid),
+                          self._opt_state[n])
+                for n, t in stored.items()}
+        elif self.zero1:
             self._opt_state = {n: copied(t, self._opt_state[n])
-                               for n, t in state["opt"].items()}
+                               for n, t in stored.items()}
+        elif self._flat_ok:
+            self._opt_state = {n: copied(self._repad(host(t), n_valid),
+                                         self._opt_state[n])
+                               for n, t in stored.items()}
         else:
             self._opt_state = {
                 k: {n: copied(t, self._opt_state[k][n])
-                    for n, t in state["opt"][k].items()}
+                    for n, t in stored[k].items()}
                 for k in self._opt_state}
         for k in self._ef:
-            if state.get("ef", {}).get(k) is not None:
-                self._ef[k] = copied(state["ef"][k], self._ef[k])
+            t = state.get("ef", {}).get(k)
+            if t is None:
+                continue
+            t = host(t)
+            if not joined:
+                self._ef[k] = copied(t, self._ef[k])
+            elif k == "e1":
+                self._ef[k] = copied(self._sum_e1(t, n_valid), self._ef[k])
+            else:       # e2: owner-sharded like the flat moments
+                self._ef[k] = copied(self._reshard_flat(t, n_valid),
+                                     self._ef[k])
+
+    @property
+    def _tp_index(self):
+        return self.mesh.axis_index("tp")
+
+    def _is_joined(self, state):
+        """True for every rank's state in the ``[dp, tp, ...]`` layout
+        (flat leaves with a leading dp and tp dim)."""
+        leaves = list((state.get("ef") or {}).values())
+        if self.zero1:
+            leaves += list(state["opt"].values())
+        return any(torch.as_tensor(t).dim() >= 2 for t in leaves
+                   if t is not None)
+
+    def _joined(self, states):
+        """Every rank's ``state_dict()`` (rank order; rank = dp index *
+        tp + tp index) -> one state in the JAX package's layout: the flat
+        per-rank leaves stacked ``[dp, tp, ...]``; what every dp replica
+        holds alike (parameters, buffers, replicated optimizer state)
+        from the dp-0 rank of this rank's tp index."""
+        meta = states[0]["meta"]
+        dp0, tp0 = int(meta["dp"]), int(meta["tp"])
+        if len(states) != dp0 * tp0:
+            raise ValueError(f"{len(states)} rank states for a dp{dp0} x "
+                             f"tp{tp0} layout")
+        mine = states[min(self._tp_index, tp0 - 1)]
+
+        def stacked(get):
+            return torch.stack([torch.stack([
+                torch.as_tensor(get(states[d * tp0 + t])).detach().cpu()
+                for t in range(tp0)]) for d in range(dp0)])
+
+        out = {"params": mine["params"], "buffers": mine["buffers"],
+               "meta": meta,
+               "ef": {k: stacked(lambda s, k=k: s["ef"][k])
+                      for k in states[0].get("ef", {})}}
+        if int(meta.get("zero1", 0)):
+            out["opt"] = {n: stacked(lambda s, n=n: s["opt"][n])
+                          for n in states[0]["opt"]}
+        else:
+            out["opt"] = mine["opt"]
+        return out
+
+    def _reshard_flat(self, leaf, n_valid):
+        """``[dp0, tp, chunk0]`` owner-sharded flat state -> this rank's
+        chunk of this layout (positions preserved; padding rebuilt)."""
+        dp0 = leaf.shape[0]
+        if dp0 == self.dp and leaf.shape[-1] == self.chunk:
+            return leaf[self._dp_index, self._tp_index]
+        flat = leaf.permute(1, 0, 2).reshape(leaf.shape[1], -1)[
+            self._tp_index, :n_valid]
+        out = torch.zeros(self.n_pad, dtype=leaf.dtype)
+        out[:n_valid] = flat
+        return self._owned(out)
+
+    def _repad(self, t, n_valid):
+        """A replicated flat leaf ``[n_pad0]`` at this layout's padding."""
+        if t.dim() != 1 or t.shape[0] == self.n_pad:
+            return t
+        out = torch.zeros(self.n_pad, dtype=t.dtype)
+        out[:n_valid] = t[:n_valid]
+        return out
+
+    def _sum_e1(self, t, n_valid):
+        """This rank's e1 from every replica's ``[dp0, tp, n_pad0]``: the
+        same layout keeps its own; a re-mesh sums the replicas into
+        replica 0 (in replica order, as numpy's ``sum(axis=0)``), so no
+        dropped error is lost."""
+        if t.shape[0] == self.dp and t.shape[-1] == self.n_pad:
+            return t[self._dp_index, self._tp_index]
+        out = torch.zeros(self.n_pad, dtype=t.dtype)
+        if self._dp_index == 0:
+            total = t[0, self._tp_index].clone()
+            for i in range(1, t.shape[0]):
+                total += t[i, self._tp_index]
+            out[:n_valid] = total[:n_valid]
+        return out
 
     def gathered_state(self) -> dict:
         """The flat state of every rank in the JAX package's ``[dp, tp,

@@ -40,6 +40,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ...framework import attempt
 from .. import collective as C
 from .. import mesh as mesh_mod
 from .placement import place_model
@@ -135,6 +136,7 @@ class _ReplicaStep:
         for p in self._params.values():
             p.grad = None
         loss = self.loss_fn(self.model, *batch).float()
+        attempt.check()             # an abandoned attempt stops here
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in self._params.items()}

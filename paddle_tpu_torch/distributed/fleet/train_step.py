@@ -55,6 +55,13 @@ old, new)`` without a copy of the state); the LR scheduler still steps.
 The scale and its good/bad counters follow ``_next_scaler_state`` on the
 device; ``last_found_inf`` and ``state_dict()["scaler"]`` expose them.
 
+Snapshots: ``state_dict()`` gives this rank's live tensors and
+``load_state_dict`` copies a snapshot of this rank's layout in; a
+snapshot of another layout (other ranks, another sharding or tp layout)
+raises ``NotImplementedError`` (ROADMAP.md, port queue item 7). A step
+abandoned by its supervisor (``framework.attempt``) refuses to start its
+backward and drops its in-place writes.
+
 The collectives are explicit, driven by the ported placement rules,
 rather than FSDP2's: FSDP2 shards dim 0 of every parameter, and the JAX
 rule shards the largest divisible dim and leaves tp and small
@@ -70,6 +77,7 @@ import torch
 from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from ...amp.auto_cast import auto_cast
+from ...framework import attempt
 from .. import mesh as mesh_mod
 from ..collective import ReduceOp, all_reduce, gather_dim, reduce_scatter_dim
 from .placement import place_model, placement, saving
@@ -185,6 +193,7 @@ class TrainStep:
             return self.loss_fn(self.model, *batch).float()
 
     def _backward(self, loss):
+        attempt.check()
         if self._scaler_cfg:
             loss = loss * self._scaler_state["scale"]
         loss.backward()
@@ -276,6 +285,7 @@ class TrainStep:
                 "bad": torch.where(shrink, zero, bad2)}
 
     def __call__(self, *batch):
+        attempt.check()
         batch = tuple(
             self._local_batch(x if isinstance(x, torch.Tensor)
                               else torch.as_tensor(np.asarray(x)))
@@ -289,27 +299,29 @@ class TrainStep:
         elif self._data.nranks > 1:
             loss = all_reduce(loss.clone(), group=self._data) \
                 / self._data.nranks
-        skip = False
+        skip, scaler_state = False, None
         if self._scaler_cfg:
             found = self._unscale(grads)
-            self.last_found_inf = found
-            self._scaler_state = self._next_scaler_state(self._scaler_state,
-                                                         found)
+            scaler_state = self._next_scaler_state(self._scaler_state, found)
             skip = bool(found)          # the step's one host read
-        if not skip:
-            self.optimizer.apply_in_place(
-                self._views, grads, self._state, self.optimizer.get_lr(),
-                specs=self._ospec if self.mesh.size > 1 else None)
-        del grads
-        for k, d in self._odim.items():
-            if d is not None and not skip:
-                self._locals[k].copy_(gather_dim(
-                    self._views[k], d, self.mesh.group("sharding")))
-        for p in self._params.values():
-            p.grad = None
-        sched = self.optimizer._lr_scheduler()
-        if sched is not None:
-            sched.step()
+        with attempt.commit():
+            if scaler_state is not None:
+                self.last_found_inf = found
+                self._scaler_state = scaler_state
+            if not skip:
+                self.optimizer.apply_in_place(
+                    self._views, grads, self._state, self.optimizer.get_lr(),
+                    specs=self._ospec if self.mesh.size > 1 else None)
+            del grads
+            for k, d in self._odim.items():
+                if d is not None and not skip:
+                    self._locals[k].copy_(gather_dim(
+                        self._views[k], d, self.mesh.group("sharding")))
+            for p in self._params.values():
+                p.grad = None
+            sched = self.optimizer._lr_scheduler()
+            if sched is not None:
+                sched.step()
         return loss
 
     # -- snapshot surface ---------------------------------------------------
@@ -322,7 +334,20 @@ class TrainStep:
     def load_state_dict(self, state):
         """Copy a ``state_dict()`` of this rank into this step's
         parameters (in their dtypes) and optimizer state, on the
-        parameters' devices."""
+        parameters' devices. A snapshot of another layout raises."""
+        if isinstance(state, (list, tuple)):
+            raise NotImplementedError(
+                f"restoring a train step written by {len(state)} ranks "
+                f"onto {self.mesh.size}: a TrainStep restores only onto "
+                "its own layout (ROADMAP.md, port queue item 7)")
+        for k, v in self._locals.items():
+            got = tuple(np.shape(state["params"][k]))
+            if got != tuple(v.shape):
+                raise NotImplementedError(
+                    f"{k}: a snapshot block of shape {got} onto this "
+                    f"rank's {tuple(v.shape)}: restoring onto another "
+                    "sharding or tp layout is not in the port (ROADMAP.md, "
+                    "port queue item 7)")
         with torch.no_grad():
             for k, v in self._locals.items():
                 v.copy_(state["params"][k])

@@ -25,8 +25,10 @@ and the eager fused step are in the port's long tail.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..framework import attempt
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -110,8 +112,10 @@ class Optimizer:
     def apply_in_place(self, params: dict, grads: dict, state: dict, lr,
                        specs=None):
         """Run the update and write each new parameter into ``params[k]``
-        and its new state into ``state[k]`` before the next one."""
-        with torch.no_grad():
+        and its new state into ``state[k]`` before the next one. A step
+        attempt abandoned by its supervisor writes nothing
+        (``framework.attempt``)."""
+        with torch.no_grad(), attempt.commit():
             for k, new_p, new_st in self._updates(params, grads, state, lr,
                                                   specs):
                 params[k].copy_(new_p)
@@ -124,6 +128,11 @@ class Optimizer:
         return self._params
 
     def step(self):
+        """Apply ``param.grad`` in place. An attempt abandoned by its
+        supervisor is refused here, after its backward: the gradient it
+        left in ``param.grad`` is cleared by the supervisor before its
+        next attempt (``resilience.Supervisor``)."""
+        attempt.check()
         live = {k: p for k, p in self._all_params().items()
                 if p.grad is not None and p.requires_grad}
         self.apply_in_place({k: p.detach() for k, p in live.items()},
@@ -158,6 +167,8 @@ class Optimizer:
 
     # -- serialization -------------------------------------------------------
     def state_dict(self):
+        """The LR (or its scheduler's state) and each parameter's state
+        by name: the live tensors, not copies."""
         sched = self._lr_scheduler()
         out = {"_lr": None if sched is not None else self._learning_rate}
         if sched is not None:
@@ -167,11 +178,17 @@ class Optimizer:
         return out
 
     def set_state_dict(self, state):
+        """Load a ``state_dict()``: each state tensor is copied onto its
+        parameter's device (the given tensors are never kept, so a
+        snapshot restores any number of times)."""
         sched = self._lr_scheduler()
         if sched is not None and "_lr_scheduler" in state:
             sched.set_state_dict(state["_lr_scheduler"])
-        for k in self._all_params():
+        for k, p in self._all_params().items():
             if k in state:
-                self._state[k] = dict(state[k])
+                self._state[k] = {
+                    n: (torch.as_tensor(v).detach().to(p.device, copy=True)
+                        if isinstance(v, (torch.Tensor, np.ndarray)) else v)
+                    for n, v in state[k].items()}
 
     load_state_dict = set_state_dict

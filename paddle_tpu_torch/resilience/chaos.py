@@ -13,11 +13,12 @@ Faults
 
 Training (``wrap(step_fn)``): ``nan`` (the step returns a non-finite
 loss), ``stall`` (blocks ``stall_s``, then raises :class:`StallInjected`),
-``error`` (raises :class:`ChaosError`), ``kill`` (SIGKILL to the process).
-``corrupt`` damages a checkpoint and waits for the port's checkpoint
-(ROADMAP.md, port queue item 7: training robustness): it raises
-``NotImplementedError``, as do ``corrupt_checkpoint`` and
-``corrupt_latest``.
+``error`` (raises :class:`ChaosError`), ``kill`` (SIGKILL to the process),
+``corrupt`` (the newest committed checkpoint of ``ChaosMonkey(manager=)``
+gets one file truncated, then the step runs; restore must detect the bad
+checksum and fall back). :func:`corrupt_checkpoint` draws its victim file
+and byte as the JAX package's does, so one seed damages the same file and
+byte of two copies of one tree.
 
 Serving (consumed by ``serving.resilience.EngineSupervisor`` through
 :meth:`ChaosMonkey.take`; the supervisor performs the injection, because
@@ -56,11 +57,6 @@ FAULTS = ("nan", "stall", "error", "kill", "corrupt")
 SERVING_FAULTS = ("decode-stall", "decode-raise", "kv-corrupt", "abandon")
 FLEET_FAULTS = ("replica-kill", "route-flap", "decode-stall",
                 "decode-raise", "kv-corrupt")
-
-_CHECKPOINT_TODO = ("checkpoint corruption waits for the port's "
-                    "distributed/checkpoint.py (ROADMAP.md, port queue "
-                    "item 7: training robustness)")
-
 
 class ChaosError(RuntimeError):
     """Injected transient step failure (RPC-error analog)."""
@@ -152,16 +148,66 @@ class ChaosMonkey:
             os.kill(os.getpid(), signal.SIGKILL)
             raise RuntimeError("unreachable: SIGKILL did not fire")
         if fault == "corrupt":
-            raise NotImplementedError(_CHECKPOINT_TODO)
+            if self.manager is None:
+                raise ValueError(
+                    "chaos fault 'corrupt' needs ChaosMonkey(manager=...)")
+            corrupt_latest(self.manager, seed=self.seed)
+            return step_fn(*args, **kwargs)
         raise ValueError(f"unknown fault {fault!r}")
 
 
 def corrupt_checkpoint(path, seed: int = 0, mode: str = "truncate"):
-    raise NotImplementedError(_CHECKPOINT_TODO)
+    """Damage a committed checkpoint dir in place.
+
+    ``truncate`` halves a deterministically chosen data file; ``flip``
+    xors one byte; ``uncommit`` removes the COMMIT marker (simulating a
+    kill after rename of a pre-manifest writer). Returns the damaged
+    file path (or the marker path for ``uncommit``).
+    """
+    path = os.path.abspath(path)
+    if mode == "uncommit":
+        marker = os.path.join(path, "COMMIT")
+        os.remove(marker)
+        return marker
+    files = []
+    for root, _dirs, names in os.walk(path):
+        for name in names:
+            if name == "COMMIT":
+                continue
+            full = os.path.join(root, name)
+            if os.path.getsize(full) > 0:
+                files.append(full)
+    if not files:
+        raise FileNotFoundError(f"no data files to corrupt under {path}")
+    files.sort()
+    rng = np.random.default_rng(seed)
+    victim = files[int(rng.integers(len(files)))]
+    size = os.path.getsize(victim)
+    if mode == "truncate":
+        with open(victim, "rb+") as fh:
+            fh.truncate(max(size // 2, 1))
+    elif mode == "flip":
+        off = int(rng.integers(size))
+        with open(victim, "rb+") as fh:
+            fh.seek(off)
+            b = fh.read(1)
+            fh.seek(off)
+            fh.write(bytes([b[0] ^ 0xFF]))
+    else:
+        raise ValueError(f"unknown corruption mode {mode!r}")
+    return victim
 
 
 def corrupt_latest(manager, seed: int = 0, mode: str = "truncate"):
-    raise NotImplementedError(_CHECKPOINT_TODO)
+    """Corrupt the newest committed checkpoint of a CheckpointManager."""
+    manager.wait()
+    step = manager.latest_step()
+    if step is None:
+        raise FileNotFoundError(
+            f"no checkpoints under {manager.directory}")
+    return corrupt_checkpoint(
+        os.path.join(manager.directory, f"ckpt-{step}"), seed=seed,
+        mode=mode)
 
 
 def corrupt_kv(engine, seed: int = 0, value: float = float("nan")):

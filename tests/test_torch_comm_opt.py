@@ -393,7 +393,7 @@ class NotElementwise(optimizer.Adam):
     ("amp", NotImplementedError, "amp is not supported together"),
     ("two_strategies", NotImplementedError, "mutually exclusive"),
     ("options", NotImplementedError, "not supported by the comm_opt"),
-    ("restore_other_dp", NotImplementedError, "item 7"),
+    ("restore_other_dp", ValueError, "needs every rank's state"),
 ])
 def test_refusals_raise_as_jax_does(case, exc, match):
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm

@@ -1597,3 +1597,66 @@ def test_phase23_at_tiny_size(cuda):
         for mode in ("greedy", "sampled"):
             assert out[what]["23b"][mode]["wedge"][
                 "zombie_tokens_dropped"] > 0
+
+
+# ---------------------------------------------------------------------------
+# training robustness: checkpoint round trip and the async-save race
+# ---------------------------------------------------------------------------
+
+def _tiny_gpt_step():
+    from paddle_tpu_torch.text.models import GPT_TINY
+    fleet.init()
+    pt.seed(0)
+    cfg = dataclasses.replace(GPT_TINY, dtype="bfloat16")
+    model = fleet.distributed_model(GPTForCausalLM(cfg, device="cuda"))
+    step = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=1e-3, parameters=model.parameters())).make_train_step(
+        model, lambda m, x, y: m(x, labels=y))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64))).cuda()
+    return model, step, ids
+
+
+def test_checkpoint_round_trip_on_the_card_is_bitwise(cuda, tmp_path):
+    """A bf16 GPT train step (dropout on) saved to disk and restored into
+    a fresh step: the next steps' losses and parameters bit for bit."""
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.resilience import TrainState
+    model, step, ids = _tiny_gpt_step()
+    step(ids, ids)
+    mgr = CheckpointManager(tmp_path, device="cuda")
+    mgr.save(0, TrainState(train_step=step).capture(), async_save=False)
+    want = [float(step(ids, ids)) for _ in range(2)]
+    want_p = chip_smoke.flat_params(model)
+    model2, step2, _ = _tiny_gpt_step()
+    state = TrainState(train_step=step2)
+    at, snap = mgr.restore_latest(state.capture())
+    state.restore(snap)
+    assert at == 0
+    assert snap["train_step"]["params"]["gpt.wte.weight"].dtype == \
+        torch.bfloat16
+    got = [float(step2(ids, ids)) for _ in range(2)]
+    assert got == want
+    assert torch.equal(chip_smoke.flat_params(model2), want_p)
+
+
+def test_async_save_race_on_the_card(cuda, tmp_path):
+    """Tensors on the card updated in place right after an async save (the
+    next AdamW step) restore to their values at save time."""
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.resilience import TrainState
+    model, step, ids = _tiny_gpt_step()
+    step(ids, ids)
+    state = TrainState(train_step=step)
+    at_save = state.capture()
+    mgr = CheckpointManager(tmp_path, device="cuda")
+    mgr.save(0, state.capture(copy=False), async_save=True)
+    for _ in range(3):
+        step(ids, ids)                  # in place, while the write runs
+    mgr.wait()
+    _, back = mgr.restore_latest(state.capture())
+    for k, t in at_save["train_step"]["params"].items():
+        assert torch.equal(back["train_step"]["params"][k], t), k
+    for k, st in at_save["train_step"]["opt"].items():
+        for n, t in st.items():
+            assert torch.equal(back["train_step"]["opt"][k][n], t), (k, n)

@@ -16,17 +16,20 @@ running a tiny Llama and both stochastic quantizers, taking BERT,
 T5 (then ``generate``) and ViT steps, and deploying a Llama (``save_lm``
 -> ``create_llm_predictor``) behind an ``EngineSupervisor`` and a
 ``ReplicaFleet`` through planted faults (and running
-``tools/torch_chaos_serve.py``), in processes where importing either
-fails.
+``tools/torch_chaos_serve.py``), and taking a supervised, checkpointed
+train step through a NaN and an error, then resuming it in a second
+process, in processes where importing either fails.
 Entry points default to CUDA and raise when it is absent.
 """
 import ast
+import json
 import os
 import pathlib
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -324,11 +327,15 @@ def test_every_module_imports_with_jax_unimportable():
                   "inference", "resilience", "resilience.chaos",
                   "resilience.ledger", "resilience.supervisor",
                   "serving.resilience", "serving.fleet",
-                  "framework.trace_id"):
+                  "framework.trace_id", "framework.attempt",
+                  "utils", "utils.watchdog", "distributed.checkpoint",
+                  "distributed.elastic", "io", "io.dataset", "io.sampler",
+                  "io.dataloader"):
             assert "paddle_tpu_torch." + n in names, n
         sys.path.insert(0, "tools")
         importlib.import_module("torch_ep_train")
         importlib.import_module("torch_chaos_serve")
+        importlib.import_module("torch_chaos_train")
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK", len(names))
@@ -337,6 +344,77 @@ def test_every_module_imports_with_jax_unimportable():
                        capture_output=True, text=True, timeout=120,
                        env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr
+
+
+def test_supervised_checkpointed_resumed_step_with_jax_unimportable(
+        tmp_path):
+    """A fleet train step on a DataLoader under a Supervisor with a
+    CheckpointManager, through a NaN and a retried error, then a fresh
+    process's step resumed from the checkpoint: the same losses."""
+    code = textwrap.dedent("""
+        import sys, json
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import dataclasses
+        import numpy as np
+        import paddle_tpu_torch as pt
+        pt.set_device("cpu")
+        from paddle_tpu_torch import optimizer
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.distributed.checkpoint import (
+            CheckpointManager)
+        from paddle_tpu_torch.io import (DataLoader, DistributedBatchSampler,
+                                         TensorDataset)
+        from paddle_tpu_torch.resilience import (ChaosMonkey,
+                                                 ResumableLoader, Supervisor,
+                                                 TrainState)
+        from paddle_tpu_torch.text.models.llama import (LLAMA_TINY,
+                                                        LlamaForCausalLM)
+        pt.seed(0)
+        cfg = dataclasses.replace(LLAMA_TINY, dtype="float32",
+                                  num_hidden_layers=1)
+        m = fleet.distributed_model(LlamaForCausalLM(cfg))
+        step = fleet.distributed_optimizer(optimizer.AdamW(
+            learning_rate=1e-3, parameters=m.parameters())
+        ).make_train_step(m, lambda mm, x: mm(x, labels=x))
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 16))
+        loader = ResumableLoader(DataLoader(
+            TensorDataset([ids]), batch_sampler=DistributedBatchSampler(
+                ids, 2, num_replicas=1, rank=0, shuffle=True)), epochs=2)
+        mgr = CheckpointManager(sys.argv[1])
+        fn = step
+        if sys.argv[2] == "first":
+            fn = ChaosMonkey(at={1: "nan", 2: "error"}).wrap(step)
+        sup = Supervisor(fn, TrainState(train_step=step, loader=loader),
+                         manager=mgr, save_interval=3, retry_backoff_s=0.0)
+        start, losses = sup.resume(), []
+        for (x,) in loader:
+            out = sup.step(x)
+            losses.append(None if out is None else float(out))
+        sup.close()
+        print(json.dumps({"start": start, "losses": losses,
+                          "stats": sup.stats()}))
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+    """)
+    outs = []
+    for mode in ("first", "resumed"):
+        r = subprocess.run([sys.executable, "-c", code, str(tmp_path),
+                            mode], cwd=ROOT, capture_output=True, text=True,
+                           timeout=120,
+                           env={**os.environ, "PYTHONPATH": str(ROOT)})
+        assert r.returncode == 0, r.stderr[-3000:]
+        outs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    first, resumed = outs
+    assert first["start"] == 0 and len(first["losses"]) == 8
+    assert first["losses"][1] is None           # the NaN step is skipped
+    assert first["stats"]["retries"] == 1 and first["stats"]["skipped"] == 1
+    assert all(np.isfinite(v) for v in first["losses"] if v is not None)
+    # the second process resumes after the last cadence save (step 5) at
+    # step 6, two batches from the end of epoch 2: the same two losses
+    assert resumed["start"] == 6
+    assert resumed["losses"] == first["losses"][6:]
 
 
 def test_deploys_and_supervises_with_jax_unimportable(tmp_path):
@@ -489,6 +567,21 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path):
     assert EngineSupervisor(cpu, n_slots=1).engine.device.type == "cpu"
     assert ReplicaFleet(cpu, 2, n_slots=1).replicas[
         "r1"].engine.device.type == "cpu"
+    # training robustness: the loader, template-free checkpoint loads and
+    # the chaos tool run on the card unless asked for the CPU
+    from paddle_tpu_torch.distributed.checkpoint import (load_distributed,
+                                                         save_distributed)
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DataLoader(TensorDataset([np.zeros((4, 2))]), batch_size=2)
+    path = save_distributed({"w": torch.ones(2)}, str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_distributed(path)
+    r = subprocess.run([sys.executable, "tools/torch_chaos_train.py",
+                        "--workdir", str(tmp_path / "chaos")], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
 
 
 def test_set_device_cpu_switches_the_default():

@@ -488,7 +488,8 @@ def test_serving_chaos_plans_deterministic():
         ChaosMonkey(at={3: "decode-explode"})
     with pytest.raises(ValueError):
         ChaosMonkey(p=0.5, faults=("decode-stall", "bogus"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # the training fault 'corrupt' needs a CheckpointManager, as JAX's
+    with pytest.raises(ValueError, match="needs ChaosMonkey"):
         ChaosMonkey(at={0: "corrupt"}, faults=("corrupt",)).wrap(
             lambda: 0)()
 

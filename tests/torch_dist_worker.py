@@ -1556,3 +1556,155 @@ def amp_worker(out_dir, init_path, ids_path):
         scale_after=float(sd["scaler"]["scale"])))
     dist.barrier()
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# io: a dataset that DataLoader's spawned worker processes unpickle (this
+# module imports no JAX, so a worker starts in torch's import time)
+# ---------------------------------------------------------------------------
+
+class IoRows:
+    """A map-style dataset of (row, label) numpy pairs, or of dicts."""
+
+    def __init__(self, n=13, as_dict=False):
+        rng = np.random.default_rng(3)
+        self.x = rng.standard_normal((n, 3)).astype(np.float32)
+        self.y = np.arange(n, dtype=np.int64)
+        self.as_dict = as_dict
+
+    def __len__(self):
+        return len(self.y)
+
+    def __getitem__(self, i):
+        if self.as_dict:
+            return {"x": self.x[i], "y": int(self.y[i])}
+        return self.x[i], self.y[i]
+
+
+# ---------------------------------------------------------------------------
+# comm-opt restore across dp degrees (test_torch_comm_opt_resilience.py)
+# ---------------------------------------------------------------------------
+
+#: the configurations of tests/test_comm_opt_resilience.py: Adam lr 1e-2
+#: on the JAX package's MLP, int8 with qblock 64, with and without zero1
+REMESH_CONFIGS = {"zero1_int8": dict(grad_compress="int8", zero1=True,
+                                     qblock=64),
+                  "int8": dict(grad_compress="int8", zero1=False,
+                               qblock=64)}
+REMESH_STEPS = 3
+
+
+def remesh_mlp():
+    """``Sequential(Linear(8, 32), Tanh, Linear(32, 1))`` on the CPU."""
+    from paddle_tpu_torch import nn as pnn
+    return torch.nn.Sequential(pnn.Linear(8, 32, device="cpu"), pnn.Tanh(),
+                               pnn.Linear(32, 1, device="cpu"))
+
+
+def _remesh_step(dp, cfg, init):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=dp)
+    s.comm_opt = True
+    s.comm_opt_configs = dict(cfg)
+    fleet.init(is_collective=True, strategy=s)
+    if fleet.get_hybrid_communicate_group().mesh.coords is None:
+        return None
+    model = fleet.distributed_model(remesh_mlp())
+    load_numpy_state_dict(model, init)
+    opt = fleet.distributed_optimizer(optimizer.Adam(
+        learning_rate=0.01, parameters=model.parameters()), strategy=s)
+    return opt.make_train_step(model, mse)
+
+
+def _flat_state(step):
+    """The step's flat state in the JAX package's layout (numpy): the
+    gathered residuals and zero1 moments, or this rank's replicated flat
+    moments; its parameters and meta."""
+    g = step.gathered_state()
+    opt = g.get("opt") or {n: t.detach().cpu().numpy()
+                           for n, t in step._opt_state.items()}
+    meta = {k: np.asarray(int(v)) for k, v in step.state_dict()["meta"]
+            .items()}
+    params = {k: v.detach().cpu().numpy()
+              for k, v in step.state_dict()["params"].items()}
+    return dict(opt=opt, ef=g["ef"], params=params, buffers={}, meta=meta)
+
+
+def remesh_worker(out_dir, inputs_path):
+    """Four gloo ranks on the CPU, for each of ``REMESH_CONFIGS``:
+
+    A. dp4 over all ranks from the JAX model's initial weights: 3 steps,
+       a ``CheckpointManager`` save (each rank its file, rank 0 seals);
+       the same-mesh round trip (``state_dict`` into a fresh step, 2 more
+       steps, against the uninterrupted 2); JAX's dp2-stored arrays loaded
+       at dp4; a tp change refused.
+    B. dp2 on ranks 0 and 1: JAX's dp4-stored arrays loaded, and the
+       port's dp4 checkpoint restored (every rank's file: a RankStates)
+       through ``TrainState``; 2 steps on from it.
+
+    Rank 0 writes ``<config>.pkl``."""
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.resilience import TrainState
+
+    dist.init_parallel_env(device="cpu", timeout=300)
+    rank = dist.get_rank()
+    with open(inputs_path, "rb") as f:
+        inputs = pickle.load(f)
+    x, y = (torch.from_numpy(a) for a in tp_mlp_data())
+    for name, cfg in REMESH_CONFIGS.items():
+        init, jax_states = inputs["init"], inputs[name]
+        out = {}
+        # -- A: dp4 -------------------------------------------------------
+        step = _remesh_step(4, cfg, init)
+        out["losses4"] = [float(step(x, y)) for _ in range(REMESH_STEPS)]
+        ck4 = os.path.join(out_dir, f"ck4_{name}")
+        ck.CheckpointManager(ck4, device="cpu").save(
+            REMESH_STEPS, TrainState(train_step=step).capture(),
+            async_save=False)
+        out["port4"] = _flat_state(step)
+        snap = TrainState(train_step=step).capture()
+        cont = [float(step(x, y)) for _ in range(2)]
+        fresh = _remesh_step(4, cfg, init)
+        TrainState(train_step=fresh).restore(snap)
+        out["roundtrip"] = (cont, [float(fresh(x, y)) for _ in range(2)])
+        fresh = _remesh_step(4, cfg, init)
+        fresh.load_state_dict(jax_states["dp2"])
+        out["jax2_at_dp4"] = _flat_state(fresh)
+        bad = fresh.state_dict()
+        bad["meta"] = dict(bad["meta"], tp=torch.tensor(2))
+        try:
+            fresh.load_state_dict(bad)
+            out["tp_change"] = None
+        except NotImplementedError as e:
+            out["tp_change"] = str(e)
+        # -- B: dp2 on ranks 0 and 1 --------------------------------------
+        step2 = _remesh_step(2, cfg, init)
+        if step2 is not None:
+            step2.load_state_dict(jax_states["dp4"])
+            jax4 = _flat_state(step2)
+        dist.barrier()
+        step2 = _remesh_step(2, cfg, init)
+        if step2 is not None:
+            # every rank's file, as a world of 4 reads them
+            files = ck._shards(os.path.join(ck4, f"ckpt-{REMESH_STEPS}",
+                                            "state"))
+            snap = ck.RankStates(ck._convert(*ck._read_state(files[r]),
+                                             None, "cpu")
+                                 for r in sorted(files))
+            TrainState(train_step=step2).restore(snap)
+            port4 = _flat_state(step2)
+            more = [float(step2(x, y)) for _ in range(2)]
+            if rank == 0:
+                out.update(jax4_at_dp2=jax4, port4_at_dp2=port4,
+                           losses_after=more, n_files=len(snap))
+        dist.barrier()
+        if rank == 0:
+            with open(os.path.join(out_dir, f"{name}.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    dist.destroy_process_group()
