@@ -367,6 +367,36 @@ failure raises and exits non-zero before the result line is printed:
     restores the two rank files (moments joined in position, ``e1`` the
     ranks' sum, bit for bit) and takes 2 steps within ``COMM_TOL`` of
     dp2's.
+25. the high-level API and the CNN path (after phase 24),
+    ``phase_hapi_cnn``. 25a (``phase_resnet``): ``bench_resnet50``'s
+    trainer (``vision.models.resnet50(num_classes=1000)``, bf16,
+    ``fleet.distributed_model``, Momentum(0.1, 0.9), the fp32 CE) on one
+    seeded batch of 224 x 224 images at batches 64, 128 and 256, a
+    warm-up + 5 steps each, then the batch with the most images/s again
+    under ``framework.layout.to_channels_last``: losses finite, no port
+    kernel launched (convolutions on cuDNN, batch norm and pooling on
+    torch's ops: JAX computes them outside Pallas); images/s, ms a step,
+    peak memory and one profiled step (device idle share, device launches
+    a step, top kernels). The fp32 twin (TF32 off, batch 8,
+    ``resnet_twin``): the channels-last copy's output, and
+    ``fold_conv_bn``'s eval output, within ``RESNET_TWIN_TOL`` (relative
+    norm) of the NCHW model's; its gradients no further from a float64
+    copy's than twice the NCHW model's (NCHW fp32 is not within 1e-4 of
+    float64 there). 25b (``hapi_resnet``): ``paddle.Model(resnet18(
+    num_classes=10))`` on the synthetic ``Cifar10`` with ``ToTensor`` +
+    ``Normalize`` through ``io.DataLoader``, ``fit`` for 2 epochs of 4
+    batches of 64 with ``EarlyStopping``, ``ModelCheckpoint`` and
+    ``LRScheduler`` (a cosine schedule: the LR after it the schedule's
+    after 8 steps; the checkpoint files written), ``evaluate`` with
+    ``Accuracy(topk=(1, 5))``, ``predict(stack_outputs=True)``, ``save``
+    -> a fresh ``Model.load`` -> ``evaluate`` equal; ``summary`` and
+    ``flops`` equal the figures the CPU tests pin. 25c (``hapi_bert``):
+    ``paddle.Model(BertForSequenceClassification)`` at phase 22b's
+    dropout-free BERT-base, bf16, 16 x 512, AdamW(lr=1e-4), no mask,
+    ``fit`` over 4 seeded batches (a warm-up + 3): rows 1-3 launch 12
+    times each a step, all on the tensor cores, and the losses equal bit
+    for bit those of ``make_train_step`` on the same weights and batches;
+    the step times of both (the difference is hapi's host overhead).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -7451,6 +7481,378 @@ def phase_robust_comm(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet,
         phase_s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the high-level API and the CNN image-classification path
+# ---------------------------------------------------------------------------
+
+RESNET_BATCHES = (64, 128, 256)     # bench.py:bench_resnet50's sweep
+RESNET_IMAGE = 224
+RESNET_STEPS = 6                    # a warm-up + 5 timed steps
+RESNET_TWIN_BATCH = 8               # 25a's fp32 twin (TF32 off)
+RESNET_TWIN_TOL = 1e-4              # outputs: channels-last vs NCHW, folded
+                                    # vs not (gradients: resnet_twin)
+# resnet18(num_classes=10) as the CPU tests pin it (test_torch_hapi.py:
+# summary and flops equal the JAX package's)
+RESNET18_C10_PARAMS = 11_181_642
+RESNET18_C10_FLOPS = 37_169_664     # flops(net, [1, 3, 32, 32])
+HAPI_EPOCHS, HAPI_ITERS, HAPI_BATCH = 2, 4, 64   # 25b: 8 steps in all
+HAPI_BERT_STEPS = 4                 # 25c: a warm-up + 3 steps
+
+
+def resnet_step(models, layout, fleet, optimizer, F, seed, batch, size,
+                channels_last=False, device="cuda", depth="resnet50"):
+    """``bench_resnet50``'s trainer: ``resnet50(num_classes=1000)`` from
+    seed 0 (``to_channels_last`` first where asked), bf16, placed by
+    ``fleet.distributed_model``, Momentum(0.1, 0.9), the fp32 CE; one
+    seeded batch of ``batch`` bf16 images ``size`` x ``size``."""
+    seed(0)
+    model = getattr(models, depth)(num_classes=1000, device=device)
+    if channels_last:
+        model = layout.to_channels_last(model)
+    model = fleet.distributed_model(model.to(torch.bfloat16))
+    opt = fleet.distributed_optimizer(optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9, parameters=model.parameters()))
+    step = opt.make_train_step(
+        model, lambda m, x, y: F.cross_entropy(m(x).float(), y))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, 3, size, size)).astype(np.float32)).to(device,
+                                                       torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, 1000, (batch,))).to(device)
+    return model, step, x, y
+
+
+def resnet_run(fa, fc, rm, models, layout, fleet, optimizer, F, seed, batch,
+               size, channels_last, device, depth):
+    """One 25a cell: a warm-up + ``RESNET_STEPS - 1`` timed steps (no port
+    kernel may launch: convolutions on cuDNN, batch norm and pooling on
+    torch's ops, as JAX computes them outside Pallas), then one profiled
+    step. Returns the cell's numbers."""
+    reset_peak(device)
+    model, step, x, y = resnet_step(models, layout, fleet, optimizer, F,
+                                    seed, batch, size, channels_last, device,
+                                    depth)
+    tag = f"25a bs{batch}{' channels-last' if channels_last else ''} "
+    losses, secs, per_step = run_steps(fa, fc, rm, step, x, RESNET_STEPS,
+                                       tag=tag, labels=y)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    check_launches(tag, per_step, no_launches())
+    step_s = float(np.median(secs[1:]))
+    prof = profile_step(step, x, y) if device != "cpu" else None
+    res = dict(batch=batch, channels_last=channels_last, losses=losses,
+               step_ms=step_s * 1e3, images_per_s=batch / step_s,
+               peak_gib=peak_gib(device))
+    if prof is not None:
+        res.update(device_idle_share=prof["device_idle_share"],
+                   device_busy_ms=prof["device_busy_ms"],
+                   profiled_step_wall_ms=prof["step_wall_ms"],
+                   device_launches_per_step=prof["device_kernel_launches"],
+                   top_kernels_ms=prof["top_kernels_ms"])
+    log(f"  {tag}: {step_s * 1e3:.1f} ms a step, {batch / step_s:.1f} "
+        f"images/s, peak {res['peak_gib']:.2f} GiB, device idle "
+        f"{res.get('device_idle_share', float('nan')):.3f}, "
+        f"{res.get('device_launches_per_step')} device launches a step"
+        + (f" ({smi_line()})" if device != "cpu" else ""))
+    del model, step, x, y
+    return res
+
+
+def _flat_grads(model, x, y, F):
+    """(output, {name: gradient}) of one forward and backward of the CE,
+    names without a ``ChannelsLast`` wrapper's ``model.`` prefix."""
+    out = model(x)
+    F.cross_entropy(out, y).backward()
+    return out.detach(), {k.removeprefix("model."): p.grad
+                          for k, p in model.named_parameters()}
+
+
+def _global_rel(got, want):
+    """‖got − want‖ / ‖want‖ over every gradient at once (float64)."""
+    num = sum(float((got[k].double() - w.double()).square().sum())
+              for k, w in want.items())
+    return (num / sum(float(w.double().square().sum())
+                      for w in want.values())) ** 0.5
+
+
+def resnet_twin(models, layout, F, seed, batch, size, device, depth):
+    """25a's fp32 twin (TF32 off): the channels-last copy's output within
+    ``RESNET_TWIN_TOL`` of the NCHW model's; its gradients against a
+    float64 copy of the model on the same device, no further from it
+    (over all gradients at once) than twice the NCHW model's distance or
+    ``RESNET_TWIN_TOL``, whichever is larger. The NCHW model itself is
+    not within 1e-4 of float64: random-init ResNets in training mode sum
+    the batch-norm parameters' gradients from terms that nearly cancel,
+    and cuDNN's fp32 convolutions do not take exact sums (measured on one
+    H100: ResNet-50's NCHW fp32 gradients 2.4e-2 off on a bias, ResNet-18's
+    at 64 x 64 1.1e-2 where channels-last was 7e-6). Then
+    ``fold_conv_bn``'s eval output within ``RESNET_TWIN_TOL`` of the
+    unfolded model's (running statistics moved by three training
+    forwards first). All as relative norms."""
+    import copy
+    seed(0)
+    nchw = getattr(models, depth)(num_classes=1000, device=device)
+    cl = layout.to_channels_last(copy.deepcopy(nchw))
+    f64 = copy.deepcopy(nchw).double()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, 3, size, size)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, 1000, (batch,))).to(device)
+    out, grads = _flat_grads(nchw, x, y, F)
+    out_cl, grads_cl = _flat_grads(cl, x, y, F)
+    _, grads64 = _flat_grads(f64, x.double(), y, F)
+    res = dict(channels_last_out_rel=rel_err(out_cl, out),
+               nchw_grad_rel_to_f64=_global_rel(grads, grads64),
+               channels_last_grad_rel_to_f64=_global_rel(grads_cl, grads64),
+               nchw_worst_param_rel_to_f64=max(
+                   rel_err(grads[k], w) for k, w in grads64.items()),
+               channels_last_worst_param_rel_to_f64=max(
+                   rel_err(grads_cl[k], w) for k, w in grads64.items()))
+    del f64, grads64
+    with torch.no_grad():
+        for _ in range(3):
+            nchw(x)
+        nchw.eval()
+        folded = copy.deepcopy(nchw)
+        n_folded = len(layout.fold_conv_bn(folded))
+        res.update(folded=n_folded,
+                   fold_out_rel=rel_err(folded(x), nchw(x)))
+    grad_tol = max(RESNET_TWIN_TOL, 2 * res["nchw_grad_rel_to_f64"])
+    log(f"  25a fp32 twin (TF32 off, batch {batch}): channels-last output "
+        f"{res['channels_last_out_rel']:.3g} of NCHW's; gradients to "
+        f"float64: NCHW {res['nchw_grad_rel_to_f64']:.3g} (worst "
+        f"parameter {res['nchw_worst_param_rel_to_f64']:.3g}), "
+        f"channels-last {res['channels_last_grad_rel_to_f64']:.3g} (worst "
+        f"{res['channels_last_worst_param_rel_to_f64']:.3g}; tol "
+        f"{grad_tol:.3g}); {n_folded} batch norms folded, eval output "
+        f"{res['fold_out_rel']:.3g} (tol {RESNET_TWIN_TOL})")
+    bad = [k for k in ("channels_last_out_rel", "fold_out_rel")
+           if not res[k] <= RESNET_TWIN_TOL]
+    if not res["channels_last_grad_rel_to_f64"] <= grad_tol:
+        bad.append("channels_last_grad_rel_to_f64")
+    if bad:
+        raise AssertionError(f"25a twin: {bad} beyond tolerance: {res}")
+    return res
+
+
+def phase_resnet(fa, fc, rm, models, layout, fleet, optimizer, F, seed,
+                 batches=RESNET_BATCHES, size=RESNET_IMAGE,
+                 twin_batch=RESNET_TWIN_BATCH, device="cuda",
+                 depth="resnet50"):
+    """25a: ``bench_resnet50`` at each of its batches, then at the batch
+    with the most images/s the same in ``to_channels_last``; the fp32
+    twin's checks (``resnet_twin``)."""
+    fleet.init()
+    sweep = [resnet_run(fa, fc, rm, models, layout, fleet, optimizer, F,
+                        seed, b, size, False, device, depth)
+             for b in batches]
+    best = max(sweep, key=lambda r: r["images_per_s"])
+    cl = resnet_run(fa, fc, rm, models, layout, fleet, optimizer, F, seed,
+                    best["batch"], size, True, device, depth)
+    twin = resnet_twin(models, layout, F, seed, twin_batch, size, device,
+                       depth)
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return dict(sweep=sweep, best_batch=best["batch"], channels_last=cl,
+                twin=twin)
+
+
+def hapi_resnet(models, vision, metric, callbacks, optimizer, nn, seed,
+                Model, summary, flops, workdir, batch=HAPI_BATCH,
+                device="cuda"):
+    """25b: ``paddle.Model(resnet18(num_classes=10))`` on the synthetic
+    ``Cifar10`` with ``ToTensor`` + ``Normalize`` through the port's
+    ``DataLoader``: ``fit`` (``HAPI_EPOCHS`` epochs of ``HAPI_ITERS``
+    batches) with ``EarlyStopping``, ``ModelCheckpoint`` and
+    ``LRScheduler``, the LR after it the cosine schedule's after every
+    step; ``evaluate`` with ``Accuracy(topk=(1, 5))``;
+    ``predict(stack_outputs=True)``; ``save`` -> a fresh ``Model.load`` ->
+    ``evaluate`` equal bit for bit; ``summary`` and ``flops`` equal to the
+    CPU tests' pinned figures."""
+    T = vision.transforms
+    tf = T.Compose([T.ToTensor(), T.Normalize([0.5] * 3, [0.25] * 3)])
+    train = vision.datasets.Cifar10(mode="train", transform=tf)
+    test = vision.datasets.Cifar10(mode="test", transform=tf)
+
+    def make():
+        seed(0)
+        net = models.resnet18(num_classes=10, device=device)
+        sched = optimizer.lr.CosineAnnealingDecay(
+            0.1, T_max=HAPI_EPOCHS * HAPI_ITERS)
+        model = Model(net)
+        model.prepare(optimizer.Momentum(sched, 0.9,
+                                         parameters=net.parameters()),
+                      nn.CrossEntropyLoss(),
+                      metric.Accuracy(topk=(1, 5)))
+        return model, sched
+
+    model, sched = make()
+    t0 = time.perf_counter()
+    model.fit(train, batch_size=batch, epochs=HAPI_EPOCHS,
+              num_iters=HAPI_ITERS, shuffle=False, verbose=0,
+              callbacks=[callbacks.EarlyStopping(monitor="loss",
+                                                 patience=2),
+                         callbacks.ModelCheckpoint(save_dir=workdir),
+                         callbacks.LRScheduler()])
+    fit_s = time.perf_counter() - t0
+    ref = optimizer.lr.CosineAnnealingDecay(0.1,
+                                            T_max=HAPI_EPOCHS * HAPI_ITERS)
+    for _ in range(HAPI_EPOCHS * HAPI_ITERS):
+        ref.step()
+    if sched() != ref():
+        raise AssertionError(f"25b: LR {sched()} after fit, want {ref()}")
+    saved = sorted(os.listdir(workdir))
+    if saved != sorted(f"{e}.{x}" for e in range(HAPI_EPOCHS)
+                       for x in ("pdparams", "pdopt")):
+        raise AssertionError(f"25b: ModelCheckpoint wrote {saved}")
+    logs = model.evaluate(test, batch_size=batch, verbose=0)
+    pred = model.predict(test, batch_size=batch, stack_outputs=True)[0]
+    if tuple(pred.shape) != (len(test), 10) or \
+            not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"25b: predict gave {tuple(pred.shape)}")
+    if not (np.isfinite(logs["loss"]) and 0 <= logs["acc_top1"]
+            <= logs["acc_top5"] <= 1):
+        raise AssertionError(f"25b: evaluate gave {logs}")
+    path = os.path.join(workdir, "final")
+    model.save(path)
+    fresh, _ = make()
+    fresh.load(path)
+    again = fresh.evaluate(test, batch_size=batch, verbose=0)
+    if again != logs:
+        raise AssertionError(f"25b: evaluate after load {again} != {logs}")
+    counts = summary(model.network, (1, 3, 32, 32))
+    n_flops = flops(model.network, [1, 3, 32, 32])
+    if counts["total_params"] != RESNET18_C10_PARAMS \
+            or n_flops != RESNET18_C10_FLOPS:
+        raise AssertionError(f"25b: summary {counts}, flops {n_flops}; "
+                             f"the CPU tests pin {RESNET18_C10_PARAMS} and "
+                             f"{RESNET18_C10_FLOPS}")
+    res = dict(fit_s=fit_s, steps=HAPI_EPOCHS * HAPI_ITERS, evaluate=logs,
+               predict_shape=list(pred.shape), lr_after=sched(),
+               checkpoints=saved, total_params=counts["total_params"],
+               flops=n_flops)
+    log(f"  25b resnet18 on Cifar10 (synthetic), batch {batch}: fit "
+        f"{res['steps']} steps in {fit_s:.2f} s, evaluate {logs}, predict "
+        f"{res['predict_shape']}, save -> load -> evaluate equal, "
+        f"{counts['total_params']} params, {n_flops} FLOPs")
+    return res
+
+
+def hapi_bert(fa, fc, rm, BertForSequenceClassification, cfg, io, callbacks,
+              fleet, optimizer, F, seed, Model, batch=BERT_BATCH,
+              device="cuda", want=None):
+    """25c: ``paddle.Model(BertForSequenceClassification)`` at ``cfg``
+    (phase 22b's dropout-free BERT-base), bf16, AdamW(lr=1e-4), on
+    ``HAPI_BERT_STEPS`` seeded batches (no mask), ``fit`` with a callback
+    that times each batch and counts its launches; the same weights and
+    batches through ``make_train_step`` directly (``run_steps``). Rows
+    1-3 launch ``want`` each step, and the losses equal bit for bit."""
+    B, L = batch
+    rng = np.random.default_rng(25)
+    ids = rng.integers(0, cfg.vocab_size, (HAPI_BERT_STEPS * B, L))
+    labels = rng.integers(0, 2, (HAPI_BERT_STEPS * B, 1))
+
+    def make():
+        seed(0)
+        net = BertForSequenceClassification(cfg, device=device).to(
+            torch.bfloat16)
+        return net, optimizer.AdamW(learning_rate=1e-4,
+                                    parameters=net.parameters())
+
+    def loss(logits, y):
+        return F.cross_entropy(logits.float(), y)
+
+    class Timer(callbacks.Callback):
+        """Each train batch's wall (the train step and its loss read) and
+        launches: the counts set to 0 at its begin, read at its end."""
+
+        secs, per_step, losses = [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            _reset(fa, fc, rm)
+            sync(device)
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            sync(device)
+            self.secs.append(time.perf_counter() - self.t0)
+            self.per_step.append(_counts(fa, fc, rm))
+            self.losses.append(logs["loss"])
+
+    net, opt = make()
+    model = Model(net)
+    model.prepare(opt, loss)
+    timer = Timer()
+    model.fit(io.TensorDataset([ids, labels]), batch_size=B, shuffle=False,
+              verbose=0, callbacks=[timer])
+    del model, net, opt
+    net, opt = make()
+    step = fleet.make_train_step(net, opt, lambda m, x, y: loss(m(x), y))
+    secs, losses, per_step = [], [], []
+    for i in range(HAPI_BERT_STEPS):
+        x = torch.from_numpy(ids[i * B:(i + 1) * B]).to(device)
+        y = torch.from_numpy(labels[i * B:(i + 1) * B]).to(device)
+        l_, s_, p_ = run_steps(fa, fc, rm, step, x, 1, tag=f"25c direct "
+                               f"{i} ", warm_up=i == 0, labels=y)
+        losses += l_
+        secs += s_
+        per_step += p_
+    del step, net, opt
+    for i, (s, c) in enumerate(zip(timer.secs, timer.per_step)):
+        log(f"  25c Model.fit step {i}: loss {timer.losses[i]:.6f}, "
+            f"{s * 1e3:.1f} ms, launches {c}")
+    if timer.losses != losses:
+        raise AssertionError(f"25c: Model.fit's losses {timer.losses} != "
+                             f"the direct step's {losses}")
+    if want is not None:
+        check_launches("25c Model.fit", timer.per_step, want)
+        check_launches("25c direct", per_step, want)
+    hapi_ms = float(np.median(timer.secs[1:])) * 1e3
+    direct_ms = float(np.median(secs[1:])) * 1e3
+    log(f"  25c step median: Model.fit {hapi_ms:.2f} ms, direct "
+        f"{direct_ms:.2f} ms (hapi's host overhead {hapi_ms - direct_ms:.2f}"
+        f" ms); losses equal bit for bit"
+        + (f" ({smi_line()})" if device != "cpu" else ""))
+    return timer.per_step[-1], dict(
+        losses=losses, fit_step_ms=hapi_ms, direct_step_ms=direct_ms,
+        overhead_ms=hapi_ms - direct_ms, fit_step_secs=timer.secs,
+        direct_step_secs=secs)
+
+
+def phase_hapi_cnn(fa, fc, rm, seed, resnet_kw=None, hapi_kw=None,
+                   bert_cfg=None, bert_batch=BERT_BATCH, device="cuda"):
+    """Phase 25: 25a ``phase_resnet``, 25b ``hapi_resnet``, 25c
+    ``hapi_bert``. Returns (rows 1-3's launches in a 25c ``Model.fit``
+    step, the report)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import (callbacks, io, metric, nn, optimizer,
+                                  vision)
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import layout
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.vision import models
+    out = dict(resnet=phase_resnet(fa, fc, rm, models, layout, fleet,
+                                   optimizer, F, seed, device=device,
+                                   **(resnet_kw or {})))
+    with tempfile.TemporaryDirectory() as workdir:
+        out["hapi_resnet18"] = hapi_resnet(
+            models, vision, metric, callbacks, optimizer, nn, seed, pt.Model,
+            pt.summary, pt.flops, workdir, device=device, **(hapi_kw or {}))
+    cfg = dataclasses.replace(bert_cfg or BertConfig(),
+                              hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    want = (want_attention_launches(cfg.num_hidden_layers)
+            if device != "cpu" else no_launches())
+    launches, out["hapi_bert"] = hapi_bert(
+        fa, fc, rm, BertForSequenceClassification, cfg, io, callbacks, fleet,
+        optimizer, F, seed, pt.Model, bert_batch, device, want)
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return launches, out
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -7750,6 +8152,25 @@ def main():
     log("  robustness 24b " + json.dumps(robust_comm))
     log(f"  phase 24 took {time.perf_counter() - t24:.1f} s ({smi_line()})")
 
+    # ---- 25. the high-level API and the CNN path ----------------------------
+    t25 = time.perf_counter()
+    log(f"[25] the high-level API and the CNN path: 25a ResNet-50 at "
+        f"bench.py:bench_resnet50's configuration (1000 classes, bf16, "
+        f"{RESNET_IMAGE}^2, Momentum(0.1, 0.9)) at batches "
+        f"{list(RESNET_BATCHES)}, then channels-last at the best, and the "
+        f"fp32 twin's checks; 25b paddle.Model(resnet18(num_classes=10)) "
+        f"on Cifar10 (synthetic): fit, evaluate, predict, save -> load; 25c "
+        f"paddle.Model(BertForSequenceClassification) at BERT-base, "
+        f"{BERT_BATCH[0]}x{BERT_BATCH[1]}, bf16, against the direct train "
+        f"step")
+    hapi_launches, hapi = phase_hapi_cnn(fa, fc, rm, pt.seed)
+    log("  hapi+cnn " + json.dumps(hapi))
+    log(f"  25c Model.fit step {hapi['hapi_bert']['fit_step_ms']:.1f} ms, "
+        f"its direct step {hapi['hapi_bert']['direct_step_ms']:.1f} ms, "
+        f"22b's kernel step (MLM head) "
+        f"{bert['22b']['kernels']['step_ms']:.1f} ms ({smi_line()})")
+    log(f"  phase 25 took {time.perf_counter() - t25:.1f} s ({smi_line()})")
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -7884,6 +8305,13 @@ def main():
         if kd["name"] == "fused_ce_stats":
             kd["robustness"] = dict(
                 launches_24b_step=robust_comm_launches[kd["name"]])
+    # rows 1-3 in phase 25c: launches in a Model.fit step of BERT-base
+    # classification (dropout-free, no mask)
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_"):
+            kd["hapi"] = dict(
+                launches_25c_fit_step=hapi_launches[kd["name"]],
+                launches_25c_fit_step_tc=hapi_launches[kd["name"] + "_tc"])
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

@@ -4,6 +4,8 @@ does, and the stage-3 parameter gathering the train step runs.
 ``place_model(model, mesh, stage)``:
 
 0. at pp > 1, refuses pp beside sharding, tp or sep (``mesh.pp_guard``);
+   at a data degree (dp x sharding) above 1, refuses a model with batch
+   norm (``no_batch_norm``: a rank would see its shard's statistics);
    at sep > 1, asks the model whether it runs sequence-parallel
    attention (``check_sequence_parallel``); a model without it is
    refused, since each rank holds only its shard of the sequence;
@@ -59,7 +61,8 @@ from ..collective import gather_dim, reduce_scatter_dim
 from .meta_parallel.mp_layers import (ColumnParallelLinear,
                                       RowParallelLinear, split_tp_layers)
 
-__all__ = ["place_model", "placement", "Stage3", "no_sequence_parallel"]
+__all__ = ["place_model", "placement", "Stage3", "no_batch_norm",
+           "no_sequence_parallel"]
 
 
 def placement(p) -> tuple:
@@ -77,6 +80,18 @@ def no_sequence_parallel(model, sep):
         "sequence (the JAX package's GSPMD would gather it instead; the "
         "port refuses: ROADMAP.md, Queue 3, divergences kept on purpose). "
         "Use LlamaForCausalLM with LlamaConfig(sequence_parallel=True)")
+
+
+def no_batch_norm(model, data):
+    """The error for a model with batch norm on a mesh whose data degree
+    (dp x sharding) is ``data`` > 1."""
+    return NotImplementedError(
+        f"{type(model).__name__} has batch norm, and at a data degree of "
+        f"{data} (dp x sharding) each rank would normalise with the "
+        "statistics of its shard of the batch only (the JAX package's "
+        "GSPMD computes them over the global batch). Batch statistics "
+        "over the data group and SyncBatchNorm are queued (ROADMAP.md, "
+        "port queue item 9): train it at dp = sharding = 1")
 
 
 def _sharding_dim(spec):
@@ -213,6 +228,11 @@ def place_model(model, mesh, stage, whole=False):
         model._placed, model._whole, model._stage3 = mesh, True, None
         return model
     mesh_mod.pp_guard(mesh)
+    from ...nn.layer.norm import _BatchNormBase  # nn imports this package
+    data = mesh.axis_size("dp") * mesh.axis_size("sharding")
+    if data > 1 and any(isinstance(m, _BatchNormBase)
+                        for m in model.modules()):
+        raise no_batch_norm(model, data)
     sep = mesh.axis_size("sep")
     if sep > 1:
         check = getattr(model, "check_sequence_parallel", None)

@@ -55,7 +55,8 @@ old, new)`` without a copy of the state); the LR scheduler still steps.
 The scale and its good/bad counters follow ``_next_scaler_state`` on the
 device; ``last_found_inf`` and ``state_dict()["scaler"]`` expose them.
 
-Snapshots: ``state_dict()`` gives this rank's live tensors and
+Snapshots: ``state_dict()`` gives this rank's live tensors (the model's
+buffers among them, as the JAX step carries them) and
 ``load_state_dict`` copies a snapshot of this rank's layout in; a
 snapshot of another layout (other ranks, another sharding or tp layout)
 raises ``NotImplementedError`` (ROADMAP.md, port queue item 7). A step
@@ -124,6 +125,7 @@ class TrainStep:
         place_model(model, m, self.stage)
         self._params = {k: p for k, p in model.named_parameters()
                         if p.requires_grad}
+        self._buffers = dict(model.named_buffers())
         self._pspec = {k: placement(p) for k, p in self._params.items()}
         self._ospec = {k: mesh_mod.opt_state_pspec(
             self._pspec[k], p.full_shape, p.full_shape, self.stage, mesh=m)
@@ -326,15 +328,18 @@ class TrainStep:
 
     # -- snapshot surface ---------------------------------------------------
     def state_dict(self):
-        """This rank's parameter blocks, optimizer state and loss-scaler
-        state (tensors, not copies)."""
+        """This rank's parameter blocks, optimizer state, the model's
+        buffers (BatchNorm's running statistics, QAT's observers) and the
+        loss-scaler state (tensors, not copies)."""
         return {"params": dict(self._locals), "opt": self._state,
+                "buffers": {k: b.detach() for k, b in self._buffers.items()},
                 "scaler": self._scaler_state}
 
     def load_state_dict(self, state):
         """Copy a ``state_dict()`` of this rank into this step's
-        parameters (in their dtypes) and optimizer state, on the
-        parameters' devices. A snapshot of another layout raises."""
+        parameters and buffers (in place, in their dtypes, on their
+        devices) and optimizer state. A snapshot of another layout
+        raises."""
         if isinstance(state, (list, tuple)):
             raise NotImplementedError(
                 f"restoring a train step written by {len(state)} ranks "
@@ -351,6 +356,9 @@ class TrainStep:
         with torch.no_grad():
             for k, v in self._locals.items():
                 v.copy_(state["params"][k])
+            for k, b in self._buffers.items():
+                if k in state.get("buffers", {}):
+                    b.copy_(torch.as_tensor(state["buffers"][k]))
         self._state = {
             k: {n: t.detach().to(self._views[k].device, copy=True)
                 for n, t in state["opt"][k].items()}

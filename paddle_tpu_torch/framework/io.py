@@ -1,4 +1,16 @@
-"""Weight carry between the JAX package and the port.
+"""``save`` / ``load`` (paddle.save / paddle.load), and the weight carry
+between the JAX package and the port.
+
+``save(obj, path)`` writes ``obj`` (nested dicts and lists of tensors,
+arrays and python values: a ``state_dict``, an optimizer's) in the JAX
+package's ``framework/io.save`` layout with the checkpoint writer
+(``distributed.checkpoint._write_state``): one pickle with numpy leaves,
+published atomically, bfloat16 widened to float32 (exactly) and listed
+in ``<path>.dtypes.json``. So a ``.pdparams`` / ``.pdopt`` the port
+writes loads in the JAX package's ``paddle.load`` / ``Model.load``, and
+``load(path)`` reads what either package wrote (JAX's tensor records
+and bfloat16 arrays included) as tensors on ``device`` (the framework's
+default, ``cuda``, unless given), bfloat16 where the record says so.
 
 ``load_numpy_state_dict(model, arrays)`` fills a port module from numpy
 arrays keyed like the JAX package's ``state_dict`` — for example
@@ -22,7 +34,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["load_numpy_state_dict", "gather_state_dict"]
+__all__ = ["gather_state_dict", "load", "load_numpy_state_dict", "save"]
+
+
+def save(obj, path, protocol=5, **configs):
+    """Write ``obj`` to ``path`` (see the module docstring; the pickle is
+    protocol 5 whatever ``protocol`` says)."""
+    from ..distributed.checkpoint import _to_host, _write_state
+    dtypes = {}
+    _write_state(_to_host(obj, dtypes=dtypes), dtypes, str(path))
+
+
+def load(path, device=None, **configs):
+    """Read what ``save`` (or the JAX package's ``paddle.save``) wrote:
+    every array a tensor on ``device``."""
+    from ..distributed.checkpoint import _read_state, _typed
+    from .device import resolve_device
+    tree, dtypes = _read_state(str(path))
+    return _typed(tree, dtypes, resolve_device(device))
 
 
 def load_numpy_state_dict(model: torch.nn.Module, arrays: dict) -> None:

@@ -1,15 +1,27 @@
 from . import functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer import (GELU, Conv2D, Dropout, Embedding, LayerNorm, Linear,
-                    MultiHeadAttention, ReLU, RMSNorm, Tanh, Transformer,
+from .layer import (GELU, AdaptiveAvgPool1D, AdaptiveAvgPool2D,
+                    AdaptiveAvgPool3D, AdaptiveMaxPool1D, AdaptiveMaxPool2D,
+                    AdaptiveMaxPool3D, AvgPool1D, AvgPool2D, AvgPool3D,
+                    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, Conv2D,
+                    CrossEntropyLoss, Dropout, Embedding, Flatten, Identity,
+                    L1Loss, LayerList, LayerNorm, Linear, MaxPool1D,
+                    MaxPool2D, MaxPool3D, MSELoss, MultiHeadAttention, ReLU,
+                    RMSNorm, Sequential, SyncBatchNorm, Tanh, Transformer,
                     TransformerDecoder, TransformerDecoderLayer,
                     TransformerEncoder, TransformerEncoderLayer)
 from .moe import MoELayer, SwitchGate, TopKGate
 
-__all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue", "Conv2D", "Dropout",
-           "Embedding", "GELU", "LayerNorm", "Linear", "MoELayer",
-           "MultiHeadAttention", "ReLU", "RMSNorm", "SwitchGate", "Tanh",
+__all__ = ["functional", "initializer", "AdaptiveAvgPool1D",
+           "AdaptiveAvgPool2D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",
+           "AdaptiveMaxPool2D", "AdaptiveMaxPool3D", "AvgPool1D",
+           "AvgPool2D", "AvgPool3D", "BatchNorm", "BatchNorm1D",
+           "BatchNorm2D", "BatchNorm3D", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "Conv2D", "CrossEntropyLoss",
+           "Dropout", "Embedding", "Flatten", "GELU", "Identity", "L1Loss",
+           "LayerList", "LayerNorm", "Linear", "MaxPool1D", "MaxPool2D",
+           "MaxPool3D", "MoELayer", "MSELoss", "MultiHeadAttention", "ReLU",
+           "RMSNorm", "Sequential", "SwitchGate", "SyncBatchNorm", "Tanh",
            "TopKGate", "Transformer", "TransformerDecoder",
            "TransformerDecoderLayer", "TransformerEncoder",
            "TransformerEncoderLayer"]

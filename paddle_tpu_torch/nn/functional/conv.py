@@ -12,7 +12,15 @@ total (the extra row at the high end). Unequal sides pad the input first.
 The bias is added after the convolution, in its output dtype, as in JAX.
 
 ``conv2d`` is an amp cast site (``amp.maybe_cast_compute``), as the JAX
-package's ``_conv`` is. Channels-last (``NHWC``) is port queue item 9.
+package's ``_conv`` is.
+
+Channels-last (``data_format="NHWC"``): x is ``[N, H, W, C]`` and the
+weight keeps the ``[O, I / groups, kh, kw]`` layout, as in the JAX
+package. The convolution runs on x's channels-first view, which for a
+contiguous NHWC tensor is torch's ``channels_last`` memory format, so
+cuDNN takes its NHWC kernels and nothing is copied; the output comes
+back as the NHWC view of the result (contiguous when cuDNN returns
+``channels_last``).
 
 fp32 means fp32: on CUDA, cuDNN rounds fp32 convolution operands to TF32
 by default (``torch.backends.cudnn.allow_tf32``), so on fp32 CUDA operands
@@ -45,7 +53,7 @@ def _norm_tuple(v, n):
     return tuple(int(v) for _ in range(n))
 
 
-def _padding(padding, n):
+def _padding(padding, n, channel_last=False):
     """Per spatial dim (lo, hi) pairs, or "SAME" / "VALID"."""
     if isinstance(padding, str):
         p = padding.upper()
@@ -54,7 +62,9 @@ def _padding(padding, n):
         raise ValueError(padding)
     if isinstance(padding, (list, tuple)) and padding \
             and isinstance(padding[0], (list, tuple)):
-        spatial = padding[2:] if len(padding) == n + 2 else padding
+        spatial = padding
+        if len(padding) == n + 2:       # full rank, batch and channel too
+            spatial = padding[1:-1] if channel_last else padding[2:]
         return [tuple(int(v) for v in p) for p in spatial]
     if isinstance(padding, (list, tuple)) and len(padding) == 2 * n:
         return [(int(padding[2 * i]), int(padding[2 * i + 1]))
@@ -113,16 +123,19 @@ class _Conv2dFp32(torch.autograd.Function):
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
-    """2-D convolution of ``x [N, C, H, W]`` with ``weight [O, C / groups,
-    kh, kw]``, plus ``bias [O]``."""
-    if data_format != "NCHW":
-        raise NotImplementedError(
-            f"conv2d: data_format={data_format!r}; the port takes NCHW only "
-            "(ROADMAP.md, port queue item 9: channels-last)")
+    """2-D convolution of ``x [N, C, H, W]`` (``[N, H, W, C]`` with
+    ``data_format="NHWC"``) with ``weight [O, C / groups, kh, kw]``, plus
+    ``bias [O]``."""
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"conv2d: data_format must be NCHW or NHWC, got "
+                         f"{data_format!r}")
+    channel_last = data_format == "NHWC"
     stride = _norm_tuple(stride, 2)
     dilation = _norm_tuple(dilation, 2)
-    pads = _padding(padding, 2)
+    pads = _padding(padding, 2, channel_last)
     x, weight = maybe_cast_compute(x, weight)
+    if channel_last:
+        x = x.permute(0, 3, 1, 2)
     if pads == "VALID":
         pads = [(0, 0), (0, 0)]
     elif pads == "SAME":
@@ -136,6 +149,9 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
         out = _Conv2dFp32.apply(x, weight, stride, pads, dilation, groups)
     else:
         out = TF.conv2d(x, weight, None, stride, pads, dilation, groups)
+    if channel_last:
+        out = out.permute(0, 2, 3, 1)
     if bias is not None:
-        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
+        out = out + bias.to(out.dtype).reshape(
+            (1, 1, 1, -1) if channel_last else (1, -1, 1, 1))
     return out

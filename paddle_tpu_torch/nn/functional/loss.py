@@ -1,4 +1,5 @@
-"""Losses. Counterpart of ``paddle_tpu/nn/functional/loss.py``.
+"""Losses. Counterpart of ``paddle_tpu/nn/functional/loss.py``
+(``cross_entropy``, ``mse_loss``, ``l1_loss``).
 
 ``cross_entropy`` covers what the dense Llama head uses: hard integer
 labels over the last axis, ``ignore_index`` and ``reduction``
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cross_entropy"]
+__all__ = ["cross_entropy", "l1_loss", "mse_loss"]
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
@@ -38,3 +39,22 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if reduction == "mean":
         return loss.sum() / valid.sum().float().clamp_min(1e-12)
     return loss.sum() if reduction == "sum" else loss
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"reduction must be mean, sum or none, got "
+                     f"{reduction!r}")
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    return _reduce((input - label) ** 2, reduction)
+
+
+def l1_loss(input, label, reduction="mean", name=None):
+    return _reduce((input - label).abs(), reduction)

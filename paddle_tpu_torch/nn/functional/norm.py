@@ -1,16 +1,38 @@
 """Normalisation functionals. Counterpart of
-``paddle_tpu/nn/functional/norm.py:layer_norm``.
+``paddle_tpu/nn/functional/norm.py`` (``layer_norm``, ``batch_norm``).
 
-The arithmetic is the JAX package's: mean and (population) variance in
-float32 over the normalised axes, the normalised value cast back to x's
-dtype, THEN times the weight, then plus the bias (in bf16 each step
-rounds as on the JAX side).
+``layer_norm``'s arithmetic is the JAX package's: mean and (population)
+variance in float32 over the normalised axes, the normalised value cast
+back to x's dtype, THEN times the weight, then plus the bias (in bf16
+each step rounds as on the JAX side).
+
+``batch_norm`` follows the JAX package's conventions, which are
+paddle's: ``running = momentum * running + (1 - momentum) * batch``
+(``momentum`` 0.9; torch's ``momentum`` is the complement), the running
+variance unbiased (``n / (n - 1)``) while the normalisation divides by
+the biased one, batch statistics in float32 whatever the activation
+dtype, and the running buffers updated in place in their own dtype (a
+bf16 model keeps bf16 buffers). The JAX package computes it with
+``jnp`` outside any Pallas kernel; here it is
+``torch.nn.functional.batch_norm`` (on the card cuDNN's kernels for fp32
+parameters, torch's own for bf16 ones), which does all of that when the
+weight, bias and buffers share one dtype, or when x alone is narrower
+(under ``amp.auto_cast``). Another mix, such as the bf16
+weight and bias over fp32 buffers that ``amp.decorate`` (O2) leaves,
+which torch's op refuses, takes the same arithmetic written out
+(``_batch_norm_plain``). Channels-last formats
+(``NHWC``, ``NLC``, ``NDHWC``) are moved to channels-first views, which
+for a contiguous channels-last tensor is torch's ``channels_last``
+memory format: nothing is copied.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
-__all__ = ["layer_norm"]
+__all__ = ["batch_norm", "layer_norm"]
+
+_CHANNEL_LAST = ("NHWC", "NLC", "NWC", "NDHWC")
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
@@ -26,3 +48,59 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     if bias is not None:
         out = out + bias
     return out
+
+
+def _to_channels_first(x):
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
+def _to_channels_last(x):
+    return x.permute(0, *range(2, x.dim()), 1)
+
+
+def _batch_norm_plain(x, running_mean, running_var, weight, bias, use_batch,
+                      momentum, epsilon):
+    """The JAX package's arithmetic for x ``[N, C, ...]``, op by op."""
+    shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+    dims = [0] + list(range(2, x.dim()))
+    xf = x.float()
+    if use_batch:
+        var, mean = torch.var_mean(xf, dim=dims, correction=0)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            unbiased = var * n / max(n - 1, 1)
+            running_mean.copy_(momentum * running_mean.float()
+                               + (1 - momentum) * mean)
+            running_var.copy_(momentum * running_var.float()
+                              + (1 - momentum) * unbiased)
+    else:
+        mean, var = running_mean.float(), running_var.float()
+    out = (xf - mean.reshape(shape)) * torch.rsqrt(
+        var.reshape(shape) + epsilon)
+    if weight is not None:
+        out = out * weight.float().reshape(shape)
+    if bias is not None:
+        out = out + bias.float().reshape(shape)
+    return out.to(x.dtype)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """Batch normalisation over every axis but the channel one. In
+    training (unless ``use_global_stats``) it normalises with the batch's
+    statistics and updates ``running_mean`` / ``running_var`` in place;
+    otherwise it reads them."""
+    channel_last = data_format in _CHANNEL_LAST
+    use_batch = bool(training) and not use_global_stats
+    xc = _to_channels_first(x) if channel_last else x
+    rd = running_mean.dtype
+    params = [t for t in (weight, bias) if t is not None]
+    if all(t.dtype == rd for t in params) and running_var.dtype == rd \
+            and (x.dtype == rd or rd == torch.float32):
+        out = TF.batch_norm(xc, running_mean, running_var, weight, bias,
+                            use_batch, 1.0 - momentum, epsilon)
+    else:
+        out = _batch_norm_plain(xc, running_mean, running_var, weight, bias,
+                                use_batch, momentum, epsilon)
+    return _to_channels_last(out) if channel_last else out

@@ -1,4 +1,5 @@
-"""Common layers. Counterpart of ``paddle_tpu/nn/layer/common.py``.
+"""Common layers. Counterpart of ``paddle_tpu/nn/layer/common.py``
+(``Linear``, ``Dropout``, ``Embedding``, ``Flatten``, ``Identity``).
 
 ``Linear.weight`` keeps the paddle layout ``[in, out]`` and is applied as
 ``x @ W + b``, so state dicts carry across without transposes. Weights
@@ -93,3 +94,23 @@ class Embedding(nn.Module):
 
     def extra_repr(self):
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
+
+
+class Identity(nn.Module):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Flatten(nn.Module):
+    """Flattens the axes ``start_axis`` to ``stop_axis`` into one."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)

@@ -3,9 +3,9 @@
 
 The weight is ``[out, in / groups, kh, kw]``, drawn as the JAX package
 draws it: Kaiming-uniform with ``fan_in = in / groups * kh * kw`` (the
-relu gain), the bias uniform in ``+-1 / sqrt(fan_in)``. NCHW with zero
-padding only: ``data_format="NHWC"`` and the other padding modes are
-port queue item 9.
+relu gain), the bias uniform in ``+-1 / sqrt(fan_in)``. ``data_format``
+is "NCHW" or "NHWC" (``F.conv2d``); zero padding only, the other padding
+modes are port queue item 9.
 """
 from __future__ import annotations
 
@@ -28,11 +28,13 @@ class Conv2D(nn.Module):
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,
                  device=None, dtype="float32"):
         super().__init__()
-        if data_format != "NCHW" or padding_mode != "zeros":
+        if data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"Conv2D: data_format must be NCHW or NHWC, "
+                             f"got {data_format!r}")
+        if padding_mode != "zeros":
             raise NotImplementedError(
-                f"Conv2D: data_format={data_format!r}, padding_mode="
-                f"{padding_mode!r}; the port takes NCHW with zero padding "
-                "only (ROADMAP.md, port queue item 9)")
+                f"Conv2D: padding_mode={padding_mode!r}; the port takes zero "
+                "padding only (ROADMAP.md, port queue item 9)")
         _no_attr("Conv2D", weight_attr=weight_attr, bias_attr=bias_attr)
         self._in_channels = in_channels
         self._out_channels = out_channels
@@ -42,6 +44,7 @@ class Conv2D(nn.Module):
         self._dilation = dilation
         self._groups = groups
         self._data_format = data_format
+        self._transpose = False
         fan_in = in_channels // groups * math.prod(self._kernel_size)
         bound = 1.0 / math.sqrt(fan_in)
         self.weight = _param(

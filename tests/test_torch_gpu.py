@@ -10,7 +10,9 @@ card against the CPU, ``chip_smoke``'s multi-rank phases and phase 21
 also without the test's TF32 fixture), with phase 22 (the encoder
 families) at tiny size, and the serving deployment path: a supervisor's
 replay and a fleet's migration on the card against the CPU, and phase 23
-at tiny size.
+at tiny size; the CNN path: the fp32 NHWC ``Conv2D`` and a bf16 batch
+norm on the card against the CPU, with phase 25 (ResNet, ``Model``) at
+tiny size.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -1660,3 +1662,83 @@ def test_async_save_race_on_the_card(cuda, tmp_path):
     for k, st in at_save["train_step"]["opt"].items():
         for n, t in st.items():
             assert torch.equal(back["train_step"]["opt"][k][n], t), (k, n)
+
+
+def test_nhwc_conv2d_fp32_on_the_card_matches_the_cpu(cuda):
+    """``Conv2D(data_format="NHWC")`` in fp32 with the process default
+    (cuDNN's ``allow_tf32`` True): the port pins TF32 off itself, and the
+    output and both gradients are within 1e-4 of the CPU's; the output is
+    the NHWC view of a ``channels_last`` result (contiguous)."""
+    from paddle_tpu_torch import nn
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pt.seed(4)
+        conv = nn.Conv2D(8, 16, 3, stride=2, padding=1, data_format="NHWC",
+                         device="cpu")
+        cconv = _on_card(conv, lambda d: nn.Conv2D(
+            8, 16, 3, stride=2, padding=1, data_format="NHWC", device=d),
+            cuda)
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (4, 32, 32, 8)).astype(np.float32)).requires_grad_()
+        xc = x.detach().to(cuda).requires_grad_()
+        y, yc = conv(x), cconv(xc)
+        assert yc.shape == (4, 16, 16, 16) and yc.is_contiguous()
+        _close(yc, y)
+        g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            tuple(y.shape)).astype(np.float32))
+        y.backward(g)
+        yc.backward(g.to(cuda))
+        _close(xc.grad, x.grad)
+        _close(cconv.weight.grad, conv.weight.grad)
+        _close(cconv.bias.grad, conv.bias.grad)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.parametrize("data_format", ["NCHW", "NHWC"])
+def test_batch_norm_bf16_on_the_card_matches_the_cpu(cuda, data_format):
+    """A bf16 ``BatchNorm2D`` (bf16 weight, bias and buffers) in training
+    and then in eval mode on the card: outputs, input gradients (of a
+    seeded projection of the output: the gradient of ``sum(y²)`` through
+    a batch norm with unit weight cancels to round-off) and the running
+    statistics within the bf16 tolerance of the CPU's, buffers still
+    bf16."""
+    from paddle_tpu_torch import nn
+    rng = np.random.default_rng(7)
+    shape = (8, 16, 7, 7) if data_format == "NCHW" else (8, 7, 7, 16)
+    x = torch.from_numpy((rng.standard_normal(shape) * 2 + 1).astype(
+        np.float32)).bfloat16()
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", cuda):
+        bn = nn.BatchNorm2D(16, data_format=data_format, device=dev).to(
+            torch.bfloat16)
+        xi = x.to(dev).clone().requires_grad_()
+        y = bn(xi)
+        (y.float() * g.to(dev)).sum().backward()
+        bn.eval()
+        outs[str(dev)] = (y, xi.grad, bn._mean, bn._variance,
+                          bn(x.to(dev)))
+        assert bn._mean.dtype == bn._variance.dtype == torch.bfloat16
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        _close(got, want, TOLS[torch.bfloat16])
+
+
+def test_phase25_at_tiny_size(cuda):
+    """``chip_smoke`` phase 25 at tiny size: ResNet-18 at batches 4 and 8
+    of 64 x 64 images (and its fp32 twin at 8), ``Model`` on Cifar10 at
+    batch 16, and ``Model.fit`` on BERT at width 256 (head dim 64), 2
+    layers, 4 x 128: rows 1-3 once per layer and step, the losses those
+    of the direct train step bit for bit."""
+    from paddle_tpu_torch.text.models import BertConfig
+    cfg = BertConfig(vocab_size=2048, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=512,
+                     max_position_embeddings=128)
+    launches, out = chip_smoke.phase_hapi_cnn(
+        fa, fc, rm, pt.seed, resnet_kw=dict(batches=(4, 8), size=64,
+                                            twin_batch=8, depth="resnet18"),
+        hapi_kw=dict(batch=16), bert_cfg=cfg, bert_batch=(4, 128))
+    assert launches == chip_smoke.want_attention_launches(2)
+    assert out["resnet"]["channels_last"]["batch"] in (4, 8)
+    assert out["hapi_resnet18"]["predict_shape"] == [256, 10]

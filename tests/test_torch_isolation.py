@@ -18,7 +18,9 @@ T5 (then ``generate``) and ViT steps, and deploying a Llama (``save_lm``
 ``ReplicaFleet`` through planted faults (and running
 ``tools/torch_chaos_serve.py``), and taking a supervised, checkpointed
 train step through a NaN and an error, then resuming it in a second
-process, in processes where importing either fails.
+process, and fitting, evaluating, saving and loading a ``paddle.Model``
+on LeNet over MNIST and a channels-last, folded ResNet-18, in processes
+where importing either fails.
 Entry points default to CUDA and raise when it is absent.
 """
 import ast
@@ -600,3 +602,64 @@ def test_set_device_cpu_switches_the_default():
         # restore without resolving: "cuda" may be absent here
         import paddle_tpu_torch.framework.device as d
         d._current_device = before
+
+
+def test_fits_a_model_on_a_cnn_with_jax_unimportable(tmp_path):
+    """``paddle.Model(LeNet)`` on the synthetic MNIST (fit, evaluate,
+    predict, save, load), ResNet-18 channels-last and folded, ``summary``
+    and ``flops``, in a process where importing JAX or the JAX package
+    fails."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import copy
+        import torch
+        torch.set_num_threads(1)
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import callbacks, metric, nn, optimizer
+        from paddle_tpu_torch.framework import layout
+        from paddle_tpu_torch.io import Subset
+        from paddle_tpu_torch.vision import datasets, models, transforms
+        pt.set_device("cpu")
+        pt.seed(0)
+        data = Subset(datasets.MNIST(mode="test", transform=transforms.Compose(
+            [transforms.ToTensor(), transforms.Normalize(0.5, 0.5)])),
+            list(range(64)))
+        net = models.LeNet()
+        model = pt.Model(net)
+        model.prepare(optimizer.Adam(1e-3, parameters=net.parameters()),
+                      nn.CrossEntropyLoss(), metric.Accuracy())
+        model.fit(data, batch_size=16, epochs=2, verbose=0,
+                  callbacks=[callbacks.ModelCheckpoint(
+                      save_dir={str(tmp_path)!r})])
+        logs = model.evaluate(data, batch_size=16, verbose=0)
+        assert set(logs) == {{"loss", "acc"}}, logs
+        out = model.predict(data, batch_size=16, stack_outputs=True)[0]
+        assert tuple(out.shape) == (64, 10)
+        fresh = pt.Model(models.LeNet())
+        fresh.prepare(optimizer.Adam(1e-3,
+                                     parameters=fresh.network.parameters()),
+                      nn.CrossEntropyLoss(), metric.Accuracy())
+        fresh.load({str(tmp_path / "1")!r})
+        assert fresh.evaluate(data, batch_size=16, verbose=0) == logs
+        pt.summary(net)
+        assert pt.flops(net, [1, 1, 28, 28]) > 0
+        r = models.resnet18(num_classes=10).eval()
+        x = torch.randn(2, 3, 32, 32)
+        cl = layout.to_channels_last(copy.deepcopy(r))
+        fo = copy.deepcopy(r)
+        assert len(layout.fold_conv_bn(fo)) == 20
+        with torch.no_grad():
+            want = r(x)
+            assert torch.allclose(cl(x), want, atol=1e-4)
+            assert torch.allclose(fo(x), want, atol=1e-4)
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=180,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr

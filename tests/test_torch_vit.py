@@ -106,11 +106,20 @@ def test_conv2d_under_o1_casts_as_jax():
 
 
 def test_conv2d_refuses_channels_last():
-    with pytest.raises(NotImplementedError, match="port queue item 9"):
-        F.conv2d(torch.zeros(1, 4, 4, 3), torch.zeros(2, 3, 1, 1),
-                 data_format="NHWC")
-    with pytest.raises(NotImplementedError, match="port queue item 9"):
-        nn.Conv2D(3, 2, 1, data_format="NHWC", device="cpu")
+    """Channels-last convolution is in the port since the CNN slice: an
+    NHWC input gives the NHWC view of the NCHW result (held to JAX in
+    ``test_torch_vision_cnn.py``). What is refused is a format that is
+    neither, and the padding modes other than zeros."""
+    x = torch.from_numpy(_image(3))
+    w = torch.from_numpy(_image(3, (1, 1), seed=1)[:2].copy())
+    nchw = F.conv2d(x, w)
+    nhwc = F.conv2d(x.permute(0, 2, 3, 1), w, data_format="NHWC")
+    np.testing.assert_allclose(nhwc.permute(0, 3, 1, 2).numpy(),
+                               nchw.numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="NCHW or NHWC"):
+        F.conv2d(x, w, data_format="NDHWC")
+    with pytest.raises(ValueError, match="NCHW or NHWC"):
+        nn.Conv2D(3, 2, 1, data_format="HWCN", device="cpu")
     with pytest.raises(NotImplementedError, match="port queue item 9"):
         nn.Conv2D(3, 2, 3, padding=1, padding_mode="reflect", device="cpu")
 
