@@ -397,6 +397,25 @@ failure raises and exits non-zero before the result line is printed:
     times each a step, all on the tensor cores, and the losses equal bit
     for bit those of ``make_train_step`` on the same weights and batches;
     the step times of both (the difference is hapi's host overhead).
+26. the eager user surface (after phase 25). 26a (``phase_eager_ops``):
+    every row of ``op_cases`` (the flat op namespace and
+    ``nn.functional``'s activations, the table the CPU tests hold against
+    the JAX package) at ``OP_ROWS_CARD`` x 8 elements (linalg at its own
+    shapes) on the card against the same op on a CPU copy, gradients too:
+    integer, bool, index and manipulation results bit for bit, floats
+    within ``OP_TOL``; rows passed per module. 26b (``phase_user_layer``):
+    ``user_decoder_layer`` at Llama-2-7B's widths (hidden 4096, 32 x 128
+    heads, FFN 11008, fp32, [1, 2048]) holding the weights of the port's
+    ``LlamaDecoderLayer`` from the same seed: the output and every
+    parameter's gradient after ``loss.backward()`` within ``P26_TOL``
+    (relative norm); rows 1-3 launch once each per call of the port's
+    layer, never in the user's; the median of 5 fwd+bwd times and the
+    peak memory of each. 26c (``phase_eager_loop``):
+    ``tools/bench_eager.py``'s loop (``Sequential(Linear, ReLU, Linear)``,
+    ``cross_entropy``, ``backward``, ``Adam``, ``clear_grad``) at its
+    defaults: ms a step, device launches a step, losses repeating bit for
+    bit under ``seed``. 26d (``phase_autograd``): a ``PyLayer`` (cube),
+    ``jacobian`` and ``hessian`` on the card against the CPU.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -7853,6 +7872,1282 @@ def phase_hapi_cnn(fa, fc, rm, seed, resnet_kw=None, hapi_kw=None,
     return launches, out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 26: the eager user surface (to_tensor, the flat ops, autograd, Layer)
+# ---------------------------------------------------------------------------
+
+# The op table: one row per case of the eager sweep. The CPU tests
+# (``tests/test_torch_tensor_ops.py``) feed each row's numpy inputs at
+# ``OP_ROWS_CPU`` rows to ``paddle_tpu.<op>`` and ``paddle_tpu_torch.<op>``
+# (on the CPU); phase 26a feeds them at ``OP_ROWS_CARD`` rows (about 1M
+# elements; linalg at its own shapes) to the port on the card and on a CPU
+# copy. Tolerances by kind, relative and absolute alike: integer, bool and
+# index results always bit for bit; "exact" rows' float results too;
+# "float" (elementwise) 2e-6 (CUDA's fp32 transcendentals are within 2
+# ulp of the CPU's, and an activation chains several), "reduce" 1e-5,
+# "linalg" 1e-4 of the result's largest element (normwise, by
+# reconstruction in float64 where a factor's sign or order is free; eigen
+# inputs have eigenvalues 1 apart, so eigenvectors are well posed);
+# "random" rows compare shapes and dtypes only. Gradients
+# (``sum(op(x) * w)`` with a seeded w, into the first float input) within
+# ``GRAD_TOL`` of their largest element, or the row's tolerance if larger,
+# times the square root of the terms each gradient element sums (an input
+# broadcast over 1M outputs sums 1M cancelling terms).
+OP_TOL = {"exact": 0.0, "float": 2e-6, "reduce": 1e-5, "linalg": 1e-4,
+          "random": None}
+GRAD_TOL = 1e-5
+OP_ROWS_CPU = 4
+OP_ROWS_CARD = 131072           # x 8 columns: 1,048,576 elements
+
+
+@dataclasses.dataclass
+class Op:
+    name: str                   # in the flat namespace, "F.x": nn.functional
+    make: object                # (rng, rows) -> positional args (numpy)
+    kw: dict = dataclasses.field(default_factory=dict)
+    kind: str = "float"
+    grad: bool = False
+    post: object = None         # (outputs as numpy, args) -> arrays compared
+    tag: str = ""
+
+    @property
+    def id(self):
+        return self.name + (f"[{self.tag}]" if self.tag else "")
+
+
+def _fl(r, *s):
+    return r.standard_normal(s).astype(np.float32)
+
+
+def _pos(r, *s):
+    return (np.abs(r.standard_normal(s)) + 0.1).astype(np.float32)
+
+
+def _unit(r, *s):
+    return r.uniform(-0.9, 0.9, s).astype(np.float32)
+
+
+def _nz(r, *s):
+    a = _fl(r, *s)
+    return np.where(np.abs(a) < 0.1, 0.5, a).astype(np.float32)
+
+
+def _int(r, *s, lo=-5, hi=10, dt=np.int32):
+    return r.integers(lo, hi, s).astype(dt)
+
+
+def _nzint(r, *s):
+    a = _int(r, *s, lo=-4, hi=5)
+    return np.where(a == 0, 3, a).astype(np.int32)
+
+
+def _bool(r, *s):
+    return r.random(s) < 0.5
+
+
+def _cplx(r, *s):
+    return (r.standard_normal(s) + 1j * r.standard_normal(s)).astype(
+        np.complex64)
+
+
+def _specials(r, *s):
+    a = _fl(r, *s).reshape(-1)
+    a[::5], a[1::7], a[2::11] = np.nan, np.inf, -np.inf
+    return a.reshape(s)
+
+
+def _ties(r, *s):
+    return r.integers(0, 3, s).astype(np.float32)
+
+
+def _k(n):
+    """The matrix size of the linalg rows: small on the CPU, 128 on the
+    card."""
+    return 4 if n < 64 else 128
+
+
+def _well(r, b, k):
+    """Well-conditioned square matrices: I + noise / (2 sqrt(k))."""
+    return (np.eye(k) + r.standard_normal((b, k, k)) / (2 * np.sqrt(k))
+            ).astype(np.float32)
+
+
+def _spd(r, b, k):
+    a = r.standard_normal((b, k, k)) / np.sqrt(k)
+    return (a @ a.transpose(0, 2, 1) + np.eye(k)).astype(np.float32)
+
+
+def _sym(r, b, k):
+    """Symmetric matrices with eigenvalues 1 apart, -(k-1)/2 .. (k-1)/2."""
+    q = np.linalg.qr(r.standard_normal((b, k, k)))[0]
+    w = np.arange(k) - (k - 1) / 2
+    return ((q * w[None, None, :]) @ q.transpose(0, 2, 1)).astype(
+        np.float32)
+
+
+def _reflectors(r, m, n):
+    """A QR factorisation's Householder vectors (LAPACK's packing) and
+    their taus, as ``householder_product`` takes them."""
+    h, tau = np.linalg.qr(r.standard_normal((m, n)), mode="raw")
+    return [np.ascontiguousarray(h.T).astype(np.float32),
+            tau.astype(np.float32)]
+
+
+def _np_lu(a):
+    """LAPACK's getrf on one matrix: packed LU, 1-based int32 pivots."""
+    a = np.array(a, dtype=np.float64)
+    m = a.shape[0]
+    piv = np.zeros(m, np.int32)
+    for j in range(m):
+        p = j + int(np.argmax(np.abs(a[j:, j])))
+        piv[j] = p + 1
+        a[[j, p]] = a[[p, j]]
+        a[j + 1:, j] /= a[j, j]
+        a[j + 1:, j + 1:] -= np.outer(a[j + 1:, j], a[j, j + 1:])
+    return a.astype(np.float32), piv
+
+
+def _lu_recon(lu_, piv):
+    """``P @ L @ U`` from packed factors and 1-based pivots (batched)."""
+    lu_, piv = np.asarray(lu_, np.float64), np.asarray(piv)
+    out = []
+    for f, p in zip(lu_.reshape(-1, *lu_.shape[-2:]),
+                    piv.reshape(-1, piv.shape[-1])):
+        m = f.shape[0]
+        a = (np.tril(f, -1) + np.eye(m)) @ np.triu(f)
+        for j in reversed(range(m)):
+            a[[j, p[j] - 1]] = a[[p[j] - 1, j]]
+        out.append(a)
+    return np.stack(out).reshape(lu_.shape)
+
+
+def _f64(outs):
+    return [np.asarray(o, np.float64) for o in outs]
+
+
+def _sorted_real(outs, args):
+    return [np.sort(np.real(outs[0]).astype(np.float64), axis=-1)]
+
+
+def _svd_post(outs, args):
+    u, s, vh = _f64(outs)
+    return [s, (u * s[..., None, :]) @ vh]
+
+
+def _qr_post(outs, args):
+    q, r_ = _f64(outs)
+    return [q @ r_, np.abs(np.diagonal(r_, axis1=-2, axis2=-1))]
+
+
+def _eigh_post(outs, args):
+    w, v = _f64(outs)
+    return [w, (v * w[..., None, :]) @ np.swapaxes(v, -1, -2)]
+
+
+def _lu_post(outs, args):
+    return [_lu_recon(outs[0], outs[1])]
+
+
+def _pca_post(outs, args):
+    u, s, v = _f64(outs)
+    return [s, (u * s[..., None, :]) @ np.swapaxes(v, -1, -2)]
+
+
+def _binary_family(n):
+    """``test_op_parity_sweep.py``'s binary ops over its broadcasts and
+    dtypes (float32, float64, and int32, int64 where they take ints)."""
+    shapes = [((n, 8), (n, 8)), ((n, 1), (1, 8)), ((2, n, 4), (4,)),
+              ((1,), (n, 2)), ((), (n, 8))]
+    ops = [("add", True), ("subtract", True), ("multiply", True),
+           ("divide", False), ("maximum", True), ("minimum", True),
+           ("fmax", True), ("fmin", True), ("atan2", False),
+           ("logaddexp", False), ("heaviside", False), ("hypot", False)]
+    rows = []
+    for name, int_ok in ops:
+        for dt in [np.float32, np.float64] + (
+                [np.int32, np.int64] if int_ok else []):
+            for sa, sb in shapes:
+                isint = np.issubdtype(dt, np.integer)
+
+                def make(r, n_, sa=sa, sb=sb, dt=dt, name=name):
+                    if np.issubdtype(dt, np.integer):
+                        return [r.integers(-5, 10, sa).astype(dt),
+                                r.integers(-5, 10, sb).astype(dt)]
+                    b = r.standard_normal(sb)
+                    if name == "divide":
+                        b = np.abs(b) + 0.1
+                    return [r.standard_normal(sa).astype(dt), b.astype(dt)]
+                rows.append(Op(name, make, kind="exact" if isint
+                               else "float",
+                               grad=not isint and name != "heaviside",
+                               tag=f"{np.dtype(dt).name}:{sa}x{sb}"))
+    return rows
+
+
+_UNARY = [("abs", _fl), ("acos", _unit), ("acosh", lambda r, *s: _pos(
+    r, *s) + 1), ("asin", _unit), ("asinh", _fl), ("atan", _fl),
+    ("atanh", _unit), ("ceil", _fl), ("cos", _fl), ("cosh", _fl),
+    ("digamma", _pos), ("erf", _fl), ("erfinv", _unit), ("exp", _fl),
+    ("expm1", _fl), ("floor", _fl), ("lgamma", _pos), ("log", _pos),
+    ("log10", _pos), ("log1p", _pos), ("log2", _pos), ("neg", _fl),
+    ("reciprocal", _nz), ("round", lambda r, *s: 3 * _fl(r, *s)),
+    ("rsqrt", _pos), ("sigmoid", _fl), ("sign", _fl), ("sin", _fl),
+    ("sinh", _fl), ("sqrt", _pos), ("square", _fl), ("tan", _unit),
+    ("tanh", _fl), ("trunc", lambda r, *s: 3 * _fl(r, *s)), ("angle", _fl),
+    ("conj", _fl), ("deg2rad", _fl), ("rad2deg", _fl),
+    ("frac", lambda r, *s: 3 * _fl(r, *s)), ("i0", _fl), ("i1", _fl)]
+
+_ACTIVATIONS = [
+    ("relu", {}), ("relu6", {}), ("sigmoid", {}), ("tanh", {}),
+    ("silu", {}), ("swish", {}), ("mish", {}), ("hardswish", {}),
+    ("hardsigmoid", {}), ("tanhshrink", {}), ("softsign", {}),
+    ("gelu", {}), ("gelu", {"approximate": True}), ("elu", {"alpha": 0.5}),
+    ("celu", {"alpha": 2.0}), ("selu", {}),
+    ("leaky_relu", {"negative_slope": 0.2}), ("rrelu", {}),
+    ("hardtanh", {"min": -0.5, "max": 0.7}), ("hardshrink", {}),
+    ("softshrink", {"threshold": 0.3}),
+    ("softplus", {"beta": 2.0, "threshold": 3.0}), ("softmax", {"axis": 1}),
+    ("log_softmax", {"axis": -1}), ("log_sigmoid", {}), ("logsigmoid", {}),
+    ("glu", {"axis": 1}), ("thresholded_relu", {"threshold": 0.5})]
+
+
+def op_cases(n):
+    """The table at ``n`` rows (see ``OP_TOL``)."""
+    k = _k(n)
+    b = 2 if n < 64 else 8
+    L = []
+
+    def add(name, make, kind="float", grad=False, post=None, tag="", **kw):
+        L.append(Op(name, make, kw, kind, grad, post, tag))
+
+    # creation
+    add("zeros", lambda r, n: [[n, 8]], "exact")
+    add("ones", lambda r, n: [[n, 8]], "exact", dtype="int32")
+    add("full", lambda r, n: [[n, 8], 2.5], "exact")
+    add("full", lambda r, n: [[n, 8], 3], "exact", tag="int")
+    add("empty", lambda r, n: [[n, 8]], "exact")
+    add("zeros_like", lambda r, n: [_fl(r, n, 8)], "exact", dtype="int32")
+    add("ones_like", lambda r, n: [_fl(r, n, 8)], "exact")
+    add("full_like", lambda r, n: [_fl(r, n, 8), 1.5], "exact")
+    add("empty_like", lambda r, n: [_int(r, n, 8)], "exact")
+    add("arange", lambda r, n: [0, n * 8, 3], "exact")
+    add("arange", lambda r, n: [0.5, 10.0, 0.25], tag="float")
+    add("linspace", lambda r, n: [-1.0, 1.0, n * 8])
+    add("logspace", lambda r, n: [0.0, 2.0, 16])
+    add("eye", lambda r, n: [n, 8], "exact")
+    add("meshgrid", lambda r, n: [[_fl(r, n), _fl(r, 8)]], "exact",
+        grad=True)
+    add("diag", lambda r, n: [_fl(r, 16)], "exact", grad=True, offset=1,
+        padding_value=2.0)
+    add("diag", lambda r, n: [_fl(r, 16, 16)], "exact", grad=True,
+        tag="matrix", offset=-1)
+    add("diagflat", lambda r, n: [_fl(r, 4, 4)], "exact", grad=True,
+        offset=1)
+    add("diag_embed", lambda r, n: [_fl(r, n, 4)], "exact", grad=True)
+    add("tril", lambda r, n: [_fl(r, n, 8)], "exact", grad=True, diagonal=1)
+    add("triu", lambda r, n: [_fl(r, n, 8)], "exact", grad=True,
+        diagonal=-1)
+    add("tril_indices", lambda r, n: [16, 12, 1], "exact")
+    add("triu_indices", lambda r, n: [16, 12, -1], "exact")
+    add("assign", lambda r, n: [_fl(r, n, 8)], "exact")
+    add("clone", lambda r, n: [_fl(r, n, 8)], "exact", grad=True)
+    add("complex", lambda r, n: [_fl(r, n, 8), _fl(r, n, 8)], "exact")
+    add("as_complex", lambda r, n: [_fl(r, n, 8, 2)], "exact")
+    add("as_real", lambda r, n: [_cplx(r, n, 8)], "exact")
+    add("real", lambda r, n: [_cplx(r, n, 8)], "exact")
+    add("imag", lambda r, n: [_cplx(r, n, 8)], "exact")
+    add("polar", lambda r, n: [_pos(r, n, 8), _fl(r, n, 8)])
+    # elementwise unary
+    for name, dom in _UNARY:
+        add(name, lambda r, n, dom=dom: [dom(r, n, 8)], grad=True)
+    add("round", lambda r, n: [np.tile(np.asarray(
+        [-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 3.5, 4.5], np.float32), (n, 1))],
+        "exact", tag="halves")
+    for name in ("abs", "sign", "square", "neg"):
+        add(name, lambda r, n: [_int(r, n, 8)], "exact", tag="int32")
+    add("sqrt", lambda r, n: [_int(r, n, 8, lo=0)], tag="int32")
+    add("exp", lambda r, n: [_int(r, n, 8, lo=-3, hi=3)], tag="int32")
+    for name in ("isfinite", "isinf", "isnan"):
+        add(name, lambda r, n: [_specials(r, n, 8)], "exact")
+    # elementwise binary
+    L.extend(_binary_family(n))
+    add("floor_divide", lambda r, n: [_int(r, n, 8, lo=-9), _nzint(r, n, 8)],
+        "exact", tag="int")
+    add("floor_divide", lambda r, n: [3 * _fl(r, n, 8), _nz(r, n, 8)],
+        tag="float")
+    for name in ("mod", "remainder", "floor_mod"):
+        add(name, lambda r, n: [_int(r, n, 8, lo=-9), _nzint(r, n, 8)],
+            "exact", tag="int")
+    add("mod", lambda r, n: [3 * _fl(r, n, 8), _nz(r, n, 8)], grad=True,
+        tag="float")
+    add("true_divide", lambda r, n: [_fl(r, n, 8), _nz(r, n, 8)], grad=True)
+    add("divide", lambda r, n: [_int(r, n, 8), _int(r, n, 8, lo=1)],
+        tag="int")
+    add("pow", lambda r, n: [_pos(r, n, 8), _fl(r, n, 8)], grad=True)
+    add("pow", lambda r, n: [_fl(r, n, 8), 2], grad=True, tag="scalar")
+    add("pow", lambda r, n: [_int(r, n, 8, lo=0, hi=5),
+                             _int(r, n, 8, lo=0, hi=4)], "exact", tag="int")
+    add("nextafter", lambda r, n: [_fl(r, n, 8), _fl(r, n, 8)], "exact")
+    add("gcd", lambda r, n: [_int(r, n, 8, lo=-20, hi=20),
+                             _int(r, n, 8, lo=-20, hi=20)], "exact")
+    add("lcm", lambda r, n: [_int(r, n, 8, lo=-20, hi=20),
+                             _int(r, n, 8, lo=-20, hi=20)], "exact")
+    add("copysign", lambda r, n: [_fl(r, n, 8), _fl(r, n, 8)], grad=True)
+    add("add", lambda r, n: [_int(r, n, 8), 2.5], tag="int+float")
+    add("multiply", lambda r, n: [_fl(r, n, 8), 3], grad=True,
+        tag="float*int")
+    add("scale", lambda r, n: [_fl(r, n, 8)], grad=True, scale=2.0,
+        bias=1.0)
+    add("scale", lambda r, n: [_fl(r, n, 8)], grad=True, tag="bias_first",
+        scale=2.0, bias=1.0, bias_after_scale=False)
+    add("divide_no_nan", lambda r, n: [_fl(r, n, 8), np.where(
+        _bool(r, n, 8), 0.0, _nz(r, n, 8)).astype(np.float32)], grad=True)
+    add("multiplex", lambda r, n: [[_fl(r, n, 8), _fl(r, n, 8)],
+                                   _int(r, n, 1, lo=0, hi=2)], "exact",
+        grad=True)
+    # matmul family
+    add("matmul", lambda r, n: [_fl(r, n, 8), _fl(r, 8, 8)], "reduce",
+        grad=True)
+    add("matmul", lambda r, n: [_fl(r, n, 8), _fl(r, 16, 8)], "reduce",
+        grad=True, tag="transpose_y", transpose_y=True)
+    add("matmul", lambda r, n: [_fl(r, 8, n), _fl(r, 8, 4)], "reduce",
+        grad=True, tag="transpose_x", transpose_x=True)
+    add("mm", lambda r, n: [_fl(r, n, 8), _fl(r, 8, 4)], "reduce", grad=True)
+    add("bmm", lambda r, n: [_fl(r, 2, n, 8), _fl(r, 2, 8, 4)], "reduce",
+        grad=True)
+    add("dot", lambda r, n: [_fl(r, n, 8), _fl(r, n, 8)], "reduce",
+        grad=True)
+    add("inner", lambda r, n: [_fl(r, n, 8), _fl(r, 4, 8)], "reduce",
+        grad=True)
+    add("outer", lambda r, n: [_fl(r, 64), _fl(r, 32)], grad=True)
+    add("addmm", lambda r, n: [_fl(r, n, 4), _fl(r, n, 8), _fl(r, 8, 4)],
+        "reduce", grad=True, beta=0.5, alpha=2.0)
+    add("kron", lambda r, n: [_fl(r, 4, 4), _fl(r, 8, 3)], grad=True)
+    add("cross", lambda r, n: [_fl(r, n, 3), _fl(r, n, 3)], grad=True)
+    # reductions
+    for name, dom in (("sum", _fl), ("mean", _fl), ("max", _fl),
+                      ("min", _fl), ("amax", _fl), ("amin", _fl),
+                      ("logsumexp", _fl), ("nansum", _specials),
+                      ("nanmean", _specials),
+                      ("prod", lambda r, *s: r.uniform(0.8, 1.2, s).astype(
+                          np.float32))):
+        nan = name.startswith("nan")
+        dom = (lambda r, *s: np.where(_bool(r, *s), np.nan, _fl(r, *s))
+               .astype(np.float32)) if nan else dom
+        add(name, lambda r, n, dom=dom: [dom(r, n, 8)], "reduce",
+            grad=not nan, axis=1)
+        add(name, lambda r, n, dom=dom: [dom(r, n, 8)], "reduce",
+            grad=not nan, tag="keepdim", axis=-1, keepdim=True)
+        add(name, lambda r, n, dom=dom: [dom(r, 3, 4, 5)], "reduce",
+            grad=not nan, tag="all")
+        add(name, lambda r, n, dom=dom: [dom(r, 3, 4, 5)], "reduce",
+            grad=not nan, tag="axes", axis=[0, 2], keepdim=True)
+    for name in ("all", "any"):
+        add(name, lambda r, n: [_bool(r, n, 8)], "exact", axis=1)
+        add(name, lambda r, n: [_bool(r, 3, 4)], "exact", tag="all")
+    add("count_nonzero", lambda r, n: [_int(r, n, 8, lo=-1, hi=2)], "exact",
+        axis=1)
+    add("sum", lambda r, n: [_int(r, n, 8)], "exact", tag="int32", axis=1)
+    add("sum", lambda r, n: [_bool(r, n, 8)], "exact", tag="bool", axis=1)
+    add("sum", lambda r, n: [_int(r, n, 8)], "exact", tag="dtype", axis=1,
+        dtype="float32")
+    add("mean", lambda r, n: [_int(r, n, 8)], "reduce", tag="int32", axis=1)
+    add("prod", lambda r, n: [_int(r, n, 8, lo=-2, hi=3)], "exact",
+        tag="int32", axis=1)
+    # cumulative
+    add("cumsum", lambda r, n: [_fl(r, n, 8)], "reduce", grad=True, axis=1)
+    add("cumsum", lambda r, n: [_fl(r, 4, 5)], "reduce", grad=True,
+        tag="flat")
+    add("cumsum", lambda r, n: [_int(r, n, 8)], "exact", tag="int32", axis=1)
+    add("cumprod", lambda r, n: [r.uniform(0.8, 1.2, (n, 8)).astype(
+        np.float32)], "reduce", grad=True, dim=1)
+    for name in ("cummax", "cummin"):
+        add(name, lambda r, n: [_ties(r, n, 8)], "exact", tag="ties", axis=1)
+        add(name, lambda r, n: [_fl(r, n, 8)], "exact", grad=True, axis=1)
+    # clip and misc
+    add("clip", lambda r, n: [_fl(r, n, 8), -0.5, 0.5], "exact", grad=True)
+    add("clip", lambda r, n: [_int(r, n, 8), -2, 3], "exact", tag="int32")
+    add("lerp", lambda r, n: [_fl(r, n, 8), _fl(r, n, 8), 0.3], grad=True)
+    add("lerp", lambda r, n: [_fl(r, n, 8), _fl(r, n, 8), r.random(
+        (n, 8)).astype(np.float32)], grad=True, tag="tensor_w")
+    add("nan_to_num", lambda r, n: [_specials(r, n, 8)], "exact",
+        posinf=9.0, neginf=-9.0)
+    add("logit", lambda r, n: [r.uniform(-0.1, 1.1, (n, 8)).astype(
+        np.float32)], grad=True, eps=1e-3)
+    add("trace", lambda r, n: [_fl(r, n, 8)], "reduce", grad=True, offset=1)
+    add("diagonal", lambda r, n: [_fl(r, 2, n, 8)], "exact", grad=True,
+        axis1=1, axis2=2, offset=-1)
+    add("diff", lambda r, n: [_fl(r, n, 8)], grad=True, n=2, axis=1)
+    add("diff", lambda r, n: [_fl(r, n, 8)], grad=True, tag="prepend",
+        axis=1, prepend=_fl(np.random.default_rng(5), n, 1))
+    add("increment", lambda r, n: [_fl(r, 1)], value=2.0)
+    add("stanh", lambda r, n: [_fl(r, n, 8)], grad=True)
+    add("softplus_raw", lambda r, n: [_fl(r, n, 8)])
+    add("broadcast_shape", lambda r, n: [[n, 1], [1, 8]], "exact")
+    add("renorm", lambda r, n: [_fl(r, n, 8), 2.0, 1, float(np.sqrt(n))],
+        "reduce", grad=True)
+    # manipulation
+    add("reshape", lambda r, n: [_fl(r, n, 8), [0, 2, -1]], "exact",
+        grad=True)
+    add("reshape", lambda r, n: [_int(r, n, 8), [-1]], "exact", tag="int")
+    add("flatten", lambda r, n: [_fl(r, 2, n, 4)], "exact", grad=True,
+        start_axis=1, stop_axis=2)
+    add("transpose", lambda r, n: [_fl(r, 2, n, 4), [2, 0, 1]], "exact",
+        grad=True)
+    add("t", lambda r, n: [_fl(r, n, 8)], "exact", grad=True)
+    add("moveaxis", lambda r, n: [_fl(r, 2, n, 4), 0, 2], "exact")
+    add("swapaxes", lambda r, n: [_fl(r, 2, n, 4), 0, 2], "exact")
+    add("concat", lambda r, n: [[_fl(r, n, 8), _fl(r, n, 3)], 1], "exact",
+        grad=True)
+    add("concat", lambda r, n: [[_fl(r, n, 8), _int(r, n, 8)]], "exact",
+        tag="promote")
+    add("stack", lambda r, n: [[_fl(r, n, 8), _fl(r, n, 8)], 1], "exact",
+        grad=True)
+    add("split", lambda r, n: [_fl(r, n, 8), 4, 1], "exact", grad=True)
+    add("split", lambda r, n: [_fl(r, n, 8), [2, -1, 3], 1], "exact",
+        grad=True, tag="sections")
+    add("chunk", lambda r, n: [_fl(r, n, 8), 2, 1], "exact")
+    add("unbind", lambda r, n: [_fl(r, 8, n)], "exact", grad=True)
+    add("unstack", lambda r, n: [_fl(r, n, 3)], "exact", axis=1)
+    add("squeeze", lambda r, n: [_fl(r, n, 1, 8, 1), [1, 3]], "exact",
+        grad=True)
+    add("squeeze", lambda r, n: [_fl(r, n, 1, 8), [0, 1]], "exact",
+        tag="keeps")
+    add("unsqueeze", lambda r, n: [_fl(r, n, 8), [0, 2]], "exact",
+        grad=True)
+    add("tile", lambda r, n: [_fl(r, n, 8), [2, 1]], "exact", grad=True)
+    add("expand", lambda r, n: [_fl(r, 1, 8), [n, -1]], "exact", grad=True)
+    add("expand_as", lambda r, n: [_fl(r, 1, 8), _fl(r, n, 8)], "exact")
+    add("broadcast_to", lambda r, n: [_fl(r, n, 1), [n, 8]], "exact",
+        grad=True)
+    add("broadcast_tensors", lambda r, n: [[_fl(r, n, 1), _fl(r, 1, 8)]],
+        "exact")
+    add("flip", lambda r, n: [_fl(r, n, 8), [0, 1]], "exact", grad=True)
+    add("rot90", lambda r, n: [_fl(r, n, 8), 1, [0, 1]], "exact")
+    add("roll", lambda r, n: [_fl(r, n, 8), 2, 1], "exact", grad=True)
+    add("roll", lambda r, n: [_fl(r, n, 8), 3], "exact", tag="flat")
+    add("gather", lambda r, n: [_fl(r, n, 8), r.integers(0, n, 6)], "exact",
+        grad=True)
+    add("gather", lambda r, n: [_fl(r, n, 8), r.integers(0, 8, 5), 1],
+        "exact", tag="axis1")
+    add("gather_nd", lambda r, n: [_fl(r, n, 8), np.stack(
+        [r.integers(0, n, 6), r.integers(0, 8, 6)], -1)], "exact",
+        grad=True)
+    add("take", lambda r, n: [_fl(r, n, 8), r.integers(0, n * 8, 10)],
+        "exact", grad=True)
+    add("take", lambda r, n: [_fl(r, n, 8), r.integers(
+        -3 * n * 8, 3 * n * 8, 10)], "exact", tag="wrap", mode="wrap")
+    add("take", lambda r, n: [_fl(r, n, 8), r.integers(
+        -3 * n * 8, 3 * n * 8, 10)], "exact", tag="clip", mode="clip")
+    add("take_along_axis", lambda r, n: [_fl(r, n, 8), r.integers(
+        0, 8, (n, 3)), 1], "exact", grad=True)
+    add("put_along_axis", lambda r, n: [_fl(r, n, 8), np.argsort(
+        r.random((n, 8)), axis=1)[:, :3], _fl(r, n, 3), 1], "exact",
+        grad=True)
+    add("put_along_axis", lambda r, n: [_fl(r, n, 8), r.integers(
+        0, 8, (n, 4)), _fl(r, n, 4), 1], "float", grad=True, tag="add",
+        reduce="add")
+    add("index_select", lambda r, n: [_fl(r, n, 8), r.integers(0, n, 5)],
+        "exact", grad=True)
+    add("index_sample", lambda r, n: [_fl(r, n, 8), r.integers(
+        0, 8, (n, 3))], "exact", grad=True)
+    add("index_add", lambda r, n: [_fl(r, n, 8), r.integers(0, n, 6), 0,
+                                   _fl(r, 6, 8)], grad=True)
+    add("scatter", lambda r, n: [_fl(r, n, 8), r.permutation(n)[:3],
+                                 _fl(r, 3, 8)], "exact", grad=True)
+    add("scatter", lambda r, n: [_fl(r, n, 8), np.asarray([1, 0, 1, 2]),
+                                 _fl(r, 4, 8)], grad=True, tag="add",
+        overwrite=False)
+    add("scatter_nd_add", lambda r, n: [_fl(r, n, 8), np.stack(
+        [r.integers(0, n, 6), r.integers(0, 8, 6)], -1), _fl(r, 6)],
+        grad=True)
+    add("scatter_nd", lambda r, n: [np.stack([r.integers(0, n, 6),
+                                              r.integers(0, 8, 6)], -1),
+                                    _fl(r, 6), [n, 8]], grad=True)
+    add("masked_select", lambda r, n: [_fl(r, n, 8), _bool(r, n, 8)],
+        "exact", grad=True)
+    add("masked_fill", lambda r, n: [_fl(r, n, 8), _bool(r, n, 8), 2.0],
+        "exact", grad=True)
+    add("where", lambda r, n: [_bool(r, n, 8), _fl(r, n, 8), _fl(r, n, 8)],
+        "exact", grad=True)
+    add("where", lambda r, n: [_bool(r, n, 8), _fl(r, n, 8), 0.0], "exact",
+        tag="scalar")
+    add("where", lambda r, n: [_bool(r, n, 8)], "exact", tag="indices")
+    add("nonzero", lambda r, n: [_int(r, n, 8, lo=-1, hi=2)], "exact")
+    add("nonzero", lambda r, n: [_int(r, n, 8, lo=-1, hi=2)], "exact",
+        tag="tuple", as_tuple=True)
+    add("unique", lambda r, n: [_int(r, n, 8, lo=0, hi=20)], "exact",
+        return_index=True, return_inverse=True, return_counts=True)
+    add("unique", lambda r, n: [_int(r, n, 2, lo=0, hi=2)], "exact",
+        tag="rows", return_counts=True, axis=0)
+    add("unique_consecutive", lambda r, n: [np.repeat(_int(
+        r, n * 2, lo=0, hi=3), 4).reshape(n, 8)], "exact",
+        return_inverse=True, return_counts=True)
+    add("unique_consecutive", lambda r, n: [np.repeat(_int(
+        r, n, 2, lo=0, hi=2), 2, axis=0)], "exact", tag="rows",
+        return_inverse=True, return_counts=True, axis=0)
+    add("cast", lambda r, n: [3 * _fl(r, n, 8), "int32"], "exact")
+    add("cast", lambda r, n: [_fl(r, n, 8), "bfloat16"], "exact",
+        tag="bf16")
+    add("cast", lambda r, n: [_int(r, n, 8), "float32"], "exact",
+        tag="int")
+    add("slice", lambda r, n: [_fl(r, n, 8), [0, 1], [1, 2], [n - 1, -1]],
+        "exact", grad=True)
+    add("strided_slice", lambda r, n: [_fl(r, n, 8), [0, 1], [0, 7],
+                                       [n, 0], [2, -2]], "exact", grad=True)
+    add("repeat_interleave", lambda r, n: [_fl(r, n, 8), 2, 1], "exact",
+        grad=True)
+    add("repeat_interleave", lambda r, n: [_fl(r, 4, 5), 2], "exact",
+        tag="flat")
+    add("shard_index", lambda r, n: [_int(r, n, 1, lo=0, hi=20), 20, 2, 1],
+        "exact")
+    add("crop", lambda r, n: [_fl(r, n, 8), [n - 1, 4], [1, 2]], "exact",
+        grad=True)
+    add("tensordot", lambda r, n: [_fl(r, n, 8), _fl(r, 8, 5), 1],
+        "reduce", grad=True)
+    add("tensordot", lambda r, n: [_fl(r, 4, 8), _fl(r, 4, 8), [0, 1]],
+        "reduce", tag="flat_list")
+    add("tensordot", lambda r, n: [_fl(r, n, 8), _fl(r, 5, 8), [[1], [1]]],
+        "reduce", grad=True, tag="pairs")
+    add("view", lambda r, n: [_fl(r, n, 8), [8, -1]], "exact")
+    add("view_as", lambda r, n: [_fl(r, n, 8), _fl(r, 8, n)], "exact")
+    add("as_strided", lambda r, n: [_fl(r, n, 8), [n, 4], [8, 2], 1],
+        "exact")
+    add("atleast_1d", lambda r, n: [np.asarray(1.5, np.float32)], "exact")
+    add("atleast_2d", lambda r, n: [_fl(r, 8), _fl(r, n, 8)], "exact")
+    add("atleast_3d", lambda r, n: [_fl(r, n, 8)], "exact")
+    add("fill_diagonal", lambda r, n: [_fl(r, n, 8), 2.0], "exact",
+        grad=True)
+    add("fill_diagonal", lambda r, n: [_fl(r, n, 8), 2.0, 1, True], "exact",
+        tag="wrap")
+    add("fill_diagonal", lambda r, n: [_fl(r, 4, 4, 4), 1.0], "exact",
+        tag="nd")
+    add("fill_diagonal_tensor", lambda r, n: [_fl(r, n, 6, 4),
+                                              _fl(r, n, 3)], "exact",
+        grad=True, offset=1, dim1=1, dim2=2)
+    # logic
+    for name in ("equal", "not_equal", "greater_than", "greater_equal",
+                 "less_than", "less_equal"):
+        add(name, lambda r, n: [_ties(r, n, 8), _ties(r, n, 8)], "exact")
+        add(name, lambda r, n: [_int(r, n, 8), _int(r, n, 8)], "exact",
+            tag="int32")
+    for name in ("logical_and", "logical_or", "logical_xor"):
+        add(name, lambda r, n: [_bool(r, n, 8), _bool(r, n, 8)], "exact")
+    add("logical_not", lambda r, n: [_bool(r, n, 8)], "exact")
+    add("logical_and", lambda r, n: [_int(r, n, 8), _int(r, n, 8)], "exact",
+        tag="int")
+    for name in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        add(name, lambda r, n: [_int(r, n, 8, lo=0, hi=255),
+                                _int(r, n, 8, lo=0, hi=255)], "exact")
+        add(name, lambda r, n: [_bool(r, n, 8), _bool(r, n, 8)], "exact",
+            tag="bool")
+    add("bitwise_not", lambda r, n: [_int(r, n, 8)], "exact")
+    add("bitwise_left_shift", lambda r, n: [_int(r, n, 8, lo=0, hi=100),
+                                            _int(r, n, 8, lo=0, hi=4)],
+        "exact")
+    add("bitwise_right_shift", lambda r, n: [_int(r, n, 8, lo=-100,
+                                                  hi=100),
+                                             _int(r, n, 8, lo=0, hi=4)],
+        "exact")
+    add("equal_all", lambda r, n: [_ties(r, n, 8), _ties(r, n, 8)], "exact")
+    add("equal_all", lambda r, n: [np.ones((n, 8), np.float32),
+                                   np.ones((n, 8), np.float32)], "exact",
+        tag="same")
+    add("allclose", lambda r, n: [np.ones((n, 8), np.float32), np.full(
+        (n, 8), 1 + 1e-6, np.float32)], "exact")
+    add("isclose", lambda r, n: [_fl(r, n, 8), _fl(r, n, 8)], "exact")
+    add("is_empty", lambda r, n: [np.zeros((0, 3), np.float32)], "exact")
+    add("is_tensor", lambda r, n: [_fl(r, 2)], "exact")
+    add("isreal", lambda r, n: [np.where(_bool(r, n, 8), _cplx(r, n, 8),
+                                         _fl(r, n, 8))], "exact")
+    add("iscomplex", lambda r, n: [_cplx(r, 2)], "exact")
+    add("is_complex", lambda r, n: [_cplx(r, 2)], "exact")
+    add("is_floating_point", lambda r, n: [_fl(r, 2)], "exact")
+    add("is_integer", lambda r, n: [_int(r, 2)], "exact")
+    # search
+    for name in ("argmax", "argmin"):
+        add(name, lambda r, n: [_fl(r, n, 8)], "exact")
+        add(name, lambda r, n: [_ties(r, n, 8)], "exact", tag="ties", axis=1,
+            keepdim=True)
+    add("argsort", lambda r, n: [_ties(r, n, 8)], "exact", tag="ties",
+        descending=True)
+    add("argsort", lambda r, n: [_fl(r, n, 8)], "exact", axis=0)
+    add("sort", lambda r, n: [_ties(r, n, 8)], "exact", tag="ties",
+        descending=True)
+    add("sort", lambda r, n: [_fl(r, n, 8)], "exact", grad=True)
+    add("topk", lambda r, n: [_ties(r, n, 8), 3], "exact", tag="ties")
+    add("topk", lambda r, n: [_ties(r, n, 8), 3], "exact", tag="smallest",
+        largest=False)
+    add("topk", lambda r, n: [_fl(r, n, 8), 2], "exact", grad=True)
+    add("kthvalue", lambda r, n: [_fl(r, n, 8), 3, 1], "exact", grad=True)
+    add("kthvalue", lambda r, n: [_ties(r, n, 8), 2], "exact", tag="ties",
+        keepdim=True)
+    add("mode", lambda r, n: [_ties(r, n, 8)], "exact")
+    add("searchsorted", lambda r, n: [np.sort(_fl(r, 64)), _fl(r, n, 8)],
+        "exact")
+    add("searchsorted", lambda r, n: [np.sort(_ties(r, n, 8), axis=1),
+                                      _ties(r, n, 3)], "exact", tag="rows",
+        right=True)
+    add("bucketize", lambda r, n: [_fl(r, n, 8), np.sort(_fl(r, 16))],
+        "exact")
+    add("histogram", lambda r, n: [_fl(r, n, 8), 10, -2.0, 2.0], "exact")
+    add("bincount", lambda r, n: [r.integers(0, 10, n * 8)], "exact",
+        minlength=12)
+    add("bincount", lambda r, n: [r.integers(0, 10, 40), _fl(r, 40)],
+        "reduce", tag="weights")
+    # statistics
+    for name in ("std", "var"):
+        add(name, lambda r, n: [_fl(r, n, 8)], "reduce", grad=True, axis=1)
+        add(name, lambda r, n: [_fl(r, 4, 5)], "reduce", grad=True,
+            tag="biased", unbiased=False)
+    add("median", lambda r, n: [_fl(r, n, 8)], "reduce", grad=True, axis=1)
+    add("median", lambda r, n: [_fl(r, n, 7)], "reduce", grad=True,
+        tag="odd", axis=1, keepdim=True)
+    add("median", lambda r, n: [_fl(r, 4, 5)], "reduce", grad=True,
+        tag="all")
+    add("median", lambda r, n: [_int(r, n, 8)], "reduce", tag="int32",
+        axis=1)
+    add("nanmedian", lambda r, n: [np.where(_bool(r, n, 8), np.nan, _fl(
+        r, n, 8)).astype(np.float32)], "reduce", axis=1)
+    add("quantile", lambda r, n: [_fl(r, n, 8), 0.3, 1], "reduce",
+        grad=True)
+    add("quantile", lambda r, n: [_fl(r, n, 8), [0.25, 0.75], 1],
+        "reduce", grad=True, tag="list")
+    add("nanquantile", lambda r, n: [np.where(_bool(r, n, 8), np.nan, _fl(
+        r, n, 8)).astype(np.float32), 0.4, 1], "reduce")
+    add("numel", lambda r, n: [_fl(r, n, 8)], "exact")
+    add("corrcoef", lambda r, n: [_fl(r, 4, 64)], "reduce", grad=True)
+    add("cov", lambda r, n: [_fl(r, 4, 64)], "reduce", grad=True)
+    add("cov", lambda r, n: [_fl(r, 64, 4)], "reduce", tag="cols",
+        rowvar=False, ddof=False)
+    # linalg
+    for p in ("fro", 1, "inf", 3):
+        add("norm", lambda r, n: [_fl(r, n, 8)], "reduce", grad=True,
+            tag=str(p), p=p)
+    for p, ax in ((2, 1), ("-inf", 1), (0, 1), ("fro", [0, 1])):
+        add("norm", lambda r, n: [_fl(r, n, 8)], "reduce", grad=p != 0,
+            tag=f"{p}:{ax}", p=p, axis=ax, keepdim=True)
+    for p in (2, float("inf"), 0, 1.5):
+        add("dist", lambda r, n: [_fl(r, n, 8), _fl(r, n, 8)], "reduce",
+            grad=p != 0, tag=str(p), p=p)
+    add("cholesky", lambda r, n: [_spd(r, b, k)], "linalg", grad=True)
+    add("cholesky", lambda r, n: [_spd(r, b, k)], "linalg", tag="upper",
+        upper=True)
+    add("cholesky_solve", lambda r, n: [_fl(r, b, k, 2), np.linalg.cholesky(
+        _spd(r, b, k)).astype(np.float32)], "linalg", grad=True)
+    add("inverse", lambda r, n: [_well(r, b, k)], "linalg", grad=True)
+    add("inv", lambda r, n: [_well(r, b, k)], "linalg")
+    add("pinv", lambda r, n: [_fl(r, b, k, k // 2)], "linalg")
+    add("det", lambda r, n: [_well(r, b, k)], "linalg", grad=True)
+    add("slogdet", lambda r, n: [_well(r, b, k)], "linalg", grad=True)
+    add("svd", lambda r, n: [_fl(r, b, k, k // 2 + 1)], "linalg",
+        post=_svd_post)
+    add("qr", lambda r, n: [_fl(r, b, k, k // 2 + 1)], "linalg",
+        post=_qr_post)
+    add("eig", lambda r, n: [_sym(r, b, k)], "linalg", post=_sorted_real)
+    add("eigh", lambda r, n: [_sym(r, b, k)], "linalg", post=_eigh_post)
+    add("eigvals", lambda r, n: [_sym(r, b, k)], "linalg",
+        post=_sorted_real)
+    add("eigvalsh", lambda r, n: [_sym(r, b, k)], "linalg", grad=True)
+    add("matrix_power", lambda r, n: [_well(r, b, k), 3], "linalg",
+        grad=True)
+    add("matrix_rank", lambda r, n: [_fl(r, b, k, 2) @ _fl(r, b, 2, k)],
+        "exact")
+    add("solve", lambda r, n: [_well(r, b, k), _fl(r, b, k, 2)], "linalg",
+        grad=True)
+    add("triangular_solve", lambda r, n: [np.triu(_well(r, b, k)),
+                                          _fl(r, b, k, 2)], "linalg",
+        grad=True)
+    add("triangular_solve", lambda r, n: [np.tril(_well(r, b, k)),
+                                          _fl(r, b, k, 2)], "linalg",
+        tag="lower_t_unit", upper=False, transpose=True, unitriangular=True)
+    add("lstsq", lambda r, n: [_fl(r, 3 * k, k), _fl(r, 3 * k, 2)],
+        "linalg")
+    add("lu", lambda r, n: [_well(r, b, k)], "linalg", post=_lu_post)
+    add("lu_unpack", lambda r, n: list(_np_lu(_well(r, 1, k)[0])),
+        "linalg")
+    add("multi_dot", lambda r, n: [[_fl(r, n, 8), _fl(r, 8, 4),
+                                    _fl(r, 4, 3)]], "reduce", grad=True)
+    add("matrix_transpose", lambda r, n: [_fl(r, 2, n, 8)], "exact",
+        grad=True)
+    add("cond", lambda r, n: [_well(r, b, k)], "linalg")
+    add("householder_product", lambda r, n: _reflectors(r, k, k // 2 + 1),
+        "linalg")
+    add("pca_lowrank", lambda r, n: [_fl(r, 64, 8)], "linalg",
+        post=_pca_post)
+    # the rest
+    add("add_n", lambda r, n: [[_fl(r, n, 8), _fl(r, n, 8), _fl(r, n, 8)]],
+        grad=True)
+    add("mv", lambda r, n: [_fl(r, n, 8), _fl(r, 8)], "reduce", grad=True)
+    add("sgn", lambda r, n: [_fl(r, n, 8)], "exact", grad=True)
+    add("sgn", lambda r, n: [_cplx(r, n, 8)], tag="complex")
+    add("logcumsumexp", lambda r, n: [_fl(r, n, 8)], "reduce", grad=True,
+        axis=1)
+    add("logcumsumexp", lambda r, n: [_fl(r, 4, 5)], "reduce", grad=True,
+        tag="flat")
+    add("reverse", lambda r, n: [_fl(r, n, 8), [1]], "exact", grad=True)
+    add("shape", lambda r, n: [_fl(r, n, 8)], "exact")
+    add("rank", lambda r, n: [_fl(r, n, 8)], "exact")
+    add("tolist", lambda r, n: [_int(r, 3, 4)], "exact")
+    add("reshape_", lambda r, n: [_fl(r, n, 8), [8, -1]], "exact")
+    add("squeeze_", lambda r, n: [_fl(r, n, 1, 8), 1], "exact")
+    add("unsqueeze_", lambda r, n: [_fl(r, n, 8), 0], "exact")
+    add("scatter_", lambda r, n: [_fl(r, n, 8), r.permutation(n)[:3],
+                                  _fl(r, 3, 8)], "exact")
+    add("tanh_", lambda r, n: [_fl(r, n, 8)])
+    add("einsum", lambda r, n: ["ij,jk->ik", _fl(r, n, 8), _fl(r, 8, 4)],
+        "reduce", grad=True)
+    add("einsum", lambda r, n: ["bij,bjk->bik", _fl(r, 2, n, 8),
+                                _fl(r, 2, 8, 4)], "reduce", tag="batched")
+    # random: shapes and dtypes only
+    add("rand", lambda r, n: [[n, 8]], "random")
+    add("randn", lambda r, n: [[n, 8]], "random")
+    add("standard_normal", lambda r, n: [[n, 8]], "random")
+    add("normal", lambda r, n: [0.0, 1.0, [n, 8]], "random")
+    add("normal", lambda r, n: [_fl(r, n, 8), _pos(r, n, 8)], "random",
+        tag="tensors")
+    add("uniform", lambda r, n: [[n, 8]], "random", min=-2.0, max=2.0)
+    add("randint", lambda r, n: [0, 10, [n, 8]], "random")
+    add("randint_like", lambda r, n: [_int(r, n, 8), 0, 5], "random")
+    add("randperm", lambda r, n: [64], "random")
+    add("bernoulli", lambda r, n: [r.random((n, 8)).astype(np.float32)],
+        "random")
+    add("poisson", lambda r, n: [_pos(r, n, 8)], "random")
+    add("multinomial", lambda r, n: [r.random((4, 10)).astype(
+        np.float32), 3], "random")
+    add("rand_like", lambda r, n: [_fl(r, n, 8)], "random")
+    add("randn_like", lambda r, n: [_fl(r, n, 8)], "random")
+    add("normal_like", lambda r, n: [_fl(r, n, 8)], "random")
+    add("create_parameter", lambda r, n: [[n, 8], "float32"], "random")
+    # nn.functional activations
+    for name, kw in _ACTIVATIONS:
+        add("F." + name, lambda r, n: [_fl(r, n, 8)], grad=True,
+            tag=",".join(f"{a}={v}" for a, v in kw.items()), **kw)
+    add("F.prelu", lambda r, n: [_fl(r, n, 4, 2), _pos(r, 4)], grad=True)
+    add("F.prelu", lambda r, n: [_fl(r, n, 8), _pos(r, 1)], grad=True,
+        tag="one")
+    add("F.maxout", lambda r, n: [_fl(r, n, 8, 2), 2], grad=True, axis=1)
+    add("F.gumbel_softmax", lambda r, n: [_fl(r, n, 8)], "random")
+    for name in ("relu_", "elu_", "tanh_", "softmax_"):
+        add("F." + name, lambda r, n: [_fl(r, n, 8)])
+    return L
+
+
+def op_module(name):
+    """The port module a table row belongs to ("activation" for
+    ``nn.functional``)."""
+    if name.startswith("F."):
+        return "activation"
+    from paddle_tpu_torch import tensor_ops
+    for mod in ("creation", "math", "manipulation", "logic", "search",
+                "stat", "linalg", "random", "extras"):
+        if name in getattr(tensor_ops, mod).__all__:
+            return mod
+    return "einsum"
+
+
+def op_args(case, n, seed=0):
+    """A row's positional numpy inputs (seeded by its id)."""
+    rng = np.random.default_rng([seed, *case.id.encode()])
+    return case.make(rng, n)
+
+
+def grad_slot(args):
+    """Where the gradient goes: the first float array, at the top level
+    (i) or inside a list argument ((i, j)); None when there is none."""
+    for i, a in enumerate(args):
+        if isinstance(a, np.ndarray) and a.dtype.kind == "f":
+            return (i,)
+        if isinstance(a, list):
+            for j, x in enumerate(a):
+                if isinstance(x, np.ndarray) and x.dtype.kind == "f":
+                    return (i, j)
+    return None
+
+
+def convert_args(args, convert, slot=None, mark=None):
+    """``args`` with every numpy array passed through ``convert`` (the one
+    at ``slot`` through ``mark``, which returns the leaf to differentiate
+    by); strings, python scalars and lists of ints stay as they are."""
+    out = []
+    for i, a in enumerate(args):
+        if isinstance(a, list) and any(isinstance(x, np.ndarray)
+                                       for x in a):
+            out.append([mark(x) if slot == (i, j) else convert(x)
+                        for j, x in enumerate(a)])
+        elif isinstance(a, np.ndarray):
+            out.append(mark(a) if slot == (i,) else convert(a))
+        else:
+            out.append(a)
+    return out
+
+
+def _has_array(x):
+    return hasattr(x, "shape") or (isinstance(x, (tuple, list))
+                                   and any(_has_array(y) for y in x))
+
+
+def flat_outputs(out):
+    """An op's result as a flat list: tuples and lists of tensors
+    unrolled, a list of python numbers kept whole, None dropped."""
+    if out is None:
+        return []
+    if isinstance(out, (tuple, list)) and _has_array(out):
+        return [o for x in out for o in flat_outputs(x)]
+    return [out]
+
+
+def weights_for(shape):
+    """The seeded cotangent of a result of ``shape``."""
+    return np.random.default_rng(1).standard_normal(shape).astype(
+        np.float32)
+
+
+def _map64(name):
+    return {"int64": "int32", "float64": "float32",
+            "complex128": "complex64"}.get(name, name)
+
+
+def port_op(pt, case, args, device, grad=False):
+    """Run a table row on the port on ``device``: (outputs as numpy
+    arrays, their dtype names, the gradient as numpy or None, the terms
+    each gradient element sums)."""
+    from paddle_tpu_torch.nn import functional as F
+    fn = (getattr(F, case.name[2:]) if case.name.startswith("F.")
+          else getattr(pt, case.name))
+    dev = torch.device(device)
+    slot = grad_slot(args) if grad else None
+    leaf = []
+
+    def convert(a):
+        return pt.to_tensor(a, place=dev)
+
+    def mark(a):
+        t = pt.to_tensor(a, place=dev, stop_gradient=False)
+        leaf.append(t)
+        return t
+
+    with using_device(str(dev)):
+        out = fn(*convert_args(args, convert, slot, mark), **case.kw)
+    outs = flat_outputs(out)
+    g, terms = None, 1
+    if slot is not None:
+        y = next(o for o in outs if isinstance(o, torch.Tensor)
+                 and o.is_floating_point())
+        w = torch.from_numpy(weights_for(tuple(y.shape))).to(dev, y.dtype)
+        torch.sum(y * w).backward()
+        g = leaf[0].grad.detach().float().cpu().numpy()
+        terms = max(1, y.numel() // max(1, leaf[0].numel()))
+    arrays, dtypes = [], []
+    for o in outs:
+        if isinstance(o, torch.Tensor):
+            dtypes.append(str(o.dtype).replace("torch.", ""))
+            o = o.detach()
+            o = o.float() if o.dtype == torch.bfloat16 else o
+            arrays.append(o.cpu().numpy())
+        else:
+            dtypes.append(type(o).__name__)
+            arrays.append(np.asarray(o))
+    return arrays, dtypes, g, terms
+
+
+@contextlib.contextmanager
+def using_device(device):
+    """The framework's default device set to ``device`` inside."""
+    from paddle_tpu_torch.framework import device as dmod
+    before = dmod._current_device
+    dmod._current_device = device
+    try:
+        yield
+    finally:
+        dmod._current_device = before
+
+
+def compare_op(case, args, got, want):
+    """None when ``got`` (outputs as numpy) matches ``want`` under the
+    row's kind, else what differs. Integer and bool arrays bit for bit."""
+    if case.post is not None:
+        got, want = case.post(got, args), case.post(want, args)
+    if len(got) != len(want):
+        return f"{len(got)} outputs vs {len(want)}"
+    tol = OP_TOL[case.kind]
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.shape != w.shape:
+            return f"output {i}: shape {g.shape} vs {w.shape}"
+        if tol is None:
+            continue
+        if g.dtype.kind in "biu" or w.dtype.kind in "biu" or tol == 0.0:
+            if not np.array_equal(g, w, equal_nan=g.dtype.kind in "fc"):
+                bad = int(np.sum(g != w))
+                return f"output {i}: {bad} elements differ"
+            continue
+        g64 = g.astype(np.complex128 if g.dtype.kind == "c" else np.float64)
+        w64 = w.astype(g64.dtype)
+        if case.kind == "linalg":       # normwise: |g - w| <= tol max|w|
+            scale = max(float(np.abs(w64).max(initial=0.0)), 1e-30)
+            err = float(np.abs(g64 - w64).max(initial=0.0)) / scale
+            if not err <= tol:
+                return f"output {i}: {err:.3g} of its largest beyond {tol}"
+        elif not np.allclose(g64, w64, rtol=tol, atol=tol, equal_nan=True):
+            err = np.nanmax(np.abs(g64 - w64) / (np.abs(w64) + 1))
+            return f"output {i}: {err:.3g} beyond {tol}"
+    return None
+
+
+def compare_grad(case, got, want, terms=1):
+    """None when two gradients agree within ``GRAD_TOL`` (or the row's
+    tolerance, if larger) of the larger one's largest element, times
+    ``sqrt(terms)``: the terms each gradient element sums."""
+    if got is None or want is None:
+        return None if got is None and want is None else "one gradient"
+    if got.shape != want.shape:
+        return f"gradient shape {got.shape} vs {want.shape}"
+    tol = max(GRAD_TOL, OP_TOL[case.kind] or 0.0) * float(np.sqrt(terms))
+    scale = max(np.abs(want).max(initial=0.0), 1.0)
+    err = np.abs(got.astype(np.float64) - want).max(initial=0.0) / scale
+    return None if err <= tol else f"gradient {err:.3g} beyond {tol}"
+
+
+
+def user_decoder_layer(paddle, hidden, heads, ffn, eps=1e-5, theta=10000.0):
+    """A Llama decoder layer as a user writes it on paddle's eager
+    surface, with ``paddle`` either package: ``nn.Layer`` subclasses whose
+    weights come from ``create_parameter`` (names as
+    ``LlamaDecoderLayer``'s, so state dicts carry across), RMSNorm from
+    ``rsqrt``/``mean``, rotary embedding by ``split``/``concat``, scores by
+    ``matmul(transpose_y=True)``, a causal mask from ``triu``/``where``,
+    ``F.softmax`` and ``F.silu``. Works on [B, L, hidden] inputs."""
+    F = paddle.nn.functional
+    hd = hidden // heads
+    ones = paddle.nn.initializer.Constant(1.0)
+
+    class Proj(paddle.nn.Layer):
+        def __init__(self, n_in, n_out):
+            super().__init__()
+            self.weight = self.create_parameter([n_in, n_out])
+
+        def forward(self, x):
+            return paddle.matmul(x, self.weight)
+
+    class Norm(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter([hidden],
+                                                default_initializer=ones)
+
+        def forward(self, x):
+            ms = paddle.mean(x * x, axis=-1, keepdim=True)
+            return x * paddle.rsqrt(ms + eps) * self.weight
+
+    def rotary(t, length):
+        inv = 1.0 / (theta ** (paddle.arange(0, hd, 2, dtype="float32")
+                               / hd))
+        freqs = paddle.unsqueeze(paddle.arange(0, length, dtype="float32"),
+                                 [1]) * paddle.unsqueeze(inv, [0])
+        cos = paddle.reshape(paddle.cos(freqs), [1, length, 1, hd // 2])
+        sin = paddle.reshape(paddle.sin(freqs), [1, length, 1, hd // 2])
+        t1, t2 = paddle.split(t, 2, axis=-1)
+        return paddle.concat([t1 * cos - t2 * sin, t1 * sin + t2 * cos],
+                             axis=-1)
+
+    class Attention(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.q_proj = Proj(hidden, hidden)
+            self.k_proj = Proj(hidden, hidden)
+            self.v_proj = Proj(hidden, hidden)
+            self.o_proj = Proj(hidden, hidden)
+
+        def forward(self, x):
+            b, length = x.shape[0], x.shape[1]
+
+            def heads_of(t):
+                return paddle.reshape(t, [b, length, heads, hd])
+
+            q = rotary(heads_of(self.q_proj(x)), length)
+            k = rotary(heads_of(self.k_proj(x)), length)
+            q, k, v = (paddle.transpose(t, [0, 2, 1, 3])
+                       for t in (q, k, heads_of(self.v_proj(x))))
+            s = paddle.matmul(q, k, transpose_y=True) * (hd ** -0.5)
+            future = paddle.triu(paddle.ones([length, length]), diagonal=1)
+            s = paddle.where(future > 0, paddle.full_like(s, -1e30), s)
+            o = paddle.matmul(F.softmax(s, axis=-1), v)
+            o = paddle.reshape(paddle.transpose(o, [0, 2, 1, 3]),
+                               [b, length, hidden])
+            return self.o_proj(o)
+
+    class MLP(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.gate_proj = Proj(hidden, ffn)
+            self.up_proj = Proj(hidden, ffn)
+            self.down_proj = Proj(ffn, hidden)
+
+        def forward(self, x):
+            return self.down_proj(F.silu(self.gate_proj(x))
+                                  * self.up_proj(x))
+
+    class DecoderLayer(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.input_layernorm = Norm()
+            self.self_attn = Attention()
+            self.post_attention_layernorm = Norm()
+            self.mlp = MLP()
+
+        def forward(self, x):
+            x = x + self.self_attn(self.input_layernorm(x))
+            return x + self.mlp(self.post_attention_layernorm(x))
+
+    return DecoderLayer()
+
+
+
+P26_LAYER = dict(hidden=4096, heads=32, ffn=11008)     # Llama-2-7B
+P26_TOKENS = 2048                                      # [1, 2048]
+P26_REPS = 5                                           # timed fwd+bwd
+# 26b: the user layer against LlamaDecoderLayer, fp32 with TF32 off:
+# relative norm of the output and of every parameter's gradient
+P26_TOL = 1e-4
+P26C = dict(hidden=64, batch=32, warmup=40, steps=50)  # tools/bench_eager.py
+P26D_TOL = 1e-5
+
+
+def phase_eager_ops(pt, n=OP_ROWS_CARD, device="cuda"):
+    """26a: every row of the op table on the card against a CPU copy:
+    outputs (and gradients) within the row's tolerance, dtypes equal.
+    Returns {module: [passed, rows]} and the five slowest rows (seconds,
+    both devices); raises listing every failure."""
+    counts, fails, times = {}, [], []
+    for case in op_cases(n):
+        args = op_args(case, n)
+        mod = counts.setdefault(op_module(case.name), [0, 0])
+        mod[1] += 1
+        t0 = time.perf_counter()
+        try:
+            got = port_op(pt, case, args, device, grad=case.grad)
+            want = port_op(pt, case, args, "cpu", grad=case.grad)
+            err = (None if got[1] == want[1]
+                   else f"dtypes {got[1]} vs {want[1]}")
+            err = err or compare_op(case, args, got[0], want[0]) \
+                or compare_grad(case, got[2], want[2], want[3])
+        except Exception as e:                  # noqa: BLE001 (listed)
+            err = f"{type(e).__name__}: {e}"
+        times.append((round(time.perf_counter() - t0, 3), case.id))
+        if err:
+            fails.append(f"{case.id}: {err}")
+        else:
+            mod[0] += 1
+    if fails:
+        raise AssertionError(f"26a: {len(fails)} rows differ from the CPU: "
+                             + "; ".join(fails[:40]))
+    return counts, sorted(times, reverse=True)[:5]
+
+
+def _rel_norm(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def _fwd_bwd(layer, x):
+    """One forward and backward (loss = mean(out^2)); the output."""
+    out = layer(x)
+    torch.mean(out * out).backward()
+    return out
+
+
+def _time_fwd_bwd(layer, x, reps, device):
+    times = []
+    for _ in range(reps):
+        layer.zero_grad(set_to_none=True)
+        sync(device)
+        t0 = time.perf_counter()
+        _fwd_bwd(layer, x)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    layer.zero_grad(set_to_none=True)
+    return float(np.median(times)) * 1e3
+
+
+def phase_user_layer(fa, fc, rm, pt, LlamaConfig, LlamaDecoderLayer,
+                     layer=P26_LAYER, tokens=P26_TOKENS, reps=P26_REPS,
+                     tol=P26_TOL, device="cuda"):
+    """26b: ``user_decoder_layer`` (the user's flat-op ``nn.Layer``)
+    holding the weights of the port's ``LlamaDecoderLayer`` built from
+    seed 0, fp32: output and every parameter's gradient after
+    ``loss.backward()`` within ``tol`` (relative norm) of the port
+    layer's; rows 1-3 launch once each in a call of the port layer and
+    never in the user's; the median of ``reps`` fwd+bwd times and the
+    peak memory of each."""
+    with using_device(device):
+        return _user_layer(fa, fc, rm, pt, LlamaConfig, LlamaDecoderLayer,
+                           layer, tokens, reps, tol, device)
+
+
+def _user_layer(fa, fc, rm, pt, LlamaConfig, LlamaDecoderLayer, layer,
+                tokens, reps, tol, device):
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    cfg = LlamaConfig(hidden_size=layer["hidden"],
+                      intermediate_size=layer["ffn"],
+                      num_attention_heads=layer["heads"],
+                      num_key_value_heads=layer["heads"], dtype="float32")
+    pt.seed(0)
+    ref = LlamaDecoderLayer(cfg, device=device)
+    user = user_decoder_layer(pt, layer["hidden"], layer["heads"],
+                              layer["ffn"], cfg.rms_norm_eps, cfg.rope_theta)
+    load_numpy_state_dict(user, {k: v.detach().cpu().numpy()
+                                 for k, v in ref.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, tokens, layer["hidden"])).astype(np.float32)).to(device)
+    _reset(fa, fc, rm)
+    out_ref = _fwd_bwd(ref, x).detach()
+    ref_launches = _counts(fa, fc, rm)
+    _reset(fa, fc, rm)
+    out_user = _fwd_bwd(user, x).detach()
+    user_launches = _counts(fa, fc, rm)
+    want = (dict(flash_attention_fwd=1, flash_attention_bwd_dq=1,
+                 flash_attention_bwd_dkv=1) if device != "cpu" else
+            dict(flash_attention_fwd=0, flash_attention_bwd_dq=0,
+                 flash_attention_bwd_dkv=0))
+    for k, v in want.items():
+        if ref_launches[k] != v:
+            raise AssertionError(f"26b: {k} launched {ref_launches[k]} "
+                                 f"times in a LlamaDecoderLayer call, not "
+                                 f"{v}")
+    if any(user_launches[k] for k in want):
+        raise AssertionError(f"26b: the user layer launched a port kernel: "
+                             f"{user_launches}")
+    refp = dict(ref.named_parameters())
+    errs = {"output": _rel_norm(out_user, out_ref)}
+    errs.update({k: _rel_norm(p.grad, refp[k].grad)
+                 for k, p in user.named_parameters()})
+    worst = max(errs, key=errs.get)
+    if errs[worst] > tol:
+        raise AssertionError(f"26b: {worst} {errs[worst]:.3g} beyond {tol} "
+                             f"(relative norm): {errs}")
+    res = dict(widths=dict(layer, tokens=tokens), tol=tol,
+               worst=[worst, errs[worst]], output_rel=errs["output"],
+               launches={k: ref_launches[k] for k in want})
+    del out_ref, out_user
+    for name, mod in (("llama_decoder_layer", ref), ("user_layer", user)):
+        mod.zero_grad(set_to_none=True)
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        reset_peak(device)
+        res[name + "_ms"] = _time_fwd_bwd(mod, x, reps, device)
+        res[name + "_peak_gib"] = peak_gib(device)
+    return res
+
+
+def eager_mlp_losses(pt, F, hidden, batch, steps, device):
+    """``tools/bench_eager.py``'s loop on the port's eager API: ``Sequential
+    (Linear, ReLU, Linear)`` from ``seed(0)``, ``cross_entropy``,
+    ``backward``, ``Adam(1e-3)``, ``clear_grad``; (the step, its losses)."""
+    rng = np.random.default_rng(0)
+    x = pt.to_tensor(rng.standard_normal((batch, hidden)).astype(
+        np.float32), place=device)
+    y = pt.to_tensor(rng.integers(0, 10, (batch,)), place=device)
+    with using_device(device):
+        pt.seed(0)
+        net = pt.nn.Sequential(pt.nn.Linear(hidden, hidden), pt.nn.ReLU(),
+                               pt.nn.Linear(hidden, 10))
+    opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=net.parameters())
+    losses = []
+
+    def step():
+        loss = F.cross_entropy(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+        return loss
+
+    return step, losses
+
+
+def phase_eager_loop(pt, F, cfg=P26C, device="cuda"):
+    """26c: ms a step over ``steps`` steps after ``warmup``, device
+    launches a step (one profiled step), and the losses of two runs from
+    the same seed equal bit for bit."""
+    runs = []
+    for _ in range(2):
+        step, losses = eager_mlp_losses(pt, F, cfg["hidden"], cfg["batch"],
+                                        cfg["steps"], device)
+        for _ in range(cfg["warmup"]):
+            step()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(cfg["steps"]):
+            step()
+        sync(device)
+        ms = (time.perf_counter() - t0) / cfg["steps"] * 1e3
+        runs.append((ms, [float(v) for v in losses]))
+    if runs[0][1] != runs[1][1]:
+        raise AssertionError("26c: the losses did not repeat under seed(0)")
+    if not runs[0][1][-1] < runs[0][1][0]:
+        raise AssertionError(f"26c: the loss did not drop: {runs[0][1][0]} "
+                             f"-> {runs[0][1][-1]}")
+    prof = (profile_step(step) if device != "cpu" else {})
+    return dict(ms_per_step=[r[0] for r in runs],
+                launches_per_step=prof.get("device_kernel_launches"),
+                device_idle_share=prof.get("device_idle_share"),
+                first_losses=runs[0][1][:3], last_loss=runs[0][1][-1],
+                bitwise_repeat=True)
+
+
+def _autograd_probe(pt, device):
+    """A PyLayer cube, ``jacobian`` and ``hessian`` of a small function,
+    on ``device``: a list of numpy arrays."""
+    with using_device(device):
+        return _probe(pt, device)
+
+
+def _probe(pt, device):
+    class Cube(pt.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x * x * x
+
+        @staticmethod
+        def backward(ctx, dy):
+            (x,) = ctx.saved_tensor()
+            return dy * 3 * x * x
+
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((64, 32)).astype(np.float32)
+    x = pt.to_tensor(a, place=device, stop_gradient=False)
+    y = Cube.apply(x)
+    pt.autograd.backward(pt.sum(y * pt.to_tensor(weights_for(a.shape),
+                                                 place=device)))
+    v = pt.to_tensor(rng.standard_normal(16).astype(np.float32),
+                     place=device)
+    w = pt.to_tensor(rng.standard_normal((16, 16)).astype(np.float32),
+                     place=device)
+
+    def f(t):
+        return pt.sum(pt.tanh(pt.matmul(w, t)) ** 2)
+
+    jac = pt.autograd.jacobian(lambda t: pt.tanh(pt.matmul(w, t)), v)
+    hes = pt.autograd.hessian(f, v)
+    return [t.detach().cpu().numpy() for t in (y, x.grad, jac, hes)]
+
+
+def phase_autograd(pt, device="cuda", tol=P26D_TOL):
+    """26d: the probe on the card against the CPU, each result within
+    ``tol`` of the CPU's largest element."""
+    got, want = _autograd_probe(pt, device), _autograd_probe(pt, "cpu")
+    errs = [float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+            for g, w in zip(got, want)]
+    names = ["pylayer_out", "pylayer_grad", "jacobian", "hessian"]
+    if max(errs) > tol:
+        raise AssertionError(f"26d: {dict(zip(names, errs))} beyond {tol}")
+    return dict(zip(names, errs))
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -8171,6 +9466,30 @@ def main():
         f"{bert['22b']['kernels']['step_ms']:.1f} ms ({smi_line()})")
     log(f"  phase 25 took {time.perf_counter() - t25:.1f} s ({smi_line()})")
 
+    # ---- 26. the eager user surface -----------------------------------------
+    t26 = time.perf_counter()
+    log(f"[26] the eager user surface: 26a every row of the op table "
+        f"({len(op_cases(OP_ROWS_CARD))} rows at {OP_ROWS_CARD} x 8 "
+        f"elements, linalg at its own shapes) on the card against a CPU "
+        f"copy; 26b a Llama-2-7B decoder layer written as a user nn.Layer "
+        f"in the flat ops (hidden {P26_LAYER['hidden']}, "
+        f"{P26_LAYER['heads']} heads, FFN {P26_LAYER['ffn']}, fp32, "
+        f"[1, {P26_TOKENS}]) against LlamaDecoderLayer; 26c "
+        f"tools/bench_eager.py's loop on the port's API; 26d a PyLayer, "
+        f"jacobian and hessian on the card against the CPU")
+    from paddle_tpu_torch.text.models.llama import LlamaDecoderLayer
+    t26a = time.perf_counter()
+    op_counts, slowest = phase_eager_ops(pt)
+    log(f"  26a rows passed per module {json.dumps(op_counts)} "
+        f"({time.perf_counter() - t26a:.1f} s; slowest rows {slowest})")
+    user_layer = phase_user_layer(fa, fc, rm, pt, LlamaConfig,
+                                  LlamaDecoderLayer)
+    log("  26b " + json.dumps(user_layer))
+    eager_loop = phase_eager_loop(pt, F)
+    log("  26c " + json.dumps(eager_loop))
+    log("  26d " + json.dumps(phase_autograd(pt)))
+    log(f"  phase 26 took {time.perf_counter() - t26:.1f} s ({smi_line()})")
+
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
     kernels = [
@@ -8312,6 +9631,12 @@ def main():
             kd["hapi"] = dict(
                 launches_25c_fit_step=hapi_launches[kd["name"]],
                 launches_25c_fit_step_tc=hapi_launches[kd["name"] + "_tc"])
+    # rows 1-3 in phase 26b: launches in one call (forward and backward) of
+    # the port's LlamaDecoderLayer at Llama-2-7B's widths, fp32
+    for kd in kernels:
+        if kd["name"].startswith("flash_attention_"):
+            kd["eager"] = dict(
+                launches_26b_call=user_layer["launches"][kd["name"]])
     ragged_cols = ("variant", "first_version_ms")
     kernels.append(dict(
         name="ragged_group_matmul", route="cuda",

@@ -79,6 +79,7 @@ from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from ...amp.auto_cast import auto_cast
 from ...framework import attempt
+from ...optimizer.optimizer import lr_scales
 from .. import mesh as mesh_mod
 from ..collective import ReduceOp, all_reduce, gather_dim, reduce_scatter_dim
 from .placement import place_model, placement, saving
@@ -125,6 +126,7 @@ class TrainStep:
         place_model(model, m, self.stage)
         self._params = {k: p for k, p in model.named_parameters()
                         if p.requires_grad}
+        self._lr_scale = lr_scales(self._params)
         self._buffers = dict(model.named_buffers())
         self._pspec = {k: placement(p) for k, p in self._params.items()}
         self._ospec = {k: mesh_mod.opt_state_pspec(
@@ -313,7 +315,8 @@ class TrainStep:
             if not skip:
                 self.optimizer.apply_in_place(
                     self._views, grads, self._state, self.optimizer.get_lr(),
-                    specs=self._ospec if self.mesh.size > 1 else None)
+                    specs=self._ospec if self.mesh.size > 1 else None,
+                    lr_scale=self._lr_scale)
             del grads
             for k, d in self._odim.items():
                 if d is not None and not skip:

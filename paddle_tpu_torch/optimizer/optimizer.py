@@ -34,6 +34,15 @@ from .lr import LRScheduler
 __all__ = ["Optimizer"]
 
 
+def lr_scales(params: dict) -> dict:
+    """name -> the learning-rate factor ``ParamAttr(learning_rate=)`` set
+    on that parameter (``param.optimize_attr``), for those that have
+    one."""
+    return {k: float(p.optimize_attr["learning_rate"])
+            for k, p in params.items()
+            if "learning_rate" in getattr(p, "optimize_attr", {})}
+
+
 class Optimizer:
     _decoupled = False      # AdamW decays in update_param, not via grads
 
@@ -88,12 +97,14 @@ class Optimizer:
 
     # -- the update, shared by both ways in --------------------------------
     def _updates(self, params: dict, grads: dict, state: dict, lr,
-                 specs=None):
+                 specs=None, lr_scale=None):
         """Yield ``(name, new_param, new_state)`` one parameter at a
         time, after the clip and the coupled L2 decay. A missing state is
         initialised. Under hybrid parallelism ``params``, ``grads`` and
         ``state`` are this rank's blocks (the update is elementwise) and
-        ``specs`` their placements, which the clip's norms read."""
+        ``specs`` their placements, which the clip's norms read.
+        ``lr_scale`` maps a name to its parameter's learning-rate factor
+        (``ParamAttr(learning_rate=)``; 1 when absent)."""
         if self._grad_clip is not None:
             grads = self._grad_clip.apply_functional(grads, specs)
         for k, p in params.items():
@@ -106,18 +117,19 @@ class Optimizer:
             st = state.get(k)
             if st is None:
                 st = self.init_param_state(p)
-            new_p, new_st = self.update_param(p, g, st, lr, k)
+            plr = lr * lr_scale[k] if lr_scale and k in lr_scale else lr
+            new_p, new_st = self.update_param(p, g, st, plr, k)
             yield k, new_p, new_st
 
     def apply_in_place(self, params: dict, grads: dict, state: dict, lr,
-                       specs=None):
+                       specs=None, lr_scale=None):
         """Run the update and write each new parameter into ``params[k]``
         and its new state into ``state[k]`` before the next one. A step
         attempt abandoned by its supervisor writes nothing
         (``framework.attempt``)."""
         with torch.no_grad(), attempt.commit():
             for k, new_p, new_st in self._updates(params, grads, state, lr,
-                                                  specs):
+                                                  specs, lr_scale):
                 params[k].copy_(new_p)
                 state[k] = new_st
 
@@ -137,7 +149,8 @@ class Optimizer:
                 if p.grad is not None and p.requires_grad}
         self.apply_in_place({k: p.detach() for k, p in live.items()},
                             {k: p.grad for k, p in live.items()},
-                            self._state, self.get_lr())
+                            self._state, self.get_lr(),
+                            lr_scale=lr_scales(live))
 
     def clear_grad(self, set_to_zero=True):
         for p in self._all_params().values():

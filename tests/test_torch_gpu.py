@@ -1742,3 +1742,28 @@ def test_phase25_at_tiny_size(cuda):
     assert launches == chip_smoke.want_attention_launches(2)
     assert out["resnet"]["channels_last"]["batch"] in (4, 8)
     assert out["hapi_resnet18"]["predict_shape"] == [256, 10]
+
+
+def test_phase26_user_layer_at_reduced_width(cuda):
+    """``chip_smoke`` phase 26b at reduced width (hidden 512, 4 heads of
+    128, FFN 1376, [1, 256], fp32): the user's flat-op decoder layer
+    against the port's ``LlamaDecoderLayer`` on the same weights, rows 1-3
+    once each per call of the port's layer."""
+    from paddle_tpu_torch.text.models.llama import (LlamaConfig,
+                                                    LlamaDecoderLayer)
+    res = chip_smoke.phase_user_layer(
+        fa, fc, rm, pt, LlamaConfig, LlamaDecoderLayer,
+        layer=dict(hidden=512, heads=4, ffn=1376), tokens=256, reps=2)
+    assert res["launches"] == dict(flash_attention_fwd=1,
+                                   flash_attention_bwd_dq=1,
+                                   flash_attention_bwd_dkv=1)
+    assert res["worst"][1] <= chip_smoke.P26_TOL
+
+
+def test_phase26_ops_and_autograd_at_small_size(cuda):
+    """Phase 26a's op table at 64 x 8 elements and 26d's probe on the card
+    against the CPU."""
+    counts, _ = chip_smoke.phase_eager_ops(pt, n=64)
+    assert all(p == n for p, n in counts.values())
+    assert max(chip_smoke.phase_autograd(pt).values()) <= \
+        chip_smoke.P26D_TOL

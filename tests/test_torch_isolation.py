@@ -19,8 +19,10 @@ T5 (then ``generate``) and ViT steps, and deploying a Llama (``save_lm``
 ``tools/torch_chaos_serve.py``), and taking a supervised, checkpointed
 train step through a NaN and an error, then resuming it in a second
 process, and fitting, evaluating, saving and loading a ``paddle.Model``
-on LeNet over MNIST and a channels-last, folded ResNet-18, in processes
-where importing either fails.
+on LeNet over MNIST and a channels-last, folded ResNet-18, and using the
+eager surface (the flat ops, a user ``nn.Layer`` taking an Adam step, a
+``PyLayer`` backward, ``jacobian``), in processes where importing either
+fails.
 Entry points default to CUDA and raise when it is absent.
 """
 import ast
@@ -332,7 +334,13 @@ def test_every_module_imports_with_jax_unimportable():
                   "framework.trace_id", "framework.attempt",
                   "utils", "utils.watchdog", "distributed.checkpoint",
                   "distributed.elastic", "io", "io.dataset", "io.sampler",
-                  "io.dataloader"):
+                  "io.dataloader", "tensor", "tensor_ops.creation",
+                  "tensor_ops.manipulation", "tensor_ops.logic",
+                  "tensor_ops.search", "tensor_ops.stat",
+                  "tensor_ops.linalg", "tensor_ops.random",
+                  "tensor_ops.extras", "tensor_ops.einsum", "autograd",
+                  "autograd.tape", "autograd.py_layer",
+                  "autograd.functional", "nn.layer_base"):
             assert "paddle_tpu_torch." + n in names, n
         sys.path.insert(0, "tools")
         importlib.import_module("torch_ep_train")
@@ -661,5 +669,72 @@ def test_fits_a_model_on_a_cnn_with_jax_unimportable(tmp_path):
     """)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=180,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
+
+
+def test_eager_surface_with_jax_unimportable():
+    """Every module of the eager surface imports, the tiny user decoder
+    ``Layer`` (``chip_smoke.user_decoder_layer``) takes an Adam step and a
+    ``PyLayer`` runs its backward, the flat ops and ``jacobian`` run, in a
+    process where importing JAX or the JAX package fails."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["paddle_tpu"] = None
+        import importlib
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        for n in ("tensor", "tensor_ops", "tensor_ops._factory",
+                  "tensor_ops.creation", "tensor_ops.math",
+                  "tensor_ops.manipulation", "tensor_ops.logic",
+                  "tensor_ops.search", "tensor_ops.stat",
+                  "tensor_ops.linalg", "tensor_ops.random",
+                  "tensor_ops.extras", "tensor_ops.einsum", "autograd",
+                  "autograd.tape", "autograd.py_layer",
+                  "autograd.functional", "nn.layer_base",
+                  "nn.functional.activation", "framework.dtype", "linalg"):
+            importlib.import_module("paddle_tpu_torch." + n)
+        import paddle_tpu_torch as paddle
+        import chip_smoke
+        paddle.set_device("cpu")
+        paddle.seed(0)
+        layer = chip_smoke.user_decoder_layer(paddle, 32, 2, 64)
+        x = paddle.to_tensor(np.ones((1, 8, 32), np.float32))
+        opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                    parameters=layer.parameters())
+        loss = paddle.mean(layer(x) ** 2)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        assert sorted(layer.state_dict())[0] == "input_layernorm.weight"
+
+        class Cube(paddle.autograd.PyLayer):
+            @staticmethod
+            def forward(ctx, t):
+                ctx.save_for_backward(t)
+                return t * t * t
+
+            @staticmethod
+            def backward(ctx, dy):
+                (t,) = ctx.saved_tensor()
+                return dy * 3 * t * t
+
+        t = paddle.to_tensor([2.0], stop_gradient=False)
+        paddle.autograd.backward(Cube.apply(t))
+        assert float(t.grad) == 12.0
+        assert paddle.linalg.norm(paddle.concat(
+            [paddle.ones([2]), paddle.zeros([2])])).item() > 1.4
+        j = paddle.autograd.jacobian(lambda v: v * v,
+                                     paddle.to_tensor([1.0, 2.0]))
+        assert j.shape == (2, 2)
+        assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("OK")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
                        env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert r.returncode == 0 and r.stdout.strip().endswith("OK"), r.stderr
