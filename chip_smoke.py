@@ -416,6 +416,36 @@ failure raises and exits non-zero before the result line is printed:
     defaults: ms a step, device launches a step, losses repeating bit for
     bit under ``seed``. 26d (``phase_autograd``): a ``PyLayer`` (cube),
     ``jacobian`` and ``hessian`` on the card against the CPU.
+27. serving robustness under tp and the observability surface. 27a and
+    27b (``_p27_work`` on phase 14b's two ranks, after its runs, on its
+    cell: Llama-2-7B widths at ``TP_LLAMA_LAYERS`` layers, fp32, TF32 off,
+    phase 5's prompts and geometry, two gloo ranks on cuda:0; checked by
+    ``phase_tp_robust``): a plain ``Engine(tp=2)`` greedy run and a
+    fault-free ``EngineSupervisor(tp=2)`` one (both tokens equal tp=1's;
+    the walls and the verdicts' collectives and their wall printed), then
+    ``EngineSupervisor(tp=2)`` through the ``P27_RUNS`` faults, two a run
+    at supervised steps ``P27_AT`` (``decode-raise`` on both ranks, and a
+    raise, a stall inside the decode step past ``P27_TIMEOUT_S`` and a KV
+    corruption of its shard confined to rank 1), greedy and
+    ``TP_SAMPLED``; the greedy run also stalls rank 1 past its timeout
+    after the last collective of the first decode step
+    (``stall_inside(late=True)``), so that rank 0 has emitted the step's
+    tokens before the group's verdict: every rank's tokens equal phase
+    14's uninterrupted ``Engine(tp=2)`` run's and the tp-1 fp32 engine's
+    on the card, one group rebuild per fault with equal counters and
+    ledgers on both ranks, the recovery walls printed; then
+    ``ReplicaFleet(tp_degrees=[2, 1])`` killing r0 and then r1
+    mid-decode: tokens identical to a tp-1 engine's on the card,
+    ``migrations >= 2``. 27c (``phase_observe``, after phase 20, on phase
+    4's model): phase 5's workload on a fresh engine for each of
+    ``P27C_ARMS``: an untimed warm-up, tracing off and on alternated
+    twice, then under ``profiler.Profiler(targets=[GPU])`` (CUDA
+    activity): the same tokens, row 4 launching 32 x decode steps on
+    ``"split"`` in each run and the profile's
+    ``flash_decode_split_kernel`` count equal to it, every request's five
+    lifecycle spans under its one trace id, the Chrome trace and the
+    Prometheus text well formed and the token counter equal to the
+    handles' tokens; every run's wall printed.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
@@ -3376,12 +3406,13 @@ def tp_serve(model, Engine, ledger, geo, prompts, sampled, **kw):
     return [list(h.tokens) for h in hs], eng.stats(), ledger(hs), wall
 
 
-def _tp_worker(workdir, name):
+def _tp_worker(workdir, name, p27dir=None):
     """One of phase 14's two ranks on cuda:0 (gloo): the cell's whole fp32
     model on the CPU, ``Engine(model, tp=2)`` holding this rank's shards
     and half the KV heads on the card, greedy then sampled + chunked, the
     flash-decode and collective counts set to 0 just before each run and
-    read just after."""
+    read just after. With ``p27dir`` the ranks then run 27a and 27b on the
+    same model (``_p27_work``), which saves a spawn and a model build."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import collective_matmul as cm
     from paddle_tpu_torch.ops import flash_decode as fd
@@ -3408,6 +3439,8 @@ def _tp_worker(workdir, name):
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     with open(os.path.join(workdir, f"tp.{name}.r{rank}.json"), "w") as f:
         json.dump(out, f)
+    if p27dir is not None:
+        _p27_work(model, rank, geo, prompts, p27dir)
     dist.destroy_process_group()
 
 
@@ -3422,7 +3455,7 @@ def tp_collectives(n_layers, run):
 
 
 def phase_tp(Engine, ledger, load_numpy_state_dict,
-             workdir="build/phase14"):
+             workdir="build/phase14", refs=None, p27dir=None):
     """Phase 14: ``Engine(model, tp=2)`` as two ranks sharing cuda:0 over
     gloo (NCCL refuses two ranks on one device), each holding the whole
     fp32 model on the CPU and its shards and half the KV heads on the
@@ -3432,7 +3465,9 @@ def phase_tp(Engine, ledger, load_numpy_state_dict,
     sums. No flash-decode launch (refused with tp > 1, as in JAX); the
     collectives each run issues (``tp_collectives``); the pool at half
     the kv heads. Throughput and ITL over gloo are two processes sharing
-    one card through the host, not multi-GPU speeds."""
+    one card through the host, not multi-GPU speeds. ``refs`` (a dict)
+    receives each cell's tokens, tp=1's and rank 0's, by run; with
+    ``p27dir`` 14b's ranks go on to phase 27a/27b and write there."""
     import shutil
 
     from paddle_tpu_torch import distributed as dist
@@ -3453,10 +3488,17 @@ def phase_tp(Engine, ledger, load_numpy_state_dict,
                    for what, s in (("greedy", False), ("sampled", True))}
             del card
             torch.cuda.empty_cache()
+            p27 = p27dir if name == "14b" else None
+            if p27 is not None:
+                shutil.rmtree(p27, ignore_errors=True)
+                os.makedirs(p27)
             t0 = time.perf_counter()
-            dist.spawn(_tp_worker, args=(workdir, name), nprocs=2,
+            dist.spawn(_tp_worker, args=(workdir, name, p27), nprocs=2,
                        timeout=900)
             spawn_s = time.perf_counter() - t0
+            if p27 is not None:     # 27a/27b's share of the spawn
+                with open(os.path.join(p27, "p27.r0.json")) as f:
+                    spawn_s -= json.load(f)["work_s"]
             ranks = []
             for r in range(2):
                 with open(os.path.join(workdir, f"tp.{name}.r{r}.json")) as f:
@@ -3469,6 +3511,9 @@ def phase_tp(Engine, ledger, load_numpy_state_dict,
                         spawn_s=spawn_s, runs={})
             for what, (toks, st, led, wall) in ref.items():
                 got = [rk["runs"][what] for rk in ranks]
+                if refs is not None:
+                    refs.setdefault(name, {})[what] = dict(
+                        tp1=toks, tp2=got[0]["tokens"])
                 same = [g["tokens"] == toks for g in got]
                 log(f"  {name} {what}: tp=2 tokens identical to tp=1 on "
                     f"rank 0 / rank 1: {same} ({agreement(got[0]['tokens'], toks)})"
@@ -9148,6 +9193,458 @@ def phase_autograd(pt, device="cuda", tol=P26D_TOL):
     return dict(zip(names, errs))
 
 
+# ---------------------------------------------------------------------------
+# phase 27: serving robustness under tp, and the observability surface
+# ---------------------------------------------------------------------------
+
+P27_AT = (6, 14)         # the supervised steps faults fire at: mid-decode
+P27_TIMEOUT_S = 3.0     # step timeout of the stall runs (a step is ~0.1 s)
+P27_STALL_S = 4.5       # rank 1's wedge, past the step timeout
+# the supervised runs: (sampling, its two faults at P27_AT's steps), every
+# fault once, greedy first
+P27_RUNS = (("greedy", ("decode-raise", "rank 1 stall")),
+            ("sampled", ("rank 1 raise", "rank 1 kv-corrupt")))
+# the run in which rank 1 also wedges at the first decode step, after the
+# step's last collective (stall_inside(late=True)): rank 0 finishes the
+# step and emits its tokens before the group's verdict takes them back
+P27_LATE = "greedy"
+# each fault's plan entry (fault, the rank it is confined to or None) and
+# the EngineSupervisor arguments it needs
+P27_FAULTS = {
+    "decode-raise": (("decode-raise", None), {}),
+    "rank 1 raise": (("decode-raise", 1), {}),
+    "rank 1 stall": (("decode-stall", 1),
+                     dict(step_timeout_s=P27_TIMEOUT_S)),
+    "rank 1 kv-corrupt": (("kv-corrupt", 1), dict(kv_probe_interval=1)),
+}
+P27_COUNTER = {"decode-raise": "step_errors", "rank 1 raise": "step_errors",
+               "rank 1 stall": "wedges", "rank 1 kv-corrupt": "kv_corruptions",
+               "rank 1 late stall": "wedges"}
+P27_FLEET_REQUESTS = 4  # 27b: the first 4 of phase 5's prompts
+
+
+def p27_faults(mode, faults):
+    """A run's faults in the order they fire: the late stall first."""
+    return (("rank 1 late stall",) if mode == P27_LATE else ()) + faults
+
+
+def p27_chaos(ChaosMonkey, mode, faults):
+    """The ChaosMonkey and the supervisor arguments of a run's faults, the
+    i-th at supervised step ``P27_AT[i]``."""
+    at, ranks = {}, {}
+    sup_kw = (dict(step_timeout_s=P27_TIMEOUT_S) if mode == P27_LATE
+              else {})
+    for step, name in zip(P27_AT, faults):
+        (fault, rank), kw = P27_FAULTS[name]
+        at[step] = fault
+        if rank is not None:
+            ranks[step] = rank
+        sup_kw.update(kw)
+    return (ChaosMonkey(seed=3, at=at, ranks=ranks, stall_s=P27_STALL_S),
+            sup_kw)
+
+
+def p27_per_request(n, sampled):
+    return ([dict(temperature=0.6, seed=1000 + i) for i in range(n)]
+            if sampled else [{}] * n)
+
+
+def p27_fleet_schedule(server, prompts, per_request, kill=None):
+    """27b's schedule (``tests/test_serving_fleet.py:490``'s): a request,
+    two steps, a second, a step, kill r0, a third, a step, kill r1, the
+    fourth, then drain; 32 new tokens each."""
+    hs = [server.submit(prompts[0], max_new_tokens=32, **per_request[0])]
+    server.step()
+    server.step()
+    hs.append(server.submit(prompts[1], max_new_tokens=32,
+                            **per_request[1]))
+    server.step()
+    if kill:
+        kill("r0")
+    hs.append(server.submit(prompts[2], max_new_tokens=32,
+                            **per_request[2]))
+    server.step()
+    if kill:
+        kill("r1")
+    hs.append(server.submit(prompts[3], max_new_tokens=32,
+                            **per_request[3]))
+    while any(not h.finished for h in hs):
+        server.step()
+    return hs
+
+
+def _p27_join_zombies():
+    for t in threading.enumerate():     # the abandoned step threads
+        if t.name == "supervised-decode":
+            t.join(120)
+
+
+def _p27_work(model, rank, geo, prompts, workdir):
+    """27a and 27b on one of phase 14b's two ranks (its process, its model
+    on the CPU, after its runs): a plain ``Engine(tp=2)`` greedy run and
+    a fault-free ``EngineSupervisor(tp=2)`` one (the supervision's cost),
+    ``EngineSupervisor(tp=2)`` through each of ``P27_RUNS``; then the
+    model on the card, a tp-1 engine's tokens on 27b's schedule and
+    ``ReplicaFleet(tp_degrees=[2, 1])`` killing r0 and r1 on it."""
+    from paddle_tpu_torch.framework.io import load_numpy_state_dict
+    from paddle_tpu_torch.resilience import ChaosMonkey, stall_inside
+    from paddle_tpu_torch.serving import (Engine, EngineSupervisor,
+                                          ReplicaFleet)
+
+    t_start = time.perf_counter()
+    out = dict(rank=rank, runs={}, cost={})
+
+    def timed(server, per_request=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = staggered(server, prompts, 32, per_request)
+        torch.cuda.synchronize()
+        return hs, time.perf_counter() - t0
+
+    # the supervision's cost, fault-free: plain then supervised, greedy,
+    # after phase 14's two runs warmed this process
+    hs, wall = timed(Engine(model, tp=2, **geo))
+    out["cost"]["plain"] = dict(wall_s=wall, tokens=[list(h.tokens)
+                                                     for h in hs])
+    sup = EngineSupervisor(model, tp=2, step_timeout_s=P27_TIMEOUT_S, **geo)
+    hs, wall = timed(sup)
+    st = sup.stats()
+    out["cost"]["supervised"] = dict(
+        wall_s=wall, tokens=[list(h.tokens) for h in hs],
+        verdicts=st["verdicts"]["calls"], verdict_s=st["verdicts"]["seconds"],
+        decode_steps=st["engine"]["decode_steps"],
+        rebuilds=sup.rebuilds)
+    del sup, hs
+    for mode, faults in P27_RUNS:
+        chaos, sup_kw = p27_chaos(ChaosMonkey, mode, faults)
+        sampled = mode == "sampled"
+        sup = EngineSupervisor(model, chaos=chaos, tp=2, **geo, **sup_kw,
+                               **(TP_SAMPLED if sampled else {}))
+        if mode == P27_LATE and rank == 1:
+            stall_inside(sup.engine, P27_STALL_S, late=True)
+        hs, wall = timed(sup, p27_per_request(len(prompts), sampled))
+        _p27_join_zombies()
+        recs = sup.ledger.to_list()
+        stamps = {e: [r["t"] for r in recs if r["event"] == e]
+                  for e in ("anomaly", "replay")}
+        out["runs"][mode] = dict(
+            tokens=[[int(t) for t in h.tokens] for h in hs],
+            reasons=[h.finish_reason for h in hs], wall_s=wall,
+            recovery_s=[b - a for a, b in zip(stamps["anomaly"],
+                                              stamps["replay"])],
+            counters=sup.counters(), tp=sup.engine.tp,
+            records=[{k: v for k, v in r.items() if k != "t"}
+                     for r in recs],
+            trace_ids=[h.trace_id for h in hs])
+        del sup
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 27b: the model on the card (the CPU draws, copied), a tp-1 engine's
+    # tokens on the schedule, then the mixed fleet with both kills
+    card = tp_model("14b", "cuda")
+    load_numpy_state_dict(card, {k: v.numpy()
+                                 for k, v in model.state_dict().items()})
+    fprompts = prompts[:P27_FLEET_REQUESTS]
+    per = p27_per_request(P27_FLEET_REQUESTS, True)
+    ref = p27_fleet_schedule(Engine(card, **geo, **TP_SAMPLED), fprompts,
+                             per)
+    fleet = ReplicaFleet(card, 2, tp_degrees=[2, 1], **geo, **TP_SAMPLED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = p27_fleet_schedule(fleet, fprompts, per, kill=fleet.kill_replica)
+    torch.cuda.synchronize()
+    out["fleet"] = dict(
+        tokens=[[int(t) for t in h.tokens] for h in hs],
+        tp1_tokens=[[int(t) for t in h.tokens] for h in ref],
+        reasons=[h.finish_reason for h in hs],
+        wall_s=time.perf_counter() - t0, migrations=fleet.migrations,
+        replica_kills=fleet.replica_kills,
+        tps={rid: r.engine.tp for rid, r in fleet.replicas.items()},
+        refcounts=all(r.engine.cache.check_refcounts()
+                      for r in fleet.replicas.values()))
+    out["work_s"] = time.perf_counter() - t_start
+    with open(os.path.join(workdir, f"p27.r{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_tp_robust(refs, workdir="build/phase27"):
+    """27a and 27b's checks (see the module docstring) on what phase
+    14b's ranks wrote (``_p27_work``); ``refs`` is phase 14's 14b record:
+    {"greedy"/"sampled": {"tp1": tokens, "tp2": tokens}}."""
+    import shutil
+
+    smi = smi_line()
+    try:
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"p27.r{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    result = dict(work_s=[rk["work_s"] for rk in ranks], runs={})
+    # the supervision's cost
+    cost = [rk["cost"] for rk in ranks]
+    want = refs["greedy"]
+    for c in cost:
+        if not (c["plain"]["tokens"] == c["supervised"]["tokens"]
+                == want["tp1"]) or c["supervised"]["rebuilds"]:
+            raise AssertionError("27a: the fault-free runs' tokens differ "
+                                 "from tp=1's")
+    sv = cost[0]["supervised"]
+    per_step = sv["verdict_s"] / max(sv["verdicts"], 1) * 1e3
+    log(f"  27a fault-free, greedy, rank 0 / rank 1: Engine(tp=2) "
+        f"{[round(c['plain']['wall_s'], 3) for c in cost]} s, "
+        f"EngineSupervisor(tp=2, step_timeout_s={P27_TIMEOUT_S}) "
+        f"{[round(c['supervised']['wall_s'], 3) for c in cost]} s "
+        f"(tokens identical to tp=1); the verdicts: {sv['verdicts']} "
+        f"collectives (two a supervised step; {sv['decode_steps']} decode "
+        f"steps), "
+        f"{sv['verdict_s'] * 1e3:.1f} ms on rank 0 ({per_step:.3f} ms "
+        f"each) ({smi})")
+    result["cost"] = dict(
+        plain_wall_s=[c["plain"]["wall_s"] for c in cost],
+        supervised_wall_s=[c["supervised"]["wall_s"] for c in cost],
+        verdicts=sv["verdicts"], decode_steps=sv["decode_steps"],
+        verdict_s=[c["supervised"]["verdict_s"] for c in cost])
+    for mode, faults in P27_RUNS:
+        faults = p27_faults(mode, faults)
+        name = f"{mode} {' + '.join(faults)}"
+        got = [rk["runs"][mode] for rk in ranks]
+        want = refs[mode]
+        same = [g["tokens"] == want["tp1"] == want["tp2"] for g in got]
+        counts = {P27_COUNTER[f]: [g["counters"][P27_COUNTER[f]]
+                                   for g in got] for f in faults}
+        where = ("the late stall at the first decode step, the others "
+                 if mode == P27_LATE else "")
+        log(f"  27a {name} ({where}at supervised steps {list(P27_AT)}): "
+            f"tokens "
+            f"identical to tp=1 and to phase 14's uninterrupted tp=2 on "
+            f"rank 0 / rank 1: {same} "
+            f"({agreement(got[0]['tokens'], want['tp1'])}); rebuilds "
+            f"{[g['counters']['rebuilds'] for g in got]}, {counts}; "
+            f"recovery (anomaly -> replayed) "
+            f"{[[round(x, 3) for x in g['recovery_s']] for g in got]} s, "
+            f"supervised run {[round(g['wall_s'], 2) for g in got]} s "
+            f"({smi})")
+        if not all(same):
+            raise AssertionError(f"27a {name}: tokens differ")
+        want_counts = {}
+        for f in faults:
+            want_counts[P27_COUNTER[f]] = \
+                want_counts.get(P27_COUNTER[f], 0) + 1
+        for g in got:
+            if g["counters"]["rebuilds"] != len(faults) \
+                    or any(g["counters"][k] != v
+                           for k, v in want_counts.items()) \
+                    or len(g["recovery_s"]) != len(faults) \
+                    or g["tp"] != 2 or g["reasons"] != ["length"] * 8:
+                raise AssertionError(f"27a {name}: {g['counters']}, tp "
+                                     f"{g['tp']}, {g['reasons']}")
+        for k in ("counters", "records", "trace_ids"):
+            if got[0][k] != got[1][k]:
+                raise AssertionError(f"27a {name}: the ranks' {k} differ")
+        anomalies = [r for r in got[0]["records"] if r["event"] == "anomaly"]
+        if mode == P27_LATE and not (
+                anomalies[0]["error"].startswith("rank 1: StepTimeout")
+                and "rank 0" not in anomalies[0]["error"]):
+            raise AssertionError(f"27a {name}: the late stall was not rank "
+                                 f"1's alone: {anomalies[0]['error']}")
+        result["runs"][name] = dict(
+            recovery_s=[g["recovery_s"] for g in got],
+            wall_s=[g["wall_s"] for g in got],
+            counters=got[0]["counters"],
+            ledger=[r["event"] for r in got[0]["records"]])
+    fl = [rk["fleet"] for rk in ranks]
+    same = [f["tokens"] == f["tp1_tokens"] == fl[0]["tp1_tokens"]
+            for f in fl]
+    log(f"  27b ReplicaFleet(tp_degrees=[2, 1]), r0 then r1 killed: tokens "
+        f"identical to the tp-1 engine's on rank 0 / rank 1: {same} "
+        f"({agreement(fl[0]['tokens'], fl[0]['tp1_tokens'])}); migrations "
+        f"{[f['migrations'] for f in fl]}, kills "
+        f"{[f['replica_kills'] for f in fl]}, replicas {fl[0]['tps']}, wall "
+        f"{[round(f['wall_s'], 2) for f in fl]} s ({smi})")
+    if not all(same) or fl[0]["tokens"] != fl[1]["tokens"]:
+        raise AssertionError("27b: the fleet's tokens differ from tp-1's")
+    for f in fl:
+        if f["migrations"] < 2 or f["tps"] != {"r0": 2, "r1": 1} \
+                or f["reasons"] != ["length"] * P27_FLEET_REQUESTS \
+                or not f["refcounts"]:
+            raise AssertionError(f"27b: {f['migrations']} migrations, "
+                                 f"{f['tps']}, {f['reasons']}, refcounts "
+                                 f"{f['refcounts']}")
+    result["fleet"] = dict(migrations=fl[0]["migrations"],
+                           wall_s=[f["wall_s"] for f in fl])
+    log(f"  phase 27a/27b on phase 14b's ranks, after its runs: "
+        f"{[round(rk['work_s'], 1) for rk in ranks]} s ({smi})")
+    return result
+
+
+LIFECYCLE = ("serving.submit", "serving.queue", "serving.prefill",
+             "serving.decode", "serving.finish")
+
+
+def _tool(name):
+    """The module ``tools/<name>.py``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    try:
+        return __import__(name)
+    finally:
+        sys.path.pop(0)
+
+
+def _prom_parses(text):
+    """``tools/torch_obs_dump.py:prom_parses``: the malformed lines of a
+    Prometheus text exposition."""
+    return _tool("torch_obs_dump").prom_parses(text)
+
+
+# 27c's runs in order: an untimed warm-up, tracing off and on alternated
+# twice, then the profiler
+P27C_ARMS = ("warm-up", "off", "on", "off", "on", "profiler")
+P27C_SPANS = 10_000     # spans timed alone: a span's own host cost
+
+
+def phase_observe(model, fd, Engine, workdir="build/phase27c"):
+    """27c (see the module docstring): phase 5's workload on a fresh engine
+    for each of ``P27C_ARMS``. Returns row 4's launches of every run after
+    the warm-up, and the record."""
+    import shutil
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.profiler.statistic import load_profiler_result
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    prompts = workload(model.config.vocab_size, seed=1)
+    smi = smi_line()
+    runs, launches, toks = {}, {}, []
+
+    def tokens_counter():
+        fam = obs.snapshot()["paddle_serving_events_total"]["samples"]
+        return next(s["value"] for s in fam
+                    if s["labels"]["kind"] == "tokens_generated")
+
+    try:
+        for i, arm in enumerate(P27C_ARMS):
+            name = f"{i} {arm}"
+            tracing.disable()
+            tracing.reset()
+            eng = Engine(model, **SERVE_GEO, flash_decode=True)
+            gc.collect()
+            before = tokens_counter()
+            prof = None
+            if arm == "on":
+                tracing.enable()
+            if arm == "profiler":
+                # the device's activity alone: the kernels are what the
+                # run checks, and the host's operators would multiply the
+                # trace's size and its export time
+                prof = profiler.Profiler(
+                    targets=[profiler.ProfilerTarget.GPU],
+                    on_trace_ready=profiler.export_chrome_tracing(
+                        workdir, "p27c"))
+                prof.start()
+            torch.cuda.synchronize()
+            reset_counts(fd.flash_decode)
+            t0 = time.perf_counter()
+            hs = staggered(eng, prompts, 32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = fd.flash_decode.launches
+            by_variant = dict(fd.flash_decode.launches_by_variant)
+            steps = eng.stats()["decode_steps"]
+            rec = dict(wall_s=wall, decode_steps=steps, launches=n)
+            toks.append([list(h.tokens) for h in hs])
+            if prof is not None:
+                prof.stop()
+                res = load_profiler_result(workdir)
+                k = res.kernel_summary().get("flash_decode_split_kernel", {})
+                rec["profile_split_kernels"] = k.get("calls", 0)
+                rec["profile_split_ms"] = k.get("total", 0.0) / 1e3
+                rec["profile_busy_ms"] = sum(
+                    res.device_summary().values()) / 1e3
+                # the launch calls whose device record the trace lacks
+                rec["profile_completeness"] = _tool(
+                    "torch_profile_check").completeness(res.source)
+                if rec["profile_split_kernels"] != n:
+                    raise AssertionError(
+                        f"27c: the profile holds {rec['profile_split_kernels']}"
+                        f" flash_decode_split_kernel launches, the wrapper "
+                        f"counted {n}; {rec['profile_completeness']}")
+            want = model.config.num_hidden_layers * steps
+            if n != want or by_variant != {"split": want, "one_pass": 0}:
+                raise AssertionError(f"27c {name}: flash_decode launched {n} "
+                                     f"({by_variant}), want {want} split")
+            if not all(h.finish_reason == "length" and len(h.tokens) == 32
+                       for h in hs):
+                raise AssertionError(f"27c {name}: a request did not finish "
+                                     f"with 32 tokens")
+            delta = tokens_counter() - before
+            if delta != sum(len(h.tokens) for h in hs):
+                raise AssertionError(f"27c {name}: the token counter moved "
+                                     f"{delta}")
+            if arm == "on":
+                ring = tracing.spans()
+                for h in hs:
+                    mine = {s["name"]: s for s in ring
+                            if (s["args"] or {}).get("request_id")
+                            == h.request_id and s["name"] in LIFECYCLE}
+                    if set(mine) != set(LIFECYCLE) or any(
+                            s["trace"] != h.trace_id
+                            for s in mine.values()):
+                        raise AssertionError(
+                            f"27c: request {h.request_id}'s lifecycle "
+                            f"spans {sorted(mine)} under one trace id "
+                            f"{h.trace_id}")
+                doc = json.loads(json.dumps(obs.to_chrome_trace()))
+                bad = _prom_parses(obs.to_prometheus())
+                if bad:
+                    raise AssertionError(f"27c: malformed exposition {bad}")
+                rec["spans"] = len(ring)
+                rec["chrome_events"] = len(doc["traceEvents"])
+            elif tracing.spans():
+                raise AssertionError(f"27c {name}: spans recorded with "
+                                     f"tracing off")
+            runs[name] = rec
+            if arm != "warm-up":
+                launches[name] = n
+            del eng, hs          # the engine lives while its handles do
+        # a span's own cost, read directly (the walls spread wider)
+        tracing.enable()
+        tracing.reset()
+        t0 = time.perf_counter()
+        for _ in range(P27C_SPANS):
+            with tracing.span("p27c.probe", cat="probe"):
+                pass
+        span_us = (time.perf_counter() - t0) / P27C_SPANS * 1e6
+    finally:
+        tracing.disable()
+        tracing.reset()
+        shutil.rmtree(workdir, ignore_errors=True)
+    if not all(t == toks[0] for t in toks):
+        raise AssertionError("27c: the runs' tokens differ")
+    walls = {a: [r["wall_s"] for k, r in runs.items() if k.endswith(a)]
+             for a in ("off", "on")}
+    prof_run = runs[f"{len(P27C_ARMS) - 1} profiler"]
+    order = ", ".join(f"{k} {r['wall_s']:.3f}" for k, r in runs.items())
+    log(f"  27c walls in order {order} s: tracing off {[round(w, 3) for w in walls['off']]}, on "
+        f"{[round(w, 3) for w in walls['on']]} (on - off by pair "
+        f"{[round(b - a, 3) for a, b in zip(walls['off'], walls['on'])]} "
+        f"s); decode steps {prof_run['decode_steps']}; row 4 launches "
+        f"{list(launches.values())}, in the profile "
+        f"{prof_run['profile_split_kernels']} "
+        f"({prof_run['profile_split_ms']:.3f} ms of "
+        f"{prof_run['profile_busy_ms']:.3f} ms busy; "
+        f"{prof_run['profile_completeness']}); "
+        f"{runs['2 on']['spans']} spans a traced run, a span "
+        f"{span_us:.2f} us alone: {span_us * runs['2 on']['spans'] / 1e3:.3f}"
+        f" ms of host time a traced run ({smi})")
+    runs["span_us"] = span_us
+    return list(launches.values()), runs
+
+
 def main():
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -9242,6 +9739,16 @@ def main():
         LlamaConfig, LlamaForCausalLM, GPTConfig, GPTForCausalLM, pt.seed)
     log("  speculative decoding " + json.dumps(spec))
 
+    # ---- 27c. tracing and profiling phase 5's engine (phase 4's model) -----
+    t27c = time.perf_counter()
+    log(f"[27c] phase 5's Engine(flash_decode=True), a fresh engine a "
+        f"run: {list(P27C_ARMS)} (tracing off / on, "
+        f"profiler.Profiler(targets=[GPU]))")
+    observe_launches, observe = phase_observe(model, fd, Engine)
+    log("  observability " + json.dumps(observe))
+    log(f"  phase 27c took {time.perf_counter() - t27c:.1f} s "
+        f"({smi_line()})")
+
     # ---- 10. PTQ Llama-2-7B (phase 4's model) ------------------------------
     log("[10] PTQ Llama-2-7B, 32 layers: PostTrainingQuantization -> "
         "Int8Linear, the int8 kernel on every projection and the head")
@@ -9305,8 +9812,21 @@ def main():
         f"14a GPT-2 small, 14b Llama-2-7B width at {TP_LLAMA_LAYERS} layers; "
         f"greedy, then sampled + chunked, against tp=1")
     from paddle_tpu_torch.framework.io import load_numpy_state_dict
-    tp = phase_tp(Engine, ledger, load_numpy_state_dict)
+    tp_refs = {}
+    tp = phase_tp(Engine, ledger, load_numpy_state_dict, refs=tp_refs,
+                  p27dir="build/phase27")
     log("  tp serving " + json.dumps(tp))
+
+    # ---- 27a/27b. serving robustness under tp --------------------------------
+    log(f"[27a] EngineSupervisor(tp=2) on phase 14b's two ranks (cuda:0, "
+        f"gloo; Llama-2-7B width, {TP_LLAMA_LAYERS} layers, fp32), after "
+        f"its runs: fault-free against Engine(tp=2), then faults "
+        f"{[(m, p27_faults(m, f)) for m, f in P27_RUNS]} (the late stall "
+        f"at the first decode step, the others at supervised steps "
+        f"{list(P27_AT)}); [27b] ReplicaFleet(tp_degrees=[2, 1]) on it, "
+        f"r0 then r1 killed mid-decode")
+    tp_robust = phase_tp_robust(tp_refs["14b"])
+    log("  tp robustness " + json.dumps(tp_robust))
 
     # ---- 15. sequence-parallel training -------------------------------------
     log(f"[15] sequence-parallel training: 15a ring and Ulysses at "
@@ -9511,6 +10031,7 @@ def main():
              launches=fd_launches, launches_sampled=sampled_launches,
              launches_speculative=spec_launches,
              launches_deploy=deploy_launches,
+             launches_observe=observe_launches,
              max_abs_err=errs["flash_decode"],
              max_err=errs["flash_decode"],
              **{k: t["flash_decode"][k] for k in cols + first},

@@ -27,7 +27,7 @@ torch's: paddle's tensor methods are not attached.
 """
 import sys as _sys
 
-from . import autograd
+from . import autograd, observability  # noqa: F401
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .framework.device import get_device, set_device

@@ -1,11 +1,15 @@
 """Grad modes and ``backward``. Counterpart of
 ``paddle_tpu/autograd/tape.py``: the JAX package records its own tape;
 the port's tensors are torch's, so these are torch's grad modes, and
-``backward`` runs torch's reverse pass with paddle's seeding rule.
+``backward`` runs torch's reverse pass with paddle's seeding rule, in a
+``train.backward`` span while tracing is on (``loss.backward()``, which is
+torch's, gets the same span from ``observability.tracing``'s hook).
 """
 from __future__ import annotations
 
 import torch
+
+from ..observability import tracing as _tracing
 
 __all__ = ["backward", "enable_grad", "is_grad_enabled", "no_grad",
            "set_grad_enabled"]
@@ -35,4 +39,8 @@ def backward(tensors, grad_tensors=None, retain_graph=False):
             raise RuntimeError(
                 "Tensor has no grad graph; it was computed under no_grad or "
                 "all inputs have stop_gradient=True")
+    if _tracing._ENABLED:
+        with _tracing.span("train.backward", cat="train"):
+            torch.autograd.backward(ts, seeds, retain_graph=retain_graph)
+        return
     torch.autograd.backward(ts, seeds, retain_graph=retain_graph)

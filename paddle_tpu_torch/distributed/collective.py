@@ -40,6 +40,7 @@ and nothing chooses another algorithm.
 from __future__ import annotations
 
 import datetime
+import hashlib
 import os
 import socket
 from typing import Optional
@@ -55,7 +56,8 @@ __all__ = ["ReduceOp", "Group", "init_parallel_env", "is_initialized",
            "reduce", "scatter", "alltoall", "alltoall_single", "barrier",
            "destroy_process_group", "free_port", "gather_dim",
            "reduce_scatter_dim", "ppermute", "all_to_all", "host_staged",
-           "send", "recv", "isend", "irecv", "P2POp", "batch_isend_irecv"]
+           "send", "recv", "isend", "irecv", "P2POp", "batch_isend_irecv",
+           "agree"]
 
 
 class ReduceOp:
@@ -182,13 +184,17 @@ def get_world_size(group=None) -> int:
     return launcher_world_size()
 
 
-def new_group(ranks=None, backend=None, axis_names=None):
+def new_group(ranks=None, backend=None, axis_names=None, fresh=False):
     """A group of ``ranks`` (global ranks; all of them when None). Every
-    rank of the world must call it, members or not, in the same order."""
+    rank of the world must call it, members or not, in the same order.
+    A group of every rank is the world's own communicator, unless
+    ``fresh`` asks for a new one: a communicator no earlier call can still
+    be using (the serving supervisor's rebuilt tp engines and its verdict
+    group)."""
     world = get_world_size()
     ranks = sorted(range(world) if ranks is None else ranks)
     axis_names = tuple(axis_names or ("dp",))
-    if len(ranks) == world:
+    if len(ranks) == world and not fresh:
         pg = None
     else:
         pg = dist.new_group(ranks, backend=backend) if world > 1 else None
@@ -353,6 +359,38 @@ def destroy_process_group(group=None):
     if dist.is_initialized():
         dist.destroy_process_group()
     _default_group = None
+
+
+# -- lockstep decisions (the serving engine, supervisor and fleet) ---------
+
+def agree(group, *, blob=None, what="the call", rank0=(), maximum=(),
+          device="cpu"):
+    """The one collective of a lockstep decision: a float64 all-reduce
+    (max) over ``group``. ``blob`` (bytes) is what every rank must hold
+    alike: 52 bits of its hash and their negation travel, and every rank
+    raises RuntimeError naming ``what`` when they differ. ``rank0`` are
+    floats of which group rank 0's come back on every rank (the others
+    send -inf), ``maximum`` floats of which the group's maximum comes
+    back. Returns (rank 0's values, the maxima) as lists."""
+    rank0, maximum = list(rank0), list(maximum)
+    hv = []
+    if blob is not None:
+        h = hashlib.blake2b(blob, digest_size=8).digest()
+        x = float(int.from_bytes(h, "little") >> 12)   # exact in float64
+        hv = [x, -x]
+    if _solo(group):
+        return rank0, maximum
+    lead = group.rank == 0
+    t = torch.tensor(hv + [v if lead else float("-inf") for v in rank0]
+                     + maximum, dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_pg(group))
+    vals = t.tolist()
+    if hv and vals[0] != -vals[1]:
+        raise RuntimeError(
+            f"ranks disagree on {what}: every rank must make the same "
+            "calls in the same order with the same arguments (SPMD)")
+    vals = vals[len(hv):]
+    return vals[:len(rank0)], vals[len(rank0):]
 
 
 # -- along one dim (the placement code's two collectives) ------------------

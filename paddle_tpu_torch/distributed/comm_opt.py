@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ..framework import attempt
+from ..observability.metrics import Counter
 from . import collective as C
 from . import mesh as mesh_mod
 from .fleet.comm_efficient import (_dequant_blocks, _flatten_by,
@@ -65,6 +66,14 @@ from .fleet.comm_efficient import (_dequant_blocks, _flatten_by,
                                    _unflatten_by)
 
 __all__ = ["CommOptTrainStep", "global_comm_stats"]
+
+#: dp-exchange payload bytes by collective op and wire dtype, counted on
+#: the host per step from the static byte plan (the exchange geometry is
+#: fixed at construction, so no device work is added)
+COLLECTIVE_BYTES = Counter(
+    "paddle_collective_bytes_total",
+    "gradient-exchange payload bytes by collective op and wire dtype",
+    labelnames=("op", "dtype"))
 
 #: live steps, for ``global_comm_stats``
 _LIVE_STEPS: "weakref.WeakSet[CommOptTrainStep]" = weakref.WeakSet()
@@ -346,6 +355,8 @@ class CommOptTrainStep(_ReplicaStep):
                     self.optimizer.apply_in_place(self._views, grads,
                                                   self._opt_state, lr)
                 self.steps_run += 1
+                for op, dtype, nbytes in self._byte_plan:
+                    COLLECTIVE_BYTES.labels(op=op, dtype=dtype).inc(nbytes)
                 self._sched_step(self.optimizer)
         return self._dp_mean(loss)
 

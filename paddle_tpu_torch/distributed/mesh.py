@@ -145,6 +145,27 @@ class Mesh:
                                f"{axes}; fleet.init creates them")
         return self._groups[axes]
 
+    def fresh_group(self, axes, backend=None) -> C.Group:
+        """A NEW communicator for this rank's group over ``axes``, never
+        one an earlier call returned (``init_groups``' groups included):
+        every group of ``axes`` is made anew, by every rank of the world
+        in the same order, as ``init_groups`` makes them. The serving
+        supervisor builds each engine incarnation on one, so a step thread
+        it abandoned inside a collective cannot meet the rebuilt engine's
+        collectives."""
+        axes = _axes(axes)
+        mine, made = None, set()
+        for r in range(self.size):
+            members = tuple(self.axis_ranks(axes, r))
+            if members in made:
+                continue
+            made.add(members)
+            g = C.new_group(members, backend=backend, axis_names=axes,
+                            fresh=True)
+            if self.rank in members:
+                mine = g
+        return mine
+
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
 

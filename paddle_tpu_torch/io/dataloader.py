@@ -16,10 +16,12 @@ process boundary (unpicklable closures), a producer thread feeding a
 bounded queue takes over, as in the JAX package when its native
 prefetcher is not built. The native ring-buffer prefetcher and the
 parallel ``gather_stack`` are the host runtime (ROADMAP.md, port queue
-item 7); the reader-cost hooks and the ``train.data`` span are item 8.
+item 7). Each fetch calls ``profiler.benchmark()``'s reader-cost hooks
+and, while tracing is on, records one ``train.data`` span.
 """
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 import queue
@@ -30,12 +32,15 @@ import numpy as np
 import torch
 
 from ..framework.device import resolve_device
+from ..observability import tracing as _tracing
 from .dataset import Dataset, IterableDataset
 from .sampler import BatchSampler
 
 __all__ = ["DataLoader", "WorkerInfo", "default_collate_fn"]
 
 _WORKER_TLS = threading.local()
+# what a span site enters while tracing is off
+_NO_SPAN = contextlib.nullcontext()
 
 
 class WorkerInfo:
@@ -317,8 +322,28 @@ class DataLoader:
         return b
 
     def __iter__(self):
-        for b in self._iter_batches():
-            yield self._to_device(b)
+        # the benchmark() reader-cost hooks (reference fluid/reader.py
+        # calls them inside its reader loop; profiler/timer.py) and one
+        # train.data span per fetch, the move to the device included
+        from ..profiler.timer import benchmark as _benchmark
+
+        bm = _benchmark()
+        bm.check_if_need_record(self)  # first active loader owns timing
+        it = self._iter_batches()
+        try:
+            while True:
+                bm.before_reader(owner=id(self))
+                try:
+                    with (_tracing.span("train.data", cat="train")
+                          if _tracing._ENABLED else _NO_SPAN):
+                        batch = self._to_device(next(it))
+                except StopIteration:
+                    return
+                finally:
+                    bm.after_reader(owner=id(self))
+                yield batch
+        finally:
+            bm.release_reader(self)
 
     def _iter_batches(self):
         if self.num_workers == 0:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..framework import attempt
+from ..observability import tracing as _tracing
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -144,6 +145,13 @@ class Optimizer:
         supervisor is refused here, after its backward: the gradient it
         left in ``param.grad`` is cleared by the supervisor before its
         next attempt (``resilience.Supervisor``)."""
+        if _tracing._ENABLED:
+            with _tracing.span("train.optimizer", cat="train",
+                               optimizer=type(self).__name__):
+                return self._step_impl()
+        return self._step_impl()
+
+    def _step_impl(self):
         attempt.check()
         live = {k: p for k, p in self._all_params().items()
                 if p.grad is not None and p.requires_grad}

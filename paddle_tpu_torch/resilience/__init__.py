@@ -17,7 +17,7 @@ the failures we actually hit.
 """
 from .chaos import (FAULTS, FLEET_FAULTS, SERVING_FAULTS, ChaosError,
                     ChaosMonkey, StallInjected, corrupt_checkpoint,
-                    corrupt_kv, corrupt_latest)
+                    corrupt_kv, corrupt_latest, stall_inside)
 from .ledger import FlightLedger, global_counters
 from .supervisor import (ResumableLoader, StepTimeout, Supervisor,
                          SupervisorAborted, TrainState)
@@ -26,6 +26,6 @@ __all__ = [
     "Supervisor", "SupervisorAborted", "StepTimeout", "TrainState",
     "ResumableLoader", "ChaosMonkey", "ChaosError", "StallInjected",
     "FAULTS", "SERVING_FAULTS", "FLEET_FAULTS", "corrupt_checkpoint",
-    "corrupt_kv",
+    "corrupt_kv", "stall_inside",
     "corrupt_latest", "FlightLedger", "global_counters",
 ]

@@ -35,8 +35,15 @@ step into a deterministically chosen replica): ``replica-kill``,
 
 Schedules are explicit (``at={step: fault}``) or drawn from a seeded RNG
 (``p`` per-step probability over ``faults``); both are pure functions of
-the constructor arguments. Each fired fault gets a trace id
-(``framework.trace_id``; no spans: port queue item 8).
+the constructor arguments, so under tensor parallelism every rank, built
+with the same arguments, draws the same plan and ``take()`` consumes it
+identically. ``ranks={step: r}`` confines the fault planned at ``step``
+to rank ``r`` of the supervisor's tp group (``take(rank=)``): a
+``decode-raise``, a ``decode-stall`` (the rank's engine step wedges inside
+its decode, ``stall_inside``) or a ``kv-corrupt`` of that rank's KV shard,
+while the other ranks consume the same step with no fault; the group must
+still rebuild as one. Each fired fault gets a trace id and, while tracing
+is on, a ``chaos.<fault>`` instant carrying it.
 """
 from __future__ import annotations
 
@@ -47,10 +54,10 @@ import time
 import numpy as np
 import torch
 
-from ..framework.trace_id import new_trace_id
+from ..observability import tracing as _tracing
 
 __all__ = ["FAULTS", "SERVING_FAULTS", "FLEET_FAULTS", "ChaosError",
-           "StallInjected", "ChaosMonkey", "corrupt_kv",
+           "StallInjected", "ChaosMonkey", "corrupt_kv", "stall_inside",
            "corrupt_checkpoint", "corrupt_latest"]
 
 FAULTS = ("nan", "stall", "error", "kill", "corrupt")
@@ -74,11 +81,17 @@ class ChaosMonkey:
     ``numpy.random.default_rng(seed)`` over ``faults`` for ``horizon``
     steps. ``take()`` (serving) and ``wrap(step_fn)`` (training) count
     invocations, so the Nth call meets the fault planned for step N.
+
+    ``ranks`` maps a planned step to the one rank (of the supervisor's tp
+    group) its serving fault fires on; ``take(rank=)`` returns it there
+    only. ``decode-raise``, ``decode-stall`` and ``kv-corrupt`` may be
+    confined; ``abandon`` (a client's cancel, which every rank must make)
+    may not.
     """
 
     def __init__(self, seed: int = 0, *, at=None, p: float = 0.0,
                  faults=("nan", "stall", "error"), horizon: int = 1024,
-                 stall_s: float = 0.25, manager=None):
+                 stall_s: float = 0.25, manager=None, ranks=None):
         self.seed = int(seed)
         self.stall_s = float(stall_s)
         self.manager = manager
@@ -91,6 +104,14 @@ class ChaosMonkey:
             if f not in known:
                 raise ValueError(f"unknown fault {f!r} (one of {known})")
         self.plan = {int(k): v for k, v in (at or {}).items()}
+        self.ranks = {int(k): int(r) for k, r in (ranks or {}).items()}
+        for step in self.ranks:
+            if self.plan.get(step) not in ("decode-raise", "decode-stall",
+                                           "kv-corrupt"):
+                raise ValueError(
+                    f"ranks= confines decode-raise, decode-stall or "
+                    f"kv-corrupt to one rank; step {step} plans "
+                    f"{self.plan.get(step)!r}")
         if p > 0.0:
             rng = np.random.default_rng(self.seed)
             for step in range(int(horizon)):
@@ -103,22 +124,28 @@ class ChaosMonkey:
         """The fault plan restricted to the first ``n_steps`` steps."""
         return {s: f for s, f in sorted(self.plan.items()) if s < n_steps}
 
-    def take(self):
+    def take(self, rank=None):
         """Consume one supervised step's planned fault (or None) without
         executing it; counts an invocation exactly like :meth:`wrap`'s
-        chaotic step."""
+        chaotic step. A fault ``ranks`` confines to another rank than
+        ``rank`` is None here."""
         step = self.calls
         self.calls += 1
         fault = self.plan.get(step)
-        if fault is not None:
+        only = self.ranks.get(step)
+        if fault is not None and (only is None or only == rank):
             self.fired.append((step, fault))
-            self._mark_fired(step)
-        return fault
+            self._mark_fired(step, fault)
+            return fault
+        return None
 
-    def _mark_fired(self, step):
-        tid = new_trace_id()
+    def _mark_fired(self, step, fault):
+        tid = _tracing.new_trace_id()
         self.trace_ids[step] = tid
         self.last_trace_id = tid
+        if _tracing._ENABLED:
+            _tracing.instant(f"chaos.{fault}", cat="chaos", trace_id=tid,
+                             step=step, seed=self.seed)
 
     def wrap(self, step_fn):
         def chaotic_step(*args, **kwargs):
@@ -127,7 +154,7 @@ class ChaosMonkey:
             fault = self.plan.get(step)
             if fault is not None:
                 self.fired.append((step, fault))
-                self._mark_fired(step)
+                self._mark_fired(step, fault)
                 return self._fire(fault, step_fn, args, kwargs)
             return step_fn(*args, **kwargs)
 
@@ -240,3 +267,27 @@ def corrupt_kv(engine, seed: int = 0, value: float = float("nan")):
         lines = max(int(cache.cur_pos[slot]), 1)
         cache.kc[:, slot, :lines] = value
         return slot
+
+
+def stall_inside(engine, seconds, late=False):
+    """Serving fault ``decode-stall`` confined to one rank: the engine's
+    next decode step sleeps ``seconds`` inside ``_decode_once`` (past the
+    step's entry, before its collectives), so the rank's step wedges where
+    a slow or stuck rank would, and its peers wait in the step's first
+    collective. ``late=True`` sleeps after the step's sampled tokens are
+    read instead, past its last collective: the peers finish the step and
+    emit its tokens while this rank wedges (a slow device-to-host read or
+    a host stall). One shot: the wrapper removes itself when it runs."""
+    name = "_read_tokens" if late else "_decode_once"
+    inner = getattr(engine, name)
+
+    def stalled(arg):
+        delattr(engine, name)          # back to the class's method
+        if late:
+            out = inner(arg)
+            time.sleep(seconds)
+            return out
+        time.sleep(seconds)
+        return inner(arg)
+
+    setattr(engine, name, stalled)

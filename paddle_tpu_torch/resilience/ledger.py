@@ -10,8 +10,8 @@ disk.
 
 Live ledgers register in a module-wide weakref list, so
 ``global_counters()`` sums their event counts without holding any
-supervisor alive. The profiler lines that print them are port queue
-item 8.
+supervisor alive; the profiler's ``resilience:`` line and the
+observability registry's ``resilience`` collector read it.
 """
 from __future__ import annotations
 

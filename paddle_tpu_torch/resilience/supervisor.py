@@ -48,6 +48,7 @@ Where the port differs, because its tensors are updated in place:
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -58,9 +59,13 @@ import numpy as np
 import torch
 
 from ..framework import attempt
+from ..observability import tracing as _tracing
 from ..utils.watchdog import TrainingWatchdog
 from .ledger import FlightLedger
 
+
+# what a span site enters while tracing is off
+_NO_SPAN = contextlib.nullcontext()
 __all__ = ["StepTimeout", "SupervisorAborted", "TrainState",
            "ResumableLoader", "Supervisor"]
 
@@ -384,8 +389,11 @@ class Supervisor:
         if label < 0:
             return None
         # the manager copies to the host before it returns
-        path = self.manager.save(label, self.state.capture(copy=False),
-                                 async_save=async_save)
+        with (_tracing.span("train.checkpoint", cat="train", step=label,
+                            reason=reason)
+              if _tracing._ENABLED else _NO_SPAN):
+            path = self.manager.save(label, self.state.capture(copy=False),
+                                     async_save=async_save)
         self._last_saved_step = label
         self.ledger.record("save", step=label, reason=reason)
         return path
@@ -514,7 +522,11 @@ class Supervisor:
             self._reap_zombies()
             t0 = time.perf_counter()
             try:
-                loss = self._call_step(args, kwargs)
+                with (_tracing.span("train.step", cat="train",
+                                    step=self.steps_completed,
+                                    attempt=attempt_no)
+                      if _tracing._ENABLED else _NO_SPAN):
+                    loss = self._call_step(args, kwargs)
             except _WedgedInCommit as e:
                 self._anomaly("stall", error=f"{type(e).__name__}: {e}")
                 self._emergency_save()      # the guard is a copy: intact

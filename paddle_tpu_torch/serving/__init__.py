@@ -11,6 +11,8 @@ and replays the requests in flight token-identically; overload degrades
 through priority/EDF admission, brownout shedding and ``drain()``), and a
 ``ReplicaFleet`` (``fleet.py``) puts several supervised replicas behind
 one prefix-aware router that migrates requests off a faulted replica.
+Both run under tensor parallelism too, every rank in lockstep: the
+supervisor over ``Engine(tp=N)``, the fleet with mixed tp degrees.
 """
 from .engine import (DEFAULT_RETRY_AFTER_S, AdoptMismatch, Engine,
                      EngineOverloaded, RequestCancelled, RequestHandle,

@@ -65,21 +65,30 @@ device synchronisation, with or without sampling.
   ``serving.fleet.ReplicaFleet``'s migration): admission re-prefills
   ``prompt + emitted`` and fast-forwards the key chain past the emitted
   tokens (the prefill's ``skip``), so the request continues
-  token-identically, greedy or sampled, speculative or not. A handle from
-  an engine with another ``model_fingerprint`` raises ``AdoptMismatch``.
+  token-identically, greedy or sampled, speculative or not, at any tp
+  degree (a handle crosses tp 2 -> tp 1 and back). A handle from an
+  engine with another ``model_fingerprint`` raises ``AdoptMismatch``.
   ``shed_queued`` evicts the lowest queued priority class under brownout
   (``RequestShed`` with a finite ``retry_after_s``). An engine the
   supervisor replaced is condemned: its ``step()`` does nothing and a
   late emission of a wedged step's thread is dropped.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): ``adopt`` under ``tp > 1`` (serving robustness) and
-AOT program handles (runtime services). Tracing spans are not emitted;
-handles carry a trace id all the same. A seed is taken modulo 2^32 (the
-JAX engine's ``np.uint32(seed)`` refuses one outside ``[0, 2^32)``).
+- Tracing (``observability.tracing``, off by default): the JAX engine's
+  spans with its names and args: ``serving.submit``, ``serving.queue``,
+  ``serving.prefill`` (``replay_k`` > 0 on a replay),
+  ``serving.prefill_chunk``, ``serving.decode_step``, ``serving.decode``,
+  ``serving.preempt``, ``serving.adopt``, ``serving.finish`` and
+  ``spec.verify``, each site behind one ``_tracing._ENABLED`` branch. A
+  span is host wall time and adds no device synchronisation: the decode
+  step's span ends after the step's own read of the sampled tokens.
+
+Not in this slice (raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item): AOT program handles (runtime services). A seed is taken modulo 2^32
+(the JAX engine's ``np.uint32(seed)`` refuses one outside ``[0, 2^32)``).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import time
 
@@ -89,7 +98,7 @@ import torch
 from ..distributed import collective as _C
 from ..distributed import mesh as _mesh
 from ..framework.device import resolve_device
-from ..framework.trace_id import new_trace_id
+from ..observability import tracing as _tracing
 from ..ops import flash_decode as _fd
 from ..ops import prng as _prng
 from ..text import generation as G
@@ -101,6 +110,9 @@ from .speculative import SpecConfig, make_runtime
 __all__ = ["Engine", "RequestHandle", "EngineOverloaded", "RequestTimeout",
            "RequestShed", "RequestCancelled", "AdoptMismatch",
            "DEFAULT_RETRY_AFTER_S"]
+
+# what a span site enters while tracing is off
+_NO_SPAN = contextlib.nullcontext()
 
 #: Conservative retry-after hint (seconds) when the engine has no basis
 #: for a live estimate (no decode history yet, or nothing active).
@@ -420,6 +432,9 @@ class RequestHandle:
         self.deadline = (None if max_time_s is None
                          else time.monotonic() + float(max_time_s))
         self.tokens = []
+        # tokens already given to on_token: a replay after a step the
+        # supervisor rolled back re-emits them, and each streams once
+        self._streamed = 0
         self.finished = False
         # "eos" | "length" | "timeout" | "shed" | "cancelled"
         self.finish_reason = None
@@ -428,7 +443,8 @@ class RequestHandle:
         self.model_fingerprint = getattr(engine, "model_fingerprint", None)
         self.slot = None
         self.metrics = RequestMetrics()
-        self.trace_id = new_trace_id()
+        self.trace_id = _tracing.new_trace_id()
+        self._queued_t = self.metrics.submit_time
 
     def result(self):
         while not self.finished:
@@ -508,13 +524,24 @@ class Engine:
     ``submit``, ``step``, ``cancel`` (and ``result``/``drain``, which
     step) in the same order with the same arguments. Every rank then
     samples the same token from the gathered full logits with the same
-    key chain, so every rank emits the same tokens. Two guards: each
-    ``submit`` all-reduces a hash of its arguments and raises
-    ``RuntimeError`` on every rank when they differ, instead of leaving
-    the ranks' collectives out of step; and deadlines (``max_time_s``)
-    are rank 0's, both their values (sent at ``submit``) and the clock
-    that expires them (sent at each step while a request has one), so a
-    rank whose clock disagrees cannot free a slot alone."""
+    key chain, so every rank emits the same tokens. Three guards: each
+    ``submit`` and ``adopt`` all-reduces a hash of its arguments (adopt:
+    the handle's prompt, emitted tokens, sampling arguments, seed and
+    trace id) and raises ``RuntimeError`` on every rank when they differ,
+    instead of leaving the ranks' collectives out of step; a new request's
+    trace id is rank 0's, sent in the same reduction, so every rank's
+    handle, ledger records and spans name one trace; and deadlines
+    (``max_time_s``) are rank 0's, both their values (sent at ``submit``)
+    and the clock that expires them (sent at each step while a request
+    has one), so a rank whose clock disagrees cannot free a slot alone.
+
+    Two private arguments are ``EngineSupervisor``'s plumbing: ``_group``
+    runs a tp engine over that tp group instead of the mesh's (a rebuild
+    takes a fresh group, never one an abandoned step may still be using);
+    ``_spmd_group`` makes a single-rank engine that every rank of that
+    group runs as a replica in lockstep (a tp-1 replica of a mixed-tp
+    ``ReplicaFleet``) keep the same three guards over it; under tp it is
+    the tp group."""
 
     def __init__(self, model, n_slots=8, max_len=None, *, do_sample=False,
                  top_k=0, top_p=None, eos_token_id=None, min_prompt_bucket=8,
@@ -522,7 +549,8 @@ class Engine:
                  kv_layout="paged", block_size=16, n_blocks=None,
                  prefill_chunk=None, prefix_sharing=True, tp=1, mesh=None,
                  flash_decode=False, speculative=None, replica_id=None,
-                 default_retry_after_s=DEFAULT_RETRY_AFTER_S):
+                 default_retry_after_s=DEFAULT_RETRY_AFTER_S, _group=None,
+                 _spmd_group=None):
         # the arch dispatch (JAX's _make_arch): Llama or GPT, TypeError else
         self._arch = arch = G.arch_for(model)
         self.replica_id = replica_id
@@ -533,10 +561,19 @@ class Engine:
         self.dropped_emissions = 0
         self.tp = int(tp)
         self._group = None
+        self.mesh = None
         if self.tp > 1:
-            mesh = self._check_tp(mesh, arch, kv_layout)
+            if _group is None or mesh is not None:
+                mesh = self._check_tp(mesh, arch, kv_layout)
+            else:
+                self._check_tp_dims(arch, kv_layout)
+            if _group is not None and _group.nranks != self.tp:
+                raise ValueError(f"_group has {_group.nranks} ranks, "
+                                 f"tp={self.tp}")
         elif mesh is not None:
             raise ValueError("mesh= requires tp > 1")
+        elif _group is not None:
+            raise ValueError("_group= requires tp > 1")
         if kv_layout not in ("paged", "slot"):
             raise ValueError("kv_layout must be 'paged' or 'slot'")
         self.flash_decode = bool(flash_decode)
@@ -565,9 +602,16 @@ class Engine:
         if self.tp > 1:
             # every rank makes the mesh's groups (the SPMD contract), then
             # copies its own shards to its device
-            self._group = mesh.init_groups().group("tp")
+            self.mesh = mesh
+            self._group = (mesh.init_groups().group("tp") if _group is None
+                           else _group)
             self.device = resolve_device(None)
             self._arch = arch = G.arch_for(model, self._group, self.device)
+        # the group whose ranks make this engine's calls in lockstep: the
+        # submit/adopt guard, rank 0's trace ids and rank 0's clock
+        self._spmd = self._group if self.tp > 1 else _spmd_group
+        if self._spmd is not None and self._spmd.nranks <= 1:
+            self._spmd = None
         self._statics = dict(do_sample=bool(do_sample), top_k=int(top_k),
                              top_p=None if top_p is None else float(top_p))
         self.model_fingerprint = _model_fingerprint(
@@ -649,6 +693,18 @@ class Engine:
         """JAX's ``_init_tp`` checks: the paged layout, a tp that divides
         every split dim, and a mesh whose ``tp`` axis is tp. Returns the
         mesh; nothing is placed and no collective runs yet."""
+        self._check_tp_dims(arch, kv_layout)
+        tp = self.tp
+        if mesh is None:
+            mesh = _mesh.configured_mesh() or _mesh.build_mesh(tp=tp)
+        if mesh.shape["tp"] != tp:
+            raise ValueError(f"mesh tp axis {mesh.shape['tp']} != tp={tp}")
+        if mesh.coords is None:
+            raise ValueError(f"rank {mesh.rank} is outside the mesh "
+                             f"{mesh.shape}")
+        return mesh
+
+    def _check_tp_dims(self, arch, kv_layout):
         if kv_layout != "paged":
             raise ValueError(
                 "tensor-parallel serving requires kv_layout='paged' "
@@ -661,14 +717,6 @@ class Engine:
                           ("hidden_size", arch.n_heads * arch.head_dim)):
             if dim % tp:
                 raise ValueError(f"tp={tp} does not divide {name}={dim}")
-        if mesh is None:
-            mesh = _mesh.configured_mesh() or _mesh.build_mesh(tp=tp)
-        if mesh.shape["tp"] != tp:
-            raise ValueError(f"mesh tp axis {mesh.shape['tp']} != tp={tp}")
-        if mesh.coords is None:
-            raise ValueError(f"rank {mesh.rank} is outside the mesh "
-                             f"{mesh.shape}")
-        return mesh
 
     def tp_geometry(self):
         """The tp layout at a glance: the tp degree, the group's ranks,
@@ -690,39 +738,40 @@ class Engine:
             "collective_kind": "all_reduce (o/down) + all_gather (head)",
         }
 
-    def _agree(self, ids, args, logit_mask, max_time_s):
-        """The submit-time SPMD guard: one all-reduce (max) over the tp
-        group of a hash of this request's arguments and of its negation,
-        and of rank 0's deadline. Raises RuntimeError on every rank when
-        the ranks' arguments differ; returns rank 0's deadline (None
-        without ``max_time_s``)."""
-        blob = hashlib.blake2b(digest_size=8)
-        blob.update(ids.tobytes())
-        blob.update(repr(args).encode())
+    def _agree(self, what, ids, args, logit_mask, max_time_s=None,
+               trace_id=False):
+        """The SPMD guard of ``submit`` and ``adopt``: one lockstep
+        collective (``collective.agree``) of a hash of the call's
+        arguments, rank 0's deadline and rank 0's new trace id. Raises
+        RuntimeError on every rank when the ranks' arguments differ.
+        Returns (rank 0's deadline or None without ``max_time_s``, rank
+        0's trace id or None without ``trace_id``)."""
+        blob = ids.tobytes() + repr(args).encode()
         if logit_mask is not None:
-            blob.update(np.asarray(logit_mask).tobytes())
-        # 52 bits of it, exact in float64
-        hv = float(int.from_bytes(blob.digest(), "little") >> 12)
-        deadline = float("-inf")
-        if max_time_s is not None and self._group.rank == 0:
-            deadline = time.monotonic() + float(max_time_s)
-        t = torch.tensor([hv, -hv, deadline], dtype=torch.float64,
-                         device=self.device)
-        _C.all_reduce(t, _C.ReduceOp.MAX, group=self._group)
-        hi, neg_lo, deadline = t.tolist()
-        if hi != -neg_lo:
-            raise RuntimeError(
-                f"tp ranks disagree on submit() #{self._next_id}: every "
-                "rank must call submit/step/cancel in the same order with "
-                "the same arguments (the Engine's SPMD contract)")
-        return None if max_time_s is None else deadline
+            blob += np.asarray(logit_mask).tobytes()
+        lead = self._spmd.rank == 0
+        deadline = (time.monotonic() + float(max_time_s)
+                    if lead and max_time_s is not None else float("-inf"))
+        tid = _tracing.new_trace_id() if lead and trace_id else None
+        (deadline, tid), _ = _C.agree(
+            self._spmd, blob=blob, what=what,
+            rank0=[deadline, _tracing.trace_id_float(tid)],
+            device=self._spmd_device())
+        return (None if max_time_s is None else deadline,
+                _tracing.trace_id_of(tid) if trace_id else None)
+
+    def _spmd_device(self):
+        """Where the guard's small tensors live: the engine's device on
+        its tp group, the CPU on a lockstep group of single-rank
+        replicas (a gloo group of their own)."""
+        return self.device if self._spmd is self._group else "cpu"
 
     def _rank0_clock(self, now):
         """Rank 0's ``time.monotonic()``, the clock every rank expires
         deadlines by."""
-        t = torch.tensor([now], dtype=torch.float64, device=self.device)
-        _C.broadcast(t, src=self._group.ranks[0], group=self._group)
-        return float(t.item())
+        (now,), _ = _C.agree(self._spmd, rank0=[now],
+                             device=self._spmd_device())
+        return now
 
     # -- out of this slice --------------------------------------------------
 
@@ -763,10 +812,12 @@ class Engine:
         every sampled position of this request. Under tp every rank makes
         the same calls (see the class docstring)."""
         ids = self._as_ids(prompt)
-        if self.tp > 1:
-            deadline = self._agree(
-                ids, (self._next_id, max_new_tokens, temperature, seed,
-                      max_time_s, priority), logit_mask, max_time_s)
+        if self._spmd is not None:
+            deadline, trace_id = self._agree(
+                f"submit() #{self._next_id}", ids,
+                (self._next_id, max_new_tokens, temperature, seed,
+                 max_time_s, priority), logit_mask, max_time_s,
+                trace_id=True)
         if ids.shape[0] < 1:
             raise ValueError("empty prompt")
         if logit_mask is not None:
@@ -797,9 +848,14 @@ class Engine:
                           self.base_seed + rid if seed is None else seed,
                           on_token, max_time_s=max_time_s, priority=priority,
                           logit_mask=logit_mask)
-        if self.tp > 1:
+        if self._spmd is not None:
             h.deadline = deadline        # rank 0's, on every rank
+            h.trace_id = trace_id
         self.metrics.requests_submitted += 1
+        if _tracing._ENABLED:
+            _tracing.instant("serving.submit", cat="serving",
+                             trace_id=h.trace_id, request_id=rid,
+                             n_prompt=h.n_prompt, priority=h.priority)
         try:
             self.scheduler.enqueue(h, retry_after_s=self._retry_after_hint())
         except EngineOverloaded:
@@ -868,7 +924,11 @@ class Engine:
         self.buckets_seen.add(Lb)
         ids = np.zeros((1, Lb), np.int32)
         ids[0, :n_eff] = self._full_ids(h)
-        with torch.inference_mode():
+        self._queue_span(h)
+        with (_tracing.span("serving.prefill", cat="serving",
+                            trace_id=h.trace_id, request_id=h.request_id,
+                            bucket=Lb, replay_k=k)
+              if _tracing._ENABLED else _NO_SPAN), torch.inference_mode():
             self._set_request_rows(h, slot)
             tok0 = int(_prefill_impl(
                 self._arch, self.cache.kc, self.cache.vc, self._keys,
@@ -910,6 +970,7 @@ class Engine:
             # the last prompt token (the sampling row) always runs.
             C = self.prefill_chunk
             start = (min(n_shared, n_eff - 1) // C) * C
+            self._queue_span(h)
             self._chunking.append(
                 _ChunkState(h, full, n_eff, n_shared, start))
             self.metrics.chunked_prefills += 1
@@ -919,7 +980,11 @@ class Engine:
         ids = np.zeros((1, Lb), np.int32)
         ids[0, :n_eff] = full
         dev = self.device
-        with torch.inference_mode():
+        self._queue_span(h)
+        with (_tracing.span("serving.prefill", cat="serving",
+                            trace_id=h.trace_id, request_id=h.request_id,
+                            bucket=Lb, replay_k=k, n_shared=n_shared)
+              if _tracing._ENABLED else _NO_SPAN), torch.inference_mode():
             tok0 = int(_paged_prefill_impl(
                 self._arch, self.cache.kc, self.cache.vc, self._keys,
                 torch.from_numpy(ids).to(dev), n_eff, slot, h.seed, k,
@@ -936,6 +1001,15 @@ class Engine:
             self._spec.on_admit(h, full)
         return True
 
+    @staticmethod
+    def _queue_span(h):
+        """The request's time in queue (submit or adopt -> admission)."""
+        if _tracing._ENABLED:
+            _tracing.span_event("serving.queue", h._queued_t,
+                                time.perf_counter(), cat="serving",
+                                trace_id=h.trace_id,
+                                request_id=h.request_id)
+
     def _chunk_tick(self):
         """Advance the oldest in-progress chunked prefill by ONE chunk
         (the fused decode step then runs for every other slot: a long
@@ -949,7 +1023,10 @@ class Engine:
         ids[0, :end - start] = cs.ids[start:end]
         is_final = end >= cs.n_eff
         dev = self.device
-        with torch.inference_mode():
+        with (_tracing.span("serving.prefill_chunk", cat="serving",
+                            trace_id=h.trace_id, request_id=h.request_id,
+                            start=start, final=is_final)
+              if _tracing._ENABLED else _NO_SPAN), torch.inference_mode():
             tok0 = _paged_chunk_impl(
                 self._arch, self.cache.kc, self.cache.vc, self._keys,
                 torch.from_numpy(ids).to(dev), start, cs.n_eff, h.slot,
@@ -1021,6 +1098,10 @@ class Engine:
         self.scheduler.release(h)
         self.scheduler.requeue(h)
         self.metrics.preemptions += 1
+        if _tracing._ENABLED:
+            _tracing.instant("serving.preempt", cat="serving",
+                             trace_id=h.trace_id, request_id=h.request_id,
+                             tokens=len(h.tokens))
 
     def adopt(self, handle):
         """Re-inject a handle from another engine over the same model (the
@@ -1031,9 +1112,11 @@ class Engine:
 
         Raises :class:`AdoptMismatch` when the handle's origin engine had
         another ``model_fingerprint``. The tp degree and the KV geometry
-        may differ; an engine with ``tp > 1`` does not adopt yet."""
-        if self.tp > 1:
-            raise _not_in_slice("adopt() under tp > 1", "serving robustness")
+        may differ (tp 2 -> tp 1 and back): adopt replays from tokens,
+        never from KV bytes. Under tp every rank adopts the same handle in
+        the same order: the SPMD guard hashes its prompt, emitted tokens,
+        sampling arguments, seed and trace id and raises on every rank
+        when the ranks' handles differ."""
         fp = getattr(handle, "model_fingerprint", None)
         if fp is not None and fp != self.model_fingerprint:
             raise AdoptMismatch(
@@ -1043,12 +1126,25 @@ class Engine:
                 "token history through different math and silently "
                 "diverge -- migrate only between replicas of the SAME "
                 "model/config/sampling configuration")
+        if self._spmd is not None:
+            self._agree(
+                f"adopt(request {handle.request_id})",
+                self._full_ids(handle),
+                ("adopt", handle.request_id, handle.max_new_tokens,
+                 handle.temperature, handle.seed, handle.priority,
+                 handle.max_time_s, handle.trace_id), handle.logit_mask)
         handle.slot = None
         handle._engine = self
         handle.replica_id = self.replica_id
         handle.model_fingerprint = self.model_fingerprint
+        handle._queued_t = time.perf_counter()
         self._next_id = max(self._next_id, handle.request_id + 1)
         self.metrics.requests_submitted += 1
+        if _tracing._ENABLED:
+            _tracing.instant("serving.adopt", cat="serving",
+                             trace_id=handle.trace_id,
+                             request_id=handle.request_id,
+                             replayed_tokens=len(handle.tokens))
         self.scheduler.enqueue(handle,
                                retry_after_s=self._retry_after_hint())
         self._admit()
@@ -1088,7 +1184,7 @@ class Engine:
         rank 0's clock decides for every rank (the deadlines are already
         rank 0's), read only while some request has a deadline."""
         now = time.monotonic()
-        if self.tp > 1:
+        if self._spmd is not None:
             if not (self.scheduler.has_deadlines() or any(
                     h is not None and h.deadline is not None
                     for h in self._by_slot)):
@@ -1145,7 +1241,9 @@ class Engine:
         parts = [self._tok, self.cache.cur_pos, active.astype(np.int32)]
         if paged:
             parts.append(self.cache.block_tables.ravel())
-        with torch.inference_mode():
+        with (_tracing.span("serving.decode_step", cat="serving",
+                            n_active=int(active.sum()))
+              if _tracing._ENABLED else _NO_SPAN), torch.inference_mode():
             buf = torch.from_numpy(np.concatenate(parts)).to(self.device)
             state = (buf[:S], buf[S:2 * S], buf[2 * S:3 * S] > 0,
                      self._keys, self._temps, self._vmask)
@@ -1157,11 +1255,16 @@ class Engine:
             else:
                 nxt = _decode_impl(self._arch, self.cache.kc, self.cache.vc,
                                    *state, **self._statics)
-            toks = nxt.cpu().numpy().astype(np.int32)    # the step's sync
+            toks = self._read_tokens(nxt)
         self._tok = toks
         self.metrics.mark_decode(time.perf_counter() - t0)
         for slot in np.nonzero(active)[0]:
             self._emit(self._by_slot[int(slot)], int(toks[slot]))
+
+    def _read_tokens(self, nxt):
+        """The decode step's one synchronisation: its sampled tokens, read
+        to the host after every collective of the step."""
+        return nxt.cpu().numpy().astype(np.int32)
 
     # -- speculative decoding (serving/speculative.py) -------------------------
 
@@ -1232,7 +1335,10 @@ class Engine:
         ids[0] = h.tokens[-1]
         ids[1:1 + k_eff] = props
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        with (_tracing.span("spec.verify", cat="serving",
+                            trace_id=h.trace_id, request_id=h.request_id,
+                            k=k_eff)
+              if _tracing._ENABLED else _NO_SPAN), torch.inference_mode():
             # the ids and the slot's table row travel in one int32 copy
             buf = torch.from_numpy(np.concatenate(
                 [ids, self.cache.block_tables[slot]])).to(self.device)
@@ -1281,8 +1387,9 @@ class Engine:
         h.metrics.mark_token()
         self.metrics.tokens_generated += 1
         self.cache.cur_pos[h.slot] = h.n_prompt + len(h.tokens) - 1
-        if h.on_token is not None:
+        if h.on_token is not None and len(h.tokens) > h._streamed:
             h.on_token(h, token)
+        h._streamed = max(h._streamed, len(h.tokens))
         if self.eos_token_id is not None and token == self.eos_token_id:
             self._finish(h, "eos")
         elif len(h.tokens) >= h.max_new_tokens:
@@ -1292,6 +1399,19 @@ class Engine:
         h.finished = True
         h.finish_reason = reason
         h.metrics.mark_finished()
+        if _tracing._ENABLED:
+            m = h.metrics
+            if m.first_token_time is not None:
+                # the request's whole decode phase as one span (first
+                # token out of prefill -> finish)
+                _tracing.span_event(
+                    "serving.decode", m.first_token_time, m.finish_time,
+                    cat="serving", trace_id=h.trace_id,
+                    request_id=h.request_id, tokens=len(h.tokens))
+            _tracing.instant("serving.finish", cat="serving",
+                             trace_id=h.trace_id,
+                             request_id=h.request_id, reason=reason,
+                             tokens=len(h.tokens))
         if h.slot is not None:         # queued-only timeouts held no slot
             self._by_slot[h.slot] = None
             # every block the slot holds is released: shared-prefix

@@ -39,10 +39,21 @@ faults (``replica-kill`` / ``decode-stall`` / ``decode-raise`` /
 deterministically chosen replica; ``tools/torch_chaos_serve.py --fleet
 N`` emits the JSON verdict.
 
-Not in this slice: replicas with ``tp > 1`` (``tp_degrees`` other than
-all 1) raise ``NotImplementedError`` (ROADMAP.md, port queue: serving
-robustness); the profiler line and the metrics registry's gauges are
-port queue item 8.
+Mixed tensor-parallel degrees (``tp_degrees=[2, 1]``): a replica spans
+one rank or every rank of the world, one process per GPU. Every rank runs
+the whole fleet in lockstep (the engine's SPMD contract: the same calls in
+the same order): the host state (handles, radix trees, routing) is on
+every rank, a tp-N replica is one ``Engine(tp=N)`` over the world, and a
+tp-1 replica is one engine on every rank, kept in lockstep by its
+supervisor. Migration crosses degrees through ``adopt`` (from tokens,
+never KV bytes). A gloo control group carries what must be one decision:
+every supervisor's fault verdicts, and rank 0's clock and rolling ITL p95
+for routing and backoff (the wall clock decides on rank 0 only); after
+every fleet step one all-reduce checks that the ranks' emitted tokens
+agree, and raises on every rank when they do not. The replica health
+states are exported by the observability registry
+(``paddle_serving_replica_state``, ``paddle_serving_fleet_events_total``)
+and the profiler's ``fleet:`` line.
 """
 from __future__ import annotations
 
@@ -52,9 +63,10 @@ import weakref
 
 import numpy as np
 
+from ..distributed import collective as _C
 from ..resilience.chaos import corrupt_kv
 from ..resilience.ledger import FlightLedger
-from .engine import Engine, _not_in_slice
+from .engine import Engine
 from .resilience import EngineDraining, EngineSupervisor, ServingAborted
 from .scheduler import EngineOverloaded
 
@@ -91,7 +103,8 @@ class ReplicaFleet:
     ``Engine``/``EngineSupervisor`` kwargs (``itl_slo_ms``,
     ``kv_probe_interval``, ``step_timeout_s``, ``n_slots``, ... are
     applied to every replica). ``tp_degrees`` gives each replica its
-    tensor-parallel degree; only all 1 is in this slice. The public
+    tensor-parallel degree: 1, or the world size, every rank running the
+    fleet in lockstep (see the module docstring). The public
     surface mirrors the supervisor's: ``submit() -> RequestHandle`` (the
     handle pumps the whole fleet, so ``result()`` rides through any
     replica's fault), ``step()``, ``drain()``/``reopen()``, ``stats()``.
@@ -115,9 +128,17 @@ class ReplicaFleet:
             raise ValueError(
                 f"tp_degrees has {len(tp_degrees)} entries for "
                 f"{n_replicas} replicas")
-        if any(int(tp) != 1 for tp in tp_degrees):
-            raise _not_in_slice(f"ReplicaFleet(tp_degrees={tp_degrees})",
-                                "serving robustness")
+        tp_degrees = [int(tp) for tp in tp_degrees]
+        self._ctl = None
+        if any(tp > 1 for tp in tp_degrees):
+            world = _C.get_world_size()
+            if any(tp not in (1, world) for tp in tp_degrees):
+                raise ValueError(
+                    f"tp_degrees={tp_degrees}: a replica spans one rank "
+                    f"or all {world} ranks of the world (every rank runs "
+                    "the fleet in lockstep)")
+            # the gloo group of the fleet's one-decision collectives
+            self._ctl = _C.new_group(None, backend="gloo", fresh=True)
         self.name = name or f"fleet{next(_FLEET_SEQ)}"
         self.chaos = chaos
         self.ledger = (ledger if ledger is not None
@@ -128,9 +149,14 @@ class ReplicaFleet:
         self.replicas = {}
         for i in range(n_replicas):
             rid = f"r{i}"
+            kw = dict(sup_kwargs)
+            if self._ctl is not None:
+                kw.update(tp=tp_degrees[i], _control_group=self._ctl)
             sup = EngineSupervisor(model, replica_id=rid,
                                    migrate_hook=self._on_replica_fault,
-                                   **sup_kwargs)
+                                   **kw)
+            if chaos is not None:
+                sup._stall_s = chaos.stall_s      # an injected stall's length
             self.replicas[rid] = _Replica(rid, i, sup)
         self.max_route_attempts = (len(self.replicas)
                                   if max_route_attempts is None
@@ -164,11 +190,14 @@ class ReplicaFleet:
         return min(cache.radix.match_len(ids), len(ids))
 
     @staticmethod
-    def _load(engine):
+    def _load(engine, p95=None):
         """Scalar routing load: queued + active requests, the rolling
         decode ITL p95 (seconds, weighted so a browned-out replica loses
-        ties decisively), and pool pressure. Lower is better."""
-        p95 = engine.metrics.itl_p95() or 0.0
+        ties decisively; ``p95`` overrides the engine's own, rank 0's in
+        lockstep), and pool pressure. Lower is better."""
+        if p95 is None:
+            p95 = engine.metrics.itl_p95()
+        p95 = p95 or 0.0
         used_frac = 0.0
         if hasattr(engine.cache, "pool"):
             pool = engine.cache.pool
@@ -197,14 +226,28 @@ class ReplicaFleet:
             self._flap_submits -= 1
             return [cands[int(i)]
                     for i in self._rng.permutation(len(cands))]
-        now = time.monotonic()
+        now, p95 = self._clocks()
 
         def key(r):
             backing_off = self._backoff_until.get(r.id, 0.0) > now
-            return (backing_off, -self._prefix_len(r.engine, ids),
-                    self._load(r.engine), r.index)
+            load = (self._load(r.engine) if p95 is None
+                    else self._load(r.engine, p95[r.id]))
+            return (backing_off, -self._prefix_len(r.engine, ids), load,
+                    r.index)
 
         return sorted(cands, key=key)
+
+    def _clocks(self):
+        """``time.monotonic()`` and, in lockstep, rank 0's with every
+        replica's rolling ITL p95 (None: each replica's own), broadcast
+        over the control group: the clock decides on rank 0 only."""
+        now = time.monotonic()
+        if self._ctl is None:
+            return now, None
+        reps = list(self.replicas.values())
+        (now, *p95), _ = _C.agree(self._ctl, rank0=[now] + [
+            r.engine.metrics.itl_p95() or 0.0 for r in reps])
+        return now, {r.id: v for r, v in zip(reps, p95)}
 
     # -- admission front end ------------------------------------------------
 
@@ -277,7 +320,7 @@ class ReplicaFleet:
         hint = exc.retry_after_s
         if hint is None:
             hint = rep.engine.default_retry_after_s
-        until = time.monotonic() + hint * (0.5 + 0.5 * self._rng.random())
+        until = self._clocks()[0] + hint * (0.5 + 0.5 * self._rng.random())
         self._backoff_until[rep.id] = until
         self.backoffs += 1
         self.ledger.record("backoff", replica=rep.id,
@@ -343,7 +386,23 @@ class ReplicaFleet:
             except ServingAborted:
                 self._condemn(rep)
         self._tick_states()
+        if self._ctl is not None:
+            self._check_lockstep()
         return n
+
+    def _check_lockstep(self):
+        """One lockstep collective of a hash of every live handle's
+        emitted tokens: the ranks' fleets must agree, or every rank
+        raises."""
+        blob = []
+        for rep in self.replicas.values():
+            eng = rep.engine
+            for h in sorted((h for h in list(eng._by_slot)
+                             + list(eng.scheduler._queue) if h is not None),
+                            key=lambda h: h.request_id):
+                blob.append((rep.id, h.request_id, h.tokens))
+        _C.agree(self._ctl, blob=repr(blob).encode(),
+                 what=f"{self.name}'s emitted tokens")
 
     def _condemn(self, rep):
         """The replica's rebuild ladder ran out: remove it from routing
@@ -463,7 +522,8 @@ class ReplicaFleet:
     def _fleet_chaos(self):
         if self.chaos is None:
             return
-        fault = self.chaos.take()
+        fault = self.chaos.take(
+            rank=0 if self._ctl is None else self._ctl.rank)
         if fault is None:
             return
         tid = self.chaos.last_trace_id

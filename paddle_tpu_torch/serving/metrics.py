@@ -7,11 +7,11 @@ step, admission/eviction counters, the speculative-decoding ledger
 (verify and draft steps, proposed/accepted/emitted tokens) and the
 per-emitted-token ITL histogram. Live engines register in a module-wide
 weakref list, so ``global_counters()`` sums their snapshots (the
-supervisor and the fleet read it; the profiler lines that print it are
-port queue item 8). ``Histogram`` is the port's own copy of
-the part of ``paddle_tpu/observability/metrics.py:Histogram`` the engine
-uses (the rolling-window percentile and the cumulative count and sum; no
-bucket export, no registry).
+supervisor, the fleet, the profiler's ``serving:`` line and the
+observability registry's ``serving`` collector read it). The ITL
+histogram is ``observability.metrics.Histogram``: its rolling window
+drives the live p50/p95, its cumulative buckets export through the
+registry's merged ``paddle_serving_itl_seconds`` family.
 
 Host clock only: a decode step's wall time ends at the engine's one
 device->host read of the sampled tokens, so on the GPU it includes the
@@ -19,59 +19,10 @@ step's device time.
 """
 from __future__ import annotations
 
-import bisect
 import time
 import weakref
 
-# Prometheus-style latency buckets (seconds), as the JAX package's
-DEFAULT_LATENCY_BUCKETS = (
-    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
-    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
-
-
-class Histogram:
-    """Bucketed distribution with a count-windowed rolling view:
-    ``percentile(p)`` interpolates linearly inside the bucket that holds
-    the rank, over the last ~``window`` observations (two generations
-    rotated every ``window // 2``)."""
-
-    def __init__(self, window):
-        self.bounds = DEFAULT_LATENCY_BUCKETS
-        self.window = max(2, int(window))
-        self._hot = [0] * (len(self.bounds) + 1)       # last slot: +Inf
-        self._cold = [0] * (len(self.bounds) + 1)
-        self._hot_n = 0
-        self.count = 0                # every observation, cumulative
-        self.sum = 0.0
-
-    def observe(self, v):
-        i = bisect.bisect_left(self.bounds, float(v))
-        self.count += 1
-        self.sum += float(v)
-        if self._hot_n >= self.window // 2:
-            self._cold = self._hot
-            self._hot = [0] * len(self._cold)
-            self._hot_n = 0
-        self._hot[i] += 1
-        self._hot_n += 1
-
-    def percentile(self, p):
-        """Approximate percentile; None before the first observe."""
-        counts = [h + c for h, c in zip(self._hot, self._cold)]
-        n = sum(counts)
-        if n == 0:
-            return None
-        target = max(1, min(n, p / 100.0 * n))
-        cum = 0
-        for i, c in enumerate(counts):
-            if c == 0:
-                continue
-            if cum + c >= target:
-                lo = 0.0 if i == 0 else self.bounds[i - 1]
-                hi = self.bounds[min(i, len(self.bounds) - 1)]
-                return lo + (target - cum) / c * (hi - lo)
-            cum += c
-        return self.bounds[-1]
+from ..observability.metrics import Histogram
 
 
 def _percentile(values, p):
@@ -168,7 +119,8 @@ class EngineMetrics:
         self.spec_emitted_tokens = 0
         # decode-step wall times: the ~64-observation rolling window
         # drives the live ITL p50/p95 behind EngineOverloaded.retry_after_s
-        self.itl_hist = Histogram(window=64)
+        self.itl_hist = Histogram("serving_itl_seconds_local",
+                                  window=64, registry=None)
         # fleet identity (stamped by the engine; None standalone)
         self.replica = None
         # tp geometry (stamped by the engine; tp=1 on a single rank)

@@ -33,17 +33,24 @@ accepted length. Rejected lines sit past the causal bound and are
 rewritten by the step that first exposes them; ``commit_prefix`` indexes
 prompt blocks only, so unverified tokens are never shared.
 
-The JAX module's ``probe_specs`` (AOT program probes) has no counterpart
-here.
+A model draft's prefill and its rounds of draft steps are traced as the
+JAX module's are (``spec.draft_prefill``, ``spec.draft``; the engine's
+verify is ``spec.verify``). The JAX module's ``probe_specs`` (AOT program
+probes) has no counterpart here.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
+from ..observability import tracing as _tracing
 from ..text import generation as G
+
+# what a span site enters while tracing is off
+_NO_SPAN = contextlib.nullcontext()
 
 __all__ = ["SpecConfig", "SPEC_COUNTER_KEYS", "NgramProposer",
            "make_runtime"]
@@ -214,7 +221,10 @@ class _ModelDraft:
         eng.draft_buckets_seen.add(Lb)
         ids = np.zeros((1, Lb), np.int64)
         ids[0, :n_eff] = full
-        with torch.inference_mode():
+        with (_tracing.span("spec.draft_prefill", cat="serving",
+                            trace_id=h.trace_id, request_id=h.request_id,
+                            bucket=Lb)
+              if _tracing._ENABLED else _NO_SPAN), torch.inference_mode():
             _prefill_impl(self.arch, self.kc, self.vc, self._keys,
                           torch.from_numpy(ids).to(eng.device), n_eff, slot,
                           0, 0, 1.0, eng._vmask[slot], do_sample=False,
@@ -239,7 +249,9 @@ class _ModelDraft:
             active[h.slot] = True
         k = eng.spec.k
         outs = []
-        with torch.inference_mode():
+        with (_tracing.span("spec.draft", cat="serving", n_slots=len(cand),
+                            k=k)
+              if _tracing._ENABLED else _NO_SPAN), torch.inference_mode():
             act = torch.from_numpy(active).to(eng.device)
             for _ in range(k + 1):
                 cur = torch.from_numpy(np.minimum(self.cur, T - 1)).to(

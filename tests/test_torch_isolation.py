@@ -340,12 +340,17 @@ def test_every_module_imports_with_jax_unimportable():
                   "tensor_ops.linalg", "tensor_ops.random",
                   "tensor_ops.extras", "tensor_ops.einsum", "autograd",
                   "autograd.tape", "autograd.py_layer",
-                  "autograd.functional", "nn.layer_base"):
+                  "autograd.functional", "nn.layer_base",
+                  "observability", "observability.metrics",
+                  "observability.tracing", "observability.collectors",
+                  "profiler", "profiler.timer", "profiler.statistic",
+                  "profiler.profiler_statistic", "profiler.utils"):
             assert "paddle_tpu_torch." + n in names, n
         sys.path.insert(0, "tools")
         importlib.import_module("torch_ep_train")
         importlib.import_module("torch_chaos_serve")
         importlib.import_module("torch_chaos_train")
+        importlib.import_module("torch_obs_dump")
         assert not any(k == "jax" or k.startswith(("jax.", "paddle_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("OK", len(names))

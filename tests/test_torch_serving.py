@@ -189,17 +189,20 @@ def test_out_of_slice_arguments_raise(models, kw, error, match):
 
 def test_adopt_raises(models):
     """``adopt`` (ported since) refuses a handle of an engine with other
-    sampling math (``AdoptMismatch``) and, on an engine with tp > 1, names
-    the ROADMAP.md item that brings it."""
+    sampling math (``AdoptMismatch``); an engine with the same math takes
+    it over and finishes it with the uninterrupted run's tokens (at tp > 1
+    too, since: ``tests/test_torch_serving_tp_resilience.py``)."""
     from paddle_tpu_torch.serving import AdoptMismatch
     _, tm = models
+    prompt = np.arange(5, dtype=np.int32)
     eng = Engine(tm, **GEO)
-    h = eng.submit(np.arange(5, dtype=np.int32), max_new_tokens=2)
+    h = eng.submit(prompt, max_new_tokens=4)
     with pytest.raises(AdoptMismatch):
         Engine(tm, **GEO, do_sample=True).adopt(h)
-    eng.tp = 2                       # the tp guard, without a process group
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.adopt(h)
+    eng._condemned = True
+    Engine(tm, **GEO).adopt(h)
+    want = Engine(tm, **GEO).submit(prompt, max_new_tokens=4).result()
+    assert list(h.result()) == list(want)
 
 
 def test_deadline_frees_the_slot_and_raises(models):

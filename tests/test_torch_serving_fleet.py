@@ -428,7 +428,10 @@ def test_fleet_validation(pair):
         ReplicaFleet(tm, 0)
     with pytest.raises(ValueError, match="tp_degrees"):
         ReplicaFleet(tm, 2, tp_degrees=[1])
-    with pytest.raises(NotImplementedError, match="serving robustness"):
+    # mixed tp degrees need a world whose every rank runs the fleet
+    # (tests/test_torch_serving_tp_resilience.py); in a world of one a
+    # tp-2 replica spans neither one rank nor all of them
+    with pytest.raises(ValueError, match="a replica spans one rank"):
         ReplicaFleet(tm, 2, tp_degrees=[2, 1])
     with pytest.raises(ValueError):
         ChaosMonkey(at={1: "replica-explode"})

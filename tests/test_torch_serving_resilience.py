@@ -531,11 +531,16 @@ def test_global_counters_and_ledger_scopes(pair):
 
 
 def test_tp_supervisor_is_refused(pair):
-    """Supervising an ``Engine(tp=N)`` is a later slice, refused by
-    name."""
+    """``EngineSupervisor(tp=N)`` runs on the N ranks of a tp group
+    (``tests/test_torch_serving_tp_resilience.py`` spawns them); in a
+    one-process world it is refused with the error ``Engine(tp=N)``
+    raises there."""
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="serving robustness"):
+    with pytest.raises(ValueError) as want:
+        Engine(tm, tp=2, **GREEDY)
+    with pytest.raises(ValueError) as got:
         EngineSupervisor(tm, tp=2, **GREEDY)
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

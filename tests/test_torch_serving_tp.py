@@ -13,9 +13,10 @@ engine and ``generate`` run here.
 - construction refuses what the JAX engine refuses, with its messages:
   the slot layout, a tp that does not divide the model, ``mesh=``
   without tp, a mesh whose tp axis is not tp, and ``flash_decode``;
-- tp=4, greedy and sampled (``tests/test_serving_tp.py:77``, :97
-  without its ``adopt`` part): tokens equal to the JAX tp engine's, the
-  port's tp=1 engine's and ``generate``'s;
+- tp=4, greedy and sampled (``tests/test_serving_tp.py:77``, :97):
+  tokens equal to the JAX tp engine's, the port's tp=1 engine's and
+  ``generate``'s, and a sampled request adopted mid-flight by a fresh
+  tp=4 engine finishes with the same tokens;
 - tp=2, chunked prefill + prefix sharing + preemption (:138), and GPT
   greedy and sampled + chunked: the same identities, the paged machinery
   really exercised, refcounts held;
@@ -143,6 +144,13 @@ def port_runs(weights, tmp_path_factory):
     for tp in (4, 2):
         spec = dict(weights=weights, jobs={n: j for n, j in JOBS.items()
                                            if j["tp"] == tp})
+        if tp == 4:
+            sampled = JOBS["llama sampled"]
+            spec["adopt"] = dict(
+                engine=sampled["engine"],
+                prompt=sampled["workload"]["prompts"][0],
+                kwargs=dict(sampled["workload"]["common"],
+                            max_new_tokens=sampled["workload"]["max_new"]))
         path = out / f"spec{tp}.pkl"
         with open(path, "wb") as f:
             pickle.dump(spec, f)
@@ -227,6 +235,17 @@ def test_tp4_sampled_equals_jax_and_tp1(port_runs, jax_tokens, port_models):
     got = _rank_tokens(port_runs, "llama sampled")
     assert got == jax_tokens["llama sampled"]
     assert got == _tp1_tokens(port_models, "llama sampled")
+
+
+def test_tp4_sampled_adopt_mid_flight_equals_jax(port_runs, jax_tokens):
+    """``tests/test_serving_tp.py:97``'s second half: a sampled request
+    part-way through its tokens, adopted by a fresh tp-4 engine on every
+    rank, finishes with the uninterrupted run's tokens (the key-chain
+    fast-forward keeps even sampled replay token-identical)."""
+    runs = [rk["adopt"] for rk in port_runs[4]]
+    assert all(r == runs[0] for r in runs)
+    assert 0 < runs[0]["before"] < 6
+    assert runs[0]["tokens"] == jax_tokens["llama sampled"][0]
 
 
 def test_tp2_chunked_shared_preempted_equals_jax_and_tp1(

@@ -583,6 +583,21 @@ def serving_tp_worker(out_dir, spec_path):
         out["jobs"][name] = dict(tokens=toks, stats=eng.stats(),
                                  refcounts=eng.cache.check_refcounts(),
                                  snapshot=eng.metrics.snapshot())
+    adopt = spec.get("adopt")
+    if adopt is not None:
+        # tests/test_serving_tp.py:97's second half: a sampled request
+        # adopted mid-flight by a fresh tp engine
+        eng_a = Engine(models["llama"], tp=world, **adopt["engine"])
+        h = eng_a.submit(adopt["prompt"], **adopt["kwargs"])
+        for _ in range(3):
+            eng_a.step()
+        before = len(h.tokens)
+        eng_a._condemned = True
+        eng_b = Engine(models["llama"], tp=world, **adopt["engine"])
+        eng_b.adopt(h)
+        out["adopt"] = dict(before=before, tokens=[int(t) for t in
+                                                   h.result()[
+                                                       h.n_prompt:]])
     if world == 2:
         group = mesh.build_mesh(tp=2).init_groups().group("tp")
         out["layers"] = {a: _tp_layers(m, group) for a, m in models.items()}
@@ -607,6 +622,206 @@ def serving_tp_worker(out_dir, spec_path):
         out["after_guard"] = list(eng.submit(np.arange(4),
                                              max_new_tokens=2).result())
     with open(os.path.join(out_dir, f"tp{world}.r{rank}.pkl"), "wb") as f:
+        pk.dump(out, f)
+    dist.destroy_process_group()
+
+
+# -- serving robustness under tensor parallelism ---------------------------
+
+TPR_GEO = dict(n_slots=2, max_len=64, min_prompt_bucket=4, block_size=8)
+TPR_CHUNKED = dict(TPR_GEO, prefill_chunk=16, n_blocks=16)
+TPR_SAMPLED = dict(TPR_GEO, do_sample=True, top_k=8)
+# a fault confined to rank 1 at supervised step 2 (ChaosMonkey(ranks=)),
+# with the supervisor's arguments each needs
+TPR_CONFINED = {
+    "raise": (dict(at={2: "decode-raise"}, ranks={2: 1}), {}),
+    "stall": (dict(at={2: "decode-stall"}, ranks={2: 1}, stall_s=2.0),
+              dict(step_timeout_s=0.75)),
+    "kv-corrupt": (dict(at={2: "kv-corrupt"}, ranks={2: 1}),
+                   dict(kv_probe_interval=1)),
+}
+# the mixed-tp fleet's schedule (tests/test_serving_fleet.py:_GEN)
+TPR_GEN = [dict(max_new_tokens=6, temperature=0.8, seed=11),
+           dict(max_new_tokens=6, temperature=1.2, seed=7),
+           dict(max_new_tokens=5, temperature=0.6, seed=3),
+           dict(max_new_tokens=4, temperature=1.0, seed=23)]
+
+
+def tpr_prompts(lens, seed, shared_prefix=0, vocab=1024):
+    """``tests/test_serving_fleet.py:_prompts``."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, (shared_prefix,)).astype(np.int32)
+    out = []
+    for n in lens:
+        tail = rng.integers(0, vocab, (int(n),)).astype(np.int32)
+        out.append(np.concatenate([prefix, tail]) if shared_prefix
+                   else tail)
+    return out
+
+
+def tpr_shared(vocab=1024):
+    """``tests/test_serving_tp.py:shared_prompts``: four prompts sharing a
+    16-token system prefix."""
+    rng = np.random.default_rng(7)
+    sysp = rng.integers(0, vocab, (16,)).astype(np.int32)
+    return [np.concatenate([sysp, rng.integers(0, vocab, (4,)).astype(
+        np.int32)]) for _ in range(4)]
+
+
+def tpr_mixed_fleet(server, prompts, kill=None):
+    """The mixed-tp fleet's schedule (``tests/test_serving_fleet.py:490``):
+    one request, two steps, a second, one step, then (on a fleet) kill
+    r0, a third, one step, kill r1, the fourth, and drain."""
+    hs = [server.submit(prompts[0], **TPR_GEN[0])]
+    server.step()
+    server.step()
+    hs.append(server.submit(prompts[1], **TPR_GEN[1]))
+    server.step()
+    if kill:
+        kill("r0")
+    hs.append(server.submit(prompts[2], **TPR_GEN[2]))
+    server.step()
+    if kill:
+        kill("r1")
+    hs.append(server.submit(prompts[3], **TPR_GEN[3]))
+    while any(not h.finished for h in hs):
+        server.step()
+    return hs
+
+
+def _records(ledger):
+    """A ledger's records without their wall-clock stamps."""
+    return [{k: v for k, v in r.items() if k != "t"}
+            for r in ledger.to_list()]
+
+
+def _join_zombies(timeout=30.0):
+    """Wait for the supervised step threads the supervisor abandoned (a
+    stalled rank's zombie finishes its old step with its peer's)."""
+    import threading
+    for t in threading.enumerate():
+        if t.name == "supervised-decode":
+            t.join(timeout)
+
+
+def _late_stall(sup, hs):
+    """Rank 1 wedges past its step timeout after the last collective of
+    the decode step that finishes the first request
+    (``stall_inside(late=True)``): rank 0 completes that step, emits its
+    tokens and finishes the request before the group's verdict."""
+    from paddle_tpu_torch.resilience import stall_inside
+
+    n = hs[0].max_new_tokens
+    while not any(len(h.tokens) == n - 1 for h in hs):
+        sup.step()
+    if torch.distributed.get_rank() == 1:
+        stall_inside(sup.engine, 2.0, late=True)
+
+
+def _supervised(model, chaos_kw, sup_kw, engine_kw, prompts, gen,
+                plant=None):
+    from paddle_tpu_torch.resilience import ChaosMonkey
+    from paddle_tpu_torch.serving import EngineSupervisor
+
+    chaos = ChaosMonkey(seed=3, **chaos_kw)
+    sup = EngineSupervisor(model, chaos=chaos, tp=2, **sup_kw, **engine_kw)
+    streamed = [[] for _ in prompts]
+    hs = [sup.submit(p, on_token=lambda h, t, i=i: streamed[i].append(
+        int(t)), **gen) for i, p in enumerate(prompts)]
+    if plant is not None:
+        plant(sup, hs)
+    sup.drain()
+    _join_zombies()
+    return dict(tokens=[[int(t) for t in h.tokens] for h in hs],
+                streamed=streamed,
+                trace_ids=[h.trace_id for h in hs],
+                rebuilds=sup.rebuilds, replayed=sup.replayed,
+                counters=sup.counters(), tp=sup.engine.tp,
+                records=_records(sup.ledger),
+                dropped=sup.engine.dropped_emissions)
+
+
+def serving_tp_resilience_worker(out_dir, weights_path):
+    """One rank of two gloo ranks on the CPU: ``EngineSupervisor(tp=2)``
+    through ``decode-raise`` and through faults confined to rank 1 (a
+    raise, a stall inside its decode step past ``step_timeout_s``, a KV
+    corruption of its shard, a stall past its last collective); the
+    mixed-tp ``ReplicaFleet(tp_degrees=[2,
+    1])`` with two kills; routing under a skewed clock on rank 1; and the
+    adopt guard against ranks whose handles differ. Writes what it saw to
+    ``out_dir``."""
+    import pickle as pk
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.serving import Engine, ReplicaFleet
+    from paddle_tpu_torch.serving import fleet as F
+
+    dist.init_parallel_env(device="cpu", timeout=120)
+    rank = dist.get_rank()
+    model = tp_model("llama", weights_path)
+    shared = tpr_shared()
+    out = {}
+    # tests/test_serving_tp.py:153: the uninterrupted tp2 run, then the
+    # supervisor through decode-raise at step 2 (on every rank)
+    gen = dict(max_new_tokens=6, seed=11)
+    out["uninterrupted"] = [
+        [int(t) for t in h.tokens] for h in Engine(
+            model, tp=2, **TPR_CHUNKED).generate_all(shared[:2], **gen)]
+    out["decode-raise"] = _supervised(
+        model, dict(at={2: "decode-raise"}), {}, TPR_CHUNKED, shared[:2],
+        gen)
+    for name, (chaos_kw, sup_kw) in TPR_CONFINED.items():
+        out[f"rank 1 {name}"] = _supervised(model, chaos_kw, sup_kw,
+                                            TPR_CHUNKED, shared[:2], gen)
+    out["rank 1 late stall"] = _supervised(
+        model, {}, dict(step_timeout_s=0.75), TPR_CHUNKED, shared[:2], gen,
+        plant=_late_stall)
+    # tests/test_serving_fleet.py:490: the mixed-tp fleet, two kills
+    prompts = tpr_prompts([3, 4, 5, 6], seed=14, shared_prefix=8)
+    fleet = ReplicaFleet(model, 2, tp_degrees=[2, 1], **TPR_SAMPLED)
+    hs = tpr_mixed_fleet(fleet, prompts, kill=fleet.kill_replica)
+    out["fleet"] = dict(
+        tokens=[[int(t) for t in h.tokens] for h in hs],
+        reasons=[h.finish_reason for h in hs],
+        trace_ids=[h.trace_id for h in hs],
+        migrations=fleet.migrations,
+        tps={rid: r.engine.tp for rid, r in fleet.replicas.items()},
+        refcounts=all(r.engine.cache.check_refcounts()
+                      for r in fleet.replicas.values()))
+    # routing under a skewed clock: rank 1's clock runs 10^4 s ahead and
+    # its r0 reports a slow rolling ITL; rank 0's clock and p95 decide
+    fleet = ReplicaFleet(model, 2, tp_degrees=[2, 1], **TPR_GEO)
+    if rank == 1:
+        clock = _SkewedClock()
+        clock.offset = 1e4
+        F.time = clock
+        fleet.replicas["r0"].engine.metrics.itl_p95 = lambda: 5.0
+    try:
+        hs = []
+        for i, p in enumerate(tpr_prompts([3, 5, 4, 6], seed=21)):
+            hs.append(fleet.submit(p, max_new_tokens=4))
+            fleet.step()
+        while any(not h.finished for h in hs):
+            fleet.step()
+    finally:
+        import time as _time
+        F.time = _time
+    out["skew"] = dict(replicas=[h.replica_id for h in hs],
+                       tokens=[[int(t) for t in h.tokens] for h in hs])
+    # the adopt guard: rank 1's handle carries one more token
+    a = Engine(model, tp=2, **TPR_GEO)
+    h = a.submit(shared[0], max_new_tokens=6)
+    a.step()
+    a._condemned = True
+    if rank == 1:
+        h.tokens.append(0)
+    b = Engine(model, tp=2, **TPR_GEO)
+    try:
+        b.adopt(h)
+        out["adopt_guard"] = "no error"
+    except RuntimeError as e:
+        out["adopt_guard"] = str(e)
+    with open(os.path.join(out_dir, f"tpr.r{rank}.pkl"), "wb") as f:
         pk.dump(out, f)
     dist.destroy_process_group()
 

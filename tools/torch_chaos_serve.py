@@ -44,11 +44,27 @@ in-flight requests of the faulted replica complete via cross-replica
 ``adopt()`` migration) in BOTH arms:
 
     python tools/torch_chaos_serve.py --fleet 3 --fault kill
+
+``--tp N`` runs the single-engine verdict under tensor parallelism: N
+ranks (``distributed.spawn``) each run ``EngineSupervisor(model, tp=N)``
+in lockstep against a tp-1 baseline on the rank's device; ``--rank R``
+confines the fault to rank R (``ChaosMonkey(ranks=)``: a raise, a stall
+inside R's decode step past ``--step-timeout-s``, a corruption of R's KV
+shard). The verdict adds that every rank emitted the same tokens, rebuilt
+as often and kept the same ledger. On one card the ranks share it over
+gloo (``--backend gloo``, the default); ``--backend nccl`` puts one rank
+on each of N cards:
+
+    python tools/torch_chaos_serve.py --tp 2 --fault raise --rank 1
+    python tools/torch_chaos_serve.py --tp 4 --fault stall --rank 3 \
+        --backend nccl
 """
 import argparse
 import json
 import os
 import sys
+import threading
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -367,6 +383,103 @@ def _fleet_verdict(fault, step, seed, stall_s, n_replicas, device):
     }
 
 
+def _tp_worker(out_dir, fault, step, seed, stall_s, step_timeout_s,
+               device, backend, confine):
+    """One rank of the ``--tp`` verdict: a tp-1 baseline, then the
+    supervised tp engine through the fault; writes this rank's record."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.resilience import ChaosMonkey
+    from paddle_tpu_torch.serving import Engine, EngineSupervisor
+
+    torch.set_num_threads(1)
+    if device == "cpu" or backend == "gloo":
+        dist.init_parallel_env(backend="gloo", device=device or "cuda:0",
+                               timeout=300)
+    else:
+        dist.init_parallel_env(backend="nccl", timeout=300)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    from paddle_tpu_torch.framework.device import resolve_device
+    model = _model(str(resolve_device(None)))
+    kw = dict(n_slots=2, max_len=64, min_prompt_bucket=4, do_sample=True,
+              top_k=8, block_size=8)
+    reqs, schedule = _workload(seed)
+    base = [list(h.tokens) for h in _run(Engine(model, **kw), reqs,
+                                          schedule)]
+    plan = {int(step): _FAULT_MAP[fault]} if fault != "none" else {}
+    chaos = ChaosMonkey(seed=seed, at=plan, stall_s=stall_s,
+                        ranks=({int(step): confine}
+                               if confine is not None and plan else None))
+    sup = EngineSupervisor(model, chaos=chaos, tp=world,
+                           kv_probe_interval=1,
+                           step_timeout_s=step_timeout_s, **kw)
+    t0 = time.perf_counter()
+    handles = _run(sup, reqs, schedule)
+    wall = time.perf_counter() - t0
+    rec = dict(rank=rank, base=base, wall_s=wall,
+               tokens=[list(map(int, h.tokens)) for h in handles],
+               trace_ids=[h.trace_id for h in handles],
+               counters=sup.counters(), tp=sup.engine.tp,
+               fired=list(chaos.fired),
+               ledger=[{k: v for k, v in r.items() if k != "t"}
+                       for r in sup.ledger.to_list()],
+               refcounts=sup.engine.cache.check_refcounts())
+    for t in threading.enumerate():       # abandoned step threads
+        if t.name == "supervised-decode":
+            t.join(60)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=str)
+    dist.destroy_process_group()
+
+
+def _tp_verdict(fault, step, seed, stall_s, step_timeout_s, tp, device,
+                backend, confine):
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+
+    if fault == "stall" and confine is not None:
+        # a stall confined to one rank is found by the step timeout
+        step_timeout_s = step_timeout_s or 1.0
+        stall_s = max(stall_s, 2.5 * step_timeout_s)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        dist.spawn(_tp_worker, args=(d, fault, step, seed, stall_s,
+                                     step_timeout_s, device, backend,
+                                     confine), nprocs=tp, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(tp):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    r0 = ranks[0]
+    same = {k: all(rk[k] == r0[k] for rk in ranks)
+            for k in ("tokens", "trace_ids", "counters", "ledger")}
+    mismatches = [i for i, (a, b) in enumerate(zip(r0["tokens"],
+                                                   r0["base"])) if a != b]
+    c = r0["counters"]
+    expected = {"stall": c["wedges"] + c["step_errors"],
+                "raise": c["step_errors"], "corrupt": c["kv_corruptions"],
+                "abandon": c["abandoned"]}.get(fault, 0)
+    detected = fault == "none" or expected > 0
+    recovered = (fault in ("none", "abandon")
+                 or c["rebuilds"] == 1) and not mismatches
+    ok = bool(all(same.values()) and detected and recovered
+              and all(rk["tp"] == tp and rk["refcounts"] for rk in ranks))
+    return {
+        "tp": tp, "backend": backend, "fault": fault, "injected_step": step,
+        "confined_to_rank": confine, "seed": seed,
+        "fired": [rk["fired"] for rk in ranks],
+        "rebuilds": c["rebuilds"], "replayed": c["replayed"],
+        "counters": c, "ranks_agree": same,
+        "mismatched_requests": mismatches,
+        "token_identical": not mismatches,
+        "supervised_wall_s": [rk["wall_s"] for rk in ranks],
+        "spawn_s": spawn_s, "ok": ok,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="torch_chaos_serve",
@@ -393,8 +506,38 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where the model runs (default: the card; "
                     "'cpu' for the plain PyTorch path)")
+    ap.add_argument("--tp", type=int, default=0, metavar="N",
+                    help="tensor-parallel mode: N ranks run "
+                    "EngineSupervisor(tp=N) in lockstep")
+    ap.add_argument("--rank", type=int, default=None,
+                    help="with --tp: confine the fault to this rank")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="with --tp: gloo (ranks share one card, or the "
+                    "CPU) or nccl (one card a rank)")
+    ap.add_argument("--step-timeout-s", type=float, default=None,
+                    help="the supervisor's step timeout (a stall "
+                    "confined to one rank needs one; default 1.0 then)")
     ap.add_argument("--json", action="store_true", help="emit a JSON line")
     args = ap.parse_args(argv)
+
+    if args.tp:
+        if args.fault in ("kill", "flap", "abandon") or args.fleet \
+                or args.spec:
+            ap.error("--tp takes the stall, raise, corrupt and none faults")
+        record = {"bench": "torch_chaos_serve_tp",
+                  **_tp_verdict(args.fault, args.step, args.seed,
+                                args.stall_s, args.step_timeout_s, args.tp,
+                                args.device, args.backend, args.rank)}
+        if args.json:
+            print(json.dumps(record, default=str))
+        else:
+            for k in ("tp", "fault", "confined_to_rank", "rebuilds",
+                      "ranks_agree", "token_identical"):
+                print(f"{k:18s} {record[k]}")
+            print("OK (the group recovered as one, token-identical)"
+                  if record["ok"] else "FAIL: ranks diverged or did not "
+                  "recover token-identically")
+        return 0 if record["ok"] else 1
 
     if args.fleet:
         if args.fault == "abandon":

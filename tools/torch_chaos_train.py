@@ -16,7 +16,9 @@ Faults: nan | stall | error | corrupt run in-process; kill launches a
 subprocess that SIGKILLs itself mid-run, then a second subprocess that
 must resume from the durable checkpoint and finish. Exit code 0 iff the
 run recovered and converged. Each fired fault's trace id is in the
-verdict (``trace_id``); the port records no spans yet.
+verdict (``trace_id``); with tracing on (``PADDLE_TPU_TRACE=1``) it
+also names the fault's ``chaos.<fault>`` instant and the supervisor's
+``train.step`` spans.
 """
 import argparse
 import json
