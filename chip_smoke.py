@@ -171,8 +171,8 @@ failure raises and exits non-zero before the result line is printed:
     cores; three planted faults (the wraparound pair left unmasked, dk/dv
     one rotation short of home, Ulysses' return all-to-all in the wrong
     rank order) must fail the judges. 15b: ``bench.py:
-    bench_llama_long_context``'s cell, nothing cut (vocab 32000, hidden
-    2048, 8 layers, 16 heads, FFN 5504, 8,192 positions, bf16, selective
+    bench_llama_long_context``'s cell cut to ``SEP_LAYERS`` layers (vocab
+    32000, hidden 2048, 16 heads, FFN 5504, 8,192 positions, bf16, selective
     remat, AdamW lr 1e-4), batch 1 x 8192 from seed 0: at world 1 on the
     card, then ``sep_degree=2`` ring and Ulysses as two gloo ranks, a
     warm-up and 3 steps each; every rank's losses within 1e-2 relative of
@@ -227,7 +227,7 @@ failure raises and exits non-zero before the result line is printed:
     of a rank.
 19. comm-efficient data parallel (after phase 18), ``phase_comm``:
     ``bench.py:bench_llama``'s 0.5B Llama (bf16, the fused head) at
-    ``PAIR_LAYERS`` layers on its 4 x 2048 batch, world 1 on the card,
+    ``COMM_LAYERS`` layers on its 4 x 2048 batch, world 1 on the card,
     then dp2 as two gloo ranks on the card from the same weights under
     each arm of ``COMM_ARMS`` (``comm_opt`` exact, zero1, bf16, int8;
     ``fp16_allreduce`` int8; ``localsgd`` k 2; ``a_sync`` k 2; ``dgc``
@@ -247,9 +247,9 @@ failure raises and exits non-zero before the result line is printed:
     with ``flash_decode=True``, phase 5's 8 prompts submitted one at a
     time (each finished before the next), 48 new tokens, greedy; arms:
     plain, n-gram (k 4), the model as its own draft (k 4), and
-    ``bench.py:bench_llama``'s 0.5B widths at 8 layers as a small
-    same-family draft (random weights: acceptance near 0, what a rejected
-    draft costs). Each arm prints ITL p50/p95, tokens/s, target steps per
+    ``bench.py:bench_llama``'s 0.5B widths at ``SPEC_DRAFT_LAYERS`` layers
+    as a small same-family draft (random weights: acceptance near 0, what
+    a rejected draft costs). Each arm prints ITL p50/p95, tokens/s, target steps per
     token, acceptance, draft steps, row 4's launches, peak memory and the
     share of its tokens equal to the plain arm's; every request finishes
     with 48 tokens, the self-draft takes fewer than 0.6 target steps a
@@ -341,8 +341,8 @@ failure raises and exits non-zero before the result line is printed:
     replica raises ``AdoptMismatch``.
 24. training robustness (after phase 23), ``phase_robust_gpt2`` and
     ``phase_robust_comm``. 24a: phase 17's GPT-2 small trainer (OpenAI's
-    widths, vocab 50,304, bf16, 8 x 1024, AdamW, dropout 0.1), nothing
-    cut, under ``resilience.Supervisor`` with a ``CheckpointManager`` on
+    widths, vocab 50,304, bf16, 8 x 1024, AdamW, dropout 0.1) cut to
+    ``P24_LAYERS`` layers, under ``resilience.Supervisor`` with a ``CheckpointManager`` on
     local disk (``save_interval`` 4), batches from ``io.DataLoader`` over
     a seeded 48-sequence ``TensorDataset`` with
     ``DistributedBatchSampler(shuffle=True)`` in a ``ResumableLoader``,
@@ -356,8 +356,8 @@ failure raises and exits non-zero before the result line is printed:
     consumed-batch count up to the first skipped batch and right after
     the rollback. A child process SIGKILLed at step 10 (beside the repeat
     run) and a resuming child: the resumed losses equal the uninterrupted
-    run's bit for bit. Rows 1-3 launch 12 each per executed step attempt,
-    all on the tensor cores. Printed: the guard capture, a step with and
+    run's bit for bit. Rows 1-3 launch once a layer each per executed
+    step attempt, all on the tensor cores. Printed: the guard capture, a step with and
     without the supervisor, the first run's last cadence save (host copy,
     pickle with its CRC, fsync, wall), the checkpoint's bytes, the
     rollback and the resume walls. 24b: phase 19's 0.5B Llama at 2 layers, 4 x 2048,
@@ -446,8 +446,27 @@ failure raises and exits non-zero before the result line is printed:
     lifecycle spans under its one trace id, the Chrome trace and the
     Prometheus text well formed and the token counter equal to the
     handles' tokens; every run's wall printed.
+28. the nn layer library (after phase 26), ``phase_nn_table``,
+    ``phase_seq2seq`` and ``phase_dcgan``. 28a: every row of
+    ``nn_cases`` (every ``nn.functional`` function and ``nn`` layer the
+    library adds, at ``NN_ROWS_CARD`` size) on the card against a CPU
+    copy of the same inputs and weights: dtypes equal, integer, mask and
+    index results bit for bit, floats within the row's ``OP_TOL`` class,
+    every gradient (a layer's input and parameters) within ``GRAD_TOL``.
+    28b: ``seq2seq`` at PaddleNLP's IWSLT'15 widths (``S2S``), fp32,
+    batch ``S2S_BATCH``: 3 Adam steps (``ClipGradByGlobalNorm(5.0)``),
+    the loss finite, the first within 1.0 of ln 7,709 and falling; beam
+    decoding (``BeamSearchDecoder(beam_size=10)`` + ``dynamic_decode``,
+    256 steps at most), ``predicted_ids`` the numpy backtrace of the step
+    tokens; on an fp32 twin (dropout 0, batch 8) the logits within 1e-4
+    of a CPU copy's, the backtrace again and ``beam_size=1`` equal to the
+    greedy loop. 28c: ``dcgan`` at the paper's widths (``DCGAN``), fp32,
+    batch 128: 3 D/G steps, the losses finite; on an fp32 twin (batch 8)
+    one G and one D step within 1e-4 of a CPU copy. The step and decode
+    walls and images/s printed.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the
+Every phase prints its wall ("wall: phase n ... s", from its "[n]" line
+to the next). The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. Peak rates for the bound:
 989e12 bf16 FLOP/s, 1979e12 int8 OP/s and 3.35e12 B/s (H100 SXM data
 sheet). Phases 3 and 7 cover the ragged kernel and the flash kernels at
@@ -461,6 +480,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -479,8 +499,28 @@ PEAK_INT32_OPS = 132 * 64 * 1.98e9
 BF16_TOL = 2e-2           # bf16 out tolerance: a few bf16 ulps at |x| ~ 1
 
 
+_WALL = {"tag": None, "t0": None, "start": None}
+
+
 def log(*a):
+    """Print a line; a phase's "[n] ..." line first closes the phase
+    before it (``end_phase``)."""
+    m = re.match(r"\[(\w+)\]", str(a[0])) if a else None
+    if m:
+        end_phase()
+        _WALL["tag"], _WALL["t0"] = m.group(1), time.perf_counter()
+        _WALL["start"] = _WALL["start"] or _WALL["t0"]
     print(*a, flush=True)
+
+
+def end_phase():
+    """Print the wall of the phase in progress: from its "[n]" line to
+    now, and the script's since phase 1."""
+    if _WALL["tag"] is not None:
+        now = time.perf_counter()
+        print(f"  wall: phase {_WALL['tag']} {now - _WALL['t0']:.1f} s "
+              f"(script {now - _WALL['start']:.1f} s)", flush=True)
+        _WALL["tag"] = None
 
 
 def smi_line():
@@ -3570,9 +3610,11 @@ def phase_tp(Engine, ledger, load_numpy_state_dict,
 # ---------------------------------------------------------------------------
 
 # bench.py:bench_llama_long_context's configuration (bench.py:363): the
-# 0.5B Llama at 8,192 positions with selective remat, batch 1 x 8192
+# 0.5B Llama at 8,192 positions with selective remat, batch 1 x 8192, its
+# 8 layers cut to SEP_LAYERS (the launch equations follow the depth)
+SEP_LAYERS = 4
 SEP_CELL = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
-                num_hidden_layers=8, num_attention_heads=16,
+                num_hidden_layers=SEP_LAYERS, num_attention_heads=16,
                 num_key_value_heads=16, max_position_embeddings=8192,
                 dtype="bfloat16", remat="selective")
 SEP_BATCH = (1, 8192)
@@ -4877,6 +4919,7 @@ COMM_CELL = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
                  num_hidden_layers=8, num_attention_heads=16,
                  num_key_value_heads=16, max_position_embeddings=2048,
                  dtype="bfloat16", fused_ce_chunk=8192)
+COMM_LAYERS = 2         # 19's depth cut, below 12b's PAIR_LAYERS
 COMM_BATCH = (4, 2048)          # bench_llama's batch: 2 x 2048 a rank at dp2
 COMM_DEGREE = 2
 # phase 19's arms: (strategy field, its configs, optimizer, planted fault)
@@ -5306,7 +5349,7 @@ def check_comm(ranks, world1, flat1, want, tag="19", staged=True):
 
 
 def phase_comm(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
-               seed, cfg=None, batch=COMM_BATCH, layers=PAIR_LAYERS,
+               seed, cfg=None, batch=COMM_BATCH, layers=COMM_LAYERS,
                workdir="build/phase19", device="cuda", steps=TRAIN_STEPS):
     """``bench.py:bench_llama``'s 0.5B Llama (bf16, the fused head), cut to
     ``layers`` layers, on its 4 x 2048 batch: world 1 on the card (phase 8's
@@ -5390,6 +5433,8 @@ def phase_comm(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet, optimizer,
 # ---------------------------------------------------------------------------
 
 SPEC_K = 4
+SPEC_DRAFT_LAYERS = 4   # 20b's small draft: bench_llama's 0.5B widths at 4
+                        # of its 8 layers (random: what rejection costs)
 SPEC_GEO = dict(n_slots=4, max_len=256, block_size=16, flash_decode=True)
 SPEC_SAMPLED = dict(do_sample=True, top_k=50, top_p=0.9, prefill_chunk=64)
 SPEC_NEW = 32           # 20a's new tokens a request
@@ -5644,15 +5689,17 @@ def phase_spec(model, fd, Engine, SpecConfig, ledger, beam_search_generate,
                LlamaConfig, LlamaForCausalLM, GPTConfig, GPTForCausalLM,
                seed, device="cuda"):
     """Phase 20 on phase 4's Llama-2-7B (bf16, full depth): 20b
-    (``spec_latency``, with ``bench.py:bench_llama``'s 0.5B widths at 8
-    layers as the small draft, random weights from seed 1) and 20c's
+    (``spec_latency``, with ``bench.py:bench_llama``'s 0.5B widths at
+    ``SPEC_DRAFT_LAYERS`` layers as the small draft, random weights from
+    seed 1) and 20c's
     beam search; then 20a (``spec_identity``) on the fp32 twins, Llama-2-7B
     widths at 2 layers and GPT-2 small, and 20c's log-prob check on the
     Llama twin. Returns (row 4's launches: 20a by model, mode and arm, and
     20b by arm; the printed numbers)."""
     out = {}
     seed(1)
-    draft = LlamaForCausalLM(LlamaConfig(**COMM_CELL), device=device)
+    draft = LlamaForCausalLM(LlamaConfig(**{
+        **COMM_CELL, "num_hidden_layers": SPEC_DRAFT_LAYERS}), device=device)
     out["20b"] = spec_latency(model, fd, Engine, SpecConfig, ledger, draft)
     del draft
     ids = torch.from_numpy(np.random.default_rng(21).integers(
@@ -6927,6 +6974,7 @@ def phase_deploy(fd, Engine, EngineSupervisor, ReplicaFleet, ChaosMonkey,
 # phase 24: training robustness
 # ---------------------------------------------------------------------------
 
+P24_LAYERS = 4          # 24a's depth cut: 4 of GPT-2 small's 12 layers
 P24_SEQS = 48           # 24a's dataset: 6 batches of 8 an epoch
 P24_BATCH = 8
 P24_STEPS = 11          # 2 epochs: the cursor crosses an epoch boundary;
@@ -7215,7 +7263,8 @@ def p24_check_launches(tag, counts, attempts, layers):
 def phase_robust_gpt2(fa, fc, rm, GPTConfig, GPTForCausalLM, fleet, optimizer,
                       seed, io, ChaosMonkey, attempt, cfg=None,
                       workdir="build/phase24", device="cuda"):
-    """24a: phase 17's GPT-2 small trainer, nothing cut, under a
+    """24a: phase 17's GPT-2 small trainer cut to ``P24_LAYERS`` layers
+    (the widths, vocabulary and batch kept), under a
     ``Supervisor`` with a ``CheckpointManager`` on local disk
     (``save_interval`` 4) and 24a's loader, 11 steps over 2 epochs.
     The uninterrupted run twice: losses and final parameters equal bit
@@ -7226,13 +7275,13 @@ def phase_robust_gpt2(fa, fc, rm, GPTConfig, GPTForCausalLM, fleet, optimizer,
     up to the first skipped batch and right after the rollback. A victim
     child SIGKILLed at step 10 (run beside the repeat run, which only its
     time shares) and a resuming child: the resumed losses equal the
-    uninterrupted run's bit for bit. Rows 1-3 launch 12 each per executed
-    attempt, all on the tensor cores. Prints the guard capture, a step
+    uninterrupted run's bit for bit. Rows 1-3 launch once a layer each
+    per executed attempt, all on the tensor cores. Prints the guard capture, a step
     with and without the supervisor, the save (from the first run's last
     cadence save), rollback and resume walls and the bytes a checkpoint
     holds."""
     import shutil
-    cfg = cfg or GPTConfig(dtype="bfloat16")
+    cfg = cfg or GPTConfig(dtype="bfloat16", num_hidden_layers=P24_LAYERS)
     layers = cfg.num_hidden_layers
     fleet.init()
     shutil.rmtree(workdir, ignore_errors=True)
@@ -7955,6 +8004,7 @@ class Op:
     grad: bool = False
     post: object = None         # (outputs as numpy, args) -> arrays compared
     tag: str = ""
+    ctor: tuple = ()            # "nn." rows: the layer's positional args
 
     @property
     def id(self):
@@ -8856,6 +8906,787 @@ def compare_grad(case, got, want, terms=1):
 
 
 
+# ---- the nn table (phase 28a; tests/test_torch_nn_*.py) -------------------
+# One row for every ``nn.functional`` function and ``nn`` layer of the layer
+# library's slice: "F.<name>" rows through ``port_op`` / ``jax_op`` as the op
+# table's, "nn.<Name>" rows a layer built from seed 0 (``Op.ctor`` its
+# positional arguments, a callable taking the ``nn`` module for a cell) and
+# called on the inputs, its gradient taken for the input and every
+# parameter. Tolerance classes are ``OP_TOL``'s; "linalg" (1e-4 of the
+# largest element) for the long sums of the convolutions and recurrences.
+NN_ROWS_CPU = OP_ROWS_CPU
+NN_ROWS_CARD = 1024
+
+
+def _sizes(n):
+    """Batch, channels, 2-D side, 3-D side, 1-D length, classes, rows of 8,
+    rows of ``K`` classes, hidden width, time steps."""
+    if n < 64:
+        return dict(B=2, C=4, S=6, D=4, L=8, K=5, R=n, N=n, H=6, T=5)
+    return dict(B=16, C=32, S=64, D=16, L=1024, K=1000, R=n * 128, N=n,
+                H=256, T=64)
+
+
+def _labels(r, shape, k):
+    return r.integers(0, k, shape).astype(np.int64)
+
+
+def _prob(r, *s):
+    return r.uniform(0.05, 0.95, s).astype(np.float32)
+
+
+def _softmax_np(a, axis=-1):
+    e = np.exp(a - a.max(axis=axis, keepdims=True))
+    return (e / e.sum(axis=axis, keepdims=True)).astype(np.float32)
+
+
+def _unpool_inputs(r, lead, spatial, k):
+    """Pooled values and a valid, distinct argmax index for each, as a
+    ``k``-window max pool without padding returns them."""
+    out_sp = [s // k for s in spatial]
+    idx = np.zeros(tuple(lead) + tuple(out_sp), np.int64)
+    for pos in np.ndindex(*out_sp):
+        flat = 0
+        for d, o in enumerate(pos):
+            flat = flat * spatial[d] + o * k + int(r.integers(0, k))
+        idx[(...,) + pos] = flat
+    return [_fl(r, *lead, *out_sp), idx.astype(np.int32)]
+
+
+def _beam_ids(r, T, B, W, V):
+    ids = r.integers(0, V, (T, B, W)).astype(np.int64)
+    parents = r.integers(0, W, (T, B, W)).astype(np.int64)
+    return [ids, parents]
+
+
+def nn_cases(n):
+    """The nn table at size ``n`` (small below 64, the card's above)."""
+    z = _sizes(n)
+    B, C, S, D, L, K, R, N, H, T = (z[k] for k in "BCSDLKRNHT")
+    out = []
+
+    def add(name, make, kind="float", grad=False, post=None, tag="",
+            ctor=(), **kw):
+        out.append(Op(name, make, kw, kind, grad, post, tag, ctor))
+
+    # -- common ---------------------------------------------------------------
+    add("F.one_hot", lambda r, n: [_int(r, N, lo=-1, hi=K + 1)], "exact",
+        num_classes=K)
+    add("F.embedding", lambda r, n: [_int(r, B, L, lo=0, hi=K),
+                                     _fl(r, K, C)], "exact", grad=True,
+        padding_idx=1)
+    for mode in ("constant", "reflect", "replicate", "circular"):
+        add("F.pad", lambda r, n: [_fl(r, B, C, S, S), [1, 2, 3, 0]],
+            "exact", grad=True, tag=mode, mode=mode, value=0.5)
+    add("F.pad", lambda r, n: [_fl(r, B, S, S, C), [2, 1, 0, 3]], "exact",
+        grad=True, tag="reflect NHWC", mode="reflect", data_format="NHWC")
+    add("F.pad", lambda r, n: [_fl(r, B, C, L), [0, 0, 1, 1, 2, 7]],
+        "exact", grad=True, tag="reflect full", mode="reflect")
+    add("F.pad", lambda r, n: [_fl(r, B, C, D, D, D), [1, 0, 2, 1, 0, 2]],
+        "exact", grad=True, tag="circular 3d", mode="circular",
+        data_format="NCDHW")
+    add("F.zeropad2d", lambda r, n: [_fl(r, B, C, S, S), [1, 0, 2, 1]],
+        "exact", grad=True)
+    for mode in ("nearest", "bilinear", "bicubic", "area"):
+        for tag, kw in (("up", dict(scale_factor=2)),
+                        ("down", dict(size=[S // 2 + 1, S // 3]))):
+            add("F.interpolate", lambda r, n: [_fl(r, B, C, S, S)],
+                "reduce", grad=True, tag=f"{mode} {tag}", mode=mode, **kw)
+    add("F.interpolate", lambda r, n: [_fl(r, B, C, S, S)], "reduce",
+        grad=True, tag="bilinear corners", mode="bilinear",
+        align_corners=True, size=[2 * S - 1, S + 3])
+    add("F.interpolate", lambda r, n: [_fl(r, B, L, C)], "reduce",
+        grad=True, tag="linear NLC down", mode="linear", size=[L // 3 + 1],
+        data_format="NLC")
+    add("F.interpolate", lambda r, n: [_fl(r, B, C, D, D, D)], "reduce",
+        grad=True, tag="trilinear", mode="trilinear", size=[D + 3, D - 1,
+                                                             2 * D])
+    add("F.upsample", lambda r, n: [_fl(r, B, S, S, C)], "reduce",
+        grad=True, tag="nearest NHWC", scale_factor=2, data_format="NHWC")
+    add("F.label_smooth", lambda r, n: [_prob(r, N, K)], grad=True,
+        epsilon=0.2)
+    add("F.dropout2d", lambda r, n: [_fl(r, B, C, S, S)], "random", p=0.3)
+    add("F.dropout3d", lambda r, n: [_fl(r, B, C, D, D, D)], "random",
+        p=0.3)
+    add("F.alpha_dropout", lambda r, n: [_fl(r, R, 8)], "random", p=0.2)
+    add("F.bilinear", lambda r, n: [_fl(r, R, C), _fl(r, R, C + 1),
+                                    _fl(r, 3, C, C + 1), _fl(r, 3)],
+        "linalg", grad=True)
+    add("F.cosine_similarity", lambda r, n: [_fl(r, R, 8), _fl(r, R, 8)],
+        "reduce", grad=True, axis=1)
+    add("F.pairwise_distance", lambda r, n: [_fl(r, R, 8), _fl(r, R, 8)],
+        "reduce", grad=True, p=3.0)
+    add("F.unfold", lambda r, n: [_fl(r, B, C, S, S)], "exact", grad=True,
+        kernel_sizes=[3, 2], strides=[1, 2], paddings=[1, 0, 2, 1],
+        dilations=[2, 1])
+    add("F.fold", lambda r, n: [_fl(r, B, C * 6, (S // 2) * (S - 1))],
+        "reduce", grad=True, output_sizes=[S, S], kernel_sizes=[3, 2],
+        strides=[2, 1], paddings=[1, 0])
+    # -- norm -----------------------------------------------------------------
+    add("F.group_norm", lambda r, n: [_fl(r, B, C, S, S), 2, 1e-5,
+                                      _fl(r, C), _fl(r, C)],
+        "reduce", grad=True)
+    add("F.group_norm", lambda r, n: [_fl(r, B, S, S, C), 2, 1e-5,
+                                      _fl(r, C), _fl(r, C), "NHWC"],
+        "reduce", grad=True, tag="NHWC")
+    add("F.instance_norm", lambda r, n: [_fl(r, B, C, S, S), None, None,
+                                         _fl(r, C), _fl(r, C)],
+        "reduce", grad=True)
+    for size in (3, 4):
+        add("F.local_response_norm", lambda r, n: [_fl(r, B, C + 3, S, S)],
+            "reduce", grad=True, tag=f"size {size}", size=size, alpha=0.1)
+    add("F.normalize", lambda r, n: [_fl(r, R, 8)], "reduce", grad=True,
+        p=3, axis=1)
+    add("F.rms_norm", lambda r, n: [_fl(r, R, 8), _fl(r, 8)], "reduce",
+        grad=True)
+    # -- conv -----------------------------------------------------------------
+    add("F.conv1d", lambda r, n: [_fl(r, B, C, L), _fl(r, 6, C // 2, 3),
+                                  _fl(r, 6)], "linalg", grad=True,
+        padding=[1, 2], stride=2, groups=2)
+    add("F.conv1d", lambda r, n: [_fl(r, B, L, C), _fl(r, 6, C, 3)],
+        "linalg", grad=True, tag="NLC SAME", padding="SAME",
+        data_format="NLC")
+    add("F.conv3d", lambda r, n: [_fl(r, B, C, D, D, D),
+                                  _fl(r, 6, C, 3, 3, 3), _fl(r, 6)],
+        "linalg", grad=True, padding=1, stride=[1, 2, 1])
+    add("F.conv1d_transpose", lambda r, n: [_fl(r, B, C, L),
+                                            _fl(r, C, 3, 4), _fl(r, 6)],
+        "linalg", grad=True, stride=2, padding=1, output_padding=1,
+        groups=2)
+    add("F.conv2d_transpose", lambda r, n: [_fl(r, B, C, S, S),
+                                            _fl(r, C, 5, 4, 4), _fl(r, 5)],
+        "linalg", grad=True, stride=2, padding=1)
+    add("F.conv2d_transpose", lambda r, n: [_fl(r, B, C, S, S),
+                                            _fl(r, C, 5, 3, 3)],
+        "linalg", grad=True, tag="asymmetric", stride=2,
+        padding=[2, 0, 1, 1], output_padding=[1, 3], dilation=[1, 2])
+    add("F.conv2d_transpose", lambda r, n: [_fl(r, B, S, S, C),
+                                            _fl(r, C, 5, 3, 3)],
+        "linalg", grad=True, tag="NHWC", stride=1, padding=1,
+        data_format="NHWC")
+    add("F.conv3d_transpose", lambda r, n: [_fl(r, B, C, D, D, D),
+                                            _fl(r, C, 3, 2, 2, 2)],
+        "linalg", grad=True, stride=2)
+    # -- losses ---------------------------------------------------------------
+    add("F.cross_entropy", lambda r, n: [_fl(r, N, K), _prob(r, N, K)],
+        "reduce", grad=True, tag="soft smoothing", soft_label=True,
+        label_smoothing=0.1)
+    add("F.cross_entropy", lambda r, n: [_fl(r, N, K),
+                                         _labels(r, (N,), K),
+                                         _pos(r, K)],
+        "reduce", grad=True, tag="weight smoothing ignore",
+        label_smoothing=0.2, ignore_index=1)
+    add("F.cross_entropy", lambda r, n: [_fl(r, K, N),
+                                         _labels(r, (1, N), K)],
+        "reduce", grad=True, tag="axis 0", axis=0, reduction="sum")
+    add("F.cross_entropy", lambda r, n: [_softmax_np(_fl(r, N, K)),
+                                         _labels(r, (N, 1), K)],
+        "reduce", grad=True, tag="no softmax", use_softmax=False,
+        reduction="none")
+    add("F.softmax_with_cross_entropy",
+        lambda r, n: [_fl(r, N, K), _labels(r, (N, 1), K)], "reduce",
+        grad=True, return_softmax=True)
+    add("F.nll_loss", lambda r, n: [np.log(_softmax_np(_fl(r, N, K, 3), 1)),
+                                    _labels(r, (N, 3), K), _pos(r, K)],
+        "reduce", grad=True, ignore_index=2)
+    add("F.binary_cross_entropy", lambda r, n: [_prob(r, R, 8),
+                                                _prob(r, R, 8),
+                                                _pos(r, R, 8)],
+        "reduce", grad=True)
+    add("F.binary_cross_entropy_with_logits",
+        lambda r, n: [_fl(r, R, 8), _prob(r, R, 8), None, "sum",
+                      _pos(r, 8)], "reduce", grad=True)
+    add("F.smooth_l1_loss", lambda r, n: [_fl(r, R, 8), _fl(r, R, 8)],
+        "reduce", grad=True, delta=0.7)
+    add("F.kl_div", lambda r, n: [_fl(r, R, 8), _fl(r, R, 8)], "reduce",
+        grad=True, reduction="batchmean")
+    add("F.margin_ranking_loss", lambda r, n: [
+        _fl(r, R), _fl(r, R), np.sign(_nz(r, R))], "reduce", grad=True,
+        margin=0.3)
+    add("F.hinge_embedding_loss", lambda r, n: [
+        _fl(r, R, 8), np.sign(_nz(r, R, 8))], "reduce", grad=True)
+    add("F.cosine_embedding_loss", lambda r, n: [
+        _fl(r, R, 8), _fl(r, R, 8), np.sign(_nz(r, R))], "reduce",
+        grad=True, margin=0.2)
+    add("F.triplet_margin_loss", lambda r, n: [
+        _fl(r, R, 8), _fl(r, R, 8), _fl(r, R, 8)], "reduce", grad=True,
+        swap=True, p=1.5)
+    add("F.triplet_margin_with_distance_loss", lambda r, n: [
+        _fl(r, R, 8), _fl(r, R, 8), _fl(r, R, 8)], "reduce", grad=True,
+        swap=True, reduction="sum")
+    add("F.ctc_loss", lambda r, n: [
+        _fl(r, T + 3, B, 6), _int(r, B, T // 2, lo=1, hi=6),
+        np.array([T + 3] + [T + 1] * (B - 1), np.int32),
+        np.array([T // 2] + [T // 2 - 1] * (B - 1), np.int32)],
+        "reduce", grad=True)
+    add("F.hsigmoid_loss", lambda r, n: [
+        _fl(r, R, 8), _labels(r, (R,), 6), 6, _fl(r, 5, 8), _fl(r, 5)],
+        "reduce", grad=True)
+    add("F.margin_cross_entropy", lambda r, n: [
+        _unit(r, N, K), _labels(r, (N,), K)], "reduce", grad=True,
+        return_softmax=True, scale=8.0)
+    add("F.dice_loss", lambda r, n: [
+        _softmax_np(_fl(r, B, S, S, 3)), _labels(r, (B, S, S, 1), 3)],
+        "reduce", grad=True)
+    add("F.npair_loss", lambda r, n: [
+        _fl(r, N, 8), _fl(r, N, 8), _labels(r, (N,), 3).astype(np.float32)],
+        "reduce", grad=True)
+    add("F.sigmoid_focal_loss", lambda r, n: [
+        _fl(r, R, 8), (r.random((R, 8)) < 0.3).astype(np.float32),
+        np.array([3.0], np.float32)], "reduce", grad=True)
+    add("F.log_loss", lambda r, n: [_prob(r, R, 1), _prob(r, R, 1)],
+        grad=True)
+    add("F.square_error_cost", lambda r, n: [_fl(r, R, 8), _fl(r, R, 8)],
+        grad=True)
+    add("F.soft_margin_loss", lambda r, n: [_fl(r, R, 8),
+                                            np.sign(_nz(r, R, 8))],
+        "reduce", grad=True)
+    add("F.multi_label_soft_margin_loss", lambda r, n: [
+        _fl(r, R, 8), (r.random((R, 8)) < 0.5).astype(np.float32),
+        _pos(r, 8)], "reduce", grad=True)
+    add("F.edit_distance", lambda r, n: [
+        _int(r, B, 9, lo=0, hi=4), _int(r, B, 7, lo=0, hi=4)], "reduce",
+        ignored_tokens=[3],
+        input_length=None, label_length=None)
+    # -- pooling: masks and unpooling ----------------------------------------
+    add("F.max_pool1d", lambda r, n: [_ties(r, B, C, L)], "exact",
+        grad=True, kernel_size=3, stride=2, padding=1, return_mask=True)
+    add("F.max_pool2d", lambda r, n: [_ties(r, B, C, S, S)], "exact",
+        grad=True, kernel_size=2, return_mask=True)
+    add("F.max_pool2d", lambda r, n: [_ties(r, B, S, S, C)], "exact",
+        grad=True, tag="NHWC", kernel_size=3, stride=2, padding=1,
+        return_mask=True, data_format="NHWC")
+    add("F.max_pool3d", lambda r, n: [_ties(r, B, C, D, D, D)], "exact",
+        grad=True, kernel_size=2, return_mask=True)
+    add("F.adaptive_max_pool1d", lambda r, n: [_ties(r, B, C, L)], "exact",
+        grad=True, output_size=3, return_mask=True)
+    add("F.adaptive_max_pool2d", lambda r, n: [_ties(r, B, C, S, S)],
+        "exact", grad=True, output_size=[3, 2], return_mask=True)
+    add("F.adaptive_max_pool2d", lambda r, n: [_ties(r, B, C, S, S)],
+        "exact", grad=True, tag="even", output_size=S // 2,
+        return_mask=True)
+    add("F.adaptive_max_pool3d", lambda r, n: [_ties(r, B, C, D, D, D)],
+        "exact", grad=True, output_size=[2, 3, 2], return_mask=True)
+    add("F.max_unpool1d", lambda r, n: _unpool_inputs(r, (B, C), (L,), 2),
+        "exact", grad=True, kernel_size=2)
+    add("F.max_unpool2d", lambda r, n: _unpool_inputs(r, (B, C), (S, S), 2),
+        "exact", grad=True, kernel_size=2)
+    add("F.max_unpool3d", lambda r, n: _unpool_inputs(r, (B, C), (D, D, D),
+                                                      2),
+        "exact", grad=True, kernel_size=2, output_size=[D + 1, D, D])
+    # -- vision and extension -------------------------------------------------
+    add("F.pixel_shuffle", lambda r, n: [_fl(r, B, 4 * C, S, S)], "exact",
+        grad=True, upscale_factor=2)
+    add("F.pixel_shuffle", lambda r, n: [_fl(r, B, S, S, 9)], "exact",
+        grad=True, tag="NHWC", upscale_factor=3, data_format="NHWC")
+    add("F.pixel_unshuffle", lambda r, n: [_fl(r, B, C, S, S)], "exact",
+        grad=True, downscale_factor=2)
+    add("F.pixel_unshuffle", lambda r, n: [_fl(r, B, S, S, C)], "exact",
+        grad=True, tag="NHWC", downscale_factor=2, data_format="NHWC")
+    add("F.channel_shuffle", lambda r, n: [_fl(r, B, C, S, S)], "exact",
+        grad=True, groups=2)
+    add("F.channel_shuffle", lambda r, n: [_fl(r, B, S, S, C)], "exact",
+        grad=True, tag="NHWC", groups=4, data_format="NHWC")
+    for ac in (True, False):
+        add("F.affine_grid", lambda r, n: [_fl(r, B, 2, 3), [B, C, S, S + 1]],
+            "reduce", grad=True, tag=f"corners {ac}", align_corners=ac)
+    for mode, pm, ac in (("bilinear", "zeros", True),
+                         ("bilinear", "border", False),
+                         ("nearest", "zeros", True)):
+        add("F.grid_sample", lambda r, n: [
+            _fl(r, B, C, S, S), 1.2 * _unit(r, B, S + 1, S - 1, 2)],
+            "reduce", grad=True, tag=f"{mode} {pm} {ac}", mode=mode,
+            padding_mode=pm, align_corners=ac)
+    add("F.diag_embed", lambda r, n: [_fl(r, B, C, 5)], "exact", grad=True,
+        offset=-1, dim1=0, dim2=2)
+    add("F.sequence_mask", lambda r, n: [_int(r, B, C, lo=0, hi=L)],
+        "exact")
+    add("F.sequence_mask", lambda r, n: [_int(r, N, lo=0, hi=L)], "exact",
+        tag="maxlen", maxlen=L + 2, dtype="float32")
+    add("F.gather_tree", lambda r, n: _beam_ids(r, T, B, 4, K), "exact")
+    add("F.temporal_shift", lambda r, n: [_fl(r, 2 * 3, C, S, S)], "exact",
+        grad=True, seg_num=3, shift_ratio=0.25)
+    add("F.temporal_shift", lambda r, n: [_fl(r, 2 * 3, S, S, C)], "exact",
+        grad=True, tag="NHWC", seg_num=3, data_format="NHWC")
+
+    # -- layers ---------------------------------------------------------------
+    acts = [("CELU", (0.7,)), ("ELU", ()), ("GELU", (True,)), ("GLU", ()),
+            ("Hardshrink", (0.3,)), ("Hardsigmoid", ()), ("Hardswish", ()),
+            ("Hardtanh", (-0.4, 0.6)), ("LeakyReLU", (0.2,)),
+            ("LogSigmoid", ()), ("LogSoftmax", (0,)), ("Maxout", (2,)),
+            ("Mish", ()), ("PReLU", (C, 0.3)), ("ReLU", ()), ("ReLU6", ()),
+            ("SELU", ()), ("Sigmoid", ()), ("Silu", ()), ("Softmax", (1,)),
+            ("Softplus", (2.0, 1.0)), ("Softshrink", (0.4,)),
+            ("Softsign", ()), ("Swish", ()), ("Tanh", ()),
+            ("Tanhshrink", ()), ("ThresholdedReLU", (0.3,))]
+    for name, args in acts:
+        add("nn." + name, lambda r, n: [3 * _fl(r, B, C, S, S)], grad=True,
+            ctor=args)
+    add("nn.RReLU", lambda r, n: [_fl(r, B, C, S, S)], "random")
+    add("nn.Embedding", lambda r, n: [_int(r, B, L, lo=0, hi=K)], "exact",
+        grad=True, ctor=(K, C), padding_idx=-2)
+    for name, pad, mode in (("Pad1D", [2, 1], "reflect"),
+                            ("Pad2D", [1, 0, 2, 2], "replicate"),
+                            ("Pad3D", [1, 1, 0, 2, 1, 0], "circular")):
+        shape = {"Pad1D": (B, C, L), "Pad2D": (B, C, S, S),
+                 "Pad3D": (B, C, D, D, D)}[name]
+        add("nn." + name, lambda r, n, s=shape: [_fl(r, *s)], "exact",
+            grad=True, ctor=(pad, mode))
+    add("nn.ZeroPad2D", lambda r, n: [_fl(r, B, C, S, S)], "exact",
+        grad=True, ctor=([1, 2, 0, 1],))
+    add("nn.Upsample", lambda r, n: [_fl(r, B, C, S, S)], "reduce",
+        grad=True, ctor=(None, 0.5, "bicubic"))
+    add("nn.UpsamplingBilinear2D", lambda r, n: [_fl(r, B, C, S, S)],
+        "reduce", grad=True, ctor=([S + 3, 2 * S],))
+    add("nn.UpsamplingNearest2D", lambda r, n: [_fl(r, B, C, S, S)],
+        "exact", grad=True, ctor=(None, 3))
+    add("nn.Bilinear", lambda r, n: [_fl(r, R, C), _fl(r, R, 5)], "reduce",
+        grad=True, ctor=(C, 5, 3))
+    add("nn.CosineSimilarity", lambda r, n: [_fl(r, R, 8), _fl(r, R, 8)],
+        "reduce", grad=True, ctor=(1,))
+    add("nn.PairwiseDistance", lambda r, n: [_fl(r, R, 8), _fl(r, R, 8)],
+        "reduce", grad=True)
+    add("nn.Unfold", lambda r, n: [_fl(r, B, C, S, S)], "exact", grad=True,
+        ctor=(3, 2, 1))
+    add("nn.Fold", lambda r, n: [_fl(r, B, C * 4, (S - 1) ** 2)], "reduce",
+        grad=True, ctor=([S, S], 2))
+    add("nn.PixelShuffle", lambda r, n: [_fl(r, B, 4 * C, S, S)], "exact",
+        grad=True, ctor=(2,))
+    add("nn.PixelUnshuffle", lambda r, n: [_fl(r, B, C, S, S)], "exact",
+        grad=True, ctor=(2,))
+    add("nn.ChannelShuffle", lambda r, n: [_fl(r, B, C, S, S)], "exact",
+        grad=True, ctor=(2,))
+    add("nn.Softmax2D", lambda r, n: [_fl(r, B, C, S, S)], grad=True)
+    add("nn.Dropout2D", lambda r, n: [_fl(r, B, C, S, S)], "random")
+    add("nn.Dropout3D", lambda r, n: [_fl(r, B, C, D, D, D)], "random")
+    add("nn.AlphaDropout", lambda r, n: [_fl(r, R, 8)], "random")
+    add("nn.GroupNorm", lambda r, n: [_fl(r, B, C, S, S)], "reduce",
+        grad=True, ctor=(2, C))
+    add("nn.InstanceNorm1D", lambda r, n: [_fl(r, B, C, L)], "reduce",
+        grad=True, ctor=(C,))
+    add("nn.InstanceNorm2D", lambda r, n: [_fl(r, B, C, S, S)], "reduce",
+        grad=True, ctor=(C,))
+    add("nn.InstanceNorm3D", lambda r, n: [_fl(r, B, C, D, D, D)],
+        "reduce", grad=True, ctor=(C,))
+    add("nn.LocalResponseNorm", lambda r, n: [_fl(r, B, C, S, S)],
+        "reduce", grad=True, ctor=(4, 0.2))
+    add("nn.Conv1D", lambda r, n: [_fl(r, B, C, L)], "linalg", grad=True,
+        ctor=(C, 6, 3), padding=2, padding_mode="reflect", dilation=2)
+    for mode in ("zeros", "reflect", "replicate", "circular"):
+        add("nn.Conv2D", lambda r, n: [_fl(r, B, C, S, S)], "linalg",
+            grad=True, tag=mode, ctor=(C, 6, 3), padding=1,
+            padding_mode=mode)
+    add("nn.Conv3D", lambda r, n: [_fl(r, B, C, D, D, D)], "linalg",
+        grad=True, ctor=(C, 4, 3), stride=2, padding=1)
+    add("nn.Conv1DTranspose", lambda r, n: [_fl(r, B, C, L)], "linalg",
+        grad=True, ctor=(C, 6, 4), stride=2, padding=1)
+    add("nn.Conv2DTranspose", lambda r, n: [_fl(r, B, C, S, S)], "linalg",
+        grad=True, ctor=(C, 6, 4, 2, 1))
+    add("nn.Conv3DTranspose", lambda r, n: [_fl(r, B, C, D, D, D)],
+        "linalg", grad=True, ctor=(C, 2, 3), stride=2, padding=1,
+        output_padding=1)
+    # losses: (input, label)
+    add("nn.NLLLoss", lambda r, n: [np.log(_softmax_np(_fl(r, N, K))),
+                                    _labels(r, (N,), K)], "reduce",
+        grad=True)
+    add("nn.BCELoss", lambda r, n: [_prob(r, R, 8), _prob(r, R, 8)],
+        "reduce", grad=True)
+    add("nn.BCEWithLogitsLoss", lambda r, n: [_fl(r, R, 8), _prob(r, R, 8)],
+        "reduce", grad=True)
+    add("nn.SmoothL1Loss", lambda r, n: [_fl(r, R, 8), _fl(r, R, 8)],
+        "reduce", grad=True)
+    add("nn.KLDivLoss", lambda r, n: [_fl(r, R, 8), _prob(r, R, 8)],
+        "reduce", grad=True)
+    add("nn.MarginRankingLoss", lambda r, n: [
+        _fl(r, R), _fl(r, R), np.sign(_nz(r, R))], "reduce", grad=True,
+        ctor=(0.1,))
+    add("nn.HingeEmbeddingLoss", lambda r, n: [
+        _fl(r, R, 8), np.sign(_nz(r, R, 8))], "reduce", grad=True)
+    add("nn.CosineEmbeddingLoss", lambda r, n: [
+        _fl(r, R, 8), _fl(r, R, 8), np.sign(_nz(r, R))], "reduce",
+        grad=True)
+    add("nn.TripletMarginLoss", lambda r, n: [
+        _fl(r, R, 8), _fl(r, R, 8), _fl(r, R, 8)], "reduce", grad=True)
+    add("nn.TripletMarginWithDistanceLoss", lambda r, n: [
+        _fl(r, R, 8), _fl(r, R, 8), _fl(r, R, 8)], "reduce", grad=True)
+    add("nn.CTCLoss", lambda r, n: [
+        _fl(r, T, B, 5), _int(r, B, T // 2, lo=1, hi=5),
+        np.full((B,), T, np.int32), np.full((B,), T // 2, np.int32)],
+        "reduce", grad=True, ctor=(0, "sum"))
+    add("nn.SoftMarginLoss", lambda r, n: [_fl(r, R, 8),
+                                           np.sign(_nz(r, R, 8))],
+        "reduce", grad=True)
+    add("nn.MultiLabelSoftMarginLoss", lambda r, n: [
+        _fl(r, R, 8), (r.random((R, 8)) < 0.5).astype(np.float32)],
+        "reduce", grad=True)
+    add("nn.HSigmoidLoss", lambda r, n: [_fl(r, R, 8),
+                                         _labels(r, (R,), 7)], "reduce",
+        grad=True, ctor=(8, 7))
+    add("nn.CrossEntropyLoss", lambda r, n: [_fl(r, N, K),
+                                             _labels(r, (N,), K)],
+        "reduce", grad=True, tag="smoothing", label_smoothing=0.1)
+    add("nn.MaxUnPool1D", lambda r, n: _unpool_inputs(r, (B, C), (L,), 2),
+        "exact", grad=True, ctor=(2,))
+    add("nn.MaxUnPool2D", lambda r, n: _unpool_inputs(r, (B, C), (S, S), 2),
+        "exact", grad=True, ctor=(2,))
+    add("nn.MaxUnPool3D", lambda r, n: _unpool_inputs(r, (B, C), (D, D, D),
+                                                      2),
+        "exact", grad=True, ctor=(2,))
+    # recurrent layers
+    add("nn.SimpleRNNCell", lambda r, n: [_fl(r, B, C), _fl(r, B, H)],
+        "linalg", grad=True, ctor=(C, H, "relu"))
+    add("nn.LSTMCell", lambda r, n: [_fl(r, B, C), [_fl(r, B, H),
+                                                     _fl(r, B, H)]],
+        "linalg", grad=True, ctor=(C, H))
+    add("nn.GRUCell", lambda r, n: [_fl(r, B, C), _fl(r, B, H)], "linalg",
+        grad=True, ctor=(C, H))
+    add("nn.RNN", lambda r, n: [_fl(r, T, B, C)], "linalg", grad=True,
+        ctor=(lambda nn: nn.GRUCell(C, H), True, True))
+    add("nn.BiRNN", lambda r, n: [_fl(r, B, T, C)], "linalg", grad=True,
+        ctor=(lambda nn: nn.LSTMCell(C, H), lambda nn: nn.LSTMCell(C, H)))
+    add("nn.SimpleRNN", lambda r, n: [_fl(r, B, T, C)], "linalg",
+        grad=True, ctor=(C, H, 2))
+    add("nn.LSTM", lambda r, n: [_fl(r, T, B, C), [_fl(r, 4, B, H),
+                                                   _fl(r, 4, B, H)]],
+        "linalg", grad=True, ctor=(C, H, 2, "bidirect", True))
+    add("nn.GRU", lambda r, n: [_fl(r, B, T, C), _fl(r, 2, B, H)],
+        "linalg", grad=True, ctor=(C, H, 1, "bidirectional"))
+    return out
+
+
+def build_layer(pt, case, device):
+    """A "nn." row's layer: built on the CPU from seed 0, then moved to
+    ``device`` (so the card's and the CPU's weights are the same)."""
+    with using_device("cpu"):
+        pt.seed(0)
+        ctor = [a(pt.nn) if callable(a) else a for a in case.ctor]
+        layer = getattr(pt.nn, case.name[3:])(*ctor, **case.kw)
+    return layer.to(torch.device(device))
+
+
+def port_nn(pt, case, args, device, grad=False, layer=None):
+    """A row of the nn table on the port on ``device``: ``port_op``'s
+    (outputs, dtypes, gradient, terms), where for a layer row the
+    gradient is a list of (array, terms), the input's first and then each
+    parameter's in ``named_parameters`` order."""
+    if not case.name.startswith("nn."):
+        return port_op(pt, case, args, device, grad=grad)
+    dev = torch.device(device)
+    layer = build_layer(pt, case, device) if layer is None else layer
+    slot = grad_slot(args) if grad else None
+    leaf = []
+
+    def convert(a):
+        return pt.to_tensor(a, place=dev)
+
+    def mark(a):
+        t = pt.to_tensor(a, place=dev, stop_gradient=False)
+        leaf.append(t)
+        return t
+
+    for p in layer.parameters():
+        p.grad = None
+    with using_device(str(dev)):
+        out = layer(*convert_args(args, convert, slot, mark))
+    outs = flat_outputs(out)
+    grads = None
+    if slot is not None:
+        y = next(o for o in outs if isinstance(o, torch.Tensor)
+                 and o.is_floating_point() and o.requires_grad)
+        w = torch.from_numpy(weights_for(tuple(y.shape))).to(dev, y.dtype)
+        torch.sum(y * w).backward()
+        grads = []
+        for t in leaf + [p for _, p in layer.named_parameters()]:
+            g = (t.grad if t.grad is not None else torch.zeros_like(t))
+            grads.append((g.detach().float().cpu().numpy(),
+                          max(1, y.numel() // max(1, t.numel()))))
+    arrays, dtypes = [], []
+    for o in outs:
+        dtypes.append(str(o.dtype).replace("torch.", ""))
+        arrays.append(o.detach().float().cpu().numpy()
+                      if o.dtype == torch.bfloat16 else
+                      o.detach().cpu().numpy())
+    return arrays, dtypes, grads, 1
+
+
+def compare_nn_grads(case, got, want):
+    """``compare_grad`` over a layer row's gradients, pair by pair."""
+    if got is None or want is None:
+        return None if got is None and want is None else "one gradient"
+    if len(got) != len(want):
+        return f"{len(got)} gradients vs {len(want)}"
+    for i, ((g, t), (w, _)) in enumerate(zip(got, want)):
+        err = compare_grad(case, g, w, t)
+        if err:
+            return f"gradient {i}: {err}"
+    return None
+
+
+# ---- phase 28b/28c: user models on the nn layer library ---------------------
+# PaddleNLP examples/machine_translation/seq2seq (IWSLT'15 en-vi, attention
+# LSTM): vocabularies 17,191 / 7,709, width 512, 2 layers, dropout 0.2,
+# ClipGradByGlobalNorm(5.0), Adam; batch 128, 10-50 tokens.
+S2S = dict(src_vocab=17191, trg_vocab=7709, hidden=512, layers=2,
+           dropout=0.2)
+S2S_BATCH, S2S_MAXLEN, S2S_LENS = 128, 50, (10, 50)
+S2S_BEAM, S2S_MAX_STEPS = 10, 256
+S2S_PAD, S2S_BOS, S2S_EOS = 0, 1, 2
+S2S_TWIN_BATCH = 8          # the fp32 twin's batch (dropout 0, TF32 off)
+S2S_TWIN_TOL = 1e-4         # card logits vs a CPU copy, relative norm
+# DCGAN (Radford, Metz & Chintala, arXiv:1511.06434, Fig. 1 and section 4):
+# z 100 -> 4x4x1024 -> ... -> 64x64x3, N(0, 0.02) weights, Adam(2e-4, 0.5),
+# batch 128.
+DCGAN = dict(nz=100, width=1024, channels=3)
+DCGAN_BATCH, DCGAN_STEPS = 128, 3
+DCGAN_TWIN_BATCH = 8
+DCGAN_TWIN_TOL = 1e-4       # parameters after one G and one D step
+
+
+def seq2seq(paddle, src_vocab, trg_vocab, hidden, layers, dropout,
+            pad=S2S_PAD):
+    """PaddleNLP's attention seq2seq as a user writes it, with ``paddle``
+    either package: an ``Embedding(padding_idx=)`` + ``LSTM`` encoder, a
+    decoder cell (an ``RNNCellBase``: ``layers`` ``LSTMCell``s fed the
+    embedding and the last attention output, dot-product attention over
+    the encoder outputs under the padding mask, context and state
+    concatenated and projected) and a bias-free vocabulary projection.
+    The cell's state is one flat tuple (h, c per layer, then the attention
+    feed), as ``BeamSearchDecoder`` takes it. ``model(src, src_len, trg)``
+    is teacher forcing: logits ``[B, T, trg_vocab]``."""
+    nn, F = paddle.nn, paddle.nn.functional
+
+    class Attention(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.input_proj = nn.Linear(hidden, hidden, bias_attr=False)
+            self.output_proj = nn.Linear(2 * hidden, hidden,
+                                         bias_attr=False)
+
+        def forward(self, h, enc_out, mask):
+            q = paddle.unsqueeze(self.input_proj(h), [1])
+            scores = paddle.matmul(q, enc_out, transpose_y=True) + \
+                paddle.unsqueeze(mask, [1])
+            ctx = paddle.matmul(F.softmax(scores, axis=-1), enc_out)
+            return paddle.tanh(self.output_proj(paddle.concat(
+                [paddle.squeeze(ctx, [1]), h], axis=-1)))
+
+    class DecoderCell(nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.dropout = nn.Dropout(dropout)
+            self.lstm_cells = nn.LayerList([
+                nn.LSTMCell(2 * hidden if i == 0 else hidden, hidden)
+                for i in range(layers)])
+            self.attention = Attention()
+
+        def forward(self, step_input, states, encoder_output,
+                    encoder_padding_mask):
+            x = paddle.concat([step_input, states[-1]], axis=-1)
+            new = []
+            for i, cell in enumerate(self.lstm_cells):
+                out, (h, c) = cell(x, (states[2 * i], states[2 * i + 1]))
+                x = self.dropout(out)
+                new += [h, c]
+            out = self.attention(x, encoder_output, encoder_padding_mask)
+            return out, tuple(new + [out])
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embedder = nn.Embedding(src_vocab, hidden,
+                                             padding_idx=pad)
+            self.encoder = nn.LSTM(hidden, hidden, layers, dropout=dropout)
+            self.trg_embedder = nn.Embedding(trg_vocab, hidden,
+                                             padding_idx=pad)
+            self.cell = DecoderCell()
+            self.output_layer = nn.Linear(hidden, trg_vocab,
+                                          bias_attr=False)
+
+        def encode(self, src, src_len):
+            enc_out, (h, c) = self.encoder(self.src_embedder(src))
+            keep = paddle.cast(F.sequence_mask(src_len, src.shape[1]),
+                               "float32")
+            states = []
+            for i in range(layers):
+                states += [h[i], c[i]]
+            feed = paddle.zeros([src.shape[0], hidden], dtype="float32")
+            return enc_out, (keep - 1.0) * 1e9, tuple(states + [feed])
+
+        def forward(self, src, src_len, trg):
+            enc_out, mask, states = self.encode(src, src_len)
+            emb = self.trg_embedder(trg)
+            outs = []
+            for t in range(trg.shape[1]):
+                out, states = self.cell(emb[:, t], states, enc_out, mask)
+                outs.append(out)
+            return self.output_layer(paddle.stack(outs, axis=1))
+
+    return Seq2Seq()
+
+
+def seq2seq_loss(paddle, logits, label, label_len):
+    """Token-mean cross entropy over the target positions within each
+    sentence's length."""
+    F = paddle.nn.functional
+    ce = F.cross_entropy(logits, label, reduction="none")
+    keep = paddle.cast(F.sequence_mask(label_len, label.shape[1]),
+                       "float32")
+    return paddle.sum(ce * keep) / paddle.sum(keep)
+
+
+def seq2seq_batch(B, max_len, lens, src_vocab, trg_vocab, seed=0):
+    """A seeded batch: (src, src_len, trg_in, trg_out, trg_len) numpy,
+    lengths in ``lens``, padded with ``S2S_PAD``; the target input starts
+    with ``S2S_BOS`` and the output ends with ``S2S_EOS``."""
+    r = np.random.default_rng(seed)
+    src_len = r.integers(lens[0], lens[1] + 1, B).astype(np.int64)
+    trg_len = r.integers(lens[0], lens[1] + 1, B).astype(np.int64)
+    src = r.integers(3, src_vocab, (B, max_len)).astype(np.int64)
+    body = r.integers(3, trg_vocab, (B, max_len)).astype(np.int64)
+    pos = np.arange(max_len)[None, :]
+    src[pos >= src_len[:, None]] = S2S_PAD
+    trg_in = np.concatenate([np.full((B, 1), S2S_BOS), body[:, :-1]], 1)
+    trg_out = np.where(pos == (trg_len - 1)[:, None], S2S_EOS, body)
+    trg_in[pos >= trg_len[:, None]] = S2S_PAD
+    trg_out[pos >= trg_len[:, None]] = S2S_PAD
+    return src, src_len, trg_in, trg_out, trg_len
+
+
+def beam_decode(paddle, model, src, src_len, beam, max_steps,
+                eos=S2S_EOS):
+    """``BeamSearchDecoder(model.cell)`` + ``dynamic_decode``, the encoder
+    outputs and mask tiled by ``tile_beam_merge_with_batch``. Returns
+    (predicted ids ``[B, T, beam]``, parent ids, scores, lengths, the
+    step tokens before the backtrace ``[T, B, beam]``)."""
+    nn = paddle.nn
+    with paddle.no_grad():
+        enc_out, mask, states = model.encode(src, src_len)
+        dec = nn.BeamSearchDecoder(model.cell, S2S_BOS, eos, beam,
+                                   embedding_fn=model.trg_embedder,
+                                   output_fn=model.output_layer)
+        raw = {}
+        finalize = dec.finalize
+
+        def keep_steps(outputs, final_states, lengths):
+            raw["ids"] = outputs.predicted_ids
+            return finalize(outputs, final_states, lengths)
+
+        dec.finalize = keep_steps
+        tile = dec.tile_beam_merge_with_batch
+        out, _, lengths = nn.dynamic_decode(
+            dec, inits=states, max_step_num=max_steps, return_length=True,
+            encoder_output=paddle.to_tensor(tile(enc_out)),
+            encoder_padding_mask=paddle.to_tensor(tile(mask)))
+    return (out.predicted_ids, out.parent_ids, out.scores, lengths,
+            raw["ids"])
+
+
+def greedy_decode(paddle, model, src, src_len, steps, eos=S2S_EOS):
+    """``steps`` greedy steps of the same cell: ``[B, steps]`` tokens, the
+    end token repeated once a row has emitted it. The loop keeps each
+    row's running log-probability and takes the arg-max (the lower index
+    on a tie) of running + step log-probabilities, the sum a one-beam
+    search ranks, so the two round alike: the step's own arg-max can
+    differ where two candidates come within an ulp of the running sum."""
+    F = paddle.nn.functional
+    with paddle.no_grad():
+        enc_out, mask, states = model.encode(src, src_len)
+        tok = paddle.full([src.shape[0]], S2S_BOS, dtype="int64")
+        done = paddle.zeros([src.shape[0]], dtype="bool")
+        score = paddle.zeros([src.shape[0]], dtype="float32")
+        out = []
+        for _ in range(steps):
+            h, states = model.cell(model.trg_embedder(tok), states,
+                                   enc_out, mask)
+            total = paddle.unsqueeze(score, [1]) + F.log_softmax(
+                model.output_layer(h), axis=-1)
+            nxt = paddle.argmax(total, axis=-1)
+            score = paddle.where(done, score, paddle.max(total, axis=-1))
+            tok = paddle.where(done, paddle.full_like(nxt, eos), nxt)
+            done = paddle.logical_or(done, paddle.equal(
+                tok, paddle.full_like(tok, eos)))
+            out.append(tok)
+    return paddle.stack(out, axis=1)
+
+
+def np_backtrace(step_ids, parents):
+    """numpy ``gather_tree`` of ``[T, B, beam]`` step tokens and parents."""
+    step_ids, parents = np.asarray(step_ids), np.asarray(parents)
+    T, B, W = step_ids.shape
+    out = np.zeros_like(step_ids)
+    for b in range(B):
+        for k in range(W):
+            beam = k
+            for t in range(T - 1, -1, -1):
+                out[t, b, k] = step_ids[t, b, beam]
+                beam = parents[t, b, beam]
+    return out
+
+
+def dcgan(paddle, nz, width, channels):
+    """DCGAN's generator and discriminator (arXiv:1511.06434, Fig. 1) as
+    a user writes them with ``paddle`` either package: z ``[B, nz, 1, 1]``
+    -> ``Conv2DTranspose(nz, width, 4, 1, 0)`` -> width / 2, / 4, / 8 by
+    ``Conv2DTranspose(k 4, stride 2, pad 1)`` + ``BatchNorm2D`` + ``ReLU``
+    -> 64 x 64 x channels, ``Tanh``; the discriminator mirrors it with
+    ``Conv2D`` + ``LeakyReLU(0.2)`` (no batch norm on its input layer),
+    then ``Sigmoid``. Convolution weights N(0, 0.02), no biases."""
+    nn = paddle.nn
+    attr = paddle.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
+    w = [width, width // 2, width // 4, width // 8]
+
+    def up(cin, cout):
+        return [nn.Conv2DTranspose(cin, cout, 4, 2, 1, weight_attr=attr,
+                                   bias_attr=False),
+                nn.BatchNorm2D(cout), nn.ReLU()]
+
+    def down(cin, cout, norm=True):
+        return ([nn.Conv2D(cin, cout, 4, 2, 1, weight_attr=attr,
+                           bias_attr=False)]
+                + ([nn.BatchNorm2D(cout)] if norm else [])
+                + [nn.LeakyReLU(0.2)])
+
+    gen = nn.Sequential(
+        nn.Conv2DTranspose(nz, w[0], 4, 1, 0, weight_attr=attr,
+                           bias_attr=False),
+        nn.BatchNorm2D(w[0]), nn.ReLU(), *up(w[0], w[1]), *up(w[1], w[2]),
+        *up(w[2], w[3]),
+        nn.Conv2DTranspose(w[3], channels, 4, 2, 1, weight_attr=attr,
+                           bias_attr=False), nn.Tanh())
+    disc = nn.Sequential(
+        *down(channels, w[3], norm=False), *down(w[3], w[2]),
+        *down(w[2], w[1]), *down(w[1], w[0]),
+        nn.Conv2D(w[0], 1, 4, 1, 0, weight_attr=attr, bias_attr=False),
+        nn.Sigmoid())
+    return gen, disc
+
+
+def dcgan_step(paddle, gen, disc, opt_g, opt_d, real, z, order="dg"):
+    """One alternating step on one generated batch: D on real (label 1)
+    and the detached fake (0), and G through D on the same fake (label
+    1), ``BCELoss``; D first by default, G first with ``order="gd"``.
+    Returns (d_loss, g_loss)."""
+    bce = paddle.nn.BCELoss()
+    b = real.shape[0]
+    ones = paddle.ones([b, 1, 1, 1], dtype="float32")
+    zeros = paddle.zeros([b, 1, 1, 1], dtype="float32")
+    fake = gen(z)
+    losses = {}
+    for side in order:
+        if side == "d":
+            loss = bce(disc(real), ones) + bce(disc(fake.detach()), zeros)
+            loss.backward()
+            opt_d.step()
+        else:
+            loss = bce(disc(fake), ones)
+            loss.backward()
+            opt_g.step()
+            opt_g.clear_grad()
+        opt_d.clear_grad()
+        losses[side] = loss
+    return losses["d"], losses["g"]
+
+
 def user_decoder_layer(paddle, hidden, heads, ffn, eps=1e-5, theta=10000.0):
     """A Llama decoder layer as a user writes it on paddle's eager
     surface, with ``paddle`` either package: ``nn.Layer`` subclasses whose
@@ -9221,6 +10052,215 @@ P27_COUNTER = {"decode-raise": "step_errors", "rank 1 raise": "step_errors",
                "rank 1 stall": "wedges", "rank 1 kv-corrupt": "kv_corruptions",
                "rank 1 late stall": "wedges"}
 P27_FLEET_REQUESTS = 4  # 27b: the first 4 of phase 5's prompts
+
+
+# ---- phase 28: the nn layer library ----------------------------------------
+def phase_nn_table(pt, n=NN_ROWS_CARD, device="cuda"):
+    """28a: every row of the nn table at card size on the card against a
+    CPU copy of the same inputs and weights: dtypes equal, outputs within
+    the row's class (integer, mask and index results bit for bit), every
+    gradient within ``GRAD_TOL``. Returns ({"functional"|"layers":
+    [passed, rows]}, the five slowest rows); raises listing every
+    failure."""
+    counts, fails, times = {}, [], []
+    for case in nn_cases(n):
+        args = op_args(case, n)
+        grp = counts.setdefault("layers" if case.name.startswith("nn.")
+                                else "functional", [0, 0])
+        grp[1] += 1
+        t0 = time.perf_counter()
+        try:
+            got = port_nn(pt, case, args, device, grad=case.grad)
+            want = port_nn(pt, case, args, "cpu", grad=case.grad)
+            err = (None if got[1] == want[1]
+                   else f"dtypes {got[1]} vs {want[1]}")
+            err = err or compare_op(case, args, got[0], want[0])
+            if not err and isinstance(want[2], list):
+                err = compare_nn_grads(case, got[2], want[2])
+            elif not err:
+                err = compare_grad(case, got[2], want[2], want[3])
+        except Exception as e:                  # noqa: BLE001 (listed)
+            err = f"{type(e).__name__}: {e}"
+        times.append((round(time.perf_counter() - t0, 3), case.id))
+        if err:
+            fails.append(f"{case.id}: {err}")
+        else:
+            grp[0] += 1
+    if fails:
+        raise AssertionError(f"28a: {len(fails)} rows differ from the CPU: "
+                             + "; ".join(fails[:40]))
+    return counts, sorted(times, reverse=True)[:5]
+
+
+def _cuda_wall(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _on(pt, arrays, device):
+    return [pt.to_tensor(a, place=torch.device(device)) for a in arrays]
+
+
+def phase_seq2seq(pt, device="cuda"):
+    """28b: PaddleNLP's IWSLT'15 attention seq2seq (``S2S``) at batch
+    ``S2S_BATCH``, fp32: 3 Adam steps (``ClipGradByGlobalNorm(5.0)``,
+    dropout 0.2) on a repeated batch, the loss finite, the first within
+    1.0 of ln(trg_vocab) and falling; then ``BeamSearchDecoder(beam_size=
+    S2S_BEAM)`` + ``dynamic_decode(max_step_num=S2S_MAX_STEPS)`` on the
+    tiled encoder outputs, its ``predicted_ids`` equal to a numpy
+    backtrace of the step tokens along the returned ``parent_ids``. On an
+    fp32 twin (dropout 0, TF32 off, batch ``S2S_TWIN_BATCH``, untrained):
+    the card's logits within ``S2S_TWIN_TOL`` (relative norm) of a CPU
+    copy's, the beam decode's backtrace again, and ``beam_size=1`` token
+    for token the greedy loop over the same cell."""
+    import copy
+    nn = pt.nn
+    out = {}
+    with using_device(device):
+        pt.seed(0)
+        model = seq2seq(pt, **S2S)
+        opt = pt.optimizer.Adam(learning_rate=1e-3,
+                                parameters=model.parameters(),
+                                grad_clip=nn.ClipGradByGlobalNorm(5.0))
+        src, sl, ti, to, tl = _on(pt, seq2seq_batch(
+            S2S_BATCH, S2S_MAXLEN, S2S_LENS, S2S["src_vocab"],
+            S2S["trg_vocab"]), device)
+        model.train()
+        losses, walls = [], []
+        for _ in range(3):
+            def step():
+                loss = seq2seq_loss(pt, model(src, sl, ti), to, tl)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return float(loss.detach())
+            loss, wall = _cuda_wall(step, device)
+            losses.append(loss)
+            walls.append(wall)
+        first_near = abs(losses[0] - float(np.log(S2S["trg_vocab"])))
+        if not all(np.isfinite(losses)) or first_near > 1.0 or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"28b losses {losses}")
+        model.eval()
+        (pred, parent, scores, lengths, steps), dec_s = _cuda_wall(
+            lambda: beam_decode(pt, model, src, sl, S2S_BEAM,
+                                S2S_MAX_STEPS), device)
+        T = pred.shape[1]
+        want = np_backtrace(steps.cpu().numpy(), parent.cpu().numpy()
+                            .transpose(1, 0, 2))
+        if not np.array_equal(pred.cpu().numpy().transpose(1, 0, 2), want):
+            raise AssertionError("28b: predicted_ids are not the backtrace "
+                                 "of the step tokens along parent_ids")
+        if not torch.isfinite(scores).all() or \
+                tuple(pred.shape) != (S2S_BATCH, T, S2S_BEAM):
+            raise AssertionError(f"28b decode: shape {tuple(pred.shape)}")
+        out.update(losses=losses, step_s=walls, decode_s=dec_s,
+                   decode_steps=T, max_length=int(lengths.max()),
+                   peak_gib=peak_gib(device))
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the fp32 twin: dropout 0, a CPU copy of the same weights
+        pt.seed(1)
+        twin = seq2seq(pt, **{**S2S, "dropout": 0.0})
+        twin.eval()
+        cpu = copy.deepcopy(twin).to("cpu")
+        arrays = seq2seq_batch(S2S_TWIN_BATCH, S2S_MAXLEN, S2S_LENS,
+                               S2S["src_vocab"], S2S["trg_vocab"], seed=1)
+        with torch.no_grad():
+            got = twin(*_on(pt, arrays[:3], device))
+            with using_device("cpu"):
+                want = cpu(*_on(pt, arrays[:3], "cpu"))
+        err = _rel_norm(got.cpu(), want)
+        if not err <= S2S_TWIN_TOL:
+            raise AssertionError(f"28b twin logits {err:.3g} from the CPU "
+                                 f"copy's (limit {S2S_TWIN_TOL})")
+        tsrc, tsl = _on(pt, arrays[:2], device)
+        tpred, tpar, _, _, tsteps = beam_decode(pt, twin, tsrc, tsl,
+                                                S2S_BEAM, S2S_MAX_STEPS)
+        if not np.array_equal(tpred.cpu().numpy().transpose(1, 0, 2),
+                              np_backtrace(tsteps.cpu().numpy(),
+                                           tpar.cpu().numpy()
+                                           .transpose(1, 0, 2))):
+            raise AssertionError("28b twin: predicted_ids are not the "
+                                 "backtrace of the step tokens")
+        b1 = beam_decode(pt, twin, tsrc, tsl, 1, S2S_MAX_STEPS)[0]
+        greedy = greedy_decode(pt, twin, tsrc, tsl, b1.shape[1])
+        if not torch.equal(b1[:, :, 0], greedy):
+            raise AssertionError("28b: beam_size=1 differs from the greedy "
+                                 "loop")
+        out.update(twin_logits_rel=err, twin_beam_steps=int(tpred.shape[1]),
+                   beam1_steps=int(b1.shape[1]))
+    return out
+
+
+def phase_dcgan(pt, device="cuda"):
+    """28c: DCGAN (``DCGAN``) at batch ``DCGAN_BATCH``, fp32: 3
+    alternating D/G steps (Adam(2e-4, beta1 0.5), ``BCELoss``), every
+    loss finite; on an fp32 twin (TF32 off, batch ``DCGAN_TWIN_BATCH``)
+    one G and then one D step on the card and on a CPU copy of the same
+    weights, each network's parameters and batch-norm buffers within
+    ``DCGAN_TWIN_TOL`` (relative norm, all of them at once). G goes first:
+    after a D step at these widths D's sigmoid saturates on the fake batch
+    (G's loss ~19) and Adam's first, sign-like step turns the G
+    gradient's rounding there into whole-lr differences."""
+    import copy
+
+    def models(seed):
+        pt.seed(seed)
+        g, d = dcgan(pt, **DCGAN)
+        opts = [pt.optimizer.Adam(learning_rate=2e-4, beta1=0.5,
+                                  parameters=m.parameters()) for m in (g, d)]
+        return g, d, opts
+
+    def data(b, seed):
+        r = np.random.default_rng(seed)
+        return (r.uniform(-1, 1, (b, DCGAN["channels"], 64, 64)).astype(
+            np.float32), r.standard_normal((b, DCGAN["nz"], 1, 1)).astype(
+            np.float32))
+
+    out = {}
+    with using_device(device):
+        g, d, (og, od) = models(0)
+        real, z = _on(pt, data(DCGAN_BATCH, 0), device)
+        losses, walls = [], []
+        for _ in range(DCGAN_STEPS):
+            (dl, gl), wall = _cuda_wall(
+                lambda: dcgan_step(pt, g, d, og, od, real, z), device)
+            losses.append((float(dl.detach()), float(gl.detach())))
+            walls.append(wall)
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"28c losses {losses}")
+        out.update(losses=losses, step_s=walls,
+                   images_per_s=DCGAN_BATCH / float(np.median(walls)),
+                   peak_gib=peak_gib(device))
+        del g, d, og, od
+        gc.collect()
+        torch.cuda.empty_cache()
+        g, d, (og, od) = models(1)
+        cg, cd = copy.deepcopy(g).to("cpu"), copy.deepcopy(d).to("cpu")
+        arrays = data(DCGAN_TWIN_BATCH, 1)
+        dcgan_step(pt, g, d, og, od, *_on(pt, arrays, device), order="gd")
+        with using_device("cpu"):
+            cog, cod = (pt.optimizer.Adam(learning_rate=2e-4, beta1=0.5,
+                                          parameters=m.parameters())
+                        for m in (cg, cd))
+            dcgan_step(pt, cg, cd, cog, cod, *_on(pt, arrays, "cpu"),
+                       order="gd")
+        errs = {}
+        for tag, a, b in (("G", g, cg), ("D", d, cd)):
+            errs[tag] = _rel_norm(*(torch.cat([v.detach().float().cpu()
+                                               .reshape(-1) for v in
+                                               m.state_dict().values()])
+                                    for m in (a, b)))
+        if not max(errs.values()) <= DCGAN_TWIN_TOL:
+            raise AssertionError(f"28c twin: parameters {errs} from the CPU "
+                                 f"copy's (limit {DCGAN_TWIN_TOL})")
+        out["twin_params_rel"] = errs
+    return out
 
 
 def p27_faults(mode, faults):
@@ -9683,8 +10723,9 @@ def main():
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
+    log("[2] build the kernels that are missing or stale")
     built = _build.build()                  # only what is missing or stale
-    log(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
+    log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
         f"(up to date: {sorted(set(_build.KERNELS) - set(built))})")
     for n in _build.KERNELS:
         blog = _build.build_log(n)
@@ -9729,7 +10770,8 @@ def main():
     log(f"[20] speculative decoding (k={SPEC_K}) and beam search: 20b "
         f"Llama-2-7B bf16, phase 5's prompts one at a time, "
         f"{SPEC_SERIAL_NEW} new tokens, greedy, flash_decode=True: plain, "
-        f"n-gram, self-draft and a 0.5B-width 8-layer draft; 20c "
+        f"n-gram, self-draft and a 0.5B-width {SPEC_DRAFT_LAYERS}-layer "
+        f"draft; 20c "
         f"generate(ids{list(BEAM_SHAPE)}, {BEAM_NEW} new, num_beams=4); 20a "
         f"fp32 twins (Llama-2-7B widths at 2 layers, GPT-2 small), "
         f"{SPEC_GEO}, greedy then sampled + chunked: plain, n-gram, "
@@ -9831,8 +10873,8 @@ def main():
     # ---- 15. sequence-parallel training -------------------------------------
     log(f"[15] sequence-parallel training: 15a ring and Ulysses at "
         f"{list(SEP_OPS)} bf16 causal, sep {SEP_DEGREE}, against world 1; "
-        f"15b bench.py:bench_llama_long_context's cell (hidden 2048, 8 "
-        f"layers, 16 heads, FFN 5504, {SEP_BATCH[0]}x{SEP_BATCH[1]}, bf16, "
+        f"15b bench.py:bench_llama_long_context's cell (hidden 2048, "
+        f"{SEP_LAYERS} layers, 16 heads, FFN 5504, {SEP_BATCH[0]}x{SEP_BATCH[1]}, bf16, "
         f"selective remat, AdamW) at world 1, then sep {SEP_DEGREE} ring and "
         f"Ulysses as two ranks on cuda:0 over gloo")
     sep = phase_sep(fa, fc, rm, LlamaConfig, LlamaForCausalLM, fleet,
@@ -9870,7 +10912,7 @@ def main():
     # ---- 19. comm-efficient data parallel ----------------------------------
     log(f"[19] comm-efficient data parallel: bench.py:bench_llama's 0.5B "
         f"Llama (hidden 2048, FFN 5504, 16 heads, bf16, fused head) at "
-        f"{PAIR_LAYERS} layers, {COMM_BATCH[0]}x{COMM_BATCH[1]}: world 1, "
+        f"{COMM_LAYERS} layers, {COMM_BATCH[0]}x{COMM_BATCH[1]}: world 1, "
         f"then dp{COMM_DEGREE} as two ranks on cuda:0 over gloo under "
         f"{list(COMM_ARMS)}")
     comm_launches, comm = phase_comm(fa, fc, rm, LlamaConfig,
@@ -9946,7 +10988,7 @@ def main():
     # ---- 24. training robustness ------------------------------------------
     t24 = time.perf_counter()
     log(f"[24] training robustness: 24a phase 17's GPT-2 small trainer "
-        f"(bf16, 8x1024, AdamW, dropout 0.1), nothing cut, under a "
+        f"(bf16, 8x1024, AdamW, dropout 0.1) at {P24_LAYERS} layers, under a "
         f"Supervisor with a CheckpointManager (save_interval {P24_SAVE}), "
         f"batches from DataLoader + DistributedBatchSampler(shuffle=True) + "
         f"ResumableLoader over {P24_SEQS} seeded sequences, {P24_STEPS} "
@@ -10009,6 +11051,34 @@ def main():
     log("  26c " + json.dumps(eager_loop))
     log("  26d " + json.dumps(phase_autograd(pt)))
     log(f"  phase 26 took {time.perf_counter() - t26:.1f} s ({smi_line()})")
+
+    # ---- 28. the nn layer library -----------------------------------------
+    t28 = time.perf_counter()
+    log(f"[28] the nn layer library: 28a every row of the nn table "
+        f"({len(nn_cases(NN_ROWS_CARD))} rows at card size) on the card "
+        f"against a CPU copy; 28b PaddleNLP's IWSLT'15 attention seq2seq "
+        f"(vocab {S2S['src_vocab']}/{S2S['trg_vocab']}, width "
+        f"{S2S['hidden']}, {S2S['layers']}-layer LSTM, batch {S2S_BATCH}, "
+        f"fp32): 3 Adam steps, beam {S2S_BEAM} decode, the fp32 twin; 28c "
+        f"DCGAN (z {DCGAN['nz']} -> 4x4x{DCGAN['width']} -> 64x64x"
+        f"{DCGAN['channels']}, batch {DCGAN_BATCH}, fp32): "
+        f"{DCGAN_STEPS} D/G steps, the fp32 twin")
+    nn_counts, nn_slowest = phase_nn_table(pt)
+    log(f"  28a rows passed {json.dumps(nn_counts)} "
+        f"({time.perf_counter() - t28:.1f} s; slowest rows {nn_slowest})")
+    t28b = time.perf_counter()
+    s2s = phase_seq2seq(pt)
+    log("  28b " + json.dumps(s2s))
+    log(f"  28b seq2seq step walls {[round(w, 3) for w in s2s['step_s']]} "
+        f"s, beam decode {s2s['decode_s']:.3f} s for "
+        f"{s2s['decode_steps']} steps ({time.perf_counter() - t28b:.1f} s)")
+    t28c = time.perf_counter()
+    gan = phase_dcgan(pt)
+    log("  28c " + json.dumps(gan))
+    log(f"  28c DCGAN step walls {[round(w, 3) for w in gan['step_s']]} s, "
+        f"{gan['images_per_s']:.1f} images/s "
+        f"({time.perf_counter() - t28c:.1f} s)")
+    log(f"  phase 28 took {time.perf_counter() - t28:.1f} s ({smi_line()})")
 
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     first = ("first_version_ms",)
@@ -10200,6 +11270,7 @@ def main():
             launches=sr_launches[kname], max_abs_err=errs[kname],
             max_err=errs[kname], **{k: t[kname][k] for k in cols},
             small={k: t[kname + "_small"][k] for k in cols}))
+    end_phase()
     print(json.dumps({"kernels": kernels}), flush=True)
     print("nvidia-smi: " + smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

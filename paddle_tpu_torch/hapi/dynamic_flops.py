@@ -69,7 +69,7 @@ def flops(net, input_size, custom_ops=None, print_detail=False):
 
     handles = [m.register_forward_hook(make_hook(counters[type(m)]))
                for m in net.modules() if type(m) in counters]
-    p = next(net.parameters(), None)
+    p = next(iter(net.parameters()), None)
     dev = p.device if p is not None else torch.device("cpu")
     was_training = net.training
     net.eval()

@@ -72,7 +72,7 @@ class Model:
         return self
 
     def _device(self):
-        p = next(self.network.parameters(), None)
+        p = next(iter(self.network.parameters()), None)
         return p.device if p is not None else torch.device("cpu")
 
     def _build_train_step(self):

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm"]
+           "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_"]
 
 
 class ClipGradBase:
@@ -103,3 +103,30 @@ class ClipGradByGlobalNorm(ClipGradBase):
             return {}
         scale = _scale(self.global_norm(grads, specs), self.clip_norm)
         return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}
+
+
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale every ``.grad`` in place by ``min(max_norm / max(total,
+    1e-12), 1)``, ``total`` the ``norm_type`` norm of all of them (fp32
+    sums; ``inf`` the largest entry). Returns ``total``."""
+    params = [p for p in parameters if p.grad is not None]
+    if not params:
+        return torch.zeros(())
+    if norm_type == float("inf"):
+        total = torch.max(torch.stack([p.grad.abs().max() for p in params]))
+    else:
+        total = torch.sum(torch.stack(
+            [torch.sum(p.grad.float().abs() ** norm_type) for p in params])
+        ) ** (1.0 / norm_type)
+    scale = torch.clamp(max_norm / torch.clamp(total, min=1e-12), max=1.0)
+    for p in params:
+        p.grad = (p.grad * scale).to(p.grad.dtype)
+    return total
+
+
+def clip_grad_value_(parameters, clip_value):
+    """Clamp every ``.grad`` to ``[-clip_value, clip_value]`` in place."""
+    for p in parameters:
+        if p.grad is not None:
+            p.grad = torch.clamp(p.grad, -clip_value, clip_value)

@@ -2,23 +2,23 @@ from .activation import *  # noqa: F401,F403
 from .activation import __all__ as _activations
 from .attention import (attention_path, scaled_dot_product_attention,
                         sdpa_raw)
-from .common import dropout, linear
-from .conv import conv2d
+from .common import *  # noqa: F401,F403
+from .common import __all__ as _common
+from .conv import *  # noqa: F401,F403
+from .conv import __all__ as _conv
+from .extension import *  # noqa: F401,F403
+from .extension import __all__ as _extension
 from .fused_ce import fused_linear_cross_entropy
-from .loss import cross_entropy, l1_loss, mse_loss
-from .norm import batch_norm, layer_norm
-from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
-                      adaptive_avg_pool3d, adaptive_max_pool1d,
-                      adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
-                      avg_pool2d, avg_pool3d, max_pool1d, max_pool2d,
-                      max_pool3d)
+from .loss import *  # noqa: F401,F403
+from .loss import __all__ as _loss
+from .norm import *  # noqa: F401,F403
+from .norm import __all__ as _norm
+from .pooling import *  # noqa: F401,F403
+from .pooling import __all__ as _pooling
+from .vision import *  # noqa: F401,F403
+from .vision import __all__ as _vision
 
-__all__ = sorted(_activations + [
-    "adaptive_avg_pool1d", "adaptive_avg_pool2d",
-    "adaptive_avg_pool3d", "adaptive_max_pool1d",
-    "adaptive_max_pool2d", "adaptive_max_pool3d",
-    "attention_path", "avg_pool1d", "avg_pool2d", "avg_pool3d",
-    "batch_norm", "scaled_dot_product_attention", "sdpa_raw",
-    "fused_linear_cross_entropy", "conv2d", "cross_entropy",
-    "dropout", "l1_loss", "layer_norm", "linear", "max_pool1d",
-    "max_pool2d", "max_pool3d", "mse_loss"])
+__all__ = sorted(_activations + _common + _conv + _extension + _loss
+                 + _norm + _pooling + _vision
+                 + ["attention_path", "scaled_dot_product_attention",
+                    "sdpa_raw", "fused_linear_cross_entropy"])

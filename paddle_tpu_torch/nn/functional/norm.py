@@ -1,5 +1,14 @@
 """Normalisation functionals. Counterpart of
-``paddle_tpu/nn/functional/norm.py`` (``layer_norm``, ``batch_norm``).
+``paddle_tpu/nn/functional/norm.py`` (``layer_norm``, ``batch_norm``,
+``rms_norm``, ``group_norm``, ``instance_norm``, ``local_response_norm``,
+``normalize``).
+
+``group_norm`` and ``instance_norm`` compute in x's dtype, as the JAX
+package does (no float32 statistics). ``local_response_norm`` sums the
+squares over the channel window ``[c - size // 2, c + size // 2]``, JAX's
+window, which for an even ``size`` is one channel wider than torch's;
+the sum is still divided by ``size``. Channel axis 1 whatever
+``data_format`` says, as in the JAX package.
 
 ``layer_norm``'s arithmetic is the JAX package's: mean and (population)
 variance in float32 over the normalised axes, the normalised value cast
@@ -30,7 +39,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
-__all__ = ["batch_norm", "layer_norm"]
+__all__ = ["batch_norm", "group_norm", "instance_norm", "layer_norm",
+           "local_response_norm", "normalize", "rms_norm"]
 
 _CHANNEL_LAST = ("NHWC", "NLC", "NWC", "NDHWC")
 
@@ -104,3 +114,58 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         out = _batch_norm_plain(xc, running_mean, running_var, weight, bias,
                                 use_batch, momentum, epsilon)
     return _to_channels_last(out) if channel_last else out
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """Mean of squares in float32, ``rsqrt``, cast back to x's dtype, then
+    times the weight."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    out = (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
+    return out if weight is None else out * weight
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    nrm = torch.sum(torch.abs(x) ** p, dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp(nrm, min=epsilon)
+
+
+def _affine(out, weight, bias):
+    shape = [1, out.shape[1]] + [1] * (out.dim() - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
+                  data_format="NCHW", name=None):
+    """Each (sample, channel) normalised over its spatial axes; the
+    running statistics are not read or updated (as in the JAX package)."""
+    dims = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=dims, keepdim=True, correction=0)
+    return _affine((x - mean) * torch.rsqrt(var + eps), weight, bias)
+
+
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    channel_last = data_format in _CHANNEL_LAST
+    a = _to_channels_first(x) if channel_last else x
+    n, c = a.shape[:2]
+    g = a.reshape((n, num_groups, c // num_groups) + tuple(a.shape[2:]))
+    var, mean = torch.var_mean(g, dim=tuple(range(2, g.dim())),
+                               keepdim=True, correction=0)
+    out = _affine(((g - mean) * torch.rsqrt(var + epsilon)).reshape(a.shape),
+                  weight, bias)
+    return _to_channels_last(out) if channel_last else out
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    half = size // 2
+    sq = TF.pad(x * x, (0, 0) * (x.dim() - 2) + (half, half))
+    c = x.shape[1]
+    acc = sum(sq[:, off:off + c] for off in range(2 * half + 1))
+    return x / (k + alpha * acc / size) ** beta

@@ -27,10 +27,20 @@ shape, as in the JAX package.
 Channels-last formats (``NLC``, ``NHWC``, ``NDHWC``) are moved to
 channels-first views: for a contiguous channels-last tensor that is
 torch's ``channels_last`` memory format and nothing is copied.
-``return_mask`` and the unpool functions are port queue item 9.
+
+``return_mask=True`` (max and adaptive max pooling) also returns the
+mask, JAX's layout: for each output, the int32 flat index of its
+maximum in the unpadded input's spatial plane (the first one on a tie).
+As in the JAX package, a masked max pool's gradient goes to that index
+and an adaptive one's splits evenly over the tied maxima.
+It needs numeric padding and no ``ceil_mode``, as in the JAX package.
+``max_unpool1d/2d/3d`` scatter the values back to those indices over a
+zero plane of ``output_size`` (by default ``(in - 1) * stride - 2 * pad +
+kernel``).
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -44,9 +54,11 @@ __all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d",
            "adaptive_avg_pool3d", "adaptive_max_pool1d",
            "adaptive_max_pool2d", "adaptive_max_pool3d", "avg_pool1d",
            "avg_pool2d", "avg_pool3d", "max_pool1d", "max_pool2d",
-           "max_pool3d"]
+           "max_pool3d", "max_unpool1d", "max_unpool2d", "max_unpool3d"]
 
 _MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
+_ADAPTIVE_MAX = {1: TF.adaptive_max_pool1d, 2: TF.adaptive_max_pool2d,
+                 3: TF.adaptive_max_pool3d}
 _AVG = {2: TF.avg_pool2d, 3: TF.avg_pool3d}
 
 
@@ -120,30 +132,48 @@ def _pool_nd(x, n, kernel, stride, padding, kind, ceil_mode=False,
     return _to_channels_last(out) if channel_last else out
 
 
-def _no_mask(return_mask):
-    if return_mask:
+def _max_pool_with_mask(x, n, kernel, stride, padding, channel_last,
+                        ceil_mode):
+    if ceil_mode:
         raise NotImplementedError(
-            "return_mask=True (and max_unpool) is not in the port yet "
-            "(ROADMAP.md, port queue item 9)")
+            "return_mask=True with ceil_mode=True is not supported")
+    if isinstance(padding, str):
+        raise NotImplementedError(
+            f"return_mask=True requires integer padding, got {padding!r}")
+    ks = _norm_tuple(kernel, n)
+    st = _norm_tuple(stride if stride is not None else kernel, n)
+    pd = _norm_tuple(padding, n)
+    xc = _to_channels_first(x) if channel_last else x
+    out, idx = _MAX[n](xc, ks, st, padding=pd, return_indices=True)
+    idx = idx.to(torch.int32)
+    if channel_last:
+        return _to_channels_last(out), _to_channels_last(idx)
+    return out, idx
 
 
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCL", name=None):
-    _no_mask(return_mask)
+    if return_mask:
+        return _max_pool_with_mask(x, 1, kernel_size, stride, padding,
+                                   data_format == "NLC", ceil_mode)
     return _pool_nd(x, 1, kernel_size, stride, padding, "max", ceil_mode,
                     data_format="NWC" if data_format == "NLC" else "NCW")
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
-    _no_mask(return_mask)
+    if return_mask:
+        return _max_pool_with_mask(x, 2, kernel_size, stride, padding,
+                                   data_format == "NHWC", ceil_mode)
     return _pool_nd(x, 2, kernel_size, stride, padding, "max", ceil_mode,
                     data_format=data_format)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCDHW", name=None):
-    _no_mask(return_mask)
+    if return_mask:
+        return _max_pool_with_mask(x, 3, kernel_size, stride, padding,
+                                   data_format == "NDHWC", ceil_mode)
     return _pool_nd(x, 3, kernel_size, stride, padding, "max", ceil_mode,
                     data_format=data_format)
 
@@ -234,16 +264,78 @@ def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
     return _adaptive_pool(x, 3, output_size, "avg", data_format)
 
 
+def _adaptive_max_with_mask(x, n, output_size):
+    """(the adaptive max, whose gradient splits evenly over tied maxima
+    as the JAX package's ``jnp.max`` does, and torch's first-maximum
+    indices)."""
+    spatial = tuple(x.shape[2:])
+    sizes = _adaptive_sizes(output_size, n, spatial)
+    with torch.no_grad():
+        _, idx = _ADAPTIVE_MAX[n](x, sizes, return_indices=True)
+    if all(s % o == 0 for s, o in zip(spatial, sizes)):
+        out = _adaptive_pool(x, n, sizes, "max", "NCHW")
+    else:                   # each window's max over all its axes at once
+        bins = [[(i * s // o, -(-(i + 1) * s // o)) for i in range(o)]
+                for s, o in zip(spatial, sizes)]
+        dims = tuple(range(2, 2 + n))
+        cells = [x[(Ellipsis,) + tuple(slice(*b) for b in cell)].amax(dims)
+                 for cell in itertools.product(*bins)]
+        out = torch.stack(cells, dim=-1).reshape(tuple(x.shape[:2]) + sizes)
+    return out, idx.to(torch.int32)
+
+
 def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask)
+    if return_mask:
+        return _adaptive_max_with_mask(x, 1, output_size)
     return _adaptive_pool(x, 1, output_size, "max", "NCW")
 
 
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask)
+    if return_mask:
+        return _adaptive_max_with_mask(x, 2, output_size)
     return _adaptive_pool(x, 2, output_size, "max", "NCHW")
 
 
 def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask)
+    if return_mask:
+        return _adaptive_max_with_mask(x, 3, output_size)
     return _adaptive_pool(x, 3, output_size, "max", "NCDHW")
+
+
+def _max_unpool(x, indices, n, kernel, stride, padding, output_size,
+                channel_last):
+    ks = _norm_tuple(kernel, n)
+    st = _norm_tuple(stride if stride is not None else kernel, n)
+    pd = _norm_tuple(padding, n)
+    if channel_last:
+        x, indices = _to_channels_first(x), _to_channels_first(indices)
+    lead = tuple(x.shape[:2])
+    if output_size is None:
+        out_sp = [(x.shape[2 + i] - 1) * st[i] - 2 * pd[i] + ks[i]
+                  for i in range(n)]
+    else:
+        out_sp = list(output_size)
+    out_sp = tuple(int(s) for s in out_sp[-n:])
+    flat = torch.zeros(lead + (math.prod(out_sp),), dtype=x.dtype,
+                       device=x.device)
+    out = flat.scatter(-1, indices.reshape(lead + (-1,)).long(),
+                       x.reshape(lead + (-1,))).reshape(lead + out_sp)
+    return _to_channels_last(out) if channel_last else out
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+    return _max_unpool(x, indices, 1, kernel_size, stride, padding,
+                       output_size, data_format == "NLC")
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+    return _max_unpool(x, indices, 2, kernel_size, stride, padding,
+                       output_size, data_format == "NHWC")
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+    return _max_unpool(x, indices, 3, kernel_size, stride, padding,
+                       output_size, data_format == "NDHWC")

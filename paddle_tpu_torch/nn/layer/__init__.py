@@ -1,25 +1,16 @@
-from .activation import GELU, ReLU, Tanh
-from .common import Dropout, Embedding, Flatten, Identity, Linear
-from .container import LayerList, Sequential
-from .conv import Conv2D
-from .loss import CrossEntropyLoss, L1Loss, MSELoss
-from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                   LayerNorm, RMSNorm, SyncBatchNorm, rms_norm)
-from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
-                      AdaptiveAvgPool3D, AdaptiveMaxPool1D,
-                      AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
-                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
-from .transformer import (MultiHeadAttention, Transformer,
-                          TransformerDecoder, TransformerDecoderLayer,
-                          TransformerEncoder, TransformerEncoderLayer)
+from . import (activation, common, container, conv, decode, loss, norm,
+               pooling, rnn, transformer)
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .container import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .decode import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403
 
-__all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
-           "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
-           "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm", "BatchNorm1D",
-           "BatchNorm2D", "BatchNorm3D", "Conv2D", "CrossEntropyLoss",
-           "Dropout", "Embedding", "Flatten", "GELU", "Identity", "L1Loss",
-           "LayerList", "LayerNorm", "Linear", "MaxPool1D", "MaxPool2D",
-           "MaxPool3D", "MSELoss", "ReLU", "RMSNorm", "rms_norm",
-           "MultiHeadAttention", "Sequential", "SyncBatchNorm", "Tanh",
-           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
-           "TransformerEncoder", "TransformerEncoderLayer"]
+__all__ = sorted(set().union(*(m.__all__ for m in (
+    activation, common, container, conv, decode, loss, norm, pooling, rnn,
+    transformer))))

@@ -1,10 +1,13 @@
 """Containers. Counterpart of ``paddle_tpu/nn/layer/container.py``
-(``Sequential``, ``LayerList``).
+(``Sequential``, ``LayerList``, ``LayerDict``, ``ParameterList``).
 
 ``Sequential`` takes the JAX package's constructor forms: layers (named
 ``"0"``, ``"1"``, ...), ``(name, layer)`` tuples, a list of such tuples,
 or an ``OrderedDict``; a slice is a new ``Sequential`` of the same
-layers. ``LayerList`` is ``torch.nn.ModuleList`` with paddle's names.
+layers. ``LayerList``, ``LayerDict`` and ``ParameterList`` are
+``nn.Layer``s with ``torch.nn.ModuleList`` / ``ModuleDict`` /
+``ParameterList``'s behaviour and paddle's names; their ``state_dict``
+keys ("0.weight", "enc.weight", "0") are the JAX package's.
 """
 from __future__ import annotations
 
@@ -12,10 +15,12 @@ from collections import OrderedDict
 
 from torch import nn
 
-__all__ = ["LayerList", "Sequential"]
+from ..layer_base import Layer
+
+__all__ = ["LayerDict", "LayerList", "ParameterList", "Sequential"]
 
 
-class Sequential(nn.Module):
+class Sequential(Layer):
     def __init__(self, *layers):
         super().__init__()
         if len(layers) == 1 and isinstance(layers[0], (list, tuple)) and \
@@ -46,6 +51,23 @@ class Sequential(nn.Module):
         return iter(self._modules.values())
 
 
-class LayerList(nn.ModuleList):
+class LayerList(Layer, nn.ModuleList):
     def __init__(self, sublayers=None):
-        super().__init__(sublayers)
+        super().__init__()
+        if sublayers is not None:
+            self.extend(sublayers)
+
+
+class LayerDict(Layer, nn.ModuleDict):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers:
+            self.update(sublayers)
+
+
+class ParameterList(Layer, nn.ParameterList):
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            for p in parameters:
+                self.append(p)

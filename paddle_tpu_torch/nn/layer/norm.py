@@ -1,9 +1,11 @@
 """Normalisation layers. Counterpart of ``paddle_tpu/nn/layer/norm.py``
-(``RMSNorm``, ``LayerNorm``, ``BatchNorm`` and ``BatchNorm1D/2D/3D``).
+(``RMSNorm``, ``LayerNorm``, ``BatchNorm`` and ``BatchNorm1D/2D/3D``,
+``GroupNorm``, ``InstanceNorm1D/2D/3D``, ``LocalResponseNorm``).
 
-RMSNorm's arithmetic is exactly ``paddle_tpu.text.generation._rms``: mean
-of squares in float32, ``rsqrt``, cast back to the input dtype, THEN
-multiply by the weight (in bf16 the product rounds after the cast, as on
+RMSNorm's arithmetic (``F.rms_norm``, also this module's ``rms_norm``)
+is exactly ``paddle_tpu.text.generation._rms``: mean of squares in
+float32, ``rsqrt``, cast back to the input dtype, THEN multiply by the
+weight (in bf16 the product rounds after the cast, as on
 the JAX side). ``LayerNorm`` runs ``F.layer_norm`` with the same order.
 
 The batch norms hold the JAX package's names: ``weight`` (ones),
@@ -16,52 +18,53 @@ rank would see only its shard of the batch.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import functional as F
 from ..initializer import Constant
+from ..layer_base import Layer
+from ..functional.norm import rms_norm
+from ..param_attr import make_parameter
 from ...framework.device import resolve_device
 from ...framework.dtype import convert_dtype
-from .common import _no_attr, _param
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "LayerNorm", "RMSNorm", "SyncBatchNorm", "rms_norm"]
+           "GroupNorm", "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D",
+           "LayerNorm", "LocalResponseNorm", "RMSNorm", "SyncBatchNorm",
+           "rms_norm"]
 
 
-def rms_norm(x, weight, eps):
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
-
-
-class RMSNorm(nn.Module):
-    def __init__(self, hidden_size, epsilon=1e-6, *, device=None,
-                 dtype="float32"):
-        super().__init__()
+class RMSNorm(Layer):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None, dtype="float32"):
+        super().__init__(dtype=dtype)
         self.epsilon = float(epsilon)
-        self.weight = _param((int(hidden_size),), Constant(1.0), device,
-                             dtype)
+        self.weight = make_parameter((int(hidden_size),), weight_attr, dtype,
+                                     False, Constant(1.0), device)
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)
 
 
-class LayerNorm(nn.Module):
+def _scale_shift(c, weight_attr, bias_attr, device, dtype):
+    """Ones and zeros of shape ``c`` (None where the attr is False)."""
+    return (make_parameter(c, weight_attr, dtype, False, Constant(1.0),
+                           device),
+            make_parameter(c, bias_attr, dtype, True, None, device))
+
+
+class LayerNorm(Layer):
     """Normalises over the trailing ``normalized_shape`` axes; weight
     ones and bias zeros (``weight_attr``/``bias_attr=False`` drop them)."""
 
     def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
                  bias_attr=None, name=None, *, device=None, dtype="float32"):
-        super().__init__()
-        _no_attr("LayerNorm", weight_attr=weight_attr, bias_attr=bias_attr)
+        super().__init__(dtype=dtype)
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(int(s) for s in normalized_shape)
         self.epsilon = float(epsilon)
-        self.weight = (None if weight_attr is False else _param(
-            self.normalized_shape, Constant(1.0), device, dtype))
-        self.bias = (None if bias_attr is False else _param(
-            self.normalized_shape, Constant(0.0), device, dtype))
+        self.weight, self.bias = _scale_shift(
+            self.normalized_shape, weight_attr, bias_attr, device, dtype)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,
@@ -71,7 +74,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self.normalized_shape}"
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """``F.batch_norm`` with its statistics kept in the buffers ``_mean``
     and ``_variance``; training mode follows ``nn.Module.training``."""
 
@@ -79,19 +82,15 @@ class _BatchNormBase(nn.Module):
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None,
                  dtype="float32"):
-        super().__init__()
-        _no_attr(type(self).__name__, weight_attr=weight_attr,
-                 bias_attr=bias_attr)
+        super().__init__(dtype=dtype)
         self._num_features = int(num_features)
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
         c = (self._num_features,)
-        self.weight = (None if weight_attr is False else
-                       _param(c, Constant(1.0), device, dtype))
-        self.bias = (None if bias_attr is False else
-                     _param(c, Constant(0.0), device, dtype))
+        self.weight, self.bias = _scale_shift(c, weight_attr, bias_attr,
+                                              device, dtype)
         dev = resolve_device(device)
         dt = convert_dtype(dtype) or torch.float32
         self.register_buffer("_mean", torch.zeros(c, dtype=dt, device=dev))
@@ -139,3 +138,61 @@ class SyncBatchNorm(_BatchNormBase):
     @classmethod
     def convert_sync_batchnorm(cls, layer, axis_name=None):
         cls()
+
+
+class GroupNorm(Layer):
+    """``F.group_norm`` over ``num_groups`` groups of channels; weight ones,
+    bias zeros."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight, self.bias = _scale_shift((num_channels,), weight_attr,
+                                              bias_attr, device, dtype)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class _InstanceNormBase(Layer):
+    """``F.instance_norm``; weight ones, bias zeros, no running buffers
+    (the JAX package keeps none)."""
+
+    def __init__(self, num_features, epsilon=1e-05, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype="float32"):
+        super().__init__(dtype=dtype)
+        self._epsilon = epsilon
+        self.weight, self.bias = _scale_shift((num_features,), weight_attr,
+                                              bias_attr, device, dtype)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self._args = (size, alpha, beta, k, data_format)
+
+    def forward(self, x):
+        return F.local_response_norm(x, *self._args)

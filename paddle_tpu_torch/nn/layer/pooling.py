@@ -1,20 +1,21 @@
 """Pooling layers. Counterpart of ``paddle_tpu/nn/layer/pooling.py``
-(the ``_Pool`` layers): each holds its functional's name and keyword
-arguments in ``_kw`` (where ``framework.layout.to_channels_last`` flips
-``data_format``) and no parameter."""
+(the ``_Pool`` layers and ``MaxUnPool1D/2D/3D``): each holds its
+functional's name and keyword arguments in ``_kw`` (where
+``framework.layout.to_channels_last`` flips ``data_format``) and no
+parameter. With ``return_mask=True`` a max pool returns (out, mask), the
+mask that ``MaxUnPool`` takes back."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from ..layer_base import Layer
 
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
            "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
-           "MaxPool3D"]
+           "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D"]
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     def __init__(self, fname, **kw):
         super().__init__()
         self._fname = fname
@@ -114,3 +115,46 @@ class AdaptiveMaxPool3D(_Pool):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__("adaptive_max_pool3d", output_size=output_size,
                          return_mask=return_mask)
+
+
+class _MaxUnPool(Layer):
+    _fn = None
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__()
+        self._args = (kernel_size, stride, padding)
+        self.data_format = data_format
+        self.output_size = output_size
+
+    def forward(self, x, indices):
+        return getattr(F, self._fn)(x, indices, *self._args,
+                                    data_format=self.data_format,
+                                    output_size=self.output_size)
+
+
+class MaxUnPool1D(_MaxUnPool):
+    _fn = "max_unpool1d"
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)
+
+
+class MaxUnPool2D(_MaxUnPool):
+    _fn = "max_unpool2d"
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)
+
+
+class MaxUnPool3D(_MaxUnPool):
+    _fn = "max_unpool3d"
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)

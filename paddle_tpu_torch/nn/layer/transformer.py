@@ -24,10 +24,11 @@ import collections
 import copy
 
 import torch
-from torch import nn
 
 from .. import functional as F
+from ..layer_base import Layer
 from .common import Dropout, Linear
+from .container import LayerList
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
@@ -35,7 +36,7 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerDecoder", "Transformer"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
@@ -112,7 +113,7 @@ def _get_activation(name):
     return {"relu": F.relu, "gelu": F.gelu}[name]
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
@@ -160,10 +161,10 @@ class TransformerEncoderLayer(nn.Module):
         return self.self_attn.gen_cache(src)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList([encoder_layer] + [
+        self.layers = LayerList([encoder_layer] + [
             copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
         self.num_layers = num_layers
         self.norm = norm
@@ -185,7 +186,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
@@ -255,10 +256,10 @@ class TransformerDecoderLayer(nn.Module):
         return incr, static
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList([decoder_layer] + [
+        self.layers = LayerList([decoder_layer] + [
             copy.deepcopy(decoder_layer) for _ in range(num_layers - 1)])
         self.num_layers = num_layers
         self.norm = norm
@@ -282,7 +283,7 @@ class TransformerDecoder(nn.Module):
         return [layer.gen_cache(memory) for layer in self.layers]
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,

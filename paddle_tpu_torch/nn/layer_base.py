@@ -10,12 +10,12 @@ a list, ``named_parameters``, ``buffers``, ``sublayers``,
 ``named_sublayers``, ``apply`` (self first, then every sublayer),
 ``state_dict``/``set_state_dict`` with the JAX package's keys, ``to(dtype=)``,
 ``astype``, the forward pre/post hooks (``remove()`` on the handle),
-``clear_gradients`` and ``full_name``. The walkers take any
-``torch.nn.Module`` child, so a user ``Layer`` can hold the port's
-``Linear``, ``LayerNorm`` and the rest.
+``clear_gradients`` and ``full_name``. Every layer of ``nn/layer/`` is
+a ``Layer``; the walkers also take any other ``torch.nn.Module`` child
+(the models of ``text/`` and ``vision/``).
 
-Parameters are made on the framework's device (``set_device``; CUDA
-unless told otherwise) and drawn from
+Parameters are made by ``param_attr.make_parameter`` on the framework's
+device (``set_device``; CUDA unless told otherwise), drawn from
 ``framework.random_seed.generator(device)`` in float32, then cast to the
 layer's dtype. ``ParamAttr(learning_rate=)`` scales the optimizer's rate
 for that parameter (``param.optimize_attr``), ``trainable=False`` makes
@@ -31,8 +31,7 @@ from torch import nn
 
 from ..framework import dtype as dtype_mod
 from ..framework.device import resolve_device
-from .initializer import Constant, XavierUniform
-from .layer.common import _param
+from .param_attr import ParamAttr, make_parameter
 
 __all__ = ["Layer", "ParamAttr", "make_parameter"]
 
@@ -45,50 +44,6 @@ def _unique_name(scope):
     n = _name_counts[scope]
     _name_counts[scope] += 1
     return f"{scope}_{n}"
-
-
-class ParamAttr:
-    def __init__(self, name=None, initializer=None, learning_rate=1.0,
-                 regularizer=None, trainable=True, do_model_average=True,
-                 need_clip=True):
-        self.name = name
-        self.initializer = initializer
-        self.learning_rate = learning_rate
-        self.regularizer = regularizer
-        self.trainable = trainable
-        self.need_clip = need_clip
-
-    @staticmethod
-    def _to_attr(attr):
-        """None or True: the defaults; False: no parameter; a name; an
-        initialiser."""
-        if attr is None or attr is True:
-            return ParamAttr()
-        if isinstance(attr, ParamAttr) or attr is False:
-            return attr
-        if isinstance(attr, str):
-            return ParamAttr(name=attr)
-        return ParamAttr(initializer=attr)
-
-
-def make_parameter(shape, attr, dtype, is_bias, default_initializer, device):
-    """An ``nn.Parameter`` of ``shape`` on ``device``: the initialiser is
-    the attr's, else ``default_initializer``, else zeros for a bias and
-    Xavier-uniform for a weight. None when ``attr`` is False."""
-    attr = ParamAttr._to_attr(attr)
-    if attr is False:
-        return None
-    init = attr.initializer or default_initializer or (
-        Constant(0.0) if is_bias else XavierUniform())
-    if not callable(init):
-        raise TypeError(f"not an initializer: {init!r}")
-    p = _param(tuple(int(s) for s in shape), init, device,
-               dtype_mod.convert_dtype(dtype) or dtype_mod.default_dtype())
-    p.requires_grad_(bool(attr.trainable))
-    p.optimize_attr = {"learning_rate": float(attr.learning_rate)}
-    p.regularizer = attr.regularizer
-    p.need_clip = attr.need_clip
-    return p
 
 
 class Layer(nn.Module):

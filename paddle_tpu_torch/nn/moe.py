@@ -68,7 +68,7 @@ from ..distributed.fleet.meta_parallel.mp_layers import (_shard, copy_to_tp,
 from ..ops.ragged_matmul import ragged_dot
 from . import functional as F
 from .initializer import XavierUniform
-from .layer.common import _param
+from .param_attr import _param
 
 __all__ = ["TopKGate", "SwitchGate", "MoELayer"]
 

@@ -40,7 +40,7 @@ from ...nn import Embedding, Linear, RMSNorm
 from ...nn import functional as F
 from ...nn.functional.attention import sdpa_raw
 from ...nn.initializer import Constant, Normal
-from ...nn.layer.common import _param
+from ...nn.param_attr import _param
 from ...ops.pipeline import spmd_pipeline
 from ...tensor_ops import matmul
 from .llama import LlamaConfig, _check_config, _remat_layer, _rope

@@ -48,7 +48,7 @@ from ...framework.device import resolve_device
 from ...nn import Embedding, Linear
 from ...nn import functional as F
 from ...nn.initializer import Constant
-from ...nn.layer.common import _param
+from ...nn.param_attr import _param
 from ...nn.layer.norm import rms_norm
 from ...tensor_ops import matmul
 

@@ -23,7 +23,7 @@ from ...framework.device import resolve_device
 from ...nn import (Conv2D, Dropout, LayerNorm, Linear, TransformerEncoder,
                    TransformerEncoderLayer)
 from ...nn.initializer import TruncatedNormal
-from ...nn.layer.common import _param
+from ...nn.param_attr import _param
 
 __all__ = ["PatchEmbed", "VisionTransformer", "vit_s_16", "vit_b_16",
            "vit_l_16"]

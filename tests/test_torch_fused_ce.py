@@ -113,9 +113,12 @@ def test_cross_entropy_with_ignore_index_matches_jax(reduction):
     got = F.cross_entropy(torch.from_numpy(x), torch.from_numpy(lab),
                           reduction=reduction)
     np.testing.assert_allclose(got.numpy(), np.asarray(want._data), **TOL)
-    with pytest.raises(NotImplementedError, match="long tail"):
-        F.cross_entropy(torch.from_numpy(x), torch.from_numpy(lab),
-                        label_smoothing=0.1)
+    # label smoothing is in the port since the nn layer library
+    want = jax_ce(paddle.to_tensor(x), paddle.to_tensor(lab),
+                  reduction=reduction, label_smoothing=0.1)
+    got = F.cross_entropy(torch.from_numpy(x), torch.from_numpy(lab),
+                          reduction=reduction, label_smoothing=0.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want._data), **TOL)
 
 
 def test_variant_rule_picks_the_tensor_cores_for_the_trainer_head():

@@ -12,7 +12,10 @@ families) at tiny size, and the serving deployment path: a supervisor's
 replay and a fleet's migration on the card against the CPU, and phase 23
 at tiny size; the CNN path: the fp32 NHWC ``Conv2D`` and a bf16 batch
 norm on the card against the CPU, with phase 25 (ResNet, ``Model``) at
-tiny size.
+tiny size; the nn layer library: an fp32 ``LSTM`` and an fp32
+``Conv2DTranspose`` with cuDNN's TF32 left on globally (the port turns
+it off for them) against the CPU, ``Embedding(padding_idx=)``'s zero
+gradient on the padding row, and phase 28 at small size.
 
 Every test is marked ``gpu`` and decides inside the ``cuda`` fixture
 whether a card exists (skipping here, with a reason). This file imports
@@ -1767,3 +1770,101 @@ def test_phase26_ops_and_autograd_at_small_size(cuda):
     assert all(p == n for p, n in counts.values())
     assert max(chip_smoke.phase_autograd(pt).values()) <= \
         chip_smoke.P26D_TOL
+
+
+def _flat_grads(layer):
+    return torch.cat([p.grad.detach().reshape(-1).cpu()
+                      for _, p in layer.named_parameters()])
+
+
+def test_fp32_lstm_on_the_card_matches_the_cpu(cuda):
+    """A 2-layer bidirectional fp32 LSTM with given initial states: its
+    outputs, final states and every gradient on the card within 1e-5
+    (relative norm) of the same layer's on the CPU, with the global TF32
+    switches on (every product is a port matmul with TF32 off)."""
+    import copy
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with chip_smoke.using_device("cpu"):
+            pt.seed(0)
+            cpu = pt.nn.LSTM(32, 64, 2, "bidirect")
+        gpu = copy.deepcopy(cpu).to(cuda)
+        r = np.random.default_rng(0)
+        x = r.standard_normal((4, 20, 32)).astype(np.float32)
+        h0 = [r.standard_normal((4, 4, 64)).astype(np.float32)
+              for _ in range(2)]
+        res = []
+        for layer, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+            out, (h, c) = layer(torch.from_numpy(x).to(dev),
+                                tuple(torch.from_numpy(a).to(dev)
+                                      for a in h0))
+            (out.sum() + h.sum() + c.sum()).backward()
+            res.append([t.detach().cpu() for t in (out, h, c)]
+                       + [_flat_grads(layer)])
+        for a, b in zip(*res):
+            assert chip_smoke._rel_norm(a, b) <= 1e-5
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
+
+
+def test_fp32_conv2d_transpose_runs_without_tf32(cuda):
+    """``Conv2DTranspose(64, 32, 4, 2, 1)`` in fp32 with cuDNN's TF32
+    switch on: the output and both gradients within 1e-5 (relative norm)
+    of the CPU's, as TF32 (a 10-bit mantissa) could not be."""
+    import copy
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with chip_smoke.using_device("cpu"):
+            pt.seed(1)
+            cpu = pt.nn.Conv2DTranspose(64, 32, 4, 2, 1)
+        gpu = copy.deepcopy(cpu).to(cuda)
+        x = np.random.default_rng(1).standard_normal(
+            (8, 64, 16, 16)).astype(np.float32)
+        res = []
+        for layer, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+            xt = torch.from_numpy(x).to(dev).requires_grad_()
+            out = layer(xt)
+            (out * out).sum().backward()
+            res.append([out.detach().cpu(), xt.grad.cpu(),
+                        _flat_grads(layer)])
+        for a, b in zip(*res):
+            assert chip_smoke._rel_norm(a, b) <= 1e-5
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def test_embedding_padding_row_gets_no_gradient_on_the_card(cuda):
+    with chip_smoke.using_device("cuda"):
+        pt.seed(2)
+        emb = pt.nn.Embedding(100, 16, padding_idx=0)
+    assert emb.weight.is_cuda and float(emb.weight[0].abs().sum()) == 0.0
+    ids = torch.tensor([[0, 5, 0, 7], [3, 0, 0, 1]], device=cuda)
+    out = emb(ids)
+    assert float(out[0, 0].abs().sum()) == 0.0
+    (out * out + out).sum().backward()
+    assert float(emb.weight.grad[0].abs().sum()) == 0.0
+    assert float(emb.weight.grad[5].abs().sum()) > 0.0
+
+
+def test_phase28_at_small_size(cuda, monkeypatch):
+    """Phase 28 at small size: 28a's table at 64 rows, 28b's seq2seq and
+    28c's DCGAN at reduced widths, on the card against the CPU."""
+    counts, _ = chip_smoke.phase_nn_table(pt, n=64)
+    assert all(p == n for p, n in counts.values())
+    monkeypatch.setattr(chip_smoke, "S2S", dict(
+        src_vocab=301, trg_vocab=173, hidden=32, layers=2, dropout=0.2))
+    monkeypatch.setattr(chip_smoke, "S2S_BATCH", 8)
+    monkeypatch.setattr(chip_smoke, "S2S_MAX_STEPS", 24)
+    s2s = chip_smoke.phase_seq2seq(pt)
+    assert s2s["twin_logits_rel"] <= chip_smoke.S2S_TWIN_TOL
+    monkeypatch.setattr(chip_smoke, "DCGAN", dict(nz=16, width=64,
+                                                  channels=3))
+    monkeypatch.setattr(chip_smoke, "DCGAN_BATCH", 8)
+    gan = chip_smoke.phase_dcgan(pt)
+    assert max(gan["twin_params_rel"].values()) <= chip_smoke.DCGAN_TWIN_TOL

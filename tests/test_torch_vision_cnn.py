@@ -301,8 +301,10 @@ def test_pool_layers_and_queued_options():
     assert torch.equal(layer(x), F.max_pool2d(x, 3, 2, 1))
     assert torch.equal(nn.AdaptiveAvgPool2D(1)(x),
                        F.adaptive_avg_pool2d(x, 1))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        F.max_pool2d(x, 2, return_mask=True)
+    out, mask = F.max_pool2d(x, 2, return_mask=True)
+    assert torch.equal(out, F.max_pool2d(x, 2))
+    assert torch.equal(out.flatten(2), x.flatten(2).gather(
+        2, mask.flatten(2).long()))
     with pytest.raises(NotImplementedError, match="item 9"):
         nn.AvgPool2D(2, divisor_override=3)(x)
 

@@ -109,7 +109,8 @@ def test_conv2d_refuses_channels_last():
     """Channels-last convolution is in the port since the CNN slice: an
     NHWC input gives the NHWC view of the NCHW result (held to JAX in
     ``test_torch_vision_cnn.py``). What is refused is a format that is
-    neither, and the padding modes other than zeros."""
+    neither, and a padding mode paddle does not have; "reflect" pads the
+    input with ``F.pad`` and convolves it unpadded."""
     x = torch.from_numpy(_image(3))
     w = torch.from_numpy(_image(3, (1, 1), seed=1)[:2].copy())
     nchw = F.conv2d(x, w)
@@ -120,8 +121,14 @@ def test_conv2d_refuses_channels_last():
         F.conv2d(x, w, data_format="NDHWC")
     with pytest.raises(ValueError, match="NCHW or NHWC"):
         nn.Conv2D(3, 2, 1, data_format="HWCN", device="cpu")
-    with pytest.raises(NotImplementedError, match="port queue item 9"):
-        nn.Conv2D(3, 2, 3, padding=1, padding_mode="reflect", device="cpu")
+    conv = nn.Conv2D(3, 2, 3, padding=1, padding_mode="reflect",
+                     device="cpu")
+    want = F.conv2d(F.pad(x, [1, 1, 1, 1], mode="reflect"), conv.weight,
+                    conv.bias)
+    np.testing.assert_allclose(conv(x).detach().numpy(),
+                               want.detach().numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="padding_mode"):
+        nn.Conv2D(3, 2, 3, padding_mode="mirror", device="cpu")
 
 
 @pytest.fixture(scope="module")
